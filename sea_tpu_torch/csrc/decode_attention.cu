@@ -1,0 +1,253 @@
+// Flash-decode: one query token per (batch, head) against a head-major KV
+// cache, for the autoregressive rollout step (ops/attention.mha_step).
+//
+// Replaces sea_tpu/ops/decode_attention.py::_decode_kernel, the Pallas TPU
+// kernel. For every (b, h) it computes
+//     out = softmax(q . K[:t+1]^T / sqrt(hd)) . V[:t+1]
+// over a [B, H, T, hd] f32 or bf16 cache, accumulates in f32 and writes f32
+// [B, H, hd]. As in the TPU kernel, q is rounded to the cache dtype and
+// each unnormalised probability to the value dtype before p . V.
+//
+// What bounds it: memory. Step t reads 2 (t+1) hd sizeof(cache) bytes per
+// (b, h) and does about one multiply-add per element read, far below what
+// the card computes per byte. The design therefore minds bytes and
+// parallelism, not arithmetic:
+//  - no key or value past t is read. Each block loads t from device
+//    memory, returns at once if its key range starts past t, and stops at
+//    t otherwise (the TPU kernel got the same from a clamped index map).
+//  - at B=1 there are only B*H = 8 (b, h) pairs for 132 SMs, so the key
+//    axis is split (split-K): grid (B*H, S), each block writes a partial
+//    (max, sum, acc[hd]) to scratch the caller allocates, and a second
+//    small kernel merges the partials of each (b, h).
+//  - inside a block each warp takes every kWarps-th key; its 32 lanes hold
+//    hd/32 consecutive elements of q, K and V, so a warp reads a key row in
+//    one coalesced sweep of vector loads (16 bytes a lane for f32 at
+//    hd >= 128).
+// t is read on the device, not passed by value, so a CUDA graph captured
+// over a rollout can replay it without rebuilding the launch.
+//
+// Plain C interface (no PyTorch headers): built with nvcc for sm_90a and
+// loaded with ctypes by sea_tpu_torch/ops/_build.py.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <math.h>
+#include <stdint.h>
+#include <string.h>
+
+#include <type_traits>
+
+namespace {
+
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+
+struct F32 {
+  using Raw = float;
+  __device__ static float load(Raw x) { return x; }
+  __device__ static float round(float x) { return x; }
+};
+
+struct BF16 {
+  using Raw = unsigned short;  // bf16 bits
+  __device__ static float load(Raw x) {
+    return __uint_as_float(static_cast<unsigned>(x) << 16);
+  }
+  __device__ static float round(float x) {
+    return __bfloat162float(__float2bfloat16(x));
+  }
+};
+
+// V consecutive elements at p as floats, in the widest aligned words the
+// slice allows. p is aligned to V * sizeof(Raw) bytes by construction
+// (row starts are multiples of hd elements, lanes of V elements).
+template <typename Dt, int V>
+__device__ __forceinline__ void load_row(const typename Dt::Raw* __restrict__ p,
+                                         float (&out)[V]) {
+  using Raw = typename Dt::Raw;
+  constexpr int kBytes = V * static_cast<int>(sizeof(Raw));
+  static_assert(kBytes % 4 == 0, "a lane's slice must be whole 32-bit words");
+  using Word = std::conditional_t<
+      kBytes % 16 == 0, uint4,
+      std::conditional_t<kBytes % 8 == 0, uint2, unsigned>>;
+  constexpr int kWords = kBytes / static_cast<int>(sizeof(Word));
+  Raw raw[V];
+  const Word* src = reinterpret_cast<const Word*>(p);
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) {
+    const Word w = __ldg(src + i);
+    memcpy(reinterpret_cast<char*>(raw) + i * sizeof(Word), &w, sizeof(Word));
+  }
+#pragma unroll
+  for (int i = 0; i < V; ++i) out[i] = Dt::load(raw[i]);
+}
+
+__device__ __forceinline__ int clamp_t(const int* t_ptr, int T) {
+  // The kernel cannot raise: an out-of-range position is clamped so that no
+  // load leaves the cache. The Python wrapper checks positions it can see.
+  return min(max(__ldg(t_ptr), 0), T - 1);
+}
+
+// Partial attention of one (b, h) over keys [split * chunk, (split+1) * chunk)
+// cut at t. Writes part_ml[bh, split] = (max score, sum of exp) and
+// part_acc[bh, split, :] = sum of exp * v, both relative to that max.
+template <typename Dt, int HD>
+__global__ void __launch_bounds__(kThreads)
+decode_partial(const float* __restrict__ q, const typename Dt::Raw* __restrict__ k,
+               const typename Dt::Raw* __restrict__ v, const int* __restrict__ t_ptr,
+               float* __restrict__ part_ml, float* __restrict__ part_acc, int T,
+               int chunk, float scale) {
+  constexpr int V = HD / 32;
+  const int bh = blockIdx.x;
+  const int split = blockIdx.y;
+  const int t = clamp_t(t_ptr, T);
+  const int start = split * chunk;
+  if (start > t) return;  // uniform over the block, before any barrier
+  const int stop = min(start + chunk, t + 1);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  float qv[V];
+  load_row<F32, V>(q + static_cast<size_t>(bh) * HD + lane * V, qv);
+#pragma unroll
+  for (int i = 0; i < V; ++i) qv[i] = Dt::round(qv[i]);
+
+  const size_t row0 = static_cast<size_t>(bh) * T * HD + lane * V;
+  float m = -INFINITY;
+  float l = 0.f;
+  float acc[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) acc[i] = 0.f;
+
+  for (int j = start + warp; j < stop; j += kWarps) {
+    float kv[V];
+    float vv[V];
+    load_row<Dt, V>(k + row0 + static_cast<size_t>(j) * HD, kv);
+    load_row<Dt, V>(v + row0 + static_cast<size_t>(j) * HD, vv);
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < V; ++i) s = fmaf(qv[i], kv[i], s);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    s *= scale;
+    const float m_new = fmaxf(m, s);
+    const float alpha = expf(m - m_new);  // 0 on the first key (m = -inf)
+    const float p = expf(s - m_new);
+    l = l * alpha + p;
+    const float pr = Dt::round(p);
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc[i] = fmaf(pr, vv[i], acc[i] * alpha);
+    m = m_new;
+  }
+
+  // Merge the warps. Warp 0 always owns key `start` <= t, so the block max
+  // is finite; a warp that saw no key has m = -inf and weight 0.
+  __shared__ float sm_m[kWarps];
+  __shared__ float sm_l[kWarps];
+  __shared__ float sm_acc[kWarps][HD];
+  if (lane == 0) {
+    sm_m[warp] = m;
+    sm_l[warp] = l;
+  }
+#pragma unroll
+  for (int i = 0; i < V; ++i) sm_acc[warp][lane * V + i] = acc[i];
+  __syncthreads();
+
+  float mx = sm_m[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w]);
+  float wgt[kWarps];
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) wgt[w] = expf(sm_m[w] - mx);
+
+  const size_t slot = static_cast<size_t>(bh) * gridDim.y + split;
+  for (int d = threadIdx.x; d < HD; d += kThreads) {
+    float a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) a = fmaf(sm_acc[w][d], wgt[w], a);
+    part_acc[slot * HD + d] = a;
+  }
+  if (threadIdx.x == 0) {
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) sum = fmaf(sm_l[w], wgt[w], sum);
+    part_ml[2 * slot] = mx;
+    part_ml[2 * slot + 1] = sum;
+  }
+}
+
+// out[bh, :] = merged partials of the splits that start at or before t.
+__global__ void __launch_bounds__(kThreads)
+decode_merge(const float* __restrict__ part_ml, const float* __restrict__ part_acc,
+             const int* __restrict__ t_ptr, float* __restrict__ out, int T, int hd,
+             int splits, int chunk) {
+  const int bh = blockIdx.x;
+  const int t = clamp_t(t_ptr, T);
+  const int n = min(splits, t / chunk + 1);
+  const float* ml = part_ml + static_cast<size_t>(bh) * splits * 2;
+  const float* acc = part_acc + static_cast<size_t>(bh) * splits * hd;
+  float mx = -INFINITY;
+  for (int s = 0; s < n; ++s) mx = fmaxf(mx, ml[2 * s]);
+  float l = 0.f;
+  for (int s = 0; s < n; ++s) l = fmaf(ml[2 * s + 1], expf(ml[2 * s] - mx), l);
+  const float l_safe = (l == 0.f) ? 1.f : l;  // the TPU kernel's finalize guard
+  for (int d = threadIdx.x; d < hd; d += blockDim.x) {
+    float a = 0.f;
+    for (int s = 0; s < n; ++s)
+      a = fmaf(acc[static_cast<size_t>(s) * hd + d], expf(ml[2 * s] - mx), a);
+    out[static_cast<size_t>(bh) * hd + d] = a / l_safe;
+  }
+}
+
+template <typename Dt, int HD>
+cudaError_t launch(const void* q, const void* k, const void* v, const int* t,
+                   float* part_ml, float* part_acc, float* out, int bh, int T,
+                   int splits, int chunk, cudaStream_t stream) {
+  using Raw = typename Dt::Raw;
+  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(HD)));
+  decode_partial<Dt, HD><<<dim3(bh, splits), kThreads, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const Raw*>(k),
+      static_cast<const Raw*>(v), t, part_ml, part_acc, T, chunk, scale);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  decode_merge<<<bh, kThreads, 0, stream>>>(part_ml, part_acc, t, out, T, HD,
+                                            splits, chunk);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// q: f32 [bh, hd]; k, v: [bh, T, hd] in the cache dtype (f32, or bf16 when
+// cache_is_bf16); t: one int32 on the device; part_ml: f32 [bh, splits, 2];
+// part_acc: f32 [bh, splits, hd]; out: f32 [bh, hd]. All contiguous and
+// 16-byte aligned. Requires splits * chunk >= T. Enqueues on `stream` and
+// returns cudaGetLastError() after the launches (0 on success).
+extern "C" int sea_decode_attention(const void* q, const void* k, const void* v,
+                                    const void* t, void* part_ml, void* part_acc,
+                                    void* out, int bh, int T, int hd, int splits,
+                                    int chunk, int cache_is_bf16, void* stream) {
+  const int* tp = static_cast<const int*>(t);
+  float* ml = static_cast<float*>(part_ml);
+  float* acc = static_cast<float*>(part_acc);
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SEA_DECODE_CASE(DT, HD) \
+  case HD:                      \
+    return static_cast<int>(launch<DT, HD>(q, k, v, tp, ml, acc, o, bh, T, splits, chunk, s))
+  if (cache_is_bf16) {
+    switch (hd) {
+      SEA_DECODE_CASE(BF16, 64);
+      SEA_DECODE_CASE(BF16, 128);
+      SEA_DECODE_CASE(BF16, 256);
+    }
+  } else {
+    switch (hd) {
+      SEA_DECODE_CASE(F32, 64);
+      SEA_DECODE_CASE(F32, 128);
+      SEA_DECODE_CASE(F32, 256);
+    }
+  }
+#undef SEA_DECODE_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}

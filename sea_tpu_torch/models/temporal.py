@@ -1,0 +1,313 @@
+"""Stage-2 temporal model: causal transformer with State-Exchange Attention.
+
+Counterpart of ``sea_tpu/models/temporal.py`` with the same parameter tree
+(npz paths such as ``blocks/0/cross_attn/0/1/q/w``). Token contract: x
+[B, T, G, E], ib [B, T, ib_num]; each of the G field streams runs causal
+RoPE self-attention over time, then the SEA exchange: for each ordered
+pair (i, j != i), down-project both streams, normalize, causally
+cross-attend i <- j, GELU, up-project, and add the sum over j to x_i. The
+update is sequential, as in the reference: field i exchanges against the
+already-updated fields j < i.
+
+``temporal_step`` is the one-token form the rollout runs, with a KV cache
+per (layer, field) for self-attention and per (layer, ordered pair) for
+the exchange; every attention in it goes through the flash-decode kernel
+(ops/decode_attention.py) on the card.
+
+Slice ported so far: exchange_mode='sea', ib_scale_mode='mlp',
+ib_addition_mode='add', ln_type 'ln' or 'adaln', src_len=0 — the temporal
+configs of both shipped presets. Dropout, remat and the stacked per-field
+path are training features and have no place in this deterministic
+serving port; the stacked path is the same math as the per-field loop.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from sea_tpu.configs.base import TemporalModelConfig
+from sea_tpu_torch.ops import layers as L
+from sea_tpu_torch.ops.attention import (init_attention, init_kv_cache, mha,
+                                         mha_step)
+from sea_tpu_torch.utils.params import tree_map
+
+
+def check_supported(cfg: TemporalModelConfig) -> None:
+    """Raise NotImplementedError for a config outside the ported slice."""
+    wrong = [f"{name}={getattr(cfg, name)!r}" for name, want in
+             (("exchange_mode", "sea"), ("ib_scale_mode", "mlp"),
+              ("ib_addition_mode", "add"), ("src_len", 0))
+             if getattr(cfg, name) != want]
+    if wrong:
+        raise NotImplementedError(
+            f"temporal config {', '.join(wrong)} is not ported yet: "
+            "sea_tpu_torch serves exchange_mode='sea', ib_scale_mode='mlp', "
+            "ib_addition_mode='add', src_len=0 (see ROADMAP.md)")
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def _init_norm(gen, dim: int, cond_dim: int, ln_type: str, dtype):
+    if ln_type.lower() == "adaln":
+        return L.init_adaln(gen, dim, cond_dim, init="normal002", dtype=dtype)
+    # The reference's temporal LayerNorms carry no bias.
+    return L.init_layernorm(dim, bias=False, dtype=dtype, device=gen.device)
+
+
+def init_temporal_block(gen: torch.Generator, cfg: TemporalModelConfig,
+                        dtype=torch.float32):
+    G, D, dd = cfg.num_fields, cfg.internal_embed_dim, cfg.down_dim
+
+    def norm(dim):
+        return _init_norm(gen, dim, cfg.ib_num, cfg.ln_type, dtype)
+
+    def attn(dim):
+        return init_attention(gen, dim, cfg.n_heads, dtype=dtype)
+
+    return {
+        "ib": L.init_mlp(gen, cfg.ib_num, scale_ratio=cfg.scale_ratio,
+                         dim_out=cfg.ib_dim, num_layers=cfg.ib_mlp_layers,
+                         dtype=dtype),
+        # 3 norms per field; index 1 is unused by the reference forward and
+        # kept for checkpoint parity.
+        "ln_exp": [[norm(D) for _ in range(3)] for _ in range(G)],
+        "self_attn": [attn(D) for _ in range(G)],
+        "mlp": [L.init_mlp(gen, D, scale_ratio=cfg.scale_ratio, dtype=dtype)
+                for _ in range(G)],
+        "proj": [L.init_linear(gen, D, cfg.embed_dim, dtype=dtype)
+                 for _ in range(G)],
+        "cross_down": [L.init_linear(gen, D, dd, dtype=dtype)
+                       for _ in range(G)],
+        "cross_up": [L.init_linear(gen, dd, D, dtype=dtype)
+                     for _ in range(G)],
+        "ln_cross": [norm(dd) for _ in range(G)],
+        # Full G x G lattice, unused diagonal included (checkpoint parity).
+        "cross_attn": [[attn(dd) for _ in range(G)] for _ in range(G)],
+    }
+
+
+def init_temporal(cfg: TemporalModelConfig, gen: torch.Generator, *,
+                  device, dtype=torch.float32):
+    """Same tree, shapes and N(0, 0.02) families as the JAX init_temporal,
+    drawn from ``gen`` on its device and moved to ``device``."""
+    check_supported(cfg)
+    params = {
+        "blocks": [init_temporal_block(gen, cfg, dtype)
+                   for _ in range(cfg.num_layers)],
+        "ln_final": [_init_norm(gen, cfg.embed_dim, cfg.ib_num, cfg.ln_type,
+                                dtype) for _ in range(cfg.num_fields)],
+    }
+    return tree_map(lambda a: a.to(device), params)
+
+
+class TemporalModel(nn.Module):
+    """Owns a temporal parameter tree; ``.to(device)`` moves every tensor.
+    The functions of this module are the API; ``forward`` is
+    ``temporal_forward``."""
+
+    def __init__(self, cfg: TemporalModelConfig, params):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+        self.params = params
+
+    def _apply(self, fn, recurse=True):
+        self.params = tree_map(fn, self.params)
+        return self
+
+    def forward(self, x, ib):
+        return temporal_forward(self.params, self.cfg, x, ib)
+
+
+# ---------------------------------------------------------------------------
+# Forward (full sequence): the oracle that temporal_step is held to
+# ---------------------------------------------------------------------------
+
+def _sea_exchange(block, cfg: TemporalModelConfig, x_vars, ib):
+    G = cfg.num_fields
+    x_vars = list(x_vars)
+    for i in range(G):
+        x_i = L.apply_norm(block["ln_cross"][i],
+                           L.linear(block["cross_down"][i], x_vars[i]), ib)
+        acc = 0.0  # empty sum for G == 1
+        for j in range(G):
+            if i == j:
+                continue
+            x_j = L.apply_norm(block["ln_cross"][j],
+                               L.linear(block["cross_down"][j], x_vars[j]), ib)
+            attn = mha(block["cross_attn"][i][j], x_i, x_j,
+                       n_heads=cfg.n_heads, causal=True, rope=True,
+                       src_len=cfg.src_len)
+            acc = acc + L.linear(block["cross_up"][i], L.gelu(attn))
+        # Sequential update: field i+1 sees the updated field i.
+        x_vars[i] = x_vars[i] + acc
+    return x_vars
+
+
+def temporal_block(block, cfg: TemporalModelConfig, x_vars, ib):
+    G = cfg.num_fields
+    x_vars = list(x_vars)
+    if not cfg.add_info_after_cross:
+        ib_out = L.mlp(block["ib"], ib)
+        x_vars = [x + ib_out for x in x_vars]
+    for i in range(G):
+        h = L.apply_norm(block["ln_exp"][i][0], x_vars[i], ib)
+        x_vars[i] = x_vars[i] + mha(block["self_attn"][i], h, h,
+                                    n_heads=cfg.n_heads, causal=True,
+                                    rope=True, src_len=cfg.src_len)
+    x_vars = _sea_exchange(block, cfg, x_vars, ib)
+    if cfg.add_info_after_cross:
+        ib_out = L.mlp(block["ib"], ib)
+        x_vars = [x + ib_out for x in x_vars]
+    for i in range(G):
+        h = L.apply_norm(block["ln_exp"][i][2], x_vars[i], ib)
+        x_vars[i] = x_vars[i] + L.mlp(block["mlp"][i], h)
+        x_vars[i] = L.linear(block["proj"][i], x_vars[i])
+    return x_vars
+
+
+def temporal_forward(params, cfg: TemporalModelConfig, x, ib):
+    """x: [B, T, G, E], ib: [B, T, ib_num] -> [B, T, G, E]; deterministic,
+    no ring, no remat."""
+    check_supported(cfg)
+    G = cfg.num_fields
+    if x.shape[2] != G:
+        raise ValueError(f"x has {x.shape[2]} fields, the config {G}")
+    # ib_time_constant: ib-only sites compute on [B, 1] rows (same values).
+    ib_cond = ib[:, :1] if cfg.ib_time_constant else ib
+    x_vars = [x[:, :, i, :] for i in range(G)]
+    for block in params["blocks"]:
+        x_vars = temporal_block(block, cfg, x_vars, ib_cond)
+    x_vars = [L.apply_norm(params["ln_final"][i], x_vars[i], ib_cond)
+              for i in range(G)]
+    return torch.stack(x_vars, dim=2)
+
+
+# ---------------------------------------------------------------------------
+# Incremental step (KV caches) — run by rollout/engine.rollout_scan
+# ---------------------------------------------------------------------------
+
+def init_temporal_cache(cfg: TemporalModelConfig, batch: int, t_max: int,
+                        *, device, dtype=torch.float32):
+    """Per layer: {"self": [cache per field], "cross": G x G caches, None
+    on the diagonal}; each cache {"k", "v"} [B, H, t_max, hd]."""
+    G = cfg.num_fields
+    hd_self = cfg.internal_embed_dim // cfg.n_heads
+    hd_cross = cfg.down_dim // cfg.n_heads
+
+    def kv(hd):
+        return init_kv_cache(batch, t_max, cfg.n_heads, hd, device=device,
+                             dtype=dtype)
+
+    return [{"self": [kv(hd_self) for _ in range(G)],
+             "cross": [[kv(hd_cross) if i != j else None for j in range(G)]
+                       for i in range(G)]}
+            for _ in range(cfg.num_layers)]
+
+
+def precompute_cond_tables(params, cfg: TemporalModelConfig, ib):
+    """Every ib-only activation of a rollout horizon at once: AdaLN cond
+    nets and the ib embedding depend only on ib, not on the state.
+
+    ib: [B, T, ib_num]. Returns TIME-MAJOR [T, B, dim] tensors: per block
+    {"ln_exp": [[site0, site2] per field], "ln_cross": [...], "ib_out"},
+    plus "ln_final". Plain-LN sites hold None."""
+    def norm_cond(p):
+        if "cond_fc1" not in p:
+            return None
+        cw, cb = L.adaln_cond(p, ib)  # [B, T, dim]
+        return (cw.transpose(0, 1).contiguous(),
+                cb.transpose(0, 1).contiguous())
+
+    G = cfg.num_fields
+    blocks = [{"ln_exp": [[norm_cond(block["ln_exp"][i][s]) for s in (0, 2)]
+                          for i in range(G)],
+               "ln_cross": [norm_cond(p) for p in block["ln_cross"]],
+               "ib_out": L.mlp(block["ib"], ib).transpose(0, 1).contiguous()}
+              for block in params["blocks"]]
+    return {"blocks": blocks,
+            "ln_final": [norm_cond(p) for p in params["ln_final"]]}
+
+
+def _norm_t(p, x, ib_t, c):
+    """Per-step norm: a precomputed AdaLN cond when there is one, else the
+    full apply (plain LN ignores ib_t)."""
+    if c is not None:
+        return L.adaln_modulate(p, x, c[0], c[1])
+    return L.apply_norm(p, x, ib_t)
+
+
+def _get(tree, *path):
+    """tree[path[0]][path[1]]..., or None where a level is missing."""
+    for key in path:
+        if tree is None:
+            return None
+        tree = tree[key]
+    return tree
+
+
+def temporal_step(params, cfg: TemporalModelConfig, x_t, ib_t, cache, t,
+                  cond_t=None):
+    """One autoregressive step at absolute position ``t``.
+
+    x_t: [B, G, E]; ib_t: [B, ib_num]; cache: from init_temporal_cache,
+    updated IN PLACE at position t; t: int32 tensor of shape [1] on the
+    device; cond_t: optional step-t slice of precompute_cond_tables.
+    Returns y_t [B, G, E] = temporal_forward(x[:, :t+1])[:, t].
+    """
+    G = cfg.num_fields
+    x_vars = [x_t[:, i, :] for i in range(G)]
+
+    def add_info(block, bc, xs):
+        ib_out = _get(bc, "ib_out")
+        if ib_out is None:
+            ib_out = L.mlp(block["ib"], ib_t)
+        return [x + ib_out for x in xs]
+
+    for li, block in enumerate(params["blocks"]):
+        bc = _get(cond_t, "blocks", li)
+        lcache = cache[li]
+        if not cfg.add_info_after_cross:
+            x_vars = add_info(block, bc, x_vars)
+
+        for i in range(G):
+            h = _norm_t(block["ln_exp"][i][0], x_vars[i], ib_t,
+                        _get(bc, "ln_exp", i, 0))
+            x_vars[i] = x_vars[i] + mha_step(
+                block["self_attn"][i], h, h, lcache["self"][i], t,
+                n_heads=cfg.n_heads, rope=True)
+
+        for i in range(G):
+            # x_vars[i] is constant over the j loop: its side is hoisted.
+            x_i = _norm_t(block["ln_cross"][i],
+                          L.linear(block["cross_down"][i], x_vars[i]), ib_t,
+                          _get(bc, "ln_cross", i))
+            acc = 0.0  # empty sum for G == 1
+            for j in range(G):
+                if i == j:
+                    continue
+                x_j = _norm_t(block["ln_cross"][j],
+                              L.linear(block["cross_down"][j], x_vars[j]),
+                              ib_t, _get(bc, "ln_cross", j))
+                attn = mha_step(block["cross_attn"][i][j], x_i, x_j,
+                                lcache["cross"][i][j], t,
+                                n_heads=cfg.n_heads, rope=True)
+                acc = acc + L.linear(block["cross_up"][i], L.gelu(attn))
+            # Sequential update, as in temporal_forward.
+            x_vars[i] = x_vars[i] + acc
+
+        if cfg.add_info_after_cross:
+            x_vars = add_info(block, bc, x_vars)
+
+        for i in range(G):
+            h = _norm_t(block["ln_exp"][i][2], x_vars[i], ib_t,
+                        _get(bc, "ln_exp", i, 1))
+            x_vars[i] = x_vars[i] + L.mlp(block["mlp"][i], h)
+            x_vars[i] = L.linear(block["proj"][i], x_vars[i])
+
+    x_vars = [_norm_t(params["ln_final"][i], x_vars[i], ib_t,
+                      _get(cond_t, "ln_final", i)) for i in range(G)]
+    return torch.stack(x_vars, dim=1)

@@ -1,0 +1,131 @@
+"""Multi-head attention over parameter trees of tensors.
+
+Counterpart of ``sea_tpu/ops/attention.py``: q/k/v linears with bias and a
+bias-free output projection, RoPE on [B, T, H, hd], softmax statistics in
+f32. The full-sequence path is plain einsum + softmax (the JAX package
+runs it in XLA, not in a kernel). ``mha_step``, the one-token form the
+rollout runs, attends over a head-major [B, H, T, hd] KV cache through
+``ops.decode_attention`` — the hand-written flash-decode kernel on a CUDA
+tensor, its plain version on the CPU.
+
+Serving slice only: no dropout, no ``valid_len``, no fused qkv/kv
+layouts, no int8 cache, ``src_len == 0`` in ``mha_step`` (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sea_tpu_torch.ops.decode_attention import decode_attention
+from sea_tpu_torch.ops.layers import init_linear, linear
+from sea_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+
+
+def init_attention(gen: torch.Generator, embed_dim: int, n_heads: int, *,
+                   init: str = "normal002", dtype=torch.float32):
+    if embed_dim % n_heads:
+        raise ValueError(f"embed_dim {embed_dim} is not divisible by "
+                         f"n_heads {n_heads}")
+    return {
+        "q": init_linear(gen, embed_dim, embed_dim, init=init, dtype=dtype),
+        "k": init_linear(gen, embed_dim, embed_dim, init=init, dtype=dtype),
+        "v": init_linear(gen, embed_dim, embed_dim, init=init, dtype=dtype),
+        "proj": init_linear(gen, embed_dim, embed_dim, bias=False, init=init,
+                            dtype=dtype),
+    }
+
+
+def _project_qkv(params, x_q, x_kv):
+    """Unfused q/k/v projections."""
+    if "q" not in params:
+        raise NotImplementedError(
+            "fused qkv/kv projection layouts are not ported yet; see "
+            "ROADMAP.md")
+    return (linear(params["q"], x_q), linear(params["k"], x_kv),
+            linear(params["v"], x_kv))
+
+
+def attention_core(q, k, v, *, causal: bool, src_len: int = 0):
+    """q: [B,Tq,H,hd], k/v: [B,Tk,H,hd] -> [B,Tq,H,hd]. The causal mask
+    admits key j for query i when j <= i + src_len."""
+    hd = q.shape[-1]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                          k.float()) * hd ** -0.5
+    if causal:
+        Tq, Tk = q.shape[1], k.shape[1]
+        qi = torch.arange(Tq, device=q.device)[:, None]
+        kj = torch.arange(Tk, device=q.device)[None, :]
+        scores = scores.masked_fill(kj > qi + src_len, float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(),
+                       v.float())
+    return out.to(q.dtype)
+
+
+def multihead_core(q, k, v, *, n_heads: int, causal: bool, rope: bool,
+                   src_len: int = 0):
+    """Between the projections and the output projection: head split,
+    RoPE, attention, head merge. q: [B, Tq, C]; k, v: [B, Tk, C]."""
+    B, Tq, C = q.shape
+    hd = C // n_heads
+    q = q.reshape(B, Tq, n_heads, hd)
+    k = k.reshape(B, k.shape[1], n_heads, hd)
+    v = v.reshape(B, v.shape[1], n_heads, hd)
+    if rope:
+        cos_q, sin_q = rope_cos_sin(hd, torch.arange(Tq, device=q.device))
+        q = apply_rope(q, cos_q, sin_q)
+        cos_k, sin_k = rope_cos_sin(hd, torch.arange(k.shape[1],
+                                                     device=k.device))
+        k = apply_rope(k, cos_k, sin_k)
+    out = attention_core(q, k, v, causal=causal, src_len=src_len)
+    return out.reshape(B, Tq, C)
+
+
+def mha(params, x_q, x_kv, *, n_heads: int, causal: bool, rope: bool,
+        src_len: int = 0):
+    """Full-sequence multi-head attention. x_q: [B, Tq, C]; x_kv:
+    [B, Tk, C]."""
+    q, k, v = _project_qkv(params, x_q, x_kv)
+    out = multihead_core(q, k, v, n_heads=n_heads, causal=causal,
+                         rope=rope, src_len=src_len)
+    return linear(params["proj"], out)
+
+
+def init_kv_cache(batch: int, t_max: int, n_heads: int, head_dim: int, *,
+                  device, dtype=torch.float32):
+    """Head-major [B, H, T, hd] f32 or bf16 planes (the int8 cache of the
+    JAX package is not ported yet)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(
+            f"KV cache dtype {dtype} is not ported yet; see ROADMAP.md")
+    shape = (batch, n_heads, t_max, head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def mha_step(params, x_q_t, x_kv_t, cache, t, *, n_heads: int, rope: bool):
+    """One-token attention at absolute position ``t`` against a KV cache.
+
+    x_q_t, x_kv_t: [B, C]; cache: {"k", "v"} [B, H, T_max, hd] from
+    init_kv_cache; t: int32 tensor of shape [1] on the cache's device
+    (kept on the device so the step never reads it back on the host).
+
+    Unlike the JAX package, which rebuilds the cache functionally, this
+    writes position t of the preallocated cache IN PLACE and returns only
+    the output [B, C]. Causal with src_len == 0: the attention reads
+    positions <= t.
+    """
+    B, C = x_q_t.shape
+    hd = C // n_heads
+    q, k, v = _project_qkv(params, x_q_t, x_kv_t)
+    q = q.reshape(B, 1, n_heads, hd)
+    k = k.reshape(B, 1, n_heads, hd)
+    if rope:
+        cos, sin = rope_cos_sin(hd, t)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    cache_k, cache_v = cache["k"], cache["v"]
+    cache_k[:, :, t] = k.transpose(1, 2).to(cache_k.dtype)
+    cache_v[:, :, t] = v.reshape(B, n_heads, 1, hd).to(cache_v.dtype)
+    out = decode_attention(q.reshape(B, n_heads, hd), cache_k, cache_v, t)
+    return linear(params["proj"], out.to(x_q_t.dtype).reshape(B, C))

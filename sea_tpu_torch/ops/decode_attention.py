@@ -1,0 +1,139 @@
+"""Single-token cache attention for the rollout step (flash-decode).
+
+``decode_attention`` is the wrapper of the hand-written CUDA kernel
+``sea_tpu_torch/csrc/decode_attention.cu``, which replaces the Pallas TPU
+kernel ``sea_tpu/ops/decode_attention.py::_decode_kernel``. For a tensor on
+the CPU it computes the plain PyTorch version, ``decode_attention_ref``;
+for a CUDA tensor it launches the kernel or raises.
+
+Semantics (both versions): softmax(q . K[:t+1]^T / sqrt(hd)) . V[:t+1] for
+one query per (b, h) over a head-major [B, H, T, hd] f32 or bf16 cache, f32
+accumulation, f32 [B, H, hd] out; q is cast to the cache dtype and the
+probabilities to the value dtype before p . V, as the TPU kernel does.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+# Launches of the CUDA kernel through ``decode_attention`` (a call on the
+# CPU does not count). Read and reset by chip_smoke.py.
+launches = 0
+
+HEAD_DIMS = (64, 128, 256)
+# Fewest keys a split-K block takes: 4 warps x 4 keys.
+MIN_KEYS_PER_SPLIT = 16
+_SM_COUNT: dict = {}
+
+
+def decode_attention_ref(q, cache_k, cache_v, t):
+    """Plain version. q: [B, H, hd]; cache_k/v: [B, H, T, hd]; t: int or
+    int tensor of one element (on the cache's device). Returns f32
+    [B, H, hd]."""
+    hd = q.shape[-1]
+    T = cache_k.shape[2]
+    qc = q.to(cache_k.dtype).float()
+    s = torch.einsum("bhd,bhkd->bhk", qc, cache_k.float()) * hd ** -0.5
+    pos = torch.arange(T, device=cache_k.device)
+    s = s.masked_fill(pos > torch.as_tensor(t, device=cache_k.device)
+                      .reshape(-1), float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhk,bhkd->bhd", p.to(cache_v.dtype).float(),
+                        cache_v.float())
+
+
+def split_plan(T: int, bh: int, sm_count: int):
+    """(splits, keys per split) for the split-K grid: enough (b, h, split)
+    blocks for about two per SM, none shorter than MIN_KEYS_PER_SPLIT
+    keys. Fixed by T, not by the position, so every step of a rollout
+    launches the same grid."""
+    want = max(1, math.ceil(2 * sm_count / bh))
+    splits = max(1, min(want, math.ceil(T / MIN_KEYS_PER_SPLIT)))
+    chunk = math.ceil(T / splits)
+    return math.ceil(T / chunk), chunk
+
+
+@functools.cache
+def _library():
+    """The C entry, built at first use. Every pointer and the stream are
+    c_void_p: ctypes would otherwise pass a Python int as a 32-bit int."""
+    from sea_tpu_torch.ops._build import load_library
+    fn = load_library("decode_attention").sea_decode_attention
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p])
+    return fn
+
+
+def _check(q, cache_k, cache_v, t):
+    if q.dim() != 3 or cache_k.dim() != 4:
+        raise ValueError(f"want q [B,H,hd] and caches [B,H,T,hd]; got "
+                         f"{tuple(q.shape)} and {tuple(cache_k.shape)}")
+    B, H, hd = q.shape
+    if cache_k.shape[:2] != (B, H) or cache_k.shape[3] != hd \
+            or cache_v.shape != cache_k.shape:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
+                         f"{tuple(cache_k.shape)}, v {tuple(cache_v.shape)}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
+    if cache_k.dtype not in (torch.float32, torch.bfloat16) \
+            or cache_v.dtype != cache_k.dtype:
+        raise ValueError(f"cache dtypes {cache_k.dtype}/{cache_v.dtype}: "
+                         "want both float32 or both bfloat16")
+    for name, x in (("q", q), ("cache_k", cache_k), ("cache_v", cache_v)):
+        if x.device != cache_k.device:
+            raise ValueError(f"{name} is on {x.device}, the cache on "
+                             f"{cache_k.device}")
+    for name, x in (("q", q), ("cache_k", cache_k), ("cache_v", cache_v)):
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte "
+                             "aligned")
+    if not isinstance(t, torch.Tensor) or t.dtype != torch.int32 \
+            or t.numel() != 1 or t.device != cache_k.device:
+        raise ValueError(f"t must be an int32 tensor of one element on the "
+                         f"cache's device; got {t!r}")
+
+
+def decode_attention(q, cache_k, cache_v, t):
+    """q: [B, H, hd]; cache_k/v: [B, H, T, hd]; t: the position, an int32
+    tensor of one element on the cache's device, read by the kernel on the
+    device (positions outside [0, T) are clamped there). Returns f32
+    [B, H, hd]. CPU tensors take the plain version; CUDA tensors the
+    kernel."""
+    if cache_k.device.type == "cpu":
+        return decode_attention_ref(q, cache_k, cache_v, t)
+    if cache_k.device.type != "cuda":
+        raise ValueError(f"decode_attention runs on CPU or CUDA tensors, "
+                         f"not {cache_k.device}")
+    _check(q, cache_k, cache_v, t)
+    fn = _library()
+    B, H, T, hd = cache_k.shape
+    dev = cache_k.device
+    if dev.index != torch.cuda.current_device():
+        raise ValueError(f"cache on {dev}, but the current CUDA device is "
+                         f"{torch.cuda.current_device()}: the kernel "
+                         "launches on the current device")
+    if dev not in _SM_COUNT:
+        _SM_COUNT[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    splits, chunk = split_plan(T, B * H, _SM_COUNT[dev])
+    q32 = q.float()
+    part_ml = torch.empty((B * H, splits, 2), dtype=torch.float32, device=dev)
+    part_acc = torch.empty((B * H, splits, hd), dtype=torch.float32,
+                           device=dev)
+    out = torch.empty((B, H, hd), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = fn(q32.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
+            t.data_ptr(), part_ml.data_ptr(), part_acc.data_ptr(),
+            out.data_ptr(), B * H, T, hd, splits, chunk,
+            int(cache_k.dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
+                           f"error {rc}")
+    global launches
+    launches += 1
+    return out

@@ -1,0 +1,215 @@
+"""Functional NN primitives over parameter trees of tensors.
+
+Counterpart of ``sea_tpu/ops/layers.py`` with the same parameter layout
+(linear ``w`` is ``[d_in, d_out]``, ``y = x @ w + b``) and numerics:
+
+- GELU is the exact erf form.
+- LayerNorm: eps 1e-5, biased variance, statistics in f32, result in the
+  input dtype.
+- AdaLN keeps the reference's ``cond_weight + 1`` and additive-base quirks.
+
+Two init families, as in the JAX package: ``normal002`` (N(0, 0.02)
+weights, zero bias) and ``torch_default`` (uniform +-1/sqrt(fan_in)).
+Init draws from an explicit ``torch.Generator`` on the generator's device.
+
+Serving only: there is no dropout (rollouts are deterministic), and the
+int8/int4 weight layouts of ``sea_tpu.ops.layers.linear`` are not ported
+yet (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+LN_EPS = 1e-5
+
+
+def gelu(x):
+    return F.gelu(x)  # approximate="none": the exact erf form
+
+
+# ---------------------------------------------------------------------------
+# Linear
+# ---------------------------------------------------------------------------
+
+def init_linear(gen: torch.Generator, d_in: int, d_out: int, *,
+                bias: bool = True, init: str = "normal002",
+                dtype=torch.float32):
+    """init: 'normal002' (N(0,.02)/zero-bias) or 'torch_default'."""
+    if init == "normal002":
+        w = 0.02 * torch.randn((d_in, d_out), generator=gen, dtype=dtype,
+                               device=gen.device)
+        b = torch.zeros((d_out,), dtype=dtype, device=gen.device)
+    elif init == "torch_default":
+        bound = 1.0 / math.sqrt(d_in)
+        w = torch.empty((d_in, d_out), dtype=dtype, device=gen.device
+                        ).uniform_(-bound, bound, generator=gen)
+        b = torch.empty((d_out,), dtype=dtype, device=gen.device
+                        ).uniform_(-bound, bound, generator=gen)
+    else:
+        raise ValueError(f"unknown init {init!r}")
+    p = {"w": w}
+    if bias:
+        p["b"] = b
+    return p
+
+
+def linear(params, x):
+    if "w" not in params:
+        raise NotImplementedError(
+            "quantized linear layouts (w_q / w_p4) are not ported yet; "
+            "see ROADMAP.md")
+    # F.linear takes [d_out, d_in]; the transposed view of the JAX-layout
+    # weight costs no copy and lets the bias add fuse into the GEMM.
+    return F.linear(x, params["w"].T, params.get("b"))
+
+
+# ---------------------------------------------------------------------------
+# LayerNorm family
+# ---------------------------------------------------------------------------
+
+def init_layernorm(dim: int, *, device, bias: bool = True,
+                   dtype=torch.float32):
+    p = {"w": torch.ones((dim,), dtype=dtype, device=device)}
+    if bias:
+        p["b"] = torch.zeros((dim,), dtype=dtype, device=device)
+    return p
+
+
+def _normalize(x, eps: float):
+    """(x - mean) / sqrt(biased var + eps) over the last axis, in f32."""
+    xf = x.float()
+    return F.layer_norm(xf, (xf.shape[-1],), eps=eps)
+
+
+def layernorm(params, x, eps: float = LN_EPS):
+    y = _normalize(x, eps) * params["w"]
+    if "b" in params:
+        y = y + params["b"]
+    return y.to(x.dtype)
+
+
+def init_adaln(gen: torch.Generator, embed_dim: int, cond_dim: int, *,
+               init: str = "normal002", dtype=torch.float32):
+    return {
+        "w": torch.ones((embed_dim,), dtype=dtype, device=gen.device),
+        "b": torch.zeros((embed_dim,), dtype=dtype, device=gen.device),
+        "cond_fc1": init_linear(gen, cond_dim, 2 * embed_dim, init=init,
+                                dtype=dtype),
+        "cond_fc2": init_linear(gen, 2 * embed_dim, 2 * embed_dim,
+                                init=init, dtype=dtype),
+    }
+
+
+def adaln_cond(params, cond):
+    """The ib-only half of AdaLN: cond -> (cond_weight + 1, cond_bias).
+    Depends only on the conditioning, so a rollout computes it once for the
+    whole horizon (models/temporal.precompute_cond_tables)."""
+    h = linear(params["cond_fc1"], cond)
+    h = F.silu(h)
+    h = linear(params["cond_fc2"], h)
+    cw, cb = torch.chunk(h, 2, dim=-1)
+    return cw + 1.0, cb
+
+
+def adaln_modulate(params, x, cw, cb, eps: float = LN_EPS):
+    """The x half of AdaLN: normalize, then apply (base + cond) scale and
+    shift. The JAX package's fused Pallas kernel for this
+    (ops/fused_adaln.py) serves only 3-D training calls; a rollout step is
+    2-D and takes this plain formula there too."""
+    out = _normalize(x, eps) * (params["w"] + cw) + (params["b"] + cb)
+    return out.to(x.dtype)
+
+
+def adaln(params, x, cond, eps: float = LN_EPS):
+    cw, cb = adaln_cond(params, cond)
+    return adaln_modulate(params, x, cw, cb, eps)
+
+
+def apply_norm(params, x, cond=None):
+    """AdaLN if the params carry a cond net, else LayerNorm (which ignores
+    ``cond``)."""
+    if "cond_fc1" in params:
+        return adaln(params, x, cond)
+    return layernorm(params, x)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def init_mlp(gen: torch.Generator, dim_in: int, *, scale_ratio: float = 4,
+             dim_out=None, num_layers=None, init: str = "normal002",
+             dtype=torch.float32):
+    """Same layer sequence as sea_tpu.ops.layers.init_mlp:
+    [Linear -> LN -> GELU] x (L-1) -> Linear, with L = max(num_layers, 2)."""
+    if dim_out is None:
+        dim_out = dim_in
+    scaled = max(1, int(dim_in * scale_ratio))
+    n = 1 if num_layers is None else num_layers
+    dev = gen.device
+
+    def hidden(d_in):
+        return {"lin": init_linear(gen, d_in, scaled, init=init, dtype=dtype),
+                "ln": init_layernorm(scaled, dtype=dtype, device=dev)}
+
+    if n == 1:
+        layers = [hidden(dim_in),
+                  {"lin": init_linear(gen, scaled, dim_out, init=init,
+                                      dtype=dtype)}]
+    else:
+        layers = ([hidden(dim_in)] + [hidden(scaled) for _ in range(n - 2)]
+                  + [{"lin": init_linear(gen, scaled, dim_out, init=init,
+                                         dtype=dtype)}])
+    return {"layers": layers}
+
+
+def mlp(params, x):
+    for entry in params["layers"]:
+        x = linear(entry["lin"], x)
+        if "ln" in entry:
+            # GELU always follows a hidden LayerNorm (the reference MLP).
+            x = gelu(layernorm(entry["ln"], x))
+    return x
+
+
+def init_scale_mlp(gen: torch.Generator, d_in: int, d_out: int, hidden: int,
+                   *, init: str = "torch_default", dtype=torch.float32):
+    """up/downScaleMLP: Linear(no bias) -> GELU -> Linear."""
+    return {
+        "fc1": init_linear(gen, d_in, hidden, bias=False, init=init,
+                           dtype=dtype),
+        "fc2": init_linear(gen, hidden, d_out, init=init, dtype=dtype),
+    }
+
+
+def scale_mlp(params, x):
+    return linear(params["fc2"], gelu(linear(params["fc1"], x)))
+
+
+# ---------------------------------------------------------------------------
+# Positional encodings
+# ---------------------------------------------------------------------------
+
+def sinusoidal_pe_table(d_model: int, max_len: int = 5000, *, device,
+                        dtype=torch.float32):
+    """Fixed sinusoidal table, including the odd-dim guard where cos uses
+    only the first d_model//2 frequencies."""
+    position = torch.arange(max_len, dtype=torch.float32,
+                            device=device)[:, None]
+    div_term = torch.exp(torch.arange(0, d_model, 2, dtype=torch.float32,
+                                      device=device)
+                         * (-math.log(10000.0) / d_model))
+    pe = torch.zeros((max_len, d_model), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(position * div_term)
+    pe[:, 1::2] = torch.cos(position * div_term[: d_model // 2])
+    return pe.to(dtype)
+
+
+def positional_encoding(pe_table, x):
+    """x: [..., T, D]; adds pe_table[:T], result in x's dtype."""
+    T = x.shape[-2]
+    return (x + pe_table[:T]).to(x.dtype)

@@ -1,0 +1,68 @@
+"""Parameter trees across packages.
+
+A parameter tree is the JAX package's pytree layout — nested dicts and
+lists with the npz paths as keys (``blocks/0/self_attn/0/q/w``), linear
+weights ``[d_in, d_out]`` — with ``torch.Tensor`` leaves. ``from_numpy``
+and ``to_numpy`` move a tree between the two packages unchanged, so a
+checkpoint written by either CLI (``sea_tpu.utils.checkpoint.save_pytree``)
+serves in the other.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def tree_map(fn, tree):
+    """Apply ``fn`` to every leaf of a dict/list/tuple tree; None stays."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    if tree is None:
+        return None
+    return fn(tree)
+
+
+def from_numpy(tree, device) -> dict:
+    """JAX params tree of numpy arrays (``jax.tree.map(np.asarray, p)`` or
+    a ``restore_pytree`` result) -> the port's tree of tensors on
+    ``device``. dtypes are kept."""
+    return tree_map(lambda a: torch.tensor(np.asarray(a), device=device),
+                    tree)
+
+
+def to_numpy(tree) -> dict:
+    """The port's tree of tensors -> a tree of numpy arrays that
+    ``save_pytree`` writes as a checkpoint either CLI loads."""
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+
+def save_init_checkpoints(case, save_dir: str, *, seed: int) -> dict:
+    """Initialise the port's stage-1 and stage-2 models for ``case`` from
+    seeded ``torch.Generator``s (``seed`` and ``seed + 1``), the stage-1
+    model sized for the data ``temporal test --synthetic`` builds, and write
+    both checkpoints where that command loads them from ``save_dir``.
+    Returns the numpy trees by checkpoint kind."""
+    from sea_tpu.data.mesh import MeshProcessor
+    from sea_tpu.utils.checkpoint import checkpoint_path, save_pytree
+    from sea_tpu_torch.cli import _load_data
+    from sea_tpu_torch.models.spatial import init_spatial
+    from sea_tpu_torch.models.temporal import init_temporal
+    _, coords, _ = _load_data(case, synthetic=True)
+    mp = MeshProcessor(case.mesh, case.spatial.field_groups, coords)
+    trees = {
+        "encoder_decoder": init_spatial(
+            case.spatial.with_n_inp(mp.cells_per_patch),
+            torch.Generator().manual_seed(seed), device="cpu"),
+        "temporal": init_temporal(
+            case.temporal, torch.Generator().manual_seed(seed + 1),
+            device="cpu"),
+    }
+    out = {}
+    for kind, tree in trees.items():
+        out[kind] = to_numpy(tree)
+        save_pytree(checkpoint_path(save_dir, kind, case.run.case_name,
+                                    case.run.run_name), {"params": out[kind]})
+    return out
