@@ -2,13 +2,15 @@
 
 The JAX package ``sea_tpu`` is the reference this package is held against.
 Module names and parameter layouts follow it one to one (``sea_tpu.ops.
-attention`` -> ``sea_tpu_torch.ops.attention``), and weights cross the two
-packages unchanged as the npz pytree of ``sea_tpu.utils.checkpoint``.
+attention`` -> ``sea_tpu_torch.ops.attention``), and weights and optimizer
+state cross the two packages unchanged as the npz pytree of
+``utils/checkpoint.py``.
 
-Ported so far: the f32 scan-engine serving path of ``temporal test``
-(see ROADMAP.md for what is still to port). This package imports ``torch``
-and never ``jax``; it shares only framework-free ``sea_tpu`` modules
-(configs, data, npz checkpoints).
+Ported so far: the f32 scan-engine serving path of ``temporal test`` and
+the single-device f32 ``temporal train`` (see ROADMAP.md for what is still
+to port). This package imports ``torch`` and never ``jax``, nor any module
+of ``sea_tpu``: it keeps its own copies of the framework-free modules it
+needs (configs, data, npz checkpoints, tracking).
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

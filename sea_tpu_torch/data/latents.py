@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sea_tpu.configs.base import SpatialModelConfig
+from sea_tpu_torch.configs.base import SpatialModelConfig
 from sea_tpu_torch.models.spatial import (apply_padding_mask, spatial_decode,
                                           spatial_encode)
 

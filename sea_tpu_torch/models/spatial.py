@@ -12,8 +12,9 @@ Init keeps the reference's construction-order split: the transformer trunk
 is N(0, 0.02) (torch default when variational), the encoder/decoder heads
 keep PyTorch's default init.
 
-The encoder's attention over the 64 patches is the plain path: the JAX
-package never sends it to a kernel either (T < 1024).
+The encoder's attention over the 64 patches is the plain path
+(``impl="plain"``): the JAX package never sends it to a kernel either
+(T < 1024), and its head dim of 4 is not one the flash kernels take.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from sea_tpu.configs.base import SpatialModelConfig
+from sea_tpu_torch.configs.base import SpatialModelConfig
 from sea_tpu_torch.ops import layers as L
 from sea_tpu_torch.ops.attention import init_attention, mha
 from sea_tpu_torch.utils.params import tree_map
@@ -47,7 +48,7 @@ def init_encoder_block(gen: torch.Generator, embed_dim: int, n_heads: int, *,
 def encoder_block(params, x, *, n_heads: int):
     h = L.layernorm(params["ln1"], x)
     x = x + mha(params["attn"], h, h, n_heads=n_heads, causal=False,
-                rope=False)
+                rope=False, impl="plain")
     return x + L.mlp(params["mlp"], L.layernorm(params["ln2"], x))
 
 

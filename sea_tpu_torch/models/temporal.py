@@ -16,9 +16,9 @@ the exchange; every attention in it goes through the flash-decode kernel
 
 Slice ported so far: exchange_mode='sea', ib_scale_mode='mlp',
 ib_addition_mode='add', ln_type 'ln' or 'adaln', src_len=0 — the temporal
-configs of both shipped presets. Dropout, remat and the stacked per-field
-path are training features and have no place in this deterministic
-serving port; the stacked path is the same math as the per-field loop.
+configs of both shipped presets. ``temporal_forward`` trains with dropout
+from the JAX package's key tree; remat and ring attention are not ported,
+and the stacked per-field path is the same math as the per-field loop.
 """
 
 from __future__ import annotations
@@ -26,11 +26,12 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from sea_tpu.configs.base import TemporalModelConfig
+from sea_tpu_torch.configs.base import TemporalModelConfig
 from sea_tpu_torch.ops import layers as L
 from sea_tpu_torch.ops.attention import (init_attention, init_kv_cache, mha,
                                          mha_step)
 from sea_tpu_torch.utils.params import tree_map
+from sea_tpu_torch.utils.prng import fold_in, split
 
 
 def check_supported(cfg: TemporalModelConfig) -> None:
@@ -123,10 +124,16 @@ class TemporalModel(nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# Forward (full sequence): the oracle that temporal_step is held to
+# Forward (full sequence): the teacher-forced training path, and the oracle
+# that temporal_step is held to
 # ---------------------------------------------------------------------------
 
-def _sea_exchange(block, cfg: TemporalModelConfig, x_vars, ib):
+def _fold(key, data):
+    return None if key is None else fold_in(key, data)
+
+
+def _sea_exchange(block, cfg: TemporalModelConfig, x_vars, ib, rng,
+                  deterministic):
     G = cfg.num_fields
     x_vars = list(x_vars)
     for i in range(G):
@@ -140,47 +147,82 @@ def _sea_exchange(block, cfg: TemporalModelConfig, x_vars, ib):
                                L.linear(block["cross_down"][j], x_vars[j]), ib)
             attn = mha(block["cross_attn"][i][j], x_i, x_j,
                        n_heads=cfg.n_heads, causal=True, rope=True,
-                       src_len=cfg.src_len)
+                       src_len=cfg.src_len, dropout_rate=cfg.dropout,
+                       dropout_key=_fold(rng, i * G + j),
+                       deterministic=deterministic)
             acc = acc + L.linear(block["cross_up"][i], L.gelu(attn))
         # Sequential update: field i+1 sees the updated field i.
         x_vars[i] = x_vars[i] + acc
     return x_vars
 
 
-def temporal_block(block, cfg: TemporalModelConfig, x_vars, ib):
+def temporal_block(block, cfg: TemporalModelConfig, x_vars, ib, ib_cond, *,
+                   rng=None, deterministic=True):
+    """One block. ``ib`` is the full [B, T, ib_num] stream, ``ib_cond``
+    the one the ib-only sites see ([B, 1] rows when the conditioning is
+    time-constant). ``rng``: the block's key; its four sub-keys drive the
+    ib MLP, self-attention, exchange and MLP dropout, with the JAX
+    package's fold_in tree."""
     G = cfg.num_fields
     x_vars = list(x_vars)
+    train = rng is not None and not deterministic
+    rngs = split(rng, 4) if train else [None] * 4
+    # The ib MLP's trailing dropout keeps a mask per token, so with it on
+    # the MLP sees the full stream, not the [B, 1] rows.
+    ib_inject = ib if train and cfg.dropout > 0.0 else ib_cond
+
+    def add_info(xs):
+        if rngs[0] is None:
+            ib_out = L.mlp(block["ib"], ib_inject)
+            return [x + ib_out for x in xs]
+        return [x + L.mlp(block["ib"], ib_inject, dropout_rate=cfg.dropout,
+                          dropout_key=fold_in(fold_in(rngs[0], i), 1))
+                for i, x in enumerate(xs)]
+
     if not cfg.add_info_after_cross:
-        ib_out = L.mlp(block["ib"], ib)
-        x_vars = [x + ib_out for x in x_vars]
+        x_vars = add_info(x_vars)
     for i in range(G):
-        h = L.apply_norm(block["ln_exp"][i][0], x_vars[i], ib)
+        h = L.apply_norm(block["ln_exp"][i][0], x_vars[i], ib_cond)
         x_vars[i] = x_vars[i] + mha(block["self_attn"][i], h, h,
                                     n_heads=cfg.n_heads, causal=True,
-                                    rope=True, src_len=cfg.src_len)
-    x_vars = _sea_exchange(block, cfg, x_vars, ib)
+                                    rope=True, src_len=cfg.src_len,
+                                    dropout_rate=cfg.dropout,
+                                    dropout_key=_fold(rngs[1], i),
+                                    deterministic=deterministic)
+    x_vars = _sea_exchange(block, cfg, x_vars, ib_cond, rngs[2],
+                           deterministic)
     if cfg.add_info_after_cross:
-        ib_out = L.mlp(block["ib"], ib)
-        x_vars = [x + ib_out for x in x_vars]
+        x_vars = add_info(x_vars)
     for i in range(G):
-        h = L.apply_norm(block["ln_exp"][i][2], x_vars[i], ib)
-        x_vars[i] = x_vars[i] + L.mlp(block["mlp"][i], h)
+        h = L.apply_norm(block["ln_exp"][i][2], x_vars[i], ib_cond)
+        x_vars[i] = x_vars[i] + L.mlp(block["mlp"][i], h,
+                                      dropout_rate=cfg.dropout,
+                                      dropout_key=_fold(rngs[3], i))
         x_vars[i] = L.linear(block["proj"][i], x_vars[i])
     return x_vars
 
 
-def temporal_forward(params, cfg: TemporalModelConfig, x, ib):
-    """x: [B, T, G, E], ib: [B, T, ib_num] -> [B, T, G, E]; deterministic,
-    no ring, no remat."""
+def temporal_forward(params, cfg: TemporalModelConfig, x, ib, *, rng=None,
+                     deterministic: bool = True):
+    """x: [B, T, G, E], ib: [B, T, ib_num] -> [B, T, G, E].
+
+    ``rng``: a PRNG key (``utils.prng``); with ``deterministic=False`` it
+    drives dropout, block ``li`` taking ``fold_in(rng, li)`` as in the JAX
+    package, so the masks are the JAX package's. No ring, no remat; the
+    stacked per-field path of the JAX package (``stack_fields``) is the
+    same math as this per-field loop."""
     check_supported(cfg)
     G = cfg.num_fields
     if x.shape[2] != G:
         raise ValueError(f"x has {x.shape[2]} fields, the config {G}")
     # ib_time_constant: ib-only sites compute on [B, 1] rows (same values).
     ib_cond = ib[:, :1] if cfg.ib_time_constant else ib
+    train = rng is not None and not deterministic
     x_vars = [x[:, :, i, :] for i in range(G)]
-    for block in params["blocks"]:
-        x_vars = temporal_block(block, cfg, x_vars, ib_cond)
+    for li, block in enumerate(params["blocks"]):
+        x_vars = temporal_block(block, cfg, x_vars, ib, ib_cond,
+                                rng=fold_in(rng, li) if train else None,
+                                deterministic=deterministic)
     x_vars = [L.apply_norm(params["ln_final"][i], x_vars[i], ib_cond)
               for i in range(G)]
     return torch.stack(x_vars, dim=2)

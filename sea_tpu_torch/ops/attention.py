@@ -2,14 +2,23 @@
 
 Counterpart of ``sea_tpu/ops/attention.py``: q/k/v linears with bias and a
 bias-free output projection, RoPE on [B, T, H, hd], softmax statistics in
-f32. The full-sequence path is plain einsum + softmax (the JAX package
-runs it in XLA, not in a kernel). ``mha_step``, the one-token form the
-rollout runs, attends over a head-major [B, H, T, hd] KV cache through
-``ops.decode_attention`` — the hand-written flash-decode kernel on a CUDA
-tensor, its plain version on the CPU.
+f32. The full-sequence path (``mha``) runs ``ops.flash_attention`` — on a
+CUDA tensor the hand-written flash kernels at any T, with the
+attention-probability dropout hashed inside them; on the CPU their plain
+version. The JAX package sends only T >= 256 (with dropout) or T >= 1024
+to its kernel, thresholds measured on a TPU; below them its XLA path keys
+dropout on the flat index of the probabilities instead of (bh, q, k), so
+the bits differ there while the distribution is the same (ROADMAP.md,
+Queue 3). ``impl="plain"`` keeps the einsum path for the stage-1 encoder,
+which the JAX package never sends to a kernel either.
 
-Serving slice only: no dropout, no ``valid_len``, no fused qkv/kv
-layouts, no int8 cache, ``src_len == 0`` in ``mha_step`` (ROADMAP.md).
+``mha_step``, the one-token form the rollout runs, attends over a
+head-major [B, H, T, hd] KV cache through ``ops.decode_attention`` — the
+hand-written flash-decode kernel on a CUDA tensor, its plain version on
+the CPU.
+
+Not ported: ``valid_len``, the fused qkv/kv layouts, the int8 cache,
+``src_len != 0`` in ``mha_step`` and ring attention (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -17,8 +26,10 @@ from __future__ import annotations
 import torch
 
 from sea_tpu_torch.ops.decode_attention import decode_attention
+from sea_tpu_torch.ops.flash_attention import flash_attention
 from sea_tpu_torch.ops.layers import init_linear, linear
 from sea_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from sea_tpu_torch.utils.prng import key_to_seed
 
 
 def init_attention(gen: torch.Generator, embed_dim: int, n_heads: int, *,
@@ -63,9 +74,15 @@ def attention_core(q, k, v, *, causal: bool, src_len: int = 0):
 
 
 def multihead_core(q, k, v, *, n_heads: int, causal: bool, rope: bool,
-                   src_len: int = 0):
+                   src_len: int = 0, dropout_rate: float = 0.0,
+                   dropout_key=None, deterministic: bool = True,
+                   impl: str = "flash"):
     """Between the projections and the output projection: head split,
-    RoPE, attention, head merge. q: [B, Tq, C]; k, v: [B, Tk, C]."""
+    RoPE, attention, head merge. q: [B, Tq, C]; k, v: [B, Tk, C].
+
+    Dropout applies when training (``deterministic`` False) with a rate
+    and a key (``utils.prng``), as in the JAX package. impl: "flash" (the
+    kernels on CUDA) or "plain" (einsum, no dropout)."""
     B, Tq, C = q.shape
     hd = C // n_heads
     q = q.reshape(B, Tq, n_heads, hd)
@@ -77,17 +94,32 @@ def multihead_core(q, k, v, *, n_heads: int, causal: bool, rope: bool,
         cos_k, sin_k = rope_cos_sin(hd, torch.arange(k.shape[1],
                                                      device=k.device))
         k = apply_rope(k, cos_k, sin_k)
-    out = attention_core(q, k, v, causal=causal, src_len=src_len)
+    rate = (dropout_rate if dropout_rate > 0.0 and not deterministic
+            and dropout_key is not None else 0.0)
+    if impl == "flash":
+        out = flash_attention(
+            q, k, v, causal, src_len, dropout_rate=rate,
+            dropout_seed=key_to_seed(dropout_key) if rate else None)
+    elif impl == "plain":
+        if rate:
+            raise NotImplementedError("impl='plain' has no dropout; the "
+                                      "training path is impl='flash'")
+        out = attention_core(q, k, v, causal=causal, src_len=src_len)
+    else:
+        raise ValueError(f"impl {impl!r}: want 'flash' or 'plain'")
     return out.reshape(B, Tq, C)
 
 
 def mha(params, x_q, x_kv, *, n_heads: int, causal: bool, rope: bool,
-        src_len: int = 0):
+        src_len: int = 0, dropout_rate: float = 0.0, dropout_key=None,
+        deterministic: bool = True, impl: str = "flash"):
     """Full-sequence multi-head attention. x_q: [B, Tq, C]; x_kv:
     [B, Tk, C]."""
     q, k, v = _project_qkv(params, x_q, x_kv)
     out = multihead_core(q, k, v, n_heads=n_heads, causal=causal,
-                         rope=rope, src_len=src_len)
+                         rope=rope, src_len=src_len,
+                         dropout_rate=dropout_rate, dropout_key=dropout_key,
+                         deterministic=deterministic, impl=impl)
     return linear(params["proj"], out)
 
 

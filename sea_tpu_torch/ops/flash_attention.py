@@ -1,0 +1,318 @@
+"""Flash attention with in-kernel dropout for the training step.
+
+``flash_attention`` is the wrapper of the hand-written CUDA kernels in
+``sea_tpu_torch/csrc/flash_attention.cu`` — a forward that also returns
+the row log-sum-exp, a dQ kernel and a dK/dV kernel — which replace the
+Pallas TPU kernels ``_fwd_kernel``, ``_bwd_dq_kernel`` and
+``_bwd_dkv_kernel`` of ``sea_tpu/ops/flash_attention.py``. On a CUDA
+tensor it runs the forward kernel inside a ``torch.autograd.Function``
+whose backward launches the two backward kernels; on a CPU tensor it
+computes the plain PyTorch version, ``flash_attention_ref``, and autograd
+differentiates that.
+
+Semantics (both versions, f32): q [B, Tq, H, hd], k/v [B, Tk, H, hd];
+scores q.k^T * hd^-0.5 masked to k <= q + src_len when causal; f32
+softmax; then the inverted dropout scale M(bh, q, k) in {0, 1/(1-rate)}
+multiplies the normalised probabilities before p.V. M comes from the
+position hash ``layers.dropout_scale_from_positions`` keyed on the two
+seed words, bh = b*H + h and the global q and k positions — the function
+the TPU kernels compute, so the masks equal the JAX package's bit for
+bit. The backward identity D = rowsum(dO * O) holds with dropout; D is
+computed here with torch, outside the kernels, as the JAX package does.
+
+What bounds the kernels on the card, and their design: see the note at
+the top of the CUDA source. Head dims 64, 128 and 256; any other raises
+on CUDA.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from sea_tpu_torch.ops.layers import (dropout_keep_threshold,
+                                      dropout_scale_from_positions)
+
+# Launches of each CUDA kernel (a CPU call does not count). Read and reset
+# by chip_smoke.py.
+fwd_launches = 0
+dq_launches = 0
+dkv_launches = 0
+
+HEAD_DIMS = (64, 128, 256)
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version
+# ---------------------------------------------------------------------------
+
+def _valid(Tq, Tk, causal, src_len, device):
+    """[Tq, Tk] bool: key k admitted for query q."""
+    qi = torch.arange(Tq, device=device)[:, None]
+    kj = torch.arange(Tk, device=device)[None, :]
+    if not causal:
+        return torch.ones((Tq, Tk), dtype=torch.bool, device=device)
+    return kj <= qi + src_len
+
+
+def dropout_mask(B, H, Tq, Tk, seed, rate, device):
+    """[B, H, Tq, Tk] f32 dropout scale of the kernels."""
+    bh = torch.arange(B * H, device=device).reshape(B, H, 1, 1)
+    qp = torch.arange(Tq, device=device).reshape(1, 1, Tq, 1)
+    kp = torch.arange(Tk, device=device).reshape(1, 1, 1, Tk)
+    return dropout_scale_from_positions(seed[0], seed[1], bh, qp, kp,
+                                        rate=rate)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, src_len: int = 0,
+                        dropout_rate: float = 0.0, dropout_seed=None):
+    """Plain version: materialises the [B, H, Tq, Tk] scores and mask.
+    Differentiable by autograd."""
+    B, Tq, H, hd = q.shape
+    Tk = k.shape[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * hd ** -0.5
+    s = s.masked_fill(~_valid(Tq, Tk, causal, src_len, q.device),
+                      float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    if dropout_rate > 0.0:
+        p = p * dropout_mask(B, H, Tq, Tk, dropout_seed, dropout_rate,
+                             q.device)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    return out.to(q.dtype)
+
+
+def flash_forward_ref(q, k, v, *, causal=True, src_len=0, dropout_rate=0.0,
+                      dropout_seed=None):
+    """The forward kernel's outputs: (o [B, Tq, H, hd], lse [B*H, Tq])."""
+    B, Tq, H, hd = q.shape
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * hd ** -0.5
+    s = s.masked_fill(~_valid(Tq, k.shape[1], causal, src_len, q.device),
+                      float("-inf"))
+    lse = torch.logsumexp(s, dim=-1)
+    out = flash_attention_ref(q, k, v, causal=causal, src_len=src_len,
+                              dropout_rate=dropout_rate,
+                              dropout_seed=dropout_seed)
+    return out, lse.reshape(B * H, Tq)
+
+
+def _bwd_ref_pieces(q, k, v, do, lse, dsum, causal, src_len, dropout_rate,
+                    dropout_seed):
+    """(P * M, dS) [B, H, Tq, Tk] of the backward, P from the forward's
+    lse."""
+    B, Tq, H, hd = q.shape
+    Tk = k.shape[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * hd ** -0.5
+    p = torch.exp(s - lse.reshape(B, H, Tq, 1))
+    p = p.masked_fill(~_valid(Tq, Tk, causal, src_len, q.device), 0.0)
+    m = (dropout_mask(B, H, Tq, Tk, dropout_seed, dropout_rate, q.device)
+         if dropout_rate > 0.0 else torch.ones_like(p))
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    return p * m, p * (dp * m - dsum.reshape(B, H, Tq, 1))
+
+
+def flash_bwd_dq_ref(q, k, v, do, lse, dsum, *, causal=True, src_len=0,
+                     dropout_rate=0.0, dropout_seed=None):
+    """The dQ kernel's output from the forward's lse and D [B*H, Tq]."""
+    _, ds = _bwd_ref_pieces(q, k, v, do, lse, dsum, causal, src_len,
+                            dropout_rate, dropout_seed)
+    return torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * q.shape[3] ** -0.5
+
+
+def flash_bwd_dkv_ref(q, k, v, do, lse, dsum, *, causal=True, src_len=0,
+                      dropout_rate=0.0, dropout_seed=None):
+    """The dK/dV kernel's outputs (dk, dv)."""
+    pm, ds = _bwd_ref_pieces(q, k, v, do, lse, dsum, causal, src_len,
+                             dropout_rate, dropout_seed)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * q.shape[3] ** -0.5
+    dv = torch.einsum("bhqk,bqhd->bkhd", pm, do.float())
+    return dk, dv
+
+
+def row_dot(do, o):
+    """D = rowsum(dO * O) as [B*H, Tq] f32: the backward's input that the
+    JAX package, too, computes outside its kernels."""
+    B, Tq, H, _ = o.shape
+    d = (do.float() * o.float()).sum(-1)  # [B, Tq, H]
+    return d.permute(0, 2, 1).reshape(B * H, Tq).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels
+# ---------------------------------------------------------------------------
+
+@functools.cache
+def _library():
+    """The three C entries, built at first use. Pointers and the stream
+    are c_void_p and strides c_longlong: ctypes would otherwise pass a
+    Python int as a 32-bit int."""
+    from sea_tpu_torch.ops._build import load_library
+    lib = load_library("flash_attention")
+    P, L = ctypes.c_void_p, ctypes.c_longlong
+    view = [P, L, L, L]
+    shape = ([ctypes.c_int] * 7 + [ctypes.c_uint32] * 3
+             + [ctypes.c_float, ctypes.c_int, P])
+    fns = {"fwd": (lib.sea_flash_fwd, view * 3 + [P, P] + shape),
+           "dq": (lib.sea_flash_bwd_dq, view * 4 + [P, P, P] + shape),
+           "dkv": (lib.sea_flash_bwd_dkv, view * 4 + [P, P, P, P] + shape)}
+    for fn, argtypes in fns.values():
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+    return {name: fn for name, (fn, _) in fns.items()}
+
+
+def _view(x):
+    return [x.data_ptr(), x.stride(0), x.stride(1), x.stride(2)]
+
+
+def _check(q, k, v):
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"want q [B,Tq,H,hd] and k, v [B,Tk,H,hd]; got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, _, H, hd = q.shape
+    if k.shape[0] != B or k.shape[2:] != (H, hd):
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {hd} not in "
+                         f"{HEAD_DIMS}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.dtype != torch.float32:
+            raise ValueError(f"{name} is {x.dtype}; the kernels take "
+                             "float32 (bf16 is not ported yet)")
+        if x.device != q.device:
+            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
+        if x.stride(3) != 1:
+            raise ValueError(f"{name}: the head dim must be contiguous")
+    if q.device.index != torch.cuda.current_device():
+        raise ValueError(f"tensors on {q.device}, but the current CUDA "
+                         f"device is {torch.cuda.current_device()}: the "
+                         "kernels launch on the current device")
+
+
+def _shape_args(q, k, causal, src_len, dropout_rate, dropout_seed):
+    B, Tq, H, hd = q.shape
+    if dropout_rate > 0.0:
+        s0, s1 = (w & 0xFFFFFFFF for w in dropout_seed)
+        threshold = dropout_keep_threshold(dropout_rate)
+        inv = float(torch.tensor(1.0 / (1.0 - dropout_rate),
+                                 dtype=torch.float32))
+    else:
+        s0 = s1 = threshold = 0
+        inv = 1.0
+    return [B, H, Tq, k.shape[1], hd, int(causal), src_len, s0, s1,
+            threshold, inv, int(dropout_rate > 0.0),
+            torch.cuda.current_stream(q.device).cuda_stream]
+
+
+def _raise_on(rc, name):
+    if rc != 0:
+        raise RuntimeError(f"flash attention {name} kernel launch failed: "
+                           f"CUDA error {rc}")
+
+
+def flash_fwd(q, k, v, *, causal=True, src_len=0, dropout_rate=0.0,
+              dropout_seed=None):
+    """Forward kernel: (o [B, Tq, H, hd] contiguous, lse [B*H, Tq])."""
+    _check(q, k, v)
+    B, Tq, H, hd = q.shape
+    o = torch.empty((B, Tq, H, hd), dtype=torch.float32, device=q.device)
+    lse = torch.empty((B * H, Tq), dtype=torch.float32, device=q.device)
+    rc = _library()["fwd"](*_view(q), *_view(k), *_view(v), o.data_ptr(),
+                           lse.data_ptr(),
+                           *_shape_args(q, k, causal, src_len, dropout_rate,
+                                        dropout_seed))
+    _raise_on(rc, "forward")
+    global fwd_launches
+    fwd_launches += 1
+    return o, lse
+
+
+def _bwd_inputs(q, k, v, do, lse, dsum):
+    _check(q, k, v)
+    if do.shape != q.shape or do.dtype != torch.float32 \
+            or do.stride(3) != 1:
+        do = do.float().contiguous()
+    B, Tq, H, _ = q.shape
+    for name, x in (("lse", lse), ("dsum", dsum)):
+        if x.shape != (B * H, Tq) or not x.is_contiguous() \
+                or x.dtype != torch.float32 or x.device != q.device:
+            raise ValueError(f"{name} must be contiguous f32 [B*H, Tq] on "
+                             f"{q.device}")
+    return do
+
+
+def flash_bwd_dq(q, k, v, do, lse, dsum, *, causal=True, src_len=0,
+                 dropout_rate=0.0, dropout_seed=None):
+    """dQ kernel: dq [B, Tq, H, hd] contiguous."""
+    do = _bwd_inputs(q, k, v, do, lse, dsum)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    rc = _library()["dq"](*_view(q), *_view(k), *_view(v), *_view(do),
+                          lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
+                          *_shape_args(q, k, causal, src_len, dropout_rate,
+                                       dropout_seed))
+    _raise_on(rc, "dQ")
+    global dq_launches
+    dq_launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, dsum, *, causal=True, src_len=0,
+                  dropout_rate=0.0, dropout_seed=None):
+    """dK/dV kernel: (dk, dv), each [B, Tk, H, hd] contiguous. Keys above
+    the causal band get zeros."""
+    do = _bwd_inputs(q, k, v, do, lse, dsum)
+    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    rc = _library()["dkv"](*_view(q), *_view(k), *_view(v), *_view(do),
+                           lse.data_ptr(), dsum.data_ptr(), dk.data_ptr(),
+                           dv.data_ptr(),
+                           *_shape_args(q, k, causal, src_len, dropout_rate,
+                                        dropout_seed))
+    _raise_on(rc, "dK/dV")
+    global dkv_launches
+    dkv_launches += 1
+    return dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, src_len, dropout_rate, dropout_seed):
+        kw = dict(causal=causal, src_len=src_len, dropout_rate=dropout_rate,
+                  dropout_seed=dropout_seed)
+        o, lse = flash_fwd(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.kw = kw
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dsum = row_dot(do, o)
+        dq = flash_bwd_dq(q, k, v, do, lse, dsum, **ctx.kw)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, dsum, **ctx.kw)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q, k, v, causal: bool = True, src_len: int = 0, *,
+                    dropout_rate: float = 0.0, dropout_seed=None):
+    """q: [B, Tq, H, hd]; k, v: [B, Tk, H, hd] f32 -> [B, Tq, H, hd].
+
+    dropout_seed: the two int32 words of the dropout key
+    (``utils.prng.key_to_seed``); required when dropout_rate > 0. CPU
+    tensors take the plain version; CUDA tensors the kernels."""
+    if dropout_rate > 0.0 and dropout_seed is None:
+        raise ValueError("flash_attention: dropout_rate > 0 requires a "
+                         "dropout_seed")
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, src_len=src_len,
+                                   dropout_rate=dropout_rate,
+                                   dropout_seed=dropout_seed)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on CPU or CUDA tensors, "
+                         f"not {q.device}")
+    seed = tuple(dropout_seed) if dropout_rate > 0.0 else None
+    return _FlashAttention.apply(q, k, v, bool(causal), int(src_len),
+                                 float(dropout_rate), seed)

@@ -12,9 +12,9 @@ Two init families, as in the JAX package: ``normal002`` (N(0, 0.02)
 weights, zero bias) and ``torch_default`` (uniform +-1/sqrt(fan_in)).
 Init draws from an explicit ``torch.Generator`` on the generator's device.
 
-Serving only: there is no dropout (rollouts are deterministic), and the
-int8/int4 weight layouts of ``sea_tpu.ops.layers.linear`` are not ported
-yet (ROADMAP.md).
+Dropout is the JAX package's position hash (``dropout``), so the masks
+equal its masks from the same key. The int8/int4 weight layouts of
+``sea_tpu.ops.layers.linear`` are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -23,6 +23,9 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from sea_tpu_torch.ops import fused_adaln
+from sea_tpu_torch.utils.prng import key_to_seed
 
 LN_EPS = 1e-5
 
@@ -117,9 +120,14 @@ def adaln_cond(params, cond):
 
 def adaln_modulate(params, x, cw, cb, eps: float = LN_EPS):
     """The x half of AdaLN: normalize, then apply (base + cond) scale and
-    shift. The JAX package's fused Pallas kernel for this
-    (ops/fused_adaln.py) serves only 3-D training calls; a rollout step is
-    2-D and takes this plain formula there too."""
+    shift. Where the JAX package takes its fused Pallas kernel — x
+    [B, T, E] with time-constant cond cw/cb [B, 1, E], the teacher-forced
+    training shape — this takes ``ops.fused_adaln`` (the Triton kernels on
+    a CUDA tensor). Everything else, such as the 2-D rollout step, is the
+    plain formula, as in the JAX package."""
+    if fused_adaln.fused_supported(x, cw, cb):
+        return fused_adaln.fused_adaln_modulate(x, cw, cb, params["w"],
+                                                params["b"], eps)
     out = _normalize(x, eps) * (params["w"] + cw) + (params["b"] + cb)
     return out.to(x.dtype)
 
@@ -167,13 +175,75 @@ def init_mlp(gen: torch.Generator, dim_in: int, *, scale_ratio: float = 4,
     return {"layers": layers}
 
 
-def mlp(params, x):
+def mlp(params, x, *, dropout_rate: float = 0.0, dropout_key=None):
+    """``dropout_key``: a PRNG key (``utils.prng``) for the trailing
+    dropout of training; None (or rate 0) leaves the output as it is."""
     for entry in params["layers"]:
         x = linear(entry["lin"], x)
         if "ln" in entry:
             # GELU always follows a hidden LayerNorm (the reference MLP).
             x = gelu(layernorm(entry["ln"], x))
-    return x
+    return dropout(x, dropout_rate, dropout_key)
+
+
+# ---------------------------------------------------------------------------
+# Dropout: the position hash of the JAX package
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(u, c: int):
+    """(u * c) mod 2**32 for int64 u in [0, 2**32), without int64
+    overflow: c is split into 16-bit halves."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (u * lo + (((u * hi) & 0xFFFF) << 16)) & _M32
+
+
+def dropout_keep_threshold(rate: float) -> int:
+    """Hash values at or above this keep their element."""
+    return min(2 ** 32 - 1, int(round(rate * 2.0 ** 32)))
+
+
+def dropout_scale_from_positions(seed0: int, seed1: int, bh, q_pos, k_pos, *,
+                                 rate: float):
+    """{0, 1/(1-rate)} f32 dropout scale from global logical positions.
+
+    Bit for bit ``dropout_scale_from_positions`` of
+    ``sea_tpu/ops/flash_attention.py`` (and of the CUDA flash kernels):
+    an int32 multiply-add of (q, k, bh, seed words) with wrap-around, then
+    murmur3 fmix32 twice in uint32. Computed here in int64 masked to 32
+    bits. seed0/seed1 are ints (int32 or uint32 words); bh, q_pos and
+    k_pos are ints or integer tensors, broadcast together."""
+    def term(x, c):
+        return _mul32(torch.as_tensor(x, dtype=torch.int64) & _M32, c)
+
+    u = (term(q_pos, 0x9E3779B9) + term(k_pos, 0x3243F6A9)
+         + term(bh, 0x27D4EB2F) + ((seed0 * 0x165667B1 + seed1) & _M32))
+    u = u & _M32
+    for mult in (0x85EBCA6B, 0xC2B2AE35, 0x85EBCA6B, 0xC2B2AE35):
+        u = u ^ (u >> 16)
+        u = _mul32(u, mult)
+    u = u ^ (u >> 16)
+    inv = torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32)
+    keep = u >= dropout_keep_threshold(rate)
+    return torch.where(keep, inv.to(keep.device),
+                       torch.zeros((), dtype=torch.float32,
+                                   device=keep.device))
+
+
+def dropout(x, rate: float, key):
+    """Inverted dropout with the JAX package's flat-position hash
+    (``sea_tpu/ops/layers.py::dropout``): element i of x in row-major
+    order keeps when hash(s0=key[0], s1=key[1], bh=0, q=i, k=0) passes.
+    ``key`` None or rate 0 returns x."""
+    if rate == 0.0 or key is None:
+        return x
+    s0, s1 = key_to_seed(key)
+    pos = torch.arange(x.numel(), dtype=torch.int64,
+                       device=x.device).reshape(x.shape)
+    scale = dropout_scale_from_positions(s0, s1, 0, pos, 0, rate=rate)
+    return x * scale.to(x.dtype)
 
 
 def init_scale_mlp(gen: torch.Generator, d_in: int, d_out: int, hidden: int,

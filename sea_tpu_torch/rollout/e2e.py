@@ -12,9 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sea_tpu.configs.base import SpatialModelConfig, TemporalModelConfig
-from sea_tpu.data.partitioner import PartitionIndex
-from sea_tpu_torch.data.partitioner import unpatchify_torch
+from sea_tpu_torch.configs.base import SpatialModelConfig, TemporalModelConfig
+from sea_tpu_torch.data.partitioner import PartitionIndex, unpatchify_torch
 from sea_tpu_torch.models.spatial import spatial_decode
 from sea_tpu_torch.rollout.engine import is_scan_incremental, rollout_scan
 from sea_tpu_torch.train import metrics as M

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from sea_tpu.configs.base import TemporalModelConfig
+from sea_tpu_torch.configs.base import TemporalModelConfig
 from sea_tpu_torch.models.temporal import (check_supported,
                                            init_temporal_cache,
                                            precompute_cond_tables,

@@ -24,8 +24,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from sea_tpu.configs.base import CaseConfig
-from sea_tpu.data.mesh import MeshProcessor
+from sea_tpu_torch.configs.base import CaseConfig
+from sea_tpu_torch.data.mesh import MeshProcessor
 from sea_tpu_torch.data.latents import LatentService
 from sea_tpu_torch.rollout.e2e import make_e2e_rollout_eval
 

@@ -1,28 +1,52 @@
-"""Stage-2 data preparation for serving.
+"""Stage-2 (temporal State-Exchange transformer) training driver.
 
-Counterpart of ``process_data`` in ``sea_tpu/train/train_temporal.py``
-(the training loop itself is not ported yet; ROADMAP.md): load, split at
-trajectory level, patchify, encode with the frozen stage-1 encoder, and
-cut the temporal windows. The data, mesh and window code is the JAX
-package's own framework-free modules; only the encoder runs here.
+Counterpart of ``sea_tpu/train/train_temporal.py``: ``process_data``
+(load, split at trajectory level, patchify, encode with the frozen
+stage-1 encoder, cut the temporal windows), ``make_train_step``
+(teacher-forced next-step MSE, gradients by autograd through the flash
+and fused AdaLN kernels, AdamW), ``make_eval_step`` and ``train``, the
+epoch loop with validation, the full autoregressive evaluation cadence
+and the best-validation and best-rollout checkpoints, written as the same
+npz files the JAX driver writes.
+
+Single device only: the data-, sequence- and pipeline-parallel meshes and
+the profiler capture of the JAX driver raise "not ported" (ROADMAP.md).
+Dropout keys come from ``utils.prng``, JAX's threefry key functions on the
+host, with the JAX driver's key sequence, so a run from the same initial
+weights draws the JAX run's dropout masks.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
+from typing import Optional
 
+import numpy as np
 import torch
 
-from sea_tpu.configs.base import CaseConfig
-from sea_tpu.data.datasets import (TemporalWindows, apply_sea_layout,
-                                   make_temporal_windows, split_indices)
-from sea_tpu.data.io import load_case_data
-from sea_tpu.data.mesh import MeshProcessor
-from sea_tpu.utils.checkpoint import checkpoint_path, load_params
+from sea_tpu_torch.configs.base import CaseConfig, TemporalModelConfig
+from sea_tpu_torch.data.datasets import (TemporalWindows, apply_sea_layout,
+                                         batch_index_iterator,
+                                         ib_is_time_constant,
+                                         make_temporal_windows,
+                                         padded_batch_index_iterator,
+                                         split_indices)
+from sea_tpu_torch.data.io import load_case_data
 from sea_tpu_torch.data.latents import (LatentService,
                                         transform_latents_to_temporal)
+from sea_tpu_torch.data.mesh import MeshProcessor
 from sea_tpu_torch.models.spatial import init_spatial
-from sea_tpu_torch.utils.params import from_numpy, to_numpy
+from sea_tpu_torch.models.temporal import init_temporal, temporal_forward
+from sea_tpu_torch.train import metrics as M
+from sea_tpu_torch.train.optim import global_norm, make_optimizer
+from sea_tpu_torch.train.tracking import BaseErrorTracker, NoOpErrorTracker
+from sea_tpu_torch.utils.checkpoint import (checkpoint_path, load_params,
+                                            save_checkpoint)
+from sea_tpu_torch.utils.params import (from_numpy, opt_state_from_numpy,
+                                        opt_state_to_numpy, to_numpy,
+                                        tree_leaves)
+from sea_tpu_torch.utils.prng import prng_key, split
 
 
 @dataclasses.dataclass
@@ -56,7 +80,7 @@ def process_data(case: CaseConfig, *, device,
     mp = MeshProcessor(case.mesh, case.spatial.field_groups, coords,
                        save_dir=case.run.save_dir)
     _, patched = mp.patchify_and_scale(
-        fields.reshape(tr * T, N, F), fit_scalers=True,
+        fields.reshape(tr * T, N, F),
         perform_initial_test=case.run.perform_initial_test)
     tokens = apply_sea_layout(patched, case.run.sea_layout)  # [tr*T,P,F,C]
 
@@ -83,3 +107,192 @@ def process_data(case: CaseConfig, *, device,
     return TemporalData(train=windows(train_idx), val=windows(val_idx),
                         test=windows(test_idx), mesh_processor=mp,
                         latent_service=svc)
+
+
+def make_train_step(cfg: TemporalModelConfig, tx, *, log_norms: bool = True):
+    """step(params, opt_state, src, tgt, ib, key) -> (params, opt_state,
+    stats): the JAX driver's step. The loss is the MSE of the dropout
+    forward (``key`` a ``utils.prng`` key); ``grad_norm`` and
+    ``param_norm`` are optax.global_norm of the gradients and of the
+    parameters before the update (zeros with ``log_norms=False``). The
+    parameters and moments are updated IN PLACE (train/optim.py); the
+    returned stats are 0-d tensors on the device, not read back."""
+    def step(params, opt_state, src, tgt, ib, key):
+        leaves = tree_leaves(params)
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        out = temporal_forward(params, cfg, src, ib, rng=key,
+                               deterministic=False)
+        loss = M.mse(out.float(), tgt)
+        # Parameters the forward never reads (the unused ln_exp[i][1]
+        # norms and the diagonal of the cross-attention lattice) get zero
+        # gradients, as under jax.grad.
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, torch.autograd.grad(
+                     loss, leaves, allow_unused=True))]
+        with torch.no_grad():
+            if log_norms:
+                norms = {"grad_norm": global_norm(grads),
+                         "param_norm": global_norm(leaves)}
+            else:
+                zero = torch.zeros((), device=loss.device)
+                norms = {"grad_norm": zero, "param_norm": zero}
+            opt_state = tx.step(grads, opt_state, params)
+        return params, opt_state, {"loss": loss.detach(), **norms}
+    return step
+
+
+def make_eval_step(cfg: TemporalModelConfig):
+    """step(params, src, tgt, ib, n_valid) -> masked MSE of the
+    deterministic forward over a batch padded to a fixed size."""
+    @torch.no_grad()
+    def step(params, src, tgt, ib, n_valid):
+        out = temporal_forward(params, cfg, src, ib)
+        return M.masked_mse(out, tgt, n_valid)
+    return step
+
+
+def _unported(tcfg, mesh, seq_mesh, pipe_mesh, profile_dir):
+    names = [name for name, value in (("mesh", mesh), ("seq_mesh", seq_mesh),
+                                      ("pipe_mesh", pipe_mesh),
+                                      ("profile_dir", profile_dir))
+             if value is not None]
+    if tcfg.dataset_time_shifting:
+        names.append("dataset_time_shifting")
+    if tcfg.log_per_tensor:
+        names.append("log_per_tensor")
+    if names:
+        raise NotImplementedError(
+            f"{', '.join(names)}: not ported to sea_tpu_torch yet; the port "
+            "trains on one device (see ROADMAP.md)")
+
+
+def train(case: CaseConfig,
+          error_tracker: Optional[BaseErrorTracker] = None, *, device,
+          data=None, seed: int = 0, epochs: Optional[int] = None,
+          init_params=None, init_opt_state=None, mesh=None, seq_mesh=None,
+          pipe_mesh=None, profile_dir: Optional[str] = None):
+    """Train the temporal model of ``case`` on ``device``; returns
+    (best-validation params as a numpy tree, TemporalData).
+
+    init_params / init_opt_state: numpy trees in the JAX package's layout
+    (``jax.tree.map(np.asarray, .)`` of its params and of
+    ``tx.init(params)``, or a restored checkpoint). Without init_params
+    the weights are the port's own init, drawn from a torch.Generator
+    seeded with the 64 bits of the init key: the JAX init's
+    distributions, not its numbers. Everything after the init — batch
+    order, dropout masks, the update — follows the JAX driver."""
+    tracker = error_tracker or NoOpErrorTracker()
+    tcfg = case.temporal_train
+    _unported(tcfg, mesh, seq_mesh, pipe_mesh, profile_dir)
+    device = torch.device(device)
+    td = process_data(case, data=data, device=device)
+    cfg = case.temporal
+    # Time-constant conditioning, detected from the data (never guessed):
+    # the ib-only sites compute on [B, 1] rows and the fused AdaLN kernels
+    # take the [B, 1, E] cond, as in the JAX driver.
+    if not cfg.ib_time_constant and cfg.ln_type == "adaln" \
+            and ib_is_time_constant(td.train, td.val, td.test):
+        cfg = dataclasses.replace(cfg, ib_time_constant=True)
+        print("ib constant over time in every split: conditioning "
+              "computed per trajectory and broadcast (ib_time_constant)")
+
+    rng, init_key = split(prng_key(seed))
+    if init_params is not None:
+        params = from_numpy(init_params, device)
+    else:
+        gen = torch.Generator().manual_seed((init_key[0] << 32)
+                                            | init_key[1])
+        params = init_temporal(cfg, gen, device=device)
+    tx = make_optimizer(tcfg)
+    tracker.log_model(params, "MSE", tcfg.optimizer)
+    opt_state = (opt_state_from_numpy(init_opt_state, device)
+                 if init_opt_state is not None else tx.init(params))
+    train_step = make_train_step(cfg, tx, log_norms=tcfg.log_norms)
+    eval_step = make_eval_step(cfg)
+
+    n_epochs = epochs if epochs is not None else tcfg.epoch_num
+    batch_size = tcfg.batch_size
+    best_val = float("inf")
+    best_rollout = float("inf")
+    best_params = to_numpy(params)
+    start = time.time()
+
+    # The train and validation splits live on the device; each step
+    # gathers its batch there with the host's index stream.
+    def resident(w: TemporalWindows):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                     for a in (w.src, w.tgt, w.ib))
+
+    def gather(arrays, idx):
+        sel = torch.from_numpy(np.asarray(idx)).to(device)
+        return tuple(a.index_select(0, sel) for a in arrays)
+
+    train_split, val_split = resident(td.train), resident(td.val)
+
+    for epoch in range(1, n_epochs + 1):
+        acc = M.StatsAccumulator()
+        for sel in batch_index_iterator(
+                len(td.train.src), batch_size, shuffle=True,
+                seed=case.temporal_split.random_seed, epoch=epoch,
+                drop_remainder=True):
+            rng, step_key = split(rng)
+            src, tgt, ib = gather(train_split, sel)
+            params, opt_state, stats = train_step(params, opt_state, src,
+                                                  tgt, ib, step_key)
+            acc.add(stats)
+        if acc.count == 0:
+            raise ValueError(f"train split has fewer than one batch of "
+                             f"{batch_size} windows")
+        agg = acc.means()  # the epoch's one read from the device
+        train_loss = agg["loss"]
+        tracker.record_error("train", epoch, {
+            "Loss": train_loss, "Grad_Norm": agg["grad_norm"],
+            "Param_Norm": agg["param_norm"]})
+
+        if epoch % tcfg.validation_interval == 0 or epoch == n_epochs:
+            vacc = M.StatsAccumulator()
+            for idx, n_valid in padded_batch_index_iterator(
+                    len(td.val.src), tcfg.eval_batch_size):
+                src, tgt, ib = gather(val_split, idx)
+                vacc.add(eval_step(params, src, tgt, ib, n_valid))
+            val_loss = vacc.means().get("loss", 0.0)
+            val_metrics = {"Loss": val_loss}
+
+            if epoch % tcfg.full_eval_interval == 0:
+                from sea_tpu_torch.train.evaluate import \
+                    fused_autoregressive_evaluation
+                results = fused_autoregressive_evaluation(
+                    params, case, td.val, td.latent_service,
+                    td.mesh_processor)
+                val_metrics["Full_Encoded_Rel_MSE"] = \
+                    results["encoded_rel_mse"]
+                val_metrics["Full_Decoded_Rel_MSE"] = \
+                    results["decoded_rel_mse"]
+                if results["decoded_rel_mse"] < best_rollout:
+                    best_rollout = results["decoded_rel_mse"]
+                    save_checkpoint(
+                        case.run.save_dir, "temporal_Checkpoint",
+                        case.run.case_name, case.run.run_name,
+                        to_numpy(params),
+                        meta={"epoch": epoch,
+                              "decoded_rel_mse": best_rollout})
+                    print("--- Checkpoint Model Saved ---")
+
+            tracker.record_error("val", epoch, val_metrics)
+            print(f"Epoch {epoch}/{n_epochs} train Loss {train_loss:.8f} | "
+                  f"val Loss {val_loss:.8f}")
+
+            if val_loss < best_val:
+                best_val = val_loss
+                best_params = to_numpy(params)
+                save_checkpoint(
+                    case.run.save_dir, "temporal", case.run.case_name,
+                    case.run.run_name, best_params,
+                    opt_state=opt_state_to_numpy(opt_state),
+                    meta={"epoch": epoch, "val_loss": best_val})
+                print("--- New Best Model Saved ---")
+
+    print(f"Total training time: {time.time() - start:.2f} seconds")
+    tracker.finish()
+    return best_params, td

@@ -4,8 +4,9 @@ A parameter tree is the JAX package's pytree layout — nested dicts and
 lists with the npz paths as keys (``blocks/0/self_attn/0/q/w``), linear
 weights ``[d_in, d_out]`` — with ``torch.Tensor`` leaves. ``from_numpy``
 and ``to_numpy`` move a tree between the two packages unchanged, so a
-checkpoint written by either CLI (``sea_tpu.utils.checkpoint.save_pytree``)
-serves in the other.
+checkpoint written by either CLI (npz, ``utils.checkpoint.save_pytree``)
+serves in the other; ``opt_state_to_numpy`` and ``opt_state_from_numpy``
+do the same for the AdamW state.
 """
 
 from __future__ import annotations
@@ -19,10 +20,23 @@ def tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
+        children = [tree_map(fn, v) for v in tree]
+        if hasattr(tree, "_fields"):  # namedtuple
+            return type(tree)(*children)
+        return type(tree)(children)
     if tree is None:
         return None
     return fn(tree)
+
+
+def tree_leaves(tree):
+    """Leaves of a dict/list/tuple tree in the order npz paths list them
+    (dict insertion order, then index); None dropped."""
+    if isinstance(tree, dict):
+        return [l for v in tree.values() for l in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [l for v in tree for l in tree_leaves(v)]
+    return [] if tree is None else [tree]
 
 
 def from_numpy(tree, device) -> dict:
@@ -39,14 +53,37 @@ def to_numpy(tree) -> dict:
     return tree_map(lambda t: t.detach().cpu().numpy(), tree)
 
 
+def opt_state_to_numpy(state):
+    """The port's AdamW state (train/optim.py) -> the numpy tree of
+    ``jax.tree.map(np.asarray, optax.adamw(...).init(params))``: the same
+    npz paths, count as int32."""
+    from sea_tpu_torch.train.optim import ScaleByAdamState
+    adam = state[0]
+    return (ScaleByAdamState(np.asarray(adam.count, dtype=np.int32),
+                             to_numpy(adam.mu), to_numpy(adam.nu)),
+            ) + tuple(() for _ in state[1:])
+
+
+def opt_state_from_numpy(tree, device):
+    """An optax adamw state of numpy arrays (``jax.tree.map(np.asarray,
+    tx.init(p))``, or a ``restore_pytree`` result) -> the port's AdamW
+    state: moments on ``device``, the count on the host."""
+    from sea_tpu_torch.train.optim import ScaleByAdamState
+    count, mu, nu = tree[0]
+    return (ScaleByAdamState(torch.tensor(np.asarray(count),
+                                          dtype=torch.int32),
+                             from_numpy(mu, device), from_numpy(nu, device)),
+            ) + tuple(() for _ in tree[1:])
+
+
 def save_init_checkpoints(case, save_dir: str, *, seed: int) -> dict:
     """Initialise the port's stage-1 and stage-2 models for ``case`` from
     seeded ``torch.Generator``s (``seed`` and ``seed + 1``), the stage-1
     model sized for the data ``temporal test --synthetic`` builds, and write
     both checkpoints where that command loads them from ``save_dir``.
     Returns the numpy trees by checkpoint kind."""
-    from sea_tpu.data.mesh import MeshProcessor
-    from sea_tpu.utils.checkpoint import checkpoint_path, save_pytree
+    from sea_tpu_torch.data.mesh import MeshProcessor
+    from sea_tpu_torch.utils.checkpoint import checkpoint_path, save_pytree
     from sea_tpu_torch.cli import _load_data
     from sea_tpu_torch.models.spatial import init_spatial
     from sea_tpu_torch.models.temporal import init_temporal

@@ -180,7 +180,8 @@ def test_cuda_device_without_cuda_raises():
 
 
 @pytest.mark.parametrize("argv", [
-    ["encoder", "train"], ["temporal", "train"], ["temporal", "generate"],
+    ["encoder", "train"], ["temporal", "train", "--seq_parallel", "2"],
+    ["temporal", "generate"],
     ["temporal", "test", "--precision", "bf16"],
     ["temporal", "test", "--model_path", "model.pt"]])
 def test_unported_modes_and_flags_name_the_roadmap(argv, capsys):
@@ -191,28 +192,64 @@ def test_unported_modes_and_flags_name_the_roadmap(argv, capsys):
 
 def test_port_imports_no_jax():
     """Every module of sea_tpu_torch, and chip_smoke.py, imports with jax
-    made unimportable; chip_smoke.py names no module of the JAX package."""
+    and the JAX package made unimportable."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['sea_tpu'] = None\n"
         "import sea_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    sea_tpu_torch.__path__, 'sea_tpu_torch.')\n"
         "    if not m.name.endswith('__main__')]\n"
         "for name in names + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
-        "assert not any(m == 'jax' or m.startswith('jax.') for m in\n"
+        "assert not any(m.split('.')[0] in ('jax', 'sea_tpu') for m in\n"
         "               sys.modules if sys.modules[m] is not None)\n"
         "print(len(names))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout) >= 15
-    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+    assert int(proc.stdout) >= 30
+
+
+def _imported_modules(path):
+    with open(path) as f:
         tree = ast.parse(f.read())
-    imported = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
-                for a in n.names}
-    imported |= {n.module for n in ast.walk(tree)
-                 if isinstance(n, ast.ImportFrom)}
-    assert not {m for m in imported
-                if m.split(".")[0] in ("jax", "jaxlib", "sea_tpu")}
+    names = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names}
+    names |= {n.module for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.module}
+    return names
+
+
+def test_port_sources_name_no_jax_module():
+    """No import statement in sea_tpu_torch/ or chip_smoke.py, at any
+    depth (lazy imports inside functions included), names jax, jaxlib or
+    a module of the JAX package."""
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "sea_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) >= 30
+    for path in files:
+        bad = {m for m in _imported_modules(path)
+               if m.split(".")[0] in ("jax", "jaxlib", "sea_tpu")}
+        assert not bad, (path, bad)
+
+
+@pytest.mark.parametrize("name", ["cylinder_flow", "cylinder_flow_smoke",
+                                  "cylinder_flow_smoke_deep",
+                                  "multiphase_flow"])
+def test_copied_configs_equal_jax_configs(name):
+    """The port's copy of each shipped config equals the JAX package's,
+    field for field."""
+    import importlib
+    want = importlib.import_module(f"sea_tpu.configs.{name}").get_case()
+    got = torch_cli.get_case(name)
+    assert type(got).__module__ == "sea_tpu_torch.configs.base"
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    for section in ("temporal", "spatial", "mesh"):
+        for prop in ("num_patches", "num_groups", "internal_embed_dim",
+                     "down_dim", "ib_dim"):
+            if hasattr(getattr(want, section), prop):
+                assert getattr(getattr(got, section), prop) == \
+                    getattr(getattr(want, section), prop)

@@ -1,0 +1,300 @@
+"""The port's temporal training path against the JAX package, on the CPU.
+
+- utils.prng against jax.random (PRNGKey, fold_in, split, key_data) and
+  the dropout hash against the JAX functions: bit for bit.
+- The dropout forward and one make_train_step step of a cut-down cylinder
+  model (E=128, 8 heads, T=40, dropout 0.1, AdaLN with time-constant ib,
+  stacked fields) against the JAX ones, from the same params and key. The
+  JAX package runs its Pallas kernels in interpret mode with the dispatch
+  gates forced open (as tests/test_kernel_shard.py does), so both sides
+  draw the same (bh, q, k) attention masks and flat-position MLP masks.
+- train(epochs=1) on cylinder_flow_smoke with synthetic data and the same
+  initial weights, against JAX's train; the port's checkpoint loads with
+  the JAX load_full_checkpoint and serves in the JAX CLI.
+
+Tolerances. The forward and the loss: atol 1e-5 (f32, summation order).
+Gradients (read through the first Adam moment, mu = 0.1 g) and norms:
+rtol 1e-4 with atol 1e-7 x the gradient scale. Updated parameters: atol
+2e-6. After k Adam steps a parameter moves by lr x mu/(sqrt(nu)+eps), which
+is ~lr x sign(g) for every gradient well above eps; summation-order noise
+only moves the ratio where |g| is near eps = 1e-8, so the parameters
+agree to a small fraction of lr = 1e-4.
+"""
+
+import dataclasses
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sea_tpu_torch.models import temporal as TT
+from sea_tpu_torch.ops import layers as L
+from sea_tpu_torch.train import optim as TO
+from sea_tpu_torch.train import train_temporal as TTR
+from sea_tpu_torch.utils import prng
+from sea_tpu_torch.utils.params import (from_numpy, opt_state_from_numpy,
+                                        opt_state_to_numpy, to_numpy)
+
+torch.set_num_threads(2)
+
+FWD_ATOL = 1e-5
+PARAM_ATOL = 2e-6
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+@pytest.fixture
+def jax_kernels(monkeypatch):
+    """The JAX package's flash and fused AdaLN kernels in interpret mode,
+    dispatched wherever it would take them on a TPU."""
+    from sea_tpu.ops import flash_attention as jfa
+    from sea_tpu.ops import fused_adaln as jfal
+    monkeypatch.setattr(jfa, "_FORCE_INTERPRET", True)
+    monkeypatch.setattr(jfal, "_FORCE_INTERPRET", True)
+    monkeypatch.setattr(jfa, "flash_supported", lambda *a, **k: True)
+
+
+@pytest.mark.parametrize("seed", [0, 42, 2 ** 32 - 1])
+def test_prng_matches_jax_random(seed):
+    key = jax.random.PRNGKey(seed)
+    port = prng.prng_key(seed)
+    assert tuple(int(w) for w in np.asarray(jax.random.key_data(key))) \
+        == port
+    for d in (0, 1, 5, 2 ** 31 + 3):
+        assert tuple(int(w) for w in np.asarray(jax.random.fold_in(key, d))) \
+            == prng.fold_in(port, d)
+    assert [tuple(int(w) for w in k) for k in
+            np.asarray(jax.random.split(key, 5))] == prng.split(port, 5)
+    from sea_tpu.ops.attention import _key_to_seed
+    assert tuple(int(w) for w in np.asarray(_key_to_seed(
+        jax.random.fold_in(key, 9)))) == prng.key_to_seed(
+            prng.fold_in(port, 9))
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_dropout_hash_matches_jax(rate):
+    from sea_tpu.ops import layers as JL
+    from sea_tpu.ops.flash_attention import dropout_scale_from_positions
+    q = np.arange(-3, 300, dtype=np.int32)[:, None]
+    k = np.arange(257, dtype=np.int32)[None, :]
+    for s0, s1 in ((0, 0), (-5, 123456), (2 ** 31 - 1, -2 ** 31)):
+        with np.errstate(over="ignore"):
+            want = np.asarray(dropout_scale_from_positions(
+                np.int32(s0), np.int32(s1), np.int32(13), q, k, rate=rate))
+        got = L.dropout_scale_from_positions(
+            s0, s1, 13, torch.from_numpy(q).long(), torch.from_numpy(k).long(),
+            rate=rate).numpy()
+        np.testing.assert_array_equal(got, want)
+    x = np.random.RandomState(0).randn(2, 5, 33).astype(np.float32)
+    key = prng.fold_in(prng.prng_key(7), 3)
+    want = JL.dropout(jnp.asarray(x), rate,
+                      jax.random.fold_in(jax.random.PRNGKey(7), 3), False)
+    np.testing.assert_array_equal(L.dropout(torch.from_numpy(x), rate,
+                                            key).numpy(), np.asarray(want))
+
+
+def _small_cylinder_cfg():
+    from sea_tpu.configs.cylinder_flow import get_case
+    return dataclasses.replace(get_case().temporal, embed_dim=128,
+                               ib_time_constant=True)
+
+
+def _batch(cfg, B=2, T=40, seed=0):
+    rs = np.random.RandomState(seed)
+    x = rs.randn(B, T, cfg.num_fields, cfg.embed_dim).astype(np.float32)
+    tgt = rs.randn(*x.shape).astype(np.float32)
+    ib = np.repeat(rs.rand(B, 1, cfg.ib_num), T, axis=1).astype(np.float32)
+    return x, tgt, ib
+
+
+def test_dropout_forward_matches_jax(jax_kernels):
+    from sea_tpu.models import temporal as JT
+    cfg = _small_cylinder_cfg()
+    params = _np(JT.init_temporal(jax.random.PRNGKey(0), cfg))
+    x, _, ib = _batch(cfg)
+    key = prng.fold_in(prng.prng_key(3), 11)
+    want = JT.temporal_forward(params, cfg, jnp.asarray(x), jnp.asarray(ib),
+                               rng=jax.random.fold_in(
+                                   jax.random.PRNGKey(3), 11),
+                               deterministic=False)
+    got = TT.temporal_forward(from_numpy(params, "cpu"), cfg,
+                              torch.from_numpy(x), torch.from_numpy(ib),
+                              rng=key, deterministic=False)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=FWD_ATOL)
+    # Dropout is on: the deterministic forward differs.
+    det = TT.temporal_forward(from_numpy(params, "cpu"), cfg,
+                              torch.from_numpy(x), torch.from_numpy(ib))
+    assert (det - got).abs().max() > 1e-2
+
+
+def _assert_tree_close(got, want, atol, rtol=0.0):
+    flat_got = jax.tree_util.tree_flatten_with_path(got)[0]
+    flat_want = dict(jax.tree_util.tree_flatten_with_path(want)[0])
+    assert len(flat_got) == len(flat_want)
+    for path, a in flat_got:
+        np.testing.assert_allclose(np.asarray(a), np.asarray(flat_want[path]),
+                                   rtol=rtol, atol=atol,
+                                   err_msg=jax.tree_util.keystr(path))
+
+
+def test_train_step_matches_jax(jax_kernels):
+    """One step from the same params, batch and key: loss, norms, the
+    gradients (as mu = 0.1 g), nu and the updated parameters."""
+    from sea_tpu.configs.cylinder_flow import get_case
+    from sea_tpu.models import temporal as JT
+    from sea_tpu.train.optim import make_optimizer as jax_optimizer
+    from sea_tpu.train.train_temporal import make_train_step as jax_step
+    cfg = _small_cylinder_cfg()
+    tcfg = get_case().temporal_train
+    params = _np(JT.init_temporal(jax.random.PRNGKey(0), cfg))
+    x, tgt, ib = _batch(cfg, seed=1)
+    tx = jax_optimizer(tcfg)
+    step = jax_step(cfg, tx)
+    jp, jstate, jstats = step(jax.tree.map(jnp.asarray, params),
+                              tx.init(params), jnp.asarray(x),
+                              jnp.asarray(tgt), jnp.asarray(ib),
+                              jax.random.fold_in(jax.random.PRNGKey(5), 2))
+    ttx = TO.make_optimizer(tcfg)
+    tparams = from_numpy(params, "cpu")
+    tp, tstate, tstats = TTR.make_train_step(cfg, ttx)(
+        tparams, ttx.init(tparams), torch.from_numpy(x),
+        torch.from_numpy(tgt), torch.from_numpy(ib),
+        prng.fold_in(prng.prng_key(5), 2))
+    np.testing.assert_allclose(float(tstats["loss"]), float(jstats["loss"]),
+                               rtol=0, atol=FWD_ATOL)
+    for k in ("grad_norm", "param_norm"):
+        np.testing.assert_allclose(float(tstats[k]), float(jstats[k]),
+                                   rtol=1e-4, err_msg=k)
+    got_state = opt_state_to_numpy(tstate)
+    want_state = _np(jstate)
+    assert int(got_state[0].count) == int(want_state[0].count) == 1
+    gscale = float(jstats["grad_norm"])
+    _assert_tree_close(got_state[0].mu, want_state[0].mu,
+                       atol=1e-7 * gscale, rtol=1e-4)
+    _assert_tree_close(got_state[0].nu, want_state[0].nu,
+                       atol=1e-7 * gscale ** 2, rtol=1e-3)
+    _assert_tree_close(to_numpy(tp), _np(jp), atol=PARAM_ATOL)
+
+
+def test_optimizer_state_has_optax_layout():
+    """The port's AdamW state flattens to tx.init's npz paths and crosses
+    to and from the optax tree unchanged."""
+    import optax
+    from sea_tpu.utils.checkpoint import _flatten
+    params = {"a": np.ones((3, 2), np.float32),
+              "b": [np.zeros(4, np.float32)]}
+    want = _np(optax.adamw(1e-4).init(params))
+    state = TO.AdamW(1e-4).init(from_numpy(params, "cpu"))
+    got = opt_state_to_numpy(state)
+    assert {k: (v.shape, v.dtype) for k, v in _flatten(got).items()} == \
+        {k: (v.shape, v.dtype) for k, v in _flatten(want).items()}
+    back = opt_state_to_numpy(opt_state_from_numpy(want, "cpu"))
+    _assert_tree_close(back, got, atol=0)
+
+
+def test_unported_options_raise():
+    from sea_tpu_torch.configs.cylinder_flow import get_case
+    tcfg = get_case().temporal_train
+    for change in (dict(scheduler="linear"), dict(optimizer="adafactor"),
+                   dict(adam_mu_dtype="bfloat16"),
+                   dict(compute_dtype="bfloat16_shadow")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TO.make_optimizer(dataclasses.replace(tcfg, **change))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TTR.train(get_case(), device="cpu", seq_mesh=object())
+
+
+def test_train_matches_jax_and_checkpoint_crosses(tmp_path, jax_kernels,
+                                                  capsys):
+    """train(epochs=1) from the same weights on the same synthetic data;
+    the port's checkpoint then loads in JAX's load_full_checkpoint."""
+    from sea_tpu.configs.cylinder_flow_smoke import get_case as jax_case
+    from sea_tpu.models.temporal import init_temporal as jax_init
+    from sea_tpu.train.optim import make_optimizer as jax_optimizer
+    from sea_tpu.train.train_temporal import train as jax_train
+    from sea_tpu.utils.checkpoint import load_full_checkpoint
+    from sea_tpu_torch.cli import _load_data
+    from sea_tpu_torch.configs.cylinder_flow_smoke import get_case
+    from sea_tpu_torch.utils.params import save_init_checkpoints
+
+    case = get_case()
+    data = _load_data(case, synthetic=True)
+    T = data[0].shape[1]
+    dirs = {}
+    for side in ("jax", "port"):
+        dirs[side] = str(tmp_path / side)
+        save_init_checkpoints(case, dirs[side], seed=1)
+
+    def cut(c, side):
+        return c.replace(
+            temporal_train=dataclasses.replace(c.temporal_train,
+                                               dataset_src_len=T - 1),
+            run=dataclasses.replace(c.run, save_dir=dirs[side]))
+
+    jcase = cut(jax_case(), "jax")
+    init = _np(jax_init(jax.random.PRNGKey(4), jcase.temporal))
+    want, _ = jax_train(jcase, data=data, epochs=1, init_params=init)
+    got, _ = TTR.train(cut(case, "port"), device="cpu", data=data, epochs=1,
+                       init_params=init)
+    _assert_tree_close(got, _np(want), atol=PARAM_ATOL)
+    out = capsys.readouterr().out
+    assert out.count("Epoch 1/1") == 2
+
+    template = jax_init(jax.random.PRNGKey(0), jcase.temporal)
+    path = os.path.join(dirs["port"], "temporal_cylinder_flow_run1.npz")
+    params, opt, meta = load_full_checkpoint(
+        path, template, jax_optimizer(jcase.temporal_train).init(template))
+    _assert_tree_close(_np(params), got, atol=0)
+    jpath = os.path.join(dirs["jax"], "temporal_cylinder_flow_run1.npz")
+    _, jopt, jmeta = load_full_checkpoint(
+        jpath, template, jax_optimizer(jcase.temporal_train).init(template))
+    assert int(meta["epoch"]) == int(jmeta["epoch"]) == 1
+    np.testing.assert_allclose(meta["val_loss"], jmeta["val_loss"],
+                               rtol=1e-5)
+    assert int(opt[0].count) == int(jopt[0].count) == 2
+    _assert_tree_close(_np(opt[0].nu), _np(jopt[0].nu), atol=1e-12,
+                       rtol=2e-3)
+
+
+def test_jax_cli_serves_port_trained_checkpoint(tmp_path, capsys,
+                                                monkeypatch):
+    """`temporal train` through the port's CLI writes a checkpoint that the
+    JAX CLI's `temporal test` serves; both CLIs print the same metrics
+    from it (rtol 1e-4, the bound of tests/test_torch_e2e.py)."""
+    import re
+
+    from sea_tpu import cli as jax_cli
+    from sea_tpu.train import evaluate as jax_evaluate
+    from sea_tpu_torch import cli as torch_cli
+    from sea_tpu_torch.utils.params import save_init_checkpoints
+    for name in ("plot_all_fields_2d", "plot_all_fields_3d",
+                 "plot_rollout_error"):
+        monkeypatch.setattr(jax_evaluate, name, lambda *a, **k: None)
+    save = str(tmp_path)
+    save_init_checkpoints(torch_cli.get_case("cylinder_flow_smoke"), save,
+                          seed=2)
+    base = ["cylinder_flow_smoke", "temporal"]
+    common = ["--synthetic", "--save_dir", save]
+    params = torch_cli.main(base + ["train", "--epochs", "1"] + common
+                            + ["--device", "cpu"])
+    assert "New Best Model Saved" in capsys.readouterr().out
+    assert all(np.isfinite(a).all() for a in jax.tree.leaves(params))
+
+    def metrics(out):
+        return {k: float(re.search(rf"^{k}: (\S+)$", out, re.M).group(1))
+                for k in ("encoded_rel_mse", "decoded_rel_mse")}
+
+    jax_cli.main(base + ["test"] + common + ["--platform", "cpu"])
+    want = metrics(capsys.readouterr().out)
+    torch_cli.main(base + ["test"] + common + ["--device", "cpu"])
+    got = metrics(capsys.readouterr().out)
+    for key in want:
+        assert np.isfinite(want[key])
+        np.testing.assert_allclose(got[key], want[key], rtol=1e-4,
+                                   err_msg=key)
