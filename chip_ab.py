@@ -1,0 +1,62 @@
+"""Time two or more checkouts of this repo on one card, in turn.
+
+    python3 chip_ab.py ROOT [ROOT ...]
+
+Each ROOT is a checkout that holds ``chip_smoke.py`` and ``sea_tpu_torch/``
+(for instance a parent commit unpacked with ``git archive`` into
+``build/``, which git ignores). For each ROOT in the order given, a process
+of its own builds that checkout's kernels, makes the seeded weights and runs
+its ``chip_smoke.py`` phases ``[train-time]`` (the full-recipe cylinder
+train step, with its profile) and ``[rollout]`` (250-step f32 multiphase
+rollouts at B=1 and B=8). Host-clock rates move between machines more than
+between versions, so compare versions only within one run of this script,
+and give the roots as A B B A to see the drift within it. Each output line
+is printed behind its root's index and path. Exits 1 if any run failed.
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+_CHILD = """
+import sys, tempfile
+from pathlib import Path
+import torch
+root = Path(sys.argv[1])
+sys.path.insert(0, str(root))
+import chip_smoke as cs
+from sea_tpu_torch.cli import get_case
+from sea_tpu_torch.utils.params import save_init_checkpoints
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+train_case, case = get_case(cs.TRAIN_CASE), get_case(cs.CASE)
+(root / "build").mkdir(exist_ok=True)
+with tempfile.TemporaryDirectory(dir=root / "build") as d:
+    train_np = save_init_checkpoints(train_case, d, seed=1)["temporal"]
+    serve_np = save_init_checkpoints(case, d, seed=1)["temporal"]
+cs.phase_train_time(train_case, train_np)
+cs.phase_time_rollout(case, serve_np)
+"""
+
+
+def main(roots):
+    if not roots:
+        sys.exit(__doc__)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip(), flush=True)
+    failed = 0
+    for i, root in enumerate(roots):
+        root = Path(root).resolve()
+        proc = subprocess.run([sys.executable, "-c", _CHILD, str(root)],
+                              cwd=root, capture_output=True, text=True)
+        for line in (proc.stdout + proc.stderr).splitlines():
+            print(f"[{i} {root.name}] {line}", flush=True)
+        print(f"[{i} {root.name}] exit {proc.returncode}", flush=True)
+        failed |= proc.returncode != 0
+    sys.exit(1 if failed else 0)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -5,17 +5,23 @@ Run from the root of a checkout, on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It builds every hand-written kernel of the port from the sources in the
-checkout (the two CUDA sources with one nvcc each, started together; the
-Triton kernels at their first launch) and holds each against its plain
-PyTorch version at the shapes its path gives it. Then it drives the
-port's two paths through its CLI at full width, each with the launch
-counts set to 0 just before and read just after:
+checkout (the three CUDA sources with one nvcc each, started together;
+the Triton kernels at their first launch) and holds each against its
+plain PyTorch version at the shapes its path gives it. Then it drives the
+port's paths at full width, each with the launch counts set to 0 just
+before and read just after:
 
+- the dropout verification (a port of tools/verify_flash_dropout.py):
+  the dense mask kernel's mask drives an autograd oracle that the flash
+  kernels' output and gradients must match.
 - serving: `multiphase_flow temporal test --synthetic` (E=2048, 8 heads,
-  MLP x8; random weights from a seeded torch.Generator). It checks that
-  every attention of every rollout step ran the flash-decode kernel,
-  compares rollout steps on the card with the same steps on the CPU,
-  times 250-step rollouts and profiles them with torch.profiler.
+  MLP x8; random weights from a seeded torch.Generator) at f32, at
+  `--precision int4 --kv_cache int8` (the int4 matvec and int8-KV decode
+  kernels), `int8` and `bf16`. It checks that every attention and every
+  int4 linear of every rollout step ran its kernel, compares rollout steps
+  on the card with the same steps on the CPU (f32, and int4 weights with
+  an int8 cache), times 250-step rollouts and profiles them with
+  torch.profiler.
 - training: `cylinder_flow temporal train --synthetic --epochs 2` (E=1024,
   8 heads, MLP x8, dropout 0.1, AdaLN). It checks the loss and norms, the
   checkpoint, and that the launches of the flash-attention kernels
@@ -62,6 +68,35 @@ KERNEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 ROLLOUT_STEPS_CHECKED = 8
 ROLLOUT_ATOL = 1e-3
 TIMED_STEPS = 250
+# int8-KV decode: the kernel rounds p * v_scale to bf16 against each
+# stream's running max, the plain version against the global max (bf16
+# order, as for the bf16 cache).
+Q8_SHAPES = [(1, 8, 250, 256), (8, 8, 250, 256), (8, 8, 250, 128),
+             (2, 8, 399, 64)]
+Q8_TOL = 2e-2
+# int4 matvec: (K, N) of every int4 linear of the multiphase rollout step,
+# each at M = 1 and M = 8 rows.
+INT4_SHAPES = [(2048, 6144), (2048, 2048), (2048, 1024), (1024, 1024),
+               (1024, 2048), (2048, 16384), (16384, 2048)]
+# Kernel vs plain: f32 sums in another order over K exact products, held
+# to 1e-5 of the sum of the products' magnitudes (sum_k |x_k w_kn| s_n).
+INT4_REL_TOL = 1e-5
+# The dropout verification (tools/verify_flash_dropout.py): B, T, H, hd,
+# rate, causal. Flash vs the mask oracle is f32 summation order, the
+# bounds of the kernel check; a wrong mask bit is off by O(|v|).
+DROPOUT_SHAPE = (2, 512, 4, 64)
+DROPOUT_RATE = 0.1
+DROPOUT_SEEDS = ((123, 456), (7, 8))
+# Card vs CPU, 8 rollout steps with int4 weights and an int8 cache: the
+# kernels round x and q to bf16, the int8-KV kernel rounds p * v_scale to
+# bf16 against its streams' running maxima (2e-3 to 3e-3 from the plain
+# version by itself, [kernel]), and the cache rounds k and v to int8, so
+# f32 order noise that moves a value across a rounding boundary becomes a
+# step of 2^-8 relative or of one int8 level, which the autoregressive
+# loop carries on: measured 6e-4 after one step growing to 0.045 after
+# eight on an H100 (|y| up to 4). Held to about twice that; a wrong scale
+# or plane is off by O(|y|).
+ROLLOUT_Q_ATOL = 0.1
 
 TRAIN_CASE = "cylinder_flow"
 TRAIN_EPOCHS = 2
@@ -91,10 +126,12 @@ ADALN_TOL = {"out": (2e-6, 1e-7), "grad": (1e-4, 1e-4)}
 # near eps: held to a tenth of lr = 1e-4.
 STEP_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "params": 1e-5}
 TRAIN_TIMED_STEPS = 25
-# NVIDIA H100 SXM data sheet: HBM rate and the f32 rate outside the
-# tensor cores (the kernels here run f32 FMAs on the CUDA cores).
+# NVIDIA H100 SXM data sheet (dense rates): HBM rate, the f32 rate outside
+# the tensor cores and the bf16 tensor-core rate. A bound takes the peak of
+# its operands' type, whatever units the kernel itself runs them on.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 
 
 def log(msg):
@@ -102,22 +139,23 @@ def log(msg):
 
 
 def phase_build():
-    """Both CUDA sources with one nvcc each, started together; then the
-    Triton kernels, compiled at their first launch."""
+    """The three CUDA sources with one nvcc each, started together; then
+    the Triton kernels, compiled at their first launch."""
     from sea_tpu_torch.ops import _build
     from sea_tpu_torch.ops import decode_attention as DA
     from sea_tpu_torch.ops import flash_attention as FA
     from sea_tpu_torch.ops import fused_adaln as FAL
+    from sea_tpu_torch.ops import quant_matmul as QM
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     log(smi.stdout.strip())
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        for future in [pool.submit(DA._library), pool.submit(FA._library)]:
+    with ThreadPoolExecutor(3) as pool:
+        for future in [pool.submit(lib._library) for lib in (DA, FA, QM)]:
             future.result()
-    log(f"[build] decode_attention.cu, flash_attention.cu -> "
-        f"{_build.BUILD_DIR} in {time.perf_counter() - t0:.2f} s")
+    log(f"[build] decode_attention.cu, flash_attention.cu, quant_matmul.cu "
+        f"-> {_build.BUILD_DIR} in {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     x = torch.randn(2, 8, 1024, device="cuda")
     cw = torch.randn(2, 1, 1024, device="cuda")
@@ -176,6 +214,187 @@ def phase_kernel_check():
     return worst
 
 
+def _q8_cases(shape):
+    """q [B,H,hd] and an int8 cache of quantized random tokens with their
+    per-token scales, as mha_step writes it."""
+    from sea_tpu_torch.ops.attention import _quantize_token
+    B, H, T, hd = shape
+    g = torch.Generator(device="cuda").manual_seed(7 + sum(shape))
+    q = torch.randn(B, H, hd, device="cuda", generator=g)
+    K8, ks = _quantize_token(torch.randn(B, H, T, hd, device="cuda",
+                                         generator=g))
+    V8, vs = _quantize_token(torch.randn(B, H, T, hd, device="cuda",
+                                         generator=g))
+    return q, K8, V8, ks, vs
+
+
+def phase_q8_check():
+    """The int8-KV kernel against decode_attention_q8_ref at the path's
+    shapes, t at 0, the split edges, the TPU kernel's 256-key block edge
+    and T-1; NaN scales past t must leave the output bit-identical (the
+    int8 planes cannot hold a NaN)."""
+    from sea_tpu_torch.ops import decode_attention as DA
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    worst = 0.0
+    for shape in Q8_SHAPES:
+        B, H, T, hd = shape
+        splits, chunk = DA.split_plan(T, B * H, sms)
+        positions = sorted({0, chunk - 1, chunk, 2 * chunk, 255, 256, T - 1}
+                           & set(range(T)))
+        q, K8, V8, ks, vs = _q8_cases(shape)
+        errs = []
+        for t in positions:
+            tt = torch.tensor([t], dtype=torch.int32, device="cuda")
+            got = DA.decode_attention(q, K8, V8, tt, k_scale=ks, v_scale=vs)
+            want = DA.decode_attention_q8_ref(q, K8, V8, ks, vs, tt)
+            torch.cuda.synchronize()
+            err = _err(got, want)
+            if not err <= Q8_TOL:
+                raise AssertionError(f"decode q8 {shape} t={t}: max abs err "
+                                     f"{err}")
+            ksn, vsn = ks.clone(), vs.clone()
+            ksn[:, :, t + 1:] = float("nan")
+            vsn[:, :, t + 1:] = float("nan")
+            if not torch.equal(DA.decode_attention(q, K8, V8, tt, k_scale=ksn,
+                                                   v_scale=vsn), got):
+                raise AssertionError(f"decode q8 {shape} t={t}: NaN scales "
+                                     "past t changed it")
+            errs.append(err)
+        worst = max(worst, max(errs))
+        log(f"[kernel] decode q8 {shape} splits={splits}x{chunk} "
+            f"t={positions}: max abs err {max(errs):.3g} <= {Q8_TOL}; NaN "
+            f"scales past t ignored")
+    return worst
+
+
+def _int4_cases(M, K, N, seed=0):
+    from sea_tpu_torch.ops import quant_matmul as QM
+    g = torch.Generator(device="cuda").manual_seed(seed + M + K + N)
+    q = torch.randint(-7, 8, (K, N), device="cuda", generator=g,
+                      dtype=torch.int8)
+    q[0, :8] = -8  # the nibble the quantizer never writes, but the format has
+    wp = QM.pack_int4(q)
+    s = torch.rand(N, device="cuda", generator=g) * 0.01 + 1e-3
+    x = torch.randn(M, K, device="cuda", generator=g)
+    return x, wp, s
+
+
+def phase_int4_check():
+    """The int4 kernel against int4_matvec_ref at every (K, N) of the
+    rollout step, M = 1 and 8; the bound scales with the sum of the
+    products' magnitudes."""
+    from sea_tpu_torch.ops import quant_matmul as QM
+    worst = 0.0
+    for K, N in INT4_SHAPES:
+        for M in (1, 8):
+            x, wp, s = _int4_cases(M, K, N)
+            got = QM.int4_matmul(x, wp, s)
+            want = QM.int4_matvec_ref(x, wp, s)
+            mag = (x.to(torch.bfloat16).float().abs()
+                   @ QM.unpack_int4(wp, torch.float32).abs()) * s
+            torch.cuda.synchronize()
+            err = _err(got, want)
+            if not bool(((got - want).abs() <= INT4_REL_TOL * mag).all()):
+                raise AssertionError(f"int4 (M,K,N)=({M},{K},{N}): max abs "
+                                     f"err {err}, magnitude {mag.max()}")
+            worst = max(worst, err)
+            log(f"[kernel] int4 (M,K,N)=({M},{K},{N}) splits="
+                f"{QM.split_plan(K, N, 132)}: max abs err {err:.3g} "
+                f"(|y| max {want.abs().max().item():.3g}) within "
+                f"{INT4_REL_TOL} x sum|x w s|")
+    return worst
+
+
+def phase_mask_check():
+    """The dense dropout-mask kernel against its plain version, bit for
+    bit, at the dropout verification's shape and a ragged one, with the
+    default bh and with a bh_map."""
+    from sea_tpu_torch.ops import flash_attention as FA
+    B, T, H, _ = DROPOUT_SHAPE
+    for BH, Tq, Tk in ((B * H, T, T), (3, 70, 130)):
+        for bh_map in (None, torch.tensor([5, 2, 7, 0, 1, 3, 4, 6][:BH],
+                                          dtype=torch.int32, device="cuda")):
+            got = FA.dropout_mask_dense(BH, Tq, Tk, DROPOUT_SEEDS[0],
+                                        DROPOUT_RATE, "cuda", bh_map=bh_map)
+            want = FA.dropout_mask_dense_ref(
+                torch.arange(BH, dtype=torch.int32, device="cuda")
+                if bh_map is None else bh_map, Tq, Tk, DROPOUT_SEEDS[0],
+                DROPOUT_RATE)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"dropout mask {(BH, Tq, Tk)} bh_map="
+                                     f"{bh_map}: {(got != want).sum()} "
+                                     "elements differ")
+            log(f"[kernel] dropout mask (BH,Tq,Tk)={(BH, Tq, Tk)} bh_map="
+                f"{'given' if bh_map is not None else 'default'}: bit for "
+                f"bit, keep share {(got > 0).float().mean().item():.5f}")
+    return 0.0
+
+
+def phase_flash_dropout():
+    """The dropout verification of tools/verify_flash_dropout.py on the
+    card: the dense mask kernel's mask feeds an autograd oracle (softmax
+    -> mask -> @ v); the flash kernels' output and dq/dk/dv must match it,
+    the same seed must repeat the output bit for bit and another seed must
+    change it, and the keep share must be within 4 sigma of 1 - rate."""
+    from sea_tpu_torch.ops import flash_attention as FA
+    B, T, H, hd = DROPOUT_SHAPE
+    rate, seed = DROPOUT_RATE, DROPOUT_SEEDS[0]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, gy = (torch.randn(B, T, H, hd, device="cuda", generator=g)
+                   for _ in range(4))
+    _reset_launch_counts()
+
+    def flash(seed_):
+        ts = [a.clone().requires_grad_(True) for a in (q, k, v)]
+        out = FA.flash_attention(*ts, True, 0, dropout_rate=rate,
+                                 dropout_seed=seed_)
+        out.backward(gy)
+        return [out.detach()] + [a.grad for a in ts]
+
+    mask = FA.dropout_mask_dense(B * H, T, T, seed, rate, "cuda")
+    got = flash(seed)
+    ts = [a.clone().requires_grad_(True) for a in (q, k, v)]
+    s = torch.einsum("bqhd,bkhd->bhqk", ts[0], ts[1]) * hd ** -0.5
+    causal = torch.ones(T, T, dtype=torch.bool, device="cuda").tril()
+    p = torch.softmax(s.masked_fill(~causal, float("-inf")), dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p * mask.reshape(B, H, T, T),
+                       ts[2])
+    out.backward(gy)
+    want = [out.detach()] + [a.grad for a in ts]
+    again = flash(seed)[0]
+    other = flash(DROPOUT_SEEDS[1])[0]
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    errs = {}
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        errs[name] = _err(a, b)
+        tol = FLASH_TOL["out" if name == "out" else "grad"]
+        if not errs[name] <= tol:
+            raise AssertionError(f"flash dropout {name}: max abs err "
+                                 f"{errs[name]} > {tol}")
+    if not torch.equal(got[0], again):
+        raise AssertionError("flash dropout: the same seed gave another "
+                             "output")
+    if torch.equal(got[0], other):
+        raise AssertionError("flash dropout: another seed gave the same "
+                             "output")
+    keep = (mask > 0).float().mean().item()
+    sigma = (rate * (1 - rate) / mask.numel()) ** 0.5
+    if not abs(keep - (1 - rate)) < 4 * sigma:
+        raise AssertionError(f"keep share {keep}, expected {1 - rate} +- "
+                             f"4 x {sigma}")
+    if launches["dropout_mask"] != 1 or launches["flash_fwd"] != 3:
+        raise AssertionError(f"dropout verification launches {launches}")
+    log(f"[flash-dropout] (B,T,H,hd)={DROPOUT_SHAPE} rate {rate} causal: "
+        f"flash vs mask oracle max abs err out {errs['out']:.3g} <= "
+        f"{FLASH_TOL['out']}, dq {errs['dq']:.3g}, dk {errs['dk']:.3g}, dv "
+        f"{errs['dv']:.3g} <= {FLASH_TOL['grad']}; same seed bit-identical, "
+        f"other seed differs; keep share {keep:.5f} (expected {1 - rate}, "
+        f"sigma {sigma:.2e}); mask launches {launches['dropout_mask']}")
+    return launches["dropout_mask"]
+
+
 def phase_serve(case, save_dir):
     """`temporal test` through the port's CLI on the card. Every attention
     of every rollout step must have launched the flash-decode kernel."""
@@ -211,6 +430,113 @@ def phase_serve(case, save_dir):
     return launches
 
 
+def _int4_sites_per_step(qparams, cfg):
+    """The int4 linears one rollout step runs (models/temporal.temporal_step
+    on fused, int4-quantized params): per layer and field the self-attention
+    qkv and proj; the exchange's cross_down of field i and, per partner j,
+    cross_down of j and the cross-attention q, kv and proj and cross_up;
+    the MLP and the block proj; once per layer the ib MLP unless the AdaLN
+    cond tables carry it. A site counts where the quantizer rewrote it
+    (w_p4), so the count follows min_size and the matrix shapes."""
+    G = cfg.num_fields
+
+    def n(p):
+        return int("w_p4" in p)
+
+    count = 0
+    for block in qparams["blocks"]:
+        if cfg.ln_type.lower() != "adaln":
+            count += sum(n(lay["lin"]) for lay in block["ib"]["layers"])
+        for i in range(G):
+            att = block["self_attn"][i]
+            count += n(att["qkv"]) + n(att["proj"]) + n(block["cross_down"][i])
+            for j in range(G):
+                if j != i:
+                    ca = block["cross_attn"][i][j]
+                    count += (n(block["cross_down"][j]) + n(ca["q"])
+                              + n(ca["kv"]) + n(ca["proj"])
+                              + n(block["cross_up"][i]))
+            count += sum(n(lay["lin"]) for lay in block["mlp"][i]["layers"])
+            count += n(block["proj"][i])
+    return count
+
+
+def phase_serve_reduced(case, save_dir, params_np):
+    """`temporal test` through the CLI at --precision int4 --kv_cache int8,
+    int8 and bf16. The weights are random, so the drift gate's budget is
+    1.0: the drift is printed, not gated. Exact launch counts: every
+    attention of every rollout step on the int8-KV kernel (int4) or the
+    f32 decode kernel (int8, bf16: their auto caches are f32); every int4
+    linear of every step on the int4 kernel; and the flash forwards of the
+    teacher-forced forwards that calibration (one batch) and the drift
+    gate (the f32 and the reduced model) run."""
+    from sea_tpu_torch import cli
+    from sea_tpu_torch.utils import precision as prec
+    from sea_tpu_torch.utils.params import from_numpy
+    tcfg = case.temporal
+    G, nl = tcfg.num_fields, tcfg.num_layers
+    attn_per_step = nl * (G + G * (G - 1))
+    attn_per_forward = nl * G * G
+    qparams = prec.quantize_weights_int4(prec.fuse_attention_projections(
+        from_numpy(params_np, "cuda")), scale="max")
+    int4_per_step = _int4_sites_per_step(qparams, tcfg)
+    del qparams
+    out = {}
+    for flags, forwards in (
+            (["--precision", "int4", "--kv_cache", "int8"], 1 + 2),
+            (["--precision", "int8"], 2), (["--precision", "bf16"], 0)):
+        mode = flags[1]
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        results = cli.main([CASE, "temporal", "test", "--synthetic",
+                            "--save_dir", save_dir, "--drift_budget", "1.0",
+                            "--device", "cuda"] + flags)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = _launch_counts()
+        T_roll = results["decoded_rel_mse_per_time"].shape[0]
+        expected = {name: 0 for name in counts}
+        expected["flash_fwd"] = attn_per_forward * forwards
+        if mode == "int4":
+            expected["decode_q8"] = attn_per_step * T_roll
+            expected["int4_matvec"] = int4_per_step * T_roll
+        else:
+            expected["decode_attention"] = attn_per_step * T_roll
+        if counts != expected:
+            raise AssertionError(f"[serve-{mode}] launches {counts}, "
+                                 f"expected {expected}")
+        for key in ("encoded_rel_mse", "decoded_rel_mse"):
+            if not np.isfinite(results[key]):
+                raise AssertionError(f"[serve-{mode}] {key} = {results[key]}")
+        if not np.all(np.isfinite(results["decoded_rel_mse_per_time"])):
+            raise AssertionError(f"[serve-{mode}] non-finite rel-MSE")
+        log(f"[serve-{mode}] {CASE} temporal test {' '.join(flags)}: "
+            f"{T_roll} steps in {seconds:.2f} s (the whole CLI run); "
+            f"encoded_rel_mse {results['encoded_rel_mse']:.6g}, "
+            f"decoded_rel_mse {results['decoded_rel_mse']:.6g}; launches "
+            f"{ {k: v for k, v in counts.items() if v} } = "
+            f"{attn_per_step} attentions and "
+            f"{int4_per_step if mode == 'int4' else 0} int4 linears x "
+            f"{T_roll} steps, {attn_per_forward} flash forwards x "
+            f"{forwards} teacher-forced forwards")
+        out[mode] = counts
+    return out
+
+
+def _reduced_params(params_np, mode):
+    """The multiphase params on the card in a serving mode of the port's
+    own transforms (fused projections first, as the CLI does; int4 with
+    MSE scales, no calibration)."""
+    from sea_tpu_torch.utils import precision as prec
+    from sea_tpu_torch.utils.params import from_numpy
+    params = from_numpy(params_np, "cuda")
+    if mode == "f32":
+        return params
+    fused = prec.fuse_attention_projections(params)
+    return {"bf16": prec.cast_weights_bf16, "int8": prec.quantize_weights_int8,
+            "int4": prec.quantize_weights_int4}[mode](fused)
+
+
 def _rollout_inputs(cfg, B, T, seed):
     rs = np.random.RandomState(seed)
     x0 = rs.randn(B, cfg.num_fields, cfg.embed_dim).astype(np.float32)
@@ -234,28 +560,88 @@ def phase_card_vs_cpu(case, params_np):
         f"(|y| max {on_cpu.abs().max().item():.3g})")
 
 
-def phase_time_rollout(case, params_np):
-    """250-step f32 rollouts, B=1 and B=8: one warm-up, then the median of
-    3 runs, each ended by torch.cuda.synchronize()."""
+def phase_card_vs_cpu_int4(case, params_np):
+    """8 full-width rollout steps with int4 weights (the port's quantizer,
+    MSE scales) and an int8 KV cache, card against CPU from the same
+    quantized tree."""
     from sea_tpu_torch.rollout.engine import rollout_scan
-    from sea_tpu_torch.utils.params import from_numpy
+    from sea_tpu_torch.utils.params import tree_map
     cfg = case.temporal
-    params = from_numpy(params_np, "cuda")
+    qparams = _reduced_params(params_np, "int4")
+    x0, ib = _rollout_inputs(cfg, 1, ROLLOUT_STEPS_CHECKED, seed=0)
+    on_card = rollout_scan(qparams, cfg, x0.cuda(), ib.cuda(),
+                           cache_dtype=torch.int8).cpu()
+    on_cpu = rollout_scan(tree_map(lambda a: a.cpu(), qparams), cfg, x0, ib,
+                          cache_dtype=torch.int8)
+    err = _err(on_card, on_cpu)
+    per_step = [_err(on_card[:, t], on_cpu[:, t])
+                for t in range(ROLLOUT_STEPS_CHECKED)]
+    if not (torch.isfinite(on_card).all() and err <= ROLLOUT_Q_ATOL):
+        raise AssertionError(f"card vs CPU int4/int8-KV rollout: max abs err "
+                             f"{err}; per step {per_step}")
+    log(f"[card-vs-cpu-int4] first {ROLLOUT_STEPS_CHECKED} rollout steps, "
+        f"B=1, int4 weights, int8 KV cache: max abs err {err:.3g} <= "
+        f"{ROLLOUT_Q_ATOL} (per step {[f'{e:.3g}' for e in per_step]}; "
+        f"|y| max {on_cpu.abs().max().item():.3g})")
+
+
+def _time_rollout(params, cfg, B, cache_dtype):
+    """One warm-up 250-step rollout, then the median of 3, each ended by
+    torch.cuda.synchronize(). Returns (median s, the three)."""
+    from sea_tpu_torch.rollout.engine import rollout_scan
+    x0, ib = (a.cuda() for a in _rollout_inputs(cfg, B, TIMED_STEPS, seed=B))
+    y = rollout_scan(params, cfg, x0, ib, cache_dtype=cache_dtype)
+    torch.cuda.synchronize()
+    if not torch.isfinite(y).all():
+        raise AssertionError(f"B={B} {cache_dtype} rollout is not finite")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        rollout_scan(params, cfg, x0, ib, cache_dtype=cache_dtype)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times), times
+
+
+def _profile_rollout(params, cfg, B, cache_dtype, label):
+    """torch.profiler over one 250-step rollout after a warm-up one: device
+    events and busy time per step, their share of the profiled wall, and
+    the kernels that take the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from sea_tpu_torch.rollout.engine import rollout_scan
+    x0, ib = (a.cuda() for a in _rollout_inputs(cfg, B, TIMED_STEPS, seed=B))
+    rollout_scan(params, cfg, x0, ib, cache_dtype=cache_dtype)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rollout_scan(params, cfg, x0, ib, cache_dtype=cache_dtype)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0) / TIMED_STEPS
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in events) / TIMED_STEPS
+    if not busy_us > 0:
+        raise AssertionError(f"{label}: the profiler saw no device time")
+    log(f"[profile] {CASE} {label}, {TIMED_STEPS}-step rollout: "
+        f"{sum(e.count for e in events) / TIMED_STEPS:.1f} device "
+        f"events/step, device busy {busy_us:.1f} us/step, profiled "
+        f"wall {wall_us:.1f} us/step, busy share "
+        f"{100 * busy_us / wall_us:.1f}%")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:14]:
+        us = e.self_device_time_total / TIMED_STEPS
+        log(f"[profile] {label} {us:8.2f} us/step "
+            f"{e.count / TIMED_STEPS:6.1f}/step {e.key[:100]}")
+
+
+def phase_time_rollout(case, params_np):
+    """250-step f32 rollouts, B=1 and B=8."""
+    cfg = case.temporal
+    params = _reduced_params(params_np, "f32")
     rates = {}
     for B in (1, 8):
-        x0, ib = (a.cuda() for a in _rollout_inputs(cfg, B, TIMED_STEPS,
-                                                    seed=B))
-        y = rollout_scan(params, cfg, x0, ib)
-        torch.cuda.synchronize()
-        if not torch.isfinite(y).all():
-            raise AssertionError(f"B={B} rollout is not finite")
-        times = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            rollout_scan(params, cfg, x0, ib)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        med = statistics.median(times)
+        med, times = _time_rollout(params, cfg, B, torch.float32)
         rates[B] = TIMED_STEPS / med
         log(f"[rollout] {CASE} f32 B={B}: {TIMED_STEPS} steps in median "
             f"{med:.4f} s of {[round(t, 4) for t in times]} -> "
@@ -266,41 +652,38 @@ def phase_time_rollout(case, params_np):
 
 
 def phase_profile(case, params_np):
-    """torch.profiler over one 250-step rollout at B=1 and B=8, after a
-    warm-up rollout: device events and device busy time per step, their
-    share of the profiled wall, and the kernels that take the most device
-    time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from sea_tpu_torch.rollout.engine import rollout_scan
-    from sea_tpu_torch.utils.params import from_numpy
-    cfg = case.temporal
-    params = from_numpy(params_np, "cuda")
+    """The f32 rollout at B=1 and B=8 under torch.profiler."""
+    params = _reduced_params(params_np, "f32")
     for B in (1, 8):
-        x0, ib = (a.cuda() for a in _rollout_inputs(cfg, B, TIMED_STEPS,
-                                                    seed=B))
-        rollout_scan(params, cfg, x0, ib)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            rollout_scan(params, cfg, x0, ib)
-            torch.cuda.synchronize()
-            wall_us = 1e6 * (time.perf_counter() - t0) / TIMED_STEPS
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA]
-        busy_us = sum(e.self_device_time_total for e in events) / TIMED_STEPS
-        if not busy_us > 0:
-            raise AssertionError(f"B={B}: the profiler saw no device time")
-        log(f"[profile] {CASE} f32 B={B}, {TIMED_STEPS}-step rollout: "
-            f"{sum(e.count for e in events) / TIMED_STEPS:.1f} device "
-            f"events/step, device busy {busy_us:.1f} us/step, profiled "
-            f"wall {wall_us:.1f} us/step, busy share "
-            f"{100 * busy_us / wall_us:.1f}%")
-        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:14]:
-            us = e.self_device_time_total / TIMED_STEPS
-            log(f"[profile] B={B} {us:8.2f} us/step "
-                f"{e.count / TIMED_STEPS:6.1f}/step {e.key[:100]}")
+        _profile_rollout(params, case.temporal, B, torch.float32,
+                         f"f32 B={B}")
+
+
+# (weights, KV cache, B) of the reduced-precision rollouts: the JAX CLI's
+# int4 policy (bf16 cache) at B=1, int4 with the int8 cache at B=8, and
+# int8 and bf16 weights with their auto f32 cache at B=1.
+REDUCED_ROLLOUTS = [("int4", torch.bfloat16, 1), ("int4", torch.int8, 8),
+                    ("int8", torch.float32, 1), ("bf16", torch.float32, 1)]
+
+
+def phase_rollout_reduced(case, params_np):
+    """250-step multiphase rollouts in the reduced-precision modes (median
+    of 3 after a warm-up), and a torch.profiler pass over the two int4
+    ones."""
+    cfg = case.temporal
+    trees = {}
+    for mode, cache_dtype, B in REDUCED_ROLLOUTS:
+        if mode not in trees:
+            trees[mode] = _reduced_params(params_np, mode)
+        med, times = _time_rollout(trees[mode], cfg, B, cache_dtype)
+        label = f"{mode} weights, {str(cache_dtype)[6:]} cache, B={B}"
+        log(f"[rollout-{mode}] {CASE} {label}: {TIMED_STEPS} steps in median "
+            f"{med:.4f} s of {[round(t, 4) for t in times]} -> "
+            f"{TIMED_STEPS / med:.1f} steps/s, "
+            f"{B * TIMED_STEPS / med:.1f} trajectory-steps/s, "
+            f"{1e3 * med / TIMED_STEPS:.3f} ms/step")
+        if mode == "int4":
+            _profile_rollout(trees[mode], cfg, B, cache_dtype, label)
 
 
 def _device_ms(fn, flush, iters=50):
@@ -319,11 +702,11 @@ def _device_ms(fn, flush, iters=50):
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
 
-def _bound_ms(nbytes, flops):
+def _bound_ms(nbytes, flops, flop_rate=F32_FLOP_PER_S):
     """The least time the card could take: the larger of the bytes over
-    the HBM rate and the f32 operations over the f32 peak."""
+    the HBM rate and the operations over the peak of their type."""
     by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    by_ops = 1e3 * flops / F32_FLOP_PER_S
+    by_ops = 1e3 * flops / flop_rate
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
                                    else "operations")
 
@@ -503,8 +886,11 @@ def _launch_counts():
     from sea_tpu_torch.ops import decode_attention as DA
     from sea_tpu_torch.ops import flash_attention as FA
     from sea_tpu_torch.ops import fused_adaln as FAL
-    return {"decode_attention": DA.launches, "flash_fwd": FA.fwd_launches,
-            "flash_bwd_dq": FA.dq_launches, "flash_bwd_dkv": FA.dkv_launches,
+    from sea_tpu_torch.ops import quant_matmul as QM
+    return {"decode_attention": DA.launches, "decode_q8": DA.launches_q8,
+            "flash_fwd": FA.fwd_launches, "flash_bwd_dq": FA.dq_launches,
+            "flash_bwd_dkv": FA.dkv_launches,
+            "dropout_mask": FA.mask_launches, "int4_matvec": QM.launches,
             "adaln_fwd": FAL.fwd_launches, "adaln_bwd": FAL.bwd_launches}
 
 
@@ -512,8 +898,11 @@ def _reset_launch_counts():
     from sea_tpu_torch.ops import decode_attention as DA
     from sea_tpu_torch.ops import flash_attention as FA
     from sea_tpu_torch.ops import fused_adaln as FAL
-    DA.launches = 0
+    from sea_tpu_torch.ops import quant_matmul as QM
+    DA.launches = DA.launches_q8 = 0
     FA.fwd_launches = FA.dq_launches = FA.dkv_launches = 0
+    FA.mask_launches = 0
+    QM.launches = 0
     FAL.fwd_launches = FAL.bwd_launches = 0
 
 
@@ -573,11 +962,12 @@ def phase_train(case, save_dir):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = _launch_counts()
-    expected = {"decode_attention": 0,
-                "flash_fwd": attn * (steps + evals),
-                "flash_bwd_dq": attn * steps, "flash_bwd_dkv": attn * steps,
-                "adaln_fwd": norms * (steps + evals),
-                "adaln_bwd": norms * steps}
+    expected = {name: 0 for name in launches}
+    expected.update({"flash_fwd": attn * (steps + evals),
+                     "flash_bwd_dq": attn * steps,
+                     "flash_bwd_dkv": attn * steps,
+                     "adaln_fwd": norms * (steps + evals),
+                     "adaln_bwd": norms * steps})
     if launches != expected:
         raise AssertionError(f"train launches {launches}, expected "
                              f"{expected}")
@@ -830,20 +1220,115 @@ def phase_time_adaln():
     return out
 
 
+def phase_time_reduced_kernels():
+    """The int8-KV decode kernel at (8,8,250,256), t = T-1; the int4
+    kernel at (M,K,N) = (1,2048,16384), the MLP up-projection; the dense
+    mask at the dropout verification's [8, 512, 512]: each against its
+    plain version and its bound. Library calls: SDPA with one query over
+    the dequantized bf16 cache; cuBLAS x_bf16 @ W_bf16 over the
+    dequantized weight (the same product reading 4x the weight bytes); no
+    single PyTorch call writes the mask."""
+    from sea_tpu_torch.ops import decode_attention as DA
+    from sea_tpu_torch.ops import flash_attention as FA
+    from sea_tpu_torch.ops import quant_matmul as QM
+    flush = torch.ones(128 << 20, dtype=torch.float32, device="cuda")
+    out = {}
+
+    shape = Q8_SHAPES[1]
+    B, H, T, hd = shape
+    q, K8, V8, ks, vs = _q8_cases(shape)
+    tt = torch.tensor([T - 1], dtype=torch.int32, device="cuda")
+    q4 = q[:, :, None].to(torch.bfloat16)
+    Kd = (K8.float() * ks[..., None]).to(torch.bfloat16)
+    Vd = (V8.float() * vs[..., None]).to(torch.bfloat16)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ms, plain_ms, runs = _kernel_vs_plain(
+        lambda: DA.decode_attention(q, K8, V8, tt, k_scale=ks, v_scale=vs),
+        lambda: DA.decode_attention_q8_ref(q, K8, V8, ks, vs, tt), flush)
+    nbytes = 2 * B * H * T * hd + 2 * B * H * T * 4 + 2 * B * H * hd * 4
+    # bf16 q times int8 keys, bf16 p*v_s times int8 values: bf16 operands.
+    bound, bound_by = _bound_ms(nbytes, 4 * B * H * T * hd, BF16_FLOP_PER_S)
+    lib = _device_ms(lambda: sdpa(q4, Kd, Vd), flush)
+    out["decode_q8"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                            bound_by=bound_by, library_ms=lib)
+    log(f"[kernel-time] decode q8 {shape} t=T-1, L2 cold: kernel {ms:.4f} "
+        f"ms ({runs[1]:.4f}, {runs[2]:.4f}; "
+        f"{nbytes / (ms * 1e-3) / 1e9:.0f} GB/s), plain {plain_ms:.4f} ms "
+        f"({runs[0]:.4f}, {runs[3]:.4f}), bound {bound:.4f} ms ({bound_by}), "
+        f"SDPA one query over a bf16 dequantized cache {lib:.4f} ms")
+
+    for M, K, N in ((1, 2048, 16384), (8, 16384, 2048)):
+        x, wp, s = _int4_cases(M, K, N)
+        xb = x.to(torch.bfloat16)
+        Wb = (QM.unpack_int4(wp, torch.float32) * s).to(torch.bfloat16)
+        ms, plain_ms, runs = _kernel_vs_plain(
+            lambda: QM.int4_matmul(x, wp, s),
+            lambda: QM.int4_matvec_ref(x, wp, s), flush)
+        nbytes = K // 2 * N + M * K * 4 + N * 4 + M * N * 4
+        # bf16(x) times a nibble, exact in bf16: the bf16 tensor-core peak.
+        bound, bound_by = _bound_ms(nbytes, 2 * M * K * N, BF16_FLOP_PER_S)
+        lib = _device_ms(lambda: xb @ Wb, flush)
+        if (M, K, N) == (1, 2048, 16384):
+            out["int4_matvec"] = dict(ms=ms, plain_ms=plain_ms,
+                                      bound_ms=bound, bound_by=bound_by,
+                                      library_ms=lib)
+        log(f"[kernel-time] int4 (M,K,N)=({M},{K},{N}), L2 cold: kernel "
+            f"{ms:.4f} ms ({runs[1]:.4f}, {runs[2]:.4f}; "
+            f"{nbytes / (ms * 1e-3) / 1e9:.0f} GB/s), plain {plain_ms:.4f} "
+            f"ms ({runs[0]:.4f}, {runs[3]:.4f}), bound {bound:.4f} ms "
+            f"({bound_by}), cuBLAS bf16 x bf16 over the dequantized weight "
+            f"{lib:.4f} ms")
+
+    B, T, H, _ = DROPOUT_SHAPE
+    bh = torch.arange(B * H, dtype=torch.int32, device="cuda")
+    seed = DROPOUT_SEEDS[0]
+    ms, plain_ms, runs = _kernel_vs_plain(
+        lambda: FA.dropout_mask_dense(B * H, T, T, seed, DROPOUT_RATE, "cuda",
+                                      bh_map=bh),
+        lambda: FA.dropout_mask_dense_ref(bh, T, T, seed, DROPOUT_RATE),
+        flush)
+    n = B * H * T * T
+    # Bytes: the f32 mask written; operations: ~24 32-bit integer ops an
+    # element (the keyed sum, two fmix32 rounds, the threshold), at the
+    # CUDA cores' 32-bit rate.
+    bound, bound_by = _bound_ms(4 * n + 4 * B * H, 24 * n)
+    out["dropout_mask"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                               bound_by=bound_by, library_ms=None)
+    log(f"[kernel-time] dropout mask [{B * H}, {T}, {T}], L2 cold: kernel "
+        f"{ms:.4f} ms ({runs[1]:.4f}, {runs[2]:.4f}; "
+        f"{4 * n / (ms * 1e-3) / 1e9:.0f} GB/s), plain {plain_ms:.4f} ms "
+        f"({runs[0]:.4f}, {runs[3]:.4f}), bound {bound:.4f} ms ({bound_by})")
+    return out
+
+
 KERNELS = [  # name, route, source, the TPU kernel it replaces
     ("decode_attention", "cuda", "sea_tpu_torch/csrc/decode_attention.cu",
      "sea_tpu/ops/decode_attention.py:48"),
+    ("decode_q8", "cuda", "sea_tpu_torch/csrc/decode_attention.cu",
+     "sea_tpu/ops/decode_attention.py:96"),
     ("flash_fwd", "cuda", "sea_tpu_torch/csrc/flash_attention.cu",
      "sea_tpu/ops/flash_attention.py:181"),
     ("flash_bwd_dq", "cuda", "sea_tpu_torch/csrc/flash_attention.cu",
      "sea_tpu/ops/flash_attention.py:415"),
     ("flash_bwd_dkv", "cuda", "sea_tpu_torch/csrc/flash_attention.cu",
      "sea_tpu/ops/flash_attention.py:451"),
+    ("dropout_mask", "cuda", "sea_tpu_torch/csrc/flash_attention.cu",
+     "sea_tpu/ops/flash_attention.py:608"),
+    ("int4_matvec", "cuda", "sea_tpu_torch/csrc/quant_matmul.cu",
+     "sea_tpu/ops/quant_matmul.py:104"),
     ("adaln_fwd", "triton", "sea_tpu_torch/ops/fused_adaln.py",
      "sea_tpu/ops/fused_adaln.py:46"),
     ("adaln_bwd", "triton", "sea_tpu_torch/ops/fused_adaln.py",
      "sea_tpu/ops/fused_adaln.py:62"),
 ]
+
+
+def _timed(fn, *args):
+    """fn(*args), with its wall time logged."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"[time] {fn.__name__}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main():
@@ -857,33 +1342,46 @@ def main():
 
     phase_build()
     errors = {"decode_attention": phase_kernel_check(),
+              "decode_q8": phase_q8_check(),
+              "int4_matvec": phase_int4_check(),
+              "dropout_mask": phase_mask_check(),
               **phase_flash_check(), **phase_adaln_check()}
+    launches = {"dropout_mask": phase_flash_dropout()}
     case = get_case(CASE)
     train_case = get_case(TRAIN_CASE)
     (REPO / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=REPO / "build") as save_dir:
         params_np = save_init_checkpoints(case, save_dir,
                                           seed=1)["temporal"]
-        launches = {"decode_attention": phase_serve(case, save_dir)}
+        launches["decode_attention"] = phase_serve(case, save_dir)
+        reduced = phase_serve_reduced(case, save_dir, params_np)
+    launches.update({k: reduced["int4"][k]
+                     for k in ("decode_q8", "int4_matvec")})
     with tempfile.TemporaryDirectory(dir=REPO / "build") as save_dir:
         train_np = save_init_checkpoints(train_case, save_dir,
                                          seed=1)["temporal"]
         train_launches = phase_train(train_case, save_dir)
-    launches.update({k: v for k, v in train_launches.items()
-                     if k != "decode_attention"})
-    phase_train_card_vs_cpu(train_case, train_np)
-    phase_train_time(train_case, train_np)
-    phase_card_vs_cpu(case, params_np)
-    phase_time_rollout(case, params_np)
-    phase_profile(case, params_np)
+    launches.update({k: train_launches[k] for k in (
+        "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "adaln_fwd",
+        "adaln_bwd")})
+    _timed(phase_train_card_vs_cpu, train_case, train_np)
+    _timed(phase_train_time, train_case, train_np)
+    _timed(phase_card_vs_cpu, case, params_np)
+    _timed(phase_card_vs_cpu_int4, case, params_np)
+    _timed(phase_time_rollout, case, params_np)
+    _timed(phase_profile, case, params_np)
+    _timed(phase_rollout_reduced, case, params_np)
     times = {"decode_attention": phase_time_kernel()[
-        (KERNEL_SHAPES[0], torch.float32)]}
+        (KERNEL_SHAPES[0], torch.float32)], **phase_time_reduced_kernels()}
     flash, adaln = phase_time_flash(), phase_time_adaln()
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         times[name] = flash[(name, 128)]
     for name in ("adaln_fwd", "adaln_bwd"):
         times[name] = adaln[(name, 1024)]
     shapes = {"decode_attention": "(B,H,T,hd)=(1,8,250,256) f32, t=T-1",
+              "decode_q8": "(B,H,T,hd)=(8,8,250,256) int8, t=T-1",
+              "int4_matvec": "(M,K,N)=(1,2048,16384)",
+              "dropout_mask": "(BH,Tq,Tk)=(8,512,512)",
               **{n: "(B,T,H,hd)=(2,399,8,128) dropout 0.1"
                  for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")},
               **{n: "(B,T,E)=(2,399,1024)" for n in ("adaln_fwd",

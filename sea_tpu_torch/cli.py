@@ -5,14 +5,20 @@
         [--seed N] [--device cuda|cpu|cuda:N]
     python -m sea_tpu_torch.cli <flow_type> temporal test
         [--model_path PATH] [--synthetic] [--save_dir DIR] [--seed N]
-        [--device cuda|cpu|cuda:N]
+        [--precision f32|bf16|int8|int4] [--no_calibrate]
+        [--kv_cache auto|f32|bf16|int8] [--drift_budget REL_L2]
+        [--no_drift_check] [--device cuda|cpu|cuda:N]
 
 Same grammar as ``python -m sea_tpu.cli``. Ported so far: ``temporal
 train`` (single device, f32 AdamW; it writes the JAX driver's npz
-checkpoints) and ``temporal test``, the f32 serving rollout with decoded
-evaluation. Every other mode and flag exits with a parser error that
-points to ROADMAP.md. As in the JAX CLI, ``--seed`` overrides the random
-seed of the data splits; the training keys start from seed 0 in both.
+checkpoints) and ``temporal test``, the serving rollout with decoded
+evaluation, at f32 or reduced precision (bf16 weights; int8 or int4
+weights, int4 calibrated on a few train windows by default; the
+teacher-forced drift gate; f32, bf16 or int8 KV caches), as the JAX CLI
+serves on one device. Every other mode and flag exits with a parser
+error that points to ROADMAP.md. As in the JAX CLI, ``--seed`` overrides
+the random seed of the data splits; the training keys start from seed 0
+in both.
 
 ``--device`` takes the place of the JAX CLI's ``--platform``. It defaults
 to ``cuda`` and raises when CUDA is absent: the port never moves to the
@@ -89,6 +95,31 @@ def main(argv=None):
                         help="override the config's epoch count (train)")
     parser.add_argument("--batch_size", type=int, default=None,
                         help="override the training batch size (train)")
+    parser.add_argument("--precision",
+                        choices=["f32", "bf16", "int8", "int4"],
+                        default="f32",
+                        help="serving precision for `temporal test`: bf16 "
+                             "casts the big matmul weights, int8/int4 "
+                             "quantize them per output channel")
+    parser.add_argument("--no_calibrate", action="store_true",
+                        help="disable the default activation-aware int4 "
+                             "calibration (weighted scales + bias "
+                             "correction from a few train windows)")
+    parser.add_argument("--kv_cache", choices=["auto", "f32", "bf16", "int8"],
+                        default="auto",
+                        help="serving KV-cache storage: 'auto' = bf16 iff "
+                             "--precision int4, else f32 (the JAX CLI's "
+                             "policy); 'int8' stores per-token-scaled int8 "
+                             "planes")
+    parser.add_argument("--drift_budget", type=float, default=0.05,
+                        metavar="REL_L2",
+                        help="int8/int4 serving: abort when the loaded "
+                             "checkpoint's teacher-forced rel-L2 drift vs "
+                             "f32 on two test windows exceeds this "
+                             "(default 0.05)")
+    parser.add_argument("--no_drift_check", action="store_true",
+                        help="skip the per-checkpoint quantization drift "
+                             "gate")
     parser.add_argument("--device", default="cuda",
                         help="torch device: cuda (default), cuda:N or cpu")
     args, unknown = parser.parse_known_args(argv)
@@ -101,6 +132,10 @@ def main(argv=None):
                      "`temporal test` are (see ROADMAP.md)")
     if args.batch_size is not None and args.mode != "train":
         parser.error("--batch_size only applies to train modes")
+    if args.mode != "test" and (args.precision != "f32"
+                                or args.kv_cache != "auto"):
+        parser.error("--precision/--kv_cache only apply to `temporal test` "
+                     "(rollout serving); training runs f32")
     if args.batch_size is not None and args.batch_size < 1:
         parser.error(f"--batch_size must be >= 1; got {args.batch_size}")
     if args.model_path and not args.model_path.endswith(".npz"):
@@ -134,7 +169,7 @@ def main(argv=None):
             batch_size=min(tt.batch_size, n_train)))
     if args.mode == "train":
         return _train(case, args, data, device)
-    return _test(case, args, data, device)
+    return _test(case, args, data, device, parser)
 
 
 def _train(case, args, data, device):
@@ -157,12 +192,13 @@ def _train(case, args, data, device):
     return params
 
 
-def _test(case, args, data, device):
+def _test(case, args, data, device, parser):
     """`temporal test`: returns the evaluation metrics."""
     from sea_tpu_torch.utils.checkpoint import checkpoint_path, load_params
     from sea_tpu_torch.models.temporal import init_temporal
     from sea_tpu_torch.train.evaluate import fused_autoregressive_evaluation
     from sea_tpu_torch.train.train_temporal import process_data
+    from sea_tpu_torch.utils import precision as prec
     from sea_tpu_torch.utils.params import from_numpy, to_numpy
 
     td = process_data(case, data=data, device=device)
@@ -173,8 +209,57 @@ def _test(case, args, data, device):
         case.run.save_dir, "temporal", case.run.case_name, case.run.run_name)
     print(f"Using pretrained model: {path}")
     params = from_numpy(load_params(path, template), device)
+    # --precision applies end to end: the rollout and the stage-1 decoder
+    # run the reduced-precision weights (encoding stays f32), and the
+    # temporal attention projections are fused (qkv/kv) before any cast.
+    spatial_params = None
+    params_f32 = params  # for the per-checkpoint drift gate
+    if args.precision == "bf16":
+        params = prec.cast_weights_bf16(
+            prec.fuse_attention_projections(params))
+        spatial_params = prec.cast_weights_bf16(td.latent_service.params)
+        print("Serving precision: bf16 weights (rollout + decode)")
+    elif args.precision in ("int8", "int4"):
+        quantize = (prec.quantize_weights_int8 if args.precision == "int8"
+                    else prec.quantize_weights_int4)
+        params = prec.fuse_attention_projections(params)
+        if args.precision == "int4" and not args.no_calibrate:
+            from sea_tpu_torch.utils.calibration import calibrate_temporal
+            n_cal = min(4, td.train.src.shape[0])
+            stats = calibrate_temporal(
+                params, case.temporal,
+                [(td.train.src[:n_cal], td.train.ib[:n_cal])])
+            params = prec.quantize_weights_int4(params, act_stats=stats)
+            print(f"int4 calibration: activation-aware scales + bias "
+                  f"correction ({n_cal} train windows)")
+        else:
+            params = quantize(params)
+        spatial_params = quantize(td.latent_service.params)
+        print(f"Serving precision: {args.precision} weights "
+              "(per-output-channel, rollout + decode)")
+    if args.precision in ("int8", "int4") and not args.no_drift_check:
+        drift = prec.teacher_forced_drift(params_f32, params, case.temporal,
+                                          td.test.src, td.test.ib)
+        print(f"Per-checkpoint teacher-forced drift ({args.precision} vs "
+              f"f32): {drift:.4f} (budget {args.drift_budget})")
+        if drift > args.drift_budget:
+            parser.error(
+                f"--precision {args.precision}: teacher-forced drift "
+                f"{drift:.4f} on the loaded checkpoint exceeds the budget "
+                f"{args.drift_budget}. Serve this checkpoint at higher "
+                "precision, raise --drift_budget explicitly, or pass "
+                "--no_drift_check to override.")
+    if args.kv_cache == "auto":
+        cache_dtype = (torch.bfloat16 if args.precision == "int4"
+                       else torch.float32)
+    else:
+        cache_dtype = {"f32": torch.float32, "bf16": torch.bfloat16,
+                       "int8": torch.int8}[args.kv_cache]
+        print(f"kv_cache={args.kv_cache}: scan engine forced (the prefix "
+              "engine has no KV cache)")
     results = fused_autoregressive_evaluation(
-        params, case, td.test, td.latent_service, td.mesh_processor)
+        params, case, td.test, td.latent_service, td.mesh_processor,
+        spatial_params=spatial_params, cache_dtype=cache_dtype)
     print("Test Results:")
     for key in ("encoded_rel_mse", "decoded_rel_mse"):
         print(f"{key}: {results[key]}")

@@ -26,6 +26,22 @@
 // t is read on the device, not passed by value, so a CUDA graph captured
 // over a rollout can replay it without rebuilding the launch.
 //
+// The int8 cache (decode_partial_q8) replaces
+// sea_tpu/ops/decode_attention.py::_decode_kernel_q8. The planes hold int8
+// K and V [B*H, T, hd] with an f32 scale per (b, h, token) beside them
+// (k_s, v_s [B*H, T]), written by ops/attention._quantize_token. As in the
+// TPU kernel, q is rounded to bf16 once; a key's score is
+// (q . k_int8) * hd^-0.5 * k_s[t']; each unnormalised probability times
+// v_s[t'] is rounded to bf16 before it multiplies the int8 values; the
+// statistics are f32 and the softmax denominator sums the probabilities
+// without v_s. Nothing is dequantized into memory. The bound is still
+// bytes (now one per element, a quarter of f32), so a lane reads 16 int8
+// elements with one 16-byte load: hd/16 lanes cover a key row, and a warp
+// takes 32/(hd/16) keys at once (2 at hd 256, 8 at hd 64), each lane group
+// with its own running max and sum until the block merges them. The TPU
+// kernel's gates (hd % 128, T >= 128, B*H <= 64) and its 8-row sublane
+// replication of q and the scales are not carried over.
+//
 // Plain C interface (no PyTorch headers): built with nvcc for sm_90a and
 // loaded with ctypes by sea_tpu_torch/ops/_build.py.
 
@@ -216,7 +232,157 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* t,
   return cudaGetLastError();
 }
 
+// Partial attention over an int8 cache with per-token scales: the same
+// split-K partials as decode_partial. G = HD/16 lanes hold 16 elements of a
+// key row each; the warp's 32/G lane groups take consecutive keys, so the
+// block runs kWarps * 32/G streams, each with its own (m, l, acc).
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+decode_partial_q8(const float* __restrict__ q, const int8_t* __restrict__ k,
+                  const int8_t* __restrict__ v, const float* __restrict__ k_s,
+                  const float* __restrict__ v_s, const int* __restrict__ t_ptr,
+                  float* __restrict__ part_ml, float* __restrict__ part_acc,
+                  int T, int chunk, float scale) {
+  constexpr int E = 16;            // elements per lane: one 16-byte load
+  constexpr int G = HD / E;        // lanes per key row
+  constexpr int KPW = 32 / G;      // keys per warp pass
+  constexpr int S = kWarps * KPW;  // streams per block
+  const int bh = blockIdx.x;
+  const int split = blockIdx.y;
+  const int t = clamp_t(t_ptr, T);
+  const int start = split * chunk;
+  if (start > t) return;  // uniform over the block, before any barrier
+  const int stop = min(start + chunk, t + 1);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int grp = lane / G;
+  const int sub = lane % G;
+  const int stream = warp * KPW + grp;
+
+  float qv[E];
+  load_row<F32, E>(q + static_cast<size_t>(bh) * HD + sub * E, qv);
+#pragma unroll
+  for (int i = 0; i < E; ++i) qv[i] = BF16::round(qv[i]);
+
+  const size_t row0 = static_cast<size_t>(bh) * T * HD + sub * E;
+  const float* ks = k_s + static_cast<size_t>(bh) * T;
+  const float* vs = v_s + static_cast<size_t>(bh) * T;
+  float m = -INFINITY;
+  float l = 0.f;
+  float acc[E];
+#pragma unroll
+  for (int i = 0; i < E; ++i) acc[i] = 0.f;
+
+  // The loop runs the same count on every lane of a warp (the shuffles need
+  // all 32); a group whose key is past `stop` joins them and skips the rest.
+  for (int base = start + warp * KPW; base < stop; base += S) {
+    const int j = base + grp;
+    const bool valid = j < stop;
+    int8_t kb[E], vb[E];
+    float s = 0.f;
+    if (valid) {
+      const uint4 kw = __ldg(reinterpret_cast<const uint4*>(
+          k + row0 + static_cast<size_t>(j) * HD));
+      const uint4 vw = __ldg(reinterpret_cast<const uint4*>(
+          v + row0 + static_cast<size_t>(j) * HD));
+      memcpy(kb, &kw, E);
+      memcpy(vb, &vw, E);
+#pragma unroll
+      for (int i = 0; i < E; ++i) s = fmaf(qv[i], static_cast<float>(kb[i]), s);
+    }
+#pragma unroll
+    for (int o = G / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (valid) {
+      s = s * scale * __ldg(ks + j);
+      const float m_new = fmaxf(m, s);
+      const float alpha = expf(m - m_new);  // 0 on the first key (m = -inf)
+      const float p = expf(s - m_new);
+      l = l * alpha + p;
+      const float pv = BF16::round(p * __ldg(vs + j));
+#pragma unroll
+      for (int i = 0; i < E; ++i)
+        acc[i] = fmaf(pv, static_cast<float>(vb[i]), acc[i] * alpha);
+      m = m_new;
+    }
+  }
+
+  // Merge the streams. Stream 0 always owns key `start` <= t, so the block
+  // max is finite; a stream that saw no key has m = -inf and weight 0.
+  __shared__ float sm_m[S];
+  __shared__ float sm_l[S];
+  __shared__ float sm_acc[S][HD];
+  if (sub == 0) {
+    sm_m[stream] = m;
+    sm_l[stream] = l;
+  }
+#pragma unroll
+  for (int i = 0; i < E; ++i) sm_acc[stream][sub * E + i] = acc[i];
+  __syncthreads();
+
+  float mx = sm_m[0];
+  for (int w = 1; w < S; ++w) mx = fmaxf(mx, sm_m[w]);
+  const size_t slot = static_cast<size_t>(bh) * gridDim.y + split;
+  for (int d = threadIdx.x; d < HD; d += kThreads) {
+    float a = 0.f;
+    for (int w = 0; w < S; ++w) a = fmaf(sm_acc[w][d], expf(sm_m[w] - mx), a);
+    part_acc[slot * HD + d] = a;
+  }
+  if (threadIdx.x == 0) {
+    float sum = 0.f;
+    for (int w = 0; w < S; ++w) sum = fmaf(sm_l[w], expf(sm_m[w] - mx), sum);
+    part_ml[2 * slot] = mx;
+    part_ml[2 * slot + 1] = sum;
+  }
+}
+
+template <int HD>
+cudaError_t launch_q8(const float* q, const int8_t* k, const int8_t* v,
+                      const float* k_s, const float* v_s, const int* t,
+                      float* part_ml, float* part_acc, float* out, int bh,
+                      int T, int splits, int chunk, cudaStream_t stream) {
+  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(HD)));
+  decode_partial_q8<HD><<<dim3(bh, splits), kThreads, 0, stream>>>(
+      q, k, v, k_s, v_s, t, part_ml, part_acc, T, chunk, scale);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  decode_merge<<<bh, kThreads, 0, stream>>>(part_ml, part_acc, t, out, T, HD,
+                                            splits, chunk);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// The int8 cache: q f32 [bh, hd]; k, v int8 [bh, T, hd]; k_s, v_s f32
+// [bh, T]; t, part_ml, part_acc and out as for sea_decode_attention.
+extern "C" int sea_decode_attention_q8(const void* q, const void* k,
+                                       const void* v, const void* k_s,
+                                       const void* v_s, const void* t,
+                                       void* part_ml, void* part_acc,
+                                       void* out, int bh, int T, int hd,
+                                       int splits, int chunk, void* stream) {
+  const float* Q = static_cast<const float*>(q);
+  const int8_t* K = static_cast<const int8_t*>(k);
+  const int8_t* V = static_cast<const int8_t*>(v);
+  const float* KS = static_cast<const float*>(k_s);
+  const float* VS = static_cast<const float*>(v_s);
+  const int* tp = static_cast<const int*>(t);
+  float* ml = static_cast<float*>(part_ml);
+  float* acc = static_cast<float*>(part_acc);
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 64:
+      return static_cast<int>(launch_q8<64>(Q, K, V, KS, VS, tp, ml, acc, o,
+                                            bh, T, splits, chunk, s));
+    case 128:
+      return static_cast<int>(launch_q8<128>(Q, K, V, KS, VS, tp, ml, acc, o,
+                                             bh, T, splits, chunk, s));
+    case 256:
+      return static_cast<int>(launch_q8<256>(Q, K, V, KS, VS, tp, ml, acc, o,
+                                             bh, T, splits, chunk, s));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
 // q: f32 [bh, hd]; k, v: [bh, T, hd] in the cache dtype (f32, or bf16 when
 // cache_is_bf16); t: one int32 on the device; part_ml: f32 [bh, splits, 2];

@@ -43,6 +43,15 @@
 // Tiles are 64 x 64 for hd 64 and 128 and 32 x 32 for hd 256, which keeps
 // every kernel inside the 227 KB of dynamic shared memory a block may use.
 //
+// The dense dropout mask (dropout_mask_kernel) replaces the Pallas TPU
+// kernel _mask_kernel (via _dropout_mask_dense), the oracle of the dropout
+// verification: it writes the f32 scale M(bh_map[bh], q, k) of every
+// element of [BH, Tq, Tk], one thread per element, through the same
+// dropout_scale the flash kernels call, so it equals their mask by
+// construction. It is bound by the bytes it writes (4 per element; the
+// hash is ~20 integer operations). It writes the logical [BH, Tq, Tk]
+// region only, not the TPU kernel's padding to block multiples.
+//
 // Plain C interface (no PyTorch headers): built with nvcc for sm_90a and
 // loaded with ctypes by sea_tpu_torch/ops/_build.py.
 
@@ -517,6 +526,24 @@ View view(const void* p, long long sb, long long st, long long sh) {
   return x;
 }
 
+// out[bh, q, k] = M(bh_map[bh], q, k), flat over [BH, Tq, Tk].
+__global__ void __launch_bounds__(kThreads)
+dropout_mask_kernel(const int* __restrict__ bh_map, float* __restrict__ out,
+                    int Tq, int Tk, long long total, Shape s) {
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long e = static_cast<long long>(blockIdx.x) * kThreads +
+                     threadIdx.x;
+       e < total; e += stride) {
+    const int kk = static_cast<int>(e % Tk);
+    const long long r = e / Tk;
+    const int qq = static_cast<int>(r % Tq);
+    const int bh = static_cast<int>(r / Tq);
+    out[e] = dropout_scale(s, static_cast<unsigned>(__ldg(bh_map + bh)),
+                           static_cast<unsigned>(qq),
+                           static_cast<unsigned>(kk));
+  }
+}
+
 }  // namespace
 
 // Tensors are f32 [B, T, H, hd] with hd contiguous, given by pointer and
@@ -594,4 +621,22 @@ extern "C" int sea_flash_bwd_dkv(
       return launch_dkv<256, 32, 32>(Q, K, V, dO, L, D, dK, dV, s, st);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// bh_map: int32 [BH], the global (b*H + h) each row hashes with; out: f32
+// [BH, Tq, Tk] contiguous. Returns cudaGetLastError() after the launch.
+extern "C" int sea_dropout_mask(const void* bh_map, void* out, int BH, int Tq,
+                                int Tk, unsigned seed0, unsigned seed1,
+                                unsigned threshold, float inv_keep,
+                                void* stream) {
+  const Shape s = make_shape(BH, 1, Tq, Tk, 64, 0, 0, seed0, seed1, threshold,
+                             inv_keep, 1);
+  const long long total = static_cast<long long>(BH) * Tq * Tk;
+  if (total <= 0) return static_cast<int>(cudaSuccess);
+  const long long blocks = (total + kThreads - 1) / kThreads;
+  const unsigned grid = static_cast<unsigned>(blocks < 65536 ? blocks : 65536);
+  dropout_mask_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(bh_map), static_cast<float*>(out), Tq, Tk, total,
+      s);
+  return static_cast<int>(cudaGetLastError());
 }

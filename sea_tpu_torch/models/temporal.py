@@ -235,7 +235,9 @@ def temporal_forward(params, cfg: TemporalModelConfig, x, ib, *, rng=None,
 def init_temporal_cache(cfg: TemporalModelConfig, batch: int, t_max: int,
                         *, device, dtype=torch.float32):
     """Per layer: {"self": [cache per field], "cross": G x G caches, None
-    on the diagonal}; each cache {"k", "v"} [B, H, t_max, hd]."""
+    on the diagonal}; each cache {"k", "v"} [B, H, t_max, hd] of ``dtype``
+    (f32, bf16, or int8 with per-token scales "k_s"/"v_s" [B, H, t_max];
+    ops/attention.init_kv_cache)."""
     G = cfg.num_fields
     hd_self = cfg.internal_embed_dim // cfg.n_heads
     hd_cross = cfg.down_dim // cfg.n_heads

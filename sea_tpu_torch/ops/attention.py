@@ -15,10 +15,14 @@ which the JAX package never sends to a kernel either.
 ``mha_step``, the one-token form the rollout runs, attends over a
 head-major [B, H, T, hd] KV cache through ``ops.decode_attention`` — the
 hand-written flash-decode kernel on a CUDA tensor, its plain version on
-the CPU.
+the CPU. The cache is f32, bf16, or int8 planes with a per-token f32
+scale beside them (``_quantize_token``), read by the int8 variant of the
+kernel. The fused "qkv"/"kv" projections of the serving transform
+``utils.precision.fuse_attention_projections`` are taken as in the JAX
+package.
 
-Not ported: ``valid_len``, the fused qkv/kv layouts, the int8 cache,
-``src_len != 0`` in ``mha_step`` and ring attention (ROADMAP.md).
+Not ported: ``valid_len``, ``src_len != 0`` in ``mha_step`` and ring
+attention (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -47,13 +51,24 @@ def init_attention(gen: torch.Generator, embed_dim: int, n_heads: int, *,
 
 
 def _project_qkv(params, x_q, x_kv):
-    """Unfused q/k/v projections."""
-    if "q" not in params:
-        raise NotImplementedError(
-            "fused qkv/kv projection layouts are not ported yet; see "
-            "ROADMAP.md")
-    return (linear(params["q"], x_q), linear(params["k"], x_kv),
-            linear(params["v"], x_kv))
+    """q/k/v projections, unfused or in the fused serving layouts: "qkv"
+    (self-attention: x_q and x_kv must be the same tensor) or "kv" (the
+    shared key/value input). Per output column the math is the unfused
+    projections'."""
+    if "qkv" in params:
+        if x_q is not x_kv:
+            raise ValueError(
+                "fused 'qkv' projections are only valid for self-attention "
+                "(query and key/value inputs must be the same tensor); "
+                "cross-attention params should carry fused 'kv' instead "
+                "(utils.precision.fuse_attention_projections)")
+        return torch.chunk(linear(params["qkv"], x_q), 3, dim=-1)
+    q = linear(params["q"], x_q)
+    if "kv" in params:
+        k, v = torch.chunk(linear(params["kv"], x_kv), 2, dim=-1)
+    else:
+        k, v = linear(params["k"], x_kv), linear(params["v"], x_kv)
+    return q, k, v
 
 
 def attention_core(q, k, v, *, causal: bool, src_len: int = 0):
@@ -125,27 +140,46 @@ def mha(params, x_q, x_kv, *, n_heads: int, causal: bool, rope: bool,
 
 def init_kv_cache(batch: int, t_max: int, n_heads: int, head_dim: int, *,
                   device, dtype=torch.float32):
-    """Head-major [B, H, T, hd] f32 or bf16 planes (the int8 cache of the
-    JAX package is not ported yet)."""
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise NotImplementedError(
-            f"KV cache dtype {dtype} is not ported yet; see ROADMAP.md")
+    """Head-major [B, H, T, hd] planes of ``dtype`` (f32, bf16 or int8).
+    An int8 cache also holds "k_s"/"v_s", f32 [B, H, T]: each token is
+    quantized when it is written, with its own per-(b, h) scale."""
+    if dtype not in (torch.float32, torch.bfloat16, torch.int8):
+        raise ValueError(f"KV cache dtype {dtype}: want float32, bfloat16 "
+                         "or int8")
     shape = (batch, n_heads, t_max, head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if dtype == torch.int8:
+        for name in ("k_s", "v_s"):
+            cache[name] = torch.zeros(shape[:3], dtype=torch.float32,
+                                      device=device)
+    return cache
+
+
+def _quantize_token(x, int_max: float = 127.0):
+    """x: [B, H, hd] f32 -> (int8 [B, H, hd], scale f32 [B, H]): symmetric
+    per-(b, h) max-abs scale, rounded half to even; a zero token gets scale
+    0 (its slot dequantizes to exact zeros). Bit for bit the JAX package's
+    as its jitted rollout computes it: XLA turns "/ int_max" into a
+    multiply by the f32 reciprocal, and so does this."""
+    inv = float(torch.tensor(1.0 / int_max, dtype=torch.float32))
+    scale = x.abs().amax(dim=-1) * inv
+    q = torch.where(scale[..., None] > 0.0,
+                    x / torch.clamp(scale[..., None], min=1e-30), 0.0)
+    return torch.round(q).to(torch.int8), scale
 
 
 def mha_step(params, x_q_t, x_kv_t, cache, t, *, n_heads: int, rope: bool):
     """One-token attention at absolute position ``t`` against a KV cache.
 
-    x_q_t, x_kv_t: [B, C]; cache: {"k", "v"} [B, H, T_max, hd] from
-    init_kv_cache; t: int32 tensor of shape [1] on the cache's device
-    (kept on the device so the step never reads it back on the host).
+    x_q_t, x_kv_t: [B, C]; cache: from init_kv_cache; t: int32 tensor of
+    shape [1] on the cache's device (kept on the device so the step never
+    reads it back on the host).
 
     Unlike the JAX package, which rebuilds the cache functionally, this
-    writes position t of the preallocated cache IN PLACE and returns only
-    the output [B, C]. Causal with src_len == 0: the attention reads
-    positions <= t.
+    writes position t of the preallocated cache IN PLACE (the int8 planes
+    and their scales alike) and returns only the output [B, C]. Causal
+    with src_len == 0: the attention reads positions <= t.
     """
     B, C = x_q_t.shape
     hd = C // n_heads
@@ -156,8 +190,21 @@ def mha_step(params, x_q_t, x_kv_t, cache, t, *, n_heads: int, rope: bool):
         cos, sin = rope_cos_sin(hd, t)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
+    k = k.reshape(B, n_heads, 1, hd)  # [B, 1, H, hd] -> head-major
+    v = v.reshape(B, n_heads, 1, hd)
     cache_k, cache_v = cache["k"], cache["v"]
-    cache_k[:, :, t] = k.transpose(1, 2).to(cache_k.dtype)
-    cache_v[:, :, t] = v.reshape(B, n_heads, 1, hd).to(cache_v.dtype)
-    out = decode_attention(q.reshape(B, n_heads, hd), cache_k, cache_v, t)
+    scales = {}
+    if "k_s" in cache:
+        kq, ks = _quantize_token(k[:, :, 0])
+        vq, vs = _quantize_token(v[:, :, 0])
+        cache_k[:, :, t] = kq[:, :, None]
+        cache_v[:, :, t] = vq[:, :, None]
+        cache["k_s"][:, :, t] = ks[:, :, None]
+        cache["v_s"][:, :, t] = vs[:, :, None]
+        scales = {"k_scale": cache["k_s"], "v_scale": cache["v_s"]}
+    else:
+        cache_k[:, :, t] = k.to(cache_k.dtype)
+        cache_v[:, :, t] = v.to(cache_v.dtype)
+    out = decode_attention(q.reshape(B, n_heads, hd), cache_k, cache_v, t,
+                           **scales)
     return linear(params["proj"], out.to(x_q_t.dtype).reshape(B, C))

@@ -10,6 +10,10 @@ Semantics (both versions): softmax(q . K[:t+1]^T / sqrt(hd)) . V[:t+1] for
 one query per (b, h) over a head-major [B, H, T, hd] f32 or bf16 cache, f32
 accumulation, f32 [B, H, hd] out; q is cast to the cache dtype and the
 probabilities to the value dtype before p . V, as the TPU kernel does.
+
+An int8 cache (``k_scale``/``v_scale`` given: per-token f32 scales
+[B, H, T]) takes the int8 variant of the same source, which replaces
+``_decode_kernel_q8``; its plain version is ``decode_attention_q8_ref``.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 # Launches of the CUDA kernel through ``decode_attention`` (a call on the
 # CPU does not count). Read and reset by chip_smoke.py.
 launches = 0
+launches_q8 = 0
 
 HEAD_DIMS = (64, 128, 256)
 # Fewest keys a split-K block takes: 4 warps x 4 keys.
@@ -46,6 +51,28 @@ def decode_attention_ref(q, cache_k, cache_v, t):
                         cache_v.float())
 
 
+def decode_attention_q8_ref(q, cache_k, cache_v, k_scale, v_scale, t):
+    """Plain version of the int8 kernel. q: [B, H, hd]; cache_k/v: int8
+    [B, H, T, hd]; k_scale/v_scale: f32 [B, H, T]; t as for
+    decode_attention_ref. q is rounded to bf16; the score of key t' is
+    (q . k) * hd^-0.5 * k_scale[t']; the unnormalised probability (against
+    the max over keys <= t) times v_scale[t'] is rounded to bf16 before it
+    multiplies V; the denominator sums the probabilities alone. Returns f32
+    [B, H, hd]."""
+    hd = q.shape[-1]
+    T = cache_k.shape[2]
+    qb = q.to(torch.bfloat16).float()
+    s = torch.einsum("bhd,bhkd->bhk", qb, cache_k.float()) * hd ** -0.5
+    s = s * k_scale
+    pos = torch.arange(T, device=cache_k.device)
+    valid = pos <= torch.as_tensor(t, device=cache_k.device).reshape(-1)
+    s = torch.where(valid, s, float("-inf"))
+    p = torch.exp(s - s.max(dim=-1, keepdim=True).values)
+    pv = torch.where(valid, p * v_scale, 0.0).to(torch.bfloat16).float()
+    out = torch.einsum("bhk,bhkd->bhd", pv, cache_v.float())
+    return out / p.sum(dim=-1, keepdim=True)
+
+
 def split_plan(T: int, bh: int, sm_count: int):
     """(splits, keys per split) for the split-K grid: enough (b, h, split)
     blocks for about two per SM, none shorter than MIN_KEYS_PER_SPLIT
@@ -62,14 +89,19 @@ def _library():
     """The C entry, built at first use. Every pointer and the stream are
     c_void_p: ctypes would otherwise pass a Python int as a 32-bit int."""
     from sea_tpu_torch.ops._build import load_library
-    fn = load_library("decode_attention").sea_decode_attention
+    lib = load_library("decode_attention")
+    fn = lib.sea_decode_attention
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                    + [ctypes.c_void_p])
-    return fn
+    fn_q8 = lib.sea_decode_attention_q8
+    fn_q8.restype = ctypes.c_int
+    fn_q8.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+                      + [ctypes.c_void_p])
+    return fn, fn_q8
 
 
-def _check(q, cache_k, cache_v, t):
+def _check(q, cache_k, cache_v, t, scales):
     if q.dim() != 3 or cache_k.dim() != 4:
         raise ValueError(f"want q [B,H,hd] and caches [B,H,T,hd]; got "
                          f"{tuple(q.shape)} and {tuple(cache_k.shape)}")
@@ -80,15 +112,22 @@ def _check(q, cache_k, cache_v, t):
                          f"{tuple(cache_k.shape)}, v {tuple(cache_v.shape)}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
-    if cache_k.dtype not in (torch.float32, torch.bfloat16) \
-            or cache_v.dtype != cache_k.dtype:
+    want = (torch.int8,) if scales else (torch.float32, torch.bfloat16)
+    if cache_k.dtype not in want or cache_v.dtype != cache_k.dtype:
         raise ValueError(f"cache dtypes {cache_k.dtype}/{cache_v.dtype}: "
-                         "want both float32 or both bfloat16")
-    for name, x in (("q", q), ("cache_k", cache_k), ("cache_v", cache_v)):
+                         f"want both of one of {want}"
+                         + ("" if scales else " (int8 needs k_scale and "
+                            "v_scale)"))
+    named = [("q", q), ("cache_k", cache_k), ("cache_v", cache_v)]
+    for i, sc in enumerate(scales):
+        named.append((("k_scale", "v_scale")[i], sc))
+        if sc.shape != cache_k.shape[:3] or sc.dtype != torch.float32:
+            raise ValueError(f"scales must be f32 [B, H, T]; got "
+                             f"{sc.dtype} {tuple(sc.shape)}")
+    for name, x in named:
         if x.device != cache_k.device:
             raise ValueError(f"{name} is on {x.device}, the cache on "
                              f"{cache_k.device}")
-    for name, x in (("q", q), ("cache_k", cache_k), ("cache_v", cache_v)):
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte "
                              "aligned")
@@ -98,19 +137,29 @@ def _check(q, cache_k, cache_v, t):
                          f"cache's device; got {t!r}")
 
 
-def decode_attention(q, cache_k, cache_v, t):
+def decode_attention(q, cache_k, cache_v, t, *, k_scale=None, v_scale=None):
     """q: [B, H, hd]; cache_k/v: [B, H, T, hd]; t: the position, an int32
     tensor of one element on the cache's device, read by the kernel on the
     device (positions outside [0, T) are clamped there). Returns f32
     [B, H, hd]. CPU tensors take the plain version; CUDA tensors the
-    kernel."""
+    kernel.
+
+    k_scale/v_scale: f32 [B, H, T] per-token scales of an int8 cache
+    (ops/attention.init_kv_cache); with them the int8 kernel (or its plain
+    version) folds the scales into the score and probability math."""
+    scales = () if k_scale is None else (k_scale, v_scale)
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("give both k_scale and v_scale, or neither")
     if cache_k.device.type == "cpu":
+        if scales:
+            return decode_attention_q8_ref(q, cache_k, cache_v, k_scale,
+                                           v_scale, t)
         return decode_attention_ref(q, cache_k, cache_v, t)
     if cache_k.device.type != "cuda":
         raise ValueError(f"decode_attention runs on CPU or CUDA tensors, "
                          f"not {cache_k.device}")
-    _check(q, cache_k, cache_v, t)
-    fn = _library()
+    _check(q, cache_k, cache_v, t, scales)
+    fn, fn_q8 = _library()
     B, H, T, hd = cache_k.shape
     dev = cache_k.device
     if dev.index != torch.cuda.current_device():
@@ -127,13 +176,20 @@ def decode_attention(q, cache_k, cache_v, t):
                            device=dev)
     out = torch.empty((B, H, hd), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(q32.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
-            t.data_ptr(), part_ml.data_ptr(), part_acc.data_ptr(),
-            out.data_ptr(), B * H, T, hd, splits, chunk,
-            int(cache_k.dtype == torch.bfloat16), stream)
+    ptrs = (q32.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr())
+    tail = (t.data_ptr(), part_ml.data_ptr(), part_acc.data_ptr(),
+            out.data_ptr(), B * H, T, hd, splits, chunk)
+    global launches, launches_q8
+    if scales:
+        rc = fn_q8(*ptrs, k_scale.data_ptr(), v_scale.data_ptr(), *tail,
+                   stream)
+    else:
+        rc = fn(*ptrs, *tail, int(cache_k.dtype == torch.bfloat16), stream)
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {rc}")
-    global launches
-    launches += 1
+    if scales:
+        launches_q8 += 1
+    else:
+        launches += 1
     return out

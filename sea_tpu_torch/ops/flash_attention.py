@@ -23,6 +23,11 @@ computed here with torch, outside the kernels, as the JAX package does.
 What bounds the kernels on the card, and their design: see the note at
 the top of the CUDA source. Head dims 64, 128 and 256; any other raises
 on CUDA.
+
+``dropout_mask_dense`` writes that mask as a dense [BH, Tq, Tk] tensor
+with a fourth kernel of the same source (replacing the TPU mask kernel
+``_mask_kernel``), the oracle of the dropout verification; its plain
+version is ``dropout_mask_dense_ref``.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from sea_tpu_torch.ops.layers import (dropout_keep_threshold,
 fwd_launches = 0
 dq_launches = 0
 dkv_launches = 0
+mask_launches = 0
 
 HEAD_DIMS = (64, 128, 256)
 
@@ -57,13 +63,22 @@ def _valid(Tq, Tk, causal, src_len, device):
     return kj <= qi + src_len
 
 
-def dropout_mask(B, H, Tq, Tk, seed, rate, device):
-    """[B, H, Tq, Tk] f32 dropout scale of the kernels."""
-    bh = torch.arange(B * H, device=device).reshape(B, H, 1, 1)
-    qp = torch.arange(Tq, device=device).reshape(1, 1, Tq, 1)
-    kp = torch.arange(Tk, device=device).reshape(1, 1, 1, Tk)
+def dropout_mask_dense_ref(bh_map, Tq, Tk, seed, rate):
+    """Plain version of the dense mask kernel: [BH, Tq, Tk] f32 scale,
+    row bh hashed with the global bh_map[bh]."""
+    dev = bh_map.device
+    bh = bh_map.to(torch.int64).reshape(-1, 1, 1)
+    qp = torch.arange(Tq, device=dev).reshape(1, Tq, 1)
+    kp = torch.arange(Tk, device=dev).reshape(1, 1, Tk)
     return dropout_scale_from_positions(seed[0], seed[1], bh, qp, kp,
                                         rate=rate)
+
+
+def dropout_mask(B, H, Tq, Tk, seed, rate, device):
+    """[B, H, Tq, Tk] f32 dropout scale of the kernels (bh = b*H + h)."""
+    bh = torch.arange(B * H, device=device)
+    return dropout_mask_dense_ref(bh, Tq, Tk, seed, rate).reshape(
+        B, H, Tq, Tk)
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, src_len: int = 0,
@@ -144,7 +159,7 @@ def row_dot(do, o):
 
 @functools.cache
 def _library():
-    """The three C entries, built at first use. Pointers and the stream
+    """The four C entries, built at first use. Pointers and the stream
     are c_void_p and strides c_longlong: ctypes would otherwise pass a
     Python int as a 32-bit int."""
     from sea_tpu_torch.ops._build import load_library
@@ -155,7 +170,10 @@ def _library():
              + [ctypes.c_float, ctypes.c_int, P])
     fns = {"fwd": (lib.sea_flash_fwd, view * 3 + [P, P] + shape),
            "dq": (lib.sea_flash_bwd_dq, view * 4 + [P, P, P] + shape),
-           "dkv": (lib.sea_flash_bwd_dkv, view * 4 + [P, P, P, P] + shape)}
+           "dkv": (lib.sea_flash_bwd_dkv, view * 4 + [P, P, P, P] + shape),
+           "mask": (lib.sea_dropout_mask,
+                    [P, P] + [ctypes.c_int] * 3 + [ctypes.c_uint32] * 3
+                    + [ctypes.c_float, P])}
     for fn, argtypes in fns.values():
         fn.restype = ctypes.c_int
         fn.argtypes = argtypes
@@ -275,6 +293,42 @@ def flash_bwd_dkv(q, k, v, do, lse, dsum, *, causal=True, src_len=0,
     global dkv_launches
     dkv_launches += 1
     return dk, dv
+
+
+def dropout_mask_dense(BH: int, Tq: int, Tk: int, seed, rate: float, device,
+                       bh_map=None):
+    """The dropout scale {0, 1/(1-rate)} the flash kernels apply, as a dense
+    f32 [BH, Tq, Tk] tensor on ``device``: row bh hashes with bh_map[bh]
+    (default bh). The verification oracle of the kernels' dropout. On a
+    CUDA device the mask kernel writes it; on the CPU the plain version.
+    Unlike the TPU kernel, it returns the logical region, not one padded to
+    block multiples."""
+    if not 0.0 < rate < 1.0:
+        raise ValueError(f"dropout rate {rate} not in (0, 1)")
+    device = torch.device(device)
+    if bh_map is None:
+        bh_map = torch.arange(BH, dtype=torch.int32, device=device)
+    bh_map = bh_map.to(device=device, dtype=torch.int32).contiguous()
+    if bh_map.shape != (BH,):
+        raise ValueError(f"bh_map must be [{BH}]; got {tuple(bh_map.shape)}")
+    if device.type == "cpu":
+        return dropout_mask_dense_ref(bh_map, Tq, Tk, seed, rate)
+    if device.type != "cuda":
+        raise ValueError(f"dropout_mask_dense runs on CPU or CUDA, not "
+                         f"{device}")
+    if device.index is not None \
+            and device.index != torch.cuda.current_device():
+        raise ValueError(f"{device} is not the current CUDA device")
+    out = torch.empty((BH, Tq, Tk), dtype=torch.float32, device=device)
+    s0, s1 = (w & 0xFFFFFFFF for w in seed)
+    inv = float(torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32))
+    rc = _library()["mask"](bh_map.data_ptr(), out.data_ptr(), BH, Tq, Tk,
+                            s0, s1, dropout_keep_threshold(rate), inv,
+                            torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(rc, "dropout mask")
+    global mask_launches
+    mask_launches += 1
+    return out
 
 
 class _FlashAttention(torch.autograd.Function):

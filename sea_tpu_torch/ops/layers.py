@@ -13,8 +13,11 @@ weights, zero bias) and ``torch_default`` (uniform +-1/sqrt(fan_in)).
 Init draws from an explicit ``torch.Generator`` on the generator's device.
 
 Dropout is the JAX package's position hash (``dropout``), so the masks
-equal its masks from the same key. The int8/int4 weight layouts of
-``sea_tpu.ops.layers.linear`` are not ported yet (ROADMAP.md).
+equal its masks from the same key. ``linear`` serves the reduced-precision
+layouts of ``utils.precision`` as the JAX package does: bf16 ``w`` (up-cast
+per call), int8 ``w_q`` with a per-column ``w_s``, and packed int4
+``w_p4`` through ``ops.quant_matmul`` (the hand-written int4 kernel on the
+card).
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from sea_tpu_torch.ops import fused_adaln
+from sea_tpu_torch.ops import fused_adaln, quant_matmul
 from sea_tpu_torch.utils.prng import key_to_seed
 
 LN_EPS = 1e-5
@@ -60,14 +63,37 @@ def init_linear(gen: torch.Generator, d_in: int, d_out: int, *,
     return p
 
 
+# Activation-statistics hook (utils/calibration.py): None except inside
+# capture_activation_stats(), when every linear call reports its input.
+_CALIBRATION = None
+
+
 def linear(params, x):
-    if "w" not in params:
-        raise NotImplementedError(
-            "quantized linear layouts (w_q / w_p4) are not ported yet; "
-            "see ROADMAP.md")
-    # F.linear takes [d_out, d_in]; the transposed view of the JAX-layout
-    # weight costs no copy and lets the bias add fuse into the GEMM.
-    return F.linear(x, params["w"].T, params.get("b"))
+    """y = x @ w + b over the layouts of a linear param dict:
+    - "w" f32: one GEMM (F.linear takes [d_out, d_in]; the transposed view
+      of the JAX-layout weight costs no copy and fuses the bias add);
+    - "w" bf16 (``cast_weights_bf16``): both operands in their promoted
+      type (f32 for f32 activations), as JAX's mixed-dtype matmul
+      computes;
+    - "w_q" int8 + "w_s" (``quantize_weights_int8``): (x @ w_q) * w_s,
+      int8 values being exact in f32 as in bf16;
+    - "w_p4" packed int4 + "w_s" (``quantize_weights_int4``):
+      ``quant_matmul.int4_matmul``."""
+    if _CALIBRATION is not None:
+        _CALIBRATION.record(params, x)
+    w = params.get("w")
+    if w is not None:
+        if w.dtype != x.dtype:
+            dt = torch.promote_types(x.dtype, w.dtype)
+            x, w = x.to(dt), w.to(dt)
+        return F.linear(x, w.T, params.get("b"))
+    if "w_p4" in params:
+        y = quant_matmul.int4_matmul(x, params["w_p4"], params["w_s"])
+    else:
+        y = (x @ params["w_q"].float()) * params["w_s"]
+    if "b" in params:
+        y = y + params["b"]
+    return y
 
 
 # ---------------------------------------------------------------------------

@@ -22,12 +22,13 @@ from sea_tpu_torch.train import metrics as M
 def make_e2e_rollout_eval(tcfg: TemporalModelConfig,
                           scfg: SpatialModelConfig, part: PartitionIndex, *,
                           sea_layout: str = "isolate", scalers=None,
-                          field_groups=None):
+                          field_groups=None, cache_dtype=torch.float32):
     """Returns fn(tparams, sparams, x0, ib, truth, tgt_lat) ->
     (decoded fields [B,T,N,F], rel-MSE [B,T,F], encoded rel-MSE scalar).
 
     x0: [B, G, E]; ib: [B, T, ib_num]; truth: [B, T, N, F] node fields
-    aligned with the predictions; tgt_lat: [B, T, G, E] latent targets."""
+    aligned with the predictions; tgt_lat: [B, T, G, E] latent targets.
+    cache_dtype: the rollout's KV-cache storage (f32, bf16 or int8)."""
     if not is_scan_incremental(tcfg):
         raise NotImplementedError(
             "make_e2e_rollout_eval needs a scan-incremental config (no "
@@ -38,7 +39,7 @@ def make_e2e_rollout_eval(tcfg: TemporalModelConfig,
 
     @torch.inference_mode()
     def run(tparams, sparams, x0, ib, truth, tgt_lat):
-        preds = rollout_scan(tparams, tcfg, x0, ib)
+        preds = rollout_scan(tparams, tcfg, x0, ib, cache_dtype=cache_dtype)
         return tail(sparams, preds, truth, tgt_lat)
 
     return run

@@ -15,7 +15,9 @@ position on the device and the loop never synchronises on it — a CUDA
 graph of the loop needs no kernel change.
 
 Not ported: the prefix engines and ``select_engine`` (its constants are TPU
-measurements); see ROADMAP.md.
+measurements); see ROADMAP.md. The JAX package's ``select_engine``
+sends every reduced-precision serving mode (bf16, int8 or int4 weights)
+and every explicit KV-cache dtype to this engine anyway.
 """
 
 from __future__ import annotations
@@ -42,9 +44,11 @@ def rollout_scan(params, cfg: TemporalModelConfig, x0, ib, *,
     """x0: [B, G, E] initial latent state; ib: [B, T, ib_num].
 
     Returns predictions [B, T, G, E]: prediction k estimates the state at
-    time k+1. The AdaLN cond tables are computed once for the horizon
-    (AdaLN configs only; a plain-LN config's only ib-only activation is
-    the small ib embedding)."""
+    time k+1. cache_dtype: the KV caches' storage, torch.float32,
+    torch.bfloat16 or torch.int8 (per-token scales). The AdaLN cond
+    tables are computed once for the horizon (AdaLN configs only; a
+    plain-LN config's only ib-only activation is the small ib
+    embedding)."""
     check_supported(cfg)
     B, T = x0.shape[0], ib.shape[1]
     cache = init_temporal_cache(cfg, B, T, dtype=cache_dtype,

@@ -32,11 +32,15 @@ from sea_tpu_torch.rollout.e2e import make_e2e_rollout_eval
 
 def fused_autoregressive_evaluation(params, case: CaseConfig, windows,
                                     latent_service: LatentService,
-                                    mesh_processor: MeshProcessor
+                                    mesh_processor: MeshProcessor, *,
+                                    spatial_params=None,
+                                    cache_dtype=torch.float32
                                     ) -> Dict[str, Any]:
     """windows: TemporalWindows (src, tgt, tgt_original, ib) as numpy; all
-    windows roll out as one batch on the latent service's device, and the
-    latent service's weights decode.
+    windows roll out as one batch on the latent service's device with KV
+    caches of ``cache_dtype``. ``spatial_params`` (default: the latent
+    service's weights) decode: the CLI passes the reduced-precision
+    stage-1 weights of ``--precision`` there.
 
     Returns {encoded_rel_mse, decoded_rel_mse, decoded_rel_mse_per_time
     [T, F]} averaged over the set, and writes the rollout CSV."""
@@ -48,8 +52,10 @@ def fused_autoregressive_evaluation(params, case: CaseConfig, windows,
     run = make_e2e_rollout_eval(
         case.temporal, latent_service.cfg, mesh_processor.partition,
         sea_layout=case.run.sea_layout, scalers=mesh_processor.scalers,
-        field_groups=mesh_processor.field_groups)
-    _, rel, enc_rel = run(params, latent_service.params,
+        field_groups=mesh_processor.field_groups, cache_dtype=cache_dtype)
+    sparams = (latent_service.params if spatial_params is None
+               else spatial_params)
+    _, rel, enc_rel = run(params, sparams,
                           dev(windows.src[:, 0]),
                           dev(windows.ib), dev(windows.tgt_original),
                           dev(windows.tgt))

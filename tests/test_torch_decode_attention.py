@@ -8,6 +8,18 @@ block edge, and the last position. Tolerances: atol 1e-5 for f32 (summation
 order), 2e-2 for bf16 (the kernel and the reference round q and the
 probabilities to bf16; the XLA path does not round q).
 
+The int8 cache: ``attention._quantize_token`` bit for bit against JAX's;
+``decode_attention_q8_ref`` against the TPU kernel ``_decode_kernel_q8``
+in interpret mode at the same head dims and positions, atol 1e-5 (both
+round q and each p * v_scale to bf16, relative to the running max; past
+the TPU kernel's first 256-key block that max could differ from the plain
+version's, and a rounding with it, but on these inputs it does not: the
+measured max abs err is 1.2e-07, f32 order); and eight int8-cache
+``mha_step``s against JAX's with its kernel forced (interpret mode): the
+same bound for the outputs; the scales written within an f32 ulp and the
+planes within one step on under 1% of entries (the tokens themselves
+differ in the last bits: BLAS and RoPE order).
+
 The CUDA kernel itself runs only on the card: its test is marked ``gpu``
 and skips here. The card has no JAX, so this module imports JAX only
 inside the tests that compare against it; there,
@@ -27,7 +39,7 @@ torch.set_num_threads(2)
 
 B, H, T = 1, 2, 260
 POSITIONS = (0, 255, 256, T - 1)
-TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+TOL = {"float32": 1e-5, "bfloat16": 2e-2, "int8": 1e-5}
 
 
 def _inputs(hd, dtype, t):
@@ -143,3 +155,154 @@ def test_cuda_kernel_matches_ref(shape, dtype):
         Vp[:, :, t + 1:] = float("nan")
         torch.testing.assert_close(DA.decode_attention(q, Kp, Vp, tt), got,
                                    rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# int8 cache
+# ---------------------------------------------------------------------------
+
+def _q8_inputs(hd, seed, B_=B):
+    """q [B,H,hd] f32 and an int8 cache of quantized random tokens with
+    their scales, as mha_step writes it."""
+    from sea_tpu_torch.ops.attention import _quantize_token
+    rs = np.random.RandomState(seed)
+    q = rs.randn(B_, H, hd).astype(np.float32)
+    toks = torch.from_numpy(rs.randn(2, T, B_, H, hd).astype(np.float32))
+    planes, scales = [], []
+    for x in toks:
+        qs = [_quantize_token(x[i]) for i in range(T)]
+        planes.append(torch.stack([a for a, _ in qs], dim=2))
+        scales.append(torch.stack([b for _, b in qs], dim=2))
+    return q, planes, scales
+
+
+def test_quantize_token_matches_jax_bit_for_bit():
+    import jax
+    import jax.numpy as jnp
+    from sea_tpu.ops.attention import _quantize_token as jax_quantize
+    from sea_tpu_torch.ops.attention import _quantize_token
+    rs = np.random.RandomState(0)
+    x = (rs.randn(3, 4, 64) * rs.rand(3, 4, 1) * 5).astype(np.float32)
+    x[0, 0] = 0.0  # a zero token: scale 0, planes 0
+    x[1, 1, :3] = [1.5, -2.5, 127.0]  # halves round to even
+    got_q, got_s = _quantize_token(torch.from_numpy(x))
+    # jitted, as the JAX rollout runs it (XLA folds the division by the
+    # constant int_max into a multiply by its reciprocal)
+    want_q, want_s = jax.jit(jax_quantize)(jnp.asarray(x))
+    assert got_q.dtype == torch.int8 and got_s.dtype == torch.float32
+    np.testing.assert_array_equal(got_q.numpy(), np.asarray(want_q))
+    np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
+    assert float(got_s[0, 0]) == 0.0 and not got_q[0, 0].any()
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_q8(hd):
+    import jax
+    from sea_tpu.ops.decode_attention import decode_attention as jax_decode
+
+    @jax.jit
+    def kernel(q, K, V, ks, vs, t):
+        return jax_decode(q, K, V, t, k_scale=ks, v_scale=vs,
+                          interpret=True)
+
+    return kernel
+
+
+@pytest.mark.parametrize("hd", DA.HEAD_DIMS)
+def test_q8_ref_matches_jax_kernel(hd):
+    jnp = pytest.importorskip("jax.numpy")
+    q, (K, V), (ks, vs) = _q8_inputs(hd, seed=hd)
+    kernel = _jax_q8(hd)
+    for t in POSITIONS:
+        got = DA.decode_attention_q8_ref(
+            torch.from_numpy(q), K, V, ks, vs,
+            torch.tensor([t], dtype=torch.int32))
+        # the wrapper on the CPU is the plain version
+        torch.testing.assert_close(
+            DA.decode_attention(torch.from_numpy(q), K, V,
+                                torch.tensor([t], dtype=torch.int32),
+                                k_scale=ks, v_scale=vs), got, rtol=0, atol=0)
+        want = kernel(q, K.numpy(), V.numpy(), ks.numpy(), vs.numpy(),
+                      jnp.int32(t))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=TOL["int8"], err_msg=f"t={t}")
+
+
+def test_int8_cache_mha_steps_match_jax(monkeypatch):
+    """Eight one-token steps of self-attention with RoPE on an int8 cache,
+    port against JAX mha_step with its q8 kernel forced (interpret mode):
+    outputs, and the planes and scales written."""
+    import jax
+    import jax.numpy as jnp
+    from sea_tpu.ops import attention as JA
+    from sea_tpu.ops import decode_attention as JDA
+    from sea_tpu_torch.ops import attention as TA
+    from sea_tpu_torch.utils.params import from_numpy
+    monkeypatch.setattr(JDA, "decode_supported", lambda *a, **k: True)
+    monkeypatch.setattr(JDA, "_FORCE_INTERPRET", True)
+    hd, steps, C = 64, 8, H * 64
+    rs = np.random.RandomState(3)
+    params = {n: {"w": (rs.randn(C, C) * 0.05).astype(np.float32),
+                  "b": (rs.randn(C) * 0.05).astype(np.float32)}
+              for n in ("q", "k", "v")}
+    params["proj"] = {"w": (rs.randn(C, C) * 0.05).astype(np.float32)}
+    xs = rs.randn(steps, 2, C).astype(np.float32)
+    jstep = jax.jit(lambda p, x, c, t: JA.mha_step(p, x, x, c, t,
+                                                   n_heads=H, rope=True))
+    jcache = JA.init_kv_cache(2, 16, H, hd, dtype=jnp.int8)
+    tparams = from_numpy(params, "cpu")
+    tcache = TA.init_kv_cache(2, 16, H, hd, device="cpu", dtype=torch.int8)
+    for t in range(steps):
+        want, jcache = jstep(params, xs[t], jcache, jnp.int32(t))
+        x = torch.from_numpy(xs[t])
+        got = TA.mha_step(tparams, x, x, tcache,
+                          torch.tensor([t], dtype=torch.int32), n_heads=H,
+                          rope=True)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=TOL["int8"], err_msg=f"step {t}")
+    # The projected and rotated tokens differ in the last f32 bits (BLAS
+    # and RoPE order), so a scale may move by an ulp and a plane entry on
+    # a rounding boundary by one.
+    for name in ("k", "v", "k_s", "v_s"):
+        got, want = tcache[name].numpy(), np.asarray(jcache[name])
+        if name.endswith("_s"):
+            np.testing.assert_allclose(got, want, rtol=2.5e-7, atol=0,
+                                       err_msg=name)
+        else:
+            diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+            assert diff.max() <= 1 and (diff > 0).mean() < 0.01, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 8, 250, 256), (8, 8, 250, 256),
+                                   (8, 8, 250, 128), (2, 8, 399, 64)])
+def test_cuda_q8_kernel_matches_ref(shape):
+    """Runs on the card only. The int8 kernel against its plain version at
+    every position class; NaN scales past t must not change it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    Bq, Hq, Tq, hd = shape
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q = torch.randn(Bq, Hq, hd, device="cuda", generator=g)
+    K = torch.randint(-127, 128, (Bq, Hq, Tq, hd), device="cuda",
+                      generator=g, dtype=torch.int8)
+    V = torch.randint(-127, 128, (Bq, Hq, Tq, hd), device="cuda",
+                      generator=g, dtype=torch.int8)
+    ks = torch.rand(Bq, Hq, Tq, device="cuda", generator=g) * 0.02
+    vs = torch.rand(Bq, Hq, Tq, device="cuda", generator=g) * 0.02
+    chunk = DA.split_plan(Tq, Bq * Hq, torch.cuda.get_device_properties(
+        0).multi_processor_count)[1]
+    for t in sorted({0, chunk - 1, chunk, 255, 256, Tq - 1} & set(range(Tq))):
+        tt = torch.tensor([t], dtype=torch.int32, device="cuda")
+        got = DA.decode_attention(q, K, V, tt, k_scale=ks, v_scale=vs)
+        want = DA.decode_attention_q8_ref(q, K, V, ks, vs, tt)
+        # The kernel rounds p * v_scale against each stream's running max,
+        # the plain version against the global max: bf16 order, as for the
+        # bf16 cache.
+        torch.testing.assert_close(got, want, rtol=0, atol=TOL["bfloat16"])
+        ksn, vsn = ks.clone(), vs.clone()
+        ksn[:, :, t + 1:] = float("nan")
+        vsn[:, :, t + 1:] = float("nan")
+        torch.testing.assert_close(
+            DA.decode_attention(q, K, V, tt, k_scale=ksn, v_scale=vsn), got,
+            rtol=0, atol=0)

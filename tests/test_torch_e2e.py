@@ -11,6 +11,15 @@ CPU.
   their printed rel-MSEs agree to rtol 1e-4 although the JAX CLI rolls
   out on its prefix engine (f32, batch 1) and the port on the scan engine
   (tests/test_rollout.py proves the engines equal).
+- The same at reduced precision (`--precision int4 --kv_cache int8`,
+  `int8`, `bf16`; both CLIs on the scan engine), rtol 1e-4. Every smoke
+  matrix is below the quantizers' default min_size (2^16), so both sides
+  run with min_size 64. The port computes int4 matvecs and int8-cache
+  attention with its kernels' math on the CPU too (bf16-rounded x and q),
+  so for int4 the JAX CLI runs its kernels, forced on and in interpret
+  mode. The runs skip the drift gate (`--no_drift_check`; its eager JAX
+  forwards take most of a run's time): tests/test_torch_quant.py holds
+  teacher_forced_drift to JAX's, and the gate's abort is tested here.
 
 Tolerances: atol 1e-5 for the stage-1 model (f32, summation order), 2e-4
 for anything downstream of a rollout (the bound of tests/test_rollout.py).
@@ -18,6 +27,7 @@ for anything downstream of a rollout (the bound of tests/test_rollout.py).
 
 import ast
 import dataclasses
+import functools
 import os
 import re
 import subprocess
@@ -171,6 +181,122 @@ def test_cli_temporal_test_matches_jax_cli(tmp_path, capsys, monkeypatch):
         os.path.join(save, "rollout_error_cylinder_flow_run1.csv"))
 
 
+QUANT_MIN_SIZE = 64
+
+
+def _small_min_size(monkeypatch, module):
+    for name in ("quantize_weights_int8", "quantize_weights_int4",
+                 "cast_weights_bf16"):
+        monkeypatch.setattr(module, name, functools.partial(
+            getattr(module, name), min_size=QUANT_MIN_SIZE))
+
+
+@pytest.fixture(scope="module")
+def smoke_checkpoints(tmp_path_factory):
+    save = str(tmp_path_factory.mktemp("smoke_ckpt"))
+    save_init_checkpoints(smoke_case(), save, seed=1)
+    return save
+
+
+def _drift_line(out):
+    found = re.search(r"^Per-checkpoint teacher-forced drift .*$", out, re.M)
+    return found and found.group(0)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--precision", "int4", "--kv_cache", "int8"], ["--precision", "int8"],
+    ["--precision", "bf16"]], ids=["int4-kv_int8", "int8", "bf16"])
+def test_cli_reduced_precision_matches_jax_cli(flags, smoke_checkpoints,
+                                               capsys, monkeypatch):
+    from sea_tpu import cli as jax_cli
+    from sea_tpu.ops import decode_attention as jax_decode
+    from sea_tpu.ops import quant_matmul as jax_quant
+    from sea_tpu.train import evaluate as jax_evaluate
+    from sea_tpu.utils import precision as jax_precision
+    from sea_tpu_torch.utils import precision as torch_precision
+    for name in ("plot_all_fields_2d", "plot_all_fields_3d",
+                 "plot_rollout_error"):
+        monkeypatch.setattr(jax_evaluate, name, lambda *a, **k: None)
+    _small_min_size(monkeypatch, jax_precision)
+    _small_min_size(monkeypatch, torch_precision)
+    if flags[1] == "int4":
+        # JAX's kernels on, in interpret mode, at every shape the port's
+        # kernel math takes (M <= 8 rows; any head dim). The f32 caches of
+        # the other modes need no kernel: its math is the XLA path's.
+        pick = jax_quant._pick_block_n
+        monkeypatch.setattr(jax_quant, "kernel_supported",
+                            lambda M, K, N, backend=None:
+                            M <= 8 and K % 2 == 0)
+        monkeypatch.setattr(jax_quant, "_pick_block_n",
+                            lambda K, N: pick(K, N) or N)
+        monkeypatch.setattr(jax_quant, "_FORCE_INTERPRET", True)
+        monkeypatch.setattr(jax_decode, "decode_supported",
+                            lambda *a, **k: True)
+        monkeypatch.setattr(jax_decode, "_FORCE_INTERPRET", True)
+    argv = ["cylinder_flow_smoke", "temporal", "test", "--synthetic",
+            "--save_dir", smoke_checkpoints, "--no_drift_check"] + flags
+    jax_cli.main(argv + ["--platform", "cpu"])
+    jax_out = capsys.readouterr().out
+    torch_cli.main(argv + ["--device", "cpu"])
+    torch_out = capsys.readouterr().out
+    want, got = _printed_metrics(jax_out), _printed_metrics(torch_out)
+    for key in want:
+        assert np.isfinite(got[key])
+        np.testing.assert_allclose(got[key], want[key], rtol=1e-4,
+                                   err_msg=key)
+    assert f"Serving precision: {flags[1]} weights" in torch_out
+    assert ("int4 calibration" in torch_out) == (flags[1] == "int4")
+    assert ("int4 calibration" in jax_out) == (flags[1] == "int4")
+
+
+def test_cli_drift_gate_aborts_over_budget(smoke_checkpoints, capsys,
+                                           monkeypatch):
+    from sea_tpu_torch.utils import precision as torch_precision
+    _small_min_size(monkeypatch, torch_precision)
+    with pytest.raises(SystemExit):
+        torch_cli.main(["cylinder_flow_smoke", "temporal", "test",
+                        "--synthetic", "--save_dir", smoke_checkpoints,
+                        "--precision", "int8", "--drift_budget", "0",
+                        "--device", "cpu"])
+    captured = capsys.readouterr()
+    line = _drift_line(captured.out)
+    assert line and line.endswith("(budget 0.0)")
+    assert float(line.split(": ")[1].split()[0]) > 0
+    assert "exceeds the budget 0.0" in captured.err
+    assert "Test Results" not in captured.out
+
+
+def test_cli_no_calibrate_no_drift_check(smoke_checkpoints, capsys,
+                                         monkeypatch):
+    """--no_calibrate quantizes int4 with plain MSE scales (no stats, no
+    bias correction); --no_drift_check skips the gate even at budget 0.
+    The auto cache of int4 is bf16."""
+    from sea_tpu_torch.rollout import e2e
+    from sea_tpu_torch.utils import precision as torch_precision
+    _small_min_size(monkeypatch, torch_precision)
+    seen = []
+    make = e2e.make_e2e_rollout_eval
+
+    def spy(*a, **k):
+        seen.append(k["cache_dtype"])
+        return make(*a, **k)
+
+    monkeypatch.setattr(e2e, "make_e2e_rollout_eval", spy)
+    monkeypatch.setattr(
+        sys.modules["sea_tpu_torch.train.evaluate"],
+        "make_e2e_rollout_eval", spy)
+    results = torch_cli.main([
+        "cylinder_flow_smoke", "temporal", "test", "--synthetic",
+        "--save_dir", smoke_checkpoints, "--precision", "int4",
+        "--no_calibrate", "--no_drift_check", "--drift_budget", "0",
+        "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "int4 calibration" not in out and _drift_line(out) is None
+    assert "Serving precision: int4 weights" in out
+    assert seen == [torch.bfloat16]
+    assert np.isfinite(results["decoded_rel_mse"])
+
+
 def test_cuda_device_without_cuda_raises():
     if torch.cuda.is_available():
         pytest.skip("CUDA is present")
@@ -182,7 +308,7 @@ def test_cuda_device_without_cuda_raises():
 @pytest.mark.parametrize("argv", [
     ["encoder", "train"], ["temporal", "train", "--seq_parallel", "2"],
     ["temporal", "generate"],
-    ["temporal", "test", "--precision", "bf16"],
+    ["temporal", "test", "--mesh", "2x1"],
     ["temporal", "test", "--model_path", "model.pt"]])
 def test_unported_modes_and_flags_name_the_roadmap(argv, capsys):
     with pytest.raises(SystemExit):
@@ -191,8 +317,8 @@ def test_unported_modes_and_flags_name_the_roadmap(argv, capsys):
 
 
 def test_port_imports_no_jax():
-    """Every module of sea_tpu_torch, and chip_smoke.py, imports with jax
-    and the JAX package made unimportable."""
+    """Every module of sea_tpu_torch, chip_smoke.py and chip_ab.py import
+    with jax and the JAX package made unimportable."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -201,7 +327,7 @@ def test_port_imports_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    sea_tpu_torch.__path__, 'sea_tpu_torch.')\n"
         "    if not m.name.endswith('__main__')]\n"
-        "for name in names + ['chip_smoke']:\n"
+        "for name in names + ['chip_smoke', 'chip_ab']:\n"
         "    importlib.import_module(name)\n"
         "assert not any(m.split('.')[0] in ('jax', 'sea_tpu') for m in\n"
         "               sys.modules if sys.modules[m] is not None)\n"
@@ -223,10 +349,10 @@ def _imported_modules(path):
 
 
 def test_port_sources_name_no_jax_module():
-    """No import statement in sea_tpu_torch/ or chip_smoke.py, at any
-    depth (lazy imports inside functions included), names jax, jaxlib or
-    a module of the JAX package."""
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    """No import statement in sea_tpu_torch/, chip_smoke.py or chip_ab.py,
+    at any depth (lazy imports inside functions included), names jax,
+    jaxlib or a module of the JAX package."""
+    files = [os.path.join(REPO, n) for n in ("chip_smoke.py", "chip_ab.py")]
     for root, _, names in os.walk(os.path.join(REPO, "sea_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) >= 30

@@ -96,6 +96,24 @@ def test_dropout_mask_matches_jax_mask_kernel(monkeypatch):
     assert 0.08 < (got == 0).mean() < 0.12
 
 
+def test_dense_mask_with_bh_map_matches_jax_mask_kernel():
+    """dropout_mask_dense on the CPU (the mask kernel's plain version) with
+    a bh_map, bit for bit against the TPU mask kernel in interpret mode;
+    the port returns the logical region, the TPU kernel a padded one."""
+    import jax.numpy as jnp
+    from sea_tpu.ops import flash_attention as jfa
+    BH, Tq, Tk, rate = 4, 20, 33, 0.2
+    bh_map = np.array([6, 1, 3, 0], np.int32)
+    want = np.asarray(jfa._dropout_mask_dense(
+        BH, Tq, Tk, jnp.asarray(SEED, jnp.int32), rate, interpret=True,
+        bh_map=jnp.asarray(bh_map)))
+    before = FA.mask_launches
+    got = FA.dropout_mask_dense(BH, Tq, Tk, SEED, rate, "cpu",
+                                bh_map=torch.from_numpy(bh_map))
+    assert got.shape == (BH, Tq, Tk) and FA.mask_launches == before
+    np.testing.assert_array_equal(got.numpy(), want[:, :Tq, :Tk])
+
+
 @pytest.mark.parametrize("name", ["causal_dropout", "src_len_tq_ne_tk",
                                   "full_tq_ne_tk"])
 def test_plain_kernel_pieces_match_autograd(name):
@@ -188,3 +206,21 @@ def test_cuda_rejects_unported_head_dim():
     q, k, v, _ = _cuda_inputs(1, 16, 16, 2, 32)
     with pytest.raises(ValueError, match="head dim"):
         FA.flash_attention(q, k, v)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_map", [False, True])
+def test_cuda_dense_mask_matches_ref(with_map):
+    """Runs on the card only: the mask kernel against its plain version,
+    bit for bit, at the dropout verification's shape and a ragged one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    for BH, Tq, Tk in ((8, 512, 512), (3, 70, 130)):
+        bh_map = (torch.randperm(BH, device="cuda").to(torch.int32)
+                  if with_map else None)
+        got = FA.dropout_mask_dense(BH, Tq, Tk, SEED, 0.1, "cuda",
+                                    bh_map=bh_map)
+        ref_map = (bh_map if with_map else
+                   torch.arange(BH, dtype=torch.int32, device="cuda"))
+        want = FA.dropout_mask_dense_ref(ref_map, Tq, Tk, SEED, 0.1)
+        assert torch.equal(got, want)
