@@ -1,0 +1,235 @@
+"""Where the flash forward kernel's time goes, on one NVIDIA GPU.
+
+Run from the root of a checkout, on a machine with one CUDA card:
+
+    python3 chip_flash_probe.py
+
+It builds ``sea_tpu_torch/csrc/flash_attention.cu`` as it is and in a few
+variants made by text edits of that source (an edit that no longer applies
+fails the script), one nvcc each, started together. For every variant it
+holds the forward against the plain version at ``chip_smoke.FLASH_SHAPES``
+(dropout 0 and 0.1) and times it as ``chip_smoke.py``'s ``[kernel-time]``
+does (CUDA events, L2 cold) at the train step's shapes, beside SDPA's f32
+causal forward. For the source as it is it then counts clock64 cycles per
+key tile in the critical block (the last q tile of bh 0), by phase: the
+wait for the tile, Q.K^T (with the next tile's copies), the softmax, P.V
+and the closing barrier. Variants:
+
+- ``unroll2``: the loop over d unrolled twice;
+- ``small_trunc``: x_small = x - x_big left for the tensor core to truncate
+  (the split of CUTLASS's fast-f32 GEMMs) instead of rounded to nearest;
+- ``dead_warps``: a warp whose 16 rows all lie past Tq skips the products;
+- ``rolled_pv``: P.V as a rolled loop over its k steps, S's fragments
+  shifted down a register each step.
+
+Output: the card, then one line per build, check, time and profile.
+"""
+
+import collections
+import ctypes
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import torch
+
+import chip_smoke as cs
+from sea_tpu_torch.ops import _build
+from sea_tpu_torch.ops import flash_attention as FA
+
+REPO = Path(__file__).resolve().parent
+OUT = REPO / "build" / "flash_probe"
+SOURCE = REPO / "sea_tpu_torch" / "csrc" / "flash_attention.cu"
+
+_D_LOOP = "#pragma unroll 1\n    for (int d0 = 0; d0 < HD; d0 += 16) {"
+_SMALL = "return {big, to_tf32(x - __uint_as_float(big))};"
+_LIVE = ("  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, "
+         "row0 + 8\n")
+_PV = """#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      const FragA p = split_a(sc[n][0], sc[n][2], sc[n][1], sc[n][3]);
+"""
+VARIANTS = {
+    "as_is": [],
+    "unroll2": [(_D_LOOP, _D_LOOP.replace("unroll 1", "unroll 2"))],
+    "small_trunc": [(_SMALL, _SMALL.replace(
+        "to_tf32(x - __uint_as_float(big))",
+        "__float_as_uint(x - __uint_as_float(big))"))],
+    "dead_warps": [
+        (_LIVE, _LIVE + "  const bool live = q0 + warp * 16 < s.Tq;\n"),
+        ("      const float4 x0 = lds4(qa + d0)",
+         "      if (live) {\n      const float4 x0 = lds4(qa + d0)"),
+        ("      mma_3xtf32(sc, split_a(x0.z, x1.z, x0.w, x1.w), b0, b1);\n",
+         "      mma_3xtf32(sc, split_a(x0.z, x1.z, x0.w, x1.w), b0, b1);\n"
+         "      }\n"),
+        ("    // Online softmax;", "    if (live) {\n    // Online softmax;"),
+        ("    __syncthreads();  // stage j & 1 is refilled",
+         "    }\n    __syncthreads();  // stage j & 1 is refilled")],
+    "rolled_pv": [(_PV, """#pragma unroll 1
+    for (int n = 0; n < NS; ++n) {
+      const FragA p = split_a(sc[0][0], sc[0][2], sc[0][1], sc[0][3]);
+#pragma unroll
+      for (int i = 0; i + 1 < NS; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) sc[i][c] = sc[i + 1][c];
+""")],
+}
+# clock64 marks around the phases of a key tile, kept per warp for the
+# last q tile of bh 0 (lane 0), read back through two extra C entries.
+_MARKS = [
+    ("constexpr int kFwdThreads = 128;",
+     "__device__ long long g_phase[4][6];\nconstexpr int kFwdThreads = 128;"),
+    ('asm("mma.sync', 'asm volatile("mma.sync'),
+    ("    cp_async_wait<0>();\n",
+     "    const bool mark = blockIdx.x == gridDim.x - 1 && blockIdx.y == 0 "
+     "&& lane == 0;\n    long long ta = clock64();\n"
+     "    cp_async_wait<0>();\n"),
+    ("    __syncthreads();  // tile j (and Q) landed for every thread's "
+     "copies\n",
+     "    __syncthreads();  // tile j (and Q) landed for every thread's "
+     "copies\n    long long tb = clock64();\n"),
+    ("    // Online softmax;", "    long long tc = clock64();\n"
+                               "    // Online softmax;"),
+    ("    // O += P V.", "    long long td = clock64();\n    // O += P V."),
+    ("    __syncthreads();  // stage j & 1 is refilled at iteration j + 1\n",
+     "    long long te = clock64();\n"
+     "    __syncthreads();  // stage j & 1 is refilled at iteration j + 1\n"
+     "    if (mark) {\n"
+     "      const long long tf = clock64(), d[6] = {tb - ta, tc - tb, "
+     "td - tc, te - td, tf - te, 1};\n"
+     "      for (int i = 0; i < 6; ++i) g_phase[warp][i] += d[i];\n"
+     "    }\n"),
+]
+_MARK_ENTRIES = """
+extern "C" int sea_phase_read(long long* host) {
+  return cudaMemcpyFromSymbol(host, g_phase, sizeof(g_phase));
+}
+extern "C" int sea_phase_zero() {
+  static const long long zero[24] = {};
+  return cudaMemcpyToSymbol(g_phase, zero, sizeof(zero));
+}
+"""
+PHASES = ("wait", "QK^T+copies", "softmax", "PV", "barrier")
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def _edit(text, edits):
+    for old, new in edits:
+        if old not in text:
+            raise AssertionError(f"edit no longer applies: {old[:60]!r}")
+        text = text.replace(old, new)
+    return text
+
+
+def _build_all(texts):
+    """One nvcc (-Xptxas -v) per variant, started together; logs each
+    forward kernel's registers and spills."""
+    nvcc = _build._nvcc()
+
+    def one(name):
+        d = OUT / name
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "flash_attention.cu").write_text(texts[name])
+        proc = subprocess.run(
+            [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+             str(d / "lib.so"), str(d / "flash_attention.cu")],
+            capture_output=True, text=True)
+        if proc.returncode:
+            raise RuntimeError(f"{name}: nvcc failed\n{proc.stderr[-3000:]}")
+        lines = proc.stderr.splitlines()
+        regs = [" ".join(x.split(":", 1)[-1].strip() for x in
+                         lines[i + 2:i + 4])
+                for i, line in enumerate(lines)
+                if "Compiling entry" in line and "fwd_kernel" in line]
+        return name, regs
+
+    with ThreadPoolExecutor(len(texts)) as pool:
+        for name, regs in pool.map(one, texts):
+            log(f"[probe-build] {name}: fwd_kernel<256,32>, <128,64>, "
+                f"<64,64>: {regs}")
+
+
+def _use(name):
+    """Point the wrapper at a variant's source (a build of it exists)."""
+    _build.CSRC = OUT / name
+    _build._LIBS.clear()
+    FA._library.cache_clear()
+    return _build.load_library("flash_attention")
+
+
+def main():
+    if not torch.cuda.is_available():
+        sys.exit("chip_flash_probe.py: no CUDA device")
+    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, check=True).stdout.strip())
+    base = SOURCE.read_text()
+    texts = {name: _edit(base, edits) for name, edits in VARIANTS.items()}
+    texts["as_is+marks"] = _edit(base, _MARKS) + _MARK_ENTRIES
+    _build_all(texts)
+    for name in VARIANTS:
+        _use(name)
+        worst = [0.0, 0.0]
+        for shape in cs.FLASH_SHAPES:
+            for rate in (0.0, 0.1):
+                q, k, v, _ = cs._flash_inputs(shape)
+                kw = cs._flash_kw(shape, rate)
+                o, lse = FA.flash_fwd(q, k, v, **kw)
+                o_ref, lse_ref = FA.flash_forward_ref(q, k, v, **kw)
+                worst = [max(worst[0], cs._err(o, o_ref)),
+                         max(worst[1], cs._err(lse, lse_ref))]
+        log(f"[probe-check] {name}: max abs err out {worst[0]:.3g}, lse "
+            f"{worst[1]:.3g} over FLASH_SHAPES x dropout (0, 0.1)")
+    flush = torch.ones(128 << 20, dtype=torch.float32, device="cuda")
+    times = collections.defaultdict(list)
+    for name in list(VARIANTS) + list(VARIANTS)[::-1]:
+        _use(name)
+        for shape in cs.FLASH_SHAPES[:3]:
+            q, k, v, _ = cs._flash_inputs(shape)
+            for rate in (0.0, 0.1):
+                kw = cs._flash_kw(shape, rate)
+                times[(shape, rate, name)].append(cs._device_ms(
+                    lambda: FA.flash_fwd(q, k, v, **kw), flush))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for shape in cs.FLASH_SHAPES[:3]:
+        B, Tq, _, H, hd, _ = shape
+        q, k, v, _ = cs._flash_inputs(shape)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        with torch.no_grad():
+            lib = cs._device_ms(lambda: sdpa(qt, kt, vt, is_causal=True),
+                                flush)
+        for rate in (0.0, 0.1):
+            log(f"[probe-time] (B,T,H,hd)=({B},{Tq},{H},{hd}) dropout "
+                f"{rate}, L2 cold, ms (two runs each): " + ", ".join(
+                    f"{name} {times[(shape, rate, name)][0]:.4f} / "
+                    f"{times[(shape, rate, name)][1]:.4f}"
+                    for name in VARIANTS) + f"; SDPA forward {lib:.4f}")
+    lib = _use("as_is+marks")
+    for shape in cs.FLASH_SHAPES[:3]:
+        q, k, v, _ = cs._flash_inputs(shape)
+        for rate in (0.0, 0.1):
+            kw = cs._flash_kw(shape, rate)
+            FA.flash_fwd(q, k, v, **kw)
+            torch.cuda.synchronize()
+            lib.sea_phase_zero()
+            for _ in range(10):
+                flush.sum()
+                FA.flash_fwd(q, k, v, **kw)
+            torch.cuda.synchronize()
+            buf = (ctypes.c_longlong * 24)()
+            lib.sea_phase_read(buf)
+            tiles = buf[5]
+            per_warp = [[round(buf[6 * w + i] / tiles) for i in range(5)]
+                        for w in range(4)]
+            B, T, _, H, hd, _ = shape
+            log(f"[probe-phases] (B,T,H,hd)=({B},{T},{H},{hd}) "
+                f"dropout {rate}: {tiles // 10} key tiles; clock64 cycles a "
+                f"tile, warps 0-3, {'/'.join(PHASES)}: {per_warp}")
+
+
+if __name__ == "__main__":
+    main()

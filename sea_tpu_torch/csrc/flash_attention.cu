@@ -4,7 +4,8 @@
 //
 // Replaces the Pallas TPU kernels of sea_tpu/ops/flash_attention.py:
 // _fwd_kernel (forward), _bwd_dq_kernel (dQ) and _bwd_dkv_kernel (dK/dV).
-// Semantics, f32 throughout (no TF32):
+// Semantics, f32 throughout (the forward's products on the tensor cores
+// with f32 accuracy, below; never single-pass TF32):
 //     s   = q . k^T * hd^-0.5, masked to k <= q + src_len when causal
 //     p   = exp(s - m); the softmax denominator sums the UNdropped p
 //     o   = sum_k p * M(bh, q, k) v / sum_k p,    lse = m + log(sum_k p)
@@ -21,27 +22,79 @@
 // JAX package all draw the same mask. The keep threshold and the scale
 // are computed on the host.
 //
-// What bounds it: operations. At the training shapes (B=2, T=399, H=8,
+// What bounds them: operations. At the training shapes (B=2, T=399, H=8,
 // hd 128 and 64) the causal forward does about 2 B H T^2 hd multiply-adds
 // over inputs of 3 B T H hd floats: ~100 operations per byte, far above
 // what the card streams per operation in f32 outside the tensor cores.
-// This first version runs those operations as f32 FMAs on the CUDA cores
-// (tensor cores, TMA and bf16 come later), so the design minds shared
-// memory traffic and the causal band:
+//
+// The forward (fwd_kernel) runs both products on the tensor cores. Its
+// bound is the TF32 peak over three (3xTF32, below): ~165 TFLOP/s, which
+// at hd 128 is about the time its bytes take.
+//  - Q.K^T and P.V are warp-level mma.sync.m16n8k8.row.col.f32.tf32.tf32
+//    .f32 with operands in registers, split 3xTF32: big = rna(x), small =
+//    rna(x - big), acc += a_small b_big + a_big b_small + a_big b_big in
+//    f32, each part sent to 4-8 accumulators in turn so that no mma.sync
+//    waits for the one before it. rna is cvt.rna.tf32.f32 (to nearest,
+//    ties away, 10 mantissa bits) done as two integer operations: sm_90
+//    has no instruction for it, and ptxas expands the PTX cvt into a
+//    longer sequence. The dropped small x small term and the roundings
+//    leave ~2^-21 of each product, f32 accuracy (one TF32 pass keeps ~3
+//    digits);
+//  - one block of 4 warps per (bh, 64-row q tile), 16 query rows a warp,
+//    looping over the in-band key tiles only (key_end): 64 keys a tile at
+//    hd 64 and 128, 32 at hd 256;
+//  - Q is copied once; K and V tiles go through a two-stage ring of
+//    16-byte cp.async copies (commit_group / wait_group): tile j + 1 is in
+//    flight while tile j is multiplied, its copies started a slice after
+//    each 16 d of Q.K^T so that starting them overlaps the products.
+//    Rows past T are zero-filled (src size 0). Every row must start on 16
+//    bytes: the wrapper refuses a view whose start or strides are not
+//    whole multiples of 4 floats;
+//  - the softmax statistics live in the accumulator layout: a thread holds
+//    rows g and g + 8 of its warp's 16 (g = lane / 4, t = lane % 4) and
+//    reduces a row over the 4 lanes of its quad with two shuffles. Keys
+//    are masked against a per-row limit, every exp is taken and masked by a
+//    select, and dropout is one loop behind one uniform branch: a branch
+//    per element serialised the exp latency;
+//  - P stays in registers: S's accumulator fragment (rows g, g + 8; keys
+//    2t, 2t + 1 of 8) is P.V's A fragment once the 8 keys are taken in the
+//    order 0, 2, 4, 6, 1, 3, 5, 7, and V's rows are read in that order;
+//  - fragments are read as float4: Q and K over 16 d (two k steps, d
+//    4t, 4t + 1 and 4t + 2, 4t + 3), V over four output column tiles
+//    (column n of tile 4J + i is d = 32J + 4n + i). Row strides of hd + 16
+//    floats (Q, K) and hd + 4 (V) keep every such load free of bank
+//    conflicts;
+//  - the loop over d is not unrolled: with one warp per scheduler nothing
+//    hides an instruction fetch, and the smaller loop measured faster;
+//  - shared memory, Q plus two stages of K and V: 206 KB at hd 256,
+//    178 KB at hd 128, 96 KB at hd 64 (two blocks an SM).
+// Not wgmma or TMA yet: wgmma's tf32 form wants both shared-memory operands
+// K-major, but P.V's V tile is [key][d] (the transposing forms are 16-bit
+// only); 3xTF32 would stage the big and small halves of every shared
+// operand; mma.sync takes registers, where the split is a few
+// instructions. Each of the 4 warps splits the whole K and V tile for
+// itself: those splits and their loads take about as long as the mma.sync.
+// At (2, 399, 8, 128) the 112 blocks are under one wave of 132 SMs, and the
+// last q tile walks all 7 key tiles alone: that serial walk is the
+// kernel's time (splitting the key range is later work).
+//
+// dQ and dK/dV (dq_kernel, dkv_kernel) run their products as f32 FMAs on
+// the CUDA cores, so their design minds shared memory traffic and the
+// causal band:
 //  - the TPU grid walked the in-band (q block, k block) pairs in order with
 //    scratch carried between grid steps. Here a block owns one (bh, q tile)
-//    for the forward and dQ, or one (bh, k tile) for dK/dV, keeps its
+//    for dQ, as for the forward, or one (bh, k tile) for dK/dV, keeps its
 //    accumulator in registers and loops over the in-band tiles itself:
 //    out-of-band tiles are never loaded, as with the TPU's band lists;
 //  - 256 threads as 16 x 16; a thread owns rows ty*R.. and columns tx,
-//    tx+16, ... of every tile product, so a row's statistics reduce over the
-//    16 lanes of half a warp with shuffles;
+//    tx+16, ... of every tile product;
 //  - tiles live in shared memory with a row stride of hd+1 floats, so the
 //    16 column threads of a half warp read 16 different banks;
 //  - inputs are read through their strides ([B, T, H, hd] with hd
 //    contiguous): no transpose to [B*H, T, hd] in device memory.
-// Tiles are 64 x 64 for hd 64 and 128 and 32 x 32 for hd 256, which keeps
-// every kernel inside the 227 KB of dynamic shared memory a block may use.
+// Their tiles are 64 x 64 for hd 64 and 128 and 32 x 32 for hd 256, which
+// keeps every kernel inside the 227 KB of dynamic shared memory a block
+// may use.
 //
 // The dense dropout mask (dropout_mask_kernel) replaces the Pallas TPU
 // kernel _mask_kernel (via _dropout_mask_dense), the oracle of the dropout
@@ -109,125 +162,321 @@ __device__ __forceinline__ void load_tile(float* tile, const View& x, int b,
   }
 }
 
-__device__ __forceinline__ float half_warp_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 // Last key (exclusive) any query of the tile [q0, q0 + BQ) may see.
 __device__ __forceinline__ int key_end(const Shape& s, int q0, int BQ) {
   return s.causal ? min(s.Tk, q0 + BQ + s.src_len) : s.Tk;
 }
 
-template <int HD, int BQ, int BK>
-__global__ void __launch_bounds__(kThreads)
+// ---------------------------------------------------------------------------
+// Forward: tensor cores, 3xTF32, cp.async ring (see the note at the top)
+// ---------------------------------------------------------------------------
+
+constexpr int kFwdThreads = 128;  // 4 warps of 16 query rows
+constexpr int kFwdBQ = 64;
+
+// 16 bytes global -> shared, asynchronously; zeros when !valid (src size
+// 0: nothing is read from src).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Part `part` of PARTS of the copy of rows [t0, t0 + ROWS) of one (b, h)
+// into a tile of row stride LD, with cp.async; rows past T are zero.
+template <int HD, int ROWS, int LD, int PARTS = 1>
+__device__ __forceinline__ void load_tile_async(float* tile, const View& x,
+                                                int b, int h, int t0, int T,
+                                                int part = 0) {
+  constexpr int kChunks = HD / 4, kStep = kFwdThreads / kChunks;
+  constexpr int kPer = ROWS / kStep / PARTS;  // copies a thread, a part
+  static_assert(kFwdThreads % kChunks == 0 && kPer * kStep * PARTS == ROWS,
+                "tiling");
+  const int r0 = threadIdx.x / kChunks, c = 4 * (threadIdx.x % kChunks);
+  const float* src = x.row(b, t0 + r0, h) + c;
+  float* dst = tile + r0 * LD + c;
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int i = part * kPer + u;
+    const bool ok = t0 + r0 + i * kStep < T;
+    cp_async16(dst + i * kStep * LD, ok ? src + i * kStep * x.st : x.p, ok);
+  }
+}
+
+// cvt.rna.tf32.f32 (round to nearest, ties away from zero, to 10 mantissa
+// bits) for finite x, as two integer operations: sm_90 has no single
+// instruction for it, and ptxas expands the PTX cvt into a longer sequence.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = big + small, each a tf32 value.
+struct Split {
+  uint32_t big, small;
+};
+
+__device__ __forceinline__ Split split(float x) {
+  const uint32_t big = to_tf32(x);
+  return {big, to_tf32(x - __uint_as_float(big))};
+}
+
+// An A fragment of m16n8k8 (rows g, g+8 x k t, t+4), split.
+struct FragA {
+  uint32_t big[4], small[4];
+};
+
+__device__ __forceinline__ FragA split_a(float a0, float a1, float a2,
+                                         float a3) {
+  FragA f;
+  const float a[4] = {a0, a1, a2, a3};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const Split x = split(a[i]);
+    f.big[i] = x.big;
+    f.small[i] = x.small;
+  }
+  return f;
+}
+
+// d += a b over one m16n8k8 tile: tf32 operands, f32 accumulator.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 3xTF32 into N accumulators, d[n] += a_small b_big + a_big b_small +
+// a_big b_big with b = (b0[n], b1[n]), part by part across the N:
+// consecutive mma.sync go to different accumulators, so none waits for
+// the one before it.
+template <int N>
+__device__ __forceinline__ void mma_3xtf32(float (*d)[4], const FragA& a,
+                                           const Split (&b0)[N],
+                                           const Split (&b1)[N]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(d[n], a.small, b0[n].big, b1[n].big);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(d[n], a.big, b0[n].small, b1[n].small);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(d[n], a.big, b0[n].big, b1[n].big);
+}
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+template <int HD, int BK>
+struct FwdTiles {
+  static constexpr int kLdQK = HD + 16;  // = 16 (mod 32) floats
+  static constexpr int kLdV = HD + 4;    // = 4 (mod 32) floats
+  static constexpr size_t kSmem =
+      sizeof(float) * (kFwdBQ * kLdQK + 2 * BK * (kLdQK + kLdV));
+  static_assert(HD % 32 == 0 && BK % 8 == 0, "tile shape");
+  static_assert(kSmem <= 232448, "over the 227 KB a block may use");
+};
+
+template <int HD, int BK>
+__global__ void __launch_bounds__(kFwdThreads)
 fwd_kernel(View q, View k, View v, float* __restrict__ o,
            float* __restrict__ lse, Shape s) {
-  constexpr int LD = HD + 1, LP = BK + 1;
-  constexpr int RQ = BQ / 16, CK = BK / 16, CD = HD / 16;
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sK = sQ + BQ * LD;
-  float* sV = sK + BK * LD;
-  float* sP = sV + BK * LD;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  constexpr int LQK = FwdTiles<HD, BK>::kLdQK, LV = FwdTiles<HD, BK>::kLdV;
+  constexpr int NS = BK / 8;  // n tiles of S = k steps of P.V
+  constexpr int NO = HD / 8;  // n tiles of O
+  extern __shared__ __align__(16) float fwd_smem_base[];
+  float* sQ = fwd_smem_base;
+  float* sK = sQ + kFwdBQ * LQK;  // two stages
+  float* sV = sK + 2 * BK * LQK;  // two stages
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.y, b = bh / s.H, h = bh % s.H;
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * kFwdBQ;
+  const int n_tiles = (key_end(s, q0, kFwdBQ) + BK - 1) / BK;
 
-  load_tile<HD, BQ>(sQ, q, b, h, q0, s.Tq);
-  float m[RQ], l[RQ], acc[RQ][CD];
-#pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CD; ++c) acc[i][c] = 0.f;
+  load_tile_async<HD, kFwdBQ, LQK>(sQ, q, b, h, q0, s.Tq);
+  if (n_tiles > 0) {
+    load_tile_async<HD, BK, LQK>(sK, k, b, h, 0, s.Tk);
+    load_tile_async<HD, BK, LV>(sV, v, b, h, 0, s.Tk);
   }
+  cp_async_commit();
 
-  const int k_end = key_end(s, q0, BQ);
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();  // the previous tile's sK, sV and sP are consumed
-    load_tile<HD, BK>(sK, k, b, h, k0, s.Tk);
-    load_tile<HD, BK>(sV, v, b, h, k0, s.Tk);
-    __syncthreads();
+  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+  int lim[2];  // key k is in band for row row0 + 8r iff k < lim[r]
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = row0 + 8 * r;
+    lim[r] = qp >= s.Tq ? 0 : s.causal ? min(s.Tk, qp + s.src_len + 1) : s.Tk;
+  }
+  const float* qa = sQ + (warp * 16 + g) * LQK + 4 * t;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[NO][4];
+#pragma unroll
+  for (int c = 0; c < NO; ++c)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[c][i] = 0.f;
 
-    float sc[RQ][CK];
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * BK;
+    cp_async_wait<0>();
+    __syncthreads();  // tile j (and Q) landed for every thread's copies
+    const float* cK = sK + (j & 1) * BK * LQK;
+    const float* cV = sV + (j & 1) * BK * LV;
+    // Tile j + 1 goes into the other stage, a part after each 16 d of S,
+    // so that starting the copies spreads over the products.
+    const bool prefetch = j + 1 < n_tiles;
+    float* nK = sK + ((j + 1) & 1) * BK * LQK;
+    float* nV = sV + ((j + 1) & 1) * BK * LV;
+
+    // S = Q K^T over 16 d at a time: two k steps, d 4t, 4t+1 | 4t+2, 4t+3.
+    float sc[NS][4];
 #pragma unroll
-    for (int i = 0; i < RQ; ++i)
+    for (int n = 0; n < NS; ++n)
 #pragma unroll
-      for (int j = 0; j < CK; ++j) sc[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      float qv[RQ], kv[CK];
+      for (int i = 0; i < 4; ++i) sc[n][i] = 0.f;
+#pragma unroll 1
+    for (int d0 = 0; d0 < HD; d0 += 16) {
+      const float4 x0 = lds4(qa + d0), x1 = lds4(qa + 8 * LQK + d0);
+      float4 y[NS];
 #pragma unroll
-      for (int i = 0; i < RQ; ++i) qv[i] = sQ[(ty * RQ + i) * LD + d];
+      for (int n = 0; n < NS; ++n)
+        y[n] = lds4(cK + (n * 8 + g) * LQK + d0 + 4 * t);
+      Split b0[NS], b1[NS];
 #pragma unroll
-      for (int j = 0; j < CK; ++j) kv[j] = sK[(tx + 16 * j) * LD + d];
+      for (int n = 0; n < NS; ++n) {
+        b0[n] = split(y[n].x);
+        b1[n] = split(y[n].y);
+      }
+      mma_3xtf32(sc, split_a(x0.x, x1.x, x0.y, x1.y), b0, b1);
 #pragma unroll
-      for (int i = 0; i < RQ; ++i)
-#pragma unroll
-        for (int j = 0; j < CK; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
+      for (int n = 0; n < NS; ++n) {
+        b0[n] = split(y[n].z);
+        b1[n] = split(y[n].w);
+      }
+      mma_3xtf32(sc, split_a(x0.z, x1.z, x0.w, x1.w), b0, b1);
+      if (prefetch) {
+        load_tile_async<HD, BK, LQK, HD / 16>(nK, k, b, h, k0 + BK, s.Tk,
+                                              d0 / 16);
+        load_tile_async<HD, BK, LV, HD / 16>(nV, v, b, h, k0 + BK, s.Tk,
+                                             d0 / 16);
+      }
     }
+    if (prefetch) cp_async_commit();
 
+    // Online softmax; sc[n][2r + e] is row row0 + 8r, key k0 + 8n + 2t + e.
+    // No branch per element: every exp is taken and masked by a select.
+    float alpha[2], psum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < RQ; ++i) {
-      const int r = ty * RQ + i, qp = q0 + r;
+    for (int r = 0; r < 2; ++r) {
       float mx = kNegInf;
 #pragma unroll
-      for (int j = 0; j < CK; ++j) {
-        const bool ok = in_band(s, qp, k0 + tx + 16 * j);
-        sc[i][j] = ok ? sc[i][j] * s.scale : kNegInf;
-        mx = fmaxf(mx, sc[i][j]);
-      }
-      const float m_new = fmaxf(m[i], half_warp_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      float psum = 0.f;
+      for (int n = 0; n < NS; ++n)
 #pragma unroll
-      for (int j = 0; j < CK; ++j) {
-        const int kp = k0 + tx + 16 * j;
-        const float p = in_band(s, qp, kp) ? expf(sc[i][j] - m_new) : 0.f;
-        psum += p;
-        sP[r * LP + tx + 16 * j] =
-            s.dropout ? p * dropout_scale(s, bh, qp, kp) : p;
-      }
-      l[i] = l[i] * alpha + half_warp_sum(psum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < CD; ++c) acc[i][c] *= alpha;
+        for (int e = 0; e < 2; ++e) {
+          float& x = sc[n][2 * r + e];
+          x = k0 + 8 * n + 2 * t + e < lim[r] ? x * s.scale : kNegInf;
+          mx = fmaxf(mx, x);
+        }
+      const float m_new = fmaxf(m[r], quad_max(mx));
+      alpha[r] = expf(m[r] - m_new);
+      m[r] = m_new;
     }
-    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = sc[n][2 * r + e];
+          const float p = expf(x - m[r]);
+          x = k0 + 8 * n + 2 * t + e < lim[r] ? p : 0.f;
+          psum[r] += x;
+        }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] = l[r] * alpha[r] + quad_sum(psum[r]);
+#pragma unroll
+      for (int c = 0; c < NO; ++c) {
+        acc[c][2 * r] *= alpha[r];
+        acc[c][2 * r + 1] *= alpha[r];
+      }
+    }
+    if (s.dropout) {  // the denominator above summed the undropped p
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int n = 0; n < NS; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            sc[n][2 * r + e] *= dropout_scale(s, bh, row0 + 8 * r,
+                                              k0 + 8 * n + 2 * t + e);
+    }
 
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float pv[RQ];
+    // O += P V. k step n is S's n tile n with its keys taken as k = t ->
+    // key 2t, k = t + 4 -> key 2t + 1, so P's A fragment is sc[n] as it
+    // is. Column c of O's n tile 4J + i is d = 32J + 4c + i: one float4 of
+    // a V row feeds four n tiles.
 #pragma unroll
-      for (int i = 0; i < RQ; ++i) pv[i] = sP[(ty * RQ + i) * LP + kk];
+    for (int n = 0; n < NS; ++n) {
+      const FragA p = split_a(sc[n][0], sc[n][2], sc[n][1], sc[n][3]);
+      const float* v0 = cV + (n * 8 + 2 * t) * LV + 4 * g;
 #pragma unroll
-      for (int c = 0; c < CD; ++c) {
-        const float vv = sV[kk * LD + tx + 16 * c];
+      for (int J = 0; J < HD / 32; J += 2) {  // 8 n tiles of O at a time
+        Split b0[8], b1[8];
 #pragma unroll
-        for (int i = 0; i < RQ; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
+        for (int u = 0; u < 2; ++u) {
+          const float4 y0 = lds4(v0 + 32 * (J + u));
+          const float4 y1 = lds4(v0 + LV + 32 * (J + u));
+          const float c0[4] = {y0.x, y0.y, y0.z, y0.w};
+          const float c1[4] = {y1.x, y1.y, y1.z, y1.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            b0[4 * u + i] = split(c0[i]);
+            b1[4 * u + i] = split(c1[i]);
+          }
+        }
+        mma_3xtf32(acc + 4 * J, p, b0, b1);
       }
     }
+    __syncthreads();  // stage j & 1 is refilled at iteration j + 1
   }
 
+  // acc[4J + i][2r + e] is row row0 + 8r, d = 32J + 8t + 4e + i.
 #pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    const int t = q0 + ty * RQ + i;
-    if (t >= s.Tq) continue;
-    const float den = l[i] == 0.f ? 1.f : l[i];
-    float* out = o + ((static_cast<long long>(b) * s.Tq + t) * s.H + h) * HD;
+  for (int r = 0; r < 2; ++r) {
+    const int qp = row0 + 8 * r;
+    if (qp >= s.Tq) continue;
+    const float den = l[r] == 0.f ? 1.f : l[r];
+    float* out =
+        o + ((static_cast<long long>(b) * s.Tq + qp) * s.H + h) * HD + 8 * t;
 #pragma unroll
-    for (int c = 0; c < CD; ++c) out[tx + 16 * c] = acc[i][c] / den;
-    if (tx == 0) lse[static_cast<long long>(bh) * s.Tq + t] = m[i] + logf(den);
+    for (int J = 0; J < HD / 32; ++J)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        *reinterpret_cast<float4*>(out + 32 * J + 4 * e) = make_float4(
+            acc[4 * J][2 * r + e] / den, acc[4 * J + 1][2 * r + e] / den,
+            acc[4 * J + 2][2 * r + e] / den, acc[4 * J + 3][2 * r + e] / den);
+    if (t == 0) lse[static_cast<long long>(bh) * s.Tq + qp] = m[r] + logf(den);
   }
 }
 
@@ -449,10 +698,6 @@ dkv_kernel(View q, View k, View v, View dout, const float* __restrict__ lse,
 }
 
 template <int HD, int BQ, int BK>
-constexpr size_t fwd_smem() {
-  return sizeof(float) * ((BQ + 2 * BK) * (HD + 1) + BQ * (BK + 1));
-}
-template <int HD, int BQ, int BK>
 constexpr size_t dq_smem() {
   return sizeof(float) * ((2 * BQ + 2 * BK) * (HD + 1) + BQ * (BK + 1));
 }
@@ -470,15 +715,14 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <int HD, int BQ, int BK>
+template <int HD, int BK>
 int launch_fwd(View q, View k, View v, float* o, float* lse, Shape s,
                cudaStream_t stream) {
-  constexpr size_t smem = fwd_smem<HD, BQ, BK>();
-  static const cudaError_t set = allow_smem(fwd_kernel<HD, BQ, BK>, smem);
+  constexpr size_t smem = FwdTiles<HD, BK>::kSmem;
+  static const cudaError_t set = allow_smem(fwd_kernel<HD, BK>, smem);
   if (set != cudaSuccess) return set;
-  const dim3 grid((s.Tq + BQ - 1) / BQ, s.B * s.H);
-  fwd_kernel<HD, BQ, BK><<<grid, kThreads, smem, stream>>>(q, k, v, o, lse,
-                                                           s);
+  const dim3 grid((s.Tq + kFwdBQ - 1) / kFwdBQ, s.B * s.H);
+  fwd_kernel<HD, BK><<<grid, kFwdThreads, smem, stream>>>(q, k, v, o, lse, s);
   return cudaGetLastError();
 }
 
@@ -571,9 +815,9 @@ extern "C" int sea_flash_fwd(const void* q, long long qsb, long long qst,
   float* L = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 64: return launch_fwd<64, 64, 64>(Q, K, V, O, L, s, st);
-    case 128: return launch_fwd<128, 64, 64>(Q, K, V, O, L, s, st);
-    case 256: return launch_fwd<256, 32, 32>(Q, K, V, O, L, s, st);
+    case 64: return launch_fwd<64, 64>(Q, K, V, O, L, s, st);
+    case 128: return launch_fwd<128, 64>(Q, K, V, O, L, s, st);
+    case 256: return launch_fwd<256, 32>(Q, K, V, O, L, s, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -22,7 +22,13 @@ computed here with torch, outside the kernels, as the JAX package does.
 
 What bounds the kernels on the card, and their design: see the note at
 the top of the CUDA source. Head dims 64, 128 and 256; any other raises
-on CUDA.
+on CUDA. Alignment: the forward kernel copies q, k and v rows into shared
+memory in 16-byte pieces (``cp.async``), so on CUDA each of them must
+start on 16 bytes and its batch, time and head strides must be whole
+multiples of 4 floats (a dim of size 1 is exempt: its stride is never
+used). A view that breaks this raises ``ValueError``; nothing is copied
+to fix it. The views ``ops.attention.mha`` passes, fused qkv / kv column
+slices included, keep it whenever the model width is a multiple of 4.
 
 ``dropout_mask_dense`` writes that mask as a dense [BH, Tq, Tk] tensor
 with a fourth kernel of the same source (replacing the TPU mask kernel
@@ -184,6 +190,21 @@ def _view(x):
     return [x.data_ptr(), x.stride(0), x.stride(1), x.stride(2)]
 
 
+def _check_aligned(name, x):
+    """Raise ValueError unless x [B, T, H, hd] starts on 16 bytes and its
+    batch, time and head strides are multiples of 4 floats (dims of size
+    1 exempt): the forward kernel's 16-byte cp.async row copies."""
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name} starts {x.data_ptr() % 16} bytes past a "
+                         "16-byte boundary; the forward kernel copies rows "
+                         "in 16-byte pieces")
+    for dim, what in enumerate(("batch", "time", "head")):
+        if x.shape[dim] > 1 and x.stride(dim) % 4:
+            raise ValueError(f"{name}: {what} stride {x.stride(dim)} is not "
+                             "a multiple of 4 floats; the forward kernel "
+                             "copies rows in 16-byte pieces")
+
+
 def _check(q, k, v):
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"want q [B,Tq,H,hd] and k, v [B,Tk,H,hd]; got "
@@ -204,6 +225,7 @@ def _check(q, k, v):
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
         if x.stride(3) != 1:
             raise ValueError(f"{name}: the head dim must be contiguous")
+        _check_aligned(name, x)
     if q.device.index != torch.cuda.current_device():
         raise ValueError(f"tensors on {q.device}, but the current CUDA "
                          f"device is {torch.cuda.current_device()}: the "

@@ -317,8 +317,9 @@ def test_unported_modes_and_flags_name_the_roadmap(argv, capsys):
 
 
 def test_port_imports_no_jax():
-    """Every module of sea_tpu_torch, chip_smoke.py and chip_ab.py import
-    with jax and the JAX package made unimportable."""
+    """Every module of sea_tpu_torch and the chip scripts (chip_smoke.py,
+    chip_ab.py, chip_flash_probe.py) import with jax and the JAX package
+    made unimportable."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -327,7 +328,7 @@ def test_port_imports_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    sea_tpu_torch.__path__, 'sea_tpu_torch.')\n"
         "    if not m.name.endswith('__main__')]\n"
-        "for name in names + ['chip_smoke', 'chip_ab']:\n"
+        "for name in names + ['chip_smoke', 'chip_ab', 'chip_flash_probe']:\n"
         "    importlib.import_module(name)\n"
         "assert not any(m.split('.')[0] in ('jax', 'sea_tpu') for m in\n"
         "               sys.modules if sys.modules[m] is not None)\n"
@@ -349,10 +350,11 @@ def _imported_modules(path):
 
 
 def test_port_sources_name_no_jax_module():
-    """No import statement in sea_tpu_torch/, chip_smoke.py or chip_ab.py,
-    at any depth (lazy imports inside functions included), names jax,
-    jaxlib or a module of the JAX package."""
-    files = [os.path.join(REPO, n) for n in ("chip_smoke.py", "chip_ab.py")]
+    """No import statement in sea_tpu_torch/ or the chip scripts, at any
+    depth (lazy imports inside functions included), names jax, jaxlib or a
+    module of the JAX package."""
+    files = [os.path.join(REPO, n) for n in ("chip_smoke.py", "chip_ab.py",
+                                             "chip_flash_probe.py")]
     for root, _, names in os.walk(os.path.join(REPO, "sea_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) >= 30

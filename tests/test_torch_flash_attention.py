@@ -153,6 +153,58 @@ def test_cpu_tensors_take_the_plain_version():
         FA.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
 
 
+def _projection(rs, E, n):
+    return {"w": torch.from_numpy(rs.randn(E, n * E).astype(np.float32)),
+            "b": torch.from_numpy(rs.randn(n * E).astype(np.float32))}
+
+
+@pytest.mark.parametrize("layout", ["unfused", "qkv", "kv"])
+def test_mha_views_keep_the_alignment_rule(layout):
+    """The q, k, v views ops.attention.mha hands the kernels, fused qkv and
+    kv column slices of one projection included, keep the forward
+    kernel's 16-byte rule (start and strides in whole 4-float steps)."""
+    from sea_tpu_torch.ops import attention as A
+    B, T, E, H = 2, 5, 64, 2
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.randn(B, T, E).astype(np.float32))
+    params = {"unfused": {n: _projection(rs, E, 1) for n in "qkv"},
+              "qkv": {"qkv": _projection(rs, E, 3)},
+              "kv": {"q": _projection(rs, E, 1),
+                     "kv": _projection(rs, E, 2)}}[layout]
+    views = A._project_qkv(params, x, x)
+    if layout != "unfused":
+        assert not views[-1].is_contiguous()
+    for name, y in zip("qkv", views):
+        FA._check_aligned(name, y.reshape(B, T, H, E // H))
+
+
+def _strided_view(case, device="cpu"):
+    """[2, 6, 2, 64] views: aligned, or breaking the 16-byte rule."""
+    def zeros(*shape):
+        return torch.zeros(shape, device=device)
+    return {
+        "offset_16_bytes": lambda: zeros(2, 6, 2, 72)[..., 4:68],
+        "size_1_dim_any_stride": lambda: zeros(2, 1, 2, 64).as_strided(
+            (2, 1, 2, 64), (128, 3, 64, 1)),
+        "offset_4_bytes": lambda: zeros(2, 6, 2, 72)[..., 1:65],
+        "time_stride_130": lambda: zeros(2, 6, 130)[..., :128].reshape(
+            2, 6, 2, 64),
+        "head_stride_66": lambda: zeros(2, 6, 2, 66)[..., :64],
+    }[case]()
+
+
+@pytest.mark.parametrize("case", ["offset_16_bytes", "size_1_dim_any_stride",
+                                  "offset_4_bytes", "time_stride_130",
+                                  "head_stride_66"])
+def test_alignment_rule(case):
+    x = _strided_view(case)
+    if case in ("offset_16_bytes", "size_1_dim_any_stride"):
+        FA._check_aligned("q", x)
+    else:
+        with pytest.raises(ValueError, match="16-byte"):
+            FA._check_aligned("q", x)
+
+
 def _cuda_inputs(B, Tq, Tk, H, hd):
     g = torch.Generator(device="cuda").manual_seed(B * Tq + Tk + hd)
     return [torch.randn(B, T, H, hd, device="cuda", generator=g)
@@ -164,12 +216,16 @@ def _cuda_inputs(B, Tq, Tk, H, hd):
                                    (2, 399, 399, 8, 64, 0),
                                    (4, 199, 199, 8, 256, 0),
                                    (1, 1, 1, 8, 64, 0),
-                                   (2, 70, 130, 8, 128, 5)])
+                                   (2, 70, 130, 8, 128, 5),
+                                   (3, 37, 53, 8, 128, 5),
+                                   (2, 37, 53, 8, 256, 5)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_cuda_kernels_match_ref(shape, rate):
     """Runs on the card only. Output and dq/dk/dv through the autograd
     wrapper, and each kernel alone against its plain piece. The last
-    shape is Tq != Tk with src_len 5: keys past 74 get no gradient."""
+    three shapes are Tq != Tk with src_len 5 (keys past Tq + 4 get no
+    gradient), the last two with a Tq that ends inside a warp's 16 rows,
+    at hd 128 and 256."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     B, Tq, Tk, H, hd, src_len = shape
@@ -206,6 +262,24 @@ def test_cuda_rejects_unported_head_dim():
     q, k, v, _ = _cuda_inputs(1, 16, 16, 2, 32)
     with pytest.raises(ValueError, match="head dim"):
         FA.flash_attention(q, k, v)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["offset_4_bytes", "time_stride_130"])
+def test_cuda_refuses_misaligned_views(case):
+    """A view the forward kernel's 16-byte copies cannot take raises
+    ValueError on the card; nothing is copied to fix it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    q = _strided_view(case, "cuda")
+    k, v = _cuda_inputs(2, 6, 6, 2, 64)[1:3]
+    assert q.data_ptr() % 16 == (4 if case == "offset_4_bytes" else 0)
+    before = FA.fwd_launches
+    with pytest.raises(ValueError, match="16-byte"):
+        FA.flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="16-byte"):
+        FA.flash_fwd(q, k, v)
+    assert FA.fwd_launches == before
 
 
 @pytest.mark.gpu
