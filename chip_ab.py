@@ -7,11 +7,13 @@ Each ROOT is a checkout that holds ``chip_smoke.py`` and ``sea_tpu_torch/``
 ``build/``, which git ignores). For each ROOT in the order given, a process
 of its own builds that checkout's kernels, makes the seeded weights and runs
 its ``chip_smoke.py`` phases ``[train-time]`` (the full-recipe cylinder
-train step, with its profile) and ``[rollout]`` (250-step f32 multiphase
-rollouts at B=1 and B=8). Host-clock rates move between machines more than
-between versions, so compare versions only within one run of this script,
-and give the roots as A B B A to see the drift within it. Each output line
-is printed behind its root's index and path. Exits 1 if any run failed.
+train step, with its profile), ``[rollout]`` (250-step f32 multiphase
+rollouts at B=1 and B=8) and ``[rollout-int4|int8|bf16]`` (the
+reduced-precision rollouts, with profiles of the int4 ones). Host-clock
+rates move between machines more than between versions, so compare
+versions only within one run of this script, and give the roots as
+A B B A to see the drift within it. Each output line is printed behind
+its root's index and path. Exits 1 if any run failed.
 """
 
 import subprocess
@@ -36,6 +38,7 @@ with tempfile.TemporaryDirectory(dir=root / "build") as d:
     serve_np = save_init_checkpoints(case, d, seed=1)["temporal"]
 cs.phase_train_time(train_case, train_np)
 cs.phase_time_rollout(case, serve_np)
+cs.phase_rollout_reduced(case, serve_np)
 """
 
 

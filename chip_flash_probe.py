@@ -29,20 +29,21 @@ import collections
 import ctypes
 import subprocess
 import sys
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
 
 import chip_smoke as cs
-from sea_tpu_torch.ops import _build
+from chip_smoke import log
+from chip_variants import build_all, edit, use
 from sea_tpu_torch.ops import flash_attention as FA
 
 REPO = Path(__file__).resolve().parent
 OUT = REPO / "build" / "flash_probe"
 SOURCE = REPO / "sea_tpu_torch" / "csrc" / "flash_attention.cu"
+KERNEL = "fwd_kernel<256,32>, <128,64>, <64,64>, <8,64>, <16,64>"
 
-_D_LOOP = "#pragma unroll 1\n    for (int d0 = 0; d0 < HD; d0 += 16) {"
+_D_LOOP = "#pragma unroll 1\n      for (int d0 = 0; d0 < HD; d0 += 16) {"
 _SMALL = "return {big, to_tf32(x - __uint_as_float(big))};"
 _LIVE = ("  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, "
          "row0 + 8\n")
@@ -58,11 +59,11 @@ VARIANTS = {
         "__float_as_uint(x - __uint_as_float(big))"))],
     "dead_warps": [
         (_LIVE, _LIVE + "  const bool live = q0 + warp * 16 < s.Tq;\n"),
-        ("      const float4 x0 = lds4(qa + d0)",
-         "      if (live) {\n      const float4 x0 = lds4(qa + d0)"),
-        ("      mma_3xtf32(sc, split_a(x0.z, x1.z, x0.w, x1.w), b0, b1);\n",
-         "      mma_3xtf32(sc, split_a(x0.z, x1.z, x0.w, x1.w), b0, b1);\n"
-         "      }\n"),
+        ("        const float4 x0 = lds4(qa + d0)",
+         "        if (live) {\n        const float4 x0 = lds4(qa + d0)"),
+        ("        mma_3xtf32(sc, split_a(x0.z, x1.z, x0.w, x1.w), b0, b1);\n",
+         "        mma_3xtf32(sc, split_a(x0.z, x1.z, x0.w, x1.w), b0, b1);\n"
+         "        }\n"),
         ("    // Online softmax;", "    if (live) {\n    // Online softmax;"),
         ("    __syncthreads();  // stage j & 1 is refilled",
          "    }\n    __syncthreads();  // stage j & 1 is refilled")],
@@ -113,54 +114,6 @@ extern "C" int sea_phase_zero() {
 PHASES = ("wait", "QK^T+copies", "softmax", "PV", "barrier")
 
 
-def log(msg):
-    print(msg, flush=True)
-
-
-def _edit(text, edits):
-    for old, new in edits:
-        if old not in text:
-            raise AssertionError(f"edit no longer applies: {old[:60]!r}")
-        text = text.replace(old, new)
-    return text
-
-
-def _build_all(texts):
-    """One nvcc (-Xptxas -v) per variant, started together; logs each
-    forward kernel's registers and spills."""
-    nvcc = _build._nvcc()
-
-    def one(name):
-        d = OUT / name
-        d.mkdir(parents=True, exist_ok=True)
-        (d / "flash_attention.cu").write_text(texts[name])
-        proc = subprocess.run(
-            [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
-             str(d / "lib.so"), str(d / "flash_attention.cu")],
-            capture_output=True, text=True)
-        if proc.returncode:
-            raise RuntimeError(f"{name}: nvcc failed\n{proc.stderr[-3000:]}")
-        lines = proc.stderr.splitlines()
-        regs = [" ".join(x.split(":", 1)[-1].strip() for x in
-                         lines[i + 2:i + 4])
-                for i, line in enumerate(lines)
-                if "Compiling entry" in line and "fwd_kernel" in line]
-        return name, regs
-
-    with ThreadPoolExecutor(len(texts)) as pool:
-        for name, regs in pool.map(one, texts):
-            log(f"[probe-build] {name}: fwd_kernel<256,32>, <128,64>, "
-                f"<64,64>: {regs}")
-
-
-def _use(name):
-    """Point the wrapper at a variant's source (a build of it exists)."""
-    _build.CSRC = OUT / name
-    _build._LIBS.clear()
-    FA._library.cache_clear()
-    return _build.load_library("flash_attention")
-
-
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_flash_probe.py: no CUDA device")
@@ -168,11 +121,11 @@ def main():
                         "--format=csv,noheader"], capture_output=True,
                        text=True, check=True).stdout.strip())
     base = SOURCE.read_text()
-    texts = {name: _edit(base, edits) for name, edits in VARIANTS.items()}
-    texts["as_is+marks"] = _edit(base, _MARKS) + _MARK_ENTRIES
-    _build_all(texts)
+    texts = {name: edit(base, edits) for name, edits in VARIANTS.items()}
+    texts["as_is+marks"] = edit(base, _MARKS) + _MARK_ENTRIES
+    build_all(OUT, SOURCE.name, texts, "fwd_kernel", KERNEL)
     for name in VARIANTS:
-        _use(name)
+        use(OUT, name, SOURCE.name, FA)
         worst = [0.0, 0.0]
         for shape in cs.FLASH_SHAPES:
             for rate in (0.0, 0.1):
@@ -187,7 +140,7 @@ def main():
     flush = torch.ones(128 << 20, dtype=torch.float32, device="cuda")
     times = collections.defaultdict(list)
     for name in list(VARIANTS) + list(VARIANTS)[::-1]:
-        _use(name)
+        use(OUT, name, SOURCE.name, FA)
         for shape in cs.FLASH_SHAPES[:3]:
             q, k, v, _ = cs._flash_inputs(shape)
             for rate in (0.0, 0.1):
@@ -208,7 +161,7 @@ def main():
                     f"{name} {times[(shape, rate, name)][0]:.4f} / "
                     f"{times[(shape, rate, name)][1]:.4f}"
                     for name in VARIANTS) + f"; SDPA forward {lib:.4f}")
-    lib = _use("as_is+marks")
+    lib = use(OUT, "as_is+marks", SOURCE.name, FA)
     for shape in cs.FLASH_SHAPES[:3]:
         q, k, v, _ = cs._flash_inputs(shape)
         for rate in (0.0, 0.1):

@@ -40,6 +40,7 @@ Output: one line per check and timing, then a JSON line of the kernels
 {"ok": true, "device": {...}}.
 """
 
+import collections
 import csv
 import dataclasses
 import json
@@ -57,8 +58,10 @@ import torch
 
 REPO = Path(__file__).resolve().parent
 CASE = "multiphase_flow"
+# (B, H, T, hd) of the decode checks: the rollouts' head dims, then the
+# smoke presets' 16 and 8 (also in Q8_SHAPES).
 KERNEL_SHAPES = [(1, 8, 250, 256), (1, 8, 250, 128), (8, 8, 250, 256),
-                 (2, 8, 399, 64)]
+                 (2, 8, 399, 64), (2, 2, 42, 16), (2, 2, 42, 8)]
 # Kernel vs plain: f32 differs only in summation order; bf16 rounds q and
 # the probabilities to bf16 in both versions, at different points.
 KERNEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
@@ -72,12 +75,19 @@ TIMED_STEPS = 250
 # stream's running max, the plain version against the global max (bf16
 # order, as for the bf16 cache).
 Q8_SHAPES = [(1, 8, 250, 256), (8, 8, 250, 256), (8, 8, 250, 128),
-             (2, 8, 399, 64)]
+             (2, 8, 399, 64), (2, 2, 42, 16), (2, 2, 42, 8)]
 Q8_TOL = 2e-2
 # int4 matvec: (K, N) of every int4 linear of the multiphase rollout step,
-# each at M = 1 and M = 8 rows.
-INT4_SHAPES = [(2048, 6144), (2048, 2048), (2048, 1024), (1024, 1024),
-               (1024, 2048), (2048, 16384), (16384, 2048)]
+# with its launches a step (phase_serve_reduced checks these against the
+# quantized model), each checked at M = 1 and M = 8 rows; and ragged
+# shapes at M = 1, 3 and 8, where K/2 is not a multiple of the 128-row
+# stage and N not one of the column tile: the kernel's byte-wise form
+# (N=200 not a multiple of 16; K/2=2049 not one of 4) and its 16-byte
+# form (K/2=1028 ends inside an 8-row k-step, N=4000 inside a tile).
+INT4_SHAPES = {(2048, 6144): 2, (2048, 2048): 4, (2048, 1024): 4,
+               (1024, 1024): 4, (1024, 2048): 4, (2048, 16384): 2,
+               (16384, 2048): 2}
+INT4_RAGGED = [(2000, 200), (4098, 4000), (2056, 4000)]
 # Kernel vs plain: f32 sums in another order over K exact products, held
 # to 1e-5 of the sum of the products' magnitudes (sum_k |x_k w_kn| s_n).
 INT4_REL_TOL = 1e-5
@@ -101,11 +111,12 @@ ROLLOUT_Q_ATOL = 0.1
 TRAIN_CASE = "cylinder_flow"
 TRAIN_EPOCHS = 2
 # (B, Tq, Tk, H, hd, src_len): the train step's self-attention (hd 128)
-# and exchange (hd 64) at T=399, hd 256, one token, and Tq != Tk with
-# keys above the band.
+# and exchange (hd 64) at T=399, hd 256, one token, Tq != Tk with keys
+# above the band, and the smoke presets' hd 16 and 8 (square; ragged).
 FLASH_SHAPES = [(2, 399, 399, 8, 128, 0), (2, 399, 399, 8, 64, 0),
                 (4, 199, 199, 8, 256, 0), (1, 1, 1, 8, 64, 0),
-                (2, 70, 130, 8, 128, 5)]
+                (2, 70, 130, 8, 128, 5), (2, 41, 41, 2, 16, 0),
+                (3, 37, 53, 2, 8, 5)]
 FLASH_SEED = (123456789, -987654321)
 # f32, summation order only: the bounds of tests/test_flash_attention.py.
 # A dropout bit the kernel and the plain version disagree on is off by
@@ -160,6 +171,20 @@ def phase_build():
             future.result()
     log(f"[build] decode_attention.cu, flash_attention.cu, quant_matmul.cu "
         f"-> {_build.BUILD_DIR} in {time.perf_counter() - t0:.2f} s")
+    # Registers and static shared memory of the int4 kernel (its ring of
+    # weights and x, s and the sums are dynamic shared memory: the plan's
+    # smem_bytes, [kernel]).
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    lib = _build.load_library("quant_matmul")._name
+    try:
+        res = subprocess.run([str(cuobjdump), "--dump-resource-usage", lib],
+                             capture_output=True, text=True, check=True,
+                             timeout=60).stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError) as e:
+        res = [f"cuobjdump failed: {e}"]
+    for line in res:
+        if "Function" in line or "REG:" in line or "failed" in line:
+            log(f"[build] quant_matmul.cu {line.strip()}")
     t0 = time.perf_counter()
     x = torch.randn(2, 8, 1024, device="cuda")
     cw = torch.randn(2, 1, 1024, device="cuda")
@@ -285,27 +310,40 @@ def _int4_cases(M, K, N, seed=0):
 
 def phase_int4_check():
     """The int4 kernel against int4_matvec_ref at every (K, N) of the
-    rollout step, M = 1 and 8; the bound scales with the sum of the
-    products' magnitudes."""
+    rollout step, M = 1 and 8, and at the ragged shapes, M = 1, 3 and 8;
+    the bound scales with the sum of the products' magnitudes. Each call is
+    one launch, and a second call gives the same bits (the cluster sums in
+    a fixed order)."""
     from sea_tpu_torch.ops import quant_matmul as QM
     worst = 0.0
-    for K, N in INT4_SHAPES:
-        for M in (1, 8):
-            x, wp, s = _int4_cases(M, K, N)
-            got = QM.int4_matmul(x, wp, s)
-            want = QM.int4_matvec_ref(x, wp, s)
-            mag = (x.to(torch.bfloat16).float().abs()
-                   @ QM.unpack_int4(wp, torch.float32).abs()) * s
-            torch.cuda.synchronize()
-            err = _err(got, want)
-            if not bool(((got - want).abs() <= INT4_REL_TOL * mag).all()):
-                raise AssertionError(f"int4 (M,K,N)=({M},{K},{N}): max abs "
-                                     f"err {err}, magnitude {mag.max()}")
-            worst = max(worst, err)
-            log(f"[kernel] int4 (M,K,N)=({M},{K},{N}) splits="
-                f"{QM.split_plan(K, N, 132)}: max abs err {err:.3g} "
-                f"(|y| max {want.abs().max().item():.3g}) within "
-                f"{INT4_REL_TOL} x sum|x w s|")
+    cases = ([(M, K, N) for K, N in INT4_SHAPES for M in (1, 8)]
+             + [(M, K, N) for K, N in INT4_RAGGED for M in (1, 3, 8)])
+    for M, K, N in cases:
+        x, wp, s = _int4_cases(M, K, N)
+        before = QM.launches
+        got = QM.int4_matmul(x, wp, s)
+        again = QM.int4_matmul(x, wp, s)
+        if QM.launches != before + 2:
+            raise AssertionError(f"int4 (M,K,N)=({M},{K},{N}): "
+                                 f"{QM.launches - before} launches for 2 "
+                                 "calls")
+        want = QM.int4_matvec_ref(x, wp, s)
+        mag = (x.to(torch.bfloat16).float().abs()
+               @ QM.unpack_int4(wp, torch.float32).abs()) * s
+        torch.cuda.synchronize()
+        err = _err(got, want)
+        if not bool(((got - want).abs() <= INT4_REL_TOL * mag).all()):
+            raise AssertionError(f"int4 (M,K,N)=({M},{K},{N}): max abs "
+                                 f"err {err}, magnitude {mag.max()}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"int4 (M,K,N)=({M},{K},{N}): two calls "
+                                 "differ")
+        worst = max(worst, err)
+        plan = QM.device_plan(K, N, "cuda")
+        log(f"[kernel] int4 (M,K,N)=({M},{K},{N}) {plan} {plan.blocks} "
+            f"blocks, {plan.smem_bytes} B shared: max abs err {err:.3g} "
+            f"(|y| max {want.abs().max().item():.3g}) within "
+            f"{INT4_REL_TOL} x sum|x w s|; repeat bit for bit")
     return worst
 
 
@@ -441,28 +479,25 @@ def _int4_sites_per_step(qparams, cfg):
     cross_down of j and the cross-attention q, kv and proj and cross_up;
     the MLP and the block proj; once per layer the ib MLP unless the AdaLN
     cond tables carry it. A site counts where the quantizer rewrote it
-    (w_p4), so the count follows min_size and the matrix shapes."""
+    (w_p4), so the count follows min_size and the matrix shapes. Returns
+    the count of each (K, N)."""
     G = cfg.num_fields
-
-    def n(p):
-        return int("w_p4" in p)
-
-    count = 0
+    sites = []
     for block in qparams["blocks"]:
         if cfg.ln_type.lower() != "adaln":
-            count += sum(n(lay["lin"]) for lay in block["ib"]["layers"])
+            sites += [lay["lin"] for lay in block["ib"]["layers"]]
         for i in range(G):
             att = block["self_attn"][i]
-            count += n(att["qkv"]) + n(att["proj"]) + n(block["cross_down"][i])
+            sites += [att["qkv"], att["proj"], block["cross_down"][i]]
             for j in range(G):
                 if j != i:
                     ca = block["cross_attn"][i][j]
-                    count += (n(block["cross_down"][j]) + n(ca["q"])
-                              + n(ca["kv"]) + n(ca["proj"])
-                              + n(block["cross_up"][i]))
-            count += sum(n(lay["lin"]) for lay in block["mlp"][i]["layers"])
-            count += n(block["proj"][i])
-    return count
+                    sites += [block["cross_down"][j], ca["q"], ca["kv"],
+                              ca["proj"], block["cross_up"][i]]
+            sites += [lay["lin"] for lay in block["mlp"][i]["layers"]]
+            sites.append(block["proj"][i])
+    return collections.Counter((2 * p["w_p4"].shape[0], p["w_p4"].shape[1])
+                               for p in sites if "w_p4" in p)
 
 
 def phase_serve_reduced(case, save_dir, params_np):
@@ -483,8 +518,12 @@ def phase_serve_reduced(case, save_dir, params_np):
     attn_per_forward = nl * G * G
     qparams = prec.quantize_weights_int4(prec.fuse_attention_projections(
         from_numpy(params_np, "cuda")), scale="max")
-    int4_per_step = _int4_sites_per_step(qparams, tcfg)
+    int4_shapes = _int4_sites_per_step(qparams, tcfg)
     del qparams
+    if int4_shapes != collections.Counter(INT4_SHAPES):
+        raise AssertionError(f"int4 linears a step {dict(int4_shapes)}, "
+                             f"INT4_SHAPES says {INT4_SHAPES}")
+    int4_per_step = sum(int4_shapes.values())
     out = {}
     for flags, forwards in (
             (["--precision", "int4", "--kv_cache", "int8"], 1 + 2),
@@ -637,6 +676,12 @@ def _profile_rollout(params, cfg, B, cache_dtype, label):
         us = e.self_device_time_total / TIMED_STEPS
         log(f"[profile] {label} {us:8.2f} us/step "
             f"{e.count / TIMED_STEPS:6.1f}/step {e.key[:100]}")
+    int4 = [e for e in events if "int4" in e.key]
+    if int4:
+        log(f"[profile] {label} int4 kernels "
+            f"{sorted({e.key[:60] for e in int4})}: "
+            f"{sum(e.self_device_time_total for e in int4) / TIMED_STEPS:.2f}"
+            f" us/step, {sum(e.count for e in int4) / TIMED_STEPS:.1f}/step")
 
 
 def phase_time_rollout(case, params_np):
@@ -1245,9 +1290,10 @@ def phase_time_adaln():
 
 def phase_time_reduced_kernels():
     """The int8-KV decode kernel at (8,8,250,256), t = T-1; the int4
-    kernel at (M,K,N) = (1,2048,16384), the MLP up-projection; the dense
-    mask at the dropout verification's [8, 512, 512]: each against its
-    plain version and its bound. Library calls: SDPA with one query over
+    kernel at every (K, N) of the rollout step, M = 1 and 8, and its sum
+    over a step's launches (the JSON line keeps (1,2048,16384), the MLP
+    up-projection); the dense mask at the dropout verification's
+    [8, 512, 512]: each against its plain version and its bound. Library calls: SDPA with one query over
     the dequantized bf16 cache; cuBLAS x_bf16 @ W_bf16 over the
     dequantized weight (the same product reading 4x the weight bytes); no
     single PyTorch call writes the mask."""
@@ -1280,27 +1326,41 @@ def phase_time_reduced_kernels():
         f"({runs[0]:.4f}, {runs[3]:.4f}), bound {bound:.4f} ms ({bound_by}), "
         f"SDPA one query over a bf16 dequantized cache {lib:.4f} ms")
 
-    for M, K, N in ((1, 2048, 16384), (8, 16384, 2048)):
-        x, wp, s = _int4_cases(M, K, N)
-        xb = x.to(torch.bfloat16)
-        Wb = (QM.unpack_int4(wp, torch.float32) * s).to(torch.bfloat16)
-        ms, plain_ms, runs = _kernel_vs_plain(
-            lambda: QM.int4_matmul(x, wp, s),
-            lambda: QM.int4_matvec_ref(x, wp, s), flush)
-        nbytes = K // 2 * N + M * K * 4 + N * 4 + M * N * 4
-        # bf16(x) times a nibble, exact in bf16: the bf16 tensor-core peak.
-        bound, bound_by = _bound_ms(nbytes, 2 * M * K * N, BF16_FLOP_PER_S)
-        lib = _device_ms(lambda: xb @ Wb, flush)
-        if (M, K, N) == (1, 2048, 16384):
-            out["int4_matvec"] = dict(ms=ms, plain_ms=plain_ms,
-                                      bound_ms=bound, bound_by=bound_by,
-                                      library_ms=lib)
-        log(f"[kernel-time] int4 (M,K,N)=({M},{K},{N}), L2 cold: kernel "
-            f"{ms:.4f} ms ({runs[1]:.4f}, {runs[2]:.4f}; "
-            f"{nbytes / (ms * 1e-3) / 1e9:.0f} GB/s), plain {plain_ms:.4f} "
-            f"ms ({runs[0]:.4f}, {runs[3]:.4f}), bound {bound:.4f} ms "
-            f"({bound_by}), cuBLAS bf16 x bf16 over the dequantized weight "
-            f"{lib:.4f} ms")
+    step = {M: collections.Counter() for M in (1, 8)}
+    for (K, N), per_step in INT4_SHAPES.items():
+        for M in (1, 8):
+            x, wp, s = _int4_cases(M, K, N)
+            xb = x.to(torch.bfloat16)
+            Wb = (QM.unpack_int4(wp, torch.float32) * s).to(torch.bfloat16)
+            ms, plain_ms, runs = _kernel_vs_plain(
+                lambda: QM.int4_matmul(x, wp, s),
+                lambda: QM.int4_matvec_ref(x, wp, s), flush)
+            nbytes = K // 2 * N + M * K * 4 + N * 4 + M * N * 4
+            # bf16(x) times a nibble, exact in bf16: the bf16 tensor-core
+            # peak.
+            bound, bound_by = _bound_ms(nbytes, 2 * M * K * N,
+                                        BF16_FLOP_PER_S)
+            lib = _device_ms(lambda: xb @ Wb, flush)
+            if (M, K, N) == (1, 2048, 16384):
+                out["int4_matvec"] = dict(ms=ms, plain_ms=plain_ms,
+                                          bound_ms=bound, bound_by=bound_by,
+                                          library_ms=lib)
+            step[M].update(ms=per_step * ms, bound=per_step * bound,
+                           lib=per_step * lib,
+                           weights=per_step * 1e3 * (K // 2) * N
+                           / HBM_BYTES_PER_S)
+            log(f"[kernel-time] int4 (M,K,N)=({M},{K},{N}), L2 cold: kernel "
+                f"{ms:.4f} ms ({runs[1]:.4f}, {runs[2]:.4f}; "
+                f"{nbytes / (ms * 1e-3) / 1e9:.0f} GB/s), plain "
+                f"{plain_ms:.4f} ms ({runs[0]:.4f}, {runs[3]:.4f}), bound "
+                f"{bound:.4f} ms ({bound_by}), cuBLAS bf16 x bf16 over the "
+                f"dequantized weight {lib:.4f} ms; {per_step} a step")
+    for M, tot in step.items():
+        log(f"[kernel-time] int4 a rollout step at M={M} "
+            f"({sum(INT4_SHAPES.values())} launches): kernel "
+            f"{1e3 * tot['ms']:.1f} us, bound {1e3 * tot['bound']:.1f} us "
+            f"(the weights alone {1e3 * tot['weights']:.1f} us), cuBLAS "
+            f"over the dequantized weights {1e3 * tot['lib']:.1f} us")
 
     B, T, H, _ = DROPOUT_SHAPE
     bh = torch.arange(B * H, dtype=torch.int32, device="cuda")
@@ -1358,6 +1418,7 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device (torch.cuda.is_available() "
                  "is false); it runs on a GPU machine")
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from sea_tpu_torch.cli import get_case
@@ -1409,6 +1470,7 @@ def main():
                  for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")},
               **{n: "(B,T,E)=(2,399,1024)" for n in ("adaln_fwd",
                                                      "adaln_bwd")}}
+    log(f"[time] chip_smoke.py: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": route, "source": source, "replaces": tpu,
          "launches": launches[name], "max_abs_err": errors[name],

@@ -23,6 +23,10 @@
 //    hd/32 consecutive elements of q, K and V, so a warp reads a key row in
 //    one coalesced sweep of vector loads (16 bytes a lane for f32 at
 //    hd >= 128).
+//  - head dims 8 and 16 (the smoke presets) are too narrow for a warp a
+//    row: hd/4 lanes hold a row, 4 elements each, and a warp pass takes
+//    32/(hd/4) consecutive keys, each lane group with its own running max
+//    and sum until the block merges them (Lanes below).
 // t is read on the device, not passed by value, so a CUDA graph captured
 // over a rollout can replay it without rebuilding the launch.
 //
@@ -105,6 +109,19 @@ __device__ __forceinline__ int clamp_t(const int* t_ptr, int T) {
   return min(max(__ldg(t_ptr), 0), T - 1);
 }
 
+// A key row of HD elements over G lanes of E consecutive elements each; a
+// warp pass takes KPW = 32 / G keys, one per lane group. At hd >= 64 a
+// whole warp holds a row (KPW 1); the smoke presets' hd 8 and 16 put 16 and
+// 8 keys in a warp pass, 4 elements a lane.
+template <int HD>
+struct Lanes {
+  static_assert(HD % 8 == 0 && (HD < 32 || HD % 32 == 0), "head dim");
+  static constexpr int G = HD >= 32 ? 32 : HD / 4;
+  static constexpr int E = HD / G;
+  static constexpr int KPW = 32 / G;
+  static constexpr int S = kWarps * KPW;  // streams a block
+};
+
 // Partial attention of one (b, h) over keys [split * chunk, (split+1) * chunk)
 // cut at t. Writes part_ml[bh, split] = (max score, sum of exp) and
 // part_acc[bh, split, :] = sum of exp * v, both relative to that max.
@@ -114,7 +131,8 @@ decode_partial(const float* __restrict__ q, const typename Dt::Raw* __restrict__
                const typename Dt::Raw* __restrict__ v, const int* __restrict__ t_ptr,
                float* __restrict__ part_ml, float* __restrict__ part_acc, int T,
                int chunk, float scale) {
-  constexpr int V = HD / 32;
+  using L = Lanes<HD>;
+  constexpr int G = L::G, E = L::E, KPW = L::KPW, S = L::S;
   const int bh = blockIdx.x;
   const int split = blockIdx.y;
   const int t = clamp_t(t_ptr, T);
@@ -123,71 +141,82 @@ decode_partial(const float* __restrict__ q, const typename Dt::Raw* __restrict__
   const int stop = min(start + chunk, t + 1);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  const int grp = lane / G;
+  const int sub = lane % G;
+  const int stream = warp * KPW + grp;
 
-  float qv[V];
-  load_row<F32, V>(q + static_cast<size_t>(bh) * HD + lane * V, qv);
+  float qv[E];
+  load_row<F32, E>(q + static_cast<size_t>(bh) * HD + sub * E, qv);
 #pragma unroll
-  for (int i = 0; i < V; ++i) qv[i] = Dt::round(qv[i]);
+  for (int i = 0; i < E; ++i) qv[i] = Dt::round(qv[i]);
 
-  const size_t row0 = static_cast<size_t>(bh) * T * HD + lane * V;
+  const size_t row0 = static_cast<size_t>(bh) * T * HD + sub * E;
   float m = -INFINITY;
   float l = 0.f;
-  float acc[V];
+  float acc[E];
 #pragma unroll
-  for (int i = 0; i < V; ++i) acc[i] = 0.f;
+  for (int i = 0; i < E; ++i) acc[i] = 0.f;
 
-  for (int j = start + warp; j < stop; j += kWarps) {
-    float kv[V];
-    float vv[V];
-    load_row<Dt, V>(k + row0 + static_cast<size_t>(j) * HD, kv);
-    load_row<Dt, V>(v + row0 + static_cast<size_t>(j) * HD, vv);
+  // The loop runs the same count on every lane of a warp (the shuffles need
+  // all 32); a group whose key is past `stop` joins them and skips the rest.
+  for (int base = start + warp * KPW; base < stop; base += S) {
+    const int j = base + grp;
+    const bool valid = KPW == 1 || j < stop;
+    float kv[E];
+    float vv[E];
     float s = 0.f;
+    if (valid) {
+      load_row<Dt, E>(k + row0 + static_cast<size_t>(j) * HD, kv);
+      load_row<Dt, E>(v + row0 + static_cast<size_t>(j) * HD, vv);
 #pragma unroll
-    for (int i = 0; i < V; ++i) s = fmaf(qv[i], kv[i], s);
+      for (int i = 0; i < E; ++i) s = fmaf(qv[i], kv[i], s);
+    }
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    s *= scale;
-    const float m_new = fmaxf(m, s);
-    const float alpha = expf(m - m_new);  // 0 on the first key (m = -inf)
-    const float p = expf(s - m_new);
-    l = l * alpha + p;
-    const float pr = Dt::round(p);
+    for (int o = G / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (valid) {
+      s *= scale;
+      const float m_new = fmaxf(m, s);
+      const float alpha = expf(m - m_new);  // 0 on the first key (m = -inf)
+      const float p = expf(s - m_new);
+      l = l * alpha + p;
+      const float pr = Dt::round(p);
 #pragma unroll
-    for (int i = 0; i < V; ++i) acc[i] = fmaf(pr, vv[i], acc[i] * alpha);
-    m = m_new;
+      for (int i = 0; i < E; ++i) acc[i] = fmaf(pr, vv[i], acc[i] * alpha);
+      m = m_new;
+    }
   }
 
-  // Merge the warps. Warp 0 always owns key `start` <= t, so the block max
-  // is finite; a warp that saw no key has m = -inf and weight 0.
-  __shared__ float sm_m[kWarps];
-  __shared__ float sm_l[kWarps];
-  __shared__ float sm_acc[kWarps][HD];
-  if (lane == 0) {
-    sm_m[warp] = m;
-    sm_l[warp] = l;
+  // Merge the streams. Stream 0 always owns key `start` <= t, so the block
+  // max is finite; a stream that saw no key has m = -inf and weight 0.
+  __shared__ float sm_m[S];
+  __shared__ float sm_l[S];
+  __shared__ float sm_acc[S][HD];
+  if (sub == 0) {
+    sm_m[stream] = m;
+    sm_l[stream] = l;
   }
 #pragma unroll
-  for (int i = 0; i < V; ++i) sm_acc[warp][lane * V + i] = acc[i];
+  for (int i = 0; i < E; ++i) sm_acc[stream][sub * E + i] = acc[i];
   __syncthreads();
 
   float mx = sm_m[0];
 #pragma unroll
-  for (int w = 1; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w]);
-  float wgt[kWarps];
+  for (int w = 1; w < S; ++w) mx = fmaxf(mx, sm_m[w]);
+  float wgt[S];
 #pragma unroll
-  for (int w = 0; w < kWarps; ++w) wgt[w] = expf(sm_m[w] - mx);
+  for (int w = 0; w < S; ++w) wgt[w] = expf(sm_m[w] - mx);
 
   const size_t slot = static_cast<size_t>(bh) * gridDim.y + split;
   for (int d = threadIdx.x; d < HD; d += kThreads) {
     float a = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) a = fmaf(sm_acc[w][d], wgt[w], a);
+    for (int w = 0; w < S; ++w) a = fmaf(sm_acc[w][d], wgt[w], a);
     part_acc[slot * HD + d] = a;
   }
   if (threadIdx.x == 0) {
     float sum = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) sum = fmaf(sm_l[w], wgt[w], sum);
+    for (int w = 0; w < S; ++w) sum = fmaf(sm_l[w], wgt[w], sum);
     part_ml[2 * slot] = mx;
     part_ml[2 * slot + 1] = sum;
   }
@@ -234,7 +263,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* t,
 
 // Partial attention over an int8 cache with per-token scales: the same
 // split-K partials as decode_partial. G = HD/16 lanes hold 16 elements of a
-// key row each; the warp's 32/G lane groups take consecutive keys, so the
+// key row each (at hd 8 one lane holds the row); the warp's 32/G lane groups take consecutive keys, so the
 // block runs kWarps * 32/G streams, each with its own (m, l, acc).
 template <int HD>
 __global__ void __launch_bounds__(kThreads)
@@ -243,8 +272,8 @@ decode_partial_q8(const float* __restrict__ q, const int8_t* __restrict__ k,
                   const float* __restrict__ v_s, const int* __restrict__ t_ptr,
                   float* __restrict__ part_ml, float* __restrict__ part_acc,
                   int T, int chunk, float scale) {
-  constexpr int E = 16;            // elements per lane: one 16-byte load
-  constexpr int G = HD / E;        // lanes per key row
+  constexpr int E = HD < 16 ? HD : 16;  // elements per lane: one load
+  constexpr int G = HD / E;             // lanes per key row
   constexpr int KPW = 32 / G;      // keys per warp pass
   constexpr int S = kWarps * KPW;  // streams per block
   const int bh = blockIdx.x;
@@ -281,9 +310,10 @@ decode_partial_q8(const float* __restrict__ q, const int8_t* __restrict__ k,
     int8_t kb[E], vb[E];
     float s = 0.f;
     if (valid) {
-      const uint4 kw = __ldg(reinterpret_cast<const uint4*>(
+      using Word = std::conditional_t<E == 16, uint4, uint2>;
+      const Word kw = __ldg(reinterpret_cast<const Word*>(
           k + row0 + static_cast<size_t>(j) * HD));
-      const uint4 vw = __ldg(reinterpret_cast<const uint4*>(
+      const Word vw = __ldg(reinterpret_cast<const Word*>(
           v + row0 + static_cast<size_t>(j) * HD));
       memcpy(kb, &kw, E);
       memcpy(vb, &vw, E);
@@ -371,6 +401,12 @@ extern "C" int sea_decode_attention_q8(const void* q, const void* k,
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
+    case 8:
+      return static_cast<int>(launch_q8<8>(Q, K, V, KS, VS, tp, ml, acc, o, bh,
+                                           T, splits, chunk, s));
+    case 16:
+      return static_cast<int>(launch_q8<16>(Q, K, V, KS, VS, tp, ml, acc, o,
+                                            bh, T, splits, chunk, s));
     case 64:
       return static_cast<int>(launch_q8<64>(Q, K, V, KS, VS, tp, ml, acc, o,
                                             bh, T, splits, chunk, s));
@@ -403,12 +439,16 @@ extern "C" int sea_decode_attention(const void* q, const void* k, const void* v,
     return static_cast<int>(launch<DT, HD>(q, k, v, tp, ml, acc, o, bh, T, splits, chunk, s))
   if (cache_is_bf16) {
     switch (hd) {
+      SEA_DECODE_CASE(BF16, 8);
+      SEA_DECODE_CASE(BF16, 16);
       SEA_DECODE_CASE(BF16, 64);
       SEA_DECODE_CASE(BF16, 128);
       SEA_DECODE_CASE(BF16, 256);
     }
   } else {
     switch (hd) {
+      SEA_DECODE_CASE(F32, 8);
+      SEA_DECODE_CASE(F32, 16);
       SEA_DECODE_CASE(F32, 64);
       SEA_DECODE_CASE(F32, 128);
       SEA_DECODE_CASE(F32, 256);

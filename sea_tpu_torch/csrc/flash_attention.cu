@@ -92,9 +92,16 @@
 //    16 column threads of a half warp read 16 different banks;
 //  - inputs are read through their strides ([B, T, H, hd] with hd
 //    contiguous): no transpose to [B*H, T, hd] in device memory.
-// Their tiles are 64 x 64 for hd 64 and 128 and 32 x 32 for hd 256, which
+// Their tiles are 64 x 64 for hd 8 to 128 and 32 x 32 for hd 256, which
 // keeps every kernel inside the 227 KB of dynamic shared memory a block
 // may use.
+//
+// Head dims 8 and 16 are the smoke presets' (cylinder_flow_smoke: E=32 over
+// 2 heads, and the exchange at half that width). The forward takes them
+// with the same mma.sync tiles, its fragments read one float at a time in
+// the mma's k order (a float4 would span more d than the row holds); the
+// backward's 16 column threads own d = tx + 16c as at any hd, and at hd 8
+// half of them sit out the d products.
 //
 // The dense dropout mask (dropout_mask_kernel) replaces the Pallas TPU
 // kernel _mask_kernel (via _dropout_mask_dense), the oracle of the dropout
@@ -287,13 +294,18 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
+// Head dims 8 and 16 (kSmall) read fragments one float at a time in the
+// mma's own k order, with row strides of hd + 4 floats.
 template <int HD, int BK>
 struct FwdTiles {
-  static constexpr int kLdQK = HD + 16;  // = 16 (mod 32) floats
-  static constexpr int kLdV = HD + 4;    // = 4 (mod 32) floats
+  static constexpr bool kSmall = HD < 32;
+  // hd + 16 = 16 (mod 32) floats at hd >= 64; hd + 4 everywhere else
+  static constexpr int kLdQK = kSmall ? HD + 4 : HD + 16;
+  static constexpr int kLdV = HD + 4;
   static constexpr size_t kSmem =
       sizeof(float) * (kFwdBQ * kLdQK + 2 * BK * (kLdQK + kLdV));
-  static_assert(HD % 32 == 0 && BK % 8 == 0, "tile shape");
+  static_assert((HD == 8 || HD == 16 || HD % 64 == 0) && BK % 8 == 0,
+                "tile shape");
   static_assert(kSmem <= 232448, "over the 227 KB a block may use");
 };
 
@@ -302,6 +314,7 @@ __global__ void __launch_bounds__(kFwdThreads)
 fwd_kernel(View q, View k, View v, float* __restrict__ o,
            float* __restrict__ lse, Shape s) {
   constexpr int LQK = FwdTiles<HD, BK>::kLdQK, LV = FwdTiles<HD, BK>::kLdV;
+  constexpr bool kSmall = FwdTiles<HD, BK>::kSmall;
   constexpr int NS = BK / 8;  // n tiles of S = k steps of P.V
   constexpr int NO = HD / 8;  // n tiles of O
   extern __shared__ __align__(16) float fwd_smem_base[];
@@ -328,7 +341,7 @@ fwd_kernel(View q, View k, View v, float* __restrict__ o,
     const int qp = row0 + 8 * r;
     lim[r] = qp >= s.Tq ? 0 : s.causal ? min(s.Tk, qp + s.src_len + 1) : s.Tk;
   }
-  const float* qa = sQ + (warp * 16 + g) * LQK + 4 * t;
+  const float* qa = sQ + (warp * 16 + g) * LQK + (kSmall ? t : 4 * t);
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   float acc[NO][4];
 #pragma unroll
@@ -354,31 +367,51 @@ fwd_kernel(View q, View k, View v, float* __restrict__ o,
     for (int n = 0; n < NS; ++n)
 #pragma unroll
       for (int i = 0; i < 4; ++i) sc[n][i] = 0.f;
-#pragma unroll 1
-    for (int d0 = 0; d0 < HD; d0 += 16) {
-      const float4 x0 = lds4(qa + d0), x1 = lds4(qa + 8 * LQK + d0);
-      float4 y[NS];
+    if constexpr (kSmall) {
+      // One k step per 8 d, in the mma's own order: k t -> d t, t + 4.
 #pragma unroll
-      for (int n = 0; n < NS; ++n)
-        y[n] = lds4(cK + (n * 8 + g) * LQK + d0 + 4 * t);
-      Split b0[NS], b1[NS];
+      for (int d0 = 0; d0 < HD; d0 += 8) {
+        Split b0[NS], b1[NS];
 #pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        b0[n] = split(y[n].x);
-        b1[n] = split(y[n].y);
+        for (int n = 0; n < NS; ++n) {
+          const float* y = cK + (n * 8 + g) * LQK + d0 + t;
+          b0[n] = split(y[0]);
+          b1[n] = split(y[4]);
+        }
+        mma_3xtf32(sc, split_a(qa[d0], qa[8 * LQK + d0], qa[d0 + 4],
+                               qa[8 * LQK + d0 + 4]), b0, b1);
       }
-      mma_3xtf32(sc, split_a(x0.x, x1.x, x0.y, x1.y), b0, b1);
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        b0[n] = split(y[n].z);
-        b1[n] = split(y[n].w);
-      }
-      mma_3xtf32(sc, split_a(x0.z, x1.z, x0.w, x1.w), b0, b1);
       if (prefetch) {
-        load_tile_async<HD, BK, LQK, HD / 16>(nK, k, b, h, k0 + BK, s.Tk,
-                                              d0 / 16);
-        load_tile_async<HD, BK, LV, HD / 16>(nV, v, b, h, k0 + BK, s.Tk,
-                                             d0 / 16);
+        load_tile_async<HD, BK, LQK>(nK, k, b, h, k0 + BK, s.Tk);
+        load_tile_async<HD, BK, LV>(nV, v, b, h, k0 + BK, s.Tk);
+      }
+    } else {
+#pragma unroll 1
+      for (int d0 = 0; d0 < HD; d0 += 16) {
+        const float4 x0 = lds4(qa + d0), x1 = lds4(qa + 8 * LQK + d0);
+        float4 y[NS];
+#pragma unroll
+        for (int n = 0; n < NS; ++n)
+          y[n] = lds4(cK + (n * 8 + g) * LQK + d0 + 4 * t);
+        Split b0[NS], b1[NS];
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+          b0[n] = split(y[n].x);
+          b1[n] = split(y[n].y);
+        }
+        mma_3xtf32(sc, split_a(x0.x, x1.x, x0.y, x1.y), b0, b1);
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+          b0[n] = split(y[n].z);
+          b1[n] = split(y[n].w);
+        }
+        mma_3xtf32(sc, split_a(x0.z, x1.z, x0.w, x1.w), b0, b1);
+        if (prefetch) {
+          load_tile_async<HD, BK, LQK, HD / 16>(nK, k, b, h, k0 + BK, s.Tk,
+                                                d0 / 16);
+          load_tile_async<HD, BK, LV, HD / 16>(nV, v, b, h, k0 + BK, s.Tk,
+                                               d0 / 16);
+        }
       }
     }
     if (prefetch) cp_async_commit();
@@ -439,23 +472,34 @@ fwd_kernel(View q, View k, View v, float* __restrict__ o,
 #pragma unroll
     for (int n = 0; n < NS; ++n) {
       const FragA p = split_a(sc[n][0], sc[n][2], sc[n][1], sc[n][3]);
-      const float* v0 = cV + (n * 8 + 2 * t) * LV + 4 * g;
+      if constexpr (kSmall) {  // column g of O's n tile c is d = 8c + g
+        const float* v0 = cV + (n * 8 + 2 * t) * LV + g;
+        Split b0[NO], b1[NO];
 #pragma unroll
-      for (int J = 0; J < HD / 32; J += 2) {  // 8 n tiles of O at a time
-        Split b0[8], b1[8];
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const float4 y0 = lds4(v0 + 32 * (J + u));
-          const float4 y1 = lds4(v0 + LV + 32 * (J + u));
-          const float c0[4] = {y0.x, y0.y, y0.z, y0.w};
-          const float c1[4] = {y1.x, y1.y, y1.z, y1.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            b0[4 * u + i] = split(c0[i]);
-            b1[4 * u + i] = split(c1[i]);
-          }
+        for (int c = 0; c < NO; ++c) {
+          b0[c] = split(v0[8 * c]);
+          b1[c] = split(v0[LV + 8 * c]);
         }
-        mma_3xtf32(acc + 4 * J, p, b0, b1);
+        mma_3xtf32(acc, p, b0, b1);
+      } else {
+        const float* v0 = cV + (n * 8 + 2 * t) * LV + 4 * g;
+#pragma unroll
+        for (int J = 0; J < HD / 32; J += 2) {  // 8 n tiles of O at a time
+          Split b0[8], b1[8];
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const float4 y0 = lds4(v0 + 32 * (J + u));
+            const float4 y1 = lds4(v0 + LV + 32 * (J + u));
+            const float c0[4] = {y0.x, y0.y, y0.z, y0.w};
+            const float c1[4] = {y1.x, y1.y, y1.z, y1.w};
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              b0[4 * u + i] = split(c0[i]);
+              b1[4 * u + i] = split(c1[i]);
+            }
+          }
+          mma_3xtf32(acc + 4 * J, p, b0, b1);
+        }
       }
     }
     __syncthreads();  // stage j & 1 is refilled at iteration j + 1
@@ -467,17 +511,32 @@ fwd_kernel(View q, View k, View v, float* __restrict__ o,
     const int qp = row0 + 8 * r;
     if (qp >= s.Tq) continue;
     const float den = l[r] == 0.f ? 1.f : l[r];
-    float* out =
-        o + ((static_cast<long long>(b) * s.Tq + qp) * s.H + h) * HD + 8 * t;
+    float* out = o + ((static_cast<long long>(b) * s.Tq + qp) * s.H + h) * HD;
+    if constexpr (kSmall) {  // acc[c][2r + e] is d = 8c + 2t + e
 #pragma unroll
-    for (int J = 0; J < HD / 32; ++J)
+      for (int c = 0; c < NO; ++c)
+        *reinterpret_cast<float2*>(out + 8 * c + 2 * t) =
+            make_float2(acc[c][2 * r] / den, acc[c][2 * r + 1] / den);
+    } else {
 #pragma unroll
-      for (int e = 0; e < 2; ++e)
-        *reinterpret_cast<float4*>(out + 32 * J + 4 * e) = make_float4(
-            acc[4 * J][2 * r + e] / den, acc[4 * J + 1][2 * r + e] / den,
-            acc[4 * J + 2][2 * r + e] / den, acc[4 * J + 3][2 * r + e] / den);
+      for (int J = 0; J < HD / 32; ++J)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          *reinterpret_cast<float4*>(out + 8 * t + 32 * J + 4 * e) =
+              make_float4(acc[4 * J][2 * r + e] / den,
+                          acc[4 * J + 1][2 * r + e] / den,
+                          acc[4 * J + 2][2 * r + e] / den,
+                          acc[4 * J + 3][2 * r + e] / den);
+    }
     if (t == 0) lse[static_cast<long long>(bh) * s.Tq + qp] = m[r] + logf(den);
   }
+}
+
+// Whether column thread tx owns d = tx + 16c: always at hd % 16 == 0; at
+// hd 8 the upper half of the 16 column threads idles in the d products.
+template <int HD>
+__device__ __forceinline__ bool has_col(int tx, int c) {
+  return HD % 16 == 0 || tx + 16 * c < HD;
 }
 
 template <int HD, int BQ, int BK>
@@ -485,7 +544,7 @@ __global__ void __launch_bounds__(kThreads)
 dq_kernel(View q, View k, View v, View dout, const float* __restrict__ lse,
           const float* __restrict__ dsum, float* __restrict__ dq, Shape s) {
   constexpr int LD = HD + 1, LP = BK + 1;
-  constexpr int RQ = BQ / 16, CK = BK / 16, CD = HD / 16;
+  constexpr int RQ = BQ / 16, CK = BK / 16, CD = (HD + 15) / 16;
   extern __shared__ float smem[];
   float* sQ = smem;
   float* sO = sQ + BQ * LD;  // dO
@@ -563,6 +622,7 @@ dq_kernel(View q, View k, View v, View dout, const float* __restrict__ lse,
       for (int i = 0; i < RQ; ++i) dsv[i] = sS[(ty * RQ + i) * LP + kk];
 #pragma unroll
       for (int c = 0; c < CD; ++c) {
+        if (!has_col<HD>(tx, c)) continue;
         const float kv = sK[kk * LD + tx + 16 * c];
 #pragma unroll
         for (int i = 0; i < RQ; ++i) acc[i][c] = fmaf(dsv[i], kv, acc[i][c]);
@@ -576,7 +636,8 @@ dq_kernel(View q, View k, View v, View dout, const float* __restrict__ lse,
     if (t >= s.Tq) continue;
     float* out = dq + ((static_cast<long long>(b) * s.Tq + t) * s.H + h) * HD;
 #pragma unroll
-    for (int c = 0; c < CD; ++c) out[tx + 16 * c] = acc[i][c] * s.scale;
+    for (int c = 0; c < CD; ++c)
+      if (has_col<HD>(tx, c)) out[tx + 16 * c] = acc[i][c] * s.scale;
   }
 }
 
@@ -586,7 +647,7 @@ dkv_kernel(View q, View k, View v, View dout, const float* __restrict__ lse,
            const float* __restrict__ dsum, float* __restrict__ dk,
            float* __restrict__ dv, Shape s) {
   constexpr int LD = HD + 1, LP = BQ + 1;
-  constexpr int RK = BK / 16, CQ = BQ / 16, CD = HD / 16;
+  constexpr int RK = BK / 16, CQ = BQ / 16, CD = (HD + 15) / 16;
   extern __shared__ float smem[];
   float* sK = smem;
   float* sV = sK + BK * LD;
@@ -673,6 +734,7 @@ dkv_kernel(View q, View k, View v, View dout, const float* __restrict__ lse,
       }
 #pragma unroll
       for (int c = 0; c < CD; ++c) {
+        if (!has_col<HD>(tx, c)) continue;
         const float ov = sO[qq * LD + tx + 16 * c];
         const float qv = sQ[qq * LD + tx + 16 * c];
 #pragma unroll
@@ -691,6 +753,7 @@ dkv_kernel(View q, View k, View v, View dout, const float* __restrict__ lse,
     const long long at = ((static_cast<long long>(b) * s.Tk + t) * s.H + h) * HD;
 #pragma unroll
     for (int c = 0; c < CD; ++c) {
+      if (!has_col<HD>(tx, c)) continue;
       dk[at + tx + 16 * c] = gk[i][c] * s.scale;
       dv[at + tx + 16 * c] = gv[i][c];
     }
@@ -792,8 +855,8 @@ dropout_mask_kernel(const int* __restrict__ bh_map, float* __restrict__ out,
 
 // Tensors are f32 [B, T, H, hd] with hd contiguous, given by pointer and
 // (batch, time, head) strides in elements; o/dq/dk/dv are contiguous
-// [B, T, H, hd], lse and dsum contiguous [B*H, Tq]. hd must be 64, 128
-// or 256. Each entry returns cudaGetLastError() after its launch (0 on
+// [B, T, H, hd], lse and dsum contiguous [B*H, Tq]. hd must be 8, 16, 64,
+// 128 or 256. Each entry returns cudaGetLastError() after its launch (0 on
 // success); an unsupported hd returns cudaErrorInvalidValue.
 #define SEA_FLASH_ARGS                                                    \
   int B, int H, int Tq, int Tk, int hd, int causal, int src_len,          \
@@ -815,6 +878,8 @@ extern "C" int sea_flash_fwd(const void* q, long long qsb, long long qst,
   float* L = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
+    case 8: return launch_fwd<8, 64>(Q, K, V, O, L, s, st);
+    case 16: return launch_fwd<16, 64>(Q, K, V, O, L, s, st);
     case 64: return launch_fwd<64, 64>(Q, K, V, O, L, s, st);
     case 128: return launch_fwd<128, 64>(Q, K, V, O, L, s, st);
     case 256: return launch_fwd<256, 32>(Q, K, V, O, L, s, st);
@@ -836,6 +901,8 @@ extern "C" int sea_flash_bwd_dq(
   float* dQ = static_cast<float*>(dq);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
+    case 8: return launch_dq<8, 64, 64>(Q, K, V, dO, L, D, dQ, s, st);
+    case 16: return launch_dq<16, 64, 64>(Q, K, V, dO, L, D, dQ, s, st);
     case 64: return launch_dq<64, 64, 64>(Q, K, V, dO, L, D, dQ, s, st);
     case 128: return launch_dq<128, 64, 64>(Q, K, V, dO, L, D, dQ, s, st);
     case 256: return launch_dq<256, 32, 32>(Q, K, V, dO, L, D, dQ, s, st);
@@ -858,6 +925,8 @@ extern "C" int sea_flash_bwd_dkv(
   float* dV = static_cast<float*>(dv);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
+    case 8: return launch_dkv<8, 64, 64>(Q, K, V, dO, L, D, dK, dV, s, st);
+    case 16: return launch_dkv<16, 64, 64>(Q, K, V, dO, L, D, dK, dV, s, st);
     case 64: return launch_dkv<64, 64, 64>(Q, K, V, dO, L, D, dK, dV, s, st);
     case 128:
       return launch_dkv<128, 64, 64>(Q, K, V, dO, L, D, dK, dV, s, st);

@@ -29,7 +29,8 @@ import torch
 launches = 0
 launches_q8 = 0
 
-HEAD_DIMS = (64, 128, 256)
+# 8 and 16: the smoke presets (cylinder_flow_smoke).
+HEAD_DIMS = (8, 16, 64, 128, 256)
 # Fewest keys a split-K block takes: 4 warps x 4 keys.
 MIN_KEYS_PER_SPLIT = 16
 _SM_COUNT: dict = {}

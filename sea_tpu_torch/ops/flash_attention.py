@@ -21,8 +21,8 @@ bit. The backward identity D = rowsum(dO * O) holds with dropout; D is
 computed here with torch, outside the kernels, as the JAX package does.
 
 What bounds the kernels on the card, and their design: see the note at
-the top of the CUDA source. Head dims 64, 128 and 256; any other raises
-on CUDA. Alignment: the forward kernel copies q, k and v rows into shared
+the top of the CUDA source. Head dims 8, 16 (the smoke presets), 64, 128
+and 256; any other raises on CUDA. Alignment: the forward kernel copies q, k and v rows into shared
 memory in 16-byte pieces (``cp.async``), so on CUDA each of them must
 start on 16 bytes and its batch, time and head strides must be whole
 multiples of 4 floats (a dim of size 1 is exempt: its stride is never
@@ -53,7 +53,8 @@ dq_launches = 0
 dkv_launches = 0
 mask_launches = 0
 
-HEAD_DIMS = (64, 128, 256)
+# 8 and 16: the smoke presets (cylinder_flow_smoke).
+HEAD_DIMS = (8, 16, 64, 128, 256)
 
 
 # ---------------------------------------------------------------------------

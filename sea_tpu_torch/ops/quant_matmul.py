@@ -12,7 +12,10 @@ is the hand-written kernel ``sea_tpu_torch/csrc/quant_matmul.cu``
 (replacing the Pallas TPU kernel ``_mv_kernel``); on the CPU its plain
 version ``int4_matvec_ref``. Larger calls take the two-plane dequantized
 product of the JAX package's fallback, with x not rounded: a plain large
-product outside any kernel.
+product outside any kernel. The kernel's grid (column tile width, cluster
+size, packed rows a block) comes from ``int4_plan``, a pure function of
+the shape, the SM count and how many clusters of each size the card
+holds at once (read from the card once, ``device_plan``).
 
 The TPU kernel's gates (backend, ``_KERNEL_MIN_ELEMS``, ``(K/2) % 8``,
 ``N % 128``, the VMEM budget of ``_pick_block_n``) and its AND/XOR +8
@@ -26,6 +29,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -35,14 +39,83 @@ launches = 0
 
 # Rows per call that take the kernel's math: serving matvecs are M = B <= 8.
 KERNEL_MAX_ROWS = 8
-# The kernel's grid (csrc/quant_matmul.cu): a block's strip of columns
-# (32 lanes x 16 bytes; kStrip there), the most packed rows a split-K block
-# takes (its staged x chunk; kMaxChunk there), and the fewest this plan
-# gives it (4 rows for each of its 8 warps).
-COLS_PER_BLOCK = 512
-MAX_ROWS_PER_SPLIT = 256
-MIN_ROWS_PER_SPLIT = 32
-_SM_COUNT: dict = {}
+# The kernel's geometry (csrc/quant_matmul.cu, where the same constants
+# stand): column tiles of 128 or 64 columns a block (kCols), clusters of at
+# most 8 blocks splitting a tile's packed rows (kMaxCluster), 8 packed rows
+# per MMA k-step (kStepRows), a ring of 5 (128 columns) or 7 (64 columns)
+# stages of 128 packed rows (kStages, kStageRows), each with the x rows
+# they pair with ([2][8][128 + 4] f32).
+COL_TILE_WIDTHS = (128, 64)
+MAX_CLUSTER = 8
+STEP_ROWS = 8
+STAGE_ROWS = 128
+STAGES = {128: 5, 64: 7}
+X_STAGE_BYTES = 2 * 8 * (STAGE_ROWS + 4) * 4
+# Shared memory a block may have on an H100 (227 KB).
+MAX_SMEM_BYTES = 232448
+# Per CUDA device: (SM count, cluster slots), int4_plan's inputs.
+_DEVICE: dict = {}
+
+
+class Int4Plan(NamedTuple):
+    """The kernel's grid: ``cols``-wide column tiles (``tiles`` of them),
+    each split over a cluster of ``cluster`` blocks of ``rows`` packed rows
+    (the last one the rest)."""
+    cols: int
+    tiles: int
+    cluster: int
+    rows: int
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.cluster
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of a block: the ring of weights and x, the
+        scales of the tile's columns and the cluster's f32 partial sums."""
+        stage = STAGE_ROWS * self.cols + X_STAGE_BYTES
+        return (STAGES[self.cols] * stage + self.cols * 4
+                + (8 * self.cols + MAX_CLUSTER) * 4)
+
+
+@functools.lru_cache(maxsize=None)
+def int4_plan(K: int, N: int, sm_count: int, cluster_slots=None) -> Int4Plan:
+    """The kernel's grid for x [M, K] @ wp [K/2, N] on ``sm_count`` SMs.
+
+    ``cluster_slots``: ((cols, cluster size), count) pairs, how many
+    clusters of that size the card holds at once at one block an SM (the
+    kernel's shared memory allows no more), as the kernel's
+    ``sea_int4_cluster_slots`` reports; a cluster must fit inside one GPC,
+    so that is often fewer than sm_count // size. None takes sm_count //
+    size.
+
+    A plan fits in one wave when its blocks fit on the SMs and its
+    clusters in their slots. For each tile width, the cluster is the
+    largest (at most MAX_CLUSTER, at most one k-step a block) that fits,
+    the rows are split evenly in whole k-steps, and the cluster shrinks so
+    that no block is empty. Of the widths, the plan that fits with the
+    most blocks wins, the wider on a tie; where none fits, the one with
+    the fewest blocks."""
+    slots = dict(cluster_slots or ())
+
+    def fits(cols, tiles, cluster):
+        return (tiles * cluster <= sm_count
+                and tiles <= slots.get((cols, cluster), sm_count // cluster))
+
+    steps = math.ceil(K // 2 / STEP_ROWS)
+    plans = []
+    for cols in COL_TILE_WIDTHS:
+        tiles = math.ceil(N / cols)
+        cluster = next((c for c in range(min(MAX_CLUSTER, steps), 0, -1)
+                        if fits(cols, tiles, c)), 1)
+        per = math.ceil(steps / cluster)
+        plans.append(Int4Plan(cols, tiles, math.ceil(steps / per),
+                              per * STEP_ROWS))
+    one_wave = [p for p in plans if fits(p.cols, p.tiles, p.cluster)]
+    if one_wave:
+        return max(one_wave, key=lambda p: (p.blocks, p.cols))
+    return min(plans, key=lambda p: (p.blocks, -p.cols))
 
 
 def pack_int4(q):
@@ -76,30 +149,37 @@ def int4_matvec_ref(x, wp, s):
     return (xb @ unpack_int4(wp, torch.float32)) * s.float()
 
 
-def split_plan(K: int, N: int, sm_count: int):
-    """(splits, packed rows per split) of the kernel's split-K grid: about
-    two blocks per SM over (column strips x splits), each split a multiple
-    of 8 rows (one per warp), at least MIN_ROWS_PER_SPLIT and at most
-    MAX_ROWS_PER_SPLIT rows, so the block's staged x chunk stays small."""
-    K2 = K // 2
-    strips = math.ceil(N / COLS_PER_BLOCK)
-    want = max(1, math.ceil(2 * sm_count / strips))
-    splits = max(1, min(want, math.ceil(K2 / MIN_ROWS_PER_SPLIT)),
-                 math.ceil(K2 / MAX_ROWS_PER_SPLIT))
-    chunk = 8 * math.ceil(math.ceil(K2 / splits) / 8)
-    return math.ceil(K2 / chunk), chunk
-
-
 @functools.cache
 def _library():
-    """The C entry, built at first use; pointers and the stream are
+    """The C entries, built at first use; pointers and the stream are
     c_void_p (ctypes would otherwise pass a Python int as 32 bits)."""
     from sea_tpu_torch.ops._build import load_library
-    fn = load_library("quant_matmul").sea_int4_matvec
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
-    return fn
+    lib = load_library("quant_matmul")
+    lib.sea_int4_matvec.restype = ctypes.c_int
+    lib.sea_int4_matvec.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.sea_int4_cluster_slots.restype = ctypes.c_int
+    lib.sea_int4_cluster_slots.argtypes = [ctypes.c_int] * 2
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def device_plan(K: int, N: int, dev) -> Int4Plan:
+    """The plan the kernel runs at (K, N) on CUDA device ``dev``: int4_plan
+    with the device's SM count and cluster slots, read once a device
+    (cached: the rollout asks again on every call)."""
+    dev = torch.device(dev)
+    if dev not in _DEVICE:
+        query = _library().sea_int4_cluster_slots
+        slots = tuple(((cols, c), query(cols, c))
+                      for cols in COL_TILE_WIDTHS
+                      for c in range(1, MAX_CLUSTER + 1))
+        if min(n for _, n in slots) < 1:
+            raise RuntimeError(f"int4 kernel: cluster occupancy query "
+                               f"failed on {dev}: {slots}")
+        _DEVICE[dev] = (torch.cuda.get_device_properties(
+            dev).multi_processor_count, slots)
+    return int4_plan(K, N, *_DEVICE[dev])
 
 
 def int4_matvec(x, wp, s):
@@ -126,15 +206,12 @@ def int4_matvec(x, wp, s):
     if dev.index != torch.cuda.current_device():
         raise ValueError(f"weights on {dev}, but the current CUDA device is "
                          f"{torch.cuda.current_device()}")
-    if dev not in _SM_COUNT:
-        _SM_COUNT[dev] = torch.cuda.get_device_properties(
-            dev).multi_processor_count
-    splits, chunk = split_plan(K, N, _SM_COUNT[dev])
-    part = torch.empty((splits, M, N), dtype=torch.float32, device=dev)
+    plan = device_plan(K, N, dev)
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
-    rc = _library()(x.data_ptr(), wp.data_ptr(), s.data_ptr(),
-                    part.data_ptr(), out.data_ptr(), M, K2, N, splits, chunk,
-                    torch.cuda.current_stream(dev).cuda_stream)
+    rc = _library().sea_int4_matvec(
+        x.data_ptr(), wp.data_ptr(), s.data_ptr(), out.data_ptr(), M, K2, N,
+        plan.cols, plan.cluster, plan.rows,
+        torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"int4 matvec kernel launch failed: CUDA error "
                            f"{rc}")

@@ -130,7 +130,8 @@ def test_split_plan_covers_every_key(T_, bh, sms):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(1, 8, 250, 256), (8, 8, 250, 128),
-                                   (2, 8, 399, 64)])
+                                   (2, 8, 399, 64), (2, 2, 42, 16),
+                                   (2, 2, 42, 8)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_kernel_matches_ref(shape, dtype):
     """Runs on the card only (no CUDA here). Kernel against the plain
@@ -275,7 +276,8 @@ def test_int8_cache_mha_steps_match_jax(monkeypatch):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(1, 8, 250, 256), (8, 8, 250, 256),
-                                   (8, 8, 250, 128), (2, 8, 399, 64)])
+                                   (8, 8, 250, 128), (2, 8, 399, 64),
+                                   (2, 2, 42, 16), (2, 2, 42, 8)])
 def test_cuda_q8_kernel_matches_ref(shape):
     """Runs on the card only. The int8 kernel against its plain version at
     every position class; NaN scales past t must not change it."""

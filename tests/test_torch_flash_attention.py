@@ -218,14 +218,19 @@ def _cuda_inputs(B, Tq, Tk, H, hd):
                                    (1, 1, 1, 8, 64, 0),
                                    (2, 70, 130, 8, 128, 5),
                                    (3, 37, 53, 8, 128, 5),
-                                   (2, 37, 53, 8, 256, 5)])
+                                   (2, 37, 53, 8, 256, 5),
+                                   (2, 41, 41, 2, 16, 0),
+                                   (2, 41, 41, 2, 8, 0),
+                                   (3, 37, 53, 2, 16, 5),
+                                   (3, 37, 53, 2, 8, 5)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_cuda_kernels_match_ref(shape, rate):
     """Runs on the card only. Output and dq/dk/dv through the autograd
     wrapper, and each kernel alone against its plain piece. The last
-    three shapes are Tq != Tk with src_len 5 (keys past Tq + 4 get no
+    three wide shapes are Tq != Tk with src_len 5 (keys past Tq + 4 get no
     gradient), the last two with a Tq that ends inside a warp's 16 rows,
-    at hd 128 and 256."""
+    at hd 128 and 256; then the smoke presets' hd 16 and 8, square and
+    ragged."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     B, Tq, Tk, H, hd, src_len = shape

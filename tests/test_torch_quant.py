@@ -115,13 +115,41 @@ def test_large_m_route_matches_jax_fallback():
                                atol=5e-5)
 
 
-@pytest.mark.parametrize("K,N", [(64, 512), (512, 1000), (2048, 6144)])
-def test_split_plan_covers_k(K, N):
-    """The kernel's split-K plan: every packed row in one split, none
-    empty, at most MAX_ROWS_PER_SPLIT rows (the staged x chunk)."""
-    splits, chunk = QM.split_plan(K, N, 132)
-    assert splits * chunk >= K // 2 > (splits - 1) * chunk
-    assert chunk % 8 == 0 and chunk <= QM.MAX_ROWS_PER_SPLIT
+# (K, N) of every int4 linear of the multiphase rollout step
+# (chip_smoke.INT4_SHAPES), beside small and ragged shapes.
+ROLLOUT_INT4_SHAPES = [(2048, 6144), (2048, 2048), (2048, 1024), (1024, 1024),
+                       (1024, 2048), (2048, 16384), (16384, 2048)]
+
+
+@pytest.mark.parametrize("K,N", [(64, 512), (512, 1000)]
+                         + ROLLOUT_INT4_SHAPES)
+def test_int4_plan_covers_k(K, N):
+    """The kernel's grid on an H100's 132 SMs: every packed row in exactly
+    one split of the cluster, none empty, whole MMA k-steps a split; at
+    most 8 blocks a cluster; one wave; shared memory within 227 KB."""
+    plan = QM.int4_plan(K, N, 132)
+    K2 = K // 2
+    assert plan.cluster * plan.rows >= K2 > (plan.cluster - 1) * plan.rows
+    assert plan.rows % QM.STEP_ROWS == 0
+    assert 1 <= plan.cluster <= QM.MAX_CLUSTER
+    assert plan.cols in QM.COL_TILE_WIDTHS
+    assert plan.tiles * plan.cols >= N > (plan.tiles - 1) * plan.cols
+    assert plan.blocks <= 132
+    assert plan.smem_bytes <= QM.MAX_SMEM_BYTES
+
+
+def test_int4_plan_keeps_clusters_in_their_slots():
+    """A cluster runs inside one GPC, so a card may hold fewer clusters of
+    8 than 132 // 8 (15 on the H100 of PERF.md): with 16 column tiles the
+    plan then takes smaller clusters in one wave, not 16 clusters of 8 of
+    which one would share SMs with another."""
+    slots = tuple(((cols, c), 15 if c == 8 else 132 // c)
+                  for cols in QM.COL_TILE_WIDTHS for c in range(1, 9))
+    plan = QM.int4_plan(16384, 2048, 132, slots)
+    assert QM.int4_plan(16384, 2048, 132).cluster == 8
+    assert plan.cluster < 8 and plan.blocks <= 132
+    assert plan.tiles <= dict(slots)[(plan.cols, plan.cluster)]
+    assert plan.cluster * plan.rows >= 8192 > (plan.cluster - 1) * plan.rows
 
 
 def test_kernel_wrapper_refuses_misaligned_weight():
@@ -290,11 +318,16 @@ def test_teacher_forced_drift_matches_jax():
 @pytest.mark.gpu
 @pytest.mark.parametrize("M", [1, 3, 8])
 @pytest.mark.parametrize("K,N", [(2048, 6144), (16384, 2048), (1024, 1024),
-                                 (64, 200)])
+                                 (64, 200), (2000, 200), (2002, 208),
+                                 (4098, 4000), (4098, 4004), (2056, 4000)])
 def test_cuda_kernel_matches_ref(M, K, N):
     """Runs on the card only (no CUDA here): the kernel against its plain
     version (f32 summation order), at a shape of the multiphase rollout,
-    the K-split down-projection, a small one and a ragged N."""
+    the K-split down-projection, a small one, and ragged ones: K/2 not a
+    multiple of the 128-row stage or of the 8-row k-step, N not a multiple
+    of the column tile (64 or 128); in the byte-wise form (N not a
+    multiple of 16 or K/2 not one of 4) and in the 16-byte one
+    (2056, 4000)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     g = torch.Generator(device="cuda").manual_seed(K + N + M)
