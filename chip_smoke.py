@@ -171,20 +171,24 @@ def phase_build():
             future.result()
     log(f"[build] decode_attention.cu, flash_attention.cu, quant_matmul.cu "
         f"-> {_build.BUILD_DIR} in {time.perf_counter() - t0:.2f} s")
-    # Registers and static shared memory of the int4 kernel (its ring of
-    # weights and x, s and the sums are dynamic shared memory: the plan's
-    # smem_bytes, [kernel]).
-    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
-    lib = _build.load_library("quant_matmul")._name
-    try:
-        res = subprocess.run([str(cuobjdump), "--dump-resource-usage", lib],
-                             capture_output=True, text=True, check=True,
-                             timeout=60).stdout.splitlines()
-    except (OSError, subprocess.CalledProcessError) as e:
-        res = [f"cuobjdump failed: {e}"]
-    for line in res:
-        if "Function" in line or "REG:" in line or "failed" in line:
-            log(f"[build] quant_matmul.cu {line.strip()}")
+    # Registers and static shared memory of the int4 kernel and the flash
+    # backward kernels (their tiles are dynamic shared memory), and the
+    # backward's SASS counts: its products are tensor-core mma.sync (HMMA),
+    # not f32 FMAs (FFMA).
+    for name, kernels in (("quant_matmul", ("",)),
+                          ("flash_attention", ("dq_kernel", "dkv_kernel"))):
+        lib = _build.load_library(name)._name
+        keep = False
+        for line in _cuobjdump("--dump-resource-usage", lib):
+            if "Function" in line:
+                keep = any(k in line for k in kernels)
+            if keep and ("Function" in line or "REG:" in line) \
+                    or "failed" in line:
+                log(f"[build] {name}.cu {line.strip()}")
+        if name == "flash_attention":
+            for fn, counts in _sass_counts(lib, kernels).items():
+                log(f"[build] flash_attention.cu SASS {fn}: "
+                    + ", ".join(f"{k} {v}" for k, v in counts.items()))
     t0 = time.perf_counter()
     x = torch.randn(2, 8, 1024, device="cuda")
     cw = torch.randn(2, 1, 1024, device="cuda")
@@ -194,6 +198,38 @@ def phase_build():
     torch.cuda.synchronize()
     log(f"[build] fused_adaln Triton kernels compiled and launched in "
         f"{time.perf_counter() - t0:.2f} s")
+
+
+def _cuobjdump(*args):
+    """cuobjdump's output lines, or one line saying why it failed."""
+    from sea_tpu_torch.ops import _build
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    try:
+        return subprocess.run([str(cuobjdump), *args], capture_output=True,
+                              text=True, check=True,
+                              timeout=60).stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError) as e:
+        return [f"cuobjdump failed: {e}"]
+
+
+def _sass_counts(lib, kernels):
+    """{mangled function: {op: count}} of the tensor-core, f32 FMA,
+    shared-load and cp.async instructions in the SASS of each function
+    whose name holds one of `kernels`."""
+    ops = ("HMMA", "FFMA", "LDS", "LDGSTS")
+    counts, fn = {}, None
+    for line in _cuobjdump("-sass", lib):
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            fn = name if any(k in name for k in kernels) else None
+            if fn:
+                counts[fn] = dict.fromkeys(ops, 0)
+        elif fn and "/*" in line:
+            op = line.split("*/", 1)[-1].split()
+            for o in ops:
+                if op and op[0].split(".")[0] == o:
+                    counts[fn][o] += 1
+    return counts
 
 
 def _cases(shape, dtype):
@@ -735,20 +771,31 @@ def phase_rollout_reduced(case, params_np):
             _profile_rollout(trees[mode], cfg, B, cache_dtype, label)
 
 
-def _device_ms(fn, flush, iters=50):
+def _device_ms(fn, flush, iters=50, lead=1):
     """Median device time of fn() in ms. Each call starts with L2 cold: a
-    sum over 512 MB runs first (a read, so no dirty lines are left to
-    write back) and keeps the card busy while the host enqueues the call,
-    so the events time the device, not the host."""
+    sum over 512 MB (~0.16 ms) runs first (a read, so no dirty lines are
+    left to write back) and keeps the card busy while the host enqueues
+    the call, so the events time the device, not the host. A call whose
+    enqueue takes longer (autograd through a library op) asks for `lead`
+    such sums in a row."""
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     for s, e in zip(starts, ends):
-        flush.sum()
+        for _ in range(lead):
+            flush.sum()
         s.record()
         fn()
         e.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
+
+
+def _library_ms(fn, flush):
+    """_device_ms of a library call, warmed up, each call behind four
+    flushes: SDPA's autograd backward (several kernels) can take longer to
+    enqueue than one flush lasts, and its events then time the host."""
+    _device_ms(fn, flush, iters=5, lead=4)
+    return _device_ms(fn, flush, lead=4)
 
 
 def _bound_ms(nbytes, flops, flop_rate=F32_FLOP_PER_S):
@@ -1188,17 +1235,26 @@ def _band_pairs(Tq, Tk, src_len):
     return sum(min(Tk, q + 1 + src_len) for q in range(Tq))
 
 
+def _sdpa_backend(qt, kt, vt):
+    """The backend PyTorch's dispatcher picks for this causal SDPA call
+    (its forward and backward run the same backend's kernels)."""
+    choose = getattr(torch, "_fused_sdp_choice", None)  # private API
+    if choose is None:
+        return "not reported by this PyTorch"
+    from torch.nn.attention import SDPBackend
+    return SDPBackend(choose(qt, kt, vt, is_causal=True)).name
+
+
 def phase_time_flash():
-    """The three flash kernels at the train step's shapes against their
-    plain pieces, their bounds and SDPA: its causal forward for the forward
-    kernel, timed at dropout 0 (like for like with SDPA, which has no
-    dropout here) and 0.1 (the train step's); its backward (dq, dk and dv
-    in one call, over the graph of a forward taken outside the timing) for
-    the two backward kernels at dropout 0.1. Then the forward at the
-    multiphase training shape (4, 199, 8, 256), dropout 0. Bounds count
-    the operations at the 3xTF32 rate; the count at the f32 CUDA-core
-    peak, the bound of the forward's earlier f32-FMA form, stands beside
-    it."""
+    """The three flash kernels at the train step's shapes and the
+    multiphase training shape (4, 199, 8, 256) against their plain pieces,
+    their bounds and SDPA, at dropout 0 and 0.1 (the train step's). SDPA
+    has no dropout here: its causal forward stands beside the forward
+    kernel and its backward (dq, dk and dv in one call, over the graph of
+    a forward taken outside the timing) beside the backward kernels, like
+    for like at dropout 0. Bounds count the operations at the 3xTF32 rate;
+    the count at the f32 CUDA-core peak stands beside it. The backend that
+    served SDPA is named."""
     from sea_tpu_torch.ops import flash_attention as FA
     sdpa = torch.nn.functional.scaled_dot_product_attention
     flush = torch.ones(128 << 20, dtype=torch.float32, device="cuda")
@@ -1208,33 +1264,41 @@ def phase_time_flash():
         q, k, v, g = _flash_inputs(shape)
         qt, kt, vt, gt = (x.transpose(1, 2).contiguous().requires_grad_(
             x is not g) for x in (q, k, v, g))
-        with torch.no_grad():
-            lib_fwd = _device_ms(lambda: sdpa(qt, kt, vt, is_causal=True),
-                                 flush)
+        graph_out = sdpa(qt, kt, vt, is_causal=True)
+
+        def lib_forward():
+            with torch.no_grad():
+                sdpa(qt, kt, vt, is_causal=True)
+
+        def lib_backward():
+            torch.autograd.grad(graph_out, (qt, kt, vt), gt,
+                                retain_graph=True)
+
+        lib_fwd, lib_bwd = (_library_ms(fn, flush)
+                            for fn in (lib_forward, lib_backward))
         pairs = B * H * _band_pairs(Tq, Tk, src_len)
         tensor = B * Tq * H * hd * 4
         rows = B * H * Tq * 4
         pieces = {}
-        for rate in (0.0, 0.1) if hd != 256 else (0.0,):
+        for rate in (0.0, 0.1):
             kw = _flash_kw(shape, rate)
+            o, lse = FA.flash_forward_ref(q, k, v, **kw)
+            dsum = FA.row_dot(g, o)
             pieces[("flash_fwd", rate)] = (
                 lambda kw=kw: FA.flash_fwd(q, k, v, **kw),
                 lambda kw=kw: FA.flash_forward_ref(q, k, v, **kw),
                 4 * tensor + rows, 4 * hd * pairs, lib_fwd)
-        if hd != 256:
-            kw = _flash_kw(shape, 0.1)
-            o, lse = FA.flash_forward_ref(q, k, v, **kw)
-            dsum = FA.row_dot(g, o)
-            graph_out = sdpa(qt, kt, vt, is_causal=True)
-            lib_bwd = _device_ms(lambda: torch.autograd.grad(
-                graph_out, (qt, kt, vt), gt, retain_graph=True), flush)
-            pieces[("flash_bwd_dq", 0.1)] = (
-                lambda: FA.flash_bwd_dq(q, k, v, g, lse, dsum, **kw),
-                lambda: FA.flash_bwd_dq_ref(q, k, v, g, lse, dsum, **kw),
+            pieces[("flash_bwd_dq", rate)] = (
+                lambda kw=kw, lse=lse, dsum=dsum: FA.flash_bwd_dq(
+                    q, k, v, g, lse, dsum, **kw),
+                lambda kw=kw, lse=lse, dsum=dsum: FA.flash_bwd_dq_ref(
+                    q, k, v, g, lse, dsum, **kw),
                 5 * tensor + 2 * rows, 6 * hd * pairs, lib_bwd)
-            pieces[("flash_bwd_dkv", 0.1)] = (
-                lambda: FA.flash_bwd_dkv(q, k, v, g, lse, dsum, **kw),
-                lambda: FA.flash_bwd_dkv_ref(q, k, v, g, lse, dsum, **kw),
+            pieces[("flash_bwd_dkv", rate)] = (
+                lambda kw=kw, lse=lse, dsum=dsum: FA.flash_bwd_dkv(
+                    q, k, v, g, lse, dsum, **kw),
+                lambda kw=kw, lse=lse, dsum=dsum: FA.flash_bwd_dkv_ref(
+                    q, k, v, g, lse, dsum, **kw),
                 6 * tensor + 2 * rows, 8 * hd * pairs, lib_bwd)
         for (name, rate), (kernel, plain, nbytes, flops, lib) in \
                 pieces.items():
@@ -1253,6 +1317,15 @@ def phase_time_flash():
                 f"{f32_bound:.4f} ms, {f32_by}), SDPA "
                 f"{'forward' if name == 'flash_fwd' else 'backward'} "
                 f"{lib:.4f} ms")
+        for rate in (0.0, 0.1):
+            pair = (out[("flash_bwd_dq", hd, rate)]["ms"]
+                    + out[("flash_bwd_dkv", hd, rate)]["ms"])
+            log(f"[kernel-time] dQ + dK/dV (B,T,H,hd)=({B},{Tq},{H},{hd}) "
+                f"dropout {rate}: {pair:.4f} ms "
+                f"({14 * hd * pairs / (pair * 1e-3) / 1e12:.2f} TFLOP/s), "
+                f"SDPA backward (no dropout) {lib_bwd:.4f} ms")
+        log(f"[kernel-time] SDPA f32 at (B,T,H,hd)=({B},{Tq},{H},{hd}): "
+            f"backend {_sdpa_backend(qt, kt, vt)}")
     return out
 
 

@@ -78,30 +78,53 @@
 // last q tile walks all 7 key tiles alone: that serial walk is the
 // kernel's time (splitting the key range is later work).
 //
-// dQ and dK/dV (dq_kernel, dkv_kernel) run their products as f32 FMAs on
-// the CUDA cores, so their design minds shared memory traffic and the
-// causal band:
-//  - the TPU grid walked the in-band (q block, k block) pairs in order with
-//    scratch carried between grid steps. Here a block owns one (bh, q tile)
-//    for dQ, as for the forward, or one (bh, k tile) for dK/dV, keeps its
-//    accumulator in registers and loops over the in-band tiles itself:
-//    out-of-band tiles are never loaded, as with the TPU's band lists;
-//  - 256 threads as 16 x 16; a thread owns rows ty*R.. and columns tx,
-//    tx+16, ... of every tile product;
-//  - tiles live in shared memory with a row stride of hd+1 floats, so the
-//    16 column threads of a half warp read 16 different banks;
-//  - inputs are read through their strides ([B, T, H, hd] with hd
-//    contiguous): no transpose to [B*H, T, hd] in device memory.
-// Their tiles are 64 x 64 for hd 8 to 128 and 32 x 32 for hd 256, which
-// keeps every kernel inside the 227 KB of dynamic shared memory a block
-// may use.
+// dQ and dK/dV (dq_kernel, dkv_kernel) run all their products on the tensor
+// cores too, with the forward's mma.sync.m16n8k8 3xTF32 split, so their
+// bound is the same ~165 TFLOP/s. They replace a TPU grid that walked the
+// in-band (q block, k block) pairs in order with scratch carried between
+// steps: here a block owns a tile of its own rows and walks the in-band
+// tiles of the other side itself, out-of-band tiles never loaded.
+//  - dK/dV: a block owns (bh, 64 keys; 32 at hd 256). Per q tile it forms
+//    S^T = K.Q^T and dP^T = V.dO^T with K and V as the A operands (rows =
+//    keys), so each accumulator holds keys g, g + 8 against queries 2t,
+//    2t + 1 of every 8: after the forward's key-order trick (k step t ->
+//    query 2t, t + 4 -> 2t + 1) P^T.M and dS^T are already the A fragments
+//    of dV += (P.M)^T dO and dK += dS^T Q, with dO and Q read as [q][d] B
+//    operands as the forward reads V. lse and D of the q tile are indexed
+//    per column from shared memory.
+//  - dQ: a block owns (bh, 64 queries; 32 at hd 256). S = Q.K^T and dP =
+//    dO.V^T give dS in the A layout of dQ += dS K, K read as [key][d].
+//  - neither P nor dS goes through shared memory;
+//  - a warp owns 16 rows and up to 128 d columns of the accumulators
+//    (dK and dV, or dQ): at hd 256 two warps share 16 rows, each forming
+//    S and dP over its half of d; they add the halves through shared
+//    memory (the same sum in both) and go on with their own d columns;
+//  - the band: two groups of four warps per block split the walk, group
+//    0 taking the even tiles and group 1 the odd ones, so the longest walk
+//    (the first key tile's, the last q tile's) takes half as long and the
+//    critical group walks about the mean tile count of a block. The grid
+//    starts the longest walks first (blockIdx.y over tiles, in reverse for
+//    dQ), so where it is over a wave the short ones fill in behind. Each
+//    group streams its own tiles of 32 rows (16 at hd 256: Q, dO, lse and
+//    D for dK/dV; K and V for dQ) through its own two-stage ring of 16-byte
+//    cp.async copies (4-byte ones for lse and D), synchronised by a named
+//    barrier per group; the block's own tiles are copied once. At the end
+//    group 1 hands its sums to group 0 through shared memory, which adds
+//    them to its own in a fixed order: no atomics, the same bits on every
+//    call;
+//  - every tile has a row stride of hd + 4 floats (= 4 mod 32 from hd 64),
+//    and fragments are read one float at a time in the mma's own order:
+//    conflict-free for the A reads (rows g, k t), the S-like B reads (row
+//    g, k t) and the P.V-like B reads (rows 2t, 2t + 1, column g) alike,
+//    where a float4 layout serves only one of the last two, and both read
+//    Q and dO (dK/dV) or K (dQ). The same code takes hd 8 and 16;
+//  - shared memory: 199 KB at hd 128, 212 KB at hd 256 (one block an SM),
+//    103 KB at hd 64 (dK/dV; dQ 1 KB less).
 //
 // Head dims 8 and 16 are the smoke presets' (cylinder_flow_smoke: E=32 over
 // 2 heads, and the exchange at half that width). The forward takes them
 // with the same mma.sync tiles, its fragments read one float at a time in
-// the mma's k order (a float4 would span more d than the row holds); the
-// backward's 16 column threads own d = tx + 16c as at any hd, and at hd 8
-// half of them sit out the d products.
+// the mma's k order (a float4 would span more d than the row holds).
 //
 // The dense dropout mask (dropout_mask_kernel) replaces the Pallas TPU
 // kernel _mask_kernel (via _dropout_mask_dense), the oracle of the dropout
@@ -151,22 +174,6 @@ __device__ __forceinline__ float dropout_scale(const Shape& s, unsigned bh,
   x ^= x >> 16; x *= 0xC2B2AE35u;
   x ^= x >> 16;
   return x >= s.threshold ? s.inv_keep : 0.f;
-}
-
-__device__ __forceinline__ bool in_band(const Shape& s, int q, int k) {
-  return q < s.Tq && k < s.Tk && (!s.causal || k <= q + s.src_len);
-}
-
-// rows [t0, t0 + ROWS) of one (b, h) into a tile of stride HD + 1; rows
-// past T are zero.
-template <int HD, int ROWS>
-__device__ __forceinline__ void load_tile(float* tile, const View& x, int b,
-                                          int h, int t0, int T) {
-  constexpr int LD = HD + 1;
-  for (int e = threadIdx.x; e < ROWS * HD; e += kThreads) {
-    const int r = e / HD, d = e % HD, t = t0 + r;
-    tile[r * LD + d] = t < T ? __ldg(x.row(b, t, h) + d) : 0.f;
-  }
 }
 
 // Last key (exclusive) any query of the tile [q0, q0 + BQ) may see.
@@ -532,242 +539,461 @@ fwd_kernel(View q, View k, View v, float* __restrict__ o,
   }
 }
 
-// Whether column thread tx owns d = tx + 16c: always at hd % 16 == 0; at
-// hd 8 the upper half of the 16 column threads idles in the d products.
-template <int HD>
-__device__ __forceinline__ bool has_col(int tx, int c) {
-  return HD % 16 == 0 || tx + 16 * c < HD;
+// ---------------------------------------------------------------------------
+// Backward: dQ and dK/dV on the tensor cores (see the note at the top)
+// ---------------------------------------------------------------------------
+
+constexpr int kGroupThreads = 128;  // a group: 4 warps
+constexpr int kBwdThreads = 2 * kGroupThreads;
+constexpr int kWalkers = 2;  // groups splitting a block's walk
+
+// The walk's tiles group, group + kWalkers, ... of n_tiles: how many of
+// them this group takes.
+__device__ __forceinline__ int walk_count(int n_tiles, int group) {
+  return n_tiles > group ? (n_tiles - group + kWalkers - 1) / kWalkers : 0;
 }
 
-template <int HD, int BQ, int BK>
-__global__ void __launch_bounds__(kThreads)
+// Tiles of the backward kernels. A block owns ROWS rows of its own side
+// (queries for dQ, keys for dK/dV) and walks tiles of WALK rows of the
+// other side; a warp owns 16 rows and DW d columns of the accumulators.
+template <int HD>
+struct BwdTiles {
+  static constexpr int DW = HD < 128 ? HD : 128;
+  static constexpr int KW = HD / DW;        // warps sharing 16 rows
+  static constexpr int RW = 4 / KW;         // 16-row slices of a group
+  static constexpr int ROWS = 16 * RW;
+  static constexpr int WALK = HD == 256 ? 16 : 32;
+  static constexpr int LD = HD + 4;         // row stride, floats
+  static constexpr int NS = WALK / 8;       // n tiles of S, k steps after
+  static constexpr int J = DW / 8;          // n tiles of a d accumulator
+  // The block's own two tiles, then two groups x two stages of the walked
+  // side's two tiles (and, for dK/dV, its lse and D).
+  static constexpr int kDqStage = 2 * WALK * LD;
+  static constexpr int kDkvStage = 2 * WALK * LD + 2 * WALK;
+  // At hd 256, per warp of both groups: its halves of S and dP.
+  static constexpr int kXchWarp = 2 * NS * 4 * 32;
+  static constexpr int kXch = KW == 2 ? 8 * kXchWarp : 0;
+  static constexpr size_t kDqSmem =
+      sizeof(float) * (2 * ROWS * LD + 4 * kDqStage + kXch);
+  static constexpr size_t kDkvSmem =
+      sizeof(float) * (2 * ROWS * LD + 4 * kDkvStage + kXch);
+  static_assert((HD == 8 || HD == 16 || HD % 64 == 0) && HD <= 256,
+                "head dim");
+  static_assert(kDkvSmem <= 232448, "over the 227 KB a block may use");
+  // group 1's sums (4 warps x registers x 32 lanes) fit in the ring
+  static_assert(4 * 2 * J * 4 * 32 <= 4 * kDqStage, "reduction buffer");
+};
+
+__device__ __forceinline__ void group_sync(int group) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group), "n"(kGroupThreads)
+               : "memory");
+}
+
+// 4 bytes global -> shared, asynchronously; zero when !valid.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+// Rows [t0, t0 + ROWS) of one (b, h) into a tile of row stride LD, copied
+// in 16-byte pieces by THREADS threads of which this is number tid; rows
+// past T are zero.
+template <int HD, int ROWS, int LD, int THREADS>
+__device__ __forceinline__ void copy_rows(float* tile, const View& x, int b,
+                                          int h, int t0, int T, int tid) {
+  constexpr int kChunks = HD / 4;
+  for (int e = tid; e < ROWS * kChunks; e += THREADS) {
+    const int r = e / kChunks, c = 4 * (e % kChunks);
+    const bool ok = t0 + r < T;
+    cp_async16(tile + r * LD + c, ok ? x.row(b, t0 + r, h) + c : x.p, ok);
+  }
+}
+
+// acc[n] += A B^T over d in [0, HD), 3xTF32: A's rows g and g + 8 at a and
+// a + 8 LD, B's row 8n + g at b + 8n LD (a and b already offset by row g
+// and column t). k step t -> d0 + t, t + 4 -> d0 + t + 4.
+template <int N, int HD, int LD>
+__device__ __forceinline__ void qk_product(float (*acc)[4], const float* a,
+                                           const float* b) {
+#pragma unroll 4
+  for (int d0 = 0; d0 < HD; d0 += 8) {
+    const FragA fa =
+        split_a(a[d0], a[8 * LD + d0], a[d0 + 4], a[8 * LD + d0 + 4]);
+    Split b0[N], b1[N];
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      b0[n] = split(b[8 * n * LD + d0]);
+      b1[n] = split(b[8 * n * LD + d0 + 4]);
+    }
+    mma_3xtf32(acc, fa, b0, b1);
+  }
+}
+
+// S = A0 B0^T and dP = A1 B1^T for this warp's 16 rows (qk_product; the
+// pointers offset by row g, column t and the warp's d columns). Where two
+// warps share the rows (KW = 2, hd 256) each forms both over its own half
+// of d, then they add the halves through `xch` (a slot a warp; `group`
+// synchronises), which gives both warps the same bits.
+template <int NS, int HD, int LD, int KW>
+__device__ __forceinline__ void qk_pair(float (&s0)[NS][4], const float* a0,
+                                        const float* b0, float (&s1)[NS][4],
+                                        const float* a1, const float* b1,
+                                        float* xch, int gw, int lane,
+                                        int group) {
+  qk_product<NS, HD / KW, LD>(s0, a0, b0);
+  qk_product<NS, HD / KW, LD>(s1, a1, b1);
+  if constexpr (KW == 2) {
+    constexpr int kWarp = 2 * NS * 4 * 32;
+    float* mine = xch + gw * kWarp + lane;
+    const float* other = xch + (gw ^ 2) * kWarp + lane;
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        mine[32 * (4 * n + e)] = s0[n][e];
+        mine[32 * (4 * (NS + n) + e)] = s1[n][e];
+      }
+    group_sync(group);
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s0[n][e] += other[32 * (4 * n + e)];
+        s1[n][e] += other[32 * (4 * (NS + n) + e)];
+      }
+  }
+}
+
+// acc[j] += P B, 3xTF32: P is an accumulator fragment of N n tiles (rows
+// g, g + 8; columns 2t, 2t + 1 of each 8), taken as N k steps in the
+// key order (k t -> column 2t, t + 4 -> 2t + 1), so B's rows 8n + 2t and
+// 8n + 2t + 1 at b + 8n LD and one LD below (b already offset by row 2t
+// and column g), column 8j of them for n tile j.
+template <int N, int J, int LD>
+__device__ __forceinline__ void pv_product(float (*acc)[4],
+                                           const float (*p)[4],
+                                           const float* b) {
+  constexpr int JN = J < 4 ? J : 4;  // n tiles a split batch
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    const FragA fa = split_a(p[n][0], p[n][2], p[n][1], p[n][3]);
+    const float* y = b + 8 * n * LD;
+#pragma unroll
+    for (int j0 = 0; j0 < J; j0 += JN) {
+      Split b0[JN], b1[JN];
+#pragma unroll
+      for (int j = 0; j < JN; ++j) {
+        b0[j] = split(y[8 * (j0 + j)]);
+        b1[j] = split(y[LD + 8 * (j0 + j)]);
+      }
+      mma_3xtf32(acc + j0, fa, b0, b1);
+    }
+  }
+}
+
+// The two groups' sums meet in shared memory: group 1 puts its
+// accumulator registers at red ([warp][register][lane]), then group 0 adds
+// them to its own, always in that order, so every call gives the same bits.
+template <int J>
+__device__ __forceinline__ void put_sums(float* red, const float (&a)[J][4]) {
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) red[32 * (4 * j + i)] = a[j][i];
+}
+
+template <int J>
+__device__ __forceinline__ void add_sums(float (&a)[J][4], const float* red) {
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[j][i] += red[32 * (4 * j + i)];
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kBwdThreads, 1)
 dq_kernel(View q, View k, View v, View dout, const float* __restrict__ lse,
           const float* __restrict__ dsum, float* __restrict__ dq, Shape s) {
-  constexpr int LD = HD + 1, LP = BK + 1;
-  constexpr int RQ = BQ / 16, CK = BK / 16, CD = (HD + 15) / 16;
-  extern __shared__ float smem[];
-  float* sQ = smem;
+  using T = BwdTiles<HD>;
+  constexpr int LD = T::LD, BQ = T::ROWS, BK = T::WALK, NS = T::NS;
+  constexpr int J = T::J, kStage = T::kDqStage;
+  extern __shared__ __align__(16) float bwd_smem_base[];
+  float* sQ = bwd_smem_base;
   float* sO = sQ + BQ * LD;  // dO
-  float* sK = sO + BQ * LD;
-  float* sV = sK + BK * LD;
-  float* sS = sV + BK * LD;  // dS
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int bh = blockIdx.y, b = bh / s.H, h = bh % s.H;
-  const int q0 = blockIdx.x * BQ;
+  float* ring = sO + BQ * LD;  // [group][stage]: K, V
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int group = warp >> 2, gw = warp & 3;
+  const int rw = gw % T::RW, dcol = (gw / T::RW) * T::DW;
+  const int gtid = threadIdx.x - group * kGroupThreads;
+  // The q tiles in reverse, the longest walks first: where the grid is
+  // over a wave, the short ones fill in behind them.
+  const int bh = blockIdx.x, b = bh / s.H, h = bh % s.H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int n_tiles = (key_end(s, q0, BQ) + BK - 1) / BK;  // in band
+  const int mine = walk_count(n_tiles, group);
+  float* gring = ring + group * 2 * kStage;
+  float* xch = ring + 4 * kStage + group * 4 * T::kXchWarp;
 
-  load_tile<HD, BQ>(sQ, q, b, h, q0, s.Tq);
-  load_tile<HD, BQ>(sO, dout, b, h, q0, s.Tq);
-  float row_lse[RQ], row_d[RQ], acc[RQ][CD];
+  copy_rows<HD, BQ, LD, kBwdThreads>(sQ, q, b, h, q0, s.Tq, threadIdx.x);
+  copy_rows<HD, BQ, LD, kBwdThreads>(sO, dout, b, h, q0, s.Tq, threadIdx.x);
+  if (mine > 0) {
+    copy_rows<HD, BK, LD, kGroupThreads>(gring, k, b, h, group * BK, s.Tk,
+                                         gtid);
+    copy_rows<HD, BK, LD, kGroupThreads>(gring + BK * LD, v, b, h,
+                                         group * BK, s.Tk, gtid);
+  }
+  cp_async_commit();
+
+  const int row0 = q0 + 16 * rw + g;  // this thread's rows: row0, row0 + 8
+  float row_lse[2], row_d[2];
+  int lim[2];  // key k is in band for row row0 + 8r iff k < lim[r]
 #pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    const int t = q0 + ty * RQ + i;
-    const long long at = static_cast<long long>(bh) * s.Tq + t;
-    row_lse[i] = t < s.Tq ? lse[at] : 0.f;
-    row_d[i] = t < s.Tq ? dsum[at] : 0.f;
+  for (int r = 0; r < 2; ++r) {
+    const int qp = row0 + 8 * r;
+    const bool ok = qp < s.Tq;
+    const long long at = static_cast<long long>(bh) * s.Tq + qp;
+    row_lse[r] = ok ? lse[at] : 0.f;
+    row_d[r] = ok ? dsum[at] : 0.f;
+    lim[r] = !ok ? 0 : s.causal ? min(s.Tk, qp + s.src_len + 1) : s.Tk;
+  }
+  float acc[J][4];
 #pragma unroll
-    for (int c = 0; c < CD; ++c) acc[i][c] = 0.f;
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+  const float* qa = sQ + (16 * rw + g) * LD + t + dcol;
+  const float* oa = sO + (16 * rw + g) * LD + t + dcol;
+  cp_async_wait<0>();
+  __syncthreads();  // the block's Q and dO, and each group's first tile
+
+  for (int i = 0; i < mine; ++i) {
+    if (i > 0) {
+      cp_async_wait<0>();
+      group_sync(group);  // tile i landed; stage (i + 1) & 1 is free
+    }
+    const float* cK = gring + (i & 1) * kStage;
+    const float* cV = cK + BK * LD;
+    if (i + 1 < mine) {
+      float* nK = gring + ((i + 1) & 1) * kStage;
+      const int k1 = (group + kWalkers * (i + 1)) * BK;
+      copy_rows<HD, BK, LD, kGroupThreads>(nK, k, b, h, k1, s.Tk, gtid);
+      copy_rows<HD, BK, LD, kGroupThreads>(nK + BK * LD, v, b, h, k1, s.Tk,
+                                           gtid);
+      cp_async_commit();
+    }
+    const int k0 = (group + kWalkers * i) * BK;
+
+    // S = Q K^T and dP = dO V^T; sc[n][2r + e] is row row0 + 8r, key
+    // k0 + 8n + 2t + e.
+    float sc[NS][4], dp[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
+    qk_pair<NS, HD, LD, T::KW>(sc, qa, cK + g * LD + t + dcol, dp, oa,
+                               cV + g * LD + t + dcol, xch, gw, lane, group);
+
+    // dS = P (M dP - D), P = exp(s scale - lse) in band, 0 elsewhere.
+    if (s.dropout) {
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[n][e] *= dropout_scale(s, bh, row0 + 8 * (e >> 1),
+                                    k0 + 8 * n + 2 * t + (e & 1));
+    }
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float p = expf(sc[n][e] * s.scale - row_lse[r]);
+        sc[n][e] = k0 + 8 * n + 2 * t + (e & 1) < lim[r]
+                       ? p * (dp[n][e] - row_d[r])
+                       : 0.f;
+      }
+
+    // dQ += dS K over this tile's keys.
+    pv_product<NS, J, LD>(acc, sc, cK + 2 * t * LD + dcol + g);
   }
 
-  const int k_end = key_end(s, q0, BQ);
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();
-    load_tile<HD, BK>(sK, k, b, h, k0, s.Tk);
-    load_tile<HD, BK>(sV, v, b, h, k0, s.Tk);
-    __syncthreads();
-
-    float sc[RQ][CK], dp[RQ][CK];
+  cp_async_wait<0>();
+  __syncthreads();  // both groups are done with their rings
+  float* red = ring + gw * 4 * J * 32 + lane;
+  if (group == 1) put_sums(red, acc);
+  __syncthreads();
+  if (group == 1) return;
+  add_sums(acc, red);
+  // acc[j][2r + e] is row row0 + 8r, d = dcol + 8j + 2t + e.
 #pragma unroll
-    for (int i = 0; i < RQ; ++i)
+  for (int r = 0; r < 2; ++r) {
+    const int qp = row0 + 8 * r;
+    if (qp >= s.Tq) continue;
+    float* out = dq + ((static_cast<long long>(b) * s.Tq + qp) * s.H + h) *
+                          HD + dcol + 2 * t;
 #pragma unroll
-      for (int j = 0; j < CK; ++j) sc[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      float qv[RQ], ov[RQ], kv[CK], vv[CK];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i) {
-        qv[i] = sQ[(ty * RQ + i) * LD + d];
-        ov[i] = sO[(ty * RQ + i) * LD + d];
-      }
-#pragma unroll
-      for (int j = 0; j < CK; ++j) {
-        kv[j] = sK[(tx + 16 * j) * LD + d];
-        vv[j] = sV[(tx + 16 * j) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < RQ; ++i)
-#pragma unroll
-        for (int j = 0; j < CK; ++j) {
-          sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
-          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < RQ; ++i) {
-      const int r = ty * RQ + i, qp = q0 + r;
-#pragma unroll
-      for (int j = 0; j < CK; ++j) {
-        const int kp = k0 + tx + 16 * j;
-        const float p =
-            in_band(s, qp, kp) ? expf(sc[i][j] * s.scale - row_lse[i]) : 0.f;
-        const float mk = s.dropout ? dropout_scale(s, bh, qp, kp) : 1.f;
-        sS[r * LP + tx + 16 * j] = p * (dp[i][j] * mk - row_d[i]);
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float dsv[RQ];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i) dsv[i] = sS[(ty * RQ + i) * LP + kk];
-#pragma unroll
-      for (int c = 0; c < CD; ++c) {
-        if (!has_col<HD>(tx, c)) continue;
-        const float kv = sK[kk * LD + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < RQ; ++i) acc[i][c] = fmaf(dsv[i], kv, acc[i][c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    const int t = q0 + ty * RQ + i;
-    if (t >= s.Tq) continue;
-    float* out = dq + ((static_cast<long long>(b) * s.Tq + t) * s.H + h) * HD;
-#pragma unroll
-    for (int c = 0; c < CD; ++c)
-      if (has_col<HD>(tx, c)) out[tx + 16 * c] = acc[i][c] * s.scale;
+    for (int j = 0; j < J; ++j)
+      *reinterpret_cast<float2*>(out + 8 * j) =
+          make_float2(acc[j][2 * r] * s.scale, acc[j][2 * r + 1] * s.scale);
   }
 }
 
-template <int HD, int BQ, int BK>
-__global__ void __launch_bounds__(kThreads)
+template <int HD>
+__global__ void __launch_bounds__(kBwdThreads, 1)
 dkv_kernel(View q, View k, View v, View dout, const float* __restrict__ lse,
            const float* __restrict__ dsum, float* __restrict__ dk,
            float* __restrict__ dv, Shape s) {
-  constexpr int LD = HD + 1, LP = BQ + 1;
-  constexpr int RK = BK / 16, CQ = BQ / 16, CD = (HD + 15) / 16;
-  extern __shared__ float smem[];
-  float* sK = smem;
+  using T = BwdTiles<HD>;
+  constexpr int LD = T::LD, BK = T::ROWS, BQ = T::WALK, NS = T::NS;
+  constexpr int J = T::J, kStage = T::kDkvStage;
+  extern __shared__ __align__(16) float bwd_smem_base[];
+  float* sK = bwd_smem_base;
   float* sV = sK + BK * LD;
-  float* sQ = sV + BK * LD;
-  float* sO = sQ + BQ * LD;   // dO
-  float* sP = sO + BQ * LD;   // (P * M)^T, [BK, BQ]
-  float* sS = sP + BK * LP;   // dS^T, [BK, BQ]
-  float* sL = sS + BK * LP;   // lse of the q tile
-  float* sD = sL + BQ;        // D of the q tile
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int bh = blockIdx.y, b = bh / s.H, h = bh % s.H;
-  const int k0 = blockIdx.x * BK;
+  float* ring = sV + BK * LD;  // [group][stage]: Q, dO, lse, D
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int group = warp >> 2, gw = warp & 3;
+  const int rw = gw % T::RW, dcol = (gw / T::RW) * T::DW;
+  const int gtid = threadIdx.x - group * kGroupThreads;
+  const int bh = blockIdx.x, b = bh / s.H, h = bh % s.H;
+  const int k0 = blockIdx.y * BK;  // the first key tiles walk the longest
+  // q tiles from the first that may see key k0 (keys above the band get
+  // no gradient)
+  const int first = (s.causal ? max(0, k0 - s.src_len) : 0) / BQ;
+  const int n_tiles = max(0, (s.Tq + BQ - 1) / BQ - first);
+  const int mine = walk_count(n_tiles, group);
+  float* gring = ring + group * 2 * kStage;
+  float* xch = ring + 4 * kStage + group * 4 * T::kXchWarp;
+  const float* lse_bh = lse + static_cast<long long>(bh) * s.Tq;
+  const float* d_bh = dsum + static_cast<long long>(bh) * s.Tq;
 
-  load_tile<HD, BK>(sK, k, b, h, k0, s.Tk);
-  load_tile<HD, BK>(sV, v, b, h, k0, s.Tk);
-  float gk[RK][CD], gv[RK][CD];
-#pragma unroll
-  for (int i = 0; i < RK; ++i)
-#pragma unroll
-    for (int c = 0; c < CD; ++c) gk[i][c] = gv[i][c] = 0.f;
-
-  // First query that may see key k0: keys above the band get no gradient.
-  const int q_first = s.causal ? max(0, k0 - s.src_len) : 0;
-  for (int q0 = (q_first / BQ) * BQ; q0 < s.Tq; q0 += BQ) {
-    __syncthreads();
-    load_tile<HD, BQ>(sQ, q, b, h, q0, s.Tq);
-    load_tile<HD, BQ>(sO, dout, b, h, q0, s.Tq);
-    if (threadIdx.x < BQ) {
-      const int t = q0 + threadIdx.x;
-      const long long at = static_cast<long long>(bh) * s.Tq + t;
-      sL[threadIdx.x] = t < s.Tq ? lse[at] : 0.f;
-      sD[threadIdx.x] = t < s.Tq ? dsum[at] : 0.f;
+  // Q, dO, lse and D of q tile `tile` into `stage` of this group's ring.
+  auto copy_q_tile = [&](int tile, int stage) {
+    float* dst = gring + stage * kStage;
+    const int q0 = tile * BQ;
+    copy_rows<HD, BQ, LD, kGroupThreads>(dst, q, b, h, q0, s.Tq, gtid);
+    copy_rows<HD, BQ, LD, kGroupThreads>(dst + BQ * LD, dout, b, h, q0, s.Tq,
+                                         gtid);
+    if (gtid < 2 * BQ) {
+      const int r = gtid % BQ, qp = q0 + r;
+      const bool ok = qp < s.Tq;
+      const float* src = gtid < BQ ? lse_bh : d_bh;
+      cp_async4(dst + 2 * BQ * LD + gtid, ok ? src + qp : src, ok);
     }
-    __syncthreads();
+  };
 
-    float sc[RK][CQ], dp[RK][CQ];
+  copy_rows<HD, BK, LD, kBwdThreads>(sK, k, b, h, k0, s.Tk, threadIdx.x);
+  copy_rows<HD, BK, LD, kBwdThreads>(sV, v, b, h, k0, s.Tk, threadIdx.x);
+  if (mine > 0) copy_q_tile(first + group, 0);
+  cp_async_commit();
+
+  const int key0 = k0 + 16 * rw + g;  // this thread's keys: key0, key0 + 8
+  int qlo[2];  // query q sees key key0 + 8r iff qlo[r] <= q < Tq
 #pragma unroll
-    for (int i = 0; i < RK; ++i)
+  for (int r = 0; r < 2; ++r) {
+    const int kp = key0 + 8 * r;
+    qlo[r] = kp >= s.Tk ? s.Tq : s.causal ? kp - s.src_len : 0;
+  }
+  float gk[J][4], gv[J][4];
 #pragma unroll
-      for (int j = 0; j < CQ; ++j) sc[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      float kv[RK], vv[RK], qv[CQ], ov[CQ];
+  for (int j = 0; j < J; ++j)
 #pragma unroll
-      for (int i = 0; i < RK; ++i) {
-        kv[i] = sK[(ty * RK + i) * LD + d];
-        vv[i] = sV[(ty * RK + i) * LD + d];
+    for (int i = 0; i < 4; ++i) gk[j][i] = gv[j][i] = 0.f;
+  const float* ka = sK + (16 * rw + g) * LD + t + dcol;
+  const float* va = sV + (16 * rw + g) * LD + t + dcol;
+  cp_async_wait<0>();
+  __syncthreads();  // the block's K and V, and each group's first tile
+
+  for (int i = 0; i < mine; ++i) {
+    if (i > 0) {
+      cp_async_wait<0>();
+      group_sync(group);  // tile i landed; stage (i + 1) & 1 is free
+    }
+    const float* cQ = gring + (i & 1) * kStage;
+    const float* cO = cQ + BQ * LD;
+    const float* cL = cO + BQ * LD;  // lse, then D, of the tile's queries
+    const float* cD = cL + BQ;
+    if (i + 1 < mine) {
+      copy_q_tile(first + group + kWalkers * (i + 1), (i + 1) & 1);
+      cp_async_commit();
+    }
+    const int q0 = (first + group + kWalkers * i) * BQ;
+
+    // S^T = K Q^T and dP^T = V dO^T; st[n][2r + e] is key key0 + 8r,
+    // query q0 + 8n + 2t + e.
+    float st[NS][4], dpt[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
+    qk_pair<NS, HD, LD, T::KW>(st, ka, cQ + g * LD + t + dcol, dpt, va,
+                               cO + g * LD + t + dcol, xch, gw, lane, group);
+
+    // P = exp(s scale - lse) in band, 0 elsewhere; then st <- P M and
+    // dpt <- dS = P (M dP - D).
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * n + 2 * t + (e & 1), qp = q0 + c;
+        const float p = expf(st[n][e] * s.scale - cL[c]);
+        st[n][e] = qp >= qlo[e >> 1] && qp < s.Tq ? p : 0.f;
       }
+    if (s.dropout) {
 #pragma unroll
-      for (int j = 0; j < CQ; ++j) {
-        qv[j] = sQ[(tx + 16 * j) * LD + d];
-        ov[j] = sO[(tx + 16 * j) * LD + d];
-      }
+      for (int n = 0; n < NS; ++n)
 #pragma unroll
-      for (int i = 0; i < RK; ++i)
-#pragma unroll
-        for (int j = 0; j < CQ; ++j) {
-          sc[i][j] = fmaf(kv[i], qv[j], sc[i][j]);
-          dp[i][j] = fmaf(vv[i], ov[j], dp[i][j]);
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * n + 2 * t + (e & 1);
+          const float m =
+              dropout_scale(s, bh, q0 + c, key0 + 8 * (e >> 1));
+          const float p = st[n][e];
+          dpt[n][e] = p * (dpt[n][e] * m - cD[c]);
+          st[n][e] = p * m;
         }
-    }
+    } else {
 #pragma unroll
-    for (int i = 0; i < RK; ++i) {
-      const int r = ty * RK + i, kp = k0 + r;
+      for (int n = 0; n < NS; ++n)
 #pragma unroll
-      for (int j = 0; j < CQ; ++j) {
-        const int c = tx + 16 * j, qp = q0 + c;
-        const float p =
-            in_band(s, qp, kp) ? expf(sc[i][j] * s.scale - sL[c]) : 0.f;
-        const float mk = s.dropout ? dropout_scale(s, bh, qp, kp) : 1.f;
-        sP[r * LP + c] = p * mk;
-        sS[r * LP + c] = p * (dp[i][j] * mk - sD[c]);
-      }
+        for (int e = 0; e < 4; ++e)
+          dpt[n][e] = st[n][e] * (dpt[n][e] - cD[8 * n + 2 * t + (e & 1)]);
     }
-    __syncthreads();
 
-#pragma unroll 4
-    for (int qq = 0; qq < BQ; ++qq) {
-      float pm[RK], ds[RK];
-#pragma unroll
-      for (int i = 0; i < RK; ++i) {
-        pm[i] = sP[(ty * RK + i) * LP + qq];
-        ds[i] = sS[(ty * RK + i) * LP + qq];
-      }
-#pragma unroll
-      for (int c = 0; c < CD; ++c) {
-        if (!has_col<HD>(tx, c)) continue;
-        const float ov = sO[qq * LD + tx + 16 * c];
-        const float qv = sQ[qq * LD + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < RK; ++i) {
-          gv[i][c] = fmaf(pm[i], ov, gv[i][c]);
-          gk[i][c] = fmaf(ds[i], qv, gk[i][c]);
-        }
-      }
-    }
+    // dV += (P M)^T dO and dK += dS^T Q over this tile's queries.
+    pv_product<NS, J, LD>(gv, st, cO + 2 * t * LD + dcol + g);
+    pv_product<NS, J, LD>(gk, dpt, cQ + 2 * t * LD + dcol + g);
   }
 
+  cp_async_wait<0>();
+  __syncthreads();  // both groups are done with their rings
+  float* red = ring + gw * 8 * J * 32 + lane;
+  if (group == 1) {
+    put_sums(red, gk);
+    put_sums(red + 4 * J * 32, gv);
+  }
+  __syncthreads();
+  if (group == 1) return;
+  add_sums(gk, red);
+  add_sums(gv, red + 4 * J * 32);
+  // gk[j][2r + e] is key key0 + 8r, d = dcol + 8j + 2t + e; gv likewise.
 #pragma unroll
-  for (int i = 0; i < RK; ++i) {
-    const int t = k0 + ty * RK + i;
-    if (t >= s.Tk) continue;
-    const long long at = ((static_cast<long long>(b) * s.Tk + t) * s.H + h) * HD;
+  for (int r = 0; r < 2; ++r) {
+    const int kp = key0 + 8 * r;
+    if (kp >= s.Tk) continue;
+    const long long at =
+        ((static_cast<long long>(b) * s.Tk + kp) * s.H + h) * HD + dcol +
+        2 * t;
 #pragma unroll
-    for (int c = 0; c < CD; ++c) {
-      if (!has_col<HD>(tx, c)) continue;
-      dk[at + tx + 16 * c] = gk[i][c] * s.scale;
-      dv[at + tx + 16 * c] = gv[i][c];
+    for (int j = 0; j < J; ++j) {
+      *reinterpret_cast<float2*>(dk + at + 8 * j) =
+          make_float2(gk[j][2 * r] * s.scale, gk[j][2 * r + 1] * s.scale);
+      *reinterpret_cast<float2*>(dv + at + 8 * j) =
+          make_float2(gv[j][2 * r], gv[j][2 * r + 1]);
     }
   }
-}
-
-template <int HD, int BQ, int BK>
-constexpr size_t dq_smem() {
-  return sizeof(float) * ((2 * BQ + 2 * BK) * (HD + 1) + BQ * (BK + 1));
-}
-template <int HD, int BQ, int BK>
-constexpr size_t dkv_smem() {
-  return sizeof(float) *
-         ((2 * BK + 2 * BQ) * (HD + 1) + 2 * BK * (BQ + 1) + 2 * BQ);
 }
 
 // Raise the kernel's dynamic shared memory limit once per instantiation.
@@ -789,28 +1015,30 @@ int launch_fwd(View q, View k, View v, float* o, float* lse, Shape s,
   return cudaGetLastError();
 }
 
-template <int HD, int BQ, int BK>
+template <int HD>
 int launch_dq(View q, View k, View v, View dout, const float* lse,
               const float* dsum, float* dq, Shape s, cudaStream_t stream) {
-  constexpr size_t smem = dq_smem<HD, BQ, BK>();
-  static const cudaError_t set = allow_smem(dq_kernel<HD, BQ, BK>, smem);
+  constexpr size_t smem = BwdTiles<HD>::kDqSmem;
+  static const cudaError_t set = allow_smem(dq_kernel<HD>, smem);
   if (set != cudaSuccess) return set;
-  const dim3 grid((s.Tq + BQ - 1) / BQ, s.B * s.H);
-  dq_kernel<HD, BQ, BK><<<grid, kThreads, smem, stream>>>(q, k, v, dout, lse,
-                                                          dsum, dq, s);
+  const dim3 grid(s.B * s.H,
+                  (s.Tq + BwdTiles<HD>::ROWS - 1) / BwdTiles<HD>::ROWS);
+  dq_kernel<HD><<<grid, kBwdThreads, smem, stream>>>(q, k, v, dout, lse,
+                                                     dsum, dq, s);
   return cudaGetLastError();
 }
 
-template <int HD, int BQ, int BK>
+template <int HD>
 int launch_dkv(View q, View k, View v, View dout, const float* lse,
                const float* dsum, float* dk, float* dv, Shape s,
                cudaStream_t stream) {
-  constexpr size_t smem = dkv_smem<HD, BQ, BK>();
-  static const cudaError_t set = allow_smem(dkv_kernel<HD, BQ, BK>, smem);
+  constexpr size_t smem = BwdTiles<HD>::kDkvSmem;
+  static const cudaError_t set = allow_smem(dkv_kernel<HD>, smem);
   if (set != cudaSuccess) return set;
-  const dim3 grid((s.Tk + BK - 1) / BK, s.B * s.H);
-  dkv_kernel<HD, BQ, BK><<<grid, kThreads, smem, stream>>>(
-      q, k, v, dout, lse, dsum, dk, dv, s);
+  const dim3 grid(s.B * s.H,
+                  (s.Tk + BwdTiles<HD>::ROWS - 1) / BwdTiles<HD>::ROWS);
+  dkv_kernel<HD><<<grid, kBwdThreads, smem, stream>>>(q, k, v, dout, lse,
+                                                      dsum, dk, dv, s);
   return cudaGetLastError();
 }
 
@@ -901,11 +1129,11 @@ extern "C" int sea_flash_bwd_dq(
   float* dQ = static_cast<float*>(dq);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 8: return launch_dq<8, 64, 64>(Q, K, V, dO, L, D, dQ, s, st);
-    case 16: return launch_dq<16, 64, 64>(Q, K, V, dO, L, D, dQ, s, st);
-    case 64: return launch_dq<64, 64, 64>(Q, K, V, dO, L, D, dQ, s, st);
-    case 128: return launch_dq<128, 64, 64>(Q, K, V, dO, L, D, dQ, s, st);
-    case 256: return launch_dq<256, 32, 32>(Q, K, V, dO, L, D, dQ, s, st);
+    case 8: return launch_dq<8>(Q, K, V, dO, L, D, dQ, s, st);
+    case 16: return launch_dq<16>(Q, K, V, dO, L, D, dQ, s, st);
+    case 64: return launch_dq<64>(Q, K, V, dO, L, D, dQ, s, st);
+    case 128: return launch_dq<128>(Q, K, V, dO, L, D, dQ, s, st);
+    case 256: return launch_dq<256>(Q, K, V, dO, L, D, dQ, s, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -925,13 +1153,11 @@ extern "C" int sea_flash_bwd_dkv(
   float* dV = static_cast<float*>(dv);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 8: return launch_dkv<8, 64, 64>(Q, K, V, dO, L, D, dK, dV, s, st);
-    case 16: return launch_dkv<16, 64, 64>(Q, K, V, dO, L, D, dK, dV, s, st);
-    case 64: return launch_dkv<64, 64, 64>(Q, K, V, dO, L, D, dK, dV, s, st);
-    case 128:
-      return launch_dkv<128, 64, 64>(Q, K, V, dO, L, D, dK, dV, s, st);
-    case 256:
-      return launch_dkv<256, 32, 32>(Q, K, V, dO, L, D, dK, dV, s, st);
+    case 8: return launch_dkv<8>(Q, K, V, dO, L, D, dK, dV, s, st);
+    case 16: return launch_dkv<16>(Q, K, V, dO, L, D, dK, dV, s, st);
+    case 64: return launch_dkv<64>(Q, K, V, dO, L, D, dK, dV, s, st);
+    case 128: return launch_dkv<128>(Q, K, V, dO, L, D, dK, dV, s, st);
+    case 256: return launch_dkv<256>(Q, K, V, dO, L, D, dK, dV, s, st);
     default: return cudaErrorInvalidValue;
   }
 }

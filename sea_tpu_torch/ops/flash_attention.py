@@ -22,13 +22,16 @@ computed here with torch, outside the kernels, as the JAX package does.
 
 What bounds the kernels on the card, and their design: see the note at
 the top of the CUDA source. Head dims 8, 16 (the smoke presets), 64, 128
-and 256; any other raises on CUDA. Alignment: the forward kernel copies q, k and v rows into shared
-memory in 16-byte pieces (``cp.async``), so on CUDA each of them must
-start on 16 bytes and its batch, time and head strides must be whole
-multiples of 4 floats (a dim of size 1 is exempt: its stride is never
-used). A view that breaks this raises ``ValueError``; nothing is copied
-to fix it. The views ``ops.attention.mha`` passes, fused qkv / kv column
-slices included, keep it whenever the model width is a multiple of 4.
+and 256; any other raises on CUDA. Alignment: the kernels copy q, k, v
+and dO rows into shared memory in 16-byte pieces (``cp.async``), so on
+CUDA each of them must start on 16 bytes and its batch, time and head
+strides must be whole multiples of 4 floats (a dim of size 1 is exempt:
+its stride is never used). A q, k or v view that breaks this raises
+``ValueError``; nothing is copied to fix it. The views
+``ops.attention.mha`` passes, fused qkv / kv column slices included, keep
+it whenever the model width is a multiple of 4. dO comes from autograd
+in whatever layout the graph gives, so a dO that breaks it is copied to
+a contiguous tensor instead.
 
 ``dropout_mask_dense`` writes that mask as a dense [BH, Tq, Tk] tensor
 with a fourth kernel of the same source (replacing the TPU mask kernel
@@ -191,19 +194,25 @@ def _view(x):
     return [x.data_ptr(), x.stride(0), x.stride(1), x.stride(2)]
 
 
-def _check_aligned(name, x):
-    """Raise ValueError unless x [B, T, H, hd] starts on 16 bytes and its
-    batch, time and head strides are multiples of 4 floats (dims of size
-    1 exempt): the forward kernel's 16-byte cp.async row copies."""
+def _misaligned(x):
+    """Why x [B, T, H, hd] breaks the kernels' 16-byte cp.async row copies
+    (start on 16 bytes; batch, time and head strides multiples of 4
+    floats, dims of size 1 exempt), or None."""
     if x.data_ptr() % 16:
-        raise ValueError(f"{name} starts {x.data_ptr() % 16} bytes past a "
-                         "16-byte boundary; the forward kernel copies rows "
-                         "in 16-byte pieces")
+        return f"starts {x.data_ptr() % 16} bytes past a 16-byte boundary"
     for dim, what in enumerate(("batch", "time", "head")):
         if x.shape[dim] > 1 and x.stride(dim) % 4:
-            raise ValueError(f"{name}: {what} stride {x.stride(dim)} is not "
-                             "a multiple of 4 floats; the forward kernel "
-                             "copies rows in 16-byte pieces")
+            return (f"{what} stride {x.stride(dim)} is not a multiple of 4 "
+                    "floats")
+    return None
+
+
+def _check_aligned(name, x):
+    """Raise ValueError if x breaks the 16-byte rule (``_misaligned``)."""
+    why = _misaligned(x)
+    if why:
+        raise ValueError(f"{name}: {why}; the kernels copy rows in 16-byte "
+                         "pieces")
 
 
 def _check(q, k, v):
@@ -271,11 +280,20 @@ def flash_fwd(q, k, v, *, causal=True, src_len=0, dropout_rate=0.0,
     return o, lse
 
 
+def _grad_input(do):
+    """dO as the backward kernels read it: f32, hd contiguous and within
+    the 16-byte rule. Autograd may hand any layout, so a dO that breaks
+    the rule is copied to a contiguous tensor rather than refused."""
+    if do.dtype != torch.float32 or do.stride(3) != 1 or _misaligned(do):
+        return do.float().contiguous()
+    return do
+
+
 def _bwd_inputs(q, k, v, do, lse, dsum):
     _check(q, k, v)
-    if do.shape != q.shape or do.dtype != torch.float32 \
-            or do.stride(3) != 1:
-        do = do.float().contiguous()
+    if do.shape != q.shape:
+        raise ValueError(f"dO is {tuple(do.shape)}, q {tuple(q.shape)}")
+    do = _grad_input(do)
     B, Tq, H, _ = q.shape
     for name, x in (("lse", lse), ("dsum", dsum)):
         if x.shape != (B * H, Tq) or not x.is_contiguous() \

@@ -205,6 +205,25 @@ def test_alignment_rule(case):
             FA._check_aligned("q", x)
 
 
+@pytest.mark.parametrize("case", ["offset_16_bytes", "size_1_dim_any_stride",
+                                  "offset_4_bytes", "time_stride_130",
+                                  "head_stride_66"])
+def test_grad_alignment_rule(case):
+    """dO reaches the backward kernels' 16-byte copies as it is when it
+    keeps the rule, and as a contiguous copy of the same values when it
+    breaks it (autograd picks its layout, so it is not refused)."""
+    x = _strided_view(case)
+    x.copy_(torch.arange(x.numel(), dtype=torch.float32).reshape(x.shape))
+    got = FA._grad_input(x)
+    if case in ("offset_16_bytes", "size_1_dim_any_stride"):
+        assert got is x
+    else:
+        assert got.is_contiguous() and got.data_ptr() != x.data_ptr()
+        assert FA._misaligned(got) is None
+        torch.testing.assert_close(got, x, rtol=0, atol=0)
+    assert FA._grad_input(x.double()).dtype == torch.float32
+
+
 def _cuda_inputs(B, Tq, Tk, H, hd):
     g = torch.Generator(device="cuda").manual_seed(B * Tq + Tk + hd)
     return [torch.randn(B, T, H, hd, device="cuda", generator=g)
@@ -258,6 +277,39 @@ def test_cuda_kernels_match_ref(shape, rate):
     for a, b in zip(FA.flash_bwd_dkv(q, k, v, g, lse_ref, dsum, **kw),
                     FA.flash_bwd_dkv_ref(q, k, v, g, lse_ref, dsum, **kw)):
         torch.testing.assert_close(a, b, rtol=0, atol=GRAD_ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 517, 517, 2, 128, True, 0),
+                                   (1, 517, 517, 2, 64, True, 0),
+                                   (1, 263, 300, 2, 256, True, 37),
+                                   (2, 301, 150, 2, 64, False, 0),
+                                   (1, 130, 517, 2, 16, True, 3)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_cuda_backward_long_band_is_deterministic(shape, rate):
+    """Runs on the card only. Bands long enough that the two warp groups
+    of a block split the walk over many tiles (the first key tile walks
+    all 517 queries, the last q tile all its keys), with Tq and Tk not
+    multiples of any tile, src_len > 0, and the full (non-causal) form:
+    dQ and dK/dV against their plain pieces; a second call gives the same
+    bits (the groups' sums meet in a fixed order, no atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    B, Tq, Tk, H, hd, causal, src_len = shape
+    q, k, v, g = _cuda_inputs(B, Tq, Tk, H, hd)
+    kw = dict(causal=causal, src_len=src_len, dropout_rate=rate,
+              dropout_seed=SEED if rate else None)
+    o, lse = FA.flash_forward_ref(q, k, v, **kw)
+    dsum = FA.row_dot(g, o)
+    runs = [(FA.flash_bwd_dq(q, k, v, g, lse, dsum, **kw),
+             *FA.flash_bwd_dkv(q, k, v, g, lse, dsum, **kw))
+            for _ in range(2)]
+    want = (FA.flash_bwd_dq_ref(q, k, v, g, lse, dsum, **kw),
+            *FA.flash_bwd_dkv_ref(q, k, v, g, lse, dsum, **kw))
+    for name, a, b, c in zip(("dq", "dk", "dv"), *runs, want):
+        assert torch.equal(a, b), f"{name}: a second call differs"
+        torch.testing.assert_close(a, c, rtol=0, atol=GRAD_ATOL,
+                                   msg=lambda m, n=name: f"{n}: {m}")
 
 
 @pytest.mark.gpu
