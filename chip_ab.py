@@ -8,8 +8,12 @@ Each ROOT is a checkout that holds ``chip_smoke.py`` and ``sea_tpu_torch/``
 of its own builds that checkout's kernels, makes the seeded weights and runs
 its ``chip_smoke.py`` phases ``[train-time]`` (the full-recipe cylinder
 train step, with its profile), ``[rollout]`` (250-step f32 multiphase
-rollouts at B=1 and B=8) and ``[rollout-int4|int8|bf16]`` (the
-reduced-precision rollouts, with profiles of the int4 ones). Host-clock
+rollouts at B=1 and B=8), ``[profile]`` (those rollouts under
+torch.profiler) and ``[rollout-int4|int8|bf16]`` (the reduced-precision
+rollouts, with profiles of the int4 ones). Every root's rollouts are
+profiled by this checkout's ``chip_smoke._profile_rollout``, so that each
+prints the same lines (device events and busy time a step, and the int4
+and decode kernels' time and count a step). Host-clock
 rates move between machines more than between versions, so compare
 versions only within one run of this script, and give the roots as
 A B B A to see the drift within it. Each output line is printed behind
@@ -21,12 +25,16 @@ import sys
 from pathlib import Path
 
 _CHILD = """
-import sys, tempfile
+import importlib.util, sys, tempfile
 from pathlib import Path
 import torch
 root = Path(sys.argv[1])
 sys.path.insert(0, str(root))
 import chip_smoke as cs
+spec = importlib.util.spec_from_file_location("chip_smoke_ab", sys.argv[2])
+here = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(here)
+cs._profile_rollout = here._profile_rollout
 from sea_tpu_torch.cli import get_case
 from sea_tpu_torch.utils.params import save_init_checkpoints
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -38,6 +46,7 @@ with tempfile.TemporaryDirectory(dir=root / "build") as d:
     serve_np = save_init_checkpoints(case, d, seed=1)["temporal"]
 cs.phase_train_time(train_case, train_np)
 cs.phase_time_rollout(case, serve_np)
+cs.phase_profile(case, serve_np)
 cs.phase_rollout_reduced(case, serve_np)
 """
 
@@ -52,8 +61,10 @@ def main(roots):
     failed = 0
     for i, root in enumerate(roots):
         root = Path(root).resolve()
-        proc = subprocess.run([sys.executable, "-c", _CHILD, str(root)],
-                              cwd=root, capture_output=True, text=True)
+        proc = subprocess.run(
+            [sys.executable, "-c", _CHILD, str(root),
+             str(Path(__file__).resolve().parent / "chip_smoke.py")],
+            cwd=root, capture_output=True, text=True)
         for line in (proc.stdout + proc.stderr).splitlines():
             print(f"[{i} {root.name}] {line}", flush=True)
         print(f"[{i} {root.name}] exit {proc.returncode}", flush=True)

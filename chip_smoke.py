@@ -241,19 +241,49 @@ def _cases(shape, dtype):
     return q, K, V
 
 
+def _positions(T, plan):
+    """t at 0 (only rank 0 has keys), either side of the split and stage
+    edges, the TPU kernel's 256-key block edge and T-1."""
+    edges = {plan.chunk, 2 * plan.chunk, plan.stage, 2 * plan.stage, 256}
+    return sorted(({0, T - 1} | edges | {e - 1 for e in edges})
+                  & set(range(T)))
+
+
+def _one_kernel_a_call(fn, label, calls=4):
+    """torch.profiler over `calls` calls of fn (after one warm-up): each
+    must run exactly one device kernel. Returns the kernels' names."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    n = sum(e.count for e in events)
+    names = sorted({e.key[:80] for e in events})
+    if n != calls:
+        raise AssertionError(f"{label}: {n} device events over {calls} "
+                             f"calls ({names}), want one a call")
+    return names
+
+
 def phase_kernel_check():
     """Kernel against decode_attention_ref at the path's shapes, f32 and
-    bf16 caches, t at 0, the split edges, the TPU kernel's 256-key block
-    edge and T-1; and with NaN past t, which the kernel must never read."""
+    bf16 caches, t at 0, the split and stage edges, the TPU kernel's
+    256-key block edge and T-1; with NaN past t, which the kernel must
+    never read; and, under the profiler, one device kernel a call."""
     from sea_tpu_torch.ops import decode_attention as DA
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    dev = torch.device("cuda", 0)
     worst = 0.0
     for shape in KERNEL_SHAPES:
         B, H, T, hd = shape
-        splits, chunk = DA.split_plan(T, B * H, sms)
-        positions = sorted({0, chunk - 1, chunk, 2 * chunk, 255, 256, T - 1}
-                           & set(range(T)))
         for dtype in KERNEL_TOL:
+            plan = DA.device_plan(T, B * H, hd, dtype, dev)
+            positions = _positions(T, plan)
             q, K, V = _cases(shape, dtype)
             errs = []
             for t in positions:
@@ -273,9 +303,12 @@ def phase_kernel_check():
                                          f"t={t}: NaN past t changed it")
                 errs.append(err)
             worst = max(worst, max(errs))
-            log(f"[kernel] {shape} {str(dtype)[6:]} splits={splits}x{chunk} "
-                f"t={positions}: max abs err {max(errs):.3g} <= "
-                f"{KERNEL_TOL[dtype]}; NaN past t ignored")
+            names = _one_kernel_a_call(
+                lambda: DA.decode_attention(q, K, V, tt),
+                f"decode_attention {shape} {dtype}")
+            log(f"[kernel] {shape} {str(dtype)[6:]} {plan} t={positions}: "
+                f"max abs err {max(errs):.3g} <= {KERNEL_TOL[dtype]}; NaN "
+                f"past t ignored; one device kernel a call {names}")
     return worst
 
 
@@ -295,17 +328,17 @@ def _q8_cases(shape):
 
 def phase_q8_check():
     """The int8-KV kernel against decode_attention_q8_ref at the path's
-    shapes, t at 0, the split edges, the TPU kernel's 256-key block edge
-    and T-1; NaN scales past t must leave the output bit-identical (the
-    int8 planes cannot hold a NaN)."""
+    shapes, t at 0, the split and stage edges, the TPU kernel's 256-key
+    block edge and T-1; NaN scales past t must leave the output
+    bit-identical (the int8 planes cannot hold a NaN); one device kernel a
+    call under the profiler."""
     from sea_tpu_torch.ops import decode_attention as DA
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    dev = torch.device("cuda", 0)
     worst = 0.0
     for shape in Q8_SHAPES:
         B, H, T, hd = shape
-        splits, chunk = DA.split_plan(T, B * H, sms)
-        positions = sorted({0, chunk - 1, chunk, 2 * chunk, 255, 256, T - 1}
-                           & set(range(T)))
+        plan = DA.device_plan(T, B * H, hd, torch.int8, dev)
+        positions = _positions(T, plan)
         q, K8, V8, ks, vs = _q8_cases(shape)
         errs = []
         for t in positions:
@@ -326,9 +359,12 @@ def phase_q8_check():
                                      "past t changed it")
             errs.append(err)
         worst = max(worst, max(errs))
-        log(f"[kernel] decode q8 {shape} splits={splits}x{chunk} "
-            f"t={positions}: max abs err {max(errs):.3g} <= {Q8_TOL}; NaN "
-            f"scales past t ignored")
+        names = _one_kernel_a_call(
+            lambda: DA.decode_attention(q, K8, V8, tt, k_scale=ks,
+                                        v_scale=vs), f"decode q8 {shape}")
+        log(f"[kernel] decode q8 {shape} {plan} t={positions}: max abs err "
+            f"{max(errs):.3g} <= {Q8_TOL}; NaN scales past t ignored; one "
+            f"device kernel a call {names}")
     return worst
 
 
@@ -712,12 +748,13 @@ def _profile_rollout(params, cfg, B, cache_dtype, label):
         us = e.self_device_time_total / TIMED_STEPS
         log(f"[profile] {label} {us:8.2f} us/step "
             f"{e.count / TIMED_STEPS:6.1f}/step {e.key[:100]}")
-    int4 = [e for e in events if "int4" in e.key]
-    if int4:
-        log(f"[profile] {label} int4 kernels "
-            f"{sorted({e.key[:60] for e in int4})}: "
-            f"{sum(e.self_device_time_total for e in int4) / TIMED_STEPS:.2f}"
-            f" us/step, {sum(e.count for e in int4) / TIMED_STEPS:.1f}/step")
+    for name in ("int4", "decode"):
+        mine = [e for e in events if name in e.key]
+        if mine:
+            us = sum(e.self_device_time_total for e in mine) / TIMED_STEPS
+            log(f"[profile] {label} {name} kernels "
+                f"{sorted({e.key[:60] for e in mine})}: {us:.2f} us/step, "
+                f"{sum(e.count for e in mine) / TIMED_STEPS:.1f}/step")
 
 
 def phase_time_rollout(case, params_np):
@@ -1362,7 +1399,8 @@ def phase_time_adaln():
 
 
 def phase_time_reduced_kernels():
-    """The int8-KV decode kernel at (8,8,250,256), t = T-1; the int4
+    """The int8-KV decode kernel at (1,8,250,256) and (8,8,250,256), t =
+    T-1 (the JSON line keeps the second); the int4
     kernel at every (K, N) of the rollout step, M = 1 and 8, and its sum
     over a step's launches (the JSON line keeps (1,2048,16384), the MLP
     up-projection); the dense mask at the dropout verification's
@@ -1376,28 +1414,33 @@ def phase_time_reduced_kernels():
     flush = torch.ones(128 << 20, dtype=torch.float32, device="cuda")
     out = {}
 
-    shape = Q8_SHAPES[1]
-    B, H, T, hd = shape
-    q, K8, V8, ks, vs = _q8_cases(shape)
-    tt = torch.tensor([T - 1], dtype=torch.int32, device="cuda")
-    q4 = q[:, :, None].to(torch.bfloat16)
-    Kd = (K8.float() * ks[..., None]).to(torch.bfloat16)
-    Vd = (V8.float() * vs[..., None]).to(torch.bfloat16)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    ms, plain_ms, runs = _kernel_vs_plain(
-        lambda: DA.decode_attention(q, K8, V8, tt, k_scale=ks, v_scale=vs),
-        lambda: DA.decode_attention_q8_ref(q, K8, V8, ks, vs, tt), flush)
-    nbytes = 2 * B * H * T * hd + 2 * B * H * T * 4 + 2 * B * H * hd * 4
-    # bf16 q times int8 keys, bf16 p*v_s times int8 values: bf16 operands.
-    bound, bound_by = _bound_ms(nbytes, 4 * B * H * T * hd, BF16_FLOP_PER_S)
-    lib = _device_ms(lambda: sdpa(q4, Kd, Vd), flush)
-    out["decode_q8"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                            bound_by=bound_by, library_ms=lib)
-    log(f"[kernel-time] decode q8 {shape} t=T-1, L2 cold: kernel {ms:.4f} "
-        f"ms ({runs[1]:.4f}, {runs[2]:.4f}; "
-        f"{nbytes / (ms * 1e-3) / 1e9:.0f} GB/s), plain {plain_ms:.4f} ms "
-        f"({runs[0]:.4f}, {runs[3]:.4f}), bound {bound:.4f} ms ({bound_by}), "
-        f"SDPA one query over a bf16 dequantized cache {lib:.4f} ms")
+    for shape in Q8_SHAPES[:2]:
+        B, H, T, hd = shape
+        q, K8, V8, ks, vs = _q8_cases(shape)
+        tt = torch.tensor([T - 1], dtype=torch.int32, device="cuda")
+        q4 = q[:, :, None].to(torch.bfloat16)
+        Kd = (K8.float() * ks[..., None]).to(torch.bfloat16)
+        Vd = (V8.float() * vs[..., None]).to(torch.bfloat16)
+        ms, plain_ms, runs = _kernel_vs_plain(
+            lambda: DA.decode_attention(q, K8, V8, tt, k_scale=ks,
+                                        v_scale=vs),
+            lambda: DA.decode_attention_q8_ref(q, K8, V8, ks, vs, tt), flush)
+        nbytes = 2 * B * H * T * hd + 2 * B * H * T * 4 + 2 * B * H * hd * 4
+        # bf16 q times int8 keys, bf16 p*v_s times int8 values: bf16
+        # operands.
+        bound, bound_by = _bound_ms(nbytes, 4 * B * H * T * hd,
+                                    BF16_FLOP_PER_S)
+        lib = _device_ms(lambda: sdpa(q4, Kd, Vd), flush)
+        if shape == Q8_SHAPES[1]:
+            out["decode_q8"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                                    bound_by=bound_by, library_ms=lib)
+        log(f"[kernel-time] decode q8 {shape} t=T-1, L2 cold: kernel "
+            f"{ms:.4f} ms ({runs[1]:.4f}, {runs[2]:.4f}; "
+            f"{nbytes / (ms * 1e-3) / 1e9:.0f} GB/s), plain {plain_ms:.4f} "
+            f"ms ({runs[0]:.4f}, {runs[3]:.4f}), bound {bound:.4f} ms "
+            f"({bound_by}), SDPA one query over a bf16 dequantized cache "
+            f"{lib:.4f} ms")
 
     step = {M: collections.Counter() for M in (1, 8)}
     for (K, N), per_step in INT4_SHAPES.items():

@@ -1,76 +1,104 @@
 // Flash-decode: one query token per (batch, head) against a head-major KV
-// cache, for the autoregressive rollout step (ops/attention.mha_step).
+// cache, for the autoregressive rollout step (ops/attention.mha_step). One
+// kernel, one launch a call, for f32, bf16 and int8 caches.
 //
-// Replaces sea_tpu/ops/decode_attention.py::_decode_kernel, the Pallas TPU
-// kernel. For every (b, h) it computes
+// Replaces sea_tpu/ops/decode_attention.py::_decode_kernel and
+// ::_decode_kernel_q8, the Pallas TPU kernels. For every (b, h) it computes
 //     out = softmax(q . K[:t+1]^T / sqrt(hd)) . V[:t+1]
-// over a [B, H, T, hd] f32 or bf16 cache, accumulates in f32 and writes f32
-// [B, H, hd]. As in the TPU kernel, q is rounded to the cache dtype and
-// each unnormalised probability to the value dtype before p . V.
+// and writes f32 [B, H, hd]; statistics and sums are f32.
+//  - f32 or bf16 cache [B*H, T, hd]: as in the TPU kernel, q is rounded to
+//    the cache dtype and each unnormalised probability to the value dtype
+//    before p . V.
+//  - int8 cache (the planes written by ops/attention._quantize_token, with
+//    an f32 scale per (b, h, token), k_s and v_s [B*H, T]): q is rounded to
+//    bf16; a key's score is (q . k_int8) * hd^-0.5 * k_s[t']; each
+//    unnormalised probability times v_s[t'] is rounded to bf16 before it
+//    multiplies the int8 values; the denominator sums the probabilities
+//    without v_s. Nothing is dequantized into memory.
+// The TPU kernels' gates (hd % 128, T >= 128, B*H <= 64), their 8-row
+// sublane replication of q and the scales and the Precision.HIGHEST pin
+// are Mosaic's and are not carried over.
 //
-// What bounds it: memory. Step t reads 2 (t+1) hd sizeof(cache) bytes per
-// (b, h) and does about one multiply-add per element read, far below what
-// the card computes per byte. The design therefore minds bytes and
-// parallelism, not arithmetic:
-//  - no key or value past t is read. Each block loads t from device
-//    memory, returns at once if its key range starts past t, and stops at
-//    t otherwise (the TPU kernel got the same from a clamped index map).
-//  - at B=1 there are only B*H = 8 (b, h) pairs for 132 SMs, so the key
-//    axis is split (split-K): grid (B*H, S), each block writes a partial
-//    (max, sum, acc[hd]) to scratch the caller allocates, and a second
-//    small kernel merges the partials of each (b, h).
-//  - inside a block each warp takes every kWarps-th key; its 32 lanes hold
-//    hd/32 consecutive elements of q, K and V, so a warp reads a key row in
-//    one coalesced sweep of vector loads (16 bytes a lane for f32 at
-//    hd >= 128).
-//  - head dims 8 and 16 (the smoke presets) are too narrow for a warp a
-//    row: hd/4 lanes hold a row, 4 elements each, and a warp pass takes
-//    32/(hd/4) consecutive keys, each lane group with its own running max
-//    and sum until the block merges them (Lanes below).
-// t is read on the device, not passed by value, so a CUDA graph captured
-// over a rollout can replay it without rebuilding the launch.
-//
-// The int8 cache (decode_partial_q8) replaces
-// sea_tpu/ops/decode_attention.py::_decode_kernel_q8. The planes hold int8
-// K and V [B*H, T, hd] with an f32 scale per (b, h, token) beside them
-// (k_s, v_s [B*H, T]), written by ops/attention._quantize_token. As in the
-// TPU kernel, q is rounded to bf16 once; a key's score is
-// (q . k_int8) * hd^-0.5 * k_s[t']; each unnormalised probability times
-// v_s[t'] is rounded to bf16 before it multiplies the int8 values; the
-// statistics are f32 and the softmax denominator sums the probabilities
-// without v_s. Nothing is dequantized into memory. The bound is still
-// bytes (now one per element, a quarter of f32), so a lane reads 16 int8
-// elements with one 16-byte load: hd/16 lanes cover a key row, and a warp
-// takes 32/(hd/16) keys at once (2 at hd 256, 8 at hd 64), each lane group
-// with its own running max and sum until the block merges them. The TPU
-// kernel's gates (hd % 128, T >= 128, B*H <= 64) and its 8-row sublane
-// replication of q and the scales are not carried over.
+// What bounds it: memory. Step t reads 2 (t+1) hd bytes per element of the
+// cache per (b, h), and does about one multiply-add per element read, far
+// below what the card computes per byte (so no tensor cores: with one
+// query a (b, h) every product is a matrix-vector product). At the
+// rollout's shapes that is 0.1-4 MB, a few microseconds at most, so the
+// launch, the memory latency and the merge of the key splits set the
+// time. The design therefore:
+//  - splits the keys of a (b, h) over the blocks of a thread-block cluster
+//    (grid (B*H, splits), cluster (1, splits, 1), splits <= 8, the
+//    portable limit): at B=1 there are only 8 (b, h) pairs for 132 SMs.
+//    The plan (ops/decode_attention.decode_plan) depends on T, B*H, hd,
+//    the dtype and the card, never on t, so every step of a rollout
+//    launches the same grid; it takes fewer splits where that lets all
+//    B*H clusters run in one wave (cudaOccupancyMaxActiveClusters).
+//  - has each block ask for all of its bytes before any dependent
+//    arithmetic: cp.async copies of K rows [start, min(stop, t+1)), then
+//    of the same V rows (and the int8 scales with them), into shared
+//    memory, as two commit groups; the scores start when K has landed,
+//    while V may still arrive. A chunk larger than one shared-memory
+//    stage streams through a two-stage ring (T = 4096 at hd 256 f32). No
+//    key, value or scale past t is copied: t is read on the device, so a
+//    CUDA graph captured over a rollout could replay the launch.
+//  - merges inside the cluster: each block merges its key streams into a
+//    partial (m, l, acc[hd]); rank o owns a 1/splits share of hd, and
+//    every rank pushes its partial sums of those elements, with its
+//    (m, l), into the owner's shared memory over distributed shared
+//    memory (stores, nothing waits on a remote load). After one cluster
+//    barrier each rank merges its share in rank order (so a call is
+//    deterministic) from its own shared memory and writes out. No second
+//    kernel, no scratch in device memory, and no rank touches another's
+//    shared memory after the barrier. A block whose keys start past t
+//    publishes m = -inf, l = 0 and takes part in every barrier; the
+//    pushes wait on a cluster barrier armed at the block's start, so
+//    every peer has started.
+//  - inside a block, 8 warps (4 for int8); lanes read 16 bytes of a row at a time (8
+//    for int8 at hd 8), G = hd / E lanes a key row (E = elements a lane,
+//    at least hd / 32), so a warp takes 32 / G keys at once, each lane
+//    group a key stream with its own running max and sum; the
+//    shared-memory vectors of a lane are interleaved with its
+//    neighbours' (conflict-free 16-byte loads). A stream rescales once a
+//    stage, not once a key.
+// Measured variants (chip_decode_probe.py, PERF.md): clusters of up to 16
+// blocks and the other warp count were no faster; nor, in this design's
+// development, one bulk copy (cp.async.bulk) a stage for the rows.
 //
 // Plain C interface (no PyTorch headers): built with nvcc for sm_90a and
 // loaded with ctypes by sea_tpu_torch/ops/_build.py.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <math.h>
 #include <stdint.h>
-#include <string.h>
 
 #include <type_traits>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
+constexpr int kMaxCluster = 8;
 
+// The cache element types. round() is applied to q and to each
+// unnormalised probability (times v_s for int8) before p . V. kWarps: a
+// block's warps (chip_decode_probe.py measured 8 faster for f32 and bf16
+// rows, 4 for int8, whose 16-byte lane slices give twice the streams to
+// merge).
 struct F32 {
   using Raw = float;
+  static constexpr bool kScaled = false;
+  static constexpr int kWarps = 8;
   __device__ static float load(Raw x) { return x; }
   __device__ static float round(float x) { return x; }
 };
 
 struct BF16 {
   using Raw = unsigned short;  // bf16 bits
+  static constexpr bool kScaled = false;
+  static constexpr int kWarps = 8;
   __device__ static float load(Raw x) {
     return __uint_as_float(static_cast<unsigned>(x) << 16);
   }
@@ -79,381 +107,510 @@ struct BF16 {
   }
 };
 
-// V consecutive elements at p as floats, in the widest aligned words the
-// slice allows. p is aligned to V * sizeof(Raw) bytes by construction
-// (row starts are multiples of hd elements, lanes of V elements).
-template <typename Dt, int V>
-__device__ __forceinline__ void load_row(const typename Dt::Raw* __restrict__ p,
-                                         float (&out)[V]) {
-  using Raw = typename Dt::Raw;
-  constexpr int kBytes = V * static_cast<int>(sizeof(Raw));
-  static_assert(kBytes % 4 == 0, "a lane's slice must be whole 32-bit words");
-  using Word = std::conditional_t<
-      kBytes % 16 == 0, uint4,
-      std::conditional_t<kBytes % 8 == 0, uint2, unsigned>>;
-  constexpr int kWords = kBytes / static_cast<int>(sizeof(Word));
-  Raw raw[V];
-  const Word* src = reinterpret_cast<const Word*>(p);
-#pragma unroll
-  for (int i = 0; i < kWords; ++i) {
-    const Word w = __ldg(src + i);
-    memcpy(reinterpret_cast<char*>(raw) + i * sizeof(Word), &w, sizeof(Word));
-  }
-#pragma unroll
-  for (int i = 0; i < V; ++i) out[i] = Dt::load(raw[i]);
-}
-
-__device__ __forceinline__ int clamp_t(const int* t_ptr, int T) {
-  // The kernel cannot raise: an out-of-range position is clamped so that no
-  // load leaves the cache. The Python wrapper checks positions it can see.
-  return min(max(__ldg(t_ptr), 0), T - 1);
-}
-
-// A key row of HD elements over G lanes of E consecutive elements each; a
-// warp pass takes KPW = 32 / G keys, one per lane group. At hd >= 64 a
-// whole warp holds a row (KPW 1); the smoke presets' hd 8 and 16 put 16 and
-// 8 keys in a warp pass, 4 elements a lane.
-template <int HD>
-struct Lanes {
-  static_assert(HD % 8 == 0 && (HD < 32 || HD % 32 == 0), "head dim");
-  static constexpr int G = HD >= 32 ? 32 : HD / 4;
-  static constexpr int E = HD / G;
-  static constexpr int KPW = 32 / G;
-  static constexpr int S = kWarps * KPW;  // streams a block
+struct I8 {
+  using Raw = int8_t;
+  static constexpr bool kScaled = true;  // per-token k_s, v_s
+  static constexpr int kWarps = 4;
+  __device__ static float load(Raw x) { return static_cast<float>(x); }
+  __device__ static float round(float x) { return BF16::round(x); }
 };
 
-// Partial attention of one (b, h) over keys [split * chunk, (split+1) * chunk)
-// cut at t. Writes part_ml[bh, split] = (max score, sum of exp) and
-// part_acc[bh, split, :] = sum of exp * v, both relative to that max.
+// A key row of HD elements over G lanes of E elements each, read as NV
+// vectors of VE elements (16 bytes, or the whole row when it is shorter);
+// vector i of lane `sub` holds elements [(i G + sub) VE, ... + VE). A warp
+// pass takes KPW = 32 / G keys, one per lane group; a block runs S key
+// streams.
 template <typename Dt, int HD>
-__global__ void __launch_bounds__(kThreads)
-decode_partial(const float* __restrict__ q, const typename Dt::Raw* __restrict__ k,
-               const typename Dt::Raw* __restrict__ v, const int* __restrict__ t_ptr,
-               float* __restrict__ part_ml, float* __restrict__ part_acc, int T,
-               int chunk, float scale) {
-  using L = Lanes<HD>;
-  constexpr int G = L::G, E = L::E, KPW = L::KPW, S = L::S;
-  const int bh = blockIdx.x;
-  const int split = blockIdx.y;
-  const int t = clamp_t(t_ptr, T);
-  const int start = split * chunk;
-  if (start > t) return;  // uniform over the block, before any barrier
-  const int stop = min(start + chunk, t + 1);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int grp = lane / G;
-  const int sub = lane % G;
-  const int stream = warp * KPW + grp;
+struct Lanes {
+  static constexpr int kSize = static_cast<int>(sizeof(typename Dt::Raw));
+  static constexpr int VE = 16 / kSize < HD ? 16 / kSize : HD;
+  static constexpr int E = HD / 32 > VE ? HD / 32 : VE;
+  static constexpr int G = HD / E;
+  static constexpr int NV = E / VE;
+  static constexpr int KPW = 32 / G;
+  static constexpr int S = Dt::kWarps * KPW;
+  static constexpr int kRowBytes = HD * kSize;
+  static_assert(HD % E == 0 && E % VE == 0 && 32 % G == 0, "head dim");
+  static_assert(VE * kSize == 16 || VE * kSize == 8, "vector of 8 or 16 bytes");
+};
 
-  float qv[E];
-  load_row<F32, E>(q + static_cast<size_t>(bh) * HD + sub * E, qv);
-#pragma unroll
-  for (int i = 0; i < E; ++i) qv[i] = Dt::round(qv[i]);
+__host__ __device__ constexpr int align16(int n) { return (n + 15) & ~15; }
 
-  const size_t row0 = static_cast<size_t>(bh) * T * HD + sub * E;
-  float m = -INFINITY;
-  float l = 0.f;
-  float acc[E];
-#pragma unroll
-  for (int i = 0; i < E; ++i) acc[i] = 0.f;
-
-  // The loop runs the same count on every lane of a warp (the shuffles need
-  // all 32); a group whose key is past `stop` joins them and skips the rest.
-  for (int base = start + warp * KPW; base < stop; base += S) {
-    const int j = base + grp;
-    const bool valid = KPW == 1 || j < stop;
-    float kv[E];
-    float vv[E];
-    float s = 0.f;
-    if (valid) {
-      load_row<Dt, E>(k + row0 + static_cast<size_t>(j) * HD, kv);
-      load_row<Dt, E>(v + row0 + static_cast<size_t>(j) * HD, vv);
-#pragma unroll
-      for (int i = 0; i < E; ++i) s = fmaf(qv[i], kv[i], s);
-    }
-#pragma unroll
-    for (int o = G / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (valid) {
-      s *= scale;
-      const float m_new = fmaxf(m, s);
-      const float alpha = expf(m - m_new);  // 0 on the first key (m = -inf)
-      const float p = expf(s - m_new);
-      l = l * alpha + p;
-      const float pr = Dt::round(p);
-#pragma unroll
-      for (int i = 0; i < E; ++i) acc[i] = fmaf(pr, vv[i], acc[i] * alpha);
-      m = m_new;
-    }
+// Dynamic shared memory: the scores of a stage, then one or two ring slots
+// of [K rows][V rows][k_s][v_s] (scales for int8 only). Once the ring is
+// spent, the block's stream partials alias its start.
+template <typename Dt, int HD>
+struct Smem {
+  using L = Lanes<Dt, HD>;
+  __host__ __device__ static int scores(int stage) { return align16(4 * stage); }
+  __host__ __device__ static int rows(int stage) {
+    return align16(stage * L::kRowBytes);
   }
-
-  // Merge the streams. Stream 0 always owns key `start` <= t, so the block
-  // max is finite; a stream that saw no key has m = -inf and weight 0.
-  __shared__ float sm_m[S];
-  __shared__ float sm_l[S];
-  __shared__ float sm_acc[S][HD];
-  if (sub == 0) {
-    sm_m[stream] = m;
-    sm_l[stream] = l;
+  __host__ __device__ static int scales(int stage) {
+    return Dt::kScaled ? align16(4 * stage) : 0;
   }
-#pragma unroll
-  for (int i = 0; i < E; ++i) sm_acc[stream][sub * E + i] = acc[i];
-  __syncthreads();
-
-  float mx = sm_m[0];
-#pragma unroll
-  for (int w = 1; w < S; ++w) mx = fmaxf(mx, sm_m[w]);
-  float wgt[S];
-#pragma unroll
-  for (int w = 0; w < S; ++w) wgt[w] = expf(sm_m[w] - mx);
-
-  const size_t slot = static_cast<size_t>(bh) * gridDim.y + split;
-  for (int d = threadIdx.x; d < HD; d += kThreads) {
-    float a = 0.f;
-#pragma unroll
-    for (int w = 0; w < S; ++w) a = fmaf(sm_acc[w][d], wgt[w], a);
-    part_acc[slot * HD + d] = a;
+  __host__ __device__ static int slot(int stage) {
+    return 2 * rows(stage) + 2 * scales(stage);
   }
-  if (threadIdx.x == 0) {
-    float sum = 0.f;
+  static constexpr int kMerge = 4 * (L::S * HD + 3 * L::S);
+  __host__ __device__ static int bytes(int stage, int slots) {
+    const int ring = scores(stage) + slots * slot(stage);
+    return ring > kMerge ? ring : kMerge;
+  }
+};
+
+// Async copies global -> shared of N = 4, 8 or 16 bytes (16 bypasses L1).
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+                 "l"(src), "n"(N));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// `bytes` contiguous bytes (a multiple of N, both ends on N bytes), shared
+// by the block's `threads` threads in N-byte copies.
+template <int N, int threads>
+__device__ __forceinline__ void copy_block(unsigned char* dst,
+                                           const unsigned char* src,
+                                           int bytes) {
+  for (int i = threadIdx.x * N; i < bytes; i += threads * N)
+    cp_async<N>(dst + i, src + i);
+}
+
+// V consecutive f32 elements of q from global memory, as 16-byte words.
+template <int V>
+__device__ __forceinline__ void load_q(const float* __restrict__ p,
+                                       float (&out)[V]) {
+  static_assert(V % 4 == 0, "q slices of whole 16-byte words");
 #pragma unroll
-    for (int w = 0; w < S; ++w) sum = fmaf(sm_l[w], wgt[w], sum);
-    part_ml[2 * slot] = mx;
-    part_ml[2 * slot + 1] = sum;
+  for (int i = 0; i < V / 4; ++i) {
+    const float4 w = __ldg(reinterpret_cast<const float4*>(p) + i);
+    out[4 * i] = w.x;
+    out[4 * i + 1] = w.y;
+    out[4 * i + 2] = w.z;
+    out[4 * i + 3] = w.w;
   }
 }
 
-// out[bh, :] = merged partials of the splits that start at or before t.
-__global__ void __launch_bounds__(kThreads)
-decode_merge(const float* __restrict__ part_ml, const float* __restrict__ part_acc,
-             const int* __restrict__ t_ptr, float* __restrict__ out, int T, int hd,
-             int splits, int chunk) {
-  const int bh = blockIdx.x;
-  const int t = clamp_t(t_ptr, T);
-  const int n = min(splits, t / chunk + 1);
-  const float* ml = part_ml + static_cast<size_t>(bh) * splits * 2;
-  const float* acc = part_acc + static_cast<size_t>(bh) * splits * hd;
-  float mx = -INFINITY;
-  for (int s = 0; s < n; ++s) mx = fmaxf(mx, ml[2 * s]);
-  float l = 0.f;
-  for (int s = 0; s < n; ++s) l = fmaf(ml[2 * s + 1], expf(ml[2 * s] - mx), l);
-  const float l_safe = (l == 0.f) ? 1.f : l;  // the TPU kernel's finalize guard
-  for (int d = threadIdx.x; d < hd; d += blockDim.x) {
-    float a = 0.f;
-    for (int s = 0; s < n; ++s)
-      a = fmaf(acc[static_cast<size_t>(s) * hd + d], expf(ml[2 * s] - mx), a);
-    out[static_cast<size_t>(bh) * hd + d] = a / l_safe;
-  }
-}
-
-template <typename Dt, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, const int* t,
-                   float* part_ml, float* part_acc, float* out, int bh, int T,
-                   int splits, int chunk, cudaStream_t stream) {
+// One vector of VE cache elements from shared memory, as floats.
+template <typename Dt, int VE>
+__device__ __forceinline__ void load_vec(const typename Dt::Raw* p,
+                                         float (&out)[VE]) {
   using Raw = typename Dt::Raw;
-  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(HD)));
-  decode_partial<Dt, HD><<<dim3(bh, splits), kThreads, 0, stream>>>(
-      static_cast<const float*>(q), static_cast<const Raw*>(k),
-      static_cast<const Raw*>(v), t, part_ml, part_acc, T, chunk, scale);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  decode_merge<<<bh, kThreads, 0, stream>>>(part_ml, part_acc, t, out, T, HD,
-                                            splits, chunk);
-  return cudaGetLastError();
+  constexpr int kBytes = VE * static_cast<int>(sizeof(Raw));
+  using Word = std::conditional_t<kBytes == 16, uint4, uint2>;
+  union {
+    Word w;
+    Raw raw[VE];
+  } u;
+  u.w = *reinterpret_cast<const Word*>(p);
+#pragma unroll
+  for (int i = 0; i < VE; ++i) out[i] = Dt::load(u.raw[i]);
 }
 
-// Partial attention over an int8 cache with per-token scales: the same
-// split-K partials as decode_partial. G = HD/16 lanes hold 16 elements of a
-// key row each (at hd 8 one lane holds the row); the warp's 32/G lane groups take consecutive keys, so the
-// block runs kWarps * 32/G streams, each with its own (m, l, acc).
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
-decode_partial_q8(const float* __restrict__ q, const int8_t* __restrict__ k,
-                  const int8_t* __restrict__ v, const float* __restrict__ k_s,
-                  const float* __restrict__ v_s, const int* __restrict__ t_ptr,
-                  float* __restrict__ part_ml, float* __restrict__ part_acc,
-                  int T, int chunk, float scale) {
-  constexpr int E = HD < 16 ? HD : 16;  // elements per lane: one load
-  constexpr int G = HD / E;             // lanes per key row
-  constexpr int KPW = 32 / G;      // keys per warp pass
-  constexpr int S = kWarps * KPW;  // streams per block
+// 0 for a partial that saw no key (m = -inf), else exp(m - mx).
+__device__ __forceinline__ float weight(float m, float mx) {
+  return m == -INFINITY ? 0.f : expf(m - mx);
+}
+
+// One cluster per (b, h) = blockIdx.x; rank r = blockIdx.y of the cluster
+// takes keys [r chunk, (r + 1) chunk) cut at t, in stages of `stage` keys.
+template <typename Dt, int HD>
+__global__ void __launch_bounds__(Dt::kWarps * 32)
+decode_cluster(const float* __restrict__ q, const typename Dt::Raw* __restrict__ k,
+               const typename Dt::Raw* __restrict__ v,
+               const float* __restrict__ k_s, const float* __restrict__ v_s,
+               const int* __restrict__ t_ptr, float* __restrict__ out, int T,
+               int chunk, int stage, float scale) {
+  using Raw = typename Dt::Raw;
+  using L = Lanes<Dt, HD>;
+  using Sm = Smem<Dt, HD>;
+  constexpr int G = L::G, VE = L::VE, NV = L::NV, KPW = L::KPW,
+                S = L::S;
+  constexpr int kCopy = L::kRowBytes < 16 ? L::kRowBytes : 16;
+  constexpr int kThreads = Dt::kWarps * 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  // What the cluster's ranks push here: row r holds rank r's partial sums
+  // of the elements this rank owns (share of them), and its (m, l).
+  __shared__ float gather[HD + kMaxCluster];
+  __shared__ float gather_ml[kMaxCluster][2];
+  __shared__ float rank_w[kMaxCluster];
+  __shared__ float denom;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int ranks = static_cast<int>(cluster.num_blocks());
+  // Every block of the cluster has started before any writes into
+  // another's shared memory (the wait is at the merge, long after).
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
   const int bh = blockIdx.x;
-  const int split = blockIdx.y;
-  const int t = clamp_t(t_ptr, T);
-  const int start = split * chunk;
-  if (start > t) return;  // uniform over the block, before any barrier
-  const int stop = min(start + chunk, t + 1);
+  // The kernel cannot raise: an out-of-range position is clamped so that
+  // no copy leaves the cache. The Python wrapper checks what it can see.
+  const int t = min(max(__ldg(t_ptr), 0), T - 1);
+  const int start = rank * chunk;
+  const int n = max(0, min(start + chunk, t + 1) - start);  // keys here
+  const int stages = (n + stage - 1) / stage;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int grp = lane / G;
   const int sub = lane % G;
   const int stream = warp * KPW + grp;
 
-  float qv[E];
-  load_row<F32, E>(q + static_cast<size_t>(bh) * HD + sub * E, qv);
-#pragma unroll
-  for (int i = 0; i < E; ++i) qv[i] = BF16::round(qv[i]);
+  float* sc = reinterpret_cast<float*>(smem);
+  unsigned char* ring = smem + Sm::scores(stage);
+  const int slot_bytes = Sm::slot(stage), rows = Sm::rows(stage),
+            scales = Sm::scales(stage);
+  // Stage st's copies into slot st % 2, as two commit groups (K with k_s,
+  // then V with v_s); a stage past the block's keys commits empty groups,
+  // so that every iteration waits on the same group counts.
+  auto issue = [&](int st) {
+    if (st < stages) {
+      unsigned char* slot = ring + (st & 1) * slot_bytes;
+      const int nk = min(stage, n - st * stage);
+      const size_t row = static_cast<size_t>(bh) * T + start + st * stage;
+      const auto* kb = reinterpret_cast<const unsigned char*>(k + row * HD);
+      copy_block<kCopy, kThreads>(slot, kb, nk * L::kRowBytes);
+      if constexpr (Dt::kScaled)
+        copy_block<4, kThreads>(
+            slot + 2 * rows,
+            reinterpret_cast<const unsigned char*>(k_s + row), 4 * nk);
+      cp_async_commit();
+      const auto* vb = reinterpret_cast<const unsigned char*>(v + row * HD);
+      copy_block<kCopy, kThreads>(slot + rows, vb, nk * L::kRowBytes);
+      if constexpr (Dt::kScaled)
+        copy_block<4, kThreads>(
+            slot + 2 * rows + scales,
+            reinterpret_cast<const unsigned char*>(v_s + row), 4 * nk);
+      cp_async_commit();
+    } else {
+      cp_async_commit();
+      cp_async_commit();
+    }
+  };
+  issue(0);
+  issue(1);
 
-  const size_t row0 = static_cast<size_t>(bh) * T * HD + sub * E;
-  const float* ks = k_s + static_cast<size_t>(bh) * T;
-  const float* vs = v_s + static_cast<size_t>(bh) * T;
+  float qv[NV][VE];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    load_q<VE>(q + static_cast<size_t>(bh) * HD + (i * G + sub) * VE, qv[i]);
+#pragma unroll
+    for (int e = 0; e < VE; ++e) qv[i][e] = Dt::round(qv[i][e]);
+  }
   float m = -INFINITY;
   float l = 0.f;
-  float acc[E];
+  float acc[NV][VE];
 #pragma unroll
-  for (int i = 0; i < E; ++i) acc[i] = 0.f;
+  for (int i = 0; i < NV; ++i)
+#pragma unroll
+    for (int e = 0; e < VE; ++e) acc[i][e] = 0.f;
 
-  // The loop runs the same count on every lane of a warp (the shuffles need
-  // all 32); a group whose key is past `stop` joins them and skips the rest.
-  for (int base = start + warp * KPW; base < stop; base += S) {
-    const int j = base + grp;
-    const bool valid = j < stop;
-    int8_t kb[E], vb[E];
-    float s = 0.f;
-    if (valid) {
-      using Word = std::conditional_t<E == 16, uint4, uint2>;
-      const Word kw = __ldg(reinterpret_cast<const Word*>(
-          k + row0 + static_cast<size_t>(j) * HD));
-      const Word vw = __ldg(reinterpret_cast<const Word*>(
-          v + row0 + static_cast<size_t>(j) * HD));
-      memcpy(kb, &kw, E);
-      memcpy(vb, &vw, E);
+  for (int st = 0; st < stages; ++st) {
+    const unsigned char* slot = ring + (st & 1) * slot_bytes;
+    const Raw* ks = reinterpret_cast<const Raw*>(slot);
+    const Raw* vs = reinterpret_cast<const Raw*>(slot + rows);
+    const float* kscale = reinterpret_cast<const float*>(slot + 2 * rows);
+    const float* vscale = kscale + scales / 4;
+    const int nk = min(stage, n - st * stage);
+
+    // Scores, once this stage's K has landed (3 younger groups may still
+    // be in flight: its V and the next stage's K and V).
+    cp_async_wait<3>();
+    __syncthreads();
+    float m_new = m;
+    // Every lane of a warp runs the same count (the shuffles need all 32);
+    // a group whose key is past the stage joins them and skips the rest.
+    // Stream w takes keys w, w + S, w + 2 S, ...
+    for (int b = warp * KPW; b < nk; b += S) {
+      const int j = b + grp;
+      const bool valid = j < nk;
+      float s = 0.f;
+      if (valid) {
 #pragma unroll
-      for (int i = 0; i < E; ++i) s = fmaf(qv[i], static_cast<float>(kb[i]), s);
+        for (int i = 0; i < NV; ++i) {
+          float kv[VE];
+          load_vec<Dt, VE>(ks + j * HD + (i * G + sub) * VE, kv);
+#pragma unroll
+          for (int e = 0; e < VE; ++e) s = fmaf(qv[i][e], kv[e], s);
+        }
+      }
+#pragma unroll
+      for (int o = G / 2; o > 0; o >>= 1)
+        s += __shfl_xor_sync(0xffffffffu, s, o);
+      if (valid) {
+        if constexpr (Dt::kScaled)
+          s = s * scale * kscale[j];
+        else
+          s *= scale;
+        if (sub == 0) sc[j] = s;
+        m_new = fmaxf(m_new, s);
+      }
     }
+    if (m_new != m) {  // the stream saw a key: rescale to the new max
+      const float alpha = expf(m - m_new);  // 0 while m = -inf
+      l *= alpha;
 #pragma unroll
-    for (int o = G / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (valid) {
-      s = s * scale * __ldg(ks + j);
-      const float m_new = fmaxf(m, s);
-      const float alpha = expf(m - m_new);  // 0 on the first key (m = -inf)
-      const float p = expf(s - m_new);
-      l = l * alpha + p;
-      const float pv = BF16::round(p * __ldg(vs + j));
+      for (int i = 0; i < NV; ++i)
 #pragma unroll
-      for (int i = 0; i < E; ++i)
-        acc[i] = fmaf(pv, static_cast<float>(vb[i]), acc[i] * alpha);
+        for (int e = 0; e < VE; ++e) acc[i][e] *= alpha;
       m = m_new;
     }
-  }
 
-  // Merge the streams. Stream 0 always owns key `start` <= t, so the block
-  // max is finite; a stream that saw no key has m = -inf and weight 0.
-  __shared__ float sm_m[S];
-  __shared__ float sm_l[S];
-  __shared__ float sm_acc[S][HD];
+    // p . V, once V has landed (the next stage's two groups may not have).
+    cp_async_wait<2>();
+    __syncthreads();
+    for (int j = stream; j < nk; j += S) {
+      const float p = expf(sc[j] - m);
+      l += p;
+      float pr;
+      if constexpr (Dt::kScaled)
+        pr = Dt::round(p * vscale[j]);
+      else
+        pr = Dt::round(p);
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        float vv[VE];
+        load_vec<Dt, VE>(vs + j * HD + (i * G + sub) * VE, vv);
+#pragma unroll
+        for (int e = 0; e < VE; ++e) acc[i][e] = fmaf(pr, vv[e], acc[i][e]);
+      }
+    }
+    // Stage st + 2 refills this slot once every warp has left it.
+    if (st + 2 < stages) __syncthreads();
+    issue(st + 2);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is spent: the stream partials alias it
+
+  // The block's partial: its streams merged in stream order. A stream
+  // that saw no key has m = -inf and weight 0; a block past t has no key
+  // at all and publishes m = -inf, l = 0, acc = 0.
+  float* sm_acc = reinterpret_cast<float*>(smem);  // [S][HD]
+  float* sm_m = sm_acc + S * HD;
+  float* sm_l = sm_m + S;
+  float* sm_w = sm_l + S;
   if (sub == 0) {
     sm_m[stream] = m;
     sm_l[stream] = l;
   }
 #pragma unroll
-  for (int i = 0; i < E; ++i) sm_acc[stream][sub * E + i] = acc[i];
+  for (int i = 0; i < NV; ++i)
+#pragma unroll
+    for (int e = 0; e < VE; ++e)
+      sm_acc[stream * HD + (i * G + sub) * VE + e] = acc[i][e];
+  __syncthreads();
+  float mx = -INFINITY;
+#pragma unroll
+  for (int w = 0; w < S; ++w) mx = fmaxf(mx, sm_m[w]);
+  for (int w = threadIdx.x; w < S; w += kThreads) sm_w[w] = weight(sm_m[w], mx);
   __syncthreads();
 
-  float mx = sm_m[0];
-  for (int w = 1; w < S; ++w) mx = fmaxf(mx, sm_m[w]);
-  const size_t slot = static_cast<size_t>(bh) * gridDim.y + split;
+  // The cluster's merge. Rank o owns elements [o share, (o + 1) share) of
+  // out. Each rank pushes its partial sum of every element, and its
+  // (m, l), into the owner's shared memory (distributed shared memory) at
+  // its own rank's row; after one cluster barrier each rank merges its
+  // elements from its own shared memory, in rank order, so a call is
+  // deterministic, and no rank touches another's shared memory after the
+  // barrier (a block may leave at once). Rank 0 always holds key 0 <= t,
+  // so the cluster's max is finite.
+  const int share = (HD + ranks - 1) / ranks;
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
   for (int d = threadIdx.x; d < HD; d += kThreads) {
     float a = 0.f;
-    for (int w = 0; w < S; ++w) a = fmaf(sm_acc[w][d], expf(sm_m[w] - mx), a);
-    part_acc[slot * HD + d] = a;
+#pragma unroll
+    for (int w = 0; w < S; ++w) a = fmaf(sm_acc[w * HD + d], sm_w[w], a);
+    const int o = d / share;
+    cluster.map_shared_rank(gather, o)[rank * share + d - o * share] = a;
   }
-  if (threadIdx.x == 0) {
+  if (static_cast<int>(threadIdx.x) < ranks) {
     float sum = 0.f;
-    for (int w = 0; w < S; ++w) sum = fmaf(sm_l[w], expf(sm_m[w] - mx), sum);
-    part_ml[2 * slot] = mx;
-    part_ml[2 * slot + 1] = sum;
+#pragma unroll
+    for (int w = 0; w < S; ++w) sum = fmaf(sm_l[w], sm_w[w], sum);
+    float* ml = cluster.map_shared_rank(&gather_ml[0][0], threadIdx.x);
+    ml[2 * rank] = mx;
+    ml[2 * rank + 1] = sum;
+  }
+  cluster.sync();
+  // Warp 0 weighs the ranks against the cluster's max and sums the
+  // denominator, in a fixed order.
+  if (warp == 0) {
+    const float mr = lane < ranks ? gather_ml[lane][0] : -INFINITY;
+    const float lr = lane < ranks ? gather_ml[lane][1] : 0.f;
+    float M = mr;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, o));
+    const float w = weight(mr, M);
+    float sum = lr * w;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    if (lane < kMaxCluster) rank_w[lane] = w;
+    if (lane == 0) denom = sum == 0.f ? 1.f : sum;  // the TPU kernel's guard
+  }
+  __syncthreads();
+  const int d0 = rank * share;
+  for (int i = threadIdx.x; i < share && d0 + i < HD; i += kThreads) {
+    float a = 0.f;
+    for (int r = 0; r < ranks; ++r) a = fmaf(gather[r * share + i], rank_w[r], a);
+    out[static_cast<size_t>(bh) * HD + d0 + i] = a / denom;
   }
 }
 
-template <int HD>
-cudaError_t launch_q8(const float* q, const int8_t* k, const int8_t* v,
-                      const float* k_s, const float* v_s, const int* t,
-                      float* part_ml, float* part_acc, float* out, int bh,
-                      int T, int splits, int chunk, cudaStream_t stream) {
-  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(HD)));
-  decode_partial_q8<HD><<<dim3(bh, splits), kThreads, 0, stream>>>(
-      q, k, v, k_s, v_s, t, part_ml, part_acc, T, chunk, scale);
-  const cudaError_t err = cudaGetLastError();
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* k_s;
+  const void* v_s;
+  const int* t;
+  float* out;
+  int bh, T, splits, chunk, stage, slots;
+  cudaStream_t stream;
+};
+
+// Raises the kernel's dynamic shared-memory limit to `smem` bytes where
+// it is lower, once per device.
+template <typename Dt, int HD>
+cudaError_t configure(int smem) {
+  static int allowed[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  decode_merge<<<bh, kThreads, 0, stream>>>(part_ml, part_acc, t, out, T, HD,
-                                            splits, chunk);
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (smem > allowed[dev]) {
+    err = cudaFuncSetAttribute(decode_cluster<Dt, HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return err;
+    // All of the SM's unified L1/shared memory as shared memory: the
+    // kernel reads its cache rows from shared memory only, and two blocks
+    // of a ring of RING_BYTES fit an SM only so.
+    err = cudaFuncSetAttribute(decode_cluster<Dt, HD>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    allowed[dev] = smem;
+  }
+  return cudaSuccess;
+}
+
+// Launches the kernel, or with `clusters` set only asks how many of its
+// clusters the card holds at once.
+template <typename Dt, int HD>
+cudaError_t run(const Args& a, int* clusters) {
+  using Raw = typename Dt::Raw;
+  const int smem = Smem<Dt, HD>::bytes(a.stage, a.slots);
+  cudaError_t err = configure<Dt, HD>(smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.bh, a.splits, 1);
+  cfg.blockDim = dim3(Dt::kWarps * 32, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = a.stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = a.splits;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  if (clusters)
+    return cudaOccupancyMaxActiveClusters(clusters, decode_cluster<Dt, HD>,
+                                          &cfg);
+  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(HD)));
+  err = cudaLaunchKernelEx(
+      &cfg, decode_cluster<Dt, HD>, static_cast<const float*>(a.q),
+      static_cast<const Raw*>(a.k), static_cast<const Raw*>(a.v),
+      static_cast<const float*>(a.k_s), static_cast<const float*>(a.v_s),
+      a.t, a.out, a.T, a.chunk, a.stage, scale);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+template <typename Dt>
+int by_head_dim(int hd, const Args& a, int* clusters) {
+  // The plan: splits blocks of chunk keys cover [0, T) with none empty; a
+  // one-slot ring holds a whole chunk.
+  if (a.bh < 1 || a.T < 1 || a.splits < 1 || a.splits > kMaxCluster ||
+      a.chunk < 1 || a.stage < 1 || a.slots < 1 || a.slots > 2 ||
+      static_cast<long long>(a.splits) * a.chunk < a.T ||
+      static_cast<long long>(a.splits - 1) * a.chunk >= a.T ||
+      (a.slots == 1 && a.stage < a.chunk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (hd) {
+    case 8: return static_cast<int>(run<Dt, 8>(a, clusters));
+    case 16: return static_cast<int>(run<Dt, 16>(a, clusters));
+    case 64: return static_cast<int>(run<Dt, 64>(a, clusters));
+    case 128: return static_cast<int>(run<Dt, 128>(a, clusters));
+    case 256: return static_cast<int>(run<Dt, 256>(a, clusters));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int dispatch(int kind, int hd, const Args& a, int* clusters) {
+  switch (kind) {
+    case 0: return by_head_dim<F32>(hd, a, clusters);
+    case 1: return by_head_dim<BF16>(hd, a, clusters);
+    case 2: return by_head_dim<I8>(hd, a, clusters);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// The int8 cache: q f32 [bh, hd]; k, v int8 [bh, T, hd]; k_s, v_s f32
-// [bh, T]; t, part_ml, part_acc and out as for sea_decode_attention.
+// q: f32 [bh, hd]; k, v: [bh, T, hd] in the cache dtype (f32, or bf16 when
+// cache_is_bf16); t: one int32 on the device; out: f32 [bh, hd]. All
+// contiguous and 16-byte aligned. splits (1..8) blocks of a cluster take
+// chunk keys each (splits * chunk >= T, no split empty), through a ring of
+// `slots` (1 or 2) stages of `stage` keys (one slot holds a whole chunk).
+// Enqueues one launch on `stream`; returns its error, or
+// cudaGetLastError() after it (0 on success).
+extern "C" int sea_decode_attention(const void* q, const void* k, const void* v,
+                                    const void* t, void* out, int bh, int T,
+                                    int hd, int splits, int chunk, int stage,
+                                    int slots, int cache_is_bf16,
+                                    void* stream) {
+  const Args a{q, k, v, nullptr, nullptr, static_cast<const int*>(t),
+               static_cast<float*>(out), bh, T, splits, chunk, stage, slots,
+               static_cast<cudaStream_t>(stream)};
+  return dispatch(cache_is_bf16 ? 1 : 0, hd, a, nullptr);
+}
+
+// The int8 cache: k, v int8 [bh, T, hd]; k_s, v_s f32 [bh, T]; the rest as
+// for sea_decode_attention.
 extern "C" int sea_decode_attention_q8(const void* q, const void* k,
                                        const void* v, const void* k_s,
                                        const void* v_s, const void* t,
-                                       void* part_ml, void* part_acc,
                                        void* out, int bh, int T, int hd,
-                                       int splits, int chunk, void* stream) {
-  const float* Q = static_cast<const float*>(q);
-  const int8_t* K = static_cast<const int8_t*>(k);
-  const int8_t* V = static_cast<const int8_t*>(v);
-  const float* KS = static_cast<const float*>(k_s);
-  const float* VS = static_cast<const float*>(v_s);
-  const int* tp = static_cast<const int*>(t);
-  float* ml = static_cast<float*>(part_ml);
-  float* acc = static_cast<float*>(part_acc);
-  float* o = static_cast<float*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 8:
-      return static_cast<int>(launch_q8<8>(Q, K, V, KS, VS, tp, ml, acc, o, bh,
-                                           T, splits, chunk, s));
-    case 16:
-      return static_cast<int>(launch_q8<16>(Q, K, V, KS, VS, tp, ml, acc, o,
-                                            bh, T, splits, chunk, s));
-    case 64:
-      return static_cast<int>(launch_q8<64>(Q, K, V, KS, VS, tp, ml, acc, o,
-                                            bh, T, splits, chunk, s));
-    case 128:
-      return static_cast<int>(launch_q8<128>(Q, K, V, KS, VS, tp, ml, acc, o,
-                                             bh, T, splits, chunk, s));
-    case 256:
-      return static_cast<int>(launch_q8<256>(Q, K, V, KS, VS, tp, ml, acc, o,
-                                             bh, T, splits, chunk, s));
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+                                       int splits, int chunk, int stage,
+                                       int slots, void* stream) {
+  const Args a{q, k, v, k_s, v_s, static_cast<const int*>(t),
+               static_cast<float*>(out), bh, T, splits, chunk, stage, slots,
+               static_cast<cudaStream_t>(stream)};
+  return dispatch(2, hd, a, nullptr);
 }
 
-// q: f32 [bh, hd]; k, v: [bh, T, hd] in the cache dtype (f32, or bf16 when
-// cache_is_bf16); t: one int32 on the device; part_ml: f32 [bh, splits, 2];
-// part_acc: f32 [bh, splits, hd]; out: f32 [bh, hd]. All contiguous and
-// 16-byte aligned. Requires splits * chunk >= T. Enqueues on `stream` and
-// returns cudaGetLastError() after the launches (0 on success).
-extern "C" int sea_decode_attention(const void* q, const void* k, const void* v,
-                                    const void* t, void* part_ml, void* part_acc,
-                                    void* out, int bh, int T, int hd, int splits,
-                                    int chunk, int cache_is_bf16, void* stream) {
-  const int* tp = static_cast<const int*>(t);
-  float* ml = static_cast<float*>(part_ml);
-  float* acc = static_cast<float*>(part_acc);
-  float* o = static_cast<float*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SEA_DECODE_CASE(DT, HD) \
-  case HD:                      \
-    return static_cast<int>(launch<DT, HD>(q, k, v, tp, ml, acc, o, bh, T, splits, chunk, s))
-  if (cache_is_bf16) {
-    switch (hd) {
-      SEA_DECODE_CASE(BF16, 8);
-      SEA_DECODE_CASE(BF16, 16);
-      SEA_DECODE_CASE(BF16, 64);
-      SEA_DECODE_CASE(BF16, 128);
-      SEA_DECODE_CASE(BF16, 256);
-    }
-  } else {
-    switch (hd) {
-      SEA_DECODE_CASE(F32, 8);
-      SEA_DECODE_CASE(F32, 16);
-      SEA_DECODE_CASE(F32, 64);
-      SEA_DECODE_CASE(F32, 128);
-      SEA_DECODE_CASE(F32, 256);
-    }
-  }
-#undef SEA_DECODE_CASE
-  return static_cast<int>(cudaErrorInvalidValue);
+// How many clusters of the plan (splits, chunk, stage, slots) the card
+// holds at once for cache kind 0 (f32), 1 (bf16) or 2 (int8) and head dim
+// hd (cudaOccupancyMaxActiveClusters on the current device); -1 if the
+// plan is refused or the query fails.
+extern "C" int sea_decode_cluster_slots(int kind, int hd, int T, int splits,
+                                        int chunk, int stage, int slots) {
+  const Args a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+               1, T, splits, chunk, stage, slots, nullptr};
+  int n = 0;
+  return dispatch(kind, hd, a, &n) == 0 ? n : -1;
 }

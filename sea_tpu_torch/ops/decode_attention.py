@@ -4,7 +4,10 @@
 ``sea_tpu_torch/csrc/decode_attention.cu``, which replaces the Pallas TPU
 kernel ``sea_tpu/ops/decode_attention.py::_decode_kernel``. For a tensor on
 the CPU it computes the plain PyTorch version, ``decode_attention_ref``;
-for a CUDA tensor it launches the kernel or raises.
+for a CUDA tensor it launches the kernel once or raises. The kernel splits
+each (b, h)'s keys over the blocks of a thread-block cluster and merges
+them there; its grid comes from ``decode_plan``, a pure function of T,
+B*H, hd, the cache dtype and the card (read once, ``device_plan``).
 
 Semantics (both versions): softmax(q . K[:t+1]^T / sqrt(hd)) . V[:t+1] for
 one query per (b, h) over a head-major [B, H, T, hd] f32 or bf16 cache, f32
@@ -21,6 +24,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -31,9 +35,68 @@ launches_q8 = 0
 
 # 8 and 16: the smoke presets (cylinder_flow_smoke).
 HEAD_DIMS = (8, 16, 64, 128, 256)
-# Fewest keys a split-K block takes: 4 warps x 4 keys.
+# The kernel's geometry (csrc/decode_attention.cu): at most 8 blocks a
+# cluster (kMaxCluster, the portable limit) split the keys of a (b, h),
+# none with fewer than 16 keys unless T is shorter; a block's shared
+# memory holds its whole chunk of keys (K and V rows, the int8 scales and a
+# score each) when that takes at most RING_BYTES, so that two blocks fit an
+# SM, else a ring of two stages of half that.
+MAX_CLUSTER = 8
 MIN_KEYS_PER_SPLIT = 16
-_SM_COUNT: dict = {}
+RING_BYTES = 104 * 1024
+_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+class DecodePlan(NamedTuple):
+    """splits blocks of a cluster, each taking chunk keys of a (b, h),
+    through a ring of ``slots`` (1 or 2) stages of ``stage`` keys."""
+    splits: int
+    chunk: int
+    stage: int
+    slots: int
+
+
+def key_bytes(hd: int, dtype) -> int:
+    """Shared memory a key takes in the kernel's ring: its K and V rows,
+    its two int8 scales and its score."""
+    return 2 * hd * dtype.itemsize + (8 if dtype == torch.int8 else 0) + 4
+
+
+def decode_plan(T: int, bh: int, hd: int, dtype, sm_count: int,
+                cluster_slots=None) -> DecodePlan:
+    """The kernel's grid for a [B*H = bh, T, hd] cache of ``dtype``: enough
+    (b, h, split) blocks for about two per SM, at most MAX_CLUSTER splits,
+    none shorter than MIN_KEYS_PER_SPLIT keys; the ring holds a whole
+    chunk when it fits in RING_BYTES, else two stages. Fixed by T, not by
+    the position, so every step of a rollout launches the same grid.
+    ``cluster_slots(plan)``, where given, is how many clusters of the plan
+    the card holds at once (``device_plan`` asks the card): the splits
+    shrink until all bh clusters run at once, or, where no plan does, to
+    the most that fit the card at all."""
+    row = key_bytes(hd, dtype)
+    want = max(1, math.ceil(2 * sm_count / bh))
+    plans = []
+    for splits in range(max(1, min(want, MAX_CLUSTER,
+                                   T // MIN_KEYS_PER_SPLIT)), 0, -1):
+        chunk = math.ceil(T / splits)
+        if math.ceil(T / chunk) != splits:
+            continue  # the same chunk as a smaller count
+        if chunk * row <= RING_BYTES:
+            plans.append(DecodePlan(splits, chunk, chunk, 1))
+        else:
+            plans.append(DecodePlan(splits, chunk,
+                                    RING_BYTES // (2 * row), 2))
+    if cluster_slots is None:
+        return plans[0]
+    slots = [cluster_slots(p) for p in plans]
+    for plan, n in zip(plans, slots):
+        if n >= bh:
+            return plan
+    for plan, n in zip(plans, slots):
+        if n >= 1:
+            return plan
+    raise RuntimeError(f"decode kernel: no cluster of {plans} fits the card "
+                       f"(T={T}, hd={hd}, {dtype})")
 
 
 def decode_attention_ref(q, cache_k, cache_v, t):
@@ -74,32 +137,44 @@ def decode_attention_q8_ref(q, cache_k, cache_v, k_scale, v_scale, t):
     return out / p.sum(dim=-1, keepdim=True)
 
 
-def split_plan(T: int, bh: int, sm_count: int):
-    """(splits, keys per split) for the split-K grid: enough (b, h, split)
-    blocks for about two per SM, none shorter than MIN_KEYS_PER_SPLIT
-    keys. Fixed by T, not by the position, so every step of a rollout
-    launches the same grid."""
-    want = max(1, math.ceil(2 * sm_count / bh))
-    splits = max(1, min(want, math.ceil(T / MIN_KEYS_PER_SPLIT)))
-    chunk = math.ceil(T / splits)
-    return math.ceil(T / chunk), chunk
-
-
 @functools.cache
 def _library():
-    """The C entry, built at first use. Every pointer and the stream are
+    """The C entries, built at first use. Every pointer and the stream are
     c_void_p: ctypes would otherwise pass a Python int as a 32-bit int."""
     from sea_tpu_torch.ops._build import load_library
     lib = load_library("decode_attention")
     fn = lib.sea_decode_attention
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                    + [ctypes.c_void_p])
     fn_q8 = lib.sea_decode_attention_q8
     fn_q8.restype = ctypes.c_int
-    fn_q8.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+    fn_q8.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
                       + [ctypes.c_void_p])
-    return fn, fn_q8
+    lib.sea_decode_cluster_slots.restype = ctypes.c_int
+    lib.sea_decode_cluster_slots.argtypes = [ctypes.c_int] * 7
+    return fn, fn_q8, lib.sea_decode_cluster_slots
+
+
+@functools.lru_cache(maxsize=None)
+def device_plan(T: int, bh: int, hd: int, dtype, dev) -> DecodePlan:
+    """The plan the kernel runs at on CUDA device ``dev``: decode_plan with
+    the device's SM count and its cluster occupancy
+    (cudaOccupancyMaxActiveClusters) of each candidate. Cached: the
+    rollout asks on every call."""
+    dev = torch.device(dev)
+    query = _library()[2]
+
+    def cluster_slots(plan):
+        with torch.cuda.device(dev):
+            n = query(_KIND[dtype], hd, T, *plan)
+        if n < 0:
+            raise RuntimeError(f"decode kernel: cluster occupancy query "
+                               f"failed on {dev} for {plan}")
+        return n
+
+    return decode_plan(T, bh, hd, dtype, torch.cuda.get_device_properties(
+        dev).multi_processor_count, cluster_slots)
 
 
 def _check(q, cache_k, cache_v, t, scales):
@@ -160,26 +235,19 @@ def decode_attention(q, cache_k, cache_v, t, *, k_scale=None, v_scale=None):
         raise ValueError(f"decode_attention runs on CPU or CUDA tensors, "
                          f"not {cache_k.device}")
     _check(q, cache_k, cache_v, t, scales)
-    fn, fn_q8 = _library()
+    fn, fn_q8, _ = _library()
     B, H, T, hd = cache_k.shape
     dev = cache_k.device
     if dev.index != torch.cuda.current_device():
         raise ValueError(f"cache on {dev}, but the current CUDA device is "
                          f"{torch.cuda.current_device()}: the kernel "
                          "launches on the current device")
-    if dev not in _SM_COUNT:
-        _SM_COUNT[dev] = torch.cuda.get_device_properties(
-            dev).multi_processor_count
-    splits, chunk = split_plan(T, B * H, _SM_COUNT[dev])
+    plan = device_plan(T, B * H, hd, cache_k.dtype, dev)
     q32 = q.float()
-    part_ml = torch.empty((B * H, splits, 2), dtype=torch.float32, device=dev)
-    part_acc = torch.empty((B * H, splits, hd), dtype=torch.float32,
-                           device=dev)
     out = torch.empty((B, H, hd), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = (q32.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr())
-    tail = (t.data_ptr(), part_ml.data_ptr(), part_acc.data_ptr(),
-            out.data_ptr(), B * H, T, hd, splits, chunk)
+    tail = (t.data_ptr(), out.data_ptr(), B * H, T, hd, *plan)
     global launches, launches_q8
     if scales:
         rc = fn_q8(*ptrs, k_scale.data_ptr(), v_scale.data_ptr(), *tail,

@@ -28,6 +28,7 @@ runs the kernel test (tests/conftest.py imports JAX).
 """
 
 import functools
+import inspect
 
 import numpy as np
 import pytest
@@ -117,36 +118,101 @@ def test_cpu_tensors_take_the_plain_version():
         DA.decode_attention(q.to("meta"), tK.to("meta"), tV.to("meta"), 7)
 
 
-@pytest.mark.parametrize("T_,bh,sms", [(250, 8, 132), (250, 64, 132),
-                                       (399, 16, 132), (1, 1, 132),
-                                       (17, 1000, 132)])
+PLAN_CASES = ([(250, 8, 132), (250, 64, 132), (399, 16, 132), (1, 1, 132),
+               (17, 1000, 132)]
+              + [(T_, bh, 132) for bh in (1, 8, 16, 64, 128)
+                 for T_ in (1, 2, 15, 16, 17, 42, 250, 399, 1000, 4096)])
+
+
+@pytest.mark.parametrize("T_,bh,sms", PLAN_CASES)
 def test_split_plan_covers_every_key(T_, bh, sms):
-    """The merge kernel assumes splits * chunk >= T with no empty split;
-    a split holds at least MIN_KEYS_PER_SPLIT keys unless T is shorter."""
-    splits, chunk = DA.split_plan(T_, bh, sms)
-    assert splits * chunk >= T_ > (splits - 1) * chunk
-    assert chunk >= min(T_, DA.MIN_KEYS_PER_SPLIT)
+    """The cluster plan: splits * chunk >= T with no empty split, at most
+    MAX_CLUSTER splits (the portable cluster size), a split holds at least
+    MIN_KEYS_PER_SPLIT keys unless T is shorter, and the ring holds a
+    whole chunk in one slot or streams it through two, within RING_BYTES.
+    The plan takes no position: every step of a rollout launches the same
+    grid."""
+    assert "t" not in inspect.signature(DA.decode_plan).parameters
+    for hd in DA.HEAD_DIMS:
+        for dtype in (torch.float32, torch.bfloat16, torch.int8):
+            plan = DA.decode_plan(T_, bh, hd, dtype, sms)
+            splits, chunk, stage, slots = plan
+            assert 1 <= splits <= DA.MAX_CLUSTER
+            assert splits * chunk >= T_ > (splits - 1) * chunk
+            assert chunk >= min(T_, DA.MIN_KEYS_PER_SPLIT)
+            row = DA.key_bytes(hd, dtype)
+            if slots == 1:
+                assert stage == chunk and chunk * row <= DA.RING_BYTES
+            else:
+                assert slots == 2 and 1 <= stage < chunk
+                assert 2 * stage * row <= DA.RING_BYTES < chunk * row
+            assert plan == DA.decode_plan(T_, bh, hd, dtype, sms)
+
+
+@pytest.mark.parametrize("limit", [1, 3, 7])
+def test_split_plan_shrinks_to_the_cards_clusters(limit):
+    """The plan asks the card how many of its clusters run at once
+    (cudaOccupancyMaxActiveClusters): the splits shrink until all B*H
+    clusters run in one wave; where none does, to the most splits that
+    fit at all; where nothing fits, it raises. Every plan still covers
+    every key."""
+    asked = []
+
+    def slots(plan):
+        asked.append(plan.splits)
+        return 100 if plan.splits <= limit else 0
+
+    plan = DA.decode_plan(250, 8, 256, torch.float32, 132, slots)
+    assert plan.splits == limit and asked[0] == DA.MAX_CLUSTER
+    assert plan.splits * plan.chunk >= 250 > (plan.splits - 1) * plan.chunk
+    # One wave: 64 clusters (5 splits wanted), of which the card holds
+    # 200 // splits.
+    plan = DA.decode_plan(250, 64, 256, torch.float32, 132,
+                          lambda p: 200 // p.splits)
+    assert plan.splits == 3
+    # No plan runs all 64 at once: the most splits that fit at all.
+    plan = DA.decode_plan(250, 64, 256, torch.float32, 132,
+                          lambda p: 10 if p.splits <= limit else 0)
+    assert plan.splits == min(limit, 5)
+    with pytest.raises(RuntimeError):
+        DA.decode_plan(250, 8, 256, torch.float32, 132, lambda p: 0)
+
+
+def _cuda_or_skip():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _plan_positions(T_, plan):
+    """t at 0 (only rank 0 has keys), either side of the split and stage
+    edges, the TPU kernel's 256-key block edge, and T-1."""
+    edges = {plan.chunk, 2 * plan.chunk, plan.stage, 2 * plan.stage, 256}
+    return sorted(({0, T_ - 1} | edges | {e - 1 for e in edges})
+                  & set(range(T_)))
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(1, 8, 250, 256), (8, 8, 250, 128),
                                    (2, 8, 399, 64), (2, 2, 42, 16),
-                                   (2, 2, 42, 8)])
+                                   (2, 2, 42, 8), (1, 8, 4096, 256)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_kernel_matches_ref(shape, dtype):
     """Runs on the card only (no CUDA here). Kernel against the plain
-    version at every position class, and with NaN past t."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    version at t = 0, the split and stage edges and T-1 (T = 4096 at hd
+    256 streams each chunk through the two-stage ring), and with NaN past
+    t."""
+    dev = _cuda_or_skip()
     Bq, Hq, Tq, hd = shape
     g = torch.Generator(device="cuda").manual_seed(0)
     tdt = getattr(torch, dtype)
     q = torch.randn(Bq, Hq, hd, device="cuda", generator=g)
     K = torch.randn(Bq, Hq, Tq, hd, device="cuda", generator=g).to(tdt)
     V = torch.randn(Bq, Hq, Tq, hd, device="cuda", generator=g).to(tdt)
-    chunk = DA.split_plan(Tq, Bq * Hq, torch.cuda.get_device_properties(
-        0).multi_processor_count)[1]
-    for t in sorted({0, chunk - 1, chunk, 255, Tq - 1} & set(range(Tq))):
+    plan = DA.device_plan(Tq, Bq * Hq, hd, tdt, dev)
+    if Tq == 4096:
+        assert plan.slots == 2
+    for t in _plan_positions(Tq, plan):
         tt = torch.tensor([t], dtype=torch.int32, device="cuda")
         got = DA.decode_attention(q, K, V, tt)
         want = DA.decode_attention_ref(q, K, V, tt)
@@ -156,6 +222,74 @@ def test_cuda_kernel_matches_ref(shape, dtype):
         Vp[:, :, t + 1:] = float("nan")
         torch.testing.assert_close(DA.decode_attention(q, Kp, Vp, tt), got,
                                    rtol=0, atol=0)
+
+
+def _forced_plan(monkeypatch, splits):
+    """Make the wrapper run `splits` blocks a cluster, whatever T."""
+    def plan(T_, bh, hd, dtype, dev):
+        chunk = -(-T_ // splits)
+        row = DA.key_bytes(hd, dtype)
+        if chunk * row <= DA.RING_BYTES:
+            return DA.DecodePlan(splits, chunk, chunk, 1)
+        return DA.DecodePlan(splits, chunk, DA.RING_BYTES // (2 * row), 2)
+    monkeypatch.setattr(DA, "device_plan", plan)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("splits", range(1, 9))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_cuda_every_cluster_size(monkeypatch, splits, dtype):
+    """Every cluster size the plan can give (1..8), at the rollout's
+    self-attention shape (1, 8, 250, 256): kernel against the plain
+    version at t = 0, at the last key of rank 0 and T-1."""
+    _cuda_or_skip()
+    _forced_plan(monkeypatch, splits)
+    g = torch.Generator(device="cuda").manual_seed(splits)
+    shape = (1, 8, 250, 256)
+    q = torch.randn(shape[0], shape[1], shape[3], device="cuda", generator=g)
+    if dtype == "int8":
+        K, V, ks, vs = _cuda_q8_cache(shape, g)
+        kw = dict(k_scale=ks, v_scale=vs)
+    else:
+        tdt = getattr(torch, dtype)
+        K = torch.randn(shape, device="cuda", generator=g).to(tdt)
+        V = torch.randn(shape, device="cuda", generator=g).to(tdt)
+        kw = {}
+    chunk = -(-shape[2] // splits)
+    for t in sorted({0, chunk - 1, chunk, shape[2] - 1}):
+        tt = torch.tensor([t], dtype=torch.int32, device="cuda")
+        got = DA.decode_attention(q, K, V, tt, **kw)
+        if dtype == "int8":
+            want = DA.decode_attention_q8_ref(q, K, V, ks, vs, tt)
+        else:
+            want = DA.decode_attention_ref(q, K, V, tt)
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=TOL["bfloat16" if dtype == "int8"
+                                            else dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 8, 250, 256), (8, 8, 250, 256),
+                                   (2, 2, 42, 8), (1, 8, 4096, 256)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_cuda_kernel_is_deterministic(shape, dtype):
+    """Two calls give the same bits: the cluster merges its ranks in rank
+    order and each block its key streams in stream order."""
+    _cuda_or_skip()
+    g = torch.Generator(device="cuda").manual_seed(2)
+    q = torch.randn(shape[0], shape[1], shape[3], device="cuda", generator=g)
+    if dtype == "int8":
+        K, V, ks, vs = _cuda_q8_cache(shape, g)
+        kw = dict(k_scale=ks, v_scale=vs)
+    else:
+        tdt = getattr(torch, dtype)
+        K = torch.randn(shape, device="cuda", generator=g).to(tdt)
+        V = torch.randn(shape, device="cuda", generator=g).to(tdt)
+        kw = {}
+    for t in (0, shape[2] // 2, shape[2] - 1):
+        tt = torch.tensor([t], dtype=torch.int32, device="cuda")
+        first = DA.decode_attention(q, K, V, tt, **kw)
+        assert torch.equal(first, DA.decode_attention(q, K, V, tt, **kw))
 
 
 # ---------------------------------------------------------------------------
@@ -288,27 +422,36 @@ def test_int8_cache_mha_steps_match_jax(monkeypatch):
             assert diff.max() <= 1 and (diff > 0).mean() < 0.01, name
 
 
+def _cuda_q8_cache(shape, g):
+    """Random int8 planes and small positive per-token scales on the
+    card."""
+    K = torch.randint(-127, 128, shape, device="cuda", generator=g,
+                      dtype=torch.int8)
+    V = torch.randint(-127, 128, shape, device="cuda", generator=g,
+                      dtype=torch.int8)
+    ks = torch.rand(shape[:3], device="cuda", generator=g) * 0.02
+    vs = torch.rand(shape[:3], device="cuda", generator=g) * 0.02
+    return K, V, ks, vs
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(1, 8, 250, 256), (8, 8, 250, 256),
                                    (8, 8, 250, 128), (2, 8, 399, 64),
-                                   (2, 2, 42, 16), (2, 2, 42, 8)])
+                                   (2, 2, 42, 16), (2, 2, 42, 8),
+                                   (1, 8, 4096, 256)])
 def test_cuda_q8_kernel_matches_ref(shape):
     """Runs on the card only. The int8 kernel against its plain version at
-    every position class; NaN scales past t must not change it."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    t = 0, the split and stage edges and T-1, and at odd t (at hd 8 a key
+    row is 8 bytes, so a block's copies start off 16 bytes); NaN scales
+    past t must not change it."""
+    dev = _cuda_or_skip()
     Bq, Hq, Tq, hd = shape
     g = torch.Generator(device="cuda").manual_seed(1)
     q = torch.randn(Bq, Hq, hd, device="cuda", generator=g)
-    K = torch.randint(-127, 128, (Bq, Hq, Tq, hd), device="cuda",
-                      generator=g, dtype=torch.int8)
-    V = torch.randint(-127, 128, (Bq, Hq, Tq, hd), device="cuda",
-                      generator=g, dtype=torch.int8)
-    ks = torch.rand(Bq, Hq, Tq, device="cuda", generator=g) * 0.02
-    vs = torch.rand(Bq, Hq, Tq, device="cuda", generator=g) * 0.02
-    chunk = DA.split_plan(Tq, Bq * Hq, torch.cuda.get_device_properties(
-        0).multi_processor_count)[1]
-    for t in sorted({0, chunk - 1, chunk, 255, 256, Tq - 1} & set(range(Tq))):
+    K, V, ks, vs = _cuda_q8_cache(shape, g)
+    plan = DA.device_plan(Tq, Bq * Hq, hd, torch.int8, dev)
+    odd = {1, 3, 17, 41} if hd == 8 else set()
+    for t in sorted(set(_plan_positions(Tq, plan)) | (odd & set(range(Tq)))):
         tt = torch.tensor([t], dtype=torch.int32, device="cuda")
         got = DA.decode_attention(q, K, V, tt, k_scale=ks, v_scale=vs)
         want = DA.decode_attention_q8_ref(q, K, V, ks, vs, tt)
