@@ -5,8 +5,8 @@ Run from the root of a checkout, on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It builds every hand-written kernel of the port from the sources in the
-checkout (the three CUDA sources with one nvcc each, started together;
-the Triton kernels at their first launch) and holds each against its
+checkout (the four CUDA sources with one nvcc each, started together)
+and holds each against its
 plain PyTorch version at the shapes its path gives it. Then it drives the
 port's paths at full width, each with the launch counts set to 0 just
 before and read just after:
@@ -125,8 +125,8 @@ FLASH_TOL = {"out": 2e-5, "grad": 5e-5}
 # (B, T, E) of the train step's AdaLN sites. (atol, rtol) per element,
 # |got - want| <= atol + rtol |want|: the bounds of
 # tests/test_fused_adaln.py (its output check keeps numpy's default rtol
-# 1e-7: outputs reach ~8, where an f32 ulp is ~1e-6, and the Triton and
-# PyTorch row normalisations round rsqrt differently).
+# 1e-7: outputs reach ~8, where an f32 ulp is ~1e-6, and the kernel's and
+# PyTorch's row normalisations round rsqrt differently).
 ADALN_SHAPES = [(2, 399, 1024), (2, 399, 512)]
 ADALN_TOL = {"out": (2e-6, 1e-7), "grad": (1e-4, 1e-4)}
 # Card vs CPU over one full-width train step from the same weights, batch
@@ -154,8 +154,7 @@ def log(msg):
 
 
 def phase_build():
-    """The three CUDA sources with one nvcc each, started together; then
-    the Triton kernels, compiled at their first launch."""
+    """The four CUDA sources with one nvcc each, started together."""
     from sea_tpu_torch.ops import _build
     from sea_tpu_torch.ops import decode_attention as DA
     from sea_tpu_torch.ops import flash_attention as FA
@@ -166,17 +165,23 @@ def phase_build():
                          text=True, check=True, timeout=60)
     log(smi.stdout.strip())
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        for future in [pool.submit(lib._library) for lib in (DA, FA, QM)]:
+    with ThreadPoolExecutor(4) as pool:
+        for future in [pool.submit(lib._library)
+                       for lib in (DA, FA, FAL, QM)]:
             future.result()
-    log(f"[build] decode_attention.cu, flash_attention.cu, quant_matmul.cu "
-        f"-> {_build.BUILD_DIR} in {time.perf_counter() - t0:.2f} s")
-    # Registers and static shared memory of the int4 kernel and the flash
-    # backward kernels (their tiles are dynamic shared memory), and the
+    log(f"[build] decode_attention.cu, flash_attention.cu, fused_adaln.cu, "
+        f"quant_matmul.cu -> {_build.BUILD_DIR} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    # Registers and static shared memory of the int4 kernel, the flash
+    # backward kernels (their tiles are dynamic shared memory) and the
+    # AdaLN kernels at the train step's f32 layouts (16-byte vectors, 32
+    # and 16 elements a thread: E = 1024 and 512), and the flash
     # backward's SASS counts: its products are tensor-core mma.sync (HMMA),
     # not f32 FMAs (FFMA).
     for name, kernels in (("quant_matmul", ("",)),
-                          ("flash_attention", ("dq_kernel", "dkv_kernel"))):
+                          ("flash_attention", ("dq_kernel", "dkv_kernel")),
+                          ("fused_adaln", ("3F32ELi4ELi32E",
+                                           "3F32ELi4ELi16E"))):
         lib = _build.load_library(name)._name
         keep = False
         for line in _cuobjdump("--dump-resource-usage", lib):
@@ -189,15 +194,6 @@ def phase_build():
             for fn, counts in _sass_counts(lib, kernels).items():
                 log(f"[build] flash_attention.cu SASS {fn}: "
                     + ", ".join(f"{k} {v}" for k, v in counts.items()))
-    t0 = time.perf_counter()
-    x = torch.randn(2, 8, 1024, device="cuda")
-    cw = torch.randn(2, 1, 1024, device="cuda")
-    w = torch.ones(1024, device="cuda")
-    FAL.adaln_fwd(x, cw, cw, w, w)
-    FAL.adaln_bwd(x, cw, x, w)
-    torch.cuda.synchronize()
-    log(f"[build] fused_adaln Triton kernels compiled and launched in "
-        f"{time.perf_counter() - t0:.2f} s")
 
 
 def _cuobjdump(*args):
@@ -982,15 +978,24 @@ def _within(got, want, tol):
 
 def phase_adaln_check():
     """The fused AdaLN kernels against their plain versions: the output,
-    dx/dgw/dgb of the backward kernel, and all five gradients through the
-    autograd wrapper."""
+    the backward kernel's five outputs (dx, dcw, dcb, dw, db), and all
+    five gradients through the autograd wrapper; a second call of each
+    kernel gives the same bits, and each call is one device kernel
+    (torch.profiler)."""
     from sea_tpu_torch.ops import fused_adaln as FAL
     worst = {"adaln_fwd": 0.0, "adaln_bwd": 0.0}
     for shape in ADALN_SHAPES:
         x, cw, cb, w, b, gy = _adaln_inputs(shape)
-        pairs = {"adaln_fwd": [(FAL.adaln_fwd(x, cw, cb, w, b),
+        first = [FAL.adaln_fwd(x, cw, cb, w, b),
+                 *FAL.adaln_bwd(x, cw, gy, w)]
+        again = [FAL.adaln_fwd(x, cw, cb, w, b),
+                 *FAL.adaln_bwd(x, cw, gy, w)]
+        if not all(torch.equal(a, r) for a, r in zip(first, again)):
+            raise AssertionError(f"fused AdaLN {shape}: a second call gave "
+                                 "other bits")
+        pairs = {"adaln_fwd": [(first[0],
                                 FAL.adaln_modulate_ref(x, cw, cb, w, b))],
-                 "adaln_bwd": list(zip(FAL.adaln_bwd(x, cw, gy, w),
+                 "adaln_bwd": list(zip(first[1:],
                                        FAL.adaln_bwd_ref(x, cw, gy, w)))}
         grads = []
         for fn in (FAL.fused_adaln_modulate, FAL.adaln_modulate_ref):
@@ -1008,10 +1013,16 @@ def phase_adaln_check():
                                      f"{max(_err(a, r) for a, r in cases)}")
             errs[name] = max(_err(a, r) for a, r in cases)
             worst[name] = max(worst[name], errs[name])
+        names = [_one_kernel_a_call(lambda: FAL.adaln_fwd(x, cw, cb, w, b),
+                                    f"adaln_fwd {shape}"),
+                 _one_kernel_a_call(lambda: FAL.adaln_bwd(x, cw, gy, w),
+                                    f"adaln_bwd {shape}")]
         log(f"[kernel] fused AdaLN (B,T,E)={shape}: max abs err fwd "
             f"{errs['adaln_fwd']:.3g} within (atol, rtol) "
-            f"{ADALN_TOL['out']}, bwd {errs['adaln_bwd']:.3g} within "
-            f"{ADALN_TOL['grad']}")
+            f"{ADALN_TOL['out']}, bwd (dx, dcw, dcb, dw, db, and the five "
+            f"gradients through autograd) {errs['adaln_bwd']:.3g} within "
+            f"{ADALN_TOL['grad']}; a second call bit-equal; one device "
+            f"kernel a call {names}")
     return worst
 
 
@@ -1384,7 +1395,8 @@ def phase_time_adaln():
                           8 * B * T * E),
             "adaln_bwd": (lambda: FAL.adaln_bwd(x, cw, gy, w),
                           lambda: FAL.adaln_bwd_ref(x, cw, gy, w),
-                          3 * row + 3 * B * E * 4 + E * 4, 16 * B * T * E)}
+                          3 * row + 3 * B * E * 4 + 3 * E * 4,
+                          16 * B * T * E)}
         for name, (kernel, plain, nbytes, flops) in pieces.items():
             ms, plain_ms, runs = _kernel_vs_plain(kernel, plain, flush)
             bound, bound_by = _bound_ms(nbytes, flops)
@@ -1515,9 +1527,9 @@ KERNELS = [  # name, route, source, the TPU kernel it replaces
      "sea_tpu/ops/flash_attention.py:608"),
     ("int4_matvec", "cuda", "sea_tpu_torch/csrc/quant_matmul.cu",
      "sea_tpu/ops/quant_matmul.py:104"),
-    ("adaln_fwd", "triton", "sea_tpu_torch/ops/fused_adaln.py",
+    ("adaln_fwd", "cuda", "sea_tpu_torch/csrc/fused_adaln.cu",
      "sea_tpu/ops/fused_adaln.py:46"),
-    ("adaln_bwd", "triton", "sea_tpu_torch/ops/fused_adaln.py",
+    ("adaln_bwd", "cuda", "sea_tpu_torch/csrc/fused_adaln.cu",
      "sea_tpu/ops/fused_adaln.py:62"),
 ]
 

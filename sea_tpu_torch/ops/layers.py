@@ -148,8 +148,8 @@ def adaln_modulate(params, x, cw, cb, eps: float = LN_EPS):
     """The x half of AdaLN: normalize, then apply (base + cond) scale and
     shift. Where the JAX package takes its fused Pallas kernel — x
     [B, T, E] with time-constant cond cw/cb [B, 1, E], the teacher-forced
-    training shape — this takes ``ops.fused_adaln`` (the Triton kernels on
-    a CUDA tensor). Everything else, such as the 2-D rollout step, is the
+    training shape — this takes ``ops.fused_adaln`` (the CUDA kernels of
+    ``csrc/fused_adaln.cu`` on a CUDA tensor). Everything else, such as the 2-D rollout step, is the
     plain formula, as in the JAX package."""
     if fused_adaln.fused_supported(x, cw, cb):
         return fused_adaln.fused_adaln_modulate(x, cw, cb, params["w"],
