@@ -1,6 +1,6 @@
 """Time two or more checkouts of this repo on one card, in turn.
 
-    python3 chip_ab.py ROOT [ROOT ...]
+    python3 chip_ab.py [--kernels] ROOT [ROOT ...]
 
 Each ROOT is a checkout that holds ``chip_smoke.py`` and ``sea_tpu_torch/``
 (for instance a parent commit unpacked with ``git archive`` into
@@ -18,6 +18,12 @@ rates move between machines more than between versions, so compare
 versions only within one run of this script, and give the roots as
 A B B A to see the drift within it. Each output line is printed behind
 its root's index and path. Exits 1 if any run failed.
+
+With ``--kernels`` each root's process instead builds that checkout's
+flash-attention source, prints the registers, stack and local memory of
+its f32 kernels (``[ab-regs]``, from ``cuobjdump``), and runs its
+``chip_smoke.py`` ``phase_time_flash()``: the f32 forward, dQ and dK/dV
+``[kernel-time]`` lines, kernel against kernel across the roots.
 """
 
 import subprocess
@@ -51,7 +57,33 @@ cs.phase_rollout_reduced(case, serve_np)
 """
 
 
-def main(roots):
+_KERNELS_CHILD = """
+import sys
+from pathlib import Path
+import torch
+root = Path(sys.argv[1])
+sys.path.insert(0, str(root))
+import chip_smoke as cs
+from sea_tpu_torch.ops import _build
+from sea_tpu_torch.ops import flash_attention as FA
+torch.backends.cuda.matmul.allow_tf32 = False
+FA._library()
+fn = None
+for line in cs._cuobjdump("--dump-resource-usage",
+                          _build.load_library("flash_attention")._name):
+    if "Function" in line:
+        fn = line.split("Function", 1)[1].strip(" :")
+    elif "REG:" in line and fn and "_bf16" not in fn:
+        print("[ab-regs]", fn, " ".join(
+            w for w in line.split() if w.startswith(("REG", "STACK",
+                                                     "LOCAL"))))
+cs.phase_time_flash()
+"""
+
+
+def main(argv):
+    kernels = argv[:1] == ["--kernels"]
+    roots = argv[1:] if kernels else argv
     if not roots:
         sys.exit(__doc__)
     print(subprocess.run(
@@ -62,8 +94,9 @@ def main(roots):
     for i, root in enumerate(roots):
         root = Path(root).resolve()
         proc = subprocess.run(
-            [sys.executable, "-c", _CHILD, str(root),
-             str(Path(__file__).resolve().parent / "chip_smoke.py")],
+            [sys.executable, "-c", _KERNELS_CHILD if kernels else _CHILD,
+             str(root), str(Path(__file__).resolve().parent /
+                            "chip_smoke.py")],
             cwd=root, capture_output=True, text=True)
         for line in (proc.stdout + proc.stderr).splitlines():
             print(f"[{i} {root.name}] {line}", flush=True)

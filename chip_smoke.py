@@ -29,6 +29,11 @@ before and read just after:
   equal the model's count per step; compares one full-recipe step at
   B=2, T=399 on the card with the same step on the CPU; and times that
   step (median over 25 steps, peak memory, a torch.profiler pass).
+- bf16 training: the same, with `--compute_dtype bf16_shadow
+  --adam_mu_dtype bf16`: every train step through the bf16 flash kernels
+  and the AdaLN kernels on bf16, the evaluation through the f32 ones,
+  each count exact; the checkpoint's shadow is the bf16 cast of its
+  parameters; one step on the card against the CPU within bf16 noise.
 
 Last, every kernel is timed against its plain version, its bound and,
 where one PyTorch call computes the same function, that call. Any failure
@@ -122,6 +127,12 @@ FLASH_SEED = (123456789, -987654321)
 # A dropout bit the kernel and the plain version disagree on is off by
 # about |v| / (1 - rate), far outside them.
 FLASH_TOL = {"out": 2e-5, "grad": 5e-5}
+# bf16 kernels vs their plain versions: rel x max|ref| + the f32 bound
+# above (tests/test_torch_flash_attention.py's note: one bf16 ulp of the
+# largest value for o, a binade more for the gradients, whose rounded
+# terms are summed; the kernels round p under their key tiles' running
+# max, the plain version under the row's max).
+FLASH_BF16_REL = {"out": 2.0 ** -7, "grad": 2.0 ** -6}
 # (B, T, E) of the train step's AdaLN sites. (atol, rtol) per element,
 # |got - want| <= atol + rtol |want|: the bounds of
 # tests/test_fused_adaln.py (its output check keeps numpy's default rtol
@@ -137,6 +148,20 @@ ADALN_TOL = {"out": (2e-6, 1e-7), "grad": (1e-4, 1e-4)}
 # near eps: held to a tenth of lr = 1e-4.
 STEP_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "params": 1e-5}
 TRAIN_TIMED_STEPS = 25
+# The bf16 recipe (CLI flags, TrainConfig fields). Card vs CPU, one step:
+# the two round to bf16 at other points (the kernels under their tiles'
+# running max, cuBLAS's bf16 products), so the loss and grad norm are held
+# within BF16_NOISE times the other side's distance to the f32 step's
+# (tests/test_torch_train.py holds the port to JAX so), plus STEP_TOL; a
+# parameter to STEP_TOL["params"] + lr |u(g_card) - u(g_cpu)|, the two
+# sides' first AdamW updates u(g) = g / (|g| + eps) from their own
+# gradients (read from nu and the sign of mu): the first step moves each
+# parameter by -lr u, so only gradients near eps or of opposite sign may
+# move it apart.
+BF16_FLAGS = ["--compute_dtype", "bf16_shadow", "--adam_mu_dtype", "bf16"]
+BF16_RECIPE = {"compute_dtype": "bfloat16_shadow",
+               "adam_mu_dtype": "bfloat16"}
+BF16_NOISE = 4.0
 # NVIDIA H100 SXM data sheet (dense rates): HBM rate, the f32 rate outside
 # the tensor cores and the bf16 tensor-core rate. A bound takes the peak of
 # its operands' type, whatever units the kernel itself runs them on. f32
@@ -959,6 +984,81 @@ def phase_flash_check():
     return worst
 
 
+def _bf16_err(got, want, rel, atol):
+    """(max abs err, its bound rel x max|want| + atol), bf16 read as f32."""
+    if got.dtype != want.dtype:
+        raise AssertionError(f"dtype {got.dtype}, plain {want.dtype}")
+    return (_err(got.float(), want.float()),
+            rel * want.float().abs().max().item() + atol)
+
+
+def phase_flash_check_bf16():
+    """The bf16 forms against their plain versions at FLASH_SHAPES (hd 8,
+    16, 64, 128 and 256, square and ragged), dropout 0 and 0.1: each
+    kernel alone and the autograd wrapper against autograd through the
+    plain version (its bf16 pieces); a second backward call gives the
+    same bits."""
+    from sea_tpu_torch.ops import flash_attention as FA
+    names = ("flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16")
+    worst = dict.fromkeys(names, 0.0)
+    for shape in FLASH_SHAPES:
+        for rate in (0.0, 0.1):
+            q, k, v, g = (x.to(torch.bfloat16) for x in _flash_inputs(shape))
+            kw = _flash_kw(shape, rate)
+            o, lse = FA.flash_fwd(q, k, v, **kw)
+            o_ref, lse_ref = FA.flash_forward_ref(q, k, v, **kw)
+            dsum = FA.row_dot(g, o_ref)
+            bwd = [(FA.flash_bwd_dq(q, k, v, g, lse_ref, dsum, **kw),
+                    *FA.flash_bwd_dkv(q, k, v, g, lse_ref, dsum, **kw))
+                   for _ in range(2)]
+            ref = (FA.flash_bwd_dq_ref(q, k, v, g, lse_ref, dsum, **kw),
+                   *FA.flash_bwd_dkv_ref(q, k, v, g, lse_ref, dsum, **kw))
+            grads = []
+            for fn in (FA.flash_attention, FA.flash_attention_ref):
+                tq, tk, tv = (x.clone().requires_grad_(True)
+                              for x in (q, k, v))
+                out = fn(tq, tk, tv, **kw)
+                out.backward(g)
+                grads.append((out.detach(), tq.grad, tk.grad, tv.grad))
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(*bwd)):
+                raise AssertionError(f"bf16 flash backward {shape} "
+                                     f"rate={rate}: a second call gave "
+                                     "other bits")
+            out_tol = (FLASH_BF16_REL["out"], FLASH_TOL["out"])
+            grad_tol = (FLASH_BF16_REL["grad"], FLASH_TOL["grad"])
+            pairs = {names[0]: [(o, o_ref, out_tol),
+                                (grads[0][0], grads[1][0], out_tol)],
+                     names[1]: [(bwd[0][0], ref[0], grad_tol),
+                                (grads[0][1], grads[1][1], grad_tol)],
+                     names[2]: [(bwd[0][1], ref[1], grad_tol),
+                                (bwd[0][2], ref[2], grad_tol),
+                                (grads[0][2], grads[1][2], grad_tol),
+                                (grads[0][3], grads[1][3], grad_tol)]}
+            lse_err = _err(lse, lse_ref)
+            if not lse_err <= 1e-5:
+                raise AssertionError(f"bf16 flash lse {shape} rate={rate}: "
+                                     f"max abs err {lse_err} > 1e-5")
+            line = []
+            for name, cases in pairs.items():
+                errs = [_bf16_err(a, b, *tol) for a, b, tol in cases]
+                for err, bound in errs:
+                    if not err <= bound:
+                        raise AssertionError(
+                            f"{name} {shape} rate={rate}: max abs err {err} "
+                            f"> {bound}")
+                worst[name] = max(worst[name], *(e for e, _ in errs))
+                line.append(f"{name} {max(e for e, _ in errs):.3g} <= "
+                            f"{min(b for _, b in errs):.3g}")
+            log(f"[kernel] flash bf16 (B,Tq,Tk,H,hd,src_len)={shape} "
+                f"dropout={rate}: max abs err {', '.join(line)} (bounds "
+                f"{FLASH_BF16_REL['out']:.3g} / {FLASH_BF16_REL['grad']:.3g}"
+                f" x max|ref| + {FLASH_TOL['out']} / {FLASH_TOL['grad']}); "
+                f"lse {lse_err:.3g} <= 1e-5; a second backward call "
+                "bit-equal")
+    return worst
+
+
 def _adaln_inputs(shape, seed=0):
     B, T, E = shape
     g = torch.Generator(device="cuda").manual_seed(seed + E)
@@ -1034,8 +1134,13 @@ def _launch_counts():
     return {"decode_attention": DA.launches, "decode_q8": DA.launches_q8,
             "flash_fwd": FA.fwd_launches, "flash_bwd_dq": FA.dq_launches,
             "flash_bwd_dkv": FA.dkv_launches,
+            "flash_fwd_bf16": FA.fwd_launches_bf16,
+            "flash_bwd_dq_bf16": FA.dq_launches_bf16,
+            "flash_bwd_dkv_bf16": FA.dkv_launches_bf16,
             "dropout_mask": FA.mask_launches, "int4_matvec": QM.launches,
-            "adaln_fwd": FAL.fwd_launches, "adaln_bwd": FAL.bwd_launches}
+            "adaln_fwd": FAL.fwd_launches, "adaln_bwd": FAL.bwd_launches,
+            "adaln_fwd_bf16": FAL.fwd_launches_bf16,
+            "adaln_bwd_bf16": FAL.bwd_launches_bf16}
 
 
 def _reset_launch_counts():
@@ -1045,9 +1150,11 @@ def _reset_launch_counts():
     from sea_tpu_torch.ops import quant_matmul as QM
     DA.launches = DA.launches_q8 = 0
     FA.fwd_launches = FA.dq_launches = FA.dkv_launches = 0
+    FA.fwd_launches_bf16 = FA.dq_launches_bf16 = FA.dkv_launches_bf16 = 0
     FA.mask_launches = 0
     QM.launches = 0
     FAL.fwd_launches = FAL.bwd_launches = 0
+    FAL.fwd_launches_bf16 = FAL.bwd_launches_bf16 = 0
 
 
 def _train_schedule(case):
@@ -1081,12 +1188,16 @@ def _train_schedule(case):
     return steps, evals
 
 
-def phase_train(case, save_dir):
+def phase_train(case, save_dir, bf16=False):
     """`temporal train` through the port's CLI on the card. Per train step
     the G=2, one-layer model runs L*G^2 = 4 attentions (2 self, 2
     exchange) and L*(2G + G^2) + G = 10 AdaLN sites (ln_exp[i][0] x2,
     ln_cross x4, ln_exp[i][2] x2, ln_final x2), each forward and backward;
-    an evaluation forward runs the forwards only."""
+    an evaluation forward runs the forwards only. With bf16, the
+    BF16_FLAGS recipe: a train step runs the bf16 flash kernels and the
+    AdaLN kernels on bf16 x, an evaluation forward the f32 ones (f32 on
+    the master weights), and the checkpoint's shadow is the bf16 cast of
+    its parameters."""
     from sea_tpu_torch import cli
     from sea_tpu_torch.models.temporal import init_temporal
     from sea_tpu_torch.train.optim import make_optimizer
@@ -1094,6 +1205,9 @@ def phase_train(case, save_dir):
                                                 load_full_checkpoint)
     from sea_tpu_torch.utils.params import (opt_state_to_numpy, to_numpy,
                                             tree_leaves)
+    label = "[train-bf16]" if bf16 else "[train]"
+    tcfg = (dataclasses.replace(case.temporal_train, **BF16_RECIPE) if bf16
+            else case.temporal_train)
     cfg = case.temporal
     G, nl = cfg.num_fields, cfg.num_layers
     attn, norms = nl * G * G, nl * (2 * G + G * G) + G
@@ -1102,18 +1216,28 @@ def phase_train(case, save_dir):
     t0 = time.perf_counter()
     params = cli.main([TRAIN_CASE, "temporal", "train", "--synthetic",
                        "--epochs", str(TRAIN_EPOCHS), "--save_dir", save_dir,
-                       "--device", "cuda"])
+                       "--device", "cuda"] + (BF16_FLAGS if bf16 else []))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = _launch_counts()
     expected = {name: 0 for name in launches}
-    expected.update({"flash_fwd": attn * (steps + evals),
-                     "flash_bwd_dq": attn * steps,
-                     "flash_bwd_dkv": attn * steps,
-                     "adaln_fwd": norms * (steps + evals),
-                     "adaln_bwd": norms * steps})
+    if bf16:
+        expected.update({"flash_fwd_bf16": attn * steps,
+                         "flash_bwd_dq_bf16": attn * steps,
+                         "flash_bwd_dkv_bf16": attn * steps,
+                         "flash_fwd": attn * evals,
+                         "adaln_fwd": norms * (steps + evals),
+                         "adaln_bwd": norms * steps,
+                         "adaln_fwd_bf16": norms * steps,
+                         "adaln_bwd_bf16": norms * steps})
+    else:
+        expected.update({"flash_fwd": attn * (steps + evals),
+                         "flash_bwd_dq": attn * steps,
+                         "flash_bwd_dkv": attn * steps,
+                         "adaln_fwd": norms * (steps + evals),
+                         "adaln_bwd": norms * steps})
     if launches != expected:
-        raise AssertionError(f"train launches {launches}, expected "
+        raise AssertionError(f"{label} launches {launches}, expected "
                              f"{expected}")
     with open(Path(save_dir) / f"{TRAIN_CASE}_temporal_train_metrics.csv",
               newline="") as fh:
@@ -1131,30 +1255,40 @@ def phase_train(case, save_dir):
                            case.run.run_name)
     template = init_temporal(cfg, torch.Generator().manual_seed(0),
                              device="cpu")
-    opt_template = opt_state_to_numpy(
-        make_optimizer(case.temporal_train).init(template))
+    opt_template = opt_state_to_numpy(make_optimizer(tcfg).init(template))
     loaded, opt, meta = load_full_checkpoint(path, to_numpy(template),
                                              opt_template)
-    if opt is None or int(opt[0].count) != steps \
+    adam = None if opt is None else (opt.inner if bf16 else opt)[0]
+    if adam is None or int(adam.count) != steps \
             or int(meta["epoch"]) != TRAIN_EPOCHS:
         raise AssertionError(f"checkpoint {path}: opt count "
-                             f"{None if opt is None else opt[0].count}, "
+                             f"{None if adam is None else adam.count}, "
                              f"meta {meta}")
     if not all(np.array_equal(a, b) for a, b in
                zip(tree_leaves(loaded), tree_leaves(params))):
         raise AssertionError("the checkpoint's params differ from the "
                              "returned best params")
-    log(f"[train] {TRAIN_CASE} temporal train --synthetic --epochs "
-        f"{TRAIN_EPOCHS}: {steps} steps + {evals} evaluation forwards in "
+    if bf16 and not all(
+            np.array_equal(sh, torch.from_numpy(p).bfloat16().float().numpy())
+            for sh, p in zip(tree_leaves(opt.shadow), tree_leaves(loaded))):
+        raise AssertionError("the checkpoint's shadow is not the bf16 cast "
+                             "of its params")
+    per_step = (f"per step {attn} attentions x bf16 (fwd, dq, dkv) and "
+                f"{norms} AdaLN sites x (fwd, bwd) on bf16" if bf16 else
+                f"per step {attn} attentions x (fwd, dq, dkv) and {norms} "
+                f"AdaLN sites x (fwd, bwd)")
+    log(f"{label} {TRAIN_CASE} temporal train --synthetic --epochs "
+        f"{TRAIN_EPOCHS}{' ' + ' '.join(BF16_FLAGS) if bf16 else ''}: "
+        f"{steps} steps + {evals} evaluation forwards in "
         f"{seconds:.2f} s (data, encode, init, train, validate, save); "
         f"losses {[logged[('train', e, 'Loss')] for e in range(1, TRAIN_EPOCHS + 1)]}, "
         f"grad norms "
         f"{[logged[('train', e, 'Grad_Norm')] for e in range(1, TRAIN_EPOCHS + 1)]}, "
         f"val loss {logged[('val', TRAIN_EPOCHS, 'Loss')]}; checkpoint "
-        f"{Path(path).name} read back (count {int(opt[0].count)}); "
-        f"launches {launches} = per step {attn} attentions x (fwd, dq, "
-        f"dkv) and {norms} AdaLN sites x (fwd, bwd), per evaluation "
-        f"forward {attn} + {norms} forwards")
+        f"{Path(path).name} read back (count {int(adam.count)}"
+        f"{'; shadow = bf16(params)' if bf16 else ''}); launches "
+        f"{launches} = {per_step}, per evaluation forward {attn} + {norms} "
+        f"f32 forwards")
     return launches
 
 
@@ -1167,22 +1301,26 @@ def _step_batch(cfg, B=2, T=399, seed=0):
     return x, tgt, ib
 
 
-def _step_fn(case, params_np, device):
+def _step_fn(case, params_np, device, recipe=None):
     """A full-recipe train step of the case on device: time-constant ib
-    (as the driver detects on the data), dropout on, AdamW."""
+    (as the driver detects on the data), dropout on, AdamW; ``recipe``
+    (BF16_RECIPE) overrides the TrainConfig's numerics."""
     from sea_tpu_torch.train.optim import make_optimizer
     from sea_tpu_torch.train.train_temporal import make_train_step
     from sea_tpu_torch.utils.params import from_numpy
     cfg = dataclasses.replace(case.temporal, ib_time_constant=True)
-    tx = make_optimizer(case.temporal_train)
+    tcfg = dataclasses.replace(case.temporal_train, **(recipe or {}))
+    tx = make_optimizer(tcfg)
     params = from_numpy(params_np, device)
     state = tx.init(params)
-    step = make_train_step(cfg, tx)
+    step = make_train_step(cfg, tx, compute_dtype=tcfg.compute_dtype)
     batch = [torch.from_numpy(a).to(device) for a in _step_batch(cfg)]
     return cfg, step, params, state, batch
 
 
 def phase_train_card_vs_cpu(case, params_np):
+    """One full-width f32 step on the card and on the CPU; returns the
+    card's stats (the bf16 check's reference)."""
     from sea_tpu_torch.utils.params import to_numpy, tree_leaves
     from sea_tpu_torch.utils.prng import fold_in, prng_key
     key = fold_in(prng_key(0), 1)
@@ -1214,16 +1352,90 @@ def phase_train_card_vs_cpu(case, params_np):
         f"{STEP_TOL['grad_norm']}), updated params max abs err "
         f"{p_err:.3g} <= {STEP_TOL['params']} (largest move {moved:.3g}); "
         f"CPU step {cpu_s:.1f} s")
+    return sc
 
 
-def phase_train_time(case, params_np):
+def _first_step_grads(state, b2):
+    """[f64 gradient a leaf] of a first AdamW step's state: sign(mu)
+    sqrt(nu / (1 - b2)), exact in f32 whatever mu's dtype."""
+    from sea_tpu_torch.utils.params import tree_leaves
+    adam = (state.inner if hasattr(state, "inner") else state)[0]
+    return [np.sign(m.float().cpu().numpy()) * np.sqrt(
+        n.cpu().numpy().astype(np.float64) / (1 - b2))
+        for m, n in zip(tree_leaves(adam.mu), tree_leaves(adam.nu))]
+
+
+def phase_train_card_vs_cpu_bf16(case, params_np, f32_stats):
+    """One full-width step of the bf16 recipe on the card and on the CPU
+    from the same weights, batch and key, held by BF16_NOISE and the
+    first-step parameter bound (see BF16_NOISE); the card's shadow is the
+    bf16 cast of its updated parameters bit for bit."""
+    from sea_tpu_torch.utils.params import tree_leaves
+    from sea_tpu_torch.utils.prng import fold_in, prng_key
+    key = fold_in(prng_key(0), 1)
+    tcfg = case.temporal_train
+    out = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        _, step, params, state, batch = _step_fn(case, params_np, device,
+                                                 BF16_RECIPE)
+        params, state, stats = step(params, state, *batch, key)
+        shadow_ok = all(torch.equal(sh, p.to(torch.bfloat16)) for sh, p in
+                        zip(tree_leaves(state.shadow), tree_leaves(params)))
+        out[device] = ([p.cpu().numpy() for p in tree_leaves(params)],
+                       {k: float(v) for k, v in stats.items()},
+                       _first_step_grads(state, tcfg.betas[1]), shadow_ok,
+                       time.perf_counter() - t0)
+    (pc, sc, gc, shadow_ok, _), (pp, sp, gp, _, cpu_s) = (out["cuda"],
+                                                        out["cpu"])
+    errs = {}
+    for k in ("loss", "grad_norm"):
+        dc, dp = abs(sc[k] - f32_stats[k]), abs(sp[k] - f32_stats[k])
+        tol = STEP_TOL[k] * abs(f32_stats[k])
+        errs[k] = (dc, dp)
+        if not (np.isfinite(sc[k]) and dc <= BF16_NOISE * dp + tol
+                and dp <= BF16_NOISE * dc + tol):
+            raise AssertionError(f"bf16 card vs CPU {k}: card {sc[k]}, CPU "
+                                 f"{sp[k]}, f32 {f32_stats[k]}")
+    lr, eps = tcfg.learning_rate, tcfg.eps
+    worst, near = 0.0, 0
+    for a, b, g_c, g_p in zip(pc, pp, gc, gp):
+        du = np.abs(g_c / (np.abs(g_c) + eps) - g_p / (np.abs(g_p) + eps))
+        diff = np.abs(a.astype(np.float64) - b)
+        excess = diff - (STEP_TOL["params"] + lr * du)
+        if (excess > 0).any():
+            raise AssertionError(f"bf16 card vs CPU params: off by "
+                                 f"{diff.max():.3g}, past the bound by "
+                                 f"{excess.max():.3g}")
+        worst = max(worst, float(diff.max()))
+        near += int((du > 0.1).sum())
+    if not shadow_ok:
+        raise AssertionError("bf16 card step: the shadow is not the bf16 "
+                             "cast of the updated params")
+    log(f"[train-bf16-card-vs-cpu] one {TRAIN_CASE} step "
+        f"{' '.join(BF16_FLAGS)}, B=2, T=399, dropout "
+        f"{case.temporal.dropout}: loss {sc['loss']:.7g} vs "
+        f"{sp['loss']:.7g} (f32 step {f32_stats['loss']:.7g}; distances "
+        f"{errs['loss'][0]:.3g} / {errs['loss'][1]:.3g}, each <= "
+        f"{BF16_NOISE} x the other + {STEP_TOL['loss']} rel), grad_norm "
+        f"{sc['grad_norm']:.7g} vs {sp['grad_norm']:.7g} (f32 "
+        f"{f32_stats['grad_norm']:.7g}); params max abs err {worst:.3g}, "
+        f"each <= {STEP_TOL['params']} + lr |u(g_card) - u(g_cpu)| "
+        f"({near} elements whose updates differ by over 0.1); shadow = "
+        f"bf16(params) bit for bit; CPU step {cpu_s:.1f} s")
+
+
+def phase_train_time(case, params_np, recipe=None):
     """Median wall ms of the full-recipe step over TRAIN_TIMED_STEPS steps
     after 3 warm-up steps, each ended by torch.cuda.synchronize(); peak
-    device memory over them; then a torch.profiler pass over 5 steps."""
+    device memory over them; then a torch.profiler pass over 5 steps.
+    ``recipe`` (BF16_RECIPE): the bf16 step, as [train-time-bf16]."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from sea_tpu_torch.utils.prng import prng_key, split
-    _, step, params, state, batch = _step_fn(case, params_np, "cuda")
+    tag = "-bf16" if recipe else ""
+    what = " ".join(BF16_FLAGS) if recipe else "f32"
+    _, step, params, state, batch = _step_fn(case, params_np, "cuda", recipe)
     B, T = batch[0].shape[:2]
     key = prng_key(0)
 
@@ -1245,8 +1457,9 @@ def phase_train_time(case, params_np):
     times = run(TRAIN_TIMED_STEPS)
     peak = torch.cuda.max_memory_allocated()
     med = statistics.median(times)
-    log(f"[train-time] {TRAIN_CASE} full-recipe step B={B}, T={T} (f32, "
-        f"dropout {case.temporal.dropout}, AdamW): median {1e3 * med:.3f} "
+    log(f"[train-time{tag}] {TRAIN_CASE} full-recipe step B={B}, T={T} "
+        f"({what}, dropout {case.temporal.dropout}, AdamW): median "
+        f"{1e3 * med:.3f} "
         f"ms/step over {TRAIN_TIMED_STEPS} (min {1e3 * min(times):.3f}, "
         f"max {1e3 * max(times):.3f}) -> {B / med:.2f} windows/s, "
         f"{B * T / med:.1f} tokens/s (B x T positions, each G=2 fields); "
@@ -1262,7 +1475,7 @@ def phase_train_time(case, params_np):
     busy_us = sum(e.self_device_time_total for e in events) / n_prof
     if not busy_us > 0:
         raise AssertionError("the profiler saw no device time")
-    log(f"[train-profile] {sum(e.count for e in events) / n_prof:.0f} "
+    log(f"[train-profile{tag}] {sum(e.count for e in events) / n_prof:.0f} "
         f"device events/step, device busy {busy_us / 1e3:.3f} ms/step, "
         f"profiled wall {wall_us / 1e3:.3f} ms/step, busy share "
         f"{100 * busy_us / wall_us:.1f}%")
@@ -1273,7 +1486,7 @@ def phase_train_time(case, params_np):
         if i >= 14 and not any(name in e.key for name in ours):
             continue
         us = e.self_device_time_total / n_prof
-        log(f"[train-profile] {us / 1e3:8.3f} ms/step "
+        log(f"[train-profile{tag}] {us / 1e3:8.3f} ms/step "
             f"{e.count / n_prof:6.1f}/step {100 * us / busy_us:5.1f}% "
             f"{e.key[:90]}")
     return med
@@ -1293,23 +1506,27 @@ def _sdpa_backend(qt, kt, vt):
     return SDPBackend(choose(qt, kt, vt, is_causal=True)).name
 
 
-def phase_time_flash():
+def phase_time_flash(dtype=torch.float32):
     """The three flash kernels at the train step's shapes and the
     multiphase training shape (4, 199, 8, 256) against their plain pieces,
     their bounds and SDPA, at dropout 0 and 0.1 (the train step's). SDPA
     has no dropout here: its causal forward stands beside the forward
     kernel and its backward (dq, dk and dv in one call, over the graph of
     a forward taken outside the timing) beside the backward kernels, like
-    for like at dropout 0. Bounds count the operations at the 3xTF32 rate;
-    the count at the f32 CUDA-core peak stands beside it. The backend that
+    for like at dropout 0. f32 bounds count the operations at the 3xTF32
+    rate, with the count at the f32 CUDA-core peak beside it; the bf16
+    forms' (dtype bfloat16, names with _bf16, SDPA on bf16) at the bf16
+    tensor-core peak over 2-byte q, k, v, o and dO. The backend that
     served SDPA is named."""
     from sea_tpu_torch.ops import flash_attention as FA
     sdpa = torch.nn.functional.scaled_dot_product_attention
     flush = torch.ones(128 << 20, dtype=torch.float32, device="cuda")
+    bf16 = dtype == torch.bfloat16
+    suffix, elem = ("_bf16", 2) if bf16 else ("", 4)
     out = {}
     for shape in FLASH_SHAPES[:3]:
         B, Tq, Tk, H, hd, src_len = shape
-        q, k, v, g = _flash_inputs(shape)
+        q, k, v, g = (x.to(dtype) for x in _flash_inputs(shape))
         qt, kt, vt, gt = (x.transpose(1, 2).contiguous().requires_grad_(
             x is not g) for x in (q, k, v, g))
         graph_out = sdpa(qt, kt, vt, is_causal=True)
@@ -1325,24 +1542,24 @@ def phase_time_flash():
         lib_fwd, lib_bwd = (_library_ms(fn, flush)
                             for fn in (lib_forward, lib_backward))
         pairs = B * H * _band_pairs(Tq, Tk, src_len)
-        tensor = B * Tq * H * hd * 4
+        tensor = B * Tq * H * hd * elem
         rows = B * H * Tq * 4
         pieces = {}
         for rate in (0.0, 0.1):
             kw = _flash_kw(shape, rate)
             o, lse = FA.flash_forward_ref(q, k, v, **kw)
             dsum = FA.row_dot(g, o)
-            pieces[("flash_fwd", rate)] = (
+            pieces[("flash_fwd" + suffix, rate)] = (
                 lambda kw=kw: FA.flash_fwd(q, k, v, **kw),
                 lambda kw=kw: FA.flash_forward_ref(q, k, v, **kw),
                 4 * tensor + rows, 4 * hd * pairs, lib_fwd)
-            pieces[("flash_bwd_dq", rate)] = (
+            pieces[("flash_bwd_dq" + suffix, rate)] = (
                 lambda kw=kw, lse=lse, dsum=dsum: FA.flash_bwd_dq(
                     q, k, v, g, lse, dsum, **kw),
                 lambda kw=kw, lse=lse, dsum=dsum: FA.flash_bwd_dq_ref(
                     q, k, v, g, lse, dsum, **kw),
                 5 * tensor + 2 * rows, 6 * hd * pairs, lib_bwd)
-            pieces[("flash_bwd_dkv", rate)] = (
+            pieces[("flash_bwd_dkv" + suffix, rate)] = (
                 lambda kw=kw, lse=lse, dsum=dsum: FA.flash_bwd_dkv(
                     q, k, v, g, lse, dsum, **kw),
                 lambda kw=kw, lse=lse, dsum=dsum: FA.flash_bwd_dkv_ref(
@@ -1351,29 +1568,36 @@ def phase_time_flash():
         for (name, rate), (kernel, plain, nbytes, flops, lib) in \
                 pieces.items():
             ms, plain_ms, runs = _kernel_vs_plain(kernel, plain, flush)
-            bound, bound_by = _bound_ms(nbytes, flops, TF32X3_FLOP_PER_S)
-            f32_bound, f32_by = _bound_ms(nbytes, flops)
+            bound, bound_by = _bound_ms(
+                nbytes, flops, BF16_FLOP_PER_S if bf16 else TF32X3_FLOP_PER_S)
             out[(name, hd, rate)] = dict(ms=ms, plain_ms=plain_ms,
                                          bound_ms=bound, bound_by=bound_by,
                                          library_ms=lib)
+            if bf16:
+                beside = "bf16 tensor-core peak"
+            else:
+                f32_bound, f32_by = _bound_ms(nbytes, flops)
+                beside = (f"3xTF32; at the f32 CUDA-core peak "
+                          f"{f32_bound:.4f} ms, {f32_by}")
             log(f"[kernel-time] {name} (B,T,H,hd)=({B},{Tq},{H},{hd}) "
                 f"dropout {rate}, L2 cold: kernel {ms:.4f} ms "
                 f"({runs[1]:.4f}, {runs[2]:.4f}; "
                 f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s), plain "
                 f"{plain_ms:.4f} ms ({runs[0]:.4f}, {runs[3]:.4f}), bound "
-                f"{bound:.4f} ms ({bound_by}; at the f32 CUDA-core peak "
-                f"{f32_bound:.4f} ms, {f32_by}), SDPA "
-                f"{'forward' if name == 'flash_fwd' else 'backward'} "
-                f"{lib:.4f} ms")
+                f"{bound:.4f} ms ({bound_by}; {beside}), SDPA "
+                f"{'forward' if name.startswith('flash_fwd') else 'backward'}"
+                f" {lib:.4f} ms")
         for rate in (0.0, 0.1):
-            pair = (out[("flash_bwd_dq", hd, rate)]["ms"]
-                    + out[("flash_bwd_dkv", hd, rate)]["ms"])
-            log(f"[kernel-time] dQ + dK/dV (B,T,H,hd)=({B},{Tq},{H},{hd}) "
-                f"dropout {rate}: {pair:.4f} ms "
+            pair = (out[("flash_bwd_dq" + suffix, hd, rate)]["ms"]
+                    + out[("flash_bwd_dkv" + suffix, hd, rate)]["ms"])
+            log(f"[kernel-time] dQ + dK/dV{suffix} "
+                f"(B,T,H,hd)=({B},{Tq},{H},{hd}) dropout {rate}: "
+                f"{pair:.4f} ms "
                 f"({14 * hd * pairs / (pair * 1e-3) / 1e12:.2f} TFLOP/s), "
                 f"SDPA backward (no dropout) {lib_bwd:.4f} ms")
-        log(f"[kernel-time] SDPA f32 at (B,T,H,hd)=({B},{Tq},{H},{hd}): "
-            f"backend {_sdpa_backend(qt, kt, vt)}")
+        log(f"[kernel-time] SDPA {str(dtype)[6:]} at "
+            f"(B,T,H,hd)=({B},{Tq},{H},{hd}): backend "
+            f"{_sdpa_backend(qt, kt, vt)}")
     return out
 
 
@@ -1531,6 +1755,12 @@ KERNELS = [  # name, route, source, the TPU kernel it replaces
      "sea_tpu/ops/fused_adaln.py:46"),
     ("adaln_bwd", "cuda", "sea_tpu_torch/csrc/fused_adaln.cu",
      "sea_tpu/ops/fused_adaln.py:62"),
+    ("flash_fwd_bf16", "cuda", "sea_tpu_torch/csrc/flash_attention.cu",
+     "sea_tpu/ops/flash_attention.py:181"),
+    ("flash_bwd_dq_bf16", "cuda", "sea_tpu_torch/csrc/flash_attention.cu",
+     "sea_tpu/ops/flash_attention.py:415"),
+    ("flash_bwd_dkv_bf16", "cuda", "sea_tpu_torch/csrc/flash_attention.cu",
+     "sea_tpu/ops/flash_attention.py:451"),
 ]
 
 
@@ -1557,7 +1787,8 @@ def main():
               "decode_q8": phase_q8_check(),
               "int4_matvec": phase_int4_check(),
               "dropout_mask": phase_mask_check(),
-              **phase_flash_check(), **phase_adaln_check()}
+              **phase_flash_check(), **phase_flash_check_bf16(),
+              **phase_adaln_check()}
     launches = {"dropout_mask": phase_flash_dropout()}
     case = get_case(CASE)
     train_case = get_case(TRAIN_CASE)
@@ -1573,11 +1804,18 @@ def main():
         train_np = save_init_checkpoints(train_case, save_dir,
                                          seed=1)["temporal"]
         train_launches = phase_train(train_case, save_dir)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as save_dir:
+        save_init_checkpoints(train_case, save_dir, seed=1)
+        bf16_launches = phase_train(train_case, save_dir, bf16=True)
     launches.update({k: train_launches[k] for k in (
         "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "adaln_fwd",
         "adaln_bwd")})
-    _timed(phase_train_card_vs_cpu, train_case, train_np)
+    launches.update({k: bf16_launches[k] for k in (
+        "flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16")})
+    f32_step = _timed(phase_train_card_vs_cpu, train_case, train_np)
+    _timed(phase_train_card_vs_cpu_bf16, train_case, train_np, f32_step)
     _timed(phase_train_time, train_case, train_np)
+    _timed(phase_train_time, train_case, train_np, BF16_RECIPE)
     _timed(phase_card_vs_cpu, case, params_np)
     _timed(phase_card_vs_cpu_int4, case, params_np)
     _timed(phase_time_rollout, case, params_np)
@@ -1586,16 +1824,19 @@ def main():
     times = {"decode_attention": phase_time_kernel()[
         (KERNEL_SHAPES[0], torch.float32)], **phase_time_reduced_kernels()}
     flash, adaln = phase_time_flash(), phase_time_adaln()
+    flash.update(phase_time_flash(torch.bfloat16))
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         times[name] = flash[(name, 128, 0.1)]
+        times[name + "_bf16"] = flash[(name + "_bf16", 128, 0.1)]
     for name in ("adaln_fwd", "adaln_bwd"):
         times[name] = adaln[(name, 1024)]
     shapes = {"decode_attention": "(B,H,T,hd)=(1,8,250,256) f32, t=T-1",
               "decode_q8": "(B,H,T,hd)=(8,8,250,256) int8, t=T-1",
               "int4_matvec": "(M,K,N)=(1,2048,16384)",
               "dropout_mask": "(BH,Tq,Tk)=(8,512,512)",
-              **{n: "(B,T,H,hd)=(2,399,8,128) dropout 0.1"
-                 for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")},
+              **{n + sfx: f"(B,T,H,hd)=(2,399,8,128) {dt} dropout 0.1"
+                 for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+                 for sfx, dt in (("", "f32"), ("_bf16", "bf16"))},
               **{n: "(B,T,E)=(2,399,1024)" for n in ("adaln_fwd",
                                                      "adaln_bwd")}}
     log(f"[time] chip_smoke.py: {time.perf_counter() - t_start:.1f} s")

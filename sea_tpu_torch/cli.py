@@ -2,7 +2,8 @@
 
     python -m sea_tpu_torch.cli <flow_type> temporal train
         [--epochs N] [--batch_size N] [--synthetic] [--save_dir DIR]
-        [--seed N] [--device cuda|cpu|cuda:N]
+        [--compute_dtype f32|bf16|bf16_mixed|bf16_shadow]
+        [--adam_mu_dtype f32|bf16] [--seed N] [--device cuda|cpu|cuda:N]
     python -m sea_tpu_torch.cli <flow_type> temporal test
         [--model_path PATH] [--synthetic] [--save_dir DIR] [--seed N]
         [--precision f32|bf16|int8|int4] [--no_calibrate]
@@ -10,8 +11,10 @@
         [--no_drift_check] [--device cuda|cpu|cuda:N]
 
 Same grammar as ``python -m sea_tpu.cli``. Ported so far: ``temporal
-train`` (single device, f32 AdamW; it writes the JAX driver's npz
-checkpoints) and ``temporal test``, the serving rollout with decoded
+train`` (single device, AdamW with f32 or bf16 first moments, under the
+f32 or a bf16 numerics policy, the bf16 shadow included; it writes the JAX
+driver's npz checkpoints; evaluation runs f32 on the master weights) and
+``temporal test``, the serving rollout with decoded
 evaluation, at f32 or reduced precision (bf16 weights; int8 or int4
 weights, int4 calibrated on a few train windows by default; the
 teacher-forced drift gate; f32, bf16 or int8 KV caches), as the JAX CLI
@@ -95,6 +98,19 @@ def main(argv=None):
                         help="override the config's epoch count (train)")
     parser.add_argument("--batch_size", type=int, default=None,
                         help="override the training batch size (train)")
+    parser.add_argument("--compute_dtype",
+                        choices=["f32", "bf16", "bf16_mixed", "bf16_shadow"],
+                        default=None,
+                        help="train modes: override the config's numerics "
+                             "policy (TrainConfig.compute_dtype). "
+                             "bf16_shadow = mixed precision with a "
+                             "persistent bf16 weight copy in the optimizer "
+                             "state, with --adam_mu_dtype bf16 the JAX "
+                             "CLI's big-model recipe")
+    parser.add_argument("--adam_mu_dtype", choices=["f32", "bf16"],
+                        default=None,
+                        help="train modes: AdamW first-moment storage dtype "
+                             "(TrainConfig.adam_mu_dtype)")
     parser.add_argument("--precision",
                         choices=["f32", "bf16", "int8", "int4"],
                         default="f32",
@@ -130,12 +146,15 @@ def main(argv=None):
         parser.error(f"`{args.model_type} {args.mode}` is not ported to "
                      "sea_tpu_torch yet; only `temporal train` and "
                      "`temporal test` are (see ROADMAP.md)")
-    if args.batch_size is not None and args.mode != "train":
-        parser.error("--batch_size only applies to train modes")
+    if (args.compute_dtype or args.batch_size is not None
+            or args.adam_mu_dtype) and args.mode != "train":
+        parser.error("--compute_dtype/--batch_size/--adam_mu_dtype only "
+                     "apply to train modes (serving precision is "
+                     "--precision)")
     if args.mode != "test" and (args.precision != "f32"
                                 or args.kv_cache != "auto"):
         parser.error("--precision/--kv_cache only apply to `temporal test` "
-                     "(rollout serving); training runs f32")
+                     "(rollout serving); training takes --compute_dtype")
     if args.batch_size is not None and args.batch_size < 1:
         parser.error(f"--batch_size must be >= 1; got {args.batch_size}")
     if args.model_path and not args.model_path.endswith(".npz"):
@@ -153,9 +172,19 @@ def main(argv=None):
     if args.save_dir:
         case = case.replace(run=dataclasses.replace(case.run,
                                                     save_dir=args.save_dir))
-    if args.batch_size is not None:
+    if args.compute_dtype or args.batch_size is not None \
+            or args.adam_mu_dtype:
+        from sea_tpu_torch.utils.precision import POLICY_BY_FLAG
+        updates = {}
+        if args.compute_dtype:
+            updates["compute_dtype"] = POLICY_BY_FLAG[args.compute_dtype]
+        if args.batch_size is not None:
+            updates["batch_size"] = args.batch_size
+        if args.adam_mu_dtype:
+            updates["adam_mu_dtype"] = ("bfloat16" if args.adam_mu_dtype
+                                        == "bf16" else "float32")
         case = case.replace(temporal_train=dataclasses.replace(
-            case.temporal_train, batch_size=args.batch_size))
+            case.temporal_train, **updates))
     data = _load_data(case, args.synthetic)
     if data is not None:
         # Synthetic data is smaller than the configured datasets: clamp

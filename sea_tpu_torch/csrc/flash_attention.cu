@@ -3,9 +3,11 @@
 // attention-probability dropout hashed inside the kernels.
 //
 // Replaces the Pallas TPU kernels of sea_tpu/ops/flash_attention.py:
-// _fwd_kernel (forward), _bwd_dq_kernel (dQ) and _bwd_dkv_kernel (dK/dV).
-// Semantics, f32 throughout (the forward's products on the tensor cores
-// with f32 accuracy, below; never single-pass TF32):
+// _fwd_kernel (forward), _bwd_dq_kernel (dQ) and _bwd_dkv_kernel (dK/dV),
+// each in an f32 form and a bf16 form (the bf16 forms: their own note,
+// below the dense mask's).
+// Semantics of the f32 forms, f32 throughout (the products on the tensor
+// cores with f32 accuracy, below; never single-pass TF32):
 //     s   = q . k^T * hd^-0.5, masked to k <= q + src_len when causal
 //     p   = exp(s - m); the softmax denominator sums the UNdropped p
 //     o   = sum_k p * M(bh, q, k) v / sum_k p,    lse = m + log(sum_k p)
@@ -135,6 +137,33 @@
 // hash is ~20 integer operations). It writes the logical [BH, Tq, Tk]
 // region only, not the TPU kernel's padding to block multiples.
 //
+// The bf16 forms (fwd_kernel_bf16, dq_kernel_bf16, dkv_kernel_bf16) take
+// bf16 q, k, v and dO and write o, dq, dk and dv in bf16, with the TPU
+// kernels' rounding points: scores, the softmax statistics, lse, D and
+// every sum in f32; the unnormalised p = exp(s - m) M rounded to bf16 (v's
+// dtype) before P.V, under the running max of the key tiles so far as the
+// TPU kernel rounds it; dS rounded to bf16 before dS.K (k's dtype) and
+// dS^T.Q (q's dtype), P.M before (P.M)^T.dO (dO's). Every product is one
+// mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32, bf16 being the tensor
+// cores' own operand type: no split, so their bound is the bf16 peak (989
+// TFLOP/s) against 2-byte operands. They keep the f32 kernels' tiling,
+// warp split, cp.async rings, dropout hash and fixed-order sums of the two
+// backward groups (a second call gives the same bits); a simple form,
+// not yet a redesign for Hopper (no wgmma or TMA):
+//  - S's m16n8k16 accumulator of n tiles 2kk and 2kk + 1 (rows g, g + 8;
+//    keys 2t, 2t + 1 of each 8) is, rounded to bf16 pairs, the A fragment
+//    of k step kk of the next product (P.V, dS.K, (P.M)^T.dO, dS^T.Q): P
+//    and dS stay in registers and need no key reordering;
+//  - operands whose k dimension is d ([row][d] tiles: Q, K, dO, V as A or
+//    as the B of S-like products) are read as 32-bit pairs straight from
+//    shared memory; B operands whose k dimension is the rows (V, K, dO, Q
+//    in the second products) with ldmatrix.x4.trans (x2 at hd 8), two n
+//    tiles at once;
+//  - every bf16 tile has a row stride of hd + 8 elements (24 at hd 8 and
+//    16): both kinds of read are free of bank conflicts, and rows start on
+//    16 bytes for cp.async and ldmatrix;
+//  - hd 8: the k dimension of Q.K^T is zero-padded to 16 in registers.
+//
 // Plain C interface (no PyTorch headers): built with nvcc for sm_90a and
 // loaded with ctypes by sea_tpu_torch/ops/_build.py.
 
@@ -144,6 +173,10 @@
 #include <stdint.h>
 
 namespace {
+
+// A bf16 value, kept as its 16 bits: the kernels only move bf16 values and
+// hand them to the tensor cores, and convert with cvt in PTX.
+using bf16 = uint16_t;
 
 constexpr int kThreads = 256;
 constexpr float kNegInf = -1e30f;  // finite: no NaN from (-inf) - (-inf)
@@ -996,6 +1029,647 @@ dkv_kernel(View q, View k, View v, View dout, const float* __restrict__ lse,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 forms: bf16 mma.sync.m16n8k16, f32 accumulators (see the note at the
+// top). The f32 kernels' tiling, warp split and cp.async rings, one pass a
+// product.
+// ---------------------------------------------------------------------------
+
+struct View16 {  // a [B, T, H, hd] bf16 tensor with hd contiguous
+  const bf16* p;
+  long long sb, st, sh;
+  __device__ const bf16* row(int b, int t, int h) const {
+    return p + b * sb + t * st + h * sh;
+  }
+};
+
+// Row stride of every bf16 tile, in elements: hd + 8 (a row is then 4 words
+// mod 32 past the one above from hd 64 on), 24 at hd 8 and 16; rows start
+// on 16 bytes.
+template <int HD>
+struct Ld16 {
+  static constexpr int LD = HD + 8 < 24 ? 24 : HD + 8;
+  static_assert(LD % 8 == 0, "16-byte rows");
+};
+
+// 16 bytes global -> shared, asynchronously; zeros when !valid.
+__device__ __forceinline__ void cp_async16_b(void* dst, const void* src,
+                                             bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+// Rows [t0, t0 + ROWS) of one (b, h) into a bf16 tile of row stride LD, in
+// 16-byte pieces by THREADS threads of which this is number tid; rows past
+// T are zero.
+template <int HD, int ROWS, int LD, int THREADS>
+__device__ __forceinline__ void copy_rows16(bf16* tile, const View16& x,
+                                            int b, int h, int t0, int T,
+                                            int tid) {
+  constexpr int kChunks = HD / 8;
+  for (int e = tid; e < ROWS * kChunks; e += THREADS) {
+    const int r = e / kChunks, c = 8 * (e % kChunks);
+    const bool ok = t0 + r < T;
+    cp_async16_b(tile + r * LD + c, ok ? x.row(b, t0 + r, h) + c : x.p, ok);
+  }
+}
+
+__device__ __forceinline__ uint32_t lds32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// (lo, hi) rounded to nearest even, lo in the low half: the pair layout of
+// every bf16 fragment register (cvt puts its first operand in the high
+// half).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// d += a b over one m16n8k16 tile: bf16 operands, f32 accumulator.
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Transposing 8x8 b16 loads: lane l gives the address of row l % 8 of
+// matrix l / 8 and receives, of matrix i, the elements (rows 2t, 2t + 1;
+// column g): an m16n8k16 B fragment from a [k][n] tile.
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const bf16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2],
+                                              const bf16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, "
+               "[%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(a));
+}
+
+// acc[n] += A B^T over d in [0, 16 KS): A's rows g and g + 8 at a and
+// a + 8 LD, B's row 8n + g at b + 8n LD (a and b already offset by row g
+// and column 2t). Both tiles are [row][d], so every fragment register is
+// one 32-bit load of two neighbouring d. Below hd 16 the k dimension is 8:
+// the upper half of each fragment is zero.
+template <int N, int KS, int HD, int LD>
+__device__ __forceinline__ void qk_product16(float (*acc)[4], const bf16* a,
+                                             const bf16* b) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    const int d0 = 16 * kk;
+    uint32_t fa[4] = {lds32(a + d0), lds32(a + 8 * LD + d0), 0u, 0u};
+    if constexpr (HD >= 16) {
+      fa[2] = lds32(a + d0 + 8);
+      fa[3] = lds32(a + 8 * LD + d0 + 8);
+    }
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      const bf16* y = b + 8 * n * LD + d0;
+      uint32_t b1 = 0u;
+      if constexpr (HD >= 16) b1 = lds32(y + 8);
+      mma_bf16(acc[n], fa, lds32(y), b1);
+    }
+  }
+}
+
+// acc[j] += P B: P an accumulator fragment of N n tiles (rows g, g + 8;
+// columns 2t, 2t + 1 of each 8), rounded to bf16 pairs; n tiles 2kk and
+// 2kk + 1 are the A fragment of k step kk as they stand. B is a [k][n]
+// tile of row stride LD at b (offset by the warp's columns), rows 16kk to
+// 16kk + 15, J n tiles of 8 columns, read with ldmatrix.trans.
+template <int N, int J, int LD>
+__device__ __forceinline__ void pv_product16(float (*acc)[4],
+                                             const float (*p)[4],
+                                             const bf16* b, int lane) {
+  static_assert(N % 2 == 0 && (J == 1 || J % 2 == 0), "fragment pairs");
+  const bf16* y =
+      b + ((lane & 7) + 8 * ((lane >> 3) & 1)) * LD + 8 * (lane >> 4);
+#pragma unroll
+  for (int kk = 0; kk < N / 2; ++kk) {
+    const uint32_t fa[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
+                            pack_bf16(p[2 * kk][2], p[2 * kk][3]),
+                            pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+                            pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+    const bf16* yk = y + 16 * kk * LD;
+    if constexpr (J == 1) {
+      uint32_t fb[2];
+      ldsm_x2_trans(fb, yk);
+      mma_bf16(acc[0], fa, fb[0], fb[1]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < J; j += 2) {
+        uint32_t fb[4];
+        ldsm_x4_trans(fb, yk + 8 * j);
+        mma_bf16(acc[j], fa, fb[0], fb[1]);
+        mma_bf16(acc[j + 1], fa, fb[2], fb[3]);
+      }
+    }
+  }
+}
+
+template <int HD, int BK>
+struct FwdTiles16 {
+  static constexpr int LD = Ld16<HD>::LD;
+  static constexpr size_t kSmem = sizeof(bf16) * (kFwdBQ + 4 * BK) * LD;
+  static_assert((HD == 8 || HD == 16 || HD % 64 == 0) && BK % 16 == 0,
+                "tile shape");
+  static_assert(kSmem <= 232448, "over the 227 KB a block may use");
+};
+
+template <int HD, int BK>
+__global__ void __launch_bounds__(kFwdThreads)
+fwd_kernel_bf16(View16 q, View16 k, View16 v, bf16* __restrict__ o,
+                float* __restrict__ lse, Shape s) {
+  constexpr int LD = FwdTiles16<HD, BK>::LD;
+  constexpr int NS = BK / 8;                 // n tiles of S
+  constexpr int NO = HD / 8;                 // n tiles of O
+  constexpr int KS = HD < 16 ? 1 : HD / 16;  // k steps of S
+  extern __shared__ __align__(16) unsigned char fwd16_smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(fwd16_smem);
+  bf16* sK = sQ + kFwdBQ * LD;  // two stages
+  bf16* sV = sK + 2 * BK * LD;  // two stages
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y, b = bh / s.H, h = bh % s.H;
+  const int q0 = blockIdx.x * kFwdBQ;
+  const int n_tiles = (key_end(s, q0, kFwdBQ) + BK - 1) / BK;
+
+  copy_rows16<HD, kFwdBQ, LD, kFwdThreads>(sQ, q, b, h, q0, s.Tq,
+                                           threadIdx.x);
+  if (n_tiles > 0) {
+    copy_rows16<HD, BK, LD, kFwdThreads>(sK, k, b, h, 0, s.Tk, threadIdx.x);
+    copy_rows16<HD, BK, LD, kFwdThreads>(sV, v, b, h, 0, s.Tk, threadIdx.x);
+  }
+  cp_async_commit();
+
+  const int row0 = q0 + warp * 16 + g;  // rows row0 and row0 + 8 here
+  int lim[2];  // key k is in band for row row0 + 8r iff k < lim[r]
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = row0 + 8 * r;
+    lim[r] = qp >= s.Tq ? 0 : s.causal ? min(s.Tk, qp + s.src_len + 1) : s.Tk;
+  }
+  const bf16* qa = sQ + (warp * 16 + g) * LD + 2 * t;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[NO][4];
+#pragma unroll
+  for (int c = 0; c < NO; ++c)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[c][i] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * BK;
+    cp_async_wait<0>();
+    __syncthreads();  // tile j landed; every warp is past tile j - 1
+    const bf16* cK = sK + (j & 1) * BK * LD;
+    const bf16* cV = sV + (j & 1) * BK * LD;
+    if (j + 1 < n_tiles) {  // tile j + 1 into the stage tile j - 1 left
+      bf16* nK = sK + ((j + 1) & 1) * BK * LD;
+      bf16* nV = sV + ((j + 1) & 1) * BK * LD;
+      copy_rows16<HD, BK, LD, kFwdThreads>(nK, k, b, h, k0 + BK, s.Tk,
+                                           threadIdx.x);
+      copy_rows16<HD, BK, LD, kFwdThreads>(nV, v, b, h, k0 + BK, s.Tk,
+                                           threadIdx.x);
+      cp_async_commit();
+    }
+
+    // S = Q K^T; sc[n][2r + e] is row row0 + 8r, key k0 + 8n + 2t + e.
+    float sc[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[n][i] = 0.f;
+    qk_product16<NS, KS, HD, LD>(sc, qa, cK + g * LD + 2 * t);
+
+    // Online softmax, as the f32 kernel.
+    float alpha[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = sc[n][2 * r + e];
+          x = k0 + 8 * n + 2 * t + e < lim[r] ? x * s.scale : kNegInf;
+          mx = fmaxf(mx, x);
+        }
+      const float m_new = fmaxf(m[r], quad_max(mx));
+      alpha[r] = expf(m[r] - m_new);
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = sc[n][2 * r + e];
+          const float p = expf(x - m[r]);
+          x = k0 + 8 * n + 2 * t + e < lim[r] ? p : 0.f;
+          psum[r] += x;
+        }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] = l[r] * alpha[r] + quad_sum(psum[r]);
+#pragma unroll
+      for (int c = 0; c < NO; ++c) {
+        acc[c][2 * r] *= alpha[r];
+        acc[c][2 * r + 1] *= alpha[r];
+      }
+    }
+    if (s.dropout) {  // the denominator above summed the undropped p
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int n = 0; n < NS; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            sc[n][2 * r + e] *= dropout_scale(s, bh, row0 + 8 * r,
+                                              k0 + 8 * n + 2 * t + e);
+    }
+
+    // O += P V, P rounded to bf16 (v's dtype) in registers.
+    pv_product16<NS, NO, LD>(acc, sc, cV, lane);
+  }
+
+  // acc[c][2r + e] is row row0 + 8r, d = 8c + 2t + e.
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = row0 + 8 * r;
+    if (qp >= s.Tq) continue;
+    const float den = l[r] == 0.f ? 1.f : l[r];
+    bf16* out = o + ((static_cast<long long>(b) * s.Tq + qp) * s.H + h) * HD +
+                2 * t;
+#pragma unroll
+    for (int c = 0; c < NO; ++c)
+      *reinterpret_cast<uint32_t*>(out + 8 * c) =
+          pack_bf16(acc[c][2 * r] / den, acc[c][2 * r + 1] / den);
+    if (t == 0) lse[static_cast<long long>(bh) * s.Tq + qp] = m[r] + logf(den);
+  }
+}
+
+// The backward's bf16 tiles: BwdTiles' rows, walk and warp split, bf16
+// rows of stride LD, and, for dK/dV, each stage's lse and D in f32 behind
+// its Q and dO tiles. The groups' sums (f32) meet in the ring at the end.
+template <int HD>
+struct BwdTiles16 {
+  using T = BwdTiles<HD>;
+  static constexpr int LD = Ld16<HD>::LD;
+  static constexpr int KS = HD < 16 ? 1 : HD / T::KW / 16;  // k steps of S
+  static constexpr int kDqStage = 2 * T::WALK * LD;                // bf16
+  static constexpr int kDkvStage = 2 * T::WALK * LD + 4 * T::WALK;  // bf16
+  static constexpr size_t kOwn = sizeof(bf16) * 2 * T::ROWS * LD;
+  static constexpr size_t kXch = sizeof(float) * T::kXch;
+  static constexpr size_t kDqSmem = kOwn + sizeof(bf16) * 4 * kDqStage + kXch;
+  static constexpr size_t kDkvSmem =
+      kOwn + sizeof(bf16) * 4 * kDkvStage + kXch;
+  static_assert(kDkvSmem <= 232448, "over the 227 KB a block may use");
+  // group 1's sums (4 warps x registers x 32 lanes, f32) fit in the ring
+  static_assert(sizeof(float) * 4 * 2 * T::J * 4 * 32 <=
+                    sizeof(bf16) * 4 * kDkvStage &&
+                sizeof(float) * 4 * T::J * 4 * 32 <=
+                    sizeof(bf16) * 4 * kDqStage,
+                "reduction buffer");
+};
+
+// S = A0 B0^T and dP = A1 B1^T for this warp's 16 rows (qk_product16), the
+// halves of d added through `xch` where two warps share the rows (hd 256),
+// as qk_pair does for the f32 kernels.
+template <int NS, int KS, int HD, int LD, int KW>
+__device__ __forceinline__ void qk_pair16(float (&s0)[NS][4], const bf16* a0,
+                                          const bf16* b0, float (&s1)[NS][4],
+                                          const bf16* a1, const bf16* b1,
+                                          float* xch, int gw, int lane,
+                                          int group) {
+  qk_product16<NS, KS, HD, LD>(s0, a0, b0);
+  qk_product16<NS, KS, HD, LD>(s1, a1, b1);
+  if constexpr (KW == 2) {
+    constexpr int kWarp = 2 * NS * 4 * 32;
+    float* mine = xch + gw * kWarp + lane;
+    const float* other = xch + (gw ^ 2) * kWarp + lane;
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        mine[32 * (4 * n + e)] = s0[n][e];
+        mine[32 * (4 * (NS + n) + e)] = s1[n][e];
+      }
+    group_sync(group);
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s0[n][e] += other[32 * (4 * n + e)];
+        s1[n][e] += other[32 * (4 * (NS + n) + e)];
+      }
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+dq_kernel_bf16(View16 q, View16 k, View16 v, View16 dout,
+               const float* __restrict__ lse, const float* __restrict__ dsum,
+               bf16* __restrict__ dq, Shape s) {
+  using T = BwdTiles<HD>;
+  using U = BwdTiles16<HD>;
+  constexpr int LD = U::LD, BQ = T::ROWS, BK = T::WALK, NS = T::NS;
+  constexpr int J = T::J, kStage = U::kDqStage;
+  extern __shared__ __align__(16) unsigned char bwd16_smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(bwd16_smem);
+  bf16* sO = sQ + BQ * LD;  // dO
+  bf16* ring = sO + BQ * LD;  // [group][stage]: K, V
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int group = warp >> 2, gw = warp & 3;
+  const int rw = gw % T::RW, dcol = (gw / T::RW) * T::DW;
+  const int gtid = threadIdx.x - group * kGroupThreads;
+  const int bh = blockIdx.x, b = bh / s.H, h = bh % s.H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest walks first
+  const int n_tiles = (key_end(s, q0, BQ) + BK - 1) / BK;  // in band
+  const int mine = walk_count(n_tiles, group);
+  bf16* gring = ring + group * 2 * kStage;
+  float* xch = reinterpret_cast<float*>(ring + 4 * kStage) +
+               group * 4 * T::kXchWarp;
+
+  copy_rows16<HD, BQ, LD, kBwdThreads>(sQ, q, b, h, q0, s.Tq, threadIdx.x);
+  copy_rows16<HD, BQ, LD, kBwdThreads>(sO, dout, b, h, q0, s.Tq, threadIdx.x);
+  if (mine > 0) {
+    copy_rows16<HD, BK, LD, kGroupThreads>(gring, k, b, h, group * BK, s.Tk,
+                                           gtid);
+    copy_rows16<HD, BK, LD, kGroupThreads>(gring + BK * LD, v, b, h,
+                                           group * BK, s.Tk, gtid);
+  }
+  cp_async_commit();
+
+  const int row0 = q0 + 16 * rw + g;  // this thread's rows: row0, row0 + 8
+  float row_lse[2], row_d[2];
+  int lim[2];  // key k is in band for row row0 + 8r iff k < lim[r]
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = row0 + 8 * r;
+    const bool ok = qp < s.Tq;
+    const long long at = static_cast<long long>(bh) * s.Tq + qp;
+    row_lse[r] = ok ? lse[at] : 0.f;
+    row_d[r] = ok ? dsum[at] : 0.f;
+    lim[r] = !ok ? 0 : s.causal ? min(s.Tk, qp + s.src_len + 1) : s.Tk;
+  }
+  float acc[J][4];
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+  const bf16* qa = sQ + (16 * rw + g) * LD + 2 * t + dcol;
+  const bf16* oa = sO + (16 * rw + g) * LD + 2 * t + dcol;
+  cp_async_wait<0>();
+  __syncthreads();  // the block's Q and dO, and each group's first tile
+
+  for (int i = 0; i < mine; ++i) {
+    if (i > 0) {
+      cp_async_wait<0>();
+      group_sync(group);  // tile i landed; stage (i + 1) & 1 is free
+    }
+    const bf16* cK = gring + (i & 1) * kStage;
+    const bf16* cV = cK + BK * LD;
+    if (i + 1 < mine) {
+      bf16* nK = gring + ((i + 1) & 1) * kStage;
+      const int k1 = (group + kWalkers * (i + 1)) * BK;
+      copy_rows16<HD, BK, LD, kGroupThreads>(nK, k, b, h, k1, s.Tk, gtid);
+      copy_rows16<HD, BK, LD, kGroupThreads>(nK + BK * LD, v, b, h, k1,
+                                             s.Tk, gtid);
+      cp_async_commit();
+    }
+    const int k0 = (group + kWalkers * i) * BK;
+
+    // S = Q K^T and dP = dO V^T; sc[n][2r + e] is row row0 + 8r, key
+    // k0 + 8n + 2t + e.
+    float sc[NS][4], dp[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
+    qk_pair16<NS, U::KS, HD, LD, T::KW>(
+        sc, qa, cK + g * LD + 2 * t + dcol, dp, oa,
+        cV + g * LD + 2 * t + dcol, xch, gw, lane, group);
+
+    // dS = P (M dP - D), P = exp(s scale - lse) in band, 0 elsewhere.
+    if (s.dropout) {
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[n][e] *= dropout_scale(s, bh, row0 + 8 * (e >> 1),
+                                    k0 + 8 * n + 2 * t + (e & 1));
+    }
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float p = expf(sc[n][e] * s.scale - row_lse[r]);
+        sc[n][e] = k0 + 8 * n + 2 * t + (e & 1) < lim[r]
+                       ? p * (dp[n][e] - row_d[r])
+                       : 0.f;
+      }
+
+    // dQ += dS K, dS rounded to bf16 (k's dtype) in registers.
+    pv_product16<NS, J, LD>(acc, sc, cK + dcol, lane);
+  }
+
+  cp_async_wait<0>();
+  __syncthreads();  // both groups are done with their rings
+  float* red = reinterpret_cast<float*>(ring) + gw * 4 * J * 32 + lane;
+  if (group == 1) put_sums(red, acc);
+  __syncthreads();
+  if (group == 1) return;
+  add_sums(acc, red);
+  // acc[j][2r + e] is row row0 + 8r, d = dcol + 8j + 2t + e.
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = row0 + 8 * r;
+    if (qp >= s.Tq) continue;
+    bf16* out = dq + ((static_cast<long long>(b) * s.Tq + qp) * s.H + h) *
+                         HD + dcol + 2 * t;
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+      *reinterpret_cast<uint32_t*>(out + 8 * j) =
+          pack_bf16(acc[j][2 * r] * s.scale, acc[j][2 * r + 1] * s.scale);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+dkv_kernel_bf16(View16 q, View16 k, View16 v, View16 dout,
+                const float* __restrict__ lse,
+                const float* __restrict__ dsum, bf16* __restrict__ dk,
+                bf16* __restrict__ dv, Shape s) {
+  using T = BwdTiles<HD>;
+  using U = BwdTiles16<HD>;
+  constexpr int LD = U::LD, BK = T::ROWS, BQ = T::WALK, NS = T::NS;
+  constexpr int J = T::J, kStage = U::kDkvStage;
+  extern __shared__ __align__(16) unsigned char bwd16_smem[];
+  bf16* sK = reinterpret_cast<bf16*>(bwd16_smem);
+  bf16* sV = sK + BK * LD;
+  bf16* ring = sV + BK * LD;  // [group][stage]: Q, dO, lse, D
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int group = warp >> 2, gw = warp & 3;
+  const int rw = gw % T::RW, dcol = (gw / T::RW) * T::DW;
+  const int gtid = threadIdx.x - group * kGroupThreads;
+  const int bh = blockIdx.x, b = bh / s.H, h = bh % s.H;
+  const int k0 = blockIdx.y * BK;  // the first key tiles walk the longest
+  const int first = (s.causal ? max(0, k0 - s.src_len) : 0) / BQ;
+  const int n_tiles = max(0, (s.Tq + BQ - 1) / BQ - first);
+  const int mine = walk_count(n_tiles, group);
+  bf16* gring = ring + group * 2 * kStage;
+  float* xch = reinterpret_cast<float*>(ring + 4 * kStage) +
+               group * 4 * T::kXchWarp;
+  const float* lse_bh = lse + static_cast<long long>(bh) * s.Tq;
+  const float* d_bh = dsum + static_cast<long long>(bh) * s.Tq;
+
+  // Q, dO, lse and D of q tile `tile` into `stage` of this group's ring.
+  auto copy_q_tile = [&](int tile, int stage) {
+    bf16* dst = gring + stage * kStage;
+    const int q0 = tile * BQ;
+    copy_rows16<HD, BQ, LD, kGroupThreads>(dst, q, b, h, q0, s.Tq, gtid);
+    copy_rows16<HD, BQ, LD, kGroupThreads>(dst + BQ * LD, dout, b, h, q0,
+                                           s.Tq, gtid);
+    if (gtid < 2 * BQ) {
+      const int r = gtid % BQ, qp = q0 + r;
+      const bool ok = qp < s.Tq;
+      const float* src = gtid < BQ ? lse_bh : d_bh;
+      float* rows = reinterpret_cast<float*>(dst + 2 * BQ * LD);
+      cp_async4(rows + gtid, ok ? src + qp : src, ok);
+    }
+  };
+
+  copy_rows16<HD, BK, LD, kBwdThreads>(sK, k, b, h, k0, s.Tk, threadIdx.x);
+  copy_rows16<HD, BK, LD, kBwdThreads>(sV, v, b, h, k0, s.Tk, threadIdx.x);
+  if (mine > 0) copy_q_tile(first + group, 0);
+  cp_async_commit();
+
+  const int key0 = k0 + 16 * rw + g;  // this thread's keys: key0, key0 + 8
+  int qlo[2];  // query q sees key key0 + 8r iff qlo[r] <= q < Tq
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kp = key0 + 8 * r;
+    qlo[r] = kp >= s.Tk ? s.Tq : s.causal ? kp - s.src_len : 0;
+  }
+  float gk[J][4], gv[J][4];
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) gk[j][i] = gv[j][i] = 0.f;
+  const bf16* ka = sK + (16 * rw + g) * LD + 2 * t + dcol;
+  const bf16* va = sV + (16 * rw + g) * LD + 2 * t + dcol;
+  cp_async_wait<0>();
+  __syncthreads();  // the block's K and V, and each group's first tile
+
+  for (int i = 0; i < mine; ++i) {
+    if (i > 0) {
+      cp_async_wait<0>();
+      group_sync(group);  // tile i landed; stage (i + 1) & 1 is free
+    }
+    const bf16* cQ = gring + (i & 1) * kStage;
+    const bf16* cO = cQ + BQ * LD;
+    const float* cL = reinterpret_cast<const float*>(cO + BQ * LD);
+    const float* cD = cL + BQ;
+    if (i + 1 < mine) {
+      copy_q_tile(first + group + kWalkers * (i + 1), (i + 1) & 1);
+      cp_async_commit();
+    }
+    const int q0 = (first + group + kWalkers * i) * BQ;
+
+    // S^T = K Q^T and dP^T = V dO^T; st[n][2r + e] is key key0 + 8r,
+    // query q0 + 8n + 2t + e.
+    float st[NS][4], dpt[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
+    qk_pair16<NS, U::KS, HD, LD, T::KW>(
+        st, ka, cQ + g * LD + 2 * t + dcol, dpt, va,
+        cO + g * LD + 2 * t + dcol, xch, gw, lane, group);
+
+    // P = exp(s scale - lse) in band, 0 elsewhere; then st <- P M and
+    // dpt <- dS = P (M dP - D).
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * n + 2 * t + (e & 1), qp = q0 + c;
+        const float p = expf(st[n][e] * s.scale - cL[c]);
+        st[n][e] = qp >= qlo[e >> 1] && qp < s.Tq ? p : 0.f;
+      }
+    if (s.dropout) {
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * n + 2 * t + (e & 1);
+          const float m =
+              dropout_scale(s, bh, q0 + c, key0 + 8 * (e >> 1));
+          const float p = st[n][e];
+          dpt[n][e] = p * (dpt[n][e] * m - cD[c]);
+          st[n][e] = p * m;
+        }
+    } else {
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dpt[n][e] = st[n][e] * (dpt[n][e] - cD[8 * n + 2 * t + (e & 1)]);
+    }
+
+    // dV += (P M)^T dO and dK += dS^T Q, P M and dS rounded to bf16 (dO's
+    // and q's dtype) in registers.
+    pv_product16<NS, J, LD>(gv, st, cO + dcol, lane);
+    pv_product16<NS, J, LD>(gk, dpt, cQ + dcol, lane);
+  }
+
+  cp_async_wait<0>();
+  __syncthreads();  // both groups are done with their rings
+  float* red = reinterpret_cast<float*>(ring) + gw * 8 * J * 32 + lane;
+  if (group == 1) {
+    put_sums(red, gk);
+    put_sums(red + 4 * J * 32, gv);
+  }
+  __syncthreads();
+  if (group == 1) return;
+  add_sums(gk, red);
+  add_sums(gv, red + 4 * J * 32);
+  // gk[j][2r + e] is key key0 + 8r, d = dcol + 8j + 2t + e; gv likewise.
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kp = key0 + 8 * r;
+    if (kp >= s.Tk) continue;
+    const long long at =
+        ((static_cast<long long>(b) * s.Tk + kp) * s.H + h) * HD + dcol +
+        2 * t;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      *reinterpret_cast<uint32_t*>(dk + at + 8 * j) =
+          pack_bf16(gk[j][2 * r] * s.scale, gk[j][2 * r + 1] * s.scale);
+      *reinterpret_cast<uint32_t*>(dv + at + 8 * j) =
+          pack_bf16(gv[j][2 * r], gv[j][2 * r + 1]);
+    }
+  }
+}
+
 // Raise the kernel's dynamic shared memory limit once per instantiation.
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
@@ -1042,6 +1716,47 @@ int launch_dkv(View q, View k, View v, View dout, const float* lse,
   return cudaGetLastError();
 }
 
+template <int HD, int BK>
+int launch_fwd_bf16(View16 q, View16 k, View16 v, bf16* o, float* lse,
+                    Shape s, cudaStream_t stream) {
+  constexpr size_t smem = FwdTiles16<HD, BK>::kSmem;
+  static const cudaError_t set = allow_smem(fwd_kernel_bf16<HD, BK>, smem);
+  if (set != cudaSuccess) return set;
+  const dim3 grid((s.Tq + kFwdBQ - 1) / kFwdBQ, s.B * s.H);
+  fwd_kernel_bf16<HD, BK><<<grid, kFwdThreads, smem, stream>>>(q, k, v, o,
+                                                                lse, s);
+  return cudaGetLastError();
+}
+
+template <int HD>
+int launch_dq_bf16(View16 q, View16 k, View16 v, View16 dout,
+                   const float* lse, const float* dsum, bf16* dq, Shape s,
+                   cudaStream_t stream) {
+  constexpr size_t smem = BwdTiles16<HD>::kDqSmem;
+  static const cudaError_t set = allow_smem(dq_kernel_bf16<HD>, smem);
+  if (set != cudaSuccess) return set;
+  const dim3 grid(s.B * s.H,
+                  (s.Tq + BwdTiles<HD>::ROWS - 1) / BwdTiles<HD>::ROWS);
+  dq_kernel_bf16<HD><<<grid, kBwdThreads, smem, stream>>>(q, k, v, dout, lse,
+                                                          dsum, dq, s);
+  return cudaGetLastError();
+}
+
+template <int HD>
+int launch_dkv_bf16(View16 q, View16 k, View16 v, View16 dout,
+                    const float* lse, const float* dsum, bf16* dk, bf16* dv,
+                    Shape s, cudaStream_t stream) {
+  constexpr size_t smem = BwdTiles16<HD>::kDkvSmem;
+  static const cudaError_t set = allow_smem(dkv_kernel_bf16<HD>, smem);
+  if (set != cudaSuccess) return set;
+  const dim3 grid(s.B * s.H,
+                  (s.Tk + BwdTiles<HD>::ROWS - 1) / BwdTiles<HD>::ROWS);
+  dkv_kernel_bf16<HD><<<grid, kBwdThreads, smem, stream>>>(q, k, v, dout,
+                                                           lse, dsum, dk, dv,
+                                                           s);
+  return cudaGetLastError();
+}
+
 Shape make_shape(int B, int H, int Tq, int Tk, int hd, int causal,
                  int src_len, unsigned seed0, unsigned seed1,
                  unsigned threshold, float inv_keep, int dropout) {
@@ -1057,6 +1772,13 @@ Shape make_shape(int B, int H, int Tq, int Tk, int hd, int causal,
 View view(const void* p, long long sb, long long st, long long sh) {
   View x;
   x.p = static_cast<const float*>(p);
+  x.sb = sb; x.st = st; x.sh = sh;
+  return x;
+}
+
+View16 view16(const void* p, long long sb, long long st, long long sh) {
+  View16 x;
+  x.p = static_cast<const bf16*>(p);
   x.sb = sb; x.st = st; x.sh = sh;
   return x;
 }
@@ -1158,6 +1880,78 @@ extern "C" int sea_flash_bwd_dkv(
     case 64: return launch_dkv<64>(Q, K, V, dO, L, D, dK, dV, s, st);
     case 128: return launch_dkv<128>(Q, K, V, dO, L, D, dK, dV, s, st);
     case 256: return launch_dkv<256>(Q, K, V, dO, L, D, dK, dV, s, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The bf16 forms: the same arguments, q, k, v and dO bf16 (strides in
+// elements), o/dq/dk/dv contiguous bf16, lse and dsum f32.
+extern "C" int sea_flash_fwd_bf16(const void* q, long long qsb, long long qst,
+                                  long long qsh, const void* k, long long ksb,
+                                  long long kst, long long ksh, const void* v,
+                                  long long vsb, long long vst, long long vsh,
+                                  void* o, void* lse, SEA_FLASH_ARGS) {
+  const View16 Q = view16(q, qsb, qst, qsh), K = view16(k, ksb, kst, ksh),
+               V = view16(v, vsb, vst, vsh);
+  const Shape s = SEA_FLASH_SHAPE;
+  bf16* O = static_cast<bf16*>(o);
+  float* L = static_cast<float*>(lse);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 8: return launch_fwd_bf16<8, 64>(Q, K, V, O, L, s, st);
+    case 16: return launch_fwd_bf16<16, 64>(Q, K, V, O, L, s, st);
+    case 64: return launch_fwd_bf16<64, 64>(Q, K, V, O, L, s, st);
+    case 128: return launch_fwd_bf16<128, 64>(Q, K, V, O, L, s, st);
+    case 256: return launch_fwd_bf16<256, 32>(Q, K, V, O, L, s, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+extern "C" int sea_flash_bwd_dq_bf16(
+    const void* q, long long qsb, long long qst, long long qsh,
+    const void* k, long long ksb, long long kst, long long ksh,
+    const void* v, long long vsb, long long vst, long long vsh,
+    const void* dout, long long osb, long long ost, long long osh,
+    const void* lse, const void* dsum, void* dq, SEA_FLASH_ARGS) {
+  const View16 Q = view16(q, qsb, qst, qsh), K = view16(k, ksb, kst, ksh),
+               V = view16(v, vsb, vst, vsh),
+               dO = view16(dout, osb, ost, osh);
+  const Shape s = SEA_FLASH_SHAPE;
+  const float* L = static_cast<const float*>(lse);
+  const float* D = static_cast<const float*>(dsum);
+  bf16* dQ = static_cast<bf16*>(dq);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 8: return launch_dq_bf16<8>(Q, K, V, dO, L, D, dQ, s, st);
+    case 16: return launch_dq_bf16<16>(Q, K, V, dO, L, D, dQ, s, st);
+    case 64: return launch_dq_bf16<64>(Q, K, V, dO, L, D, dQ, s, st);
+    case 128: return launch_dq_bf16<128>(Q, K, V, dO, L, D, dQ, s, st);
+    case 256: return launch_dq_bf16<256>(Q, K, V, dO, L, D, dQ, s, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+extern "C" int sea_flash_bwd_dkv_bf16(
+    const void* q, long long qsb, long long qst, long long qsh,
+    const void* k, long long ksb, long long kst, long long ksh,
+    const void* v, long long vsb, long long vst, long long vsh,
+    const void* dout, long long osb, long long ost, long long osh,
+    const void* lse, const void* dsum, void* dk, void* dv, SEA_FLASH_ARGS) {
+  const View16 Q = view16(q, qsb, qst, qsh), K = view16(k, ksb, kst, ksh),
+               V = view16(v, vsb, vst, vsh),
+               dO = view16(dout, osb, ost, osh);
+  const Shape s = SEA_FLASH_SHAPE;
+  const float* L = static_cast<const float*>(lse);
+  const float* D = static_cast<const float*>(dsum);
+  bf16* dK = static_cast<bf16*>(dk);
+  bf16* dV = static_cast<bf16*>(dv);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 8: return launch_dkv_bf16<8>(Q, K, V, dO, L, D, dK, dV, s, st);
+    case 16: return launch_dkv_bf16<16>(Q, K, V, dO, L, D, dK, dV, s, st);
+    case 64: return launch_dkv_bf16<64>(Q, K, V, dO, L, D, dK, dV, s, st);
+    case 128: return launch_dkv_bf16<128>(Q, K, V, dO, L, D, dK, dV, s, st);
+    case 256: return launch_dkv_bf16<256>(Q, K, V, dO, L, D, dK, dV, s, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -43,6 +43,9 @@ LN_EPS = 1e-5
 # by chip_smoke.py.
 fwd_launches = 0
 bwd_launches = 0
+# Of those, the launches on bf16 x (the bf16 training recipes).
+fwd_launches_bf16 = 0
+bwd_launches_bf16 = 0
 
 # The kernels' geometry (csrc/fused_adaln.cu, where the same constants
 # stand): blocks of WARPS warps; a row over wpr warps (a power of two up
@@ -242,8 +245,9 @@ def adaln_fwd(x, cw, cb, w, b, eps: float = LN_EPS):
     if rc != 0:
         raise RuntimeError(f"fused AdaLN forward kernel launch failed: CUDA "
                            f"error {rc}")
-    global fwd_launches
+    global fwd_launches, fwd_launches_bf16
     fwd_launches += 1
+    fwd_launches_bf16 += int(x.dtype == torch.bfloat16)
     return out
 
 
@@ -276,8 +280,9 @@ def adaln_bwd(x, cw, g, w, eps: float = LN_EPS):
     if rc != 0:
         raise RuntimeError(f"fused AdaLN backward kernel launch failed: CUDA "
                            f"error {rc}")
-    global bwd_launches
+    global bwd_launches, bwd_launches_bf16
     bwd_launches += 1
+    bwd_launches_bf16 += int(x.dtype == torch.bfloat16)
     return dx, dgw, dgb, dw, db
 
 

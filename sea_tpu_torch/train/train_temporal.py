@@ -3,8 +3,10 @@
 Counterpart of ``sea_tpu/train/train_temporal.py``: ``process_data``
 (load, split at trajectory level, patchify, encode with the frozen
 stage-1 encoder, cut the temporal windows), ``make_train_step``
-(teacher-forced next-step MSE, gradients by autograd through the flash
-and fused AdaLN kernels, AdamW), ``make_eval_step`` and ``train``, the
+(teacher-forced next-step MSE under the f32 or a bf16 numerics policy,
+gradients by autograd through the flash and fused AdaLN kernels, AdamW
+with f32 or bf16 first moments, the bf16 shadow), ``make_eval_step`` (f32,
+on the master parameters) and ``train``, the
 epoch loop with validation, the full autoregressive evaluation cadence
 and the best-validation and best-rollout checkpoints, written as the same
 npz files the JAX driver writes.
@@ -46,6 +48,7 @@ from sea_tpu_torch.utils.checkpoint import (checkpoint_path, load_params,
 from sea_tpu_torch.utils.params import (from_numpy, opt_state_from_numpy,
                                         opt_state_to_numpy, to_numpy,
                                         tree_leaves)
+from sea_tpu_torch.utils.precision import train_cast
 from sea_tpu_torch.utils.prng import prng_key, split
 
 
@@ -109,20 +112,33 @@ def process_data(case: CaseConfig, *, device,
                         latent_service=svc)
 
 
-def make_train_step(cfg: TemporalModelConfig, tx, *, log_norms: bool = True):
+def make_train_step(cfg: TemporalModelConfig, tx, *,
+                    compute_dtype: str = "float32", log_norms: bool = True):
     """step(params, opt_state, src, tgt, ib, key) -> (params, opt_state,
-    stats): the JAX driver's step. The loss is the MSE of the dropout
-    forward (``key`` a ``utils.prng`` key); ``grad_norm`` and
-    ``param_norm`` are optax.global_norm of the gradients and of the
+    stats): the JAX driver's step. The loss is the MSE, in f32, of the
+    dropout forward (``key`` a ``utils.prng`` key) under the numerics
+    policy ``compute_dtype`` (``utils.precision.train_cast``): the batch
+    cast by cast_x; "bfloat16" and "bfloat16_mixed" cast the f32 master
+    parameters inside the loss, so the gradients reach them through the
+    cast; "bfloat16_shadow" differentiates the bf16 shadow in the
+    optimizer state (``train.optim.with_bf16_shadow``), whose update
+    widens those bf16 gradients. ``grad_norm`` and ``param_norm`` are
+    optax.global_norm of the gradients (in f32) and of the master
     parameters before the update (zeros with ``log_norms=False``). The
-    parameters and moments are updated IN PLACE (train/optim.py); the
-    returned stats are 0-d tensors on the device, not read back."""
+    parameters and the optimizer state are updated IN PLACE
+    (train/optim.py); the returned stats are 0-d tensors on the device,
+    not read back."""
+    cast_p, cast_x = train_cast(compute_dtype)
+    shadow = compute_dtype == "bfloat16_shadow"
+
     def step(params, opt_state, src, tgt, ib, key):
-        leaves = tree_leaves(params)
+        wrt = opt_state.shadow if shadow else params
+        leaves = tree_leaves(wrt)
         for leaf in leaves:
             leaf.requires_grad_(True)
-        out = temporal_forward(params, cfg, src, ib, rng=key,
-                               deterministic=False)
+        s, i = cast_x(src, ib)
+        out = temporal_forward(wrt if shadow else cast_p(params), cfg, s, i,
+                               rng=key, deterministic=False)
         loss = M.mse(out.float(), tgt)
         # Parameters the forward never reads (the unused ln_exp[i][1]
         # norms and the diagonal of the cross-attention lattice) get zero
@@ -133,7 +149,7 @@ def make_train_step(cfg: TemporalModelConfig, tx, *, log_norms: bool = True):
         with torch.no_grad():
             if log_norms:
                 norms = {"grad_norm": global_norm(grads),
-                         "param_norm": global_norm(leaves)}
+                         "param_norm": global_norm(tree_leaves(params))}
             else:
                 zero = torch.zeros((), device=loss.device)
                 norms = {"grad_norm": zero, "param_norm": zero}
@@ -206,9 +222,12 @@ def train(case: CaseConfig,
         params = init_temporal(cfg, gen, device=device)
     tx = make_optimizer(tcfg)
     tracker.log_model(params, "MSE", tcfg.optimizer)
-    opt_state = (opt_state_from_numpy(init_opt_state, device)
+    mu_dtype = (torch.bfloat16 if tcfg.adam_mu_dtype == "bfloat16"
+                else torch.float32)
+    opt_state = (opt_state_from_numpy(init_opt_state, device, mu_dtype)
                  if init_opt_state is not None else tx.init(params))
-    train_step = make_train_step(cfg, tx, log_norms=tcfg.log_norms)
+    train_step = make_train_step(cfg, tx, compute_dtype=tcfg.compute_dtype,
+                                 log_norms=tcfg.log_norms)
     eval_step = make_eval_step(cfg)
 
     n_epochs = epochs if epochs is not None else tcfg.epoch_num

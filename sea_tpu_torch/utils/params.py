@@ -6,7 +6,8 @@ weights ``[d_in, d_out]`` — with ``torch.Tensor`` leaves. ``from_numpy``
 and ``to_numpy`` move a tree between the two packages unchanged, so a
 checkpoint written by either CLI (npz, ``utils.checkpoint.save_pytree``)
 serves in the other; ``opt_state_to_numpy`` and ``opt_state_from_numpy``
-do the same for the AdamW state.
+do the same for the optimizer state (AdamW, with f32 or bf16 first
+moments, alone or inside the bf16 shadow's state).
 """
 
 from __future__ import annotations
@@ -39,40 +40,68 @@ def tree_leaves(tree):
     return [] if tree is None else [tree]
 
 
+def _tensor(a, device):
+    """A numpy leaf as a tensor on ``device``, dtype kept. numpy has no
+    bf16: JAX's bf16 arrays (ml_dtypes) come in by their bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.tensor(a.view(np.int16), device=device).view(
+            torch.bfloat16)
+    return torch.tensor(a, device=device)
+
+
 def from_numpy(tree, device) -> dict:
     """JAX params tree of numpy arrays (``jax.tree.map(np.asarray, p)`` or
     a ``restore_pytree`` result) -> the port's tree of tensors on
     ``device``. dtypes are kept."""
-    return tree_map(lambda a: torch.tensor(np.asarray(a), device=device),
-                    tree)
+    return tree_map(lambda a: _tensor(a, device), tree)
 
 
 def to_numpy(tree) -> dict:
     """The port's tree of tensors -> a tree of numpy arrays that
-    ``save_pytree`` writes as a checkpoint either CLI loads."""
-    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+    ``save_pytree`` writes as a checkpoint either CLI loads. bf16 leaves are
+    widened to f32 (exact), as the JAX package widens them on save."""
+    def leaf(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return tree_map(leaf, tree)
 
 
 def opt_state_to_numpy(state):
-    """The port's AdamW state (train/optim.py) -> the numpy tree of
-    ``jax.tree.map(np.asarray, optax.adamw(...).init(params))``: the same
-    npz paths, count as int32."""
-    from sea_tpu_torch.train.optim import ScaleByAdamState
+    """The port's optimizer state (train/optim.py) -> the numpy tree of
+    ``jax.tree.map(np.asarray, tx.init(params))``: the same npz paths,
+    count as int32, a bf16 mu and the bf16 shadow widened to f32."""
+    from sea_tpu_torch.train.optim import ScaleByAdamState, ShadowOptState
+    if isinstance(state, ShadowOptState):
+        return ShadowOptState(opt_state_to_numpy(state.inner),
+                              to_numpy(state.shadow))
     adam = state[0]
     return (ScaleByAdamState(np.asarray(adam.count, dtype=np.int32),
                              to_numpy(adam.mu), to_numpy(adam.nu)),
             ) + tuple(() for _ in state[1:])
 
 
-def opt_state_from_numpy(tree, device):
-    """An optax adamw state of numpy arrays (``jax.tree.map(np.asarray,
-    tx.init(p))``, or a ``restore_pytree`` result) -> the port's AdamW
-    state: moments on ``device``, the count on the host."""
-    from sea_tpu_torch.train.optim import ScaleByAdamState
+def opt_state_from_numpy(tree, device, mu_dtype=None):
+    """An optimizer state of numpy arrays (``jax.tree.map(np.asarray,
+    tx.init(p))``, or a ``restore_pytree`` result) -> the port's: moments
+    and shadow on ``device``, the count on the host. A state with a shadow
+    (two children, the first a state itself) comes back as a
+    ``ShadowOptState`` with bf16 shadow leaves. ``mu_dtype``: the first
+    moment's dtype (a checkpoint stores a bf16 mu widened to f32); None
+    keeps the arrays' own."""
+    from sea_tpu_torch.train.optim import ScaleByAdamState, ShadowOptState
+    from sea_tpu_torch.utils.precision import to_bf16
+    if len(tree) == 2 and isinstance(tree[0], tuple):
+        return ShadowOptState(
+            opt_state_from_numpy(tree[0], device, mu_dtype),
+            to_bf16(from_numpy(tree[1], device)))
     count, mu, nu = tree[0]
+    mu = from_numpy(mu, device)
+    if mu_dtype is not None:
+        mu = tree_map(lambda m: m.to(mu_dtype), mu)
     return (ScaleByAdamState(torch.tensor(np.asarray(count),
                                           dtype=torch.int32),
-                             from_numpy(mu, device), from_numpy(nu, device)),
+                             mu, from_numpy(nu, device)),
             ) + tuple(() for _ in tree[1:])
 
 

@@ -16,8 +16,8 @@ small matrices stay as they are. Apply ``fuse_attention_projections``
 first, so a fused weight is cast or quantized as one matrix.
 
 The bf16 training policies (``train_cast``, ``POLICY_BY_FLAG``) and the
-whole-tree casts they use (``to_bf16``, ``to_f32``) are not ported yet
-(ROADMAP.md).
+whole-tree cast they use (``to_bf16``) follow
+``sea_tpu/utils/precision.py`` too.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from sea_tpu_torch.ops.quant_matmul import pack_int4, unpack_int4
+from sea_tpu_torch.utils.params import tree_map
 
 # The 13 clip ratios of the int4 scale search (fractions of the column max).
 INT4_CLIP_RATIOS = (0.4, 0.45, 0.5, 0.55, 0.6, 0.65, 0.7, 0.75, 0.8, 0.85,
@@ -165,6 +166,44 @@ def fuse_attention_projections(temporal_params):
         blocks.append(b)
     out["blocks"] = blocks
     return out
+
+
+def to_bf16(tree):
+    """Every floating leaf of a tree cast to bf16 (round to nearest even);
+    other leaves as they are."""
+    return tree_map(lambda x: x.to(torch.bfloat16)
+                    if x.is_floating_point() else x, tree)
+
+
+# Short CLI flag -> TrainConfig.compute_dtype policy name.
+POLICY_BY_FLAG = {"f32": "float32", "bf16": "bfloat16",
+                  "bf16_mixed": "bfloat16_mixed",
+                  "bf16_shadow": "bfloat16_shadow"}
+
+
+def train_cast(compute_dtype: str):
+    """(cast_params, cast_inputs) of a TrainConfig.compute_dtype policy,
+    as the JAX package's:
+
+    - "float32": identity;
+    - "bfloat16": weight-only, the big matmul weights bf16 inside the loss
+      (``cast_weights_bf16``), activations f32;
+    - "bfloat16_mixed": every floating parameter and the batch inputs
+      bf16; softmax and norm statistics, and the loss, stay f32 inside the
+      ops. The f32 master parameters take the gradients through the cast;
+    - "bfloat16_shadow": the casts of "bfloat16_mixed"; the train step
+      skips cast_params and differentiates the bf16 shadow the optimizer
+      state keeps (``train.optim.with_bf16_shadow``)."""
+    if compute_dtype == "float32":
+        return (lambda p: p), (lambda *xs: xs)
+    if compute_dtype == "bfloat16":
+        return cast_weights_bf16, (lambda *xs: xs)
+    if compute_dtype in ("bfloat16_mixed", "bfloat16_shadow"):
+        return to_bf16, (lambda *xs: tuple(x.to(torch.bfloat16) for x in xs))
+    raise ValueError(
+        f"unknown compute_dtype {compute_dtype!r}; expected 'float32', "
+        "'bfloat16' (weight-only), 'bfloat16_mixed', or 'bfloat16_shadow' "
+        "(mixed + persistent bf16 weight copy in the optimizer state)")
 
 
 def cast_weights_bf16(tree, min_size: int = 1 << 16):

@@ -309,11 +309,67 @@ def test_cuda_device_without_cuda_raises():
     ["encoder", "train"], ["temporal", "train", "--seq_parallel", "2"],
     ["temporal", "generate"],
     ["temporal", "test", "--mesh", "2x1"],
-    ["temporal", "test", "--model_path", "model.pt"]])
+    ["temporal", "test", "--model_path", "model.pt"],
+    ["temporal", "train", "--optimizer", "adafactor"]])
 def test_unported_modes_and_flags_name_the_roadmap(argv, capsys):
     with pytest.raises(SystemExit):
         torch_cli.main(["cylinder_flow_smoke"] + argv + ["--device", "cpu"])
     assert "ROADMAP.md" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag", [["--compute_dtype", "bf16"],
+                                  ["--adam_mu_dtype", "bf16"]])
+def test_train_precision_flags_refused_outside_train(flag, capsys):
+    """As in the JAX CLI: the training numerics flags apply to train
+    modes only."""
+    with pytest.raises(SystemExit):
+        torch_cli.main(["cylinder_flow_smoke", "temporal", "test",
+                        "--synthetic", "--device", "cpu"] + flag)
+    assert "only apply to train modes" in capsys.readouterr().err
+
+
+def test_cli_bf16_shadow_train_checkpoint_loads_in_jax(tmp_path, capsys):
+    """`temporal train --compute_dtype bf16_shadow --adam_mu_dtype bf16` on
+    the CPU writes the JAX driver's checkpoint: it loads in the JAX
+    package's load_full_checkpoint with its tx.init template (the shadow
+    and a bf16 mu included), every value as the port wrote it, and the
+    shadow is the bf16 cast of the saved parameters."""
+    import jax
+    from sea_tpu.configs.cylinder_flow_smoke import get_case as jax_case
+    from sea_tpu.models.temporal import init_temporal as jax_init
+    from sea_tpu.train.optim import make_optimizer as jax_optimizer
+    from sea_tpu.utils.checkpoint import _flatten, load_full_checkpoint
+    from sea_tpu_torch.utils.checkpoint import checkpoint_path
+    save = str(tmp_path)
+    case = torch_cli.get_case("cylinder_flow_smoke")
+    save_init_checkpoints(case, save, seed=2)
+    params = torch_cli.main(
+        ["cylinder_flow_smoke", "temporal", "train", "--synthetic",
+         "--epochs", "1", "--save_dir", save, "--device", "cpu",
+         "--compute_dtype", "bf16_shadow", "--adam_mu_dtype", "bf16"])
+    assert "New Best Model Saved" in capsys.readouterr().out
+    tcfg = dataclasses.replace(jax_case().temporal_train,
+                               compute_dtype="bfloat16_shadow",
+                               adam_mu_dtype="bfloat16")
+    template = jax_init(jax.random.PRNGKey(0), jax_case().temporal)
+    path = checkpoint_path(save, "temporal", case.run.case_name,
+                           case.run.run_name)
+    got, opt, meta = load_full_checkpoint(
+        path, template, jax_optimizer(tcfg).init(template))
+    assert int(meta["epoch"]) == 1 and int(opt.inner[0].count) >= 1
+    saved = np.load(path)
+    restored = _flatten({"opt_state": opt})
+    assert restored.keys() == {k for k in saved.files
+                               if k.startswith("opt_state/")}
+    for key, leaf in restored.items():
+        np.testing.assert_array_equal(leaf, saved[key], err_msg=key)
+    assert {np.asarray(x).dtype.name for x in jax.tree.leaves(
+        (opt.inner[0].mu, opt.shadow))} == {"bfloat16"}
+    for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(params)):
+        np.testing.assert_array_equal(np.asarray(a), b)
+    for s, a in zip(jax.tree.leaves(opt.shadow), jax.tree.leaves(params)):
+        assert np.array_equal(np.asarray(s, np.float32),
+                              torch.from_numpy(a).bfloat16().float().numpy())
 
 
 def test_port_imports_no_jax():

@@ -12,6 +12,24 @@ bounds of tests/test_flash_attention.py (f32, summation order); a
 dropped or kept element the other side disagrees on is off by about
 |v|/(1-rate), far outside them.
 
+bf16: the plain versions (their rounding points: the unnormalised p to
+v's dtype, dS to k's and q's, P.M to dO's) against the JAX kernels on bf16
+inputs in interpret mode, and the bf16 kernels against the plain versions
+on the card. Tolerances there, relative to the largest |value| of the
+reference: BF16_TOL_OUT = 2^-7 for o and BF16_TOL_GRAD = 2^-6 for dq, dk
+and dv (on the card plus the f32 bounds above, for the order of the f32
+sums where the values are near 0). A bf16 value carries 8 significant bits, so rounding it once is
+off by up to 2^-9 of the largest value and one ulp of it by up to 2^-8
+(2^-7 of a value in the top binade's lower half); the kernels round p
+under the running max of their key tiles, the plain version under the
+row's final max, which moves a bf16 result by an ulp here and there, and
+the gradients sum such rounded terms over the keys or queries before
+their own rounding, hence a binade more. On the CPU the plain versions
+meet the JAX kernels within 4e-7 of the largest value (a JAX key tile
+spans up to 512 keys, so at these T it takes the row's max, as the plain
+version does); a missed rounding point shows as a spread of rounding
+errors of up to 2^-9 over the elements.
+
 The CUDA kernels run only on the card: their tests are marked ``gpu`` and
 skip here. The card has no JAX, so JAX is imported only inside the tests
 that compare against it; there,
@@ -29,6 +47,8 @@ torch.set_num_threads(2)
 
 OUT_ATOL = 2e-5
 GRAD_ATOL = 5e-5
+BF16_TOL_OUT = 2.0 ** -7
+BF16_TOL_GRAD = 2.0 ** -6
 SEED = (123456789, -987654321)
 
 # (B, Tq, Tk, H, hd, causal, src_len, rate)
@@ -79,6 +99,102 @@ def test_ref_matches_jax_kernels(name, monkeypatch):
     for gname, a, b in zip("qkv", got_grads, want_grads):
         np.testing.assert_allclose(a, np.asarray(b), rtol=0, atol=GRAD_ATOL,
                                    err_msg=f"d{gname}")
+
+
+def _close_to_max(got, want, rel, what):
+    """|got - want| <= rel * max|want| (both read as f32)."""
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    err = np.abs(got - want).max()
+    bound = rel * np.abs(want).max()
+    assert err <= bound, f"{what}: max abs err {err} > {rel} x max|ref|"
+
+
+# (B, Tq, Tk, H, hd, causal, src_len, rate) of the bf16 cases: hd 16 and 64,
+# causal, dropout 0 and 0.1, one past the JAX kernels' 128-key tile.
+BF16_CASES = {
+    "hd16": (2, 40, 40, 2, 16, True, 0, 0.0),
+    "hd16_dropout": (2, 40, 40, 2, 16, True, 0, 0.1),
+    "hd64_dropout_past_block": (1, 150, 150, 2, 64, True, 0, 0.1),
+    "hd64_src_len_tq_ne_tk": (2, 24, 40, 2, 64, True, 5, 0.0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BF16_CASES))
+def test_bf16_ref_matches_jax_kernels(name, monkeypatch):
+    """The bf16 plain versions (the CPU path: forward and backward pieces
+    in the kernels' autograd Function) against the JAX kernels on the same
+    bf16 inputs in interpret mode: o, lse, dq, dk, dv, each returned in
+    bf16."""
+    import jax
+    import jax.numpy as jnp
+    from sea_tpu.ops import flash_attention as jfa
+    monkeypatch.setattr(jfa, "_FORCE_INTERPRET", True)
+    B, Tq, Tk, H, hd, causal, src_len, rate = BF16_CASES[name]
+    arrays = [jnp.asarray(a, jnp.bfloat16)
+              for a in _inputs(B, Tq, Tk, H, hd)]
+    seed = jnp.asarray(SEED, jnp.int32) if rate else None
+
+    def f(q, k, v):
+        return jfa.flash_attention(q, k, v, causal, src_len,
+                                   dropout_rate=rate, dropout_seed=seed)
+
+    want, vjp = jax.vjp(f, *arrays[:3])
+    want_grads = vjp(arrays[3])
+    _, want_lse = jfa._flash_forward(
+        *arrays[:3], causal=causal, src_len=src_len,
+        block_q=jfa.DEFAULT_BLOCK_Q, block_k=jfa.DEFAULT_BLOCK_K,
+        return_lse=True, dropout_rate=rate, seed=seed)
+    q, k, v, g = (torch.from_numpy(np.array(a.astype(jnp.float32))).to(
+        torch.bfloat16) for a in arrays)
+    t = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    kw = dict(dropout_rate=rate, dropout_seed=SEED if rate else None)
+    out = FA.flash_attention(*t, causal, src_len, **kw)
+    out.backward(g)
+    assert out.dtype == torch.bfloat16
+    assert all(x.grad.dtype == torch.bfloat16 for x in t)
+    f32 = lambda a: np.asarray(jnp.asarray(a, jnp.float32))  # noqa: E731
+    _close_to_max(out.detach().float().numpy(), f32(want), BF16_TOL_OUT, "o")
+    _, lse = FA.flash_forward_ref(q, k, v, causal=causal, src_len=src_len,
+                                  **kw)
+    np.testing.assert_allclose(
+        lse.numpy(), f32(want_lse)[:, :Tq, 0], rtol=0, atol=1e-5)
+    for gname, a, b in zip("qkv", t, want_grads):
+        _close_to_max(a.grad.float().numpy(), f32(b), BF16_TOL_GRAD,
+                      f"d{gname}")
+
+
+def test_bf16_pieces_round_where_the_kernels_do():
+    """The bf16 plain forward rounds exp(s - m) M to bf16 before P.V and
+    divides by the f32 denominator after; the backward pieces round dS and
+    P.M before their products: the same formulas with those roundings
+    written out in f32 give the same values."""
+    B, Tq, Tk, H, hd = 1, 12, 12, 2, 16
+    q, k, v, g = (torch.from_numpy(a).to(torch.bfloat16)
+                  for a in _inputs(B, Tq, Tk, H, hd, seed=3))
+    kw = dict(causal=True, src_len=0, dropout_rate=0.1, dropout_seed=SEED)
+    o, lse = FA.flash_forward_ref(q, k, v, **kw)
+    s = FA._scores(q, k, True, 0)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    m = FA.dropout_mask(B, H, Tq, Tk, SEED, 0.1, "cpu")
+    pv = torch.einsum("bhqk,bkhd->bqhd", (p * m).to(torch.bfloat16).float(),
+                      v.float())
+    want = (pv / p.sum(-1, keepdim=True).permute(0, 2, 1, 3)).to(
+        torch.bfloat16)
+    assert o.dtype == torch.bfloat16 and torch.equal(o, want)
+    dsum = FA.row_dot(g, o)
+    pm, ds = FA._bwd_ref_pieces(q, k, v, g, lse, dsum, True, 0, 0.1, SEED)
+    dq = FA.flash_bwd_dq_ref(q, k, v, g, lse, dsum, **kw)
+    dk, dv = FA.flash_bwd_dkv_ref(q, k, v, g, lse, dsum, **kw)
+    scale = hd ** -0.5
+    rounded = ds.to(torch.bfloat16).float()
+    assert torch.equal(dq, (torch.einsum("bhqk,bkhd->bqhd", rounded,
+                                         k.float()) * scale).bfloat16())
+    assert torch.equal(dk, (torch.einsum("bhqk,bqhd->bkhd", rounded,
+                                         q.float()) * scale).bfloat16())
+    assert torch.equal(dv, torch.einsum(
+        "bhqk,bqhd->bkhd", pm.to(torch.bfloat16).float(),
+        g.float()).bfloat16())
 
 
 def test_dropout_mask_matches_jax_mask_kernel(monkeypatch):
@@ -310,6 +426,113 @@ def test_cuda_backward_long_band_is_deterministic(shape, rate):
         assert torch.equal(a, b), f"{name}: a second call differs"
         torch.testing.assert_close(a, c, rtol=0, atol=GRAD_ATOL,
                                    msg=lambda m, n=name: f"{n}: {m}")
+
+
+def _bf16_close(got, want, rel, atol, what):
+    """|got - want| <= rel * max|want| + atol on the card (read as f32):
+    the bf16 bound of the module's note over the f32 bound of the sums'
+    order (OUT_ATOL, GRAD_ATOL), which alone holds where the values are
+    0 (a single key: dS = P (dP - D) = 0 up to the order of the sums)."""
+    err = (got.float() - want.float()).abs().max().item()
+    bound = rel * want.float().abs().max().item() + atol
+    assert got.dtype == want.dtype == torch.bfloat16, what
+    assert err <= bound, (f"{what}: max abs err {err} > {rel} x max|ref| + "
+                          f"{atol}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 399, 399, 8, 128, True, 0),
+                                   (2, 399, 399, 8, 64, True, 0),
+                                   (4, 199, 199, 8, 256, True, 0),
+                                   (1, 1, 1, 8, 64, True, 0),
+                                   (2, 70, 130, 8, 128, True, 5),
+                                   (3, 37, 53, 8, 256, True, 5),
+                                   (1, 517, 517, 2, 128, True, 0),
+                                   (2, 301, 150, 2, 64, False, 0),
+                                   (2, 41, 41, 2, 16, True, 0),
+                                   (2, 41, 41, 2, 8, True, 0),
+                                   (3, 37, 53, 2, 16, True, 5),
+                                   (3, 37, 53, 2, 8, True, 5)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_cuda_bf16_kernels_match_ref(shape, rate):
+    """Runs on the card only. The bf16 kernels against their plain
+    versions: through the autograd wrapper (o, dq, dk, dv) and each alone
+    (lse, dQ, dK/dV from the plain lse and D), square and ragged, causal
+    with src_len > 0 and the full form, at hd 8, 16, 64, 128 and 256;
+    then a second backward call gives the same bits. Tolerances: the
+    module's note."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    B, Tq, Tk, H, hd, causal, src_len = shape
+    q, k, v, g = (x.to(torch.bfloat16)
+                  for x in _cuda_inputs(B, Tq, Tk, H, hd))
+    kw = dict(causal=causal, src_len=src_len, dropout_rate=rate,
+              dropout_seed=SEED if rate else None)
+    runs = []
+    for fn in (FA.flash_attention, FA.flash_attention_ref):
+        t = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        before = FA.fwd_launches_bf16
+        out = fn(*t, **kw)
+        out.backward(g)
+        runs.append([out.detach()] + [x.grad for x in t])
+        if fn is FA.flash_attention:
+            assert FA.fwd_launches_bf16 == before + 1
+    _bf16_close(runs[0][0], runs[1][0], BF16_TOL_OUT, OUT_ATOL, "o")
+    for name, a, b in zip(("dq", "dk", "dv"), runs[0][1:], runs[1][1:]):
+        _bf16_close(a, b, BF16_TOL_GRAD, GRAD_ATOL,
+                    f"{name} through autograd")
+    o, lse = FA.flash_fwd(q, k, v, **kw)
+    o_ref, lse_ref = FA.flash_forward_ref(q, k, v, **kw)
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-5)
+    _bf16_close(o, o_ref, BF16_TOL_OUT, OUT_ATOL, "o")
+    dsum = FA.row_dot(g, o_ref)
+    calls = [(FA.flash_bwd_dq(q, k, v, g, lse_ref, dsum, **kw),
+              *FA.flash_bwd_dkv(q, k, v, g, lse_ref, dsum, **kw))
+             for _ in range(2)]
+    want = (FA.flash_bwd_dq_ref(q, k, v, g, lse_ref, dsum, **kw),
+            *FA.flash_bwd_dkv_ref(q, k, v, g, lse_ref, dsum, **kw))
+    for name, a, b, c in zip(("dq", "dk", "dv"), *calls, want):
+        assert torch.equal(a, b), f"{name}: a second call differs"
+        _bf16_close(a, c, BF16_TOL_GRAD, GRAD_ATOL, name)
+
+
+@pytest.mark.gpu
+def test_cuda_rejects_mixed_dtypes():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    q, k, v, _ = _cuda_inputs(1, 16, 16, 2, 64)
+    before = (FA.fwd_launches, FA.fwd_launches_bf16)
+    for args in ((q.bfloat16(), k, v), (q, k.bfloat16(), v),
+                 (q.bfloat16(), k.bfloat16(), v), (q.half(), k.half(),
+                                                   v.half())):
+        with pytest.raises(ValueError, match="dtype|float32"):
+            FA.flash_attention(*args)
+    assert (FA.fwd_launches, FA.fwd_launches_bf16) == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["offset_8_bytes", "time_stride_132",
+                                  "offset_16_bytes"])
+def test_cuda_bf16_alignment_rule(case):
+    """bf16 views: 16 bytes are 8 elements, so a start 4 elements in or a
+    time stride of 132 raise; a start 8 elements in is taken."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    def view(width, start):
+        z = torch.zeros(2, 6, width, dtype=torch.bfloat16, device="cuda")
+        return z[..., start:start + 128].unflatten(2, (2, 64))
+
+    q = {"offset_8_bytes": view(144, 4), "time_stride_132": view(132, 0),
+         "offset_16_bytes": view(144, 8)}[case]
+    k, v = (x.bfloat16() for x in _cuda_inputs(2, 6, 6, 2, 64)[1:3])
+    if case == "offset_16_bytes":
+        assert q.data_ptr() % 16 == 0
+        FA.flash_attention(q, k, v)
+        return
+    before = FA.fwd_launches_bf16
+    with pytest.raises(ValueError, match="16-byte"):
+        FA.flash_attention(q, k, v)
+    assert FA.fwd_launches_bf16 == before
 
 
 @pytest.mark.gpu

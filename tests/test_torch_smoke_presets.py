@@ -138,3 +138,52 @@ def test_smoke_preset_trains_and_serves_on_cuda_as_on_cpu(tmp_path, capsys):
         assert np.isfinite(got[key]), key
         np.testing.assert_allclose(got[key], want[key], rtol=rtol,
                                    err_msg=key)
+
+
+# The bf16 recipe on the card against the same run on the CPU: the two
+# round to bf16 at other points (the kernels under their tiles' running
+# max, cuBLAS's bf16 products), so they may differ by bf16 noise, not f32
+# order. Held as tests/test_torch_train.py holds the port to JAX: each
+# side's distance to the CPU's f32 run within BF16_NOISE times the other's
+# plus the f32 tolerance above.
+BF16_FLAGS = ["--compute_dtype", "bf16_shadow", "--adam_mu_dtype", "bf16"]
+BF16_NOISE = 4.0
+
+
+def _smoke_train(save_dir, device, capsys, flags=()):
+    """temporal train --epochs 1: (train loss, val loss)."""
+    save_init_checkpoints(get_case(), str(save_dir), seed=1)
+    cli.main(["cylinder_flow_smoke", "temporal", "train", "--epochs", "1",
+              "--synthetic", "--save_dir", str(save_dir), "--device",
+              device, *flags])
+    line = re.search(r"^Epoch 1/1 train Loss (\S+) \| val Loss (\S+)$",
+                     capsys.readouterr().out, re.M)
+    return float(line.group(1)), float(line.group(2))
+
+
+@pytest.mark.gpu
+def test_smoke_preset_trains_bf16_shadow_on_cuda_as_on_cpu(tmp_path,
+                                                            capsys):
+    """Runs on the card only: cylinder_flow_smoke trains with
+    --compute_dtype bf16_shadow --adam_mu_dtype bf16 on the card through
+    the bf16 flash kernels (every train step) and the f32 ones (the f32
+    evaluation), and its losses agree with the CPU's within bf16 noise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    names = ["fwd_launches_bf16", "dq_launches_bf16", "dkv_launches_bf16",
+             "fwd_launches"]
+    before = [getattr(FA, n) for n in names]
+    got = _smoke_train(tmp_path / "cuda", "cuda", capsys, BF16_FLAGS)
+    for name, b in zip(names, before):
+        assert getattr(FA, name) > b, f"{name}: no launch on the card"
+    assert (FA.dq_launches_bf16 - before[1] == FA.dkv_launches_bf16
+            - before[2] > 0)
+    want = _smoke_train(tmp_path / "cpu", "cpu", capsys, BF16_FLAGS)
+    ref = _smoke_train(tmp_path / "f32", "cpu", capsys)
+    for key, a, b, r in zip(("train_loss", "val_loss"), got, want, ref):
+        f32_tol = SMOKE_RTOL[key] * abs(r)
+        with capsys.disabled():
+            print(f"smoke bf16 {key}: card {a!r}, CPU {b!r}, CPU f32 {r!r}")
+        assert np.isfinite(a), key
+        assert abs(a - r) <= BF16_NOISE * abs(b - r) + f32_tol, key
+        assert abs(b - r) <= BF16_NOISE * abs(a - r) + f32_tol, key

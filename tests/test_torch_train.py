@@ -29,6 +29,25 @@ the first AdamW step, p - lr (u(g) + wd p) with u(g) = g / (|g| + eps):
   the most u can move over [g - dg, g + dg] (u is monotone), and it is
   far tighter (dg, 1e-6 x the gradient norm, spans many eps). Every
   element is held to one of the two bounds.
+The bf16 policies ("bfloat16", "bfloat16_mixed", "bfloat16_shadow", each
+with f32 and bf16 first moments), one step on the same cut-down model:
+the port rounds to bf16 at other points than XLA does (a fused bias add,
+the norms' outputs, the matmuls' own roundings), so its step cannot equal
+JAX's bf16 step to f32 order; what it must do is round no worse than JAX.
+The loss and each gradient tensor are held to JAX's f32 step within
+BF16_NOISE = 4 times JAX's own bf16-vs-f32 distance for that quantity,
+plus the f32 tolerances above: measured up to 2.9 times for one tensor
+(blocks[0].ib.layers[0].ln.w, bfloat16_mixed), 1 or less for the loss
+and under "bfloat16". A dropped cast, a gradient that misses the masters,
+or a kernel piece rounded where JAX does not is off by orders more. The
+gradients are read as sign(mu) sqrt(nu / (1 - b2)) (exact in f32 for
+either mu dtype); the parameters are held to PARAM_ATOL + lr |u(g_port) -
+u(g_jax)| as above, from those gradients; a bf16 mu to one bf16 ulp of
+JAX's (at the larger of the two) plus (1 - b1) times the two sides'
+gradient difference (rounding two values to bf16 moves them apart by at
+most their difference and one ulp); and the
+shadow to to_bf16 of the updated parameters bit for bit.
+
 The two-step train() comparison meets such elements too (at the smoke
 preset, a fifth of the parameters have a gradient within 100 eps on some
 step). It records both sides' gradients at every step, holds them to the
@@ -54,12 +73,14 @@ from sea_tpu_torch.train import optim as TO
 from sea_tpu_torch.train import train_temporal as TTR
 from sea_tpu_torch.utils import prng
 from sea_tpu_torch.utils.params import (from_numpy, opt_state_from_numpy,
-                                        opt_state_to_numpy, to_numpy)
+                                        opt_state_to_numpy, to_numpy,
+                                        tree_leaves)
 
 torch.set_num_threads(2)
 
 FWD_ATOL = 1e-5
 PARAM_ATOL = 2e-6
+BF16_NOISE = 4.0
 NEAR_EPS = 100  # |g| <= NEAR_EPS x eps: the first Adam step is ill-conditioned
 
 
@@ -254,15 +275,178 @@ def test_optimizer_state_has_optax_layout():
 
 
 def test_unported_options_raise():
+    """The scheduler and adafactor still raise, naming ROADMAP.md; bf16
+    first moments and the bf16 shadow now build."""
     from sea_tpu_torch.configs.cylinder_flow import get_case
     tcfg = get_case().temporal_train
-    for change in (dict(scheduler="linear"), dict(optimizer="adafactor"),
-                   dict(adam_mu_dtype="bfloat16"),
-                   dict(compute_dtype="bfloat16_shadow")):
+    for change in (dict(scheduler="linear"), dict(optimizer="adafactor")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TO.make_optimizer(dataclasses.replace(tcfg, **change))
+    tx = TO.make_optimizer(dataclasses.replace(tcfg,
+                                               adam_mu_dtype="bfloat16"))
+    assert isinstance(tx, TO.AdamW) and tx.mu_dtype == torch.bfloat16
+    tx = TO.make_optimizer(dataclasses.replace(
+        tcfg, compute_dtype="bfloat16_shadow"))
+    assert isinstance(tx, TO.with_bf16_shadow)
+    assert tx.inner.mu_dtype == torch.float32
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TTR.train(get_case(), device="cpu", seq_mesh=object())
+
+
+_BF16_STEPS = {}  # (compute_dtype, adam_mu_dtype) -> both sides' step
+
+
+def _bf16_step(compute_dtype, mu_dtype):
+    """One step of JAX's make_train_step and the port's under a policy
+    (the jax_kernels fixture active): {"jax": (params, state, stats),
+    "port": (...), "init": params}, numpy trees, cached per process."""
+    key = (compute_dtype, mu_dtype)
+    if key in _BF16_STEPS:
+        return _BF16_STEPS[key]
+    from sea_tpu.configs.cylinder_flow import get_case
+    from sea_tpu.models import temporal as JT
+    from sea_tpu.train.optim import make_optimizer as jax_optimizer
+    from sea_tpu.train.train_temporal import make_train_step as jax_step
+    cfg = _small_cylinder_cfg()
+    tcfg = dataclasses.replace(get_case().temporal_train,
+                               compute_dtype=compute_dtype,
+                               adam_mu_dtype=mu_dtype)
+    params = _np(JT.init_temporal(jax.random.PRNGKey(0), cfg))
+    x, tgt, ib = _batch(cfg, seed=1)
+    tx = jax_optimizer(tcfg)
+    jp, jstate, jstats = jax_step(cfg, tx, compute_dtype=compute_dtype)(
+        jax.tree.map(jnp.asarray, params),
+        tx.init(jax.tree.map(jnp.asarray, params)), jnp.asarray(x),
+        jnp.asarray(tgt), jnp.asarray(ib),
+        jax.random.fold_in(jax.random.PRNGKey(5), 2))
+    ttx = TO.make_optimizer(tcfg)
+    tparams = from_numpy(params, "cpu")
+    tp, tstate, tstats = TTR.make_train_step(
+        cfg, ttx, compute_dtype=compute_dtype)(
+            tparams, ttx.init(tparams), torch.from_numpy(x),
+            torch.from_numpy(tgt), torch.from_numpy(ib),
+            prng.fold_in(prng.prng_key(5), 2))
+    out = {"jax": (_np(jp), jstate, {k: float(v) for k, v in
+                                     jstats.items()}),
+           "port": (to_numpy(tp), tstate, {k: float(v) for k, v in
+                                           tstats.items()}),
+           "init": params, "tcfg": tcfg}
+    _BF16_STEPS[key] = out
+    return out
+
+
+def _adam(state):
+    """The ScaleByAdamState of an optimizer state, shadow or not."""
+    return (state.inner if hasattr(state, "inner") else state)[0]
+
+
+def _grads_from_moments(adam, b2):
+    """{keystr: f64 gradient} of a first step: sign(mu) sqrt(nu/(1-b2))."""
+    mu = {jax.tree_util.keystr(p): np.asarray(m, np.float64) for p, m in
+          jax.tree_util.tree_flatten_with_path(
+              jax.tree.map(lambda a: np.asarray(a, np.float32),
+                           adam.mu))[0]}
+    return {jax.tree_util.keystr(p): np.sign(mu[jax.tree_util.keystr(p)])
+            * np.sqrt(np.asarray(n, np.float64) / (1 - b2))
+            for p, n in jax.tree_util.tree_flatten_with_path(adam.nu)[0]}
+
+
+def _bf16_ulp(x):
+    """The spacing of bf16 numbers at |x| (the least subnormal at 0)."""
+    x = np.abs(np.asarray(x, np.float64))
+    e = np.floor(np.log2(np.where(x > 0, x, 1.0)))
+    return np.where(x > 0, 2.0 ** (np.maximum(e, -126) - 7), 2.0 ** -133)
+
+
+@pytest.mark.parametrize("mu_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("compute_dtype", ["bfloat16", "bfloat16_mixed",
+                                           "bfloat16_shadow"])
+def test_bf16_train_step_matches_jax(compute_dtype, mu_dtype, jax_kernels):
+    """One step under a bf16 policy against JAX's make_train_step (flash
+    and AdaLN kernels in interpret mode on bf16 inputs): the loss, the
+    gradients, the parameters, a bf16 mu and the shadow, by the module's
+    bf16 rules; JAX's f32 step is the reference of the noise."""
+    steps = _bf16_step(compute_dtype, mu_dtype)
+    f32 = _bf16_step("float32", "float32")
+    tcfg = steps["tcfg"]
+    b1, b2, lr, eps = (tcfg.betas[0], tcfg.betas[1], tcfg.learning_rate,
+                       tcfg.eps)
+    (jp, jstate, jstats), (tp, tstate, tstats) = steps["jax"], steps["port"]
+    ref_loss = f32["jax"][2]["loss"]
+    assert abs(tstats["loss"] - ref_loss) <= BF16_NOISE * abs(
+        jstats["loss"] - ref_loss) + FWD_ATOL
+    got_state = opt_state_to_numpy(tstate)
+    assert int(_adam(got_state).count) == 1
+    g_port = _grads_from_moments(_adam(got_state), b2)
+    g_jax = _grads_from_moments(_adam(jstate), b2)
+    g_ref = _grads_from_moments(_adam(f32["jax"][1]), b2)
+    gscale = f32["jax"][2]["grad_norm"]
+    for path, g in g_port.items():
+        noise = np.abs(g_jax[path] - g_ref[path]).max()
+        bound = (BF16_NOISE * noise + 1e-4 * np.abs(g_ref[path])
+                 + 1e-7 * gscale)
+        err = np.abs(g - g_ref[path])
+        assert (err <= bound).all(), (
+            f"{path}: gradient off JAX's f32 one by up to {err.max():.3g}, "
+            f"JAX's bf16 one by {noise:.3g}")
+    u = lambda g: g / (np.abs(g) + eps)  # noqa: E731
+    flat_want = dict(jax.tree_util.tree_flatten_with_path(jp)[0])
+    for path, a in jax.tree_util.tree_flatten_with_path(tp)[0]:
+        key = jax.tree_util.keystr(path)
+        diff = np.abs(np.asarray(a, np.float64) - flat_want[path])
+        tol = PARAM_ATOL + lr * np.abs(u(g_port[key]) - u(g_jax[key]))
+        assert (diff <= tol).all(), f"{key}: off by up to {diff.max():.3g}"
+    want_mu = dict(jax.tree_util.tree_flatten_with_path(
+        _adam(jstate).mu)[0])
+    for path, m in jax.tree_util.tree_flatten_with_path(
+            _adam(tstate).mu)[0]:
+        key = jax.tree_util.keystr(path)
+        assert m.dtype == (torch.bfloat16 if mu_dtype == "bfloat16"
+                           else torch.float32), key
+        if mu_dtype == "bfloat16":
+            mj = np.asarray(want_mu[path], np.float64)
+            mp = m.float().numpy().astype(np.float64)
+            diff = np.abs(mp - mj)
+            tol = ((1 - b1) * np.abs(g_port[key] - g_jax[key])
+                   + _bf16_ulp(np.maximum(np.abs(mp), np.abs(mj))))
+            assert (diff <= tol).all(), f"mu {key}: off by {diff.max():.3g}"
+    if compute_dtype == "bfloat16_shadow":
+        params = from_numpy(tp, "cpu")
+        for s, p in zip(tree_leaves(tstate.shadow), tree_leaves(params)):
+            assert s.dtype == torch.bfloat16
+            assert torch.equal(s, p.to(torch.bfloat16))
+
+
+def test_bf16_shadow_checkpoint_crosses_from_jax(tmp_path, jax_kernels):
+    """A JAX bfloat16_shadow + bf16-mu state, written by the JAX package's
+    save_checkpoint, loads in the port's load_full_checkpoint with the
+    port's template and comes back with the JAX values bit for bit: a
+    bf16 mu, the bf16 shadow, the f32 nu and the count."""
+    from sea_tpu.utils.checkpoint import save_checkpoint as jax_save
+    from sea_tpu_torch.utils.checkpoint import load_full_checkpoint
+    steps = _bf16_step("bfloat16_shadow", "bfloat16")
+    jp, jstate, _ = steps["jax"]
+    jax_save(str(tmp_path), "temporal", "case", "run", jp, opt_state=jstate,
+             meta={"epoch": 1})
+    tx = TO.make_optimizer(steps["tcfg"])
+    template = from_numpy(steps["init"], "cpu")
+    params, opt, _ = load_full_checkpoint(
+        str(tmp_path / "temporal_case_run.npz"), to_numpy(template),
+        opt_state_to_numpy(tx.init(template)))
+    state = opt_state_from_numpy(opt, "cpu", torch.bfloat16)
+    assert isinstance(state, TO.ShadowOptState)
+    want = jax.tree.map(lambda a: np.asarray(a, np.float32), jstate)
+    assert int(_adam(state).count) == int(_adam(want).count) == 1
+    for got, ref in ((_adam(state).mu, _adam(want).mu),
+                     (_adam(state).nu, _adam(want).nu),
+                     (state.shadow, want.shadow)):
+        pairs = list(zip(tree_leaves(got), jax.tree.leaves(ref)))
+        assert pairs and all(torch.equal(a.float(), torch.from_numpy(np.array(b)))
+                             for a, b in pairs)
+    assert all(a.dtype == torch.bfloat16
+               for a in tree_leaves(_adam(state).mu)
+               + tree_leaves(state.shadow))
+    _assert_tree_close(params, jp, atol=0)
 
 
 def _keystr_leaves(tree):
