@@ -21,9 +21,10 @@ its root's index and path. Exits 1 if any run failed.
 
 With ``--kernels`` each root's process instead builds that checkout's
 flash-attention source, prints the registers, stack and local memory of
-its f32 kernels (``[ab-regs]``, from ``cuobjdump``), and runs its
-``chip_smoke.py`` ``phase_time_flash()``: the f32 forward, dQ and dK/dV
-``[kernel-time]`` lines, kernel against kernel across the roots.
+its kernels (``[ab-regs]``, from ``cuobjdump``), and runs its
+``chip_smoke.py`` ``phase_time_flash()`` in f32 and in bf16: the
+forward, dQ and dK/dV ``[kernel-time]`` lines of both forms, kernel
+against kernel across the roots.
 """
 
 import subprocess
@@ -73,11 +74,12 @@ for line in cs._cuobjdump("--dump-resource-usage",
                           _build.load_library("flash_attention")._name):
     if "Function" in line:
         fn = line.split("Function", 1)[1].strip(" :")
-    elif "REG:" in line and fn and "_bf16" not in fn:
+    elif "REG:" in line and fn:
         print("[ab-regs]", fn, " ".join(
             w for w in line.split() if w.startswith(("REG", "STACK",
                                                      "LOCAL"))))
 cs.phase_time_flash()
+cs.phase_time_flash(torch.bfloat16)
 """
 
 

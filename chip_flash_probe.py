@@ -2,7 +2,7 @@
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
-    python3 chip_flash_probe.py [fwd] [bwd]      (both when none is named)
+    python3 chip_flash_probe.py [fwd] [fwd16] [bwd]   (all when none is named)
 
 It builds ``sea_tpu_torch/csrc/flash_attention.cu`` as it is and in a few
 variants made by text edits of that source (an edit that no longer applies
@@ -25,6 +25,26 @@ softmax, P.V and the closing barrier. Variants:
 - ``dead_warps``: a warp whose 16 rows all lie past Tq skips the products;
 - ``rolled_pv``: P.V as a rolled loop over its k steps, S's fragments
   shifted down a register each step.
+
+``fwd16``: the bf16 forward's wgmma form (hd 64, 128 and 256), checked
+against the plain version (and a second call for the same bits) and
+timed beside SDPA's bf16 causal forward; for the source as it is it then
+counts clock64 cycles in the critical block (bh 0, the last q tile) for
+thread 0 of each consumer group: per walked tile after the first, the
+wait for its K (and the V before it), S with the P.V before it, the
+softmax and hash, and the O rescale; then the wait for Q, tile 0, and
+the last P.V with the merge (and group 0's wait for group 1). Variants:
+
+- ``one_group``: the first consumer group walks every key tile and the
+  second none (the walk not split);
+- ``overlap``: inside a group, the softmax of tile i runs while the P.V
+  of tile i - 1 does (``wgmma.wait_group 1``, P in two register buffers);
+- ``bk128_hd64``: 128-key tiles at hd 64, two stages a group;
+- ``st2``: two stages a group at hd 64 and 128;
+- ``k_first``: the loader asks for K of tile j before V of tile j - 1;
+- ``cluster2``: a cluster of two blocks a (bh, q tile), each with one
+  consumer group walking the even or the odd key tiles, rank 1 handing
+  (m, l, O) to rank 0 over distributed shared memory (twice the blocks).
 
 ``bwd``: dQ and dK/dV. Variants:
 
@@ -189,6 +209,228 @@ extern "C" int sea_bwd_phase_zero() {
 """
 BWD_PHASES = ("wait", "copies", "S,dP", "softmax", "PV")
 
+# The bf16 forward's wgmma form (fwd16). Variants:
+_FWD16_RESCALE = ("#pragma unroll\n    for (int c = 0; c < NO; ++c)\n"
+                  "#pragma unroll\n      for (int e = 0; e < 4; ++e) "
+                  "acc[4 * c + e] *= alpha[e >> 1];\n")
+FWD16_VARIANTS = {
+    "as_is": [],
+    # one consumer group walks every key tile, the other none
+    "one_group": [
+        ("        const int i = j / G, st = (j % G) * ST + i % ST;",
+         "        const int i = j, st = i % ST;"),
+        ("  const int mine = n_tiles > group ? (n_tiles - group + G - 1) / G "
+         ": 0;", "  const int mine = group == 0 ? n_tiles : 0;"),
+        ("    const int k0 = (group + G * i) * BK;",
+         "    const int k0 = i * BK;")],
+    # inside a group, the softmax of tile i runs while the P.V of tile
+    # i - 1 does (S and P.V in two commit groups, wgmma.wait_group 1; P in
+    # two register buffers)
+    "overlap": [
+        ("  uint32_t p[NS / 2][4];     // its P, bf16 pairs",
+         "  uint32_t p[NS / 2][4], pn[NS / 2][4];"),
+        ("      issue_s<HD, BK>(sc, qd, kd + u * kStageStep);\n"
+         "      issue_pv<HD, BK>(acc, p, vd + up * kStageStep);\n"
+         "      wgmma_commit();\n      wgmma_wait<0>();\n"
+         "      pin(sc);\n      pin(acc);\n"
+         "      mbar_arrive(empty + group * ST + up);\n"
+         "      softmax(i, alpha, p);\n",
+         "      issue_s<HD, BK>(sc, qd, kd + u * kStageStep);\n"
+         "      wgmma_commit();\n"
+         "      issue_pv<HD, BK>(acc, p, vd + up * kStageStep);\n"
+         "      wgmma_commit();\n      wgmma_wait<1>();\n"
+         "      pin(sc);\n      softmax(i, alpha, pn);\n"
+         "      wgmma_wait<0>();\n      pin(acc);\n"
+         "      mbar_arrive(empty + group * ST + up);\n"
+         "#pragma unroll\n      for (int kk = 0; kk < NS / 2; ++kk)\n"
+         "#pragma unroll\n        for (int e = 0; e < 4; ++e) p[kk][e] = "
+         "pn[kk][e];\n")],
+    # 128-key tiles at hd 64 (two stages a group)
+    "bk128_hd64": [
+        ("    case 64: return launch_fwd_bf16<64, 64, 4>(",
+         "    case 64: return launch_fwd_bf16<64, 128, 2>(")],
+    # two stages a group at hd 64 and 128 (fewer tiles asked for at the
+    # start; at hd 256 two stages cannot hold the merge's exchange)
+    "st2": [
+        ("    case 64: return launch_fwd_bf16<64, 64, 4>(",
+         "    case 64: return launch_fwd_bf16<64, 64, 2>("),
+        ("    case 128: return launch_fwd_bf16<128, 64, 3>(",
+         "    case 128: return launch_fwd_bf16<128, 64, 2>(")],
+    # the loader asks for K of tile j before V of tile j - 1 (Q, K0, K1,
+    # V0, K2, V1, ...), so that both groups' first S start sooner
+    "k_first": [
+        ("      for (int j = 0; j < n_tiles; ++j) {\n"
+         "        const int i = j / G, st = (j % G) * ST + i % ST;\n",
+         "      for (int j = 0; j <= n_tiles; ++j) {\n"
+         "        if (j > 0) {\n"
+         "          const int i = (j - 1) / G;\n"
+         "          const int st = ((j - 1) % G) * ST + i % ST;\n"
+         "          unsigned char* dst = ring + st * T::kStageBytes;\n"
+         "          mbar_expect_tx(v_full + st, T::kTileBytes);\n"
+         "#pragma unroll\n"
+         "          for (int c = 0; c < T::kBoxes; ++c)\n"
+         "            tma_load(dst + T::kTileBytes + c * BK * 128, vmap,\n"
+         "                     v_full + st, 64 * c, h, (j - 1) * BK, b);\n"
+         "        }\n"
+         "        if (j == n_tiles) break;\n"
+         "        const int i = j / G, st = (j % G) * ST + i % ST;\n"),
+        ("        mbar_expect_tx(v_full + st, T::kTileBytes);\n"
+         "#pragma unroll\n"
+         "        for (int c = 0; c < T::kBoxes; ++c)\n"
+         "          tma_load(dst + T::kTileBytes + c * BK * 128, vmap, "
+         "v_full + st,\n"
+         "                   64 * c, h, j * BK, b);\n", "")],
+}
+
+def _cluster2(base):
+    """The cluster2 variant's edits of `base`: a cluster of two blocks a
+    (bh, q tile), grid z = rank. Each block's first consumer group walks
+    the rank's key tiles (rank, rank + 2, ...), its second none; rank 1
+    pushes (m, l, O) into rank 0's shared memory over distributed shared
+    memory and arrives on an mbarrier there, and rank 0 merges them into
+    its own, as the decode kernel's ranks do."""
+    start = base.index("  // Group 1 hands (m, l, O) to group 0")
+    end = base.index("  // acc[4c + 2r + e] is row row0 + 8r")
+    merge = """  if (group == 1) return;
+  {
+    float* xch = reinterpret_cast<float*>(ring + ST * T::kStageBytes) + tid;
+    uint64_t* xfull = q_full + 1;
+    if (blockIdx.z == 1) {
+      asm volatile("barrier.cluster.wait.aligned;\\n" ::: "memory");
+      unsigned rx, rb;
+      asm volatile("mapa.shared::cluster.u32 %0, %1, 0;\\n"
+                   : "=r"(rx) : "r"(smem_u32(xch)));
+      asm volatile("mapa.shared::cluster.u32 %0, %1, 0;\\n"
+                   : "=r"(rb) : "r"(smem_u32(xfull)));
+      float ml[4] = {m[0], m[1], l[0], l[1]};
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i)
+        asm volatile("st.shared::cluster.f32 [%0], %1;\\n"
+                     ::"r"(rx + 512 * i), "f"(acc[i]) : "memory");
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        asm volatile("st.shared::cluster.f32 [%0], %1;\\n"
+                     ::"r"(rx + 512 * (HD / 2 + i)), "f"(ml[i]) : "memory");
+      asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, "
+                   "[%0];\\n" ::"r"(rb) : "memory");
+      return;
+    }
+    unsigned done;
+    do {
+      asm volatile("{\\n.reg .pred p;\\n"
+                   "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 "
+                   "p, [%1], 0;\\nselp.u32 %0, 1, 0, p;\\n}\\n"
+                   : "=r"(done) : "r"(smem_u32(xfull)) : "memory");
+    } while (!done);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m1 = xch[128 * (HD / 2 + r)];
+      const float m_new = fmaxf(m[r], m1);
+      const float a0 = exp2_approx(m[r] - m_new);
+      const float a1 = exp2_approx(m1 - m_new);
+      l[r] = l[r] * a0 + xch[128 * (HD / 2 + 2 + r)] * a1;
+      m[r] = m_new;
+#pragma unroll
+      for (int c = 0; c < NO; ++c)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * c + 2 * r + e;
+          acc[i] = acc[i] * a0 + xch[128 * i] * a1;
+        }
+    }
+  }
+
+"""
+    return edit(base[:start] + merge + base[end:], [
+        ("__global__ void __launch_bounds__(FwdWg<HD, BK, ST>::kThreads, 1)",
+         "__global__ void __cluster_dims__(1, 1, 2) "
+         "__launch_bounds__(FwdWg<HD, BK, ST>::kThreads, 1)"),
+        ("  const dim3 grid(s.B * s.H, (s.Tq + kFwdBQ - 1) / kFwdBQ);",
+         "  const dim3 grid(s.B * s.H, (s.Tq + kFwdBQ - 1) / kFwdBQ, 2);"),
+        ("1024 + kQBytes + kStages * kStageBytes + 8 * (3 * kStages + 1);",
+         "1024 + kQBytes + kStages * kStageBytes + 8 * (3 * kStages + 2);"),
+        ("    mbar_init(q_full, 1);\n",
+         "    mbar_init(q_full, 1);\n    mbar_init(q_full + 1, 128);\n"),
+        ('    asm volatile("fence.mbarrier_init.release.cluster;\\n" ::: '
+         '"memory");\n  }\n  __syncthreads();\n',
+         '    asm volatile("fence.mbarrier_init.release.cluster;\\n" ::: '
+         '"memory");\n  }\n  __syncthreads();\n'
+         '  asm volatile("barrier.cluster.arrive.aligned;\\n" ::: '
+         '"memory");\n'),
+        ("      for (int j = 0; j < n_tiles; ++j) {\n"
+         "        const int i = j / G, st = (j % G) * ST + i % ST;",
+         "      for (int j = blockIdx.z; j < n_tiles; j += 2) {\n"
+         "        const int i = j / 2, st = i % ST;"),
+        ("  const int mine = n_tiles > group ? (n_tiles - group + G - 1) / G "
+         ": 0;",
+         "  const int z = blockIdx.z;\n"
+         "  const int mine = group == 0 && n_tiles > z ? (n_tiles - z + 1) / 2"
+         " : 0;"),
+        ("    const int k0 = (group + G * i) * BK;",
+         "    const int k0 = (z + 2 * i) * BK;"),
+    ])
+
+
+# clock64 marks of the critical block (bh 0, the last q tile), thread 0 of
+# each consumer group, summed over calls: per walked tile the wait for its
+# K (and the V before it), S with the P.V before it, the softmax and
+# hash, and the O rescale; then the wait for Q,
+# the merge from the end of the walk (group 1: to its hand-off), and group
+# 0's wait for group 1 at the merge.
+_FWD16_MARKS = [
+    ("template <int HD, int BK, int ST>\n__global__ void __launch_bounds__("
+     "FwdWg<HD, BK, ST>::kThreads, 1)",
+     "__device__ long long g_phase16[2][10];\n"
+     "template <int HD, int BK, int ST>\n__global__ void __launch_bounds__("
+     "FwdWg<HD, BK, ST>::kThreads, 1)"),
+    ("  mbar_wait(q_full, 0);\n",
+     "  const bool mark = blockIdx.x == 0 && blockIdx.y == 0 && tid == 0;\n"
+     "  const long long t0 = clock64();\n  long long t_end = t0;\n"
+     "  mbar_wait(q_full, 0);\n"
+     "  const long long tq = clock64();\n"
+     "  if (mark) g_phase16[group][6] += tq - t0;\n"),
+    ("    softmax(0, alpha, p);  // O is still 0: nothing to rescale\n",
+     "    softmax(0, alpha, p);  // O is still 0: nothing to rescale\n"
+     "    if (mark) g_phase16[group][7] += clock64() - tq;\n"),
+    ("      const int u = i % ST, up = (i - 1) % ST;\n",
+     "      const int u = i % ST, up = (i - 1) % ST;\n"
+     "      const long long ta = clock64();\n"),
+    ("      mbar_wait(v_full + group * ST + up, ((i - 1) / ST) & 1);\n"
+     "      pin(sc);\n",
+     "      mbar_wait(v_full + group * ST + up, ((i - 1) / ST) & 1);\n"
+     "      const long long tb = clock64();\n      pin(sc);\n"),
+    ("      softmax(i, alpha, p);\n",
+     "      const long long tc = clock64();\n      softmax(i, alpha, p);\n"
+     "      const long long td = clock64();\n"),
+    ("        for (int e = 0; e < 4; ++e) acc[4 * c + e] *= alpha[e >> 1];\n"
+     "    }\n",
+     "        for (int e = 0; e < 4; ++e) acc[4 * c + e] *= alpha[e >> 1];\n"
+     "      if (mark) {\n        const long long d[5] = {tb - ta, "
+     "tc - tb, td - tc, clock64() - td, 1};\n"
+     "        for (int v = 0; v < 5; ++v) g_phase16[group][v] += d[v];\n"
+     "      }\n    }\n    t_end = clock64();\n"),
+    ('    asm volatile("bar.arrive 1, 256;\\n" ::: "memory");\n',
+     '    asm volatile("bar.arrive 1, 256;\\n" ::: "memory");\n'
+     "    if (mark && mine > 0) g_phase16[1][8] += clock64() - t_end;\n"),
+    ('  asm volatile("bar.sync 1, 256;\\n" ::: "memory");\n',
+     "  const long long tm = clock64();\n"
+     '  asm volatile("bar.sync 1, 256;\\n" ::: "memory");\n'
+     "  if (mark) g_phase16[0][9] += clock64() - tm;\n"),
+    ("  // acc[4c + 2r + e] is row row0 + 8r, d = 8c + 2t + e; lse = m ln 2 +",
+     "  if (mark) g_phase16[0][8] += clock64() - t_end;\n"
+     "  // acc[4c + 2r + e] is row row0 + 8r, d = 8c + 2t + e; lse = m ln 2 +"),
+]
+_FWD16_MARK_ENTRIES = """
+extern "C" int sea_phase16_read(long long* host) {
+  return cudaMemcpyFromSymbol(host, g_phase16, sizeof(g_phase16));
+}
+extern "C" int sea_phase16_zero() {
+  static const long long zero[20] = {};
+  return cudaMemcpyToSymbol(g_phase16, zero, sizeof(zero));
+}
+"""
+FWD16_PHASES = ("data wait", "S+PV", "softmax", "rescale")
+
 
 def probe_forward():
     base = SOURCE.read_text()
@@ -253,6 +495,98 @@ def probe_forward():
             log(f"[probe-phases] (B,T,H,hd)=({B},{T},{H},{hd}) "
                 f"dropout {rate}: {tiles // 10} key tiles; clock64 cycles a "
                 f"tile, warps 0-3, {'/'.join(PHASES)}: {per_warp}")
+
+
+def _bf16_inputs(shape):
+    return [x.to(torch.bfloat16) for x in cs._flash_inputs(shape)]
+
+
+def probe_forward16():
+    base = SOURCE.read_text()
+    out = OUT.parent / "flash_probe_fwd16"
+    texts = {name: edit(base, e) for name, e in FWD16_VARIANTS.items()}
+    texts["cluster2"] = _cluster2(base)
+    texts["as_is+marks"] = edit(base, _FWD16_MARKS) + _FWD16_MARK_ENTRIES
+    build_all(out, SOURCE.name, texts, "15fwd_kernel_bf16I",
+              "fwd_kernel_bf16<HD, BK, stages> in mangled order")
+    names = [*FWD16_VARIANTS, "cluster2"]
+    for name in names:
+        use(out, name, SOURCE.name, FA)
+        worst, same = [0.0, 0.0], True
+        for shape in cs.FLASH_SHAPES:
+            q, k, v, _ = _bf16_inputs(shape)
+            for rate in (0.0, 0.1):
+                kw = cs._flash_kw(shape, rate)
+                o, lse = FA.flash_fwd(q, k, v, **kw)
+                o2, lse2 = FA.flash_fwd(q, k, v, **kw)
+                same &= torch.equal(o, o2) and torch.equal(lse, lse2)
+                o_ref, lse_ref = FA.flash_forward_ref(q, k, v, **kw)
+                err, bound = cs._bf16_err(o, o_ref, cs.FLASH_BF16_REL["out"],
+                                          cs.FLASH_TOL["out"])
+                if not (err <= bound and cs._err(lse, lse_ref) <= 1e-5):
+                    raise AssertionError(f"{name} {shape} rate={rate}: o "
+                                         f"err {err} > {bound} or lse err "
+                                         f"{cs._err(lse, lse_ref)} > 1e-5")
+                worst = [max(worst[0], err),
+                         max(worst[1], cs._err(lse, lse_ref))]
+        log(f"[probe-check] fwd16 {name}: max abs err o {worst[0]:.3g}, lse "
+            f"{worst[1]:.3g} over FLASH_SHAPES x dropout (0, 0.1); a second "
+            f"call the same bits: {same}")
+    flush = torch.ones(128 << 20, dtype=torch.float32, device="cuda")
+    times = collections.defaultdict(list)
+    for name in names + names[::-1]:
+        use(out, name, SOURCE.name, FA)
+        for shape in cs.FLASH_SHAPES[:3]:
+            q, k, v, _ = _bf16_inputs(shape)
+            for rate in (0.0, 0.1):
+                kw = cs._flash_kw(shape, rate)
+                times[(shape, rate, name)].append(cs._device_ms(
+                    lambda: FA.flash_fwd(q, k, v, **kw), flush))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for shape in cs.FLASH_SHAPES[:3]:
+        B, Tq, _, H, hd, _ = shape
+        q, k, v, _ = _bf16_inputs(shape)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        with torch.no_grad():
+            lib = cs._library_ms(lambda: sdpa(qt, kt, vt, is_causal=True),
+                                 flush)
+        for rate in (0.0, 0.1):
+            log(f"[probe-time] fwd16 (B,T,H,hd)=({B},{Tq},{H},{hd}) dropout "
+                f"{rate}, L2 cold, ms (two runs each): " + ", ".join(
+                    f"{name} {times[(shape, rate, name)][0]:.4f} / "
+                    f"{times[(shape, rate, name)][1]:.4f}"
+                    for name in names)
+                + f"; SDPA bf16 forward {lib:.4f}")
+    lib = use(out, "as_is+marks", SOURCE.name, FA)
+    for shape in cs.FLASH_SHAPES[:3]:
+        q, k, v, _ = _bf16_inputs(shape)
+        for rate in (0.0, 0.1):
+            kw = cs._flash_kw(shape, rate)
+            FA.flash_fwd(q, k, v, **kw)
+            torch.cuda.synchronize()
+            lib.sea_phase16_zero()
+            for _ in range(10):
+                flush.sum()
+                FA.flash_fwd(q, k, v, **kw)
+            torch.cuda.synchronize()
+            buf = (ctypes.c_longlong * 20)()
+            lib.sea_phase16_read(buf)
+            B, T, _, H, hd, _ = shape
+            rows = []
+            for grp in (0, 1):
+                r = buf[10 * grp:10 * grp + 10]
+                tiles = max(r[4], 1)
+                rows.append(f"group {grp}: {r[4] // 10 + 1} tiles, "
+                            + "/".join(str(round(r[i] / tiles))
+                                       for i in range(4))
+                            + f" a tile after the first; Q wait "
+                            f"{r[6] // 10}; tile 0 {r[7] // 10}; last P.V "
+                            f"+ merge {r[8] // 10}"
+                            + (f" (of it waiting for group 1 {r[9] // 10})"
+                               if grp == 0 else ""))
+            log(f"[probe-phases] fwd16 (B,T,H,hd)=({B},{T},{H},{hd}) "
+                f"dropout {rate}, clock64 cycles of the critical block, "
+                f"{'/'.join(FWD16_PHASES)}: " + "; ".join(rows))
 
 
 def probe_backward():
@@ -358,9 +692,11 @@ def main(argv):
     log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
                        text=True, check=True).stdout.strip())
-    parts = argv or ["fwd", "bwd"]
+    parts = argv or ["fwd", "fwd16", "bwd"]
     if "fwd" in parts:
         probe_forward()
+    if "fwd16" in parts:
+        probe_forward16()
     if "bwd" in parts:
         probe_backward()
 

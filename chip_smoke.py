@@ -123,6 +123,9 @@ FLASH_SHAPES = [(2, 399, 399, 8, 128, 0), (2, 399, 399, 8, 64, 0),
                 (2, 70, 130, 8, 128, 5), (2, 41, 41, 2, 16, 0),
                 (3, 37, 53, 2, 8, 5)]
 FLASH_SEED = (123456789, -987654321)
+# The mangled name of the bf16 forward's wgmma form (hd 64, 128 and 256;
+# its mma.sync form for hd 8 and 16 is fwd_kernel_bf16_mma).
+FWD_WGMMA = "15fwd_kernel_bf16I"
 # f32, summation order only: the bounds of tests/test_flash_attention.py.
 # A dropout bit the kernel and the plain version disagree on is off by
 # about |v| / (1 - rate), far outside them.
@@ -198,13 +201,16 @@ def phase_build():
         f"quant_matmul.cu -> {_build.BUILD_DIR} in "
         f"{time.perf_counter() - t0:.2f} s")
     # Registers and static shared memory of the int4 kernel, the flash
-    # backward kernels (their tiles are dynamic shared memory) and the
-    # AdaLN kernels at the train step's f32 layouts (16-byte vectors, 32
-    # and 16 elements a thread: E = 1024 and 512), and the flash
-    # backward's SASS counts: its products are tensor-core mma.sync (HMMA),
-    # not f32 FMAs (FFMA).
+    # backward kernels and the bf16 forward's wgmma form (their tiles are
+    # dynamic shared memory) and the AdaLN kernels at the train step's f32
+    # layouts (16-byte vectors, 32 and 16 elements a thread: E = 1024 and
+    # 512), and the flash kernels' SASS counts: the backward's products
+    # are tensor-core mma.sync (HMMA), not f32 FMAs (FFMA); the bf16
+    # forward at hd 64, 128 and 256 must run wgmma (HGMMA) on tiles that
+    # TMA loads (UTMALDG).
     for name, kernels in (("quant_matmul", ("",)),
-                          ("flash_attention", ("dq_kernel", "dkv_kernel")),
+                          ("flash_attention", ("dq_kernel", "dkv_kernel",
+                                               FWD_WGMMA)),
                           ("fused_adaln", ("3F32ELi4ELi32E",
                                            "3F32ELi4ELi16E"))):
         lib = _build.load_library(name)._name
@@ -216,9 +222,17 @@ def phase_build():
                     or "failed" in line:
                 log(f"[build] {name}.cu {line.strip()}")
         if name == "flash_attention":
-            for fn, counts in _sass_counts(lib, kernels).items():
+            counts = _sass_counts(lib, kernels)
+            for fn, n in counts.items():
                 log(f"[build] flash_attention.cu SASS {fn}: "
-                    + ", ".join(f"{k} {v}" for k, v in counts.items()))
+                    + ", ".join(f"{k} {v}" for k, v in n.items()))
+            wgmma = {fn: n for fn, n in counts.items() if FWD_WGMMA in fn}
+            for hd in (64, 128, 256):
+                n = [c for fn, c in wgmma.items() if f"ILi{hd}E" in fn]
+                if len(n) != 1 or not n[0]["HGMMA"] or not n[0]["UTMALDG"]:
+                    raise AssertionError(
+                        f"fwd_kernel_bf16 at hd {hd}: want one instance "
+                        f"with HGMMA and UTMALDG in its SASS, got {n}")
 
 
 def _cuobjdump(*args):
@@ -234,10 +248,11 @@ def _cuobjdump(*args):
 
 
 def _sass_counts(lib, kernels):
-    """{mangled function: {op: count}} of the tensor-core, f32 FMA,
-    shared-load and cp.async instructions in the SASS of each function
-    whose name holds one of `kernels`."""
-    ops = ("HMMA", "FFMA", "LDS", "LDGSTS")
+    """{mangled function: {op: count}} of the tensor-core (mma.sync HMMA,
+    wgmma HGMMA), f32 FMA, shared-load, cp.async and TMA-load
+    instructions in the SASS of each function whose name holds one of
+    `kernels`."""
+    ops = ("HMMA", "HGMMA", "FFMA", "LDS", "LDGSTS", "UTMALDG")
     counts, fn = {}, None
     for line in _cuobjdump("-sass", lib):
         if "Function :" in line:

@@ -3,7 +3,8 @@ shared by the probes (chip_flash_probe.py, chip_int4_probe.py).
 
 ``edit`` applies (old, new) replacements and fails when one no longer
 applies; ``build_all`` runs one nvcc (``-Xptxas -v``) per variant, all
-started together, and logs ptxas's resource lines for the kernels named;
+started together, and logs ptxas's resource lines and performance-loss
+notes (serialised wgmma) for the kernels named;
 ``use`` points a wrapper module at a variant's source and loads its
 library.
 """
@@ -48,11 +49,18 @@ def build_all(out, source, texts, kernel, label):
                           lines[i + 1:i + 4])
                  for i, line in enumerate(lines)
                  if "Compiling entry" in line and kernel in line]
-        return name, usage
+        # ptxas's notes that it serialised a kernel's wgmma (C7520 and
+        # the like), which cost it the tensor cores' overlap
+        losses = [line.split("ptxas info    :", 1)[-1].strip()
+                  for line in lines
+                  if "Performance Loss" in line and kernel in line]
+        return name, usage, losses
 
     with ThreadPoolExecutor(len(texts)) as pool:
-        for name, usage in pool.map(one, texts):
+        for name, usage, losses in pool.map(one, texts):
             log(f"[probe-build] {name}: {label}: {usage}")
+            for loss in losses:
+                log(f"[probe-build] {name}: ptxas: {loss}")
 
 
 def use(out, name, source, module):

@@ -137,19 +137,77 @@
 // hash is ~20 integer operations). It writes the logical [BH, Tq, Tk]
 // region only, not the TPU kernel's padding to block multiples.
 //
-// The bf16 forms (fwd_kernel_bf16, dq_kernel_bf16, dkv_kernel_bf16) take
-// bf16 q, k, v and dO and write o, dq, dk and dv in bf16, with the TPU
-// kernels' rounding points: scores, the softmax statistics, lse, D and
-// every sum in f32; the unnormalised p = exp(s - m) M rounded to bf16 (v's
-// dtype) before P.V, under the running max of the key tiles so far as the
-// TPU kernel rounds it; dS rounded to bf16 before dS.K (k's dtype) and
-// dS^T.Q (q's dtype), P.M before (P.M)^T.dO (dO's). Every product is one
-// mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32, bf16 being the tensor
-// cores' own operand type: no split, so their bound is the bf16 peak (989
-// TFLOP/s) against 2-byte operands. They keep the f32 kernels' tiling,
-// warp split, cp.async rings, dropout hash and fixed-order sums of the two
-// backward groups (a second call gives the same bits); a simple form,
-// not yet a redesign for Hopper (no wgmma or TMA):
+// The bf16 forms (fwd_kernel_bf16 and, at hd 8 and 16, fwd_kernel_bf16_mma;
+// dq_kernel_bf16, dkv_kernel_bf16) take bf16 q, k, v and dO and write o,
+// dq, dk and dv in bf16, with the TPU kernels' rounding points: scores, the
+// softmax statistics, lse, D and every sum in f32; the unnormalised p =
+// exp(s - m) M rounded to bf16 (v's dtype) before P.V, under the running
+// max of the key tiles walked so far as the TPU kernel rounds it (in
+// fwd_kernel_bf16, those of the consumer group that walks the tile); dS
+// rounded to bf16 before dS.K (k's dtype) and dS^T.Q (q's dtype), P.M
+// before (P.M)^T.dO (dO's). bf16 is the tensor cores' own operand type: no
+// split, so their bound is the bf16 peak (989 TFLOP/s) against 2-byte
+// operands.
+//
+// The bf16 forward at hd 64, 128 and 256 (fwd_kernel_bf16) replaces
+// _fwd_kernel on bf16 inputs, redesigned for Hopper. Its bound is bytes: q,
+// k, v read once, o written once (2 bytes an element) and lse, 0.0020,
+// 0.0010 and 0.0039 ms at (B, T, H, hd) = (2, 399, 8, 128), (2, 399, 8,
+// 64) and (4, 199, 8, 256) at 3.35 TB/s, above its operations at the bf16
+// peak. What held the first form (the f32 kernel's tiling with mma.sync)
+// far above it was latency: 112 blocks under one wave of 132 SMs, the last
+// q tile walking all 7 key tiles alone, one warp a scheduler issuing
+// mma.sync, copies issued by every thread and a block barrier a tile. So:
+//  - a block owns (bh, 64 q rows), the grid starting the last q tiles (the
+//    longest walks) first, with three warpgroups: a loader, of which one
+//    thread issues the copies, and two consumer groups of 128 threads;
+//    setmaxnreg leaves the loader 40 registers a thread and gives the
+//    consumers 232 (168 each at launch). The warp and warpgroup indices
+//    are read from lane 0, so that ptxas sees the branches around the
+//    wgmma as uniform: it serialises wgmma under a branch it takes for
+//    divergent;
+//  - TMA (cp.async.bulk.tensor) loads Q once and the K and V tiles into a
+//    ring of ST stages a group, K and V each completing on an mbarrier
+//    with its bytes, the stage released by its group's 128 threads on a
+//    third. The tensor maps are 4-D, (hd, H, T, B) over the strided [B,
+//    T, H, hd] views (the fused qkv and kv column slices too), encoded on
+//    the host at each call and passed as __grid_constant__; boxes of 64
+//    columns (128 bytes) by the tile's rows in the 128-byte swizzle, rows
+//    past T land as zeros. TMA wants what the wrapper's alignment rule already
+//    asks (start and strides on 16 bytes); a dim of size 1 gets its
+//    packed stride. cuTensorMapEncodeTiled comes through the runtime's
+//    driver entry point query, so the library links no more than the
+//    runtime;
+//  - the walk is split: group 0 takes the even key tiles of the band and
+//    group 1 the odd ones, each with its own m, l and O, so the critical
+//    walk takes 4 tiles of 7 at T = 399. At the end group 1 hands (m, l, O)
+//    to group 0 through its own stages, and group 0 merges them into its
+//    own in that fixed order: no atomics, a second call gives the same
+//    bits;
+//  - S = Q K^T is wgmma.mma_async.m64nBKk16 with both operands in shared
+//    memory, K-major (a k step moves 32 bytes along the swizzled rows);
+//    O += P V is m64nHDk16 with P in registers, S's accumulator rounded to
+//    bf16 pairs being its A fragment (as in the mma.sync form), and V in
+//    shared memory as an MN-major B (the transpose bit);
+//  - inside a group, S of tile i and P.V of tile i - 1 go to the tensor
+//    cores together and the group waits for both before the softmax of
+//    tile i; the other group's products keep the tensor cores busy
+//    meanwhile. Running the softmax under the P.V (wgmma.wait_group 1, P
+//    in two register buffers) and turns that keep the two groups'
+//    products apart (named barriers) measured no faster
+//    (chip_flash_probe.py fwd16);
+//  - the softmax runs in base 2: s scale log2(e) - m in one FFMA, then
+//    ex2.approx; keys are masked only in a tile that reaches past the
+//    band of some row of the warp;
+//  - tiles: 64 keys and 4 stages a group at hd 64 (140 KB of shared
+//    memory), 64 keys and 3 stages at hd 128 (214 KB), 32 keys and 3
+//    stages at hd 256 (230 KB; 64-key tiles do not fit in 227 KB).
+//
+// The other bf16 forms keep the f32 kernels' tiling, warp split, cp.async
+// rings, dropout hash and fixed-order sums of the two backward groups (a
+// second call gives the same bits), with one mma.sync.m16n8k16 a product:
+// dQ and dK/dV at every head dim, and the forward at hd 8 and 16 (the smoke
+// presets), whose rows are narrower than a 64-column TMA box:
 //  - S's m16n8k16 accumulator of n tiles 2kk and 2kk + 1 (rows g, g + 8;
 //    keys 2t, 2t + 1 of each 8) is, rounded to bf16 pairs, the A fragment
 //    of k step kk of the next product (P.V, dS.K, (P.M)^T.dO, dS^T.Q): P
@@ -167,6 +225,7 @@
 // Plain C interface (no PyTorch headers): built with nvcc for sm_90a and
 // loaded with ctypes by sea_tpu_torch/ops/_build.py.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include <math.h>
@@ -1030,9 +1089,9 @@ dkv_kernel(View q, View k, View v, View dout, const float* __restrict__ lse,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 forms: bf16 mma.sync.m16n8k16, f32 accumulators (see the note at the
-// top). The f32 kernels' tiling, warp split and cp.async rings, one pass a
-// product.
+// bf16 forms with mma.sync.m16n8k16, f32 accumulators (see the note at the
+// top): dQ, dK/dV and the forward at hd 8 and 16. The f32 kernels' tiling,
+// warp split and cp.async rings, one pass a product.
 // ---------------------------------------------------------------------------
 
 struct View16 {  // a [B, T, H, hd] bf16 tensor with hd contiguous
@@ -1185,15 +1244,14 @@ template <int HD, int BK>
 struct FwdTiles16 {
   static constexpr int LD = Ld16<HD>::LD;
   static constexpr size_t kSmem = sizeof(bf16) * (kFwdBQ + 4 * BK) * LD;
-  static_assert((HD == 8 || HD == 16 || HD % 64 == 0) && BK % 16 == 0,
-                "tile shape");
+  static_assert((HD == 8 || HD == 16) && BK % 16 == 0, "tile shape");
   static_assert(kSmem <= 232448, "over the 227 KB a block may use");
 };
 
 template <int HD, int BK>
 __global__ void __launch_bounds__(kFwdThreads)
-fwd_kernel_bf16(View16 q, View16 k, View16 v, bf16* __restrict__ o,
-                float* __restrict__ lse, Shape s) {
+fwd_kernel_bf16_mma(View16 q, View16 k, View16 v, bf16* __restrict__ o,
+                    float* __restrict__ lse, Shape s) {
   constexpr int LD = FwdTiles16<HD, BK>::LD;
   constexpr int NS = BK / 8;                 // n tiles of S
   constexpr int NO = HD / 8;                 // n tiles of O
@@ -1320,6 +1378,634 @@ fwd_kernel_bf16(View16 q, View16 k, View16 v, bf16* __restrict__ o,
       *reinterpret_cast<uint32_t*>(out + 8 * c) =
           pack_bf16(acc[c][2 * r] / den, acc[c][2 * r + 1] / den);
     if (t == 0) lse[static_cast<long long>(bh) * s.Tq + qp] = m[r] + logf(den);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 forward for Hopper at hd 64, 128 and 256 (fwd_kernel_bf16): wgmma fed
+// by TMA, the key walk split between two consumer warpgroups (see the note
+// at the top)
+// ---------------------------------------------------------------------------
+
+// wgmma.mma_async m64nNk16, f32 += bf16 x bf16, by the four warps of a
+// warpgroup; the accumulator d is each thread's N / 2 floats: d[4i + e] is
+// row 16 w + g + 8 (e / 2), column 8 i + 2 t + e % 2 of warp w's rows (the
+// m16n8k16 C fragment, n tile by n tile). ss: S-like, B the K-major tile;
+// rs: P.V-like, A in registers, B MN-major (the transpose bit).
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<32> {
+  // d (+)= A B^T: A [64][16] and B [32][16] in shared memory, both K-major.
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a,
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  // d (+)= A B^T: A [64][16] and B [64][16] in shared memory, both K-major.
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a,
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "
+        "%27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+  // d += A B: A [64][16] bf16 in registers (the m16n8k16 A fragment of
+  // each warp's 16 rows), B [16][64] in shared memory, MN-major.
+  static __device__ __forceinline__ void rs(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "
+        "%27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(accumulate));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  // d (+)= A B^T: A [64][16] and B [128][16] in shared memory, both K-major.
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a,
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "
+        "%27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+        "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+  // d += A B: A [64][16] bf16 in registers (the m16n8k16 A fragment of
+  // each warp's 16 rows), B [16][128] in shared memory, MN-major.
+  static __device__ __forceinline__ void rs(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "
+        "%27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+        "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(accumulate));
+  }
+};
+
+template <>
+struct Wgmma<256> {
+  // d += A B: A [64][16] bf16 in registers (the m16n8k16 A fragment of
+  // each warp's 16 rows), B [16][256] in shared memory, MN-major.
+  static __device__ __forceinline__ void rs(float (&d)[128],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "
+        "%27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+        "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
+        "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, "
+        "%79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, "
+        "%92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, "
+        "%104, %105, %106, %107, %108, %109, %110, %111, %112, %113, "
+        "%114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "
+        "%124, %125, %126, %127}, "
+        "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+          "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+          "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+          "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+          "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+          "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+          "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+          "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+          "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(accumulate));
+  }
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// The wgmma descriptor of a tile as TMA's 128-byte swizzle lays it out:
+// rows of 128 bytes (64 bf16), swizzled in atoms of 8 rows (1024 bytes,
+// which start on 1024 bytes). K-major (Q, K): sbo 1024 steps to the next 8
+// rows, and a k step moves p 32 bytes along the row. MN-major (V): sbo
+// 1024 steps to the next 8 keys (the k dimension), lbo to the next 64
+// columns (the next box).
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, unsigned lbo,
+                                               unsigned sbo) {
+  return static_cast<uint64_t>((smem_u32(p) >> 4) & 0x3FFF) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Ties the registers of an operand to this point: the compiler moves no
+// read or write of them across a wgmma issue or wait.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// The producer's arrival, with the bytes its copies will bring.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Until the phase of the given parity has completed (a fresh barrier counts
+// parity 1 as completed).
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// The box of `map` at (d, h, t, b) into shared memory at dst, counted on
+// bar's transaction bytes.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap& map,
+                                         uint64_t* bar, int d, int h, int t,
+                                         int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(&map)), "r"(smem_u32(bar)), "r"(d),
+      "r"(h), "r"(t), "r"(b)
+      : "memory");
+}
+
+// 2^x (ex2.approx, relative error below 2^-22; 0 for x far below -126).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void prefetch_map(const CUtensorMap& map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(&map))
+               : "memory");
+}
+
+// Tiles and rings of fwd_kernel_bf16: a block owns 64 q rows (kFwdBQ); a
+// warpgroup of 128 threads (one thread issuing) loads, kGroups consumer
+// warpgroups walk key tiles group, group + kGroups, ... of BK keys, each
+// through a ring of ST stages (K, then V, each with its own barrier).
+// Every tile is boxes of 64 columns (128 bytes) by its rows, in TMA's
+// 128-byte swizzle.
+template <int HD, int BK, int ST>
+struct FwdWg {
+  static constexpr int kGroups = 2;
+  static constexpr int kThreads = 128 * (1 + kGroups);
+  static constexpr int kBoxes = HD / 64;  // 64-column boxes of a row
+  static constexpr int kQBytes = kFwdBQ * HD * 2;
+  static constexpr int kTileBytes = BK * HD * 2;  // K or V
+  static constexpr int kStageBytes = 2 * kTileBytes;
+  static constexpr int kStages = kGroups * ST;
+  // Group 1's O, m and l, a float4 at a time for each of its threads, in
+  // its own stages.
+  static constexpr int kXchBytes = (HD / 8 + 1) * 128 * 16;
+  // 1024 bytes to align the base to a swizzle atom; the barriers behind
+  // the ring: K and V landed, the stage free, Q landed.
+  static constexpr size_t kSmem =
+      1024 + kQBytes + kStages * kStageBytes + 8 * (3 * kStages + 1);
+  static_assert(HD % 64 == 0 && HD <= 256 && BK % 16 == 0 && BK <= 256,
+                "tile shape");
+  static_assert(kXchBytes <= ST * kStageBytes, "exchange buffer");
+  static_assert(kSmem <= 232448, "over the 227 KB a block may use");
+};
+
+// Registers a thread of each warpgroup keeps (setmaxnreg): the loader's
+// one issuing thread needs few, the consumers' accumulators many. The
+// block's 65,536 are 168 a thread at launch (384 threads).
+constexpr int kLoaderRegs = 40;
+constexpr int kConsumerRegs = 232;
+
+// S = Q K^T of a key tile into sc, issued: HD / 16 k steps, each 32 bytes
+// further along the rows of a 64-column box. qd and kd are the
+// descriptors of Q's and the K tile's first box; a descriptor's address
+// field counts 16 bytes, and no address here carries out of it.
+template <int HD, int BK>
+__device__ __forceinline__ void issue_s(float (&sc)[BK / 2], uint64_t qd,
+                                        uint64_t kd) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const int at = (kk & 3) * 2;
+    Wgmma<BK>::ss(sc, qd + (kk / 4) * (kFwdBQ * 128 / 16) + at,
+                  kd + (kk / 4) * (BK * 128 / 16) + at, kk > 0);
+  }
+}
+
+// O += P V of a key tile, issued: P's bf16 fragments p, one k step of 16
+// keys (2048 bytes into V's boxes, vd the descriptor of the first) each.
+template <int HD, int BK>
+__device__ __forceinline__ void issue_pv(float (&acc)[HD / 2],
+                                         const uint32_t (&p)[BK / 16][4],
+                                         uint64_t vd) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+    Wgmma<HD>::rs(acc, p[kk], vd + kk * (16 * 128 / 16), 1);
+}
+
+// The online softmax of the key tile at k0 on its scores sc, in base 2:
+// the running max m (of s scale log2(e)) and sum l of this thread's two
+// rows, the factor alpha the O so far is to be scaled by, and P = 2^(s
+// scale log2(e) - m) = exp(s scale - m ln 2), dropout applied, rounded to
+// bf16 pairs into p: n tiles 2kk and 2kk + 1 of S are the A fragment of k
+// step kk of P.V. MASK: some key of the tile lies past a row's band.
+template <int BK, bool MASK>
+__device__ __forceinline__ void softmax_tile(
+    float (&sc)[BK / 2], uint32_t (&p)[BK / 16][4], float (&m)[2],
+    float (&l)[2], float (&alpha)[2], const int (&lim)[2], int k0, int row0,
+    int t, unsigned bh, float scale_log2, const Shape& s) {
+  constexpr int NS = BK / 8;
+  float psum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = sc[4 * n + 2 * r + e];
+        if (MASK && k0 + 8 * n + 2 * t + e >= lim[r]) x = kNegInf;
+        mx = fmaxf(mx, x);
+      }
+    const float m_new = fmaxf(m[r], quad_max(mx) * scale_log2);
+    alpha[r] = exp2_approx(m[r] - m_new);
+    m[r] = m_new;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = sc[4 * n + 2 * r + e];
+        x = exp2_approx(fmaf(x, scale_log2, -m[r]));
+        if (MASK && k0 + 8 * n + 2 * t + e >= lim[r]) x = 0.f;
+        psum[r] += x;
+      }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(psum[r]);
+  if (s.dropout) {  // the denominator above summed the undropped p
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          sc[4 * n + 2 * r + e] *= dropout_scale(s, bh, row0 + 8 * r,
+                                                 k0 + 8 * n + 2 * t + e);
+  }
+#pragma unroll
+  for (int kk = 0; kk < NS / 2; ++kk) {
+    const float* x = sc + 8 * kk;
+    p[kk][0] = pack_bf16(x[0], x[1]);
+    p[kk][1] = pack_bf16(x[2], x[3]);
+    p[kk][2] = pack_bf16(x[4], x[5]);
+    p[kk][3] = pack_bf16(x[6], x[7]);
+  }
+}
+
+template <int HD, int BK, int ST>
+__global__ void __launch_bounds__(FwdWg<HD, BK, ST>::kThreads, 1)
+fwd_kernel_bf16(const __grid_constant__ CUtensorMap qmap,
+                const __grid_constant__ CUtensorMap kmap,
+                const __grid_constant__ CUtensorMap vmap,
+                bf16* __restrict__ o, float* __restrict__ lse, Shape s) {
+  using T = FwdWg<HD, BK, ST>;
+  constexpr int G = T::kGroups;
+  constexpr int NS = BK / 8;  // n tiles of S
+  constexpr int NO = HD / 8;  // n tiles of O
+  extern __shared__ unsigned char fwd_wg_smem[];
+  unsigned char* sQ =
+      fwd_wg_smem + ((1024 - (smem_u32(fwd_wg_smem) & 1023)) & 1023);
+  unsigned char* ring = sQ + T::kQBytes;
+  uint64_t* k_full = reinterpret_cast<uint64_t*>(ring + T::kStages *
+                                                            T::kStageBytes);
+  uint64_t* v_full = k_full + T::kStages;
+  uint64_t* empty = v_full + T::kStages;
+  uint64_t* q_full = empty + T::kStages;
+  const int bh = blockIdx.x, b = bh / s.H, h = bh % s.H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kFwdBQ;  // longest first
+  const int n_tiles = (key_end(s, q0, kFwdBQ) + BK - 1) / BK;
+  // The warpgroup, read from lane 0 so that the compiler sees it is the
+  // same across the warp: a branch on it is not divergent, and the
+  // wgmma under it need not be serialised.
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+
+  if (threadIdx.x == 0) {
+    prefetch_map(qmap);
+    prefetch_map(kmap);
+    prefetch_map(vmap);
+    for (int i = 0; i < T::kStages; ++i) {
+      mbar_init(k_full + i, 1);
+      mbar_init(v_full + i, 1);
+      mbar_init(empty + i, 128);
+    }
+    mbar_init(q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // the loader: Q once, then every key tile in order
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kLoaderRegs));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, T::kQBytes);
+#pragma unroll
+      for (int c = 0; c < T::kBoxes; ++c)
+        tma_load(sQ + c * kFwdBQ * 128, qmap, q_full, 64 * c, h, q0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int i = j / G, st = (j % G) * ST + i % ST;
+        mbar_wait(empty + st, ((i / ST) & 1) ^ 1);
+        unsigned char* dst = ring + st * T::kStageBytes;
+        mbar_expect_tx(k_full + st, T::kTileBytes);
+#pragma unroll
+        for (int c = 0; c < T::kBoxes; ++c)
+          tma_load(dst + c * BK * 128, kmap, k_full + st, 64 * c, h, j * BK,
+                   b);
+        mbar_expect_tx(v_full + st, T::kTileBytes);
+#pragma unroll
+        for (int c = 0; c < T::kBoxes; ++c)
+          tma_load(dst + T::kTileBytes + c * BK * 128, vmap, v_full + st,
+                   64 * c, h, j * BK, b);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+
+  const int group = wg - 1, tid = threadIdx.x % 128;
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + warp * 16 + g;  // rows row0 and row0 + 8 here
+  int lim[2];  // key k is in band for row row0 + 8r iff k < lim[r]
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = row0 + 8 * r;
+    lim[r] = qp >= s.Tq ? 0 : s.causal ? min(s.Tk, qp + s.src_len + 1) : s.Tk;
+  }
+  // Keys below warp_lim are in band for all 16 rows of this warp: a tile
+  // below it needs no mask (the same for every lane).
+  const int wq = q0 + warp * 16;
+  const int warp_lim = wq + 15 >= s.Tq ? 0
+                       : s.causal      ? min(s.Tk, wq + s.src_len + 1)
+                                       : s.Tk;
+  const float scale_log2 = s.scale * 1.4426950408889634f;
+  const int mine = n_tiles > group ? (n_tiles - group + G - 1) / G : 0;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[HD / 2];  // O
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  float sc[BK / 2];          // S of the tile
+  uint32_t p[NS / 2][4];     // its P, bf16 pairs
+  // The descriptors of Q's first box and of this group's first stage's K
+  // and V; stage u is u kStageBytes further.
+  const uint64_t qd = sw128_desc(sQ, 16, 1024);
+  const uint64_t kd = sw128_desc(ring + group * ST * T::kStageBytes, 16,
+                                 1024);
+  const uint64_t vd = sw128_desc(
+      ring + group * ST * T::kStageBytes + T::kTileBytes, BK * 128, 1024);
+  constexpr int kStageStep = T::kStageBytes / 16;
+  // The softmax of tile i of this group's walk: its P into pt, alpha.
+  auto softmax = [&](int i, float (&alpha)[2], uint32_t (&pt)[NS / 2][4]) {
+    const int k0 = (group + G * i) * BK;
+    if (k0 + BK > warp_lim)
+      softmax_tile<BK, true>(sc, pt, m, l, alpha, lim, k0, row0, t, bh,
+                             scale_log2, s);
+    else
+      softmax_tile<BK, false>(sc, pt, m, l, alpha, lim, k0, row0, t, bh,
+                              scale_log2, s);
+  };
+  mbar_wait(q_full, 0);
+
+  // Tile i: wait for its K (and the V of tile i - 1), issue S of tile i
+  // (and P.V of tile i - 1), wait for them; then its softmax, and O
+  // rescaled. Tile 0 and the last P.V are peeled off, so that no wgmma
+  // sits under a branch of its own.
+  if (mine > 0) {
+    float alpha[2];
+    mbar_wait(k_full + group * ST, 0);
+    pin(sc);
+    wgmma_fence();
+    issue_s<HD, BK>(sc, qd, kd);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(sc);
+    softmax(0, alpha, p);  // O is still 0: nothing to rescale
+    for (int i = 1; i < mine; ++i) {
+      const int u = i % ST, up = (i - 1) % ST;
+      mbar_wait(k_full + group * ST + u, (i / ST) & 1);
+      mbar_wait(v_full + group * ST + up, ((i - 1) / ST) & 1);
+      pin(sc);
+      pin(acc);
+      wgmma_fence();
+      issue_s<HD, BK>(sc, qd, kd + u * kStageStep);
+      issue_pv<HD, BK>(acc, p, vd + up * kStageStep);
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(sc);
+      pin(acc);
+      mbar_arrive(empty + group * ST + up);
+      softmax(i, alpha, p);
+#pragma unroll
+      for (int c = 0; c < NO; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[4 * c + e] *= alpha[e >> 1];
+    }
+    const int up = (mine - 1) % ST;
+    mbar_wait(v_full + group * ST + up, ((mine - 1) / ST) & 1);
+    pin(acc);
+    wgmma_fence();
+    issue_pv<HD, BK>(acc, p, vd + up * kStageStep);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(acc);
+    mbar_arrive(empty + group * ST + up);
+  }
+
+  // Group 1 hands (m, l, O) to group 0 through its own stages, which no
+  // copy fills any more; group 0 merges them into its own in that fixed
+  // order, so a second call gives the same bits. A thread's float4 c is at
+  // xch[128 c + tid]: O's n tile c, then (m, l).
+  float4* xch = reinterpret_cast<float4*>(ring + ST * T::kStageBytes) + tid;
+  if (group == 1) {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+#pragma unroll
+    for (int c = 0; c < NO; ++c)
+      xch[128 * c] = make_float4(acc[4 * c], acc[4 * c + 1],
+                                 acc[4 * c + 2], acc[4 * c + 3]);
+    xch[128 * NO] = make_float4(m[0], m[1], l[0], l[1]);
+    asm volatile("bar.arrive 1, 256;\n" ::: "memory");
+    return;
+  }
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+  const float4 ml = xch[128 * NO];
+  float a0[2], a1[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m1 = r ? ml.y : ml.x, l1 = r ? ml.w : ml.z;
+    const float m_new = fmaxf(m[r], m1);
+    a0[r] = exp2_approx(m[r] - m_new);
+    a1[r] = exp2_approx(m1 - m_new);
+    l[r] = l[r] * a0[r] + l1 * a1[r];
+    m[r] = m_new;
+  }
+#pragma unroll
+  for (int c = 0; c < NO; ++c) {
+    const float4 x = xch[128 * c];
+    acc[4 * c] = acc[4 * c] * a0[0] + x.x * a1[0];
+    acc[4 * c + 1] = acc[4 * c + 1] * a0[0] + x.y * a1[0];
+    acc[4 * c + 2] = acc[4 * c + 2] * a0[1] + x.z * a1[1];
+    acc[4 * c + 3] = acc[4 * c + 3] * a0[1] + x.w * a1[1];
+  }
+
+  // acc[4c + 2r + e] is row row0 + 8r, d = 8c + 2t + e; lse = m ln 2 +
+  // log l.
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = row0 + 8 * r;
+    if (qp >= s.Tq) continue;
+    const float den = l[r] == 0.f ? 1.f : l[r], inv = 1.f / den;
+    bf16* out = o + ((static_cast<long long>(b) * s.Tq + qp) * s.H + h) * HD +
+                2 * t;
+#pragma unroll
+    for (int c = 0; c < NO; ++c)
+      *reinterpret_cast<uint32_t*>(out + 8 * c) =
+          pack_bf16(acc[4 * c + 2 * r] * inv, acc[4 * c + 2 * r + 1] * inv);
+    if (t == 0)
+      lse[static_cast<long long>(bh) * s.Tq + qp] =
+          m[r] * 0.6931471805599453f + logf(den);
   }
 }
 
@@ -1717,14 +2403,86 @@ int launch_dkv(View q, View k, View v, View dout, const float* lse,
 }
 
 template <int HD, int BK>
-int launch_fwd_bf16(View16 q, View16 k, View16 v, bf16* o, float* lse,
-                    Shape s, cudaStream_t stream) {
+int launch_fwd_bf16_mma(View16 q, View16 k, View16 v, bf16* o, float* lse,
+                        Shape s, cudaStream_t stream) {
   constexpr size_t smem = FwdTiles16<HD, BK>::kSmem;
-  static const cudaError_t set = allow_smem(fwd_kernel_bf16<HD, BK>, smem);
+  static const cudaError_t set =
+      allow_smem(fwd_kernel_bf16_mma<HD, BK>, smem);
   if (set != cudaSuccess) return set;
   const dim3 grid((s.Tq + kFwdBQ - 1) / kFwdBQ, s.B * s.H);
-  fwd_kernel_bf16<HD, BK><<<grid, kFwdThreads, smem, stream>>>(q, k, v, o,
-                                                                lse, s);
+  fwd_kernel_bf16_mma<HD, BK><<<grid, kFwdThreads, smem, stream>>>(
+      q, k, v, o, lse, s);
+  return cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled, a driver function, through the runtime's entry
+// point query: the library links no more than the runtime (no -lcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t rc = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t rc = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return rc == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// x [B, T, H, hd] bf16 as a 4-D tensor map (hd, H, T, B): boxes of 64
+// columns by `rows` rows of one (b, h), 128-byte swizzle, rows past T read
+// as zeros. TMA wants the start and every stride on 16 bytes (the
+// wrapper's rule); a dim of size 1 may carry any stride there, so it gets
+// the packed one.
+bool encode_rows(CUtensorMap* map, const View16& x, int B, int T, int H,
+                 int HD, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(HD),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(T),
+                              static_cast<cuuint64_t>(B)};
+  cuuint64_t strides[3];
+  strides[0] = H == 1 ? 2ull * HD : 2ull * x.sh;
+  strides[1] = T == 1 ? strides[0] * H : 2ull * x.st;
+  strides[2] = B == 1 ? strides[1] * T : 2ull * x.sb;
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+            const_cast<bf16*>(x.p), dims, strides, box, step,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD, int BK, int ST>
+int launch_fwd_bf16(View16 q, View16 k, View16 v, bf16* o, float* lse,
+                    Shape s, cudaStream_t stream) {
+  using T = FwdWg<HD, BK, ST>;
+  static const cudaError_t set =
+      allow_smem(fwd_kernel_bf16<HD, BK, ST>, T::kSmem);
+  if (set != cudaSuccess) return set;
+  CUtensorMap qmap, kmap, vmap;
+  if (!encode_rows(&qmap, q, s.B, s.Tq, s.H, HD, kFwdBQ) ||
+      !encode_rows(&kmap, k, s.B, s.Tk, s.H, HD, BK) ||
+      !encode_rows(&vmap, v, s.B, s.Tk, s.H, HD, BK))
+    return cudaErrorInvalidValue;
+  const dim3 grid(s.B * s.H, (s.Tq + kFwdBQ - 1) / kFwdBQ);
+  fwd_kernel_bf16<HD, BK, ST><<<grid, T::kThreads, T::kSmem, stream>>>(
+      qmap, kmap, vmap, o, lse, s);
   return cudaGetLastError();
 }
 
@@ -1898,11 +2656,12 @@ extern "C" int sea_flash_fwd_bf16(const void* q, long long qsb, long long qst,
   float* L = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 8: return launch_fwd_bf16<8, 64>(Q, K, V, O, L, s, st);
-    case 16: return launch_fwd_bf16<16, 64>(Q, K, V, O, L, s, st);
-    case 64: return launch_fwd_bf16<64, 64>(Q, K, V, O, L, s, st);
-    case 128: return launch_fwd_bf16<128, 64>(Q, K, V, O, L, s, st);
-    case 256: return launch_fwd_bf16<256, 32>(Q, K, V, O, L, s, st);
+    // hd 8 and 16: the mma.sync form; 64 to 256: wgmma and TMA (note above)
+    case 8: return launch_fwd_bf16_mma<8, 64>(Q, K, V, O, L, s, st);
+    case 16: return launch_fwd_bf16_mma<16, 64>(Q, K, V, O, L, s, st);
+    case 64: return launch_fwd_bf16<64, 64, 4>(Q, K, V, O, L, s, st);
+    case 128: return launch_fwd_bf16<128, 64, 3>(Q, K, V, O, L, s, st);
+    case 256: return launch_fwd_bf16<256, 32, 3>(Q, K, V, O, L, s, st);
     default: return cudaErrorInvalidValue;
   }
 }

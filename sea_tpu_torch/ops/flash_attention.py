@@ -28,9 +28,11 @@ denominator after it, then rounded to q's dtype), dS to k's dtype before
 dS.K (dQ) and to q's dtype before dS^T.Q (dK), P.M to dO's dtype before
 (P.M)^T.dO (dV); lse stays f32 and each gradient comes back in its
 input's dtype. The TPU and CUDA kernels round p under the running max of
-the key tiles seen so far, the plain version under the row's final max:
-the same rounding at another scale, so the two differ by bf16 rounding
-noise, within the tests' tolerances. In f32 ``flash_attention_ref`` is
+the key tiles seen so far (the bf16 CUDA forward at hd 64 to 256: of the
+even or the odd tiles, which its two consumer groups walk apart before
+merging in f32), the plain version under the row's final max: the same
+rounding at another scale, so the two differ by bf16 rounding noise,
+within the tests' tolerances. In f32 ``flash_attention_ref`` is
 differentiated by autograd; in bf16 it runs the plain forward and
 backward pieces (``flash_forward_ref``, ``flash_bwd_dq_ref``,
 ``flash_bwd_dkv_ref``) inside the kernels' autograd Function, so its
@@ -39,8 +41,9 @@ gradients round where the kernels' do.
 What bounds the kernels on the card, and their design: see the note at
 the top of the CUDA source. Head dims 8, 16 (the smoke presets), 64, 128
 and 256; any other raises on CUDA. Alignment: the kernels copy q, k, v
-and dO rows into shared memory in 16-byte pieces (``cp.async``), so on
-CUDA each of them must start on 16 bytes and its batch, time and head
+and dO rows into shared memory in 16-byte pieces (``cp.async``; the bf16
+forward at hd 64 to 256 through TMA tensor maps, which ask the same), so
+on CUDA each of them must start on 16 bytes and its batch, time and head
 strides must be whole multiples of 16 bytes: 4 floats or 8 bf16 (a dim of
 size 1 is exempt: its stride is never used). A q, k or v view that breaks this raises
 ``ValueError``; nothing is copied to fix it. The views

@@ -164,6 +164,74 @@ def test_bf16_ref_matches_jax_kernels(name, monkeypatch):
                       f"d{gname}")
 
 
+def _split_walk_forward(q, k, v, causal, src_len, rate, bk=64):
+    """A model of the bf16 forward kernel's wgmma form (hd 64 to 256): two
+    consumer groups walk the even and the odd key tiles of bk keys, each
+    rounding p = exp(s - m) M to bf16 under its own running max, and their
+    (m, l, O) meet in f32, group 0's first. Returns (o bf16, lse f32
+    [B*H, Tq])."""
+    B, Tq, H, hd = q.shape
+    Tk = k.shape[1]
+    valid = FA._valid(Tq, Tk, causal, src_len, "cpu")
+    s = FA._scores(q, k, causal, src_len).masked_fill(~valid, -1e30)
+    mask = (FA.dropout_mask(B, H, Tq, Tk, SEED, rate, "cpu") if rate
+            else torch.ones_like(s))
+    vf = v.float().permute(0, 2, 1, 3)  # [B, H, Tk, hd]
+    walks = []
+    for group in (0, 1):
+        m = torch.full((B, H, Tq, 1), -1e30)
+        l = torch.zeros((B, H, Tq, 1))
+        acc = torch.zeros((B, H, Tq, hd))
+        for k0 in range(group * bk, Tk, 2 * bk):
+            st, ok = s[..., k0:k0 + bk], valid[:, k0:k0 + bk]
+            m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            p = torch.where(ok, torch.exp(st - m_new), 0.0)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            pm = (p * mask[..., k0:k0 + bk]).to(torch.bfloat16).float()
+            acc = acc * alpha + pm @ vf[:, :, k0:k0 + bk]
+            m = m_new
+        walks.append((m, l, acc))
+    (m0, l0, o0), (m1, l1, o1) = walks
+    m = torch.maximum(m0, m1)
+    a0, a1 = torch.exp(m0 - m), torch.exp(m1 - m)
+    l = l0 * a0 + l1 * a1
+    o = (o0 * a0 + o1 * a1) / torch.where(l == 0, 1.0, l)
+    lse = (m + torch.log(torch.where(l == 0, 1.0, l))).reshape(B * H, Tq)
+    return o.permute(0, 2, 1, 3).to(torch.bfloat16), lse
+
+
+@pytest.mark.parametrize("name", sorted(BF16_CASES))
+def test_bf16_split_walk_matches_jax_kernel(name, monkeypatch):
+    """The rounding of the bf16 forward kernel's two-group walk (a model of
+    it, _split_walk_forward) against the JAX forward kernel on the same
+    bf16 inputs in interpret mode: o within BF16_TOL_OUT x max|ref|, lse
+    within 1e-5. p rounded under each group's running max over its even
+    or odd 64-key tiles, and the f32 merge, stay within the bound the
+    card holds the kernel to."""
+    import jax.numpy as jnp
+    from sea_tpu.ops import flash_attention as jfa
+    monkeypatch.setattr(jfa, "_FORCE_INTERPRET", True)
+    B, Tq, Tk, H, hd, causal, src_len, rate = BF16_CASES[name]
+    arrays = [jnp.asarray(a, jnp.bfloat16)
+              for a in _inputs(B, Tq, Tk, H, hd)[:3]]
+    seed = jnp.asarray(SEED, jnp.int32) if rate else None
+    want, want_lse = jfa._flash_forward(
+        *arrays, causal=causal, src_len=src_len,
+        block_q=jfa.DEFAULT_BLOCK_Q, block_k=jfa.DEFAULT_BLOCK_K,
+        return_lse=True, dropout_rate=rate, seed=seed)
+    q, k, v = (torch.from_numpy(np.array(a.astype(jnp.float32))).to(
+        torch.bfloat16) for a in arrays)
+    o, lse = _split_walk_forward(q, k, v, causal, src_len, rate)
+    assert o.dtype == torch.bfloat16
+    _close_to_max(o.float().numpy(),
+                  np.asarray(jnp.asarray(want, jnp.float32)), BF16_TOL_OUT,
+                  "o")
+    np.testing.assert_allclose(
+        lse.numpy(), np.asarray(want_lse, np.float32)[:, :Tq, 0], rtol=0,
+        atol=1e-5)
+
+
 def test_bf16_pieces_round_where_the_kernels_do():
     """The bf16 plain forward rounds exp(s - m) M to bf16 before P.V and
     divides by the f32 denominator after; the backward pieces round dS and
@@ -452,15 +520,26 @@ def _bf16_close(got, want, rel, atol, what):
                                    (2, 41, 41, 2, 16, True, 0),
                                    (2, 41, 41, 2, 8, True, 0),
                                    (3, 37, 53, 2, 16, True, 5),
-                                   (3, 37, 53, 2, 8, True, 5)])
+                                   (3, 37, 53, 2, 8, True, 5),
+                                   (2, 384, 384, 2, 128, True, 0),
+                                   (2, 65, 65, 2, 64, True, 0),
+                                   (2, 50, 50, 2, 128, True, 0),
+                                   (1, 399, 399, 2, 256, True, 0),
+                                   (2, 301, 130, 2, 128, False, 0),
+                                   (2, 150, 77, 2, 64, True, 5)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_cuda_bf16_kernels_match_ref(shape, rate):
     """Runs on the card only. The bf16 kernels against their plain
     versions: through the autograd wrapper (o, dq, dk, dv) and each alone
     (lse, dQ, dK/dV from the plain lse and D), square and ragged, causal
     with src_len > 0 and the full form, at hd 8, 16, 64, 128 and 256;
-    then a second backward call gives the same bits. Tolerances: the
-    module's note."""
+    then a second forward and a second backward call give the same bits.
+    The last six shapes reach the edges of the forward's wgmma form at hd
+    64, 128 and 256 (its two consumer groups walk the even and the odd
+    key tiles): T a whole number of tiles, a last q tile of one row, a
+    band of one key tile (the odd group walks nothing), its 32-key tiles
+    at hd 256, the full form with Tk < Tq, and src_len 5 with Tk < Tq.
+    Tolerances: the module's note."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     B, Tq, Tk, H, hd, causal, src_len = shape
@@ -482,6 +561,9 @@ def test_cuda_bf16_kernels_match_ref(shape, rate):
         _bf16_close(a, b, BF16_TOL_GRAD, GRAD_ATOL,
                     f"{name} through autograd")
     o, lse = FA.flash_fwd(q, k, v, **kw)
+    o2, lse2 = FA.flash_fwd(q, k, v, **kw)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2), \
+        "a second forward call differs"
     o_ref, lse_ref = FA.flash_forward_ref(q, k, v, **kw)
     torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-5)
     _bf16_close(o, o_ref, BF16_TOL_OUT, OUT_ATOL, "o")
@@ -494,6 +576,42 @@ def test_cuda_bf16_kernels_match_ref(shape, rate):
     for name, a, b, c in zip(("dq", "dk", "dv"), *calls, want):
         assert torch.equal(a, b), f"{name}: a second call differs"
         _bf16_close(a, c, BF16_TOL_GRAD, GRAD_ATOL, name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["unfused", "qkv", "kv"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_cuda_bf16_mha_views_through_the_kernel(layout, rate):
+    """Runs on the card only. The q, k, v views ops.attention.mha hands
+    the kernels in bf16 (fused qkv and kv column slices of one projection
+    included, as test_mha_views_keep_the_alignment_rule makes them) go
+    through the bf16 forward as they are: its tensor maps read the
+    strided rows, o and lse as the plain version's on the same views."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from sea_tpu_torch.ops import attention as A
+    B, T, E, H = 2, 77, 256, 2
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.randn(B, T, E).astype(np.float32)).cuda()
+    params = {"unfused": {n: _projection(rs, E, 1) for n in "qkv"},
+              "qkv": {"qkv": _projection(rs, E, 3)},
+              "kv": {"q": _projection(rs, E, 1),
+                     "kv": _projection(rs, E, 2)}}[layout]
+    params = {n: {w: a.cuda().bfloat16() * E ** -0.5 for w, a in p.items()}
+              for n, p in params.items()}
+    x = x.bfloat16()
+    views = [y.reshape(B, T, H, E // H)
+             for y in A._project_qkv(params, x, x)]
+    if layout != "unfused":
+        assert not views[-1].is_contiguous()
+    kw = dict(causal=True, src_len=0, dropout_rate=rate,
+              dropout_seed=SEED if rate else None)
+    before = FA.fwd_launches_bf16
+    o, lse = FA.flash_fwd(*views, **kw)
+    assert FA.fwd_launches_bf16 == before + 1
+    o_ref, lse_ref = FA.flash_forward_ref(*views, **kw)
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-5)
+    _bf16_close(o, o_ref, BF16_TOL_OUT, OUT_ATOL, "o")
 
 
 @pytest.mark.gpu
