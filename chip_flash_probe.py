@@ -2,7 +2,8 @@
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
-    python3 chip_flash_probe.py [fwd] [fwd16] [bwd]   (all when none is named)
+    python3 chip_flash_probe.py [fwd] [fwd16] [bwd] [bwd16] [--check]
+                                (all four when none is named)
 
 It builds ``sea_tpu_torch/csrc/flash_attention.cu`` as it is and in a few
 variants made by text edits of that source (an edit that no longer applies
@@ -45,6 +46,31 @@ the last P.V with the merge (and group 0's wait for group 1). Variants:
 - ``cluster2``: a cluster of two blocks a (bh, q tile), each with one
   consumer group walking the even or the odd key tiles, rank 1 handing
   (m, l, O) to rank 0 over distributed shared memory (twice the blocks).
+
+``bwd16``: the bf16 dQ and dK/dV's wgmma forms (hd 64, 128 and 256),
+checked against the plain versions (and a second call for the same bits)
+and timed beside SDPA's bf16 causal backward; for the source as it is it
+then counts clock64 cycles in the critical block of each (bh 0; dQ's last
+q tile, dK/dV's first key tile) for thread 0 of each consumer group: per
+walked tile after the first, the wait for its tiles, S and dP (S^T and
+dP^T) with the products of the tile before, and dS (with the halves'
+exchange where the groups split d); then the wait for the block's own
+tiles, tile 0, the last products, and group 0's merge. With ``--check``
+it builds and checks only the source as it is and its marked form (every
+variant's edits must still apply). Variants:
+
+- ``one_group``: the first consumer group walks every tile and the
+  second none (the walk not split);
+- ``dsplit128``: dK/dV at hd 128 with d split between the groups (each
+  owns 64 columns of dK and dV and walks every q tile, as at hd 256);
+- ``full_s``: dK/dV at hd 256 with each group forming all of S^T and
+  dP^T itself (four stages), instead of over its half of d, adding the
+  other's through shared memory;
+- ``walk32``: 32-row walked tiles where the kernels take 64 (dQ at hd 64
+  and 128, dK/dV at hd 64); ``walk64``: 64-row q tiles for dK/dV at hd
+  128 (two stages);
+- ``st2`` / ``st3``: two / three stages a ring where the kernels take
+  another count and they fit.
 
 ``bwd``: dQ and dK/dV. Variants:
 
@@ -589,6 +615,236 @@ def probe_forward16():
                 f"{'/'.join(FWD16_PHASES)}: " + "; ".join(rows))
 
 
+# The bf16 backward's wgmma forms (bwd16). Variants:
+_DQ_CASES = ("      return launch_dq_bf16<64, 64, 2>(",
+             "      return launch_dq_bf16<128, 64, 3>(",
+             "      return launch_dq_bf16<256, 32, 2>(")
+_DKV_CASES = ("      return launch_dkv_bf16<64, 64, 4, false>(",
+              "      return launch_dkv_bf16<128, 32, 3, false>(",
+              "      return launch_dkv_bf16<256, 32, 3, true>(")
+BWD16_VARIANTS = {
+    "as_is": [],
+    # one consumer group walks every tile, the other none (the kWalkers
+    # edit of bwd's one_group)
+    "one_group": BWD_VARIANTS["one_group"],
+    "dsplit128": [(_DKV_CASES[1], _DKV_CASES[1].replace("false", "true"))],
+    # under the d split each group forms all of S^T and dP^T (no halves to
+    # exchange, so four stages fit)
+    "full_s": [
+        ("  static constexpr int SD = DW;", "  static constexpr int SD = HD;"),
+        ("  static constexpr int kHalfFloats = SPLIT_D ? 2 * 2 * BQ * 128 : 0;",
+         "  static constexpr int kHalfFloats = 0;"),
+        ("  const int sbox = SPLIT_D ? group * (T::SD / 64) : 0;",
+         "  const int sbox = 0;"),
+        ("    if constexpr (SPLIT_D) {\n      float* mine_h",
+         "    if constexpr (false) {\n      float* mine_h"),
+        (_DKV_CASES[2], _DKV_CASES[2].replace("32, 3,", "32, 4,"))],
+    "walk32": [(_DQ_CASES[0], _DQ_CASES[0].replace("64, 64, 2", "64, 32, 2")),
+               (_DQ_CASES[1], _DQ_CASES[1].replace("64, 3", "32, 3")),
+               (_DKV_CASES[0], _DKV_CASES[0].replace("64, 64, 4",
+                                                     "64, 32, 4"))],
+    "walk64": [(_DKV_CASES[1], _DKV_CASES[1].replace("32, 3", "64, 2"))],
+    "st2": [(_DQ_CASES[1], _DQ_CASES[1].replace("64, 3>", "64, 2>")),
+            (_DKV_CASES[0], _DKV_CASES[0].replace("64, 4,", "64, 2,")),
+            (_DKV_CASES[1], _DKV_CASES[1].replace("32, 3,", "32, 2,")),
+            (_DKV_CASES[2], _DKV_CASES[2].replace("32, 3,", "32, 2,"))],
+    "st3": [(_DQ_CASES[0], _DQ_CASES[0].replace("64, 2>", "64, 3>")),
+            (_DKV_CASES[0], _DKV_CASES[0].replace("64, 4,", "64, 3,"))],
+}
+
+# clock64 marks of the critical block of each kernel (bh 0; dQ's last q
+# tile, dK/dV's first key tile), thread 0 of each consumer group, summed
+# over calls, into g_phase_b16[kernel][group]: per walked tile after the
+# first the wait for its tiles (0), S and dP with the products before (1),
+# dS (2) and their count (3); the wait for the block's own tiles (6), tile
+# 0 (7), the last products (8) and the merge up to the store (9).
+_B16_ACC = ("        const long long d[4] = {tb - ta, tc - tb, td - tc, 1};\n"
+            "        for (int v = 0; v < 4; ++v) "
+            "g_phase_b16[kKind][group][v] += d[v];\n")
+_B16_START = ("  const bool mark = blockIdx.x == 0 && blockIdx.y == 0 && "
+              "tid == 0;\n  const long long t0 = clock64();\n")
+_B16_STARTED = ("  const long long tq = clock64();\n  long long t_end = tq;\n"
+                "  if (mark) g_phase_b16[kKind][group][6] += tq - t0;\n")
+_B16_TAIL = ("  if (mark) g_phase_b16[kKind][group][8] += clock64() - t_end;\n"
+             "  const long long tm = clock64();\n")
+_B16_MERGE = "  if (mark) g_phase_b16[kKind][group][9] += clock64() - tm;\n"
+_BWD16_MARKS = [
+    ("// Tiles and rings of dq_kernel_bf16:",
+     "__device__ long long g_phase_b16[2][2][10];\n"
+     "// Tiles and rings of dq_kernel_bf16:"),
+    ("  using T = DqWg<HD, BK, ST>;\n  constexpr int NS = BK / 8;",
+     "  using T = DqWg<HD, BK, ST>;\n  constexpr int kKind = 0;\n"
+     "  constexpr int NS = BK / 8;"),
+    ("  using T = DkvWg<HD, BQ, ST, SPLIT_D>;\n  constexpr int NS = BQ / 8;",
+     "  using T = DkvWg<HD, BQ, ST, SPLIT_D>;\n  constexpr int kKind = 1;\n"
+     "  constexpr int NS = BQ / 8;"),
+    ("  mbar_wait(qo_full, 0);\n",
+     _B16_START + "  mbar_wait(qo_full, 0);\n" + _B16_STARTED),
+    ("  mbar_wait(kv_full, 0);\n",
+     _B16_START + "  mbar_wait(kv_full, 0);\n" + _B16_STARTED),
+    ("    grad(0);\n",
+     "    grad(0);\n"
+     "    if (mark) g_phase_b16[kKind][group][7] += clock64() - tq;\n"),
+    ("      mbar_wait(k_full + group * ST + u, (i / ST) & 1);\n"
+     "      mbar_wait(v_full + group * ST + u, (i / ST) & 1);\n",
+     "      const long long ta = clock64();\n"
+     "      mbar_wait(k_full + group * ST + u, (i / ST) & 1);\n"
+     "      mbar_wait(v_full + group * ST + u, (i / ST) & 1);\n"
+     "      const long long tb = clock64();\n"),
+    ("      mbar_wait(q_full + ring0 + u, (i / ST) & 1);\n"
+     "      mbar_wait(o_full + ring0 + u, (i / ST) & 1);\n",
+     "      const long long ta = clock64();\n"
+     "      mbar_wait(q_full + ring0 + u, (i / ST) & 1);\n"
+     "      mbar_wait(o_full + ring0 + u, (i / ST) & 1);\n"
+     "      const long long tb = clock64();\n"),
+    ("      mbar_arrive(empty + group * ST + up);\n      grad(i);\n",
+     "      const long long tc = clock64();\n"
+     "      mbar_arrive(empty + group * ST + up);\n      grad(i);\n"),
+    ("      mbar_arrive(empty + ring0 + up);\n      add_halves(i);\n",
+     "      const long long tc = clock64();\n"
+     "      mbar_arrive(empty + ring0 + up);\n      add_halves(i);\n"),
+    ("      grad(i);\n    }\n",
+     "      grad(i);\n      const long long td = clock64();\n"
+     "      if (mark) {\n" + _B16_ACC + "      }\n    }\n"
+     "    t_end = clock64();\n"),
+    ("(acc, ds, km + up * kStageStep);\n    wgmma_commit();\n"
+     "    wgmma_wait<0>();\n    pin(acc);\n"
+     "    mbar_arrive(empty + group * ST + up);\n  }\n",
+     "(acc, ds, km + up * kStageStep);\n    wgmma_commit();\n"
+     "    wgmma_wait<0>();\n    pin(acc);\n"
+     "    mbar_arrive(empty + group * ST + up);\n  }\n" + _B16_TAIL),
+    ("    pin(gv);\n    mbar_arrive(empty + ring0 + up);\n  }\n",
+     "    pin(gv);\n    mbar_arrive(empty + ring0 + up);\n  }\n"
+     + _B16_TAIL),
+    ("  // acc[4c + 2r + e] is row row0 + 8r, d = 8c + 2t + e.\n",
+     _B16_MERGE + "  // acc[4c + 2r + e] is row row0 + 8r, d = 8c + 2t + e.\n"),
+    ("  // gk[4c + 2r + e] is key key0 + 8r",
+     _B16_MERGE + "  // gk[4c + 2r + e] is key key0 + 8r"),
+]
+_BWD16_MARK_ENTRIES = """
+extern "C" int sea_phase_b16_read(long long* host) {
+  return cudaMemcpyFromSymbol(host, g_phase_b16, sizeof(g_phase_b16));
+}
+extern "C" int sea_phase_b16_zero() {
+  static const long long zero[40] = {};
+  return cudaMemcpyToSymbol(g_phase_b16, zero, sizeof(zero));
+}
+"""
+BWD16_PHASES = ("data wait", "S,dP+products", "dS")
+
+
+def _bwd16_calls(shape, rate):
+    """(dq call, dk/dv call, plain pieces) of the bf16 backward at shape,
+    from the plain forward's lse and D."""
+    q, k, v, g = _bf16_inputs(shape)
+    kw = cs._flash_kw(shape, rate)
+    o, lse = FA.flash_forward_ref(q, k, v, **kw)
+    dsum = FA.row_dot(g, o)
+    return (lambda: FA.flash_bwd_dq(q, k, v, g, lse, dsum, **kw),
+            lambda: FA.flash_bwd_dkv(q, k, v, g, lse, dsum, **kw),
+            (FA.flash_bwd_dq_ref(q, k, v, g, lse, dsum, **kw),
+             *FA.flash_bwd_dkv_ref(q, k, v, g, lse, dsum, **kw)))
+
+
+def probe_backward16(check_only=False):
+    base = SOURCE.read_text()
+    out = OUT.parent / "flash_probe_bwd16"
+    texts = {name: edit(base, e) for name, e in BWD16_VARIANTS.items()}
+    texts["as_is+marks"] = edit(base, _BWD16_MARKS) + _BWD16_MARK_ENTRIES
+    # --check: every edit still applies, but only the source as it is and
+    # its marked form are built and checked
+    names = ["as_is"] if check_only else list(BWD16_VARIANTS)
+    build_all(out, SOURCE.name,
+              {name: texts[name] for name in names + ["as_is+marks"]},
+              ("14dq_kernel_bf16I", "15dkv_kernel_bf16I"),
+              "dq_kernel_bf16<HD, BK, stages>, then dkv_kernel_bf16<HD, BQ, "
+              "stages, mode>, each in mangled order")
+    for name in names + ["as_is+marks"]:
+        use(out, name, SOURCE.name, FA)
+        worst, same = {"dq": 0.0, "dk/dv": 0.0}, True
+        for shape in cs.FLASH_SHAPES:
+            for rate in (0.0, 0.1):
+                dq_call, dkv_call, ref = _bwd16_calls(shape, rate)
+                got = [(dq_call(), *dkv_call()) for _ in range(2)]
+                same &= all(torch.equal(a, b) for a, b in zip(*got))
+                for kind, a, b in zip(("dq", "dk/dv", "dk/dv"), got[0], ref):
+                    err, bound = cs._bf16_err(a, b, cs.FLASH_BF16_REL["grad"],
+                                              cs.FLASH_TOL["grad"])
+                    if not err <= bound:
+                        raise AssertionError(f"bwd16 {name} {shape} rate="
+                                             f"{rate}: {kind} err {err} > "
+                                             f"{bound}")
+                    worst[kind] = max(worst[kind], err)
+        log(f"[probe-check] bwd16 {name}: max abs err dq {worst['dq']:.3g}, "
+            f"dk/dv {worst['dk/dv']:.3g} over FLASH_SHAPES x dropout (0, "
+            f"0.1); a second call the same bits: {same}")
+        if not same:
+            raise AssertionError(f"bwd16 {name}: a second call differs")
+    if check_only:
+        return
+    flush = torch.ones(128 << 20, dtype=torch.float32, device="cuda")
+    times = collections.defaultdict(list)
+    for name in names + names[::-1]:
+        use(out, name, SOURCE.name, FA)
+        for shape in cs.FLASH_SHAPES[:3]:
+            for rate in (0.0, 0.1):
+                dq_call, dkv_call, _ = _bwd16_calls(shape, rate)
+                times[(shape, rate, "dq", name)].append(
+                    cs._device_ms(dq_call, flush))
+                times[(shape, rate, "dkv", name)].append(
+                    cs._device_ms(dkv_call, flush))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for shape in cs.FLASH_SHAPES[:3]:
+        B, Tq, _, H, hd, _ = shape
+        q, k, v, g = _bf16_inputs(shape)
+        qt, kt, vt, gt = (x.transpose(1, 2).contiguous().requires_grad_(
+            x is not g) for x in (q, k, v, g))
+        graph_out = sdpa(qt, kt, vt, is_causal=True)
+        lib = cs._library_ms(lambda: torch.autograd.grad(
+            graph_out, (qt, kt, vt), gt, retain_graph=True), flush)
+        for rate in (0.0, 0.1):
+            pairs = []
+            for name in names:
+                pairs.append(f"{name} " + " / ".join(
+                    f"{times[(shape, rate, 'dq', name)][i]:.4f} + "
+                    f"{times[(shape, rate, 'dkv', name)][i]:.4f}"
+                    for i in range(2)))
+            log(f"[probe-time] bwd16 (B,T,H,hd)=({B},{Tq},{H},{hd}) dropout "
+                f"{rate}, L2 cold, dQ + dK/dV ms (two runs each): "
+                + ", ".join(pairs) + f"; SDPA bf16 backward {lib:.4f}")
+    lib = use(out, "as_is+marks", SOURCE.name, FA)
+    for shape in cs.FLASH_SHAPES[:3]:
+        for rate in (0.0, 0.1):
+            dq_call, dkv_call, _ = _bwd16_calls(shape, rate)
+            dq_call()
+            dkv_call()
+            torch.cuda.synchronize()
+            lib.sea_phase_b16_zero()
+            for _ in range(10):
+                flush.sum()
+                dq_call()
+                flush.sum()
+                dkv_call()
+            torch.cuda.synchronize()
+            buf = (ctypes.c_longlong * 40)()
+            lib.sea_phase_b16_read(buf)
+            B, T, _, H, hd, _ = shape
+            for kind, label in enumerate(("dq", "dkv")):
+                rows = []
+                for grp in (0, 1):
+                    r = buf[20 * kind + 10 * grp:20 * kind + 10 * grp + 10]
+                    tiles = max(r[3], 1)
+                    rows.append(
+                        f"group {grp}: {r[3] // 10} tiles after the first, "
+                        + "/".join(str(round(r[i] / tiles)) for i in range(3))
+                        + f" a tile; own tiles' wait {r[6] // 10}; tile 0 "
+                        f"{r[7] // 10}; last products {r[8] // 10}; merge "
+                        f"{r[9] // 10}")
+                log(f"[probe-phases] bwd16 {label} (B,T,H,hd)=({B},{T},{H},"
+                    f"{hd}) dropout {rate}, clock64 cycles of the critical "
+                    f"block, {'/'.join(BWD16_PHASES)}: " + "; ".join(rows))
+
+
 def probe_backward():
     base = SOURCE.read_text()
     out = OUT.parent / "flash_probe_bwd"
@@ -692,13 +948,17 @@ def main(argv):
     log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
                        text=True, check=True).stdout.strip())
-    parts = argv or ["fwd", "fwd16", "bwd"]
+    check_only = "--check" in argv
+    parts = [a for a in argv if a != "--check"] or ["fwd", "fwd16", "bwd",
+                                                     "bwd16"]
     if "fwd" in parts:
         probe_forward()
     if "fwd16" in parts:
         probe_forward16()
     if "bwd" in parts:
         probe_backward()
+    if "bwd16" in parts:
+        probe_backward16(check_only)
 
 
 if __name__ == "__main__":

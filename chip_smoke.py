@@ -50,6 +50,7 @@ import csv
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -123,9 +124,11 @@ FLASH_SHAPES = [(2, 399, 399, 8, 128, 0), (2, 399, 399, 8, 64, 0),
                 (2, 70, 130, 8, 128, 5), (2, 41, 41, 2, 16, 0),
                 (3, 37, 53, 2, 8, 5)]
 FLASH_SEED = (123456789, -987654321)
-# The mangled name of the bf16 forward's wgmma form (hd 64, 128 and 256;
-# its mma.sync form for hd 8 and 16 is fwd_kernel_bf16_mma).
+# The mangled names of the bf16 kernels' wgmma forms (hd 64, 128 and 256;
+# their mma.sync forms for hd 8 and 16 end in _bf16_mma): the forward, dQ
+# and dK/dV.
 FWD_WGMMA = "15fwd_kernel_bf16I"
+BWD_WGMMA = ("14dq_kernel_bf16I", "15dkv_kernel_bf16I")
 # f32, summation order only: the bounds of tests/test_flash_attention.py.
 # A dropout bit the kernel and the plain version disagree on is off by
 # about |v| / (1 - rate), far outside them.
@@ -204,35 +207,62 @@ def phase_build():
     # backward kernels and the bf16 forward's wgmma form (their tiles are
     # dynamic shared memory) and the AdaLN kernels at the train step's f32
     # layouts (16-byte vectors, 32 and 16 elements a thread: E = 1024 and
-    # 512), and the flash kernels' SASS counts: the backward's products
+    # 512), and the flash kernels' SASS counts: the f32 backward's products
     # are tensor-core mma.sync (HMMA), not f32 FMAs (FFMA); the bf16
-    # forward at hd 64, 128 and 256 must run wgmma (HGMMA) on tiles that
-    # TMA loads (UTMALDG).
+    # forward, dQ and dK/dV at hd 64, 128 and 256 must each be one
+    # instance running wgmma (HGMMA) on tiles that TMA loads (UTMALDG),
+    # the backward's with no mma.sync and no stack or local memory (a
+    # spill).
     for name, kernels in (("quant_matmul", ("",)),
                           ("flash_attention", ("dq_kernel", "dkv_kernel",
                                                FWD_WGMMA)),
                           ("fused_adaln", ("3F32ELi4ELi32E",
                                            "3F32ELi4ELi16E"))):
         lib = _build.load_library(name)._name
-        keep = False
+        keep, fn, usage = False, None, {}
         for line in _cuobjdump("--dump-resource-usage", lib):
             if "Function" in line:
                 keep = any(k in line for k in kernels)
+                fn = line.split("Function", 1)[1].strip(" :")
+            elif "REG:" in line and fn:
+                usage[fn] = {k: int(v) for k, v in
+                             re.findall(r"(REG|STACK|LOCAL):(\d+)", line)}
             if keep and ("Function" in line or "REG:" in line) \
                     or "failed" in line:
                 log(f"[build] {name}.cu {line.strip()}")
         if name == "flash_attention":
-            counts = _sass_counts(lib, kernels)
-            for fn, n in counts.items():
-                log(f"[build] flash_attention.cu SASS {fn}: "
-                    + ", ".join(f"{k} {v}" for k, v in n.items()))
-            wgmma = {fn: n for fn, n in counts.items() if FWD_WGMMA in fn}
-            for hd in (64, 128, 256):
-                n = [c for fn, c in wgmma.items() if f"ILi{hd}E" in fn]
-                if len(n) != 1 or not n[0]["HGMMA"] or not n[0]["UTMALDG"]:
-                    raise AssertionError(
-                        f"fwd_kernel_bf16 at hd {hd}: want one instance "
-                        f"with HGMMA and UTMALDG in its SASS, got {n}")
+            _wgmma_gate(_sass_counts(lib, kernels), usage)
+
+
+def _wgmma_gate(counts, usage):
+    """Log the flash kernels' SASS counts; raise unless the bf16 forward,
+    dQ and dK/dV at hd 64, 128 and 256 are each one instance with HGMMA
+    and UTMALDG, and the backward's also with no HMMA, STACK 0 and
+    LOCAL 0 (whose REG / STACK / LOCAL are logged)."""
+    for fn, n in counts.items():
+        log(f"[build] flash_attention.cu SASS {fn}: "
+            + ", ".join(f"{k} {v}" for k, v in n.items()))
+    for form in (FWD_WGMMA, *BWD_WGMMA):
+        label = form.lstrip("0123456789").rstrip("I")
+        for hd in (64, 128, 256):
+            fns = [fn for fn in counts if form in fn and f"ILi{hd}E" in fn]
+            n = [counts[fn] for fn in fns]
+            if len(n) != 1 or not n[0]["HGMMA"] or not n[0]["UTMALDG"]:
+                raise AssertionError(
+                    f"{label} at hd {hd}: want one instance with HGMMA and "
+                    f"UTMALDG in its SASS, got {n}")
+            if form == FWD_WGMMA:
+                continue
+            use = usage.get(fns[0], {})
+            log(f"[build] {label} at hd {hd}: HGMMA {n[0]['HGMMA']}, "
+                f"UTMALDG {n[0]['UTMALDG']}, HMMA {n[0]['HMMA']}, "
+                + ", ".join(f"{k} {use.get(k)}"
+                            for k in ("REG", "STACK", "LOCAL")))
+            if n[0]["HMMA"] or use.get("STACK") != 0 \
+                    or use.get("LOCAL") != 0:
+                raise AssertionError(
+                    f"{label} at hd {hd}: want no HMMA, STACK 0 and LOCAL "
+                    f"0, got HMMA {n[0]['HMMA']}, {use}")
 
 
 def _cuobjdump(*args):

@@ -31,8 +31,10 @@ def build_all(out, source, texts, kernel, label):
     """Each texts[name] written to out/<name>/<source> and built there into
     lib.so, one nvcc each, started together. Logs, per variant, ptxas's
     stack, spill, register and shared-memory lines for every kernel whose
-    mangled name holds `kernel` (in label's order)."""
+    mangled name holds `kernel` (a string, or a tuple of which any one
+    will do; in label's order)."""
     nvcc = _build._nvcc()
+    names = (kernel,) if isinstance(kernel, str) else kernel
 
     def one(name):
         d = out / name
@@ -48,12 +50,14 @@ def build_all(out, source, texts, kernel, label):
         usage = [" ".join(x.split(":", 1)[-1].strip() for x in
                           lines[i + 1:i + 4])
                  for i, line in enumerate(lines)
-                 if "Compiling entry" in line and kernel in line]
+                 if "Compiling entry" in line
+                 and any(k in line for k in names)]
         # ptxas's notes that it serialised a kernel's wgmma (C7520 and
         # the like), which cost it the tensor cores' overlap
         losses = [line.split("ptxas info    :", 1)[-1].strip()
                   for line in lines
-                  if "Performance Loss" in line and kernel in line]
+                  if "Performance Loss" in line
+                  and any(k in line for k in names)]
         return name, usage, losses
 
     with ThreadPoolExecutor(len(texts)) as pool:

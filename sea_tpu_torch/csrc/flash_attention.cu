@@ -137,8 +137,8 @@
 // hash is ~20 integer operations). It writes the logical [BH, Tq, Tk]
 // region only, not the TPU kernel's padding to block multiples.
 //
-// The bf16 forms (fwd_kernel_bf16 and, at hd 8 and 16, fwd_kernel_bf16_mma;
-// dq_kernel_bf16, dkv_kernel_bf16) take bf16 q, k, v and dO and write o,
+// The bf16 forms (fwd_kernel_bf16, dq_kernel_bf16, dkv_kernel_bf16 and, at
+// hd 8 and 16, their *_bf16_mma forms) take bf16 q, k, v and dO and write o,
 // dq, dk and dv in bf16, with the TPU kernels' rounding points: scores, the
 // softmax statistics, lse, D and every sum in f32; the unnormalised p =
 // exp(s - m) M rounded to bf16 (v's dtype) before P.V, under the running
@@ -203,11 +203,53 @@
 //    memory), 64 keys and 3 stages at hd 128 (214 KB), 32 keys and 3
 //    stages at hd 256 (230 KB; 64-key tiles do not fit in 227 KB).
 //
+// The bf16 dQ and dK/dV at hd 64, 128 and 256 (dq_kernel_bf16,
+// dkv_kernel_bf16) replace _bwd_dq_kernel and _bwd_dkv_kernel on bf16
+// inputs, redesigned for Hopper as the forward was. Their bound is bytes
+// too (q, k, v, dO read once, the gradients written once, lse and D),
+// 0.0025 / 0.0029 ms at (2, 399, 8, 128); what held the mma.sync forms at
+// 1.2-1.3x cuDNN's backward was again the critical block's serial walk.
+// So, with the forward's pieces (Wgmma, the tensor maps, setmaxnreg, the
+// base-2 exponent, indices from lane 0, peeled first and last tiles; each
+// k step's descriptor added where it is used, desc_at) and the walk split
+// of the mma.sync forms (kWalkers, walk_count):
+//  - dQ: a block owns (bh, 64 q rows), the longest walks first; its loader
+//    TMA-loads Q and dO once, then the in-band key tiles (64 keys, 32 at
+//    hd 256) into a ring of stages a group, K and V on barriers of their
+//    own. The consumer groups walk the even and the odd tiles: S = Q K^T
+//    and dP = dO V^T are m64nBKk16 with both operands K-major; dS = P (M
+//    dP - D) in the accumulator layout, with P = 2^(s scale log2(e) - lse
+//    log2(e)) (one FFMA, ex2.approx), masks only on edge tiles, rounded to
+//    bf16 pairs as the A fragment of dQ += dS K (m64nHDk16, K's tile
+//    MN-major through the transpose bit); S and dP of tile i go to the
+//    tensor cores with dS K of tile i - 1;
+//  - dK/dV: a block owns (bh, 64 keys), K and V loaded once; the loader
+//    hands the q tiles from the first in band on (64 rows at hd 64, 32 at
+//    128 and 256); its first warp copies their lse and D with 4-byte
+//    cp.async that arrive on the tile's barrier as they land (a row of Tq
+//    floats is no legal tensor-map stride, and a 1-D tensor map over the
+//    flat buffer faulted on the card). S^T = K Q^T and dP^T = V dO^T; P M
+//    and dS^T stay in registers as the A fragments of dV += (P M)^T dO
+//    and dK += dS^T Q, dO and Q MN-major. At hd 64 and 128 the groups
+//    walk alternate q tiles; at hd 256 dK and dV (256 f32 a thread) do
+//    not fit one warpgroup's registers, so d is split: each group owns 128
+//    columns of dK and dV and walks every q tile of one shared ring,
+//    forming S^T and dP^T over its half of d and adding the other
+//    group's half through shared memory (SPLIT_D; each forming all of S^T
+//    and dP^T itself measured 1-2% slower: chip_flash_probe.py bwd16);
+//  - the groups' sums meet in a fixed order: group 1 hands its f32 sums
+//    to group 0 through the ring once both walks are done, no atomics, so
+//    a second call gives the same bits (under the d split no sum is
+//    shared);
+//  - shared memory: dQ 81 / 225 / 193 KB at hd 64 / 128 / 256 (2, 3, 2
+//    stages a group), dK/dV 149 / 131 / 226 KB (4, 3 stages a group; 3
+//    shared).
+//
 // The other bf16 forms keep the f32 kernels' tiling, warp split, cp.async
 // rings, dropout hash and fixed-order sums of the two backward groups (a
 // second call gives the same bits), with one mma.sync.m16n8k16 a product:
-// dQ and dK/dV at every head dim, and the forward at hd 8 and 16 (the smoke
-// presets), whose rows are narrower than a 64-column TMA box:
+// dQ, dK/dV and the forward at hd 8 and 16 (the smoke presets), whose rows
+// are narrower than a 64-column TMA box:
 //  - S's m16n8k16 accumulator of n tiles 2kk and 2kk + 1 (rows g, g + 8;
 //    keys 2t, 2t + 1 of each 8) is, rounded to bf16 pairs, the A fragment
 //    of k step kk of the next product (P.V, dS.K, (P.M)^T.dO, dS^T.Q): P
@@ -1710,18 +1752,30 @@ struct FwdWg {
 constexpr int kLoaderRegs = 40;
 constexpr int kConsumerRegs = 232;
 
+// d + off, added where it is used: the asm keeps the compiler from
+// hoisting every k step's descriptor of a tile that stays put (Q; Q and dO
+// in dQ, K and V in dK/dV) out of the walk, which at hd 256 held 32 64-bit
+// values live across the backward's walk and pushed it into spills.
+__device__ __forceinline__ uint64_t desc_at(uint64_t d, int off) {
+  uint64_t r;
+  asm volatile("add.s64 %0, %1, %2;\n"
+               : "=l"(r)
+               : "l"(d), "l"(static_cast<uint64_t>(off)));
+  return r;
+}
+
 // S = Q K^T of a key tile into sc, issued: HD / 16 k steps, each 32 bytes
 // further along the rows of a 64-column box. qd and kd are the
-// descriptors of Q's and the K tile's first box; a descriptor's address
-// field counts 16 bytes, and no address here carries out of it.
+// descriptors of Q's (64 rows) and the K tile's first box; a descriptor's
+// address field counts 16 bytes, and no address here carries out of it.
 template <int HD, int BK>
 __device__ __forceinline__ void issue_s(float (&sc)[BK / 2], uint64_t qd,
                                         uint64_t kd) {
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
     const int at = (kk & 3) * 2;
-    Wgmma<BK>::ss(sc, qd + (kk / 4) * (kFwdBQ * 128 / 16) + at,
-                  kd + (kk / 4) * (BK * 128 / 16) + at, kk > 0);
+    Wgmma<BK>::ss(sc, desc_at(qd, (kk / 4) * (kFwdBQ * 128 / 16) + at),
+                  desc_at(kd, (kk / 4) * (BK * 128 / 16) + at), kk > 0);
   }
 }
 
@@ -2068,7 +2122,7 @@ __device__ __forceinline__ void qk_pair16(float (&s0)[NS][4], const bf16* a0,
 
 template <int HD>
 __global__ void __launch_bounds__(kBwdThreads, 1)
-dq_kernel_bf16(View16 q, View16 k, View16 v, View16 dout,
+dq_kernel_bf16_mma(View16 q, View16 k, View16 v, View16 dout,
                const float* __restrict__ lse, const float* __restrict__ dsum,
                bf16* __restrict__ dq, Shape s) {
   using T = BwdTiles<HD>;
@@ -2199,7 +2253,7 @@ dq_kernel_bf16(View16 q, View16 k, View16 v, View16 dout,
 
 template <int HD>
 __global__ void __launch_bounds__(kBwdThreads, 1)
-dkv_kernel_bf16(View16 q, View16 k, View16 v, View16 dout,
+dkv_kernel_bf16_mma(View16 q, View16 k, View16 v, View16 dout,
                 const float* __restrict__ lse,
                 const float* __restrict__ dsum, bf16* __restrict__ dk,
                 bf16* __restrict__ dv, Shape s) {
@@ -2356,6 +2410,688 @@ dkv_kernel_bf16(View16 q, View16 k, View16 v, View16 dout,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 backward for Hopper at hd 64, 128 and 256 (dq_kernel_bf16,
+// dkv_kernel_bf16): wgmma fed by TMA, the walk split between two consumer
+// warpgroups (see the note at the top)
+// ---------------------------------------------------------------------------
+
+// An arrival on bar once every cp.async this thread issued before has
+// landed, counted in bar's expected arrivals (noinc).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Tiles and rings of dq_kernel_bf16: a block owns 64 q rows (kFwdBQ), whose
+// Q and dO land once on one barrier; the loader hands the in-band key tiles
+// of BK keys to the two consumer groups in turn (walk_group), each through
+// a ring of ST stages (K, then V, each with its own barrier). Every tile is
+// boxes of 64 columns (128 bytes) by its rows, in TMA's 128-byte swizzle.
+template <int HD, int BK, int ST>
+struct DqWg {
+  static constexpr int kThreads = 384;
+  static constexpr int kBoxes = HD / 64;
+  static constexpr int kOwnBytes = kFwdBQ * HD * 2;  // Q or dO
+  static constexpr int kTileBytes = BK * HD * 2;     // K or V
+  static constexpr int kStageBytes = 2 * kTileBytes;
+  static constexpr int kStages = 2 * ST;
+  // Group 1's dQ sum at the merge, a float4 at a time for each thread.
+  static constexpr int kXchBytes = HD / 8 * 128 * 16;
+  // 1024 bytes to align the base to a swizzle atom; the barriers behind
+  // the ring: K and V landed, the stage free, Q and dO landed.
+  static constexpr size_t kSmem =
+      1024 + 2 * kOwnBytes + kStages * kStageBytes + 8 * (3 * kStages + 1);
+  static_assert(HD % 64 == 0 && HD <= 256 && (BK == 32 || BK == 64),
+                "tile shape");
+  static_assert(kXchBytes <= kStages * kStageBytes, "exchange buffer");
+  static_assert(kSmem <= 232448, "over the 227 KB a block may use");
+};
+
+// dS = P (M dP - D) of the key tile at k0 for this thread's rows row0 and
+// row0 + 8 of a dQ block, in the accumulator layout of S (sc) and dP (dp,
+// overwritten): element 4n + 2r + e is row r, key k0 + 8n + 2t + e. P =
+// exp(s scale - lse) = 2^(s scale log2(e) - lse2), lse2 = lse log2(e); M
+// the dropout scale. dS goes to bf16 pairs in ds: n tiles 2kk and 2kk + 1
+// are the A fragment of k step kk of dQ += dS K. MASK: some key of the
+// tile lies past a row's band (key k is in band for row r iff k <
+// lim[r]); the select keeps an exp that overflowed there out of dS.
+template <int BK, bool MASK>
+__device__ __forceinline__ void dq_grad_tile(
+    const float (&sc)[BK / 2], float (&dp)[BK / 2],
+    uint32_t (&ds)[BK / 16][4], const int (&lim)[2], const float (&lse2)[2],
+    const float (&dr)[2], int k0, int row0, int t, unsigned bh,
+    float scale_log2, const Shape& s) {
+  constexpr int NS = BK / 8;
+  if (s.dropout) {
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          dp[4 * n + 2 * r + e] *= dropout_scale(s, bh, row0 + 8 * r,
+                                                 k0 + 8 * n + 2 * t + e);
+  }
+#pragma unroll
+  for (int n = 0; n < NS; ++n)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * n + 2 * r + e;
+        float x = exp2_approx(fmaf(sc[i], scale_log2, -lse2[r])) *
+                  (dp[i] - dr[r]);
+        if (MASK && k0 + 8 * n + 2 * t + e >= lim[r]) x = 0.f;
+        dp[i] = x;
+      }
+#pragma unroll
+  for (int kk = 0; kk < NS / 2; ++kk) {
+    const float* x = dp + 8 * kk;
+    ds[kk][0] = pack_bf16(x[0], x[1]);
+    ds[kk][1] = pack_bf16(x[2], x[3]);
+    ds[kk][2] = pack_bf16(x[4], x[5]);
+    ds[kk][3] = pack_bf16(x[6], x[7]);
+  }
+}
+
+template <int HD, int BK, int ST>
+__global__ void __launch_bounds__(DqWg<HD, BK, ST>::kThreads, 1)
+dq_kernel_bf16(const __grid_constant__ CUtensorMap qmap,
+               const __grid_constant__ CUtensorMap kmap,
+               const __grid_constant__ CUtensorMap vmap,
+               const __grid_constant__ CUtensorMap omap,
+               const float* __restrict__ lse, const float* __restrict__ dsum,
+               bf16* __restrict__ dq, Shape s) {
+  using T = DqWg<HD, BK, ST>;
+  constexpr int NS = BK / 8;  // n tiles of S and dP
+  constexpr int NO = HD / 8;  // n tiles of dQ
+  extern __shared__ unsigned char dq_wg_smem[];
+  unsigned char* sQ =
+      dq_wg_smem + ((1024 - (smem_u32(dq_wg_smem) & 1023)) & 1023);
+  unsigned char* sO = sQ + T::kOwnBytes;  // dO
+  unsigned char* ring = sO + T::kOwnBytes;
+  uint64_t* k_full = reinterpret_cast<uint64_t*>(ring + T::kStages *
+                                                            T::kStageBytes);
+  uint64_t* v_full = k_full + T::kStages;
+  uint64_t* empty = v_full + T::kStages;
+  uint64_t* qo_full = empty + T::kStages;
+  const int bh = blockIdx.x, b = bh / s.H, h = bh % s.H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kFwdBQ;  // longest first
+  const int n_tiles = (key_end(s, q0, kFwdBQ) + BK - 1) / BK;
+  // The warpgroup, read from lane 0 so that the compiler sees it is the
+  // same across the warp (as in fwd_kernel_bf16).
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+
+  if (threadIdx.x == 0) {
+    prefetch_map(qmap);
+    prefetch_map(kmap);
+    prefetch_map(vmap);
+    prefetch_map(omap);
+    for (int i = 0; i < T::kStages; ++i) {
+      mbar_init(k_full + i, 1);
+      mbar_init(v_full + i, 1);
+      mbar_init(empty + i, 128);
+    }
+    mbar_init(qo_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // the loader: Q and dO once, then every key tile in order
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kLoaderRegs));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(qo_full, 2 * T::kOwnBytes);
+#pragma unroll
+      for (int c = 0; c < T::kBoxes; ++c) {
+        tma_load(sQ + c * kFwdBQ * 128, qmap, qo_full, 64 * c, h, q0, b);
+        tma_load(sO + c * kFwdBQ * 128, omap, qo_full, 64 * c, h, q0, b);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int i = j / kWalkers, st = j % kWalkers * ST + i % ST;
+        mbar_wait(empty + st, ((i / ST) & 1) ^ 1);
+        unsigned char* dst = ring + st * T::kStageBytes;
+        mbar_expect_tx(k_full + st, T::kTileBytes);
+#pragma unroll
+        for (int c = 0; c < T::kBoxes; ++c)
+          tma_load(dst + c * BK * 128, kmap, k_full + st, 64 * c, h, j * BK,
+                   b);
+        mbar_expect_tx(v_full + st, T::kTileBytes);
+#pragma unroll
+        for (int c = 0; c < T::kBoxes; ++c)
+          tma_load(dst + T::kTileBytes + c * BK * 128, vmap, v_full + st,
+                   64 * c, h, j * BK, b);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+
+  const int group = wg - 1, tid = threadIdx.x % 128;
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + warp * 16 + g;  // rows row0 and row0 + 8 here
+  const float log2e = 1.4426950408889634f;
+  int lim[2];  // key k is in band for row row0 + 8r iff k < lim[r]
+  float lse2[2], dr[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = row0 + 8 * r;
+    const bool ok = qp < s.Tq;
+    const long long at = static_cast<long long>(bh) * s.Tq + qp;
+    lse2[r] = ok ? lse[at] * log2e : 0.f;
+    dr[r] = ok ? dsum[at] : 0.f;
+    lim[r] = !ok ? 0 : s.causal ? min(s.Tk, qp + s.src_len + 1) : s.Tk;
+  }
+  // Keys below warp_lim are in band for all 16 rows of this warp: a tile
+  // below it needs no mask (the same for every lane).
+  const int wq = q0 + warp * 16;
+  const int warp_lim = wq + 15 >= s.Tq ? 0
+                       : s.causal      ? min(s.Tk, wq + s.src_len + 1)
+                                       : s.Tk;
+  const float scale_log2 = s.scale * log2e;
+  const int mine = walk_count(n_tiles, group);
+  float acc[HD / 2];  // dQ
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  float sc[BK / 2], dp[BK / 2];  // S and dP of the tile
+  uint32_t ds[NS / 2][4];        // its dS, bf16 pairs
+  // Descriptors of Q's and dO's first box, and of this group's first
+  // stage's K and V as the K-major B of S = Q K^T and dP = dO V^T and K as
+  // the MN-major B of dQ += dS K; stage u is u kStageBytes further.
+  unsigned char* mine_ring = ring + group * ST * T::kStageBytes;
+  const uint64_t qd = sw128_desc(sQ, 16, 1024);
+  const uint64_t od = sw128_desc(sO, 16, 1024);
+  const uint64_t kd = sw128_desc(mine_ring, 16, 1024);
+  const uint64_t vd = sw128_desc(mine_ring + T::kTileBytes, 16, 1024);
+  const uint64_t km = sw128_desc(mine_ring, BK * 128, 1024);
+  constexpr int kStageStep = T::kStageBytes / 16;
+  // dS of tile i of this group's walk into ds.
+  auto grad = [&](int i) {
+    const int k0 = (group + kWalkers * i) * BK;
+    if (k0 + BK > warp_lim)
+      dq_grad_tile<BK, true>(sc, dp, ds, lim, lse2, dr, k0, row0, t, bh,
+                             scale_log2, s);
+    else
+      dq_grad_tile<BK, false>(sc, dp, ds, lim, lse2, dr, k0, row0, t, bh,
+                              scale_log2, s);
+  };
+  mbar_wait(qo_full, 0);
+
+  // Tile i: wait for its K and V, issue S and dP of tile i (and dQ += dS K
+  // of tile i - 1), wait for them, free tile i - 1's stage; then dS of
+  // tile i. Tile 0 and the last dS K are peeled off, so that no wgmma sits
+  // under a branch of its own.
+  if (mine > 0) {
+    mbar_wait(k_full + group * ST, 0);
+    mbar_wait(v_full + group * ST, 0);
+    pin(sc);
+    pin(dp);
+    wgmma_fence();
+    issue_s<HD, BK>(sc, qd, kd);
+    issue_s<HD, BK>(dp, od, vd);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(sc);
+    pin(dp);
+    grad(0);
+    for (int i = 1; i < mine; ++i) {
+      const int u = i % ST, up = (i - 1) % ST;
+      mbar_wait(k_full + group * ST + u, (i / ST) & 1);
+      mbar_wait(v_full + group * ST + u, (i / ST) & 1);
+      pin(sc);
+      pin(dp);
+      pin(acc);
+      wgmma_fence();
+      issue_s<HD, BK>(sc, qd, kd + u * kStageStep);
+      issue_s<HD, BK>(dp, od, vd + u * kStageStep);
+      issue_pv<HD, BK>(acc, ds, km + up * kStageStep);
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(sc);
+      pin(dp);
+      pin(acc);
+      mbar_arrive(empty + group * ST + up);
+      grad(i);
+    }
+    const int up = (mine - 1) % ST;
+    pin(acc);
+    wgmma_fence();
+    issue_pv<HD, BK>(acc, ds, km + up * kStageStep);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(acc);
+    mbar_arrive(empty + group * ST + up);
+  }
+
+  // Both walks are done, so the ring is free: group 1 hands its dQ to
+  // group 0 through it, which adds it to its own in that fixed order, so a
+  // second call gives the same bits. A thread's float4 c is at xch[128 c +
+  // tid].
+  asm volatile("bar.sync 2, 256;\n" ::: "memory");
+  float4* xch = reinterpret_cast<float4*>(ring) + tid;
+  if (group == 1) {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+#pragma unroll
+    for (int c = 0; c < NO; ++c)
+      xch[128 * c] = make_float4(acc[4 * c], acc[4 * c + 1], acc[4 * c + 2],
+                                 acc[4 * c + 3]);
+    asm volatile("bar.arrive 3, 256;\n" ::: "memory");
+    return;
+  }
+  asm volatile("bar.sync 3, 256;\n" ::: "memory");
+#pragma unroll
+  for (int c = 0; c < NO; ++c) {
+    const float4 x = xch[128 * c];
+    acc[4 * c] += x.x;
+    acc[4 * c + 1] += x.y;
+    acc[4 * c + 2] += x.z;
+    acc[4 * c + 3] += x.w;
+  }
+  // acc[4c + 2r + e] is row row0 + 8r, d = 8c + 2t + e.
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = row0 + 8 * r;
+    if (qp >= s.Tq) continue;
+    bf16* out = dq + ((static_cast<long long>(b) * s.Tq + qp) * s.H + h) *
+                         HD + 2 * t;
+#pragma unroll
+    for (int c = 0; c < NO; ++c)
+      *reinterpret_cast<uint32_t*>(out + 8 * c) =
+          pack_bf16(acc[4 * c + 2 * r] * s.scale,
+                    acc[4 * c + 2 * r + 1] * s.scale);
+  }
+}
+
+// Tiles and rings of dkv_kernel_bf16: a block owns 64 keys (kFwdBQ), whose
+// K and V land once on one barrier; the loader hands the q tiles of BQ rows
+// from the first in band on to the two consumer groups. Without SPLIT_D
+// they walk alternate q tiles (kWalkers) for all of d, each through a ring
+// of ST stages, their dK and dV summed at the end; with SPLIT_D both walk
+// every q tile of one ring of ST stages, each for its half of d's columns
+// of dK and dV, forming S^T and dP^T over its half of d and adding the
+// other group's half through shared memory. A stage is Q, then dO, each with its own
+// barrier; its lse and D sit apart, behind the ring, in a slot of 2 BQ
+// floats, copied by the loader's first warp with 4-byte cp.async that
+// arrive on Q's barrier as they land (a row of Tq floats is no legal
+// tensor-map stride, and a 1-D tensor map over the flat buffer faulted on
+// the card: illegal instruction).
+template <int HD, int BQ, int ST, bool SPLIT_D>
+struct DkvWg {
+  static constexpr int kThreads = 384;
+  static constexpr int kBoxes = HD / 64;
+  // d columns of dK and dV a group owns, and the d of its S^T and dP^T
+  static constexpr int DW = SPLIT_D ? HD / 2 : HD;
+  static constexpr int SD = DW;
+  static constexpr int kOwnBytes = kFwdBQ * HD * 2;  // K or V
+  static constexpr int kTileBytes = BQ * HD * 2;     // Q or dO
+  static constexpr int kStageBytes = 2 * kTileBytes;
+  static constexpr int kStages = SPLIT_D ? ST : 2 * ST;
+  static constexpr int kReleasers = SPLIT_D ? 256 : 128;  // of a stage
+  // SPLIT_D: each group's halves of S^T and dP^T, BQ floats a thread, in
+  // two buffers (tile parity).
+  static constexpr int kHalfFloats = SPLIT_D ? 2 * 2 * BQ * 128 : 0;
+  // Without: group 1's dK and dV at the merge, float4s, in the ring.
+  static constexpr int kXchBytes = SPLIT_D ? 0 : 2 * DW / 8 * 128 * 16;
+  // 1024 bytes to align the base to a swizzle atom; behind the ring the
+  // lse and D slots, the halves, then the barriers: Q (with lse and D) and
+  // dO landed, the stage free, K and V landed.
+  static constexpr size_t kSmem =
+      1024 + 2 * kOwnBytes + kStages * kStageBytes +
+      4 * (kStages * 2 * BQ + kHalfFloats) + 8 * (3 * kStages + 1);
+  static_assert(HD % 64 == 0 && HD <= 256 && (BQ == 32 || BQ == 64) &&
+                    DW % 64 == 0 && SD % 64 == 0,
+                "tile shape");
+  static_assert(kXchBytes <= kStages * kStageBytes, "exchange buffer");
+  static_assert(kSmem <= 232448, "over the 227 KB a block may use");
+};
+
+// P M and dS = P (M dP - D) of the q tile at q0 for this thread's keys key0
+// and key0 + 8 of a dK/dV block, in the accumulator layout of S^T (st) and
+// dP^T (dpt), both overwritten: element 4n + 2r + e is key r, query q0 +
+// 8n + 2t + e, whose lse and D are lse_s and d_s at 8n + 2t + e. P =
+// exp(s scale - lse) = 2^(s scale log2(e) - lse log2(e)); M the dropout
+// scale. P M and dS go to bf16 pairs in pm and ds: n tiles 2kk and 2kk + 1
+// are the A fragment of k step kk of dV += (P M)^T dO and dK += dS^T Q.
+// MASK: some query of the tile lies outside a key's band (query q sees key
+// r iff qlo[r] <= q < Tq); P = 0 there keeps an exp that overflowed, and
+// the lse and D of rows past Tq, out of both.
+template <int BQ, bool MASK>
+__device__ __forceinline__ void dkv_grad_tile(
+    float (&st)[BQ / 2], float (&dpt)[BQ / 2], uint32_t (&pm)[BQ / 16][4],
+    uint32_t (&ds)[BQ / 16][4], const float* lse_s, const float* d_s,
+    const int (&qlo)[2], int q0, int key0, int t, unsigned bh,
+    float scale_log2, const Shape& s) {
+  constexpr int NS = BQ / 8;
+  const float log2e = 1.4426950408889634f;
+#pragma unroll
+  for (int n = 0; n < NS; ++n) {
+    const float2 l = *reinterpret_cast<const float2*>(lse_s + 8 * n + 2 * t);
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * n + 2 * r + e, qp = q0 + 8 * n + 2 * t + e;
+        float p = exp2_approx(fmaf(st[i], scale_log2,
+                                   -(e ? l.y : l.x) * log2e));
+        if (MASK && (qp < qlo[r] || qp >= s.Tq)) p = 0.f;
+        st[i] = p;
+      }
+  }
+  if (s.dropout) {
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      const float2 d = *reinterpret_cast<const float2*>(d_s + 8 * n + 2 * t);
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * n + 2 * r + e;
+          const float m = dropout_scale(s, bh, q0 + 8 * n + 2 * t + e,
+                                        key0 + 8 * r);
+          const float p = st[i];
+          dpt[i] = p * (dpt[i] * m - (e ? d.y : d.x));
+          st[i] = p * m;
+        }
+    }
+  } else {
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      const float2 d = *reinterpret_cast<const float2*>(d_s + 8 * n + 2 * t);
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * n + 2 * r + e;
+          dpt[i] = st[i] * (dpt[i] - (e ? d.y : d.x));
+        }
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < NS / 2; ++kk) {
+    const float* x = st + 8 * kk;
+    const float* y = dpt + 8 * kk;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      pm[kk][j] = pack_bf16(x[2 * j], x[2 * j + 1]);
+      ds[kk][j] = pack_bf16(y[2 * j], y[2 * j + 1]);
+    }
+  }
+}
+
+template <int HD, int BQ, int ST, bool SPLIT_D>
+__global__ void __launch_bounds__(DkvWg<HD, BQ, ST, SPLIT_D>::kThreads, 1)
+dkv_kernel_bf16(const __grid_constant__ CUtensorMap qmap,
+                const __grid_constant__ CUtensorMap kmap,
+                const __grid_constant__ CUtensorMap vmap,
+                const __grid_constant__ CUtensorMap omap,
+                const float* __restrict__ lse, const float* __restrict__ dsum,
+                bf16* __restrict__ dk, bf16* __restrict__ dv, Shape s) {
+  using T = DkvWg<HD, BQ, ST, SPLIT_D>;
+  constexpr int NS = BQ / 8;     // n tiles of S^T and dP^T
+  constexpr int NO = T::DW / 8;  // n tiles of a group's dK and dV
+  extern __shared__ unsigned char dkv_wg_smem[];
+  unsigned char* sK =
+      dkv_wg_smem + ((1024 - (smem_u32(dkv_wg_smem) & 1023)) & 1023);
+  unsigned char* sV = sK + T::kOwnBytes;
+  unsigned char* ring = sV + T::kOwnBytes;
+  // [stage][lse, D][BQ]
+  float* rows = reinterpret_cast<float*>(ring + T::kStages * T::kStageBytes);
+  float* halves = rows + T::kStages * 2 * BQ;  // [tile & 1][group][BQ][128]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(halves + T::kHalfFloats);
+  uint64_t* o_full = q_full + T::kStages;
+  uint64_t* empty = o_full + T::kStages;
+  uint64_t* kv_full = empty + T::kStages;
+  const int bh = blockIdx.x, b = bh / s.H, h = bh % s.H;
+  const int k0 = blockIdx.y * kFwdBQ;  // the first key tiles walk the longest
+  const int first = (s.causal ? max(0, k0 - s.src_len) : 0) / BQ;
+  const int n_tiles = max(0, (s.Tq + BQ - 1) / BQ - first);
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+
+  if (threadIdx.x == 0) {
+    prefetch_map(qmap);
+    prefetch_map(kmap);
+    prefetch_map(vmap);
+    prefetch_map(omap);
+    for (int i = 0; i < T::kStages; ++i) {
+      mbar_init(q_full + i, 1 + 32);  // the loader's Q, its warp's lse, D
+      mbar_init(o_full + i, 1);
+      mbar_init(empty + i, T::kReleasers);
+    }
+    mbar_init(kv_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // the loader: K and V once, then every q tile in order
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kLoaderRegs));
+    if (threadIdx.x < 32) {  // lane 0 the tiles, every lane lse and D
+      const int lane = threadIdx.x;
+      const float* lse_bh = lse + static_cast<long long>(bh) * s.Tq;
+      const float* d_bh = dsum + static_cast<long long>(bh) * s.Tq;
+      if (lane == 0) {
+        mbar_expect_tx(kv_full, 2 * T::kOwnBytes);
+#pragma unroll
+        for (int c = 0; c < T::kBoxes; ++c) {
+          tma_load(sK + c * kFwdBQ * 128, kmap, kv_full, 64 * c, h, k0, b);
+          tma_load(sV + c * kFwdBQ * 128, vmap, kv_full, 64 * c, h, k0, b);
+        }
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int i = SPLIT_D ? j : j / kWalkers;
+        const int st = SPLIT_D ? i % ST : j % kWalkers * ST + i % ST;
+        mbar_wait(empty + st, ((i / ST) & 1) ^ 1);
+        unsigned char* dst = ring + st * T::kStageBytes;
+        float* slot = rows + st * 2 * BQ;
+        const int qt = (first + j) * BQ;
+        if (lane == 0) {
+          mbar_expect_tx(q_full + st, T::kTileBytes);
+#pragma unroll
+          for (int c = 0; c < T::kBoxes; ++c)
+            tma_load(dst + c * BQ * 128, qmap, q_full + st, 64 * c, h, qt,
+                     b);
+          mbar_expect_tx(o_full + st, T::kTileBytes);
+#pragma unroll
+          for (int c = 0; c < T::kBoxes; ++c)
+            tma_load(dst + T::kTileBytes + c * BQ * 128, omap, o_full + st,
+                     64 * c, h, qt, b);
+        }
+        // lse and D of the tile's rows, zeros past Tq
+        for (int r = lane; r < BQ; r += 32) {
+          const bool ok = qt + r < s.Tq;
+          cp_async4(slot + r, ok ? lse_bh + qt + r : lse_bh, ok);
+          cp_async4(slot + BQ + r, ok ? d_bh + qt + r : d_bh, ok);
+        }
+        cp_async_arrive(q_full + st);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+
+  const int group = wg - 1, tid = threadIdx.x % 128;
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int key0 = k0 + warp * 16 + g;  // keys key0 and key0 + 8 here
+  int qlo[2];  // query q sees key key0 + 8r iff qlo[r] <= q < Tq
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kp = key0 + 8 * r;
+    qlo[r] = kp >= s.Tk ? s.Tq : s.causal ? kp - s.src_len : 0;
+  }
+  // Queries from warp_qlo on see all 16 keys of this warp: a tile from
+  // there to Tq needs no mask (the same for every lane).
+  const int wk = k0 + warp * 16;
+  const int warp_qlo = wk + 15 >= s.Tk ? s.Tq
+                       : s.causal      ? wk + 15 - s.src_len
+                                       : 0;
+  const float scale_log2 = s.scale * 1.4426950408889634f;
+  const int mine = SPLIT_D ? n_tiles : walk_count(n_tiles, group);
+  const int ring0 = SPLIT_D ? 0 : group * ST;  // this group's first stage
+  float gk[T::DW / 2], gv[T::DW / 2];  // dK, dV
+#pragma unroll
+  for (int i = 0; i < T::DW / 2; ++i) gk[i] = gv[i] = 0.f;
+  float st[BQ / 2], dpt[BQ / 2];          // S^T and dP^T of the tile
+  uint32_t pm[NS / 2][4], ds[NS / 2][4];  // its P M and dS, bf16 pairs
+  // Descriptors: K and V as the K-major A of S^T = K Q^T and dP^T = V dO^T
+  // over this group's d (its first 64-column box: sbox); Q and dO of its
+  // first stage as their K-major B, and as the MN-major B of dK += dS^T Q
+  // and dV += (P M)^T dO over the columns it owns (obox); stage u is u
+  // kStageBytes further.
+  const int sbox = SPLIT_D ? group * (T::SD / 64) : 0;
+  const int obox = SPLIT_D ? group * (T::DW / 64) : 0;
+  unsigned char* first_stage = ring + ring0 * T::kStageBytes;
+  const uint64_t kd = sw128_desc(sK + sbox * kFwdBQ * 128, 16, 1024);
+  const uint64_t vd = sw128_desc(sV + sbox * kFwdBQ * 128, 16, 1024);
+  const uint64_t qd = sw128_desc(first_stage + sbox * BQ * 128, 16, 1024);
+  const uint64_t od = sw128_desc(
+      first_stage + T::kTileBytes + sbox * BQ * 128, 16, 1024);
+  const uint64_t qm = sw128_desc(first_stage + obox * BQ * 128, BQ * 128,
+                                 1024);
+  const uint64_t om = sw128_desc(
+      first_stage + T::kTileBytes + obox * BQ * 128, BQ * 128, 1024);
+  constexpr int kStageStep = T::kStageBytes / 16;
+  // SPLIT_D: add the other group's half of S^T and dP^T of tile i to this
+  // group's (a + b in one group, b + a in the other: the same bits).
+  auto add_halves = [&](int i) {
+    if constexpr (SPLIT_D) {
+      float* mine_h = halves + ((i & 1) * 2 + group) * BQ * 128 + tid;
+      const float* other =
+          halves + ((i & 1) * 2 + (group ^ 1)) * BQ * 128 + tid;
+#pragma unroll
+      for (int j = 0; j < BQ / 2; ++j) {
+        mine_h[128 * j] = st[j];
+        mine_h[128 * (BQ / 2 + j)] = dpt[j];
+      }
+      asm volatile("bar.sync 4, 256;\n" ::: "memory");
+#pragma unroll
+      for (int j = 0; j < BQ / 2; ++j) {
+        st[j] += other[128 * j];
+        dpt[j] += other[128 * (BQ / 2 + j)];
+      }
+    }
+  };
+  // P M and dS of tile i of this group's walk (stage ring0 + i % ST).
+  auto grad = [&](int i) {
+    const int q0 = (first + (SPLIT_D ? i : group + kWalkers * i)) * BQ;
+    const float* slot = rows + (ring0 + i % ST) * 2 * BQ;
+    if (q0 < warp_qlo || q0 + BQ > s.Tq)
+      dkv_grad_tile<BQ, true>(st, dpt, pm, ds, slot, slot + BQ, qlo, q0,
+                              key0, t, bh, scale_log2, s);
+    else
+      dkv_grad_tile<BQ, false>(st, dpt, pm, ds, slot, slot + BQ, qlo, q0,
+                               key0, t, bh, scale_log2, s);
+  };
+  mbar_wait(kv_full, 0);
+
+  // Tile i: wait for its Q and dO, issue S^T and dP^T of tile i (and dV +=
+  // (P M)^T dO, dK += dS^T Q of tile i - 1), wait for them, free tile i -
+  // 1's stage; then P M and dS of tile i. Tile 0 and the last products are
+  // peeled off, so that no wgmma sits under a branch of its own.
+  if (mine > 0) {
+    mbar_wait(q_full + ring0, 0);
+    mbar_wait(o_full + ring0, 0);
+    pin(st);
+    pin(dpt);
+    wgmma_fence();
+    issue_s<T::SD, BQ>(st, kd, qd);
+    issue_s<T::SD, BQ>(dpt, vd, od);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(st);
+    pin(dpt);
+    add_halves(0);
+    grad(0);
+    for (int i = 1; i < mine; ++i) {
+      const int u = i % ST, up = (i - 1) % ST;
+      mbar_wait(q_full + ring0 + u, (i / ST) & 1);
+      mbar_wait(o_full + ring0 + u, (i / ST) & 1);
+      pin(st);
+      pin(dpt);
+      pin(gk);
+      pin(gv);
+      wgmma_fence();
+      issue_s<T::SD, BQ>(st, kd, qd + u * kStageStep);
+      issue_s<T::SD, BQ>(dpt, vd, od + u * kStageStep);
+      issue_pv<T::DW, BQ>(gv, pm, om + up * kStageStep);
+      issue_pv<T::DW, BQ>(gk, ds, qm + up * kStageStep);
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(st);
+      pin(dpt);
+      pin(gk);
+      pin(gv);
+      mbar_arrive(empty + ring0 + up);
+      add_halves(i);
+      grad(i);
+    }
+    const int up = (mine - 1) % ST;
+    pin(gk);
+    pin(gv);
+    wgmma_fence();
+    issue_pv<T::DW, BQ>(gv, pm, om + up * kStageStep);
+    issue_pv<T::DW, BQ>(gk, ds, qm + up * kStageStep);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(gk);
+    pin(gv);
+    mbar_arrive(empty + ring0 + up);
+  }
+
+  if constexpr (!SPLIT_D) {
+    // Both walks are done, so the ring is free: group 1 hands its dK and
+    // dV to group 0 through it, which adds them to its own in that fixed
+    // order, so a second call gives the same bits. A thread's float4 c is
+    // at xch[128 c + tid]: dK's n tile c, then dV's.
+    asm volatile("bar.sync 2, 256;\n" ::: "memory");
+    float4* xch = reinterpret_cast<float4*>(ring) + tid;
+    if (group == 1) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+#pragma unroll
+      for (int c = 0; c < NO; ++c) {
+        xch[128 * c] = make_float4(gk[4 * c], gk[4 * c + 1], gk[4 * c + 2],
+                                   gk[4 * c + 3]);
+        xch[128 * (NO + c)] = make_float4(gv[4 * c], gv[4 * c + 1],
+                                          gv[4 * c + 2], gv[4 * c + 3]);
+      }
+      asm volatile("bar.arrive 3, 256;\n" ::: "memory");
+      return;
+    }
+    asm volatile("bar.sync 3, 256;\n" ::: "memory");
+#pragma unroll
+    for (int c = 0; c < NO; ++c) {
+      const float4 x = xch[128 * c], y = xch[128 * (NO + c)];
+      gk[4 * c] += x.x;
+      gk[4 * c + 1] += x.y;
+      gk[4 * c + 2] += x.z;
+      gk[4 * c + 3] += x.w;
+      gv[4 * c] += y.x;
+      gv[4 * c + 1] += y.y;
+      gv[4 * c + 2] += y.z;
+      gv[4 * c + 3] += y.w;
+    }
+  }
+  // gk[4c + 2r + e] is key key0 + 8r, d = 64 obox + 8c + 2t + e; gv
+  // likewise.
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kp = key0 + 8 * r;
+    if (kp >= s.Tk) continue;
+    const long long at =
+        ((static_cast<long long>(b) * s.Tk + kp) * s.H + h) * HD +
+        64 * obox + 2 * t;
+#pragma unroll
+    for (int c = 0; c < NO; ++c) {
+      *reinterpret_cast<uint32_t*>(dk + at + 8 * c) =
+          pack_bf16(gk[4 * c + 2 * r] * s.scale,
+                    gk[4 * c + 2 * r + 1] * s.scale);
+      *reinterpret_cast<uint32_t*>(dv + at + 8 * c) =
+          pack_bf16(gv[4 * c + 2 * r], gv[4 * c + 2 * r + 1]);
+    }
+  }
+}
+
 // Raise the kernel's dynamic shared memory limit once per instantiation.
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
@@ -2486,32 +3222,72 @@ int launch_fwd_bf16(View16 q, View16 k, View16 v, bf16* o, float* lse,
   return cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, int BK, int ST>
 int launch_dq_bf16(View16 q, View16 k, View16 v, View16 dout,
                    const float* lse, const float* dsum, bf16* dq, Shape s,
                    cudaStream_t stream) {
-  constexpr size_t smem = BwdTiles16<HD>::kDqSmem;
-  static const cudaError_t set = allow_smem(dq_kernel_bf16<HD>, smem);
+  using T = DqWg<HD, BK, ST>;
+  static const cudaError_t set =
+      allow_smem(dq_kernel_bf16<HD, BK, ST>, T::kSmem);
   if (set != cudaSuccess) return set;
-  const dim3 grid(s.B * s.H,
-                  (s.Tq + BwdTiles<HD>::ROWS - 1) / BwdTiles<HD>::ROWS);
-  dq_kernel_bf16<HD><<<grid, kBwdThreads, smem, stream>>>(q, k, v, dout, lse,
-                                                          dsum, dq, s);
+  CUtensorMap qmap, kmap, vmap, omap;
+  if (!encode_rows(&qmap, q, s.B, s.Tq, s.H, HD, kFwdBQ) ||
+      !encode_rows(&omap, dout, s.B, s.Tq, s.H, HD, kFwdBQ) ||
+      !encode_rows(&kmap, k, s.B, s.Tk, s.H, HD, BK) ||
+      !encode_rows(&vmap, v, s.B, s.Tk, s.H, HD, BK))
+    return cudaErrorInvalidValue;
+  const dim3 grid(s.B * s.H, (s.Tq + kFwdBQ - 1) / kFwdBQ);
+  dq_kernel_bf16<HD, BK, ST><<<grid, T::kThreads, T::kSmem, stream>>>(
+      qmap, kmap, vmap, omap, lse, dsum, dq, s);
+  return cudaGetLastError();
+}
+
+template <int HD, int BQ, int ST, bool SPLIT_D>
+int launch_dkv_bf16(View16 q, View16 k, View16 v, View16 dout,
+                    const float* lse, const float* dsum, bf16* dk, bf16* dv,
+                    Shape s, cudaStream_t stream) {
+  using T = DkvWg<HD, BQ, ST, SPLIT_D>;
+  static const cudaError_t set =
+      allow_smem(dkv_kernel_bf16<HD, BQ, ST, SPLIT_D>, T::kSmem);
+  if (set != cudaSuccess) return set;
+  CUtensorMap qmap, kmap, vmap, omap;
+  if (!encode_rows(&qmap, q, s.B, s.Tq, s.H, HD, BQ) ||
+      !encode_rows(&omap, dout, s.B, s.Tq, s.H, HD, BQ) ||
+      !encode_rows(&kmap, k, s.B, s.Tk, s.H, HD, kFwdBQ) ||
+      !encode_rows(&vmap, v, s.B, s.Tk, s.H, HD, kFwdBQ))
+    return cudaErrorInvalidValue;
+  const dim3 grid(s.B * s.H, (s.Tk + kFwdBQ - 1) / kFwdBQ);
+  dkv_kernel_bf16<HD, BQ, ST, SPLIT_D>
+      <<<grid, T::kThreads, T::kSmem, stream>>>(
+      qmap, kmap, vmap, omap, lse, dsum, dk, dv, s);
   return cudaGetLastError();
 }
 
 template <int HD>
-int launch_dkv_bf16(View16 q, View16 k, View16 v, View16 dout,
-                    const float* lse, const float* dsum, bf16* dk, bf16* dv,
-                    Shape s, cudaStream_t stream) {
+int launch_dq_bf16_mma(View16 q, View16 k, View16 v, View16 dout,
+                       const float* lse, const float* dsum, bf16* dq,
+                       Shape s, cudaStream_t stream) {
+  constexpr size_t smem = BwdTiles16<HD>::kDqSmem;
+  static const cudaError_t set = allow_smem(dq_kernel_bf16_mma<HD>, smem);
+  if (set != cudaSuccess) return set;
+  const dim3 grid(s.B * s.H,
+                  (s.Tq + BwdTiles<HD>::ROWS - 1) / BwdTiles<HD>::ROWS);
+  dq_kernel_bf16_mma<HD><<<grid, kBwdThreads, smem, stream>>>(
+      q, k, v, dout, lse, dsum, dq, s);
+  return cudaGetLastError();
+}
+
+template <int HD>
+int launch_dkv_bf16_mma(View16 q, View16 k, View16 v, View16 dout,
+                        const float* lse, const float* dsum, bf16* dk,
+                        bf16* dv, Shape s, cudaStream_t stream) {
   constexpr size_t smem = BwdTiles16<HD>::kDkvSmem;
-  static const cudaError_t set = allow_smem(dkv_kernel_bf16<HD>, smem);
+  static const cudaError_t set = allow_smem(dkv_kernel_bf16_mma<HD>, smem);
   if (set != cudaSuccess) return set;
   const dim3 grid(s.B * s.H,
                   (s.Tk + BwdTiles<HD>::ROWS - 1) / BwdTiles<HD>::ROWS);
-  dkv_kernel_bf16<HD><<<grid, kBwdThreads, smem, stream>>>(q, k, v, dout,
-                                                           lse, dsum, dk, dv,
-                                                           s);
+  dkv_kernel_bf16_mma<HD><<<grid, kBwdThreads, smem, stream>>>(
+      q, k, v, dout, lse, dsum, dk, dv, s);
   return cudaGetLastError();
 }
 
@@ -2681,11 +3457,15 @@ extern "C" int sea_flash_bwd_dq_bf16(
   bf16* dQ = static_cast<bf16*>(dq);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 8: return launch_dq_bf16<8>(Q, K, V, dO, L, D, dQ, s, st);
-    case 16: return launch_dq_bf16<16>(Q, K, V, dO, L, D, dQ, s, st);
-    case 64: return launch_dq_bf16<64>(Q, K, V, dO, L, D, dQ, s, st);
-    case 128: return launch_dq_bf16<128>(Q, K, V, dO, L, D, dQ, s, st);
-    case 256: return launch_dq_bf16<256>(Q, K, V, dO, L, D, dQ, s, st);
+    // hd 8 and 16: the mma.sync form; 64 to 256: wgmma and TMA (note above)
+    case 8: return launch_dq_bf16_mma<8>(Q, K, V, dO, L, D, dQ, s, st);
+    case 16: return launch_dq_bf16_mma<16>(Q, K, V, dO, L, D, dQ, s, st);
+    case 64:
+      return launch_dq_bf16<64, 64, 2>(Q, K, V, dO, L, D, dQ, s, st);
+    case 128:
+      return launch_dq_bf16<128, 64, 3>(Q, K, V, dO, L, D, dQ, s, st);
+    case 256:
+      return launch_dq_bf16<256, 32, 2>(Q, K, V, dO, L, D, dQ, s, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -2706,11 +3486,18 @@ extern "C" int sea_flash_bwd_dkv_bf16(
   bf16* dV = static_cast<bf16*>(dv);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 8: return launch_dkv_bf16<8>(Q, K, V, dO, L, D, dK, dV, s, st);
-    case 16: return launch_dkv_bf16<16>(Q, K, V, dO, L, D, dK, dV, s, st);
-    case 64: return launch_dkv_bf16<64>(Q, K, V, dO, L, D, dK, dV, s, st);
-    case 128: return launch_dkv_bf16<128>(Q, K, V, dO, L, D, dK, dV, s, st);
-    case 256: return launch_dkv_bf16<256>(Q, K, V, dO, L, D, dK, dV, s, st);
+    // hd 8 and 16: the mma.sync form; 64 to 256: wgmma and TMA (note above)
+    case 8: return launch_dkv_bf16_mma<8>(Q, K, V, dO, L, D, dK, dV, s, st);
+    case 16: return launch_dkv_bf16_mma<16>(Q, K, V, dO, L, D, dK, dV, s, st);
+    case 64:
+      return launch_dkv_bf16<64, 64, 4, false>(Q, K, V, dO, L, D, dK, dV, s,
+                                               st);
+    case 128:
+      return launch_dkv_bf16<128, 32, 3, false>(Q, K, V, dO, L, D, dK, dV, s,
+                                                st);
+    case 256:
+      return launch_dkv_bf16<256, 32, 3, true>(Q, K, V, dO, L, D, dK, dV, s,
+                                               st);
     default: return cudaErrorInvalidValue;
   }
 }

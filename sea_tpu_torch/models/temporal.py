@@ -17,8 +17,9 @@ the exchange; every attention in it goes through the flash-decode kernel
 Slice ported so far: exchange_mode='sea', ib_scale_mode='mlp',
 ib_addition_mode='add', ln_type 'ln' or 'adaln', src_len=0 — the temporal
 configs of both shipped presets. ``temporal_forward`` trains with dropout
-from the JAX package's key tree; remat and ring attention are not ported,
-and the stacked per-field path is the same math as the per-field loop.
+from the JAX package's key tree; ring attention is not ported, remat is
+refused (``check_supported``), and the stacked per-field path is the same
+math as the per-field loop.
 """
 
 from __future__ import annotations
@@ -40,11 +41,16 @@ def check_supported(cfg: TemporalModelConfig) -> None:
              (("exchange_mode", "sea"), ("ib_scale_mode", "mlp"),
               ("ib_addition_mode", "add"), ("src_len", 0))
              if getattr(cfg, name) != want]
+    # remat would give the same numbers without its memory saving: refused
+    # rather than ignored.
+    if cfg.remat is not False:
+        wrong.append(f"remat={cfg.remat!r}")
     if wrong:
         raise NotImplementedError(
             f"temporal config {', '.join(wrong)} is not ported yet: "
             "sea_tpu_torch serves exchange_mode='sea', ib_scale_mode='mlp', "
-            "ib_addition_mode='add', src_len=0 (see ROADMAP.md)")
+            "ib_addition_mode='add', src_len=0, remat=False (see "
+            "ROADMAP.md)")
 
 
 # ---------------------------------------------------------------------------
@@ -208,7 +214,7 @@ def temporal_forward(params, cfg: TemporalModelConfig, x, ib, *, rng=None,
 
     ``rng``: a PRNG key (``utils.prng``); with ``deterministic=False`` it
     drives dropout, block ``li`` taking ``fold_in(rng, li)`` as in the JAX
-    package, so the masks are the JAX package's. No ring, no remat; the
+    package, so the masks are the JAX package's. No ring; remat raises; the
     stacked per-field path of the JAX package (``stack_fields``) is the
     same math as this per-field loop."""
     check_supported(cfg)

@@ -232,6 +232,98 @@ def test_bf16_split_walk_matches_jax_kernel(name, monkeypatch):
         atol=1e-5)
 
 
+# (keys a dQ tile walks, queries a dK/dV tile walks, dK/dV's d split
+# between its two consumer groups) of the bf16 backward kernels' wgmma
+# forms, by head dim: the dispatch in csrc/flash_attention.cu.
+BWD_WALK = {64: (64, 64, False), 128: (64, 32, False), 256: (32, 32, True)}
+# (B, Tq, Tk, H, hd, causal, src_len, rate): three or more walked tiles a
+# block, so both consumer groups walk two or more.
+BWD_WALK_CASES = {
+    "hd64": (1, 150, 150, 2, 64, True, 0, 0.0),
+    "hd64_dropout": (1, 150, 150, 2, 64, True, 0, 0.1),
+    "hd128": (1, 150, 150, 2, 128, True, 0, 0.0),
+    "hd128_dropout_src_len": (1, 150, 130, 2, 128, True, 5, 0.1),
+    "hd256": (1, 150, 150, 2, 256, True, 0, 0.0),
+    "hd256_dropout": (1, 150, 150, 2, 256, True, 0, 0.1),
+}
+
+
+def _split_walk_backward(q, k, v, g, o, lse, causal, src_len, rate):
+    """A model of the order of the f32 sums in the bf16 backward kernels'
+    wgmma forms (hd 64 to 256), from the forward's o and lse [B*H, Tq]: P,
+    P M and dS = P (M dP - D) as the plain pieces form them, P M and dS
+    rounded to bf16. A dQ block (64 q rows) has its two consumer groups
+    walk the even and the odd key tiles of its band, a dK/dV block (64
+    keys) the even and the odd q tiles from the first in its band, each
+    group summing its tiles' products in f32 in walk order and group 1's
+    sum added to group 0's; where dK/dV splits d (hd 256), each group walks
+    every q tile for its half of the columns, so a column sums all tiles
+    in order. Returns (dq, dk, dv) in bf16."""
+    B, Tq, H, hd = q.shape
+    Tk = k.shape[1]
+    bk, bq, dsplit = BWD_WALK[hd]
+    pm, ds = FA._bwd_ref_pieces(q, k, v, g, lse, FA.row_dot(g, o), causal,
+                                src_len, rate, SEED if rate else None)
+    pm, ds = (x.to(torch.bfloat16).float() for x in (pm, ds))
+    qf, kf, gf = (x.float().permute(0, 2, 1, 3) for x in (q, k, g))
+    dq = torch.zeros(B, H, Tq, hd)
+    for q0 in range(0, Tq, 64):
+        end = min(Tk, q0 + 64 + src_len) if causal else Tk
+        sums = [torch.zeros(B, H, min(64, Tq - q0), hd) for _ in range(2)]
+        for j, k0 in enumerate(range(0, end, bk)):
+            sums[j % 2] += ds[:, :, q0:q0 + 64, k0:k0 + bk] @ \
+                kf[:, :, k0:k0 + bk]
+        dq[:, :, q0:q0 + 64] = sums[0] + sums[1]
+    dk = torch.zeros(B, H, Tk, hd)
+    dv = torch.zeros(B, H, Tk, hd)
+    for k0 in range(0, Tk, 64):
+        first = (max(0, k0 - src_len) if causal else 0) // bq * bq
+        n = min(64, Tk - k0)
+        gk = [torch.zeros(B, H, n, hd) for _ in range(2)]
+        gv = [torch.zeros(B, H, n, hd) for _ in range(2)]
+        for j, t0 in enumerate(range(first, Tq, bq)):
+            grp = 0 if dsplit else j % 2
+            gk[grp] += ds[:, :, t0:t0 + bq, k0:k0 + 64].transpose(2, 3) @ \
+                qf[:, :, t0:t0 + bq]
+            gv[grp] += pm[:, :, t0:t0 + bq, k0:k0 + 64].transpose(2, 3) @ \
+                gf[:, :, t0:t0 + bq]
+        dk[:, :, k0:k0 + 64] = gk[0] if dsplit else gk[0] + gk[1]
+        dv[:, :, k0:k0 + 64] = gv[0] if dsplit else gv[0] + gv[1]
+    scale = hd ** -0.5
+    return tuple(x.permute(0, 2, 1, 3).to(torch.bfloat16)
+                 for x in (dq * scale, dk * scale, dv))
+
+
+@pytest.mark.parametrize("name", sorted(BWD_WALK_CASES))
+def test_bf16_split_walk_backward_matches_jax_kernels(name, monkeypatch):
+    """The order of sums of the bf16 backward kernels' two-group walks (a
+    model of it, _split_walk_backward: even and odd tiles a group, group
+    1's sum added to group 0's, the d split at hd 256) against JAX's
+    _flash_backward on the same bf16 inputs, o and lse in interpret mode:
+    dq, dk and dv within BF16_TOL_GRAD x max|ref|, the bound
+    test_bf16_ref_matches_jax_kernels holds the plain versions to."""
+    import jax.numpy as jnp
+    from sea_tpu.ops import flash_attention as jfa
+    monkeypatch.setattr(jfa, "_FORCE_INTERPRET", True)
+    B, Tq, Tk, H, hd, causal, src_len, rate = BWD_WALK_CASES[name]
+    arrays = [jnp.asarray(a, jnp.bfloat16)
+              for a in _inputs(B, Tq, Tk, H, hd)]
+    seed = jnp.asarray(SEED, jnp.int32) if rate else None
+    kw = dict(causal=causal, src_len=src_len, block_q=jfa.DEFAULT_BLOCK_Q,
+              block_k=jfa.DEFAULT_BLOCK_K, dropout_rate=rate, seed=seed)
+    o, lse = jfa._flash_forward(*arrays[:3], return_lse=True, **kw)
+    want = jfa._flash_backward(*arrays[:3], o, lse, arrays[3], **kw)
+    q, k, v, g, o = (torch.from_numpy(np.array(a.astype(jnp.float32))).to(
+        torch.bfloat16) for a in (*arrays, o))
+    lse = torch.from_numpy(np.array(lse, np.float32)[:, :Tq, 0])
+    got = _split_walk_backward(q, k, v, g, o, lse, causal, src_len, rate)
+    for gname, a, b in zip("qkv", got, want):
+        assert a.dtype == torch.bfloat16
+        _close_to_max(a.float().numpy(),
+                      np.asarray(jnp.asarray(b, jnp.float32)),
+                      BF16_TOL_GRAD, f"d{gname}")
+
+
 def test_bf16_pieces_round_where_the_kernels_do():
     """The bf16 plain forward rounds exp(s - m) M to bf16 before P.V and
     divides by the f32 denominator after; the backward pieces round dS and
@@ -470,17 +562,20 @@ def test_cuda_kernels_match_ref(shape, rate):
                                    (2, 301, 150, 2, 64, False, 0),
                                    (1, 130, 517, 2, 16, True, 3)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-def test_cuda_backward_long_band_is_deterministic(shape, rate):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_backward_long_band_is_deterministic(shape, rate, dtype):
     """Runs on the card only. Bands long enough that the two warp groups
     of a block split the walk over many tiles (the first key tile walks
     all 517 queries, the last q tile all its keys), with Tq and Tk not
     multiples of any tile, src_len > 0, and the full (non-causal) form:
     dQ and dK/dV against their plain pieces; a second call gives the same
-    bits (the groups' sums meet in a fixed order, no atomics)."""
+    bits (the groups' sums meet in a fixed order, no atomics). f32 and
+    bf16 (the bf16 bound of the module's note)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     B, Tq, Tk, H, hd, causal, src_len = shape
-    q, k, v, g = _cuda_inputs(B, Tq, Tk, H, hd)
+    q, k, v, g = (x.to(getattr(torch, dtype))
+                  for x in _cuda_inputs(B, Tq, Tk, H, hd))
     kw = dict(causal=causal, src_len=src_len, dropout_rate=rate,
               dropout_seed=SEED if rate else None)
     o, lse = FA.flash_forward_ref(q, k, v, **kw)
@@ -492,8 +587,11 @@ def test_cuda_backward_long_band_is_deterministic(shape, rate):
             *FA.flash_bwd_dkv_ref(q, k, v, g, lse, dsum, **kw))
     for name, a, b, c in zip(("dq", "dk", "dv"), *runs, want):
         assert torch.equal(a, b), f"{name}: a second call differs"
-        torch.testing.assert_close(a, c, rtol=0, atol=GRAD_ATOL,
-                                   msg=lambda m, n=name: f"{n}: {m}")
+        if dtype == "bfloat16":
+            _bf16_close(a, c, BF16_TOL_GRAD, GRAD_ATOL, name)
+        else:
+            torch.testing.assert_close(a, c, rtol=0, atol=GRAD_ATOL,
+                                       msg=lambda m, n=name: f"{n}: {m}")
 
 
 def _bf16_close(got, want, rel, atol, what):
@@ -526,7 +624,18 @@ def _bf16_close(got, want, rel, atol, what):
                                    (2, 50, 50, 2, 128, True, 0),
                                    (1, 399, 399, 2, 256, True, 0),
                                    (2, 301, 130, 2, 128, False, 0),
-                                   (2, 150, 77, 2, 64, True, 5)])
+                                   (2, 150, 77, 2, 64, True, 5),
+                                   (2, 128, 128, 2, 64, True, 0),
+                                   (1, 256, 256, 2, 256, True, 0),
+                                   (2, 30, 30, 2, 64, True, 0),
+                                   (2, 20, 20, 2, 128, True, 0),
+                                   (1, 24, 24, 2, 256, True, 0),
+                                   (1, 129, 129, 2, 128, True, 0),
+                                   (1, 97, 97, 2, 256, True, 0),
+                                   (2, 150, 77, 2, 128, True, 5),
+                                   (2, 150, 77, 2, 256, True, 5),
+                                   (2, 77, 150, 2, 64, False, 0),
+                                   (2, 130, 301, 2, 256, False, 0)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_cuda_bf16_kernels_match_ref(shape, rate):
     """Runs on the card only. The bf16 kernels against their plain
@@ -534,12 +643,17 @@ def test_cuda_bf16_kernels_match_ref(shape, rate):
     (lse, dQ, dK/dV from the plain lse and D), square and ragged, causal
     with src_len > 0 and the full form, at hd 8, 16, 64, 128 and 256;
     then a second forward and a second backward call give the same bits.
-    The last six shapes reach the edges of the forward's wgmma form at hd
-    64, 128 and 256 (its two consumer groups walk the even and the odd
-    key tiles): T a whole number of tiles, a last q tile of one row, a
-    band of one key tile (the odd group walks nothing), its 32-key tiles
-    at hd 256, the full form with Tk < Tq, and src_len 5 with Tk < Tq.
-    Tolerances: the module's note."""
+    Shapes 13-18 reach the edges of the forward's wgmma form at hd 64, 128
+    and 256 (its two consumer groups walk the even and the odd key
+    tiles): T a whole number of tiles, a last q tile of one row, a band of
+    one key tile (the odd group walks nothing), its 32-key tiles at hd
+    256, the full form with Tk < Tq, and src_len 5 with Tk < Tq. The last
+    eleven reach those of the backward's wgmma forms (dQ walking key
+    tiles of 64 keys, 32 at hd 256; dK/dV q tiles of 64 rows at hd 64, 32
+    at 128 and 256, d split between its groups at 256): T a whole number
+    of tiles, walks of one tile (the odd group walks nothing), a last tile
+    of one row, src_len 5 with Tk < Tq at hd 128 and 256, and the full
+    form with Tk > Tq. Tolerances: the module's note."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     B, Tq, Tk, H, hd, causal, src_len = shape

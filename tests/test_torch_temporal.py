@@ -185,3 +185,17 @@ def test_configs_outside_the_slice_raise(change):
         TT.temporal_forward({}, cfg, torch.zeros(1, 1, cfg.num_fields,
                                                  cfg.embed_dim),
                             torch.zeros(1, 1, 1))
+
+
+@pytest.mark.parametrize("remat", [True, "full", "dots"])
+def test_remat_raises(remat):
+    """remat is not ported: a config that sets it raises, naming
+    ROADMAP.md, instead of running without the memory saving it asks
+    for."""
+    cfg = dataclasses.replace(_cfg("ln"), remat=remat)
+    with pytest.raises(NotImplementedError, match="remat.*ROADMAP.md"):
+        TT.init_temporal(cfg, torch.Generator(), device="cpu")
+    with pytest.raises(NotImplementedError, match="remat.*ROADMAP.md"):
+        TT.temporal_forward({}, cfg, torch.zeros(1, 1, cfg.num_fields,
+                                                 cfg.embed_dim),
+                            torch.zeros(1, 1, 1))
