@@ -488,7 +488,7 @@ def probe_forward():
                     lambda: FA.flash_fwd(q, k, v, **kw), flush))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for shape in cs.FLASH_SHAPES[:3]:
-        B, Tq, _, H, hd, _ = shape
+        B, Tq, _, H, hd = shape[:5]
         q, k, v, _ = cs._flash_inputs(shape)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         with torch.no_grad():
@@ -517,7 +517,7 @@ def probe_forward():
             tiles = buf[5]
             per_warp = [[round(buf[6 * w + i] / tiles) for i in range(5)]
                         for w in range(4)]
-            B, T, _, H, hd, _ = shape
+            B, T, _, H, hd = shape[:5]
             log(f"[probe-phases] (B,T,H,hd)=({B},{T},{H},{hd}) "
                 f"dropout {rate}: {tiles // 10} key tiles; clock64 cycles a "
                 f"tile, warps 0-3, {'/'.join(PHASES)}: {per_warp}")
@@ -570,7 +570,7 @@ def probe_forward16():
                     lambda: FA.flash_fwd(q, k, v, **kw), flush))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for shape in cs.FLASH_SHAPES[:3]:
-        B, Tq, _, H, hd, _ = shape
+        B, Tq, _, H, hd = shape[:5]
         q, k, v, _ = _bf16_inputs(shape)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         with torch.no_grad():
@@ -597,7 +597,7 @@ def probe_forward16():
             torch.cuda.synchronize()
             buf = (ctypes.c_longlong * 20)()
             lib.sea_phase16_read(buf)
-            B, T, _, H, hd, _ = shape
+            B, T, _, H, hd = shape[:5]
             rows = []
             for grp in (0, 1):
                 r = buf[10 * grp:10 * grp + 10]
@@ -795,7 +795,7 @@ def probe_backward16(check_only=False):
                     cs._device_ms(dkv_call, flush))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for shape in cs.FLASH_SHAPES[:3]:
-        B, Tq, _, H, hd, _ = shape
+        B, Tq, _, H, hd = shape[:5]
         q, k, v, g = _bf16_inputs(shape)
         qt, kt, vt, gt = (x.transpose(1, 2).contiguous().requires_grad_(
             x is not g) for x in (q, k, v, g))
@@ -828,7 +828,7 @@ def probe_backward16(check_only=False):
             torch.cuda.synchronize()
             buf = (ctypes.c_longlong * 40)()
             lib.sea_phase_b16_read(buf)
-            B, T, _, H, hd, _ = shape
+            B, T, _, H, hd = shape[:5]
             for kind, label in enumerate(("dq", "dkv")):
                 rows = []
                 for grp in (0, 1):
@@ -889,7 +889,7 @@ def probe_backward():
                     flush))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for shape in cs.FLASH_SHAPES[:3]:
-        B, Tq, _, H, hd, _ = shape
+        B, Tq, _, H, hd = shape[:5]
         q, k, v, g = cs._flash_inputs(shape)
         qt, kt, vt, gt = (x.transpose(1, 2).contiguous().requires_grad_(
             x is not g) for x in (q, k, v, g))
@@ -930,7 +930,7 @@ def probe_backward():
             torch.cuda.synchronize()
             buf = (ctypes.c_longlong * 96)()
             lib.sea_bwd_phase_read(buf)
-            B, T, _, H, hd, _ = shape
+            B, T, _, H, hd = shape[:5]
             for kind, name in enumerate(("dq", "dkv")):
                 rows = [buf[48 * kind + 6 * w:48 * kind + 6 * w + 6]
                         for w in range(8)]

@@ -21,7 +21,17 @@ before and read just after:
   int4 linear of every rollout step ran its kernel, compares rollout steps
   on the card with the same steps on the CPU (f32, and int4 weights with
   an int8 cache), times 250-step rollouts and profiles them with
-  torch.profiler.
+  torch.profiler. `temporal test` runs on the engine select_engine picks
+  and again with `--kv_cache f32` (the scan engine).
+- the prefix engine: `rollout(engine="prefix")` at full width, B=1, 250
+  steps (one flash forward per attention of each forward, no decode),
+  against the scan engine; the masked prefix engine at the multiphase
+  width with `ib_addition_mode="attention"` and `src_len=1`, 8 steps on
+  the card against the CPU; scan against prefix in steps/s at the cells
+  of select_engine's constants (`[engine-time]`).
+- generation: `multiphase_flow temporal generate --synthetic --horizon
+  500`, past the data's window: finite fields [500, N, F], one decode per
+  attention a step.
 - training: `cylinder_flow temporal train --synthetic --epochs 2` (E=1024,
   8 heads, MLP x8, dropout 0.1, AdaLN). It checks the loss and norms, the
   checkpoint, and that the launches of the flash-attention kernels
@@ -116,13 +126,17 @@ ROLLOUT_Q_ATOL = 0.1
 
 TRAIN_CASE = "cylinder_flow"
 TRAIN_EPOCHS = 2
-# (B, Tq, Tk, H, hd, src_len): the train step's self-attention (hd 128)
-# and exchange (hd 64) at T=399, hd 256, one token, Tq != Tk with keys
-# above the band, and the smoke presets' hd 16 and 8 (square; ragged).
-FLASH_SHAPES = [(2, 399, 399, 8, 128, 0), (2, 399, 399, 8, 64, 0),
-                (4, 199, 199, 8, 256, 0), (1, 1, 1, 8, 64, 0),
-                (2, 70, 130, 8, 128, 5), (2, 41, 41, 2, 16, 0),
-                (3, 37, 53, 2, 8, 5)]
+# (B, Tq, Tk, H, hd, src_len, causal): the train step's self-attention
+# (hd 128) and exchange (hd 64) at T=399, hd 256, one token, Tq != Tk with
+# keys above the band, the smoke presets' hd 16 and 8 (square; ragged),
+# and the prefix engine's: a 64-row chunk whose keys are cut to the
+# prefix (Tq > Tk), causal at the multiphase self-attention's hd 256 and
+# the exchange's hd 128 with src_len 1, and the ib-attention's unmasked.
+FLASH_SHAPES = [(2, 399, 399, 8, 128, 0, True), (2, 399, 399, 8, 64, 0, True),
+                (4, 199, 199, 8, 256, 0, True), (1, 1, 1, 8, 64, 0, True),
+                (2, 70, 130, 8, 128, 5, True), (2, 41, 41, 2, 16, 0, True),
+                (3, 37, 53, 2, 8, 5, True), (1, 64, 37, 8, 256, 0, True),
+                (1, 64, 37, 8, 128, 1, True), (1, 64, 37, 8, 128, 0, False)]
 FLASH_SEED = (123456789, -987654321)
 # The mangled names of the bf16 kernels' wgmma forms (hd 64, 128 and 256;
 # their mma.sync forms for hd 8 and 16 end in _bf16_mma): the forward, dQ
@@ -575,39 +589,99 @@ def phase_flash_dropout():
     return launches["dropout_mask"]
 
 
+def _attentions(cfg):
+    """(attentions a scan step, attentions a full forward) of a config:
+    per layer G self and G(G-1) exchange decodes a step; G self, G(G-1)
+    exchange and, with attention-mode ib, G ib-attention flash forwards a
+    forward."""
+    G, nl = cfg.num_fields, cfg.num_layers
+    ib = G if cfg.ib_addition_mode == "attention" else 0
+    return nl * (G + G * (G - 1)), nl * (G * G + ib)
+
+
 def phase_serve(case, save_dir):
-    """`temporal test` through the port's CLI on the card. Every attention
-    of every rollout step must have launched the flash-decode kernel."""
+    """`temporal test` through the port's CLI on the card, on the engine
+    select_engine picks (its launches: scan, one flash-decode a step per
+    attention; prefix, one flash forward a forward per attention), then
+    with --kv_cache f32, which forces the scan engine: every attention of
+    every rollout step must have launched the flash-decode kernel."""
     from sea_tpu_torch import cli
-    tcfg = case.temporal
-    G = tcfg.num_fields
+    per_step, per_forward = _attentions(case.temporal)
+    out = {}
+    for flags in ([], ["--kv_cache", "f32"]):
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        results = cli.main([CASE, "temporal", "test", "--synthetic",
+                            "--save_dir", save_dir, "--device", "cuda"]
+                           + flags)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = _launch_counts()
+        engine = results["engine"]
+        if flags and engine != "scan":
+            raise AssertionError(f"--kv_cache f32 served on {engine}")
+        T_roll = results["decoded_rel_mse_per_time"].shape[0]
+        expected = dict.fromkeys(counts, 0)
+        if engine == "scan":
+            expected["decode_attention"] = per_step * T_roll
+        else:
+            expected["flash_fwd"] = per_forward * T_roll
+        for key in ("encoded_rel_mse", "decoded_rel_mse"):
+            if not np.isfinite(results[key]):
+                raise AssertionError(f"{key} = {results[key]}")
+        if not np.all(np.isfinite(results["decoded_rel_mse_per_time"])):
+            raise AssertionError("non-finite decoded rel-MSE per time")
+        if counts != expected:
+            raise AssertionError(f"[serve] {engine} engine launched "
+                                 f"{counts}, expected {expected}")
+        what = (f"decode_attention launches {counts['decode_attention']} = "
+                f"{per_step} attentions x {T_roll} steps" if engine == "scan"
+                else f"flash_fwd launches {counts['flash_fwd']} = "
+                f"{per_forward} attentions x {T_roll} forwards")
+        log(f"[serve] {CASE} temporal test {' '.join(flags) or '(auto)'}: "
+            f"{engine} engine, {T_roll} steps in {seconds:.2f} s (data, "
+            f"encode, load, rollout, decode); encoded_rel_mse "
+            f"{results['encoded_rel_mse']:.6g}, decoded_rel_mse "
+            f"{results['decoded_rel_mse']:.6g}; {what}")
+        out[engine] = counts
+    return out["scan"]["decode_attention"]
+
+
+GENERATE_HORIZON = 500
+
+
+def phase_generate(case, save_dir):
+    """`temporal generate --horizon 500` through the CLI: past the
+    synthetic data's 40-step window, on the scan engine; finite fields
+    [H, N, F] in the .npy and one flash-decode per attention a step."""
+    from sea_tpu_torch import cli
+    per_step, _ = _attentions(case.temporal)
+    N, F = cli._load_data(case, synthetic=True)[0].shape[2:]
+    path = Path(save_dir) / "generated.npy"
     _reset_launch_counts()
     t0 = time.perf_counter()
-    results = cli.main([CASE, "temporal", "test", "--synthetic",
-                        "--save_dir", save_dir, "--device", "cuda"])
+    fields = cli.main([CASE, "temporal", "generate", "--synthetic",
+                       "--horizon", str(GENERATE_HORIZON), "--save_dir",
+                       save_dir, "--output", str(path), "--device", "cuda"])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = _launch_counts()
-    launches = counts.pop("decode_attention")
-    if any(counts.values()):
-        raise AssertionError(f"serving launched training kernels: {counts}")
-    T_roll = results["decoded_rel_mse_per_time"].shape[0]
-    expected = tcfg.num_layers * (G + G * (G - 1)) * T_roll
-    for key in ("encoded_rel_mse", "decoded_rel_mse"):
-        if not np.isfinite(results[key]):
-            raise AssertionError(f"{key} = {results[key]}")
-    if not np.all(np.isfinite(results["decoded_rel_mse_per_time"])):
-        raise AssertionError("non-finite decoded rel-MSE per time")
-    if launches != expected:
-        raise AssertionError(f"decode_attention launched {launches} times, "
-                             f"expected {expected}")
-    log(f"[serve] {CASE} temporal test: {T_roll} steps in {seconds:.2f} s "
-        f"(data, encode, load, rollout, decode); encoded_rel_mse "
-        f"{results['encoded_rel_mse']:.6g}, decoded_rel_mse "
-        f"{results['decoded_rel_mse']:.6g}; decode_attention launches "
-        f"{launches} = {tcfg.num_layers} layer x ({G} self + {G * (G - 1)} "
-        f"exchange) x {T_roll} steps")
-    return launches
+    expected = dict.fromkeys(counts, 0)
+    expected["decode_attention"] = per_step * GENERATE_HORIZON
+    if counts != expected:
+        raise AssertionError(f"[generate] launches {counts}, expected "
+                             f"{expected}")
+    saved = np.load(path)
+    if saved.shape != (GENERATE_HORIZON, N, F) \
+            or not np.isfinite(saved).all() \
+            or not np.array_equal(saved, fields):
+        raise AssertionError(f"[generate] {path.name}: shape {saved.shape}, "
+                             f"finite {np.isfinite(saved).all()}")
+    log(f"[generate] {CASE} temporal generate --horizon {GENERATE_HORIZON}: "
+        f"fields {saved.shape}, finite, |x| max {np.abs(saved).max():.4g}, "
+        f"in {seconds:.2f} s (data, encode, load, rollout, decode, save); "
+        f"decode_attention launches {counts['decode_attention']} = "
+        f"{per_step} attentions x {GENERATE_HORIZON} steps")
 
 
 def _int4_sites_per_step(qparams, cfg):
@@ -766,6 +840,124 @@ def phase_card_vs_cpu_int4(case, params_np):
         f"|y| max {on_cpu.abs().max().item():.3g})")
 
 
+def phase_serve_prefix(case, params_np):
+    """rollout(engine="prefix") at full width, B=1, T=250: one flash
+    forward per attention of each of its 250 forwards (chunks of 64, 128,
+    192 and 250 rows), no decode; its first 8 predictions against the
+    scan engine's on the card."""
+    from sea_tpu_torch.rollout.engine import rollout, rollout_scan
+    from sea_tpu_torch.utils.params import from_numpy
+    cfg = case.temporal
+    _, per_forward = _attentions(cfg)
+    params = from_numpy(params_np, "cuda")
+    x0, ib = (a.cuda() for a in _rollout_inputs(cfg, 1, TIMED_STEPS, seed=0))
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    ys = rollout(params, cfg, x0, ib, engine="prefix")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _launch_counts()
+    expected = dict.fromkeys(counts, 0)
+    expected["flash_fwd"] = per_forward * TIMED_STEPS
+    if counts != expected:
+        raise AssertionError(f"[serve-prefix] launches {counts}, expected "
+                             f"{expected}")
+    n = ROLLOUT_STEPS_CHECKED
+    scan = rollout_scan(params, cfg, x0, ib[:, :n])
+    err = _err(ys[:, :n], scan)
+    if not (torch.isfinite(ys).all() and err <= ROLLOUT_ATOL):
+        raise AssertionError(f"[serve-prefix] vs scan: max abs err {err}")
+    log(f"[serve-prefix] {CASE} rollout(engine='prefix') B=1, "
+        f"{TIMED_STEPS} steps in {seconds:.2f} s (first call); flash_fwd "
+        f"launches {counts['flash_fwd']} = {per_forward} attentions x "
+        f"{TIMED_STEPS} forwards, decode 0; first {n} predictions vs "
+        f"rollout_scan on the card: max abs err {err:.3g} <= {ROLLOUT_ATOL}"
+        f" (|y| max {scan.abs().max().item():.3g})")
+    return counts["flash_fwd"]
+
+
+def phase_serve_prefix_masked(case):
+    """The multiphase width with ib_addition_mode="attention" and
+    src_len=1 (random weights from a seeded generator), which only the
+    masked prefix engine serves: 8 steps on the card (auto picks the
+    prefix engine; 6 flash forwards a forward, the 2 ib-attentions
+    unmasked, every one with its keys cut to the prefix) against the same
+    steps on the CPU."""
+    from sea_tpu_torch.models.temporal import init_temporal
+    from sea_tpu_torch.rollout.engine import rollout, select_engine
+    from sea_tpu_torch.utils.params import tree_map
+    cfg = dataclasses.replace(case.temporal, ib_addition_mode="attention",
+                              src_len=1)
+    _, per_forward = _attentions(cfg)
+    n = ROLLOUT_STEPS_CHECKED
+    params = init_temporal(cfg, torch.Generator().manual_seed(2),
+                           device="cpu")
+    x0, ib = _rollout_inputs(cfg, 1, n, seed=3)
+    on_cpu = rollout(params, cfg, x0, ib)
+    params = tree_map(lambda a: a.cuda(), params)
+    engine = select_engine(cfg, 1, n, params)
+    _reset_launch_counts()
+    on_card = rollout(params, cfg, x0.cuda(), ib.cuda()).cpu()
+    counts = _launch_counts()
+    expected = dict.fromkeys(counts, 0)
+    expected["flash_fwd"] = per_forward * n
+    if engine != "prefix" or counts != expected:
+        raise AssertionError(f"[serve-prefix-masked] {engine} engine, "
+                             f"launches {counts}, expected {expected}")
+    err = _err(on_card, on_cpu)
+    per_step = [_err(on_card[:, t], on_cpu[:, t]) for t in range(n)]
+    if not (torch.isfinite(on_card).all() and err <= ROLLOUT_ATOL):
+        raise AssertionError(f"[serve-prefix-masked] card vs CPU: max abs "
+                             f"err {err}; per step {per_step}")
+    log(f"[serve-prefix-masked] {CASE} width, ib_addition_mode=attention, "
+        f"src_len=1, B=1: {engine} engine, {n} steps; flash_fwd launches "
+        f"{counts['flash_fwd']} = {per_forward} attentions x {n} forwards; "
+        f"card vs CPU max abs err {err:.3g} <= {ROLLOUT_ATOL} (per step "
+        f"{[f'{e:.3g}' for e in per_step]}; |y| max "
+        f"{on_cpu.abs().max().item():.3g})")
+
+
+# The cells of select_engine's constants: (preset, B, T), f32 weights.
+ENGINE_CELLS = [(CASE, 1, 250), (CASE, 2, 250), (TRAIN_CASE, 1, 399)]
+
+
+def phase_engine_time(params_by_case):
+    """Scan against prefix at f32, both engines in this process, at each
+    ENGINE_CELLS cell: a warm-up rollout of each, then three of each in
+    turns (scan, prefix, prefix, scan, scan, prefix), each ended by
+    torch.cuda.synchronize(); medians in steps/s. Then one prefix rollout
+    of the first cell under torch.profiler. Returns {cell: (scan steps/s,
+    prefix steps/s)}."""
+    from sea_tpu_torch.cli import get_case
+    from sea_tpu_torch.rollout.engine import (rollout_prefix_bucketed,
+                                              rollout_scan)
+    engines = {"scan": rollout_scan, "prefix": rollout_prefix_bucketed}
+    out = {}
+    for name, B, T in ENGINE_CELLS:
+        cfg, params = get_case(name).temporal, params_by_case[name]
+        x0, ib = (a.cuda() for a in _rollout_inputs(cfg, B, T, seed=B))
+        times = {e: [] for e in engines}
+        for e, run in engines.items():
+            run(params, cfg, x0, ib)
+        torch.cuda.synchronize()
+        for e in ("scan", "prefix", "prefix", "scan", "scan", "prefix"):
+            t0 = time.perf_counter()
+            engines[e](params, cfg, x0, ib)
+            torch.cuda.synchronize()
+            times[e].append(time.perf_counter() - t0)
+        rates = {e: T / statistics.median(ts) for e, ts in times.items()}
+        out[(name, B, T)] = (rates["scan"], rates["prefix"])
+        log(f"[engine-time] {name} f32 B={B} T={T}: scan "
+            f"{rates['scan']:.1f} steps/s (s {[round(t, 4) for t in times['scan']]}), "
+            f"prefix {rates['prefix']:.1f} steps/s (s "
+            f"{[round(t, 4) for t in times['prefix']]}); prefix/scan "
+            f"{rates['prefix'] / rates['scan']:.3f}")
+    cfg = get_case(CASE).temporal
+    _profile_rollout(params_by_case[CASE], cfg, 1, torch.float32,
+                     "prefix f32 B=1", run=rollout_prefix_bucketed)
+    return out
+
+
 def _time_rollout(params, cfg, B, cache_dtype):
     """One warm-up 250-step rollout, then the median of 3, each ended by
     torch.cuda.synchronize(). Returns (median s, the three)."""
@@ -784,20 +976,24 @@ def _time_rollout(params, cfg, B, cache_dtype):
     return statistics.median(times), times
 
 
-def _profile_rollout(params, cfg, B, cache_dtype, label):
+def _profile_rollout(params, cfg, B, cache_dtype, label, run=None):
     """torch.profiler over one 250-step rollout after a warm-up one: device
     events and busy time per step, their share of the profiled wall, and
-    the kernels that take the most device time."""
+    the kernels that take the most device time. run: the engine (default
+    the scan engine, with cache_dtype; else run(params, cfg, x0, ib))."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from sea_tpu_torch.rollout.engine import rollout_scan
+    if run is None:
+        def run(params, cfg, x0, ib):
+            return rollout_scan(params, cfg, x0, ib, cache_dtype=cache_dtype)
     x0, ib = (a.cuda() for a in _rollout_inputs(cfg, B, TIMED_STEPS, seed=B))
-    rollout_scan(params, cfg, x0, ib, cache_dtype=cache_dtype)
+    run(params, cfg, x0, ib)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        rollout_scan(params, cfg, x0, ib, cache_dtype=cache_dtype)
+        run(params, cfg, x0, ib)
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0) / TIMED_STEPS
     events = [e for e in prof.key_averages()
@@ -814,7 +1010,7 @@ def _profile_rollout(params, cfg, B, cache_dtype, label):
         us = e.self_device_time_total / TIMED_STEPS
         log(f"[profile] {label} {us:8.2f} us/step "
             f"{e.count / TIMED_STEPS:6.1f}/step {e.key[:100]}")
-    for name in ("int4", "decode"):
+    for name in ("int4", "decode", "fwd_kernel"):
         mine = [e for e in events if name in e.key]
         if mine:
             us = sum(e.self_device_time_total for e in mine) / TIMED_STEPS
@@ -968,14 +1164,14 @@ def phase_time_kernel():
 # ---------------------------------------------------------------------------
 
 def _flash_inputs(shape):
-    B, Tq, Tk, H, hd, _ = shape
+    B, Tq, Tk, H, hd = shape[:5]
     g = torch.Generator(device="cuda").manual_seed(B * Tq + Tk + hd)
     return [torch.randn(B, T, H, hd, device="cuda", generator=g)
             for T in (Tq, Tk, Tk, Tq)]
 
 
 def _flash_kw(shape, rate):
-    return dict(causal=True, src_len=shape[5], dropout_rate=rate,
+    return dict(causal=shape[6], src_len=shape[5], dropout_rate=rate,
                 dropout_seed=FLASH_SEED if rate else None)
 
 
@@ -1022,7 +1218,7 @@ def phase_flash_check():
                     raise AssertionError(f"{name} {shape} rate={rate}: max "
                                          f"abs err {err} > {tol}")
                 worst[name] = max(worst[name], err)
-            log(f"[kernel] flash (B,Tq,Tk,H,hd,src_len)={shape} "
+            log(f"[kernel] flash (B,Tq,Tk,H,hd,src_len,causal)={shape} "
                 f"dropout={rate}: max abs err fwd {errs['flash_fwd']:.3g}"
                 f" <= {FLASH_TOL['out']}, dq {errs['flash_bwd_dq']:.3g}, "
                 f"dk/dv {errs['flash_bwd_dkv']:.3g} <= {FLASH_TOL['grad']}")
@@ -1095,7 +1291,7 @@ def phase_flash_check_bf16():
                 worst[name] = max(worst[name], *(e for e, _ in errs))
                 line.append(f"{name} {max(e for e, _ in errs):.3g} <= "
                             f"{min(b for _, b in errs):.3g}")
-            log(f"[kernel] flash bf16 (B,Tq,Tk,H,hd,src_len)={shape} "
+            log(f"[kernel] flash bf16 (B,Tq,Tk,H,hd,src_len,causal)={shape} "
                 f"dropout={rate}: max abs err {', '.join(line)} (bounds "
                 f"{FLASH_BF16_REL['out']:.3g} / {FLASH_BF16_REL['grad']:.3g}"
                 f" x max|ref| + {FLASH_TOL['out']} / {FLASH_TOL['grad']}); "
@@ -1570,7 +1766,7 @@ def phase_time_flash(dtype=torch.float32):
     suffix, elem = ("_bf16", 2) if bf16 else ("", 4)
     out = {}
     for shape in FLASH_SHAPES[:3]:
-        B, Tq, Tk, H, hd, src_len = shape
+        B, Tq, Tk, H, hd, src_len, _ = shape
         q, k, v, g = (x.to(dtype) for x in _flash_inputs(shape))
         qt, kt, vt, gt = (x.transpose(1, 2).contiguous().requires_grad_(
             x is not g) for x in (q, k, v, g))
@@ -1842,6 +2038,7 @@ def main():
         params_np = save_init_checkpoints(case, save_dir,
                                           seed=1)["temporal"]
         launches["decode_attention"] = phase_serve(case, save_dir)
+        _timed(phase_generate, case, save_dir)
         reduced = phase_serve_reduced(case, save_dir, params_np)
     launches.update({k: reduced["int4"][k]
                      for k in ("decode_q8", "int4_matvec")})
@@ -1862,6 +2059,10 @@ def main():
     _timed(phase_train_time, train_case, train_np)
     _timed(phase_train_time, train_case, train_np, BF16_RECIPE)
     _timed(phase_card_vs_cpu, case, params_np)
+    _timed(phase_serve_prefix, case, params_np)
+    _timed(phase_serve_prefix_masked, case)
+    _timed(phase_engine_time, {CASE: _reduced_params(params_np, "f32"),
+                               TRAIN_CASE: _reduced_params(train_np, "f32")})
     _timed(phase_card_vs_cpu_int4, case, params_np)
     _timed(phase_time_rollout, case, params_np)
     _timed(phase_profile, case, params_np)

@@ -6,9 +6,10 @@ attention`` -> ``sea_tpu_torch.ops.attention``), and weights and optimizer
 state cross the two packages unchanged as the npz pytree of
 ``utils/checkpoint.py``.
 
-Ported so far: the f32 scan-engine serving path of ``temporal test`` and
-the single-device f32 ``temporal train`` (see ROADMAP.md for what is still
-to port). This package imports ``torch`` and never ``jax``, nor any module
+Ported so far: ``temporal test`` on the scan and prefix engines at f32
+and reduced precision, ``temporal generate``, and single-device
+``temporal train`` at f32 and bf16 (see ROADMAP.md for what is still to
+port). This package imports ``torch`` and never ``jax``, nor any module
 of ``sea_tpu``: it keeps its own copies of the framework-free modules it
 needs (configs, data, npz checkpoints, tracking).
 """

@@ -9,19 +9,25 @@
         [--precision f32|bf16|int8|int4] [--no_calibrate]
         [--kv_cache auto|f32|bf16|int8] [--drift_budget REL_L2]
         [--no_drift_check] [--device cuda|cpu|cuda:N]
+    python -m sea_tpu_torch.cli <flow_type> temporal generate
+        [--horizon H] [--trajectory IDX] [--output PATH]
+        [the serving flags of `temporal test`]
 
 Same grammar as ``python -m sea_tpu.cli``. Ported so far: ``temporal
 train`` (single device, AdamW with f32 or bf16 first moments, under the
 f32 or a bf16 numerics policy, the bf16 shadow included; it writes the JAX
-driver's npz checkpoints; evaluation runs f32 on the master weights) and
-``temporal test``, the serving rollout with decoded
-evaluation, at f32 or reduced precision (bf16 weights; int8 or int4
-weights, int4 calibrated on a few train windows by default; the
-teacher-forced drift gate; f32, bf16 or int8 KV caches), as the JAX CLI
-serves on one device. Every other mode and flag exits with a parser
-error that points to ROADMAP.md. As in the JAX CLI, ``--seed`` overrides
-the random seed of the data splits; the training keys start from seed 0
-in both.
+training loop's npz checkpoints; evaluation runs f32 on the master weights);
+``temporal test``, the serving rollout with decoded evaluation, on the
+engine ``rollout.engine.select_engine`` picks (an explicit ``--kv_cache``
+forces the scan engine), at f32 or reduced precision (bf16 weights; int8
+or int4 weights, int4 calibrated on a few train windows by default; the
+teacher-forced drift gate; f32, bf16 or int8 KV caches); and ``temporal
+generate``, the surrogate simulation: a test window's initial state
+rolled ``--horizon`` steps, past the dataset window, decoded to fields
+[H, N, F] and saved as ``.npy``; all as the JAX CLI serves on one device.
+Every other mode and flag exits with a parser error that points to
+ROADMAP.md. As in the JAX CLI, ``--seed`` overrides the random seed of the
+data splits; the training keys start from seed 0 in both.
 
 ``--device`` takes the place of the JAX CLI's ``--platform``. It defaults
 to ``cuda`` and raises when CUDA is absent: the port never moves to the
@@ -34,11 +40,14 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import importlib.util
+import os
 import sys
 
+import numpy as np
 import torch
 
-PORTED = (("temporal", "train"), ("temporal", "test"))
+PORTED = (("temporal", "train"), ("temporal", "test"),
+          ("temporal", "generate"))
 
 
 def get_case(flow_type: str):
@@ -114,7 +123,8 @@ def main(argv=None):
     parser.add_argument("--precision",
                         choices=["f32", "bf16", "int8", "int4"],
                         default="f32",
-                        help="serving precision for `temporal test`: bf16 "
+                        help="serving precision for `temporal test` and "
+                             "`temporal generate`: bf16 "
                              "casts the big matmul weights, int8/int4 "
                              "quantize them per output channel")
     parser.add_argument("--no_calibrate", action="store_true",
@@ -136,25 +146,49 @@ def main(argv=None):
     parser.add_argument("--no_drift_check", action="store_true",
                         help="skip the per-checkpoint quantization drift "
                              "gate")
+    parser.add_argument("--horizon", type=int, default=None, metavar="H",
+                        help="`temporal generate`: rollout steps to "
+                             "simulate, not tied to a dataset window (the "
+                             "ib conditioning past the data holds the "
+                             "trajectory's last value). Default: the "
+                             "dataset window length")
+    parser.add_argument("--trajectory", type=int, default=0, metavar="IDX",
+                        help="`temporal generate`: the test-split window "
+                             "that gives the initial latent state and the "
+                             "ib conditioning (default 0)")
+    parser.add_argument("--output", default=None, metavar="PATH",
+                        help="`temporal generate`: .npy path of the decoded "
+                             "fields [H, nodes, fields] (default "
+                             "{save_dir}/generated_{case}_{run}.npy)")
     parser.add_argument("--device", default="cuda",
                         help="torch device: cuda (default), cuda:N or cpu")
     args, unknown = parser.parse_known_args(argv)
     if unknown:
         parser.error(f"{' '.join(unknown)}: not ported to sea_tpu_torch "
                      "yet (see ROADMAP.md)")
+    if args.mode == "generate" and args.model_type != "temporal":
+        parser.error("generate is a temporal (stage-2) serving mode")
     if (args.model_type, args.mode) not in PORTED:
         parser.error(f"`{args.model_type} {args.mode}` is not ported to "
-                     "sea_tpu_torch yet; only `temporal train` and "
-                     "`temporal test` are (see ROADMAP.md)")
+                     "sea_tpu_torch yet; only `temporal train`, `temporal "
+                     "test` and `temporal generate` are (see ROADMAP.md)")
     if (args.compute_dtype or args.batch_size is not None
             or args.adam_mu_dtype) and args.mode != "train":
         parser.error("--compute_dtype/--batch_size/--adam_mu_dtype only "
                      "apply to train modes (serving precision is "
                      "--precision)")
-    if args.mode != "test" and (args.precision != "f32"
-                                or args.kv_cache != "auto"):
+    if args.mode != "generate" and (args.horizon is not None
+                                    or args.trajectory != 0
+                                    or args.output is not None):
+        parser.error("--horizon/--trajectory/--output only apply to "
+                     "`temporal generate`")
+    if args.horizon is not None and args.horizon < 1:
+        parser.error(f"--horizon must be >= 1; got {args.horizon}")
+    if args.mode == "train" and (args.precision != "f32"
+                                 or args.kv_cache != "auto"):
         parser.error("--precision/--kv_cache only apply to `temporal test` "
-                     "(rollout serving); training takes --compute_dtype")
+                     "and `temporal generate` (rollout serving); training "
+                     "takes --compute_dtype")
     if args.batch_size is not None and args.batch_size < 1:
         parser.error(f"--batch_size must be >= 1; got {args.batch_size}")
     if args.model_path and not args.model_path.endswith(".npz"):
@@ -198,7 +232,7 @@ def main(argv=None):
             batch_size=min(tt.batch_size, n_train)))
     if args.mode == "train":
         return _train(case, args, data, device)
-    return _test(case, args, data, device, parser)
+    return _serve(case, args, data, device, parser)
 
 
 def _train(case, args, data, device):
@@ -221,10 +255,13 @@ def _train(case, args, data, device):
     return params
 
 
-def _test(case, args, data, device, parser):
-    """`temporal test`: returns the evaluation metrics."""
+def _serve(case, args, data, device, parser):
+    """`temporal test` (returns the evaluation metrics) and `temporal
+    generate` (returns the generated fields [H, N, F]): one load and one
+    set of serving transforms."""
     from sea_tpu_torch.utils.checkpoint import checkpoint_path, load_params
-    from sea_tpu_torch.models.temporal import init_temporal
+    from sea_tpu_torch.models.temporal import (init_temporal,
+                                               is_scan_incremental)
     from sea_tpu_torch.train.evaluate import fused_autoregressive_evaluation
     from sea_tpu_torch.train.train_temporal import process_data
     from sea_tpu_torch.utils import precision as prec
@@ -284,11 +321,36 @@ def _test(case, args, data, device, parser):
     else:
         cache_dtype = {"f32": torch.float32, "bf16": torch.bfloat16,
                        "int8": torch.int8}[args.kv_cache]
+    if args.mode == "generate":
+        from sea_tpu_torch.train.evaluate import generate_trajectory
+        out = args.output or os.path.join(
+            case.run.save_dir,
+            f"generated_{case.run.case_name}_{case.run.run_name}.npy")
+        fields = generate_trajectory(
+            params, case, td.test, td.latent_service, td.mesh_processor,
+            trajectory=args.trajectory, horizon=args.horizon,
+            spatial_params=spatial_params, cache_dtype=cache_dtype)
+        os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+        np.save(out, fields)
+        print(f"Generated {fields.shape[0]} steps x {fields.shape[1]} nodes "
+              f"x {fields.shape[2]} fields -> {out}")
+        return fields
+    engine = "auto"
+    if args.kv_cache != "auto":
+        # The scan engine is the only one with a KV cache.
+        if not is_scan_incremental(case.temporal):
+            parser.error(
+                f"--kv_cache {args.kv_cache} requires a scan-incremental "
+                "temporal config (causal, src_len == 0, non-attention ib "
+                "mode): this config serves on the prefix engine, which has "
+                "no KV cache")
+        engine = "scan"
         print(f"kv_cache={args.kv_cache}: scan engine forced (the prefix "
               "engine has no KV cache)")
     results = fused_autoregressive_evaluation(
         params, case, td.test, td.latent_service, td.mesh_processor,
-        spatial_params=spatial_params, cache_dtype=cache_dtype)
+        spatial_params=spatial_params, cache_dtype=cache_dtype,
+        engine=engine)
     print("Test Results:")
     for key in ("encoded_rel_mse", "decoded_rel_mse"):
         print(f"{key}: {results[key]}")

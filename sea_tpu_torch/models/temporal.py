@@ -14,12 +14,15 @@ per (layer, field) for self-attention and per (layer, ordered pair) for
 the exchange; every attention in it goes through the flash-decode kernel
 (ops/decode_attention.py) on the card.
 
-Slice ported so far: exchange_mode='sea', ib_scale_mode='mlp',
-ib_addition_mode='add', ln_type 'ln' or 'adaln', src_len=0 — the temporal
-configs of both shipped presets. ``temporal_forward`` trains with dropout
-from the JAX package's key tree; ring attention is not ported, remat is
+Slice ported so far: exchange_mode='sea', ib_scale_mode='mlp', ln_type
+'ln' or 'adaln', and every ib_addition_mode ('add', 'concat', 'none',
+'attention') and src_len. ``temporal_forward`` trains with dropout from
+the JAX package's key tree, and takes ``valid_len`` for the masked prefix
+engine (rollout/engine.py); ring attention is not ported, remat is
 refused (``check_supported``), and the stacked per-field path is the same
-math as the per-field loop.
+math as the per-field loop. ``temporal_step`` serves the incremental
+configs only (no attention-mode ib, src_len == 0), as in the JAX package:
+the others are not causal, and only the prefix engine is exact for them.
 """
 
 from __future__ import annotations
@@ -38,8 +41,7 @@ from sea_tpu_torch.utils.prng import fold_in, split
 def check_supported(cfg: TemporalModelConfig) -> None:
     """Raise NotImplementedError for a config outside the ported slice."""
     wrong = [f"{name}={getattr(cfg, name)!r}" for name, want in
-             (("exchange_mode", "sea"), ("ib_scale_mode", "mlp"),
-              ("ib_addition_mode", "add"), ("src_len", 0))
+             (("exchange_mode", "sea"), ("ib_scale_mode", "mlp"))
              if getattr(cfg, name) != want]
     # remat would give the same numbers without its memory saving: refused
     # rather than ignored.
@@ -49,8 +51,15 @@ def check_supported(cfg: TemporalModelConfig) -> None:
         raise NotImplementedError(
             f"temporal config {', '.join(wrong)} is not ported yet: "
             "sea_tpu_torch serves exchange_mode='sea', ib_scale_mode='mlp', "
-            "ib_addition_mode='add', src_len=0, remat=False (see "
-            "ROADMAP.md)")
+            "remat=False (see ROADMAP.md)")
+
+
+def is_scan_incremental(cfg: TemporalModelConfig) -> bool:
+    """True when the model is incrementally computable (the scan engine,
+    ``temporal_step``): no attention-mode ib conditioning (unmasked over
+    the ib stream) and src_len == 0 (with src_len > 0 token p attends
+    p+1..p+src_len, so earlier states change as the prefix grows)."""
+    return cfg.ib_addition_mode != "attention" and cfg.src_len == 0
 
 
 # ---------------------------------------------------------------------------
@@ -74,7 +83,7 @@ def init_temporal_block(gen: torch.Generator, cfg: TemporalModelConfig,
     def attn(dim):
         return init_attention(gen, dim, cfg.n_heads, dtype=dtype)
 
-    return {
+    block = {
         "ib": L.init_mlp(gen, cfg.ib_num, scale_ratio=cfg.scale_ratio,
                          dim_out=cfg.ib_dim, num_layers=cfg.ib_mlp_layers,
                          dtype=dtype),
@@ -94,6 +103,9 @@ def init_temporal_block(gen: torch.Generator, cfg: TemporalModelConfig,
         # Full G x G lattice, unused diagonal included (checkpoint parity).
         "cross_attn": [[attn(dd) for _ in range(G)] for _ in range(G)],
     }
+    if cfg.ib_addition_mode == "attention":
+        block["cross_attn_ib"] = [attn(D) for _ in range(G)]
+    return block
 
 
 def init_temporal(cfg: TemporalModelConfig, gen: torch.Generator, *,
@@ -139,7 +151,7 @@ def _fold(key, data):
 
 
 def _sea_exchange(block, cfg: TemporalModelConfig, x_vars, ib, rng,
-                  deterministic):
+                  deterministic, valid_len=None):
     G = cfg.num_fields
     x_vars = list(x_vars)
     for i in range(G):
@@ -155,35 +167,62 @@ def _sea_exchange(block, cfg: TemporalModelConfig, x_vars, ib, rng,
                        n_heads=cfg.n_heads, causal=True, rope=True,
                        src_len=cfg.src_len, dropout_rate=cfg.dropout,
                        dropout_key=_fold(rng, i * G + j),
-                       deterministic=deterministic)
+                       deterministic=deterministic, valid_len=valid_len)
             acc = acc + L.linear(block["cross_up"][i], L.gelu(attn))
         # Sequential update: field i+1 sees the updated field i.
         x_vars[i] = x_vars[i] + acc
     return x_vars
 
 
+def _add_info(block, cfg: TemporalModelConfig, x, ib_out, i, key,
+              deterministic, valid_len):
+    """The ib injection of field i (``_add_info`` of the JAX package):
+    ``ib_out`` is the ib MLP's output for this field; ``key`` the field's
+    dropout key (the ib-attention's; its MLP took fold_in(key, 1))."""
+    mode = cfg.ib_addition_mode
+    if mode == "none":
+        return x
+    if mode == "add":
+        return x + ib_out  # broadcasts over T for time-constant ib
+    if mode == "concat":
+        return torch.cat([x, ib_out.expand(x.shape[0], x.shape[1],
+                                           ib_out.shape[2])], dim=-1)
+    # attention: unmasked cross-attention over the ib embedding stream.
+    return x + mha(block["cross_attn_ib"][i], x, ib_out,
+                   n_heads=cfg.n_heads, causal=False, rope=False,
+                   dropout_rate=cfg.dropout, dropout_key=key,
+                   deterministic=deterministic, valid_len=valid_len)
+
+
 def temporal_block(block, cfg: TemporalModelConfig, x_vars, ib, ib_cond, *,
-                   rng=None, deterministic=True):
+                   rng=None, deterministic=True, valid_len=None):
     """One block. ``ib`` is the full [B, T, ib_num] stream, ``ib_cond``
     the one the ib-only sites see ([B, 1] rows when the conditioning is
     time-constant). ``rng``: the block's key; its four sub-keys drive the
-    ib MLP, self-attention, exchange and MLP dropout, with the JAX
-    package's fold_in tree."""
+    ib injection, self-attention, exchange and MLP dropout, with the JAX
+    package's fold_in tree. ``valid_len``: see ``temporal_forward``."""
     G = cfg.num_fields
     x_vars = list(x_vars)
     train = rng is not None and not deterministic
     rngs = split(rng, 4) if train else [None] * 4
     # The ib MLP's trailing dropout keeps a mask per token, so with it on
-    # the MLP sees the full stream, not the [B, 1] rows.
-    ib_inject = ib if train and cfg.dropout > 0.0 else ib_cond
+    # the MLP sees the full stream, not the [B, 1] rows; so does the
+    # ib-attention, whose keys run over time.
+    ib_inject = (ib if (train and cfg.dropout > 0.0)
+                 or cfg.ib_addition_mode == "attention" else ib_cond)
 
     def add_info(xs):
+        if cfg.ib_addition_mode == "none":
+            return xs
+        keys = [_fold(rngs[0], i) for i in range(len(xs))]
         if rngs[0] is None:
             ib_out = L.mlp(block["ib"], ib_inject)
-            return [x + ib_out for x in xs]
-        return [x + L.mlp(block["ib"], ib_inject, dropout_rate=cfg.dropout,
-                          dropout_key=fold_in(fold_in(rngs[0], i), 1))
-                for i, x in enumerate(xs)]
+            outs = [ib_out] * len(xs)
+        else:
+            outs = [L.mlp(block["ib"], ib_inject, dropout_rate=cfg.dropout,
+                          dropout_key=fold_in(key, 1)) for key in keys]
+        return [_add_info(block, cfg, x, o, i, key, deterministic, valid_len)
+                for i, (x, o, key) in enumerate(zip(xs, outs, keys))]
 
     if not cfg.add_info_after_cross:
         x_vars = add_info(x_vars)
@@ -194,9 +233,10 @@ def temporal_block(block, cfg: TemporalModelConfig, x_vars, ib, ib_cond, *,
                                     rope=True, src_len=cfg.src_len,
                                     dropout_rate=cfg.dropout,
                                     dropout_key=_fold(rngs[1], i),
-                                    deterministic=deterministic)
+                                    deterministic=deterministic,
+                                    valid_len=valid_len)
     x_vars = _sea_exchange(block, cfg, x_vars, ib_cond, rngs[2],
-                           deterministic)
+                           deterministic, valid_len)
     if cfg.add_info_after_cross:
         x_vars = add_info(x_vars)
     for i in range(G):
@@ -209,26 +249,36 @@ def temporal_block(block, cfg: TemporalModelConfig, x_vars, ib, ib_cond, *,
 
 
 def temporal_forward(params, cfg: TemporalModelConfig, x, ib, *, rng=None,
-                     deterministic: bool = True):
+                     deterministic: bool = True, valid_len=None):
     """x: [B, T, G, E], ib: [B, T, ib_num] -> [B, T, G, E].
 
     ``rng``: a PRNG key (``utils.prng``); with ``deterministic=False`` it
     drives dropout, block ``li`` taking ``fold_in(rng, li)`` as in the JAX
     package, so the masks are the JAX package's. No ring; remat raises; the
     stacked per-field path of the JAX package (``stack_fields``) is the
-    same math as this per-field loop."""
+    same math as this per-field loop.
+
+    ``valid_len`` (an int, serving only): every attention reads the keys
+    at positions < valid_len alone (``ops.attention.mha``), so the first
+    valid_len outputs equal the forward of the valid_len-long prefix, for
+    the non-causal configs too (ib-attention, src_len != 0). Everything
+    outside attention is per token: positions past the prefix hold finite
+    values that never feed back. As in the JAX package, the ib-only sites
+    then see the full ib stream even for time-constant conditioning."""
     check_supported(cfg)
     G = cfg.num_fields
     if x.shape[2] != G:
         raise ValueError(f"x has {x.shape[2]} fields, the config {G}")
     # ib_time_constant: ib-only sites compute on [B, 1] rows (same values).
-    ib_cond = ib[:, :1] if cfg.ib_time_constant else ib
+    ib_cond = (ib[:, :1] if cfg.ib_time_constant and valid_len is None
+               else ib)
     train = rng is not None and not deterministic
     x_vars = [x[:, :, i, :] for i in range(G)]
     for li, block in enumerate(params["blocks"]):
         x_vars = temporal_block(block, cfg, x_vars, ib, ib_cond,
                                 rng=fold_in(rng, li) if train else None,
-                                deterministic=deterministic)
+                                deterministic=deterministic,
+                                valid_len=valid_len)
     x_vars = [L.apply_norm(params["ln_final"][i], x_vars[i], ib_cond)
               for i in range(G)]
     return torch.stack(x_vars, dim=2)
@@ -264,7 +314,8 @@ def precompute_cond_tables(params, cfg: TemporalModelConfig, ib):
 
     ib: [B, T, ib_num]. Returns TIME-MAJOR [T, B, dim] tensors: per block
     {"ln_exp": [[site0, site2] per field], "ln_cross": [...], "ib_out"},
-    plus "ln_final". Plain-LN sites hold None."""
+    plus "ln_final". Plain-LN sites hold None, and so does "ib_out" where
+    the ib is not added or concatenated."""
     def norm_cond(p):
         if "cond_fc1" not in p:
             return None
@@ -276,7 +327,9 @@ def precompute_cond_tables(params, cfg: TemporalModelConfig, ib):
     blocks = [{"ln_exp": [[norm_cond(block["ln_exp"][i][s]) for s in (0, 2)]
                           for i in range(G)],
                "ln_cross": [norm_cond(p) for p in block["ln_cross"]],
-               "ib_out": L.mlp(block["ib"], ib).transpose(0, 1).contiguous()}
+               "ib_out": (L.mlp(block["ib"], ib).transpose(0, 1).contiguous()
+                          if cfg.ib_addition_mode in ("add", "concat")
+                          else None)}
               for block in params["blocks"]]
     return {"blocks": blocks,
             "ln_final": [norm_cond(p) for p in params["ln_final"]]}
@@ -306,15 +359,25 @@ def temporal_step(params, cfg: TemporalModelConfig, x_t, ib_t, cache, t,
     x_t: [B, G, E]; ib_t: [B, ib_num]; cache: from init_temporal_cache,
     updated IN PLACE at position t; t: int32 tensor of shape [1] on the
     device; cond_t: optional step-t slice of precompute_cond_tables.
-    Returns y_t [B, G, E] = temporal_forward(x[:, :t+1])[:, t].
+    Returns y_t [B, G, E] = temporal_forward(x[:, :t+1])[:, t]. Raises
+    ValueError for a config that is not incremental (``is_scan_incremental``).
     """
+    if not is_scan_incremental(cfg):
+        raise ValueError(
+            "temporal_step requires a scan-incremental config (no attention "
+            "ib-conditioning, src_len == 0); the others serve on the masked "
+            "prefix engine (rollout.engine.rollout_prefix_bucketed)")
     G = cfg.num_fields
     x_vars = [x_t[:, i, :] for i in range(G)]
 
     def add_info(block, bc, xs):
+        if cfg.ib_addition_mode == "none":
+            return xs
         ib_out = _get(bc, "ib_out")
         if ib_out is None:
             ib_out = L.mlp(block["ib"], ib_t)
+        if cfg.ib_addition_mode == "concat":
+            return [torch.cat([x, ib_out], dim=-1) for x in xs]
         return [x + ib_out for x in xs]
 
     for li, block in enumerate(params["blocks"]):

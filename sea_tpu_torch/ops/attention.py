@@ -21,7 +21,16 @@ kernel. The fused "qkv"/"kv" projections of the serving transform
 ``utils.precision.fuse_attention_projections`` are taken as in the JAX
 package.
 
-Not ported: ``valid_len``, ``src_len != 0`` in ``mha_step`` and ring
+``valid_len`` (``mha``, ``multihead_core``) keeps only the first
+``valid_len`` keys, as the JAX package's key mask in ``attention_core``
+does for its masked prefix engine: after RoPE, k and v are cut to that
+prefix (views, no copy) and the attention, flash or plain, runs with
+Tk = valid_len, so on the card the flash forward kernel bounds every
+row's key walk there with no argument of its own. Serving only: with
+dropout or a gradient it raises.
+
+Not ported: ``src_len != 0`` in ``mha_step`` (the non-causal configs
+serve on the masked prefix engine, as in the JAX package) and ring
 attention (ROADMAP.md).
 """
 
@@ -91,13 +100,15 @@ def attention_core(q, k, v, *, causal: bool, src_len: int = 0):
 def multihead_core(q, k, v, *, n_heads: int, causal: bool, rope: bool,
                    src_len: int = 0, dropout_rate: float = 0.0,
                    dropout_key=None, deterministic: bool = True,
-                   impl: str = "flash"):
+                   impl: str = "flash", valid_len=None):
     """Between the projections and the output projection: head split,
     RoPE, attention, head merge. q: [B, Tq, C]; k, v: [B, Tk, C].
 
     Dropout applies when training (``deterministic`` False) with a rate
     and a key (``utils.prng``), as in the JAX package. impl: "flash" (the
-    kernels on CUDA) or "plain" (einsum, no dropout)."""
+    kernels on CUDA) or "plain" (einsum, no dropout). ``valid_len`` (an
+    int): only keys at positions < valid_len are attended (the masked
+    prefix engine); it raises with dropout or a gradient."""
     B, Tq, C = q.shape
     hd = C // n_heads
     q = q.reshape(B, Tq, n_heads, hd)
@@ -111,6 +122,18 @@ def multihead_core(q, k, v, *, n_heads: int, causal: bool, rope: bool,
         k = apply_rope(k, cos_k, sin_k)
     rate = (dropout_rate if dropout_rate > 0.0 and not deterministic
             and dropout_key is not None else 0.0)
+    if valid_len is not None:
+        if rate or (torch.is_grad_enabled()
+                    and (q.requires_grad or k.requires_grad
+                         or v.requires_grad)):
+            raise ValueError("valid_len is for serving (the masked prefix "
+                             "engine): no dropout, no gradient")
+        if not 1 <= valid_len <= k.shape[1]:
+            raise ValueError(f"valid_len {valid_len} not in "
+                             f"[1, {k.shape[1]}]")
+        # Views with the strides kept: the flash kernels take them as
+        # they are. Query rows past the prefix stay finite, never read.
+        k, v = k[:, :valid_len], v[:, :valid_len]
     if impl == "flash":
         out = flash_attention(
             q, k, v, causal, src_len, dropout_rate=rate,
@@ -127,14 +150,15 @@ def multihead_core(q, k, v, *, n_heads: int, causal: bool, rope: bool,
 
 def mha(params, x_q, x_kv, *, n_heads: int, causal: bool, rope: bool,
         src_len: int = 0, dropout_rate: float = 0.0, dropout_key=None,
-        deterministic: bool = True, impl: str = "flash"):
+        deterministic: bool = True, impl: str = "flash", valid_len=None):
     """Full-sequence multi-head attention. x_q: [B, Tq, C]; x_kv:
-    [B, Tk, C]."""
+    [B, Tk, C]; ``valid_len``: see ``multihead_core``."""
     q, k, v = _project_qkv(params, x_q, x_kv)
     out = multihead_core(q, k, v, n_heads=n_heads, causal=causal,
                          rope=rope, src_len=src_len,
                          dropout_rate=dropout_rate, dropout_key=dropout_key,
-                         deterministic=deterministic, impl=impl)
+                         deterministic=deterministic, impl=impl,
+                         valid_len=valid_len)
     return linear(params["proj"], out)
 
 

@@ -1,10 +1,13 @@
-"""End-to-end rollout evaluation on the device.
+"""End-to-end rollout evaluation and generation on the device.
 
 Counterpart of ``sea_tpu/rollout/e2e.py``: scan rollout (KV caches) ->
 latent layout shuttle -> frozen stage-1 decode -> device-side un-patch ->
 inverse min-max scale -> per-(time, field) relative MSE against the ground
 truth. Nothing returns to the host between the initial latent state and
-the metric tensors.
+the metric tensors. ``make_eval_tail`` is the part after the rollout, which
+the prefix engine's serving path (train/evaluate.py) runs after its own
+rollout; ``make_generate`` is the scan rollout and the decode without a
+ground truth, at any horizon.
 """
 
 from __future__ import annotations
@@ -19,6 +22,13 @@ from sea_tpu_torch.rollout.engine import is_scan_incremental, rollout_scan
 from sea_tpu_torch.train import metrics as M
 
 
+def _require_incremental(tcfg: TemporalModelConfig, what: str, why: str):
+    if not is_scan_incremental(tcfg):
+        raise ValueError(
+            f"{what} requires a scan-incremental config (no attention "
+            f"ib-conditioning, src_len == 0){why}")
+
+
 def make_e2e_rollout_eval(tcfg: TemporalModelConfig,
                           scfg: SpatialModelConfig, part: PartitionIndex, *,
                           sea_layout: str = "isolate", scalers=None,
@@ -29,11 +39,10 @@ def make_e2e_rollout_eval(tcfg: TemporalModelConfig,
     x0: [B, G, E]; ib: [B, T, ib_num]; truth: [B, T, N, F] node fields
     aligned with the predictions; tgt_lat: [B, T, G, E] latent targets.
     cache_dtype: the rollout's KV-cache storage (f32, bf16 or int8)."""
-    if not is_scan_incremental(tcfg):
-        raise NotImplementedError(
-            "make_e2e_rollout_eval needs a scan-incremental config (no "
-            "attention ib-conditioning, src_len == 0); the prefix engine "
-            "for the others is not ported yet (ROADMAP.md)")
+    _require_incremental(
+        tcfg, "make_e2e_rollout_eval",
+        "; train.evaluate.fused_autoregressive_evaluation serves the "
+        "others on the masked prefix engine")
     tail = make_eval_tail(scfg, part, sea_layout=sea_layout, scalers=scalers,
                           field_groups=field_groups)
 
@@ -49,7 +58,9 @@ def make_eval_tail(scfg: SpatialModelConfig, part: PartitionIndex, *,
                    sea_layout: str = "isolate", scalers=None,
                    field_groups=None):
     """fn(sparams, preds [B,T,G,E], truth [B,T,N,F], tgt_lat [B,T,G,E]) ->
-    (decoded fields, rel-MSE per (B, T, F), encoded rel-MSE scalar)."""
+    (decoded fields, rel-MSE per (B, T, F), encoded rel-MSE scalar): the
+    fused evaluation after its rollout, and the prefix engine's serving
+    path after its own."""
     decode = make_decode_chain(scfg, part, sea_layout=sea_layout,
                                scalers=scalers, field_groups=field_groups)
 
@@ -93,3 +104,24 @@ def make_decode_chain(scfg: SpatialModelConfig, part: PartitionIndex, *,
                 + torch.from_numpy(b).to(fields.device))
 
     return decode
+
+
+def make_generate(tcfg: TemporalModelConfig, scfg: SpatialModelConfig,
+                  part: PartitionIndex, *, sea_layout: str = "isolate",
+                  scalers=None, field_groups=None,
+                  cache_dtype=torch.float32):
+    """Surrogate simulation: fn(tparams, sparams, x0 [B,G,E], ib
+    [B,H,ib_num]) -> fields [B,H,N,F], the scan rollout of H steps decoded,
+    un-patched and un-scaled on the device. No ground truth, so H is not
+    tied to a dataset window; the KV caches grow linearly in H."""
+    _require_incremental(tcfg, "generate",
+                         "; prefix-recompute has no horizon-unbounded form")
+    decode = make_decode_chain(scfg, part, sea_layout=sea_layout,
+                               scalers=scalers, field_groups=field_groups)
+
+    @torch.inference_mode()
+    def run(tparams, sparams, x0, ib):
+        preds = rollout_scan(tparams, tcfg, x0, ib, cache_dtype=cache_dtype)
+        return decode(sparams, preds)
+
+    return run

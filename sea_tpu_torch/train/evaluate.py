@@ -1,16 +1,19 @@
-"""Serving evaluation: rollout, decode, un-patch and score on the device.
+"""Serving evaluation and generation: rollout, decode, un-patch (and
+score) on the device.
 
-Counterpart of ``fused_autoregressive_evaluation`` in
-``sea_tpu/train/evaluate.py``, with the same metrics and the same rollout
-CSV.
+Counterparts of ``fused_autoregressive_evaluation`` and
+``generate_trajectory`` in ``sea_tpu/train/evaluate.py``, with the same
+metrics, the same rollout CSV and the same generated fields.
 
-Documented divergences from the JAX function:
+Documented divergences from the JAX functions:
 
-- The rollout always runs on the scan engine. The JAX ``engine='auto'``
-  policy sends f32 weights at trajectory batch 1 to the bucketed prefix
-  engine, on the strength of a TPU measurement; tests/test_rollout.py
-  proves the two engines equal, so the metrics agree (held to rtol 1e-4
-  by tests/test_torch_e2e.py). The prefix engine is not ported yet.
+- ``engine='auto'`` follows the JAX policy (``rollout.engine.
+  select_engine``) with the port's constants, measured on an H100: the
+  configs that are not incremental take the masked prefix engine, the
+  others the scan engine, where the JAX package also sends f32 weights at
+  trajectory batch 1 to the prefix engine (a v5e measurement). The two
+  engines are equal (tests/test_rollout.py, tests/test_torch_rollout.py),
+  so the metrics agree (held to rtol 1e-4 by tests/test_torch_e2e.py).
 - Only the per-time CSV is written. The field and error plots wait: the
   GPU machine has no matplotlib (ROADMAP.md).
 """
@@ -19,7 +22,7 @@ from __future__ import annotations
 
 import csv
 import os
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -27,43 +30,108 @@ import torch
 from sea_tpu_torch.configs.base import CaseConfig
 from sea_tpu_torch.data.mesh import MeshProcessor
 from sea_tpu_torch.data.latents import LatentService
-from sea_tpu_torch.rollout.e2e import make_e2e_rollout_eval
+from sea_tpu_torch.rollout.e2e import (make_e2e_rollout_eval,
+                                       make_eval_tail, make_generate)
+from sea_tpu_torch.rollout.engine import (is_scan_incremental, rollout,
+                                          select_engine)
 
 
 def fused_autoregressive_evaluation(params, case: CaseConfig, windows,
                                     latent_service: LatentService,
                                     mesh_processor: MeshProcessor, *,
                                     spatial_params=None,
-                                    cache_dtype=torch.float32
+                                    cache_dtype=torch.float32,
+                                    engine: str = "auto"
                                     ) -> Dict[str, Any]:
     """windows: TemporalWindows (src, tgt, tgt_original, ib) as numpy; all
-    windows roll out as one batch on the latent service's device with KV
-    caches of ``cache_dtype``. ``spatial_params`` (default: the latent
-    service's weights) decode: the CLI passes the reduced-precision
-    stage-1 weights of ``--precision`` there.
+    windows roll out as one batch on the latent service's device.
+    ``spatial_params`` (default: the latent service's weights) decode: the
+    CLI passes the reduced-precision stage-1 weights of ``--precision``
+    there.
+
+    engine: 'auto' (``select_engine``), 'scan' (KV caches of
+    ``cache_dtype``; the fused rollout evaluation) or 'prefix' (the
+    bucketed prefix engine, then the same decode-and-score tail). Under
+    'auto' a cache dtype other than f32 asks for the KV-cache engine:
+    an incremental config then takes scan, as in the JAX function.
 
     Returns {encoded_rel_mse, decoded_rel_mse, decoded_rel_mse_per_time
-    [T, F]} averaged over the set, and writes the rollout CSV."""
+    [T, F]} averaged over the set, and the engine that served the rollout
+    ("scan" or "prefix"); writes the rollout CSV."""
     device = latent_service.device
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    run = make_e2e_rollout_eval(
+    sparams = (latent_service.params if spatial_params is None
+               else spatial_params)
+    x0, ib = dev(windows.src[:, 0]), dev(windows.ib)
+    truth, tgt_lat = dev(windows.tgt_original), dev(windows.tgt)
+    if engine == "auto":
+        engine = select_engine(case.temporal, x0.shape[0], ib.shape[1],
+                               params)
+        if engine == "prefix" and cache_dtype != torch.float32:
+            if is_scan_incremental(case.temporal):
+                print(f"cache_dtype={cache_dtype}: scan engine forced (the "
+                      "prefix engine has no KV cache)")
+                engine = "scan"
+            else:
+                print(f"cache_dtype={cache_dtype} ignored: non-incremental "
+                      "config serves on the prefix engine, which has no KV "
+                      "cache")
+    kw = dict(sea_layout=case.run.sea_layout, scalers=mesh_processor.scalers,
+              field_groups=mesh_processor.field_groups)
+    if engine == "scan":
+        run = make_e2e_rollout_eval(case.temporal, latent_service.cfg,
+                                    mesh_processor.partition,
+                                    cache_dtype=cache_dtype, **kw)
+        _, rel, enc_rel = run(params, sparams, x0, ib, truth, tgt_lat)
+    else:
+        preds = rollout(params, case.temporal, x0, ib, engine=engine)
+        tail = make_eval_tail(latent_service.cfg, mesh_processor.partition,
+                              **kw)
+        with torch.inference_mode():
+            _, rel, enc_rel = tail(sparams, preds, truth, tgt_lat)
+    per_time = rel.cpu().numpy().mean(axis=0)  # [T, F]
+    _write_rollout_csv(case, per_time)
+    return {"encoded_rel_mse": float(enc_rel),
+            "decoded_rel_mse": float(per_time.mean()),
+            "decoded_rel_mse_per_time": per_time, "engine": engine}
+
+
+def generate_trajectory(params, case: CaseConfig, windows,
+                        latent_service: LatentService,
+                        mesh_processor: MeshProcessor, *,
+                        trajectory: int = 0, horizon: Optional[int] = None,
+                        spatial_params=None,
+                        cache_dtype=torch.float32) -> np.ndarray:
+    """Surrogate simulation from test window ``trajectory``: its initial
+    latent state rolled ``horizon`` steps (default: the window's length)
+    on the scan engine and decoded to physical fields [H, N, F] on the
+    device (``rollout.e2e.make_generate``). Past the window the ib
+    conditioning holds its last value: the shipped cases condition on
+    per-trajectory constants."""
+    n = len(windows.src)
+    if not 0 <= trajectory < n:
+        raise ValueError(f"trajectory index {trajectory} out of range "
+                         f"(the test split has {n} windows)")
+    gen = make_generate(
         case.temporal, latent_service.cfg, mesh_processor.partition,
         sea_layout=case.run.sea_layout, scalers=mesh_processor.scalers,
         field_groups=mesh_processor.field_groups, cache_dtype=cache_dtype)
     sparams = (latent_service.params if spatial_params is None
                else spatial_params)
-    _, rel, enc_rel = run(params, sparams,
-                          dev(windows.src[:, 0]),
-                          dev(windows.ib), dev(windows.tgt_original),
-                          dev(windows.tgt))
-    per_time = rel.cpu().numpy().mean(axis=0)  # [T, F]
-    _write_rollout_csv(case, per_time)
-    return {"encoded_rel_mse": float(enc_rel),
-            "decoded_rel_mse": float(per_time.mean()),
-            "decoded_rel_mse_per_time": per_time}
+    device = latent_service.device
+    x0 = torch.from_numpy(np.ascontiguousarray(
+        windows.src[trajectory, :1])).to(device)  # [1, G, E]
+    ib = np.asarray(windows.ib[trajectory])  # [T, ib_num]
+    H = horizon if horizon is not None else ib.shape[0]
+    ib_h = ib[:H] if H <= ib.shape[0] else np.concatenate(
+        [ib, np.repeat(ib[-1:], H - ib.shape[0], axis=0)], axis=0)
+    fields = gen(params, sparams, x0,
+                 torch.from_numpy(np.ascontiguousarray(ib_h[None])).to(
+                     device))
+    return fields[0].cpu().numpy()  # [H, N, F]
 
 
 def _write_rollout_csv(case: CaseConfig, per_time: np.ndarray) -> None:

@@ -297,6 +297,53 @@ def test_cli_no_calibrate_no_drift_check(smoke_checkpoints, capsys,
     assert np.isfinite(results["decoded_rel_mse"])
 
 
+def test_cli_generate_writes_the_trajectory(smoke_checkpoints, tmp_path,
+                                            capsys, monkeypatch):
+    """`temporal generate --device cpu` on cylinder_flow_smoke --synthetic,
+    past the 40-step window: the .npy holds finite fields [H, N, F] equal
+    to the port's generate_trajectory on the CLI's own inputs, and its
+    first 40 steps equal a window-long generation (the held ib changes
+    nothing before the window ends)."""
+    from sea_tpu_torch.train import evaluate
+    real = evaluate.generate_trajectory
+    calls = []
+
+    def spy(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(evaluate, "generate_trajectory", spy)
+    out, H = tmp_path / "gen.npy", 50
+    torch_cli.main(["cylinder_flow_smoke", "temporal", "generate",
+                    "--synthetic", "--save_dir", smoke_checkpoints,
+                    "--horizon", str(H), "--output", str(out),
+                    "--device", "cpu"])
+    fields = np.load(out)
+    assert fields.shape == (H, 800, 3) and np.isfinite(fields).all()
+    assert f"Generated {H} steps x 800 nodes x 3 fields" in \
+        capsys.readouterr().out
+    (args, kwargs), = calls
+    assert kwargs["horizon"] == H and kwargs["trajectory"] == 0
+    np.testing.assert_array_equal(fields, real(*args, **kwargs))
+    W = args[2].ib.shape[1]
+    assert W < H
+    window = real(*args, **{**kwargs, "horizon": W})
+    np.testing.assert_allclose(fields[:W], window, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["temporal", "test", "--horizon", "5"], "only apply to `temporal gen"),
+    (["temporal", "train", "--output", "x.npy"], "only apply to `temporal g"),
+    (["temporal", "generate", "--horizon", "0"], "--horizon must be >= 1"),
+    (["encoder", "generate"], "generate is a temporal"),
+    (["temporal", "train", "--kv_cache", "f32"], "only apply to `temporal t")])
+def test_generate_flag_checks(argv, message, capsys):
+    """The JAX parser's checks of the generate flags."""
+    with pytest.raises(SystemExit):
+        torch_cli.main(["cylinder_flow_smoke"] + argv + ["--device", "cpu"])
+    assert message in capsys.readouterr().err
+
+
 def test_cuda_device_without_cuda_raises():
     if torch.cuda.is_available():
         pytest.skip("CUDA is present")
@@ -307,7 +354,7 @@ def test_cuda_device_without_cuda_raises():
 
 @pytest.mark.parametrize("argv", [
     ["encoder", "train"], ["temporal", "train", "--seq_parallel", "2"],
-    ["temporal", "generate"],
+    ["encoder", "test"],
     ["temporal", "test", "--mesh", "2x1"],
     ["temporal", "test", "--model_path", "model.pt"],
     ["temporal", "train", "--optimizer", "adafactor"]])

@@ -174,9 +174,8 @@ def test_module_owns_and_moves_params():
 
 
 @pytest.mark.parametrize("change", [dict(exchange_mode="pool"),
-                                    dict(ib_addition_mode="concat",
-                                         add_info_after_cross=False),
-                                    dict(src_len=2)])
+                                    dict(exchange_mode="addition"),
+                                    dict(ib_scale_mode="fourier")])
 def test_configs_outside_the_slice_raise(change):
     cfg = dataclasses.replace(_cfg("adaln"), **change)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -221,11 +221,23 @@ def _assert_first_step_params_close(got, want, got_mu, want_mu, tcfg):
 def test_train_step_matches_jax(jax_kernels):
     """One step from the same params, batch and key: loss, norms, the
     gradients (as mu = 0.1 g), nu and the updated parameters."""
+    _check_train_step(_small_cylinder_cfg())
+
+
+def test_ib_attention_src_len_train_step_matches_jax(jax_kernels):
+    """The same for a config only the masked prefix engine serves:
+    ib_addition_mode="attention" (an unmasked attention over the ib stream
+    per field, with its own dropout keys) and src_len=1 (every causal
+    attention admits one key ahead)."""
+    _check_train_step(dataclasses.replace(
+        _small_cylinder_cfg(), ib_addition_mode="attention", src_len=1))
+
+
+def _check_train_step(cfg):
     from sea_tpu.configs.cylinder_flow import get_case
     from sea_tpu.models import temporal as JT
     from sea_tpu.train.optim import make_optimizer as jax_optimizer
     from sea_tpu.train.train_temporal import make_train_step as jax_step
-    cfg = _small_cylinder_cfg()
     tcfg = get_case().temporal_train
     params = _np(JT.init_temporal(jax.random.PRNGKey(0), cfg))
     x, tgt, ib = _batch(cfg, seed=1)
