@@ -45,6 +45,15 @@ before and read just after:
   each count exact; the checkpoint's shadow is the bf16 cast of its
   parameters; one step on the card against the CPU within bf16 noise.
 
+- stage 1: `cylinder_flow encoder train --synthetic --epochs 2` at full
+  width (12 layers, B=128; it launches none of the port's kernels: its
+  attention over 64 patches is the plain path, as in the JAX package),
+  its checkpoint read back, and `temporal test` served on the encoder it
+  wrote; one f32 step from the shipped trained weights at B=128 on the
+  card against the CPU; `encoder test` on the card against the CPU; and
+  the step timed (median of 25, device busy, events a step, peak
+  memory).
+
 Last, every kernel is timed against its plain version, its bound and,
 where one PyTorch call computes the same function, that call. Any failure
 raises and the exit code is not 0; without CUDA, or without the rest of
@@ -182,6 +191,17 @@ BF16_FLAGS = ["--compute_dtype", "bf16_shadow", "--adam_mu_dtype", "bf16"]
 BF16_RECIPE = {"compute_dtype": "bfloat16_shadow",
                "adam_mu_dtype": "bfloat16"}
 BF16_NOISE = 4.0
+# Stage 1: the CLI run's epochs, the shipped trained cylinder encoder
+# (n_inp 51, from the dataset's partition), its step's batch. Card vs CPU,
+# one f32 step from those weights on one random batch, TF32 off: the two
+# BLAS sum in other orders, so the loss and grad norm are held to
+# STEP_TOL's relative bounds and each parameter to STEP_TOL["params"] + lr
+# |u(g_card) - u(g_cpu)| (the first AdamW step moves it by -lr u(g), see
+# BF16_NOISE). `encoder test` card vs CPU: rtol 1e-4 on its three numbers.
+ENCODER_EPOCHS = 2
+SHIPPED_ENCODER = "checkpoints/encoder_decoder_cylinder_flow_run1.npz"
+ENCODER_BATCH = 128
+ENCODER_TEST_RTOL = 1e-4
 # NVIDIA H100 SXM data sheet (dense rates): HBM rate, the f32 rate outside
 # the tensor cores and the bf16 tensor-core rate. A bound takes the peak of
 # its operands' type, whatever units the kernel itself runs them on. f32
@@ -198,6 +218,13 @@ def log(msg):
     print(msg, flush=True)
 
 
+def _smi():
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True, timeout=60).stdout.strip()
+
+
 def phase_build():
     """The four CUDA sources with one nvcc each, started together."""
     from sea_tpu_torch.ops import _build
@@ -205,10 +232,7 @@ def phase_build():
     from sea_tpu_torch.ops import flash_attention as FA
     from sea_tpu_torch.ops import fused_adaln as FAL
     from sea_tpu_torch.ops import quant_matmul as QM
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60)
-    log(smi.stdout.strip())
+    log(_smi())
     t0 = time.perf_counter()
     with ThreadPoolExecutor(4) as pool:
         for future in [pool.submit(lib._library)
@@ -1480,11 +1504,8 @@ def phase_train(case, save_dir, bf16=False):
     if launches != expected:
         raise AssertionError(f"{label} launches {launches}, expected "
                              f"{expected}")
-    with open(Path(save_dir) / f"{TRAIN_CASE}_temporal_train_metrics.csv",
-              newline="") as fh:
-        rows = list(csv.DictReader(fh))
-    logged = {(r["phase"], int(r["epoch"]), r["metric"]): float(r["value"])
-              for r in rows}
+    logged = _read_metrics(Path(save_dir)
+                           / f"{TRAIN_CASE}_temporal_train_metrics.csv")
     for e in range(1, TRAIN_EPOCHS + 1):
         for metric in ("Loss", "Grad_Norm", "Param_Norm"):
             if not np.isfinite(logged[("train", e, metric)]):
@@ -1728,6 +1749,248 @@ def phase_train_time(case, params_np, recipe=None):
             continue
         us = e.self_device_time_total / n_prof
         log(f"[train-profile{tag}] {us / 1e3:8.3f} ms/step "
+            f"{e.count / n_prof:6.1f}/step {100 * us / busy_us:5.1f}% "
+            f"{e.key[:90]}")
+    return med
+
+
+def _read_metrics(path):
+    """{(phase, epoch, metric): value} of a CSV tracker's file."""
+    with open(path, newline="") as fh:
+        return {(r["phase"], int(r["epoch"]), r["metric"]): float(r["value"])
+                for r in csv.DictReader(fh)}
+
+
+def phase_encoder_train(case, save_dir):
+    """`encoder train` through the port's CLI on the card, then `temporal
+    test` on the encoder it wrote (with random stage-2 weights). Stage 1
+    launches none of the port's kernels; the serving run its decodes."""
+    from sea_tpu_torch import cli
+    from sea_tpu_torch.models.spatial import init_spatial
+    from sea_tpu_torch.models.temporal import init_temporal
+    from sea_tpu_torch.train.optim import make_optimizer
+    from sea_tpu_torch.train.train_spatial import process_data
+    from sea_tpu_torch.utils.checkpoint import (checkpoint_path,
+                                                load_full_checkpoint,
+                                                save_pytree)
+    from sea_tpu_torch.utils.params import (opt_state_template, to_numpy,
+                                            tree_leaves)
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    params = cli.main([TRAIN_CASE, "encoder", "train", "--synthetic",
+                       "--epochs", str(ENCODER_EPOCHS), "--save_dir",
+                       save_dir, "--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"[encoder-train] stage 1 launched {launches}")
+    logged = _read_metrics(Path(save_dir)
+                           / f"{TRAIN_CASE}_encoder_train_metrics.csv")
+    checked = [("train", e, k) for e in range(1, ENCODER_EPOCHS + 1)
+               for k in ("Loss", "Recon_Loss", "R2", "Grad_Norm",
+                         "Param_Norm")]
+    checked += [("val", ENCODER_EPOCHS, k) for k in ("Loss", "Recon_Loss",
+                                                     "R2")]
+    bad = [c for c in checked if not np.isfinite(logged[c])]
+    if bad:
+        raise AssertionError(f"[encoder-train] not finite: {bad}")
+    sd = process_data(case, data=cli._load_data(case, synthetic=True))
+    tcfg = case.spatial_train
+    per_epoch = len(sd.train) // tcfg.batch_size
+    template = to_numpy(init_spatial(sd.spatial_cfg,
+                                     torch.Generator().manual_seed(0),
+                                     device="cpu"))
+    path = checkpoint_path(save_dir, "encoder_decoder", case.run.case_name,
+                           case.run.run_name)
+    loaded, opt, meta = load_full_checkpoint(
+        path, template, opt_state_template(make_optimizer(tcfg), template))
+    if opt is None or int(opt[0].count) != per_epoch * int(meta["epoch"]):
+        raise AssertionError(f"[encoder-train] checkpoint {path}: opt "
+                             f"{None if opt is None else opt[0].count}, "
+                             f"meta {meta}")
+    if not all(np.array_equal(a, b) for a, b in
+               zip(tree_leaves(loaded), tree_leaves(params))):
+        raise AssertionError("[encoder-train] the checkpoint's params "
+                             "differ from the returned best params")
+    save_pytree(checkpoint_path(save_dir, "temporal", case.run.case_name,
+                                case.run.run_name),
+                {"params": to_numpy(init_temporal(
+                    case.temporal, torch.Generator().manual_seed(2),
+                    device="cpu"))})
+    _reset_launch_counts()
+    results = cli.main([TRAIN_CASE, "temporal", "test", "--synthetic",
+                        "--save_dir", save_dir, "--device", "cuda"])
+    served = _launch_counts()
+    if not (np.isfinite(results["encoded_rel_mse"])
+            and np.isfinite(results["decoded_rel_mse"])
+            and served["decode_attention"] > 0):
+        raise AssertionError(f"[encoder-train] temporal test on the new "
+                             f"encoder: {results}, launches {served}")
+    epochs = range(1, ENCODER_EPOCHS + 1)
+    log(f"[encoder-train] {TRAIN_CASE} encoder train --synthetic --epochs "
+        f"{ENCODER_EPOCHS} (n_inp {sd.spatial_cfg.n_inp}, "
+        f"{sum(a.size for a in tree_leaves(params))} parameters, "
+        f"{per_epoch} steps of B={tcfg.batch_size} an epoch) in "
+        f"{seconds:.2f} s; losses "
+        f"{[logged[('train', e, 'Loss')] for e in epochs]}, R2 "
+        f"{[logged[('train', e, 'R2')] for e in epochs]}, grad norms "
+        f"{[logged[('train', e, 'Grad_Norm')] for e in epochs]}, val loss "
+        f"{logged[('val', ENCODER_EPOCHS, 'Loss')]}; checkpoint "
+        f"{Path(path).name} read back (epoch {int(meta['epoch'])}, count "
+        f"{int(opt[0].count)}); port kernels launched: none. temporal test "
+        f"on it: encoded rel-MSE {results['encoded_rel_mse']:.6g}, decoded "
+        f"{results['decoded_rel_mse']:.6g}, {served['decode_attention']} "
+        f"decodes")
+
+
+def _encoder_step(device):
+    """A full-recipe stage-1 step on device from the shipped trained
+    weights: (step, params, state, batch, TrainConfig), the batch
+    ENCODER_BATCH random tokens [B, 64, 3, n_inp]."""
+    from sea_tpu_torch.cli import get_case
+    from sea_tpu_torch.models.spatial import init_spatial
+    from sea_tpu_torch.train.optim import make_optimizer
+    from sea_tpu_torch.train.train_spatial import make_train_step
+    from sea_tpu_torch.utils.checkpoint import load_params
+    from sea_tpu_torch.utils.params import from_numpy, to_numpy
+    case = get_case(TRAIN_CASE)
+    with np.load(REPO / SHIPPED_ENCODER) as f:
+        n_inp = f["params/decoders/1/fc2/w"].shape[1]
+    cfg = case.spatial.with_n_inp(n_inp)
+    template = to_numpy(init_spatial(cfg, torch.Generator().manual_seed(0),
+                                     device="cpu"))
+    params = from_numpy(load_params(str(REPO / SHIPPED_ENCODER), template),
+                        device)
+    tx = make_optimizer(case.spatial_train)
+    step = make_train_step(cfg, tx, compute_dtype="float32")
+    n_patches = (case.mesh.m - 1) * (case.mesh.n - 1)
+    n_fields = sum(len(g) for g in cfg.field_groups)
+    x = np.random.RandomState(0).randn(ENCODER_BATCH, n_patches, n_fields,
+                                       n_inp).astype(np.float32)
+    return (step, params, tx.init(params), torch.from_numpy(x).to(device),
+            case.spatial_train)
+
+
+def phase_encoder_card_vs_cpu():
+    """One f32 stage-1 step on the card and on the CPU from the same
+    weights, batch and key (the bounds: the note above ENCODER_EPOCHS)."""
+    from sea_tpu_torch.utils.params import tree_leaves
+    from sea_tpu_torch.utils.prng import fold_in, prng_key
+    key = fold_in(prng_key(0), 1)
+    out = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        step, params, state, batch, tcfg = _encoder_step(device)
+        params, state, stats = step(params, state, batch, key, 0)
+        out[device] = ([p.detach().cpu().numpy()
+                        for p in tree_leaves(params)],
+                       {k: float(v) for k, v in stats.items()},
+                       _first_step_grads(state, tcfg.betas[1]),
+                       time.perf_counter() - t0)
+    (pc, sc, gc, _), (pp, sp, gp, cpu_s) = out["cuda"], out["cpu"]
+    errs = {k: abs(sc[k] - sp[k]) / abs(sp[k]) for k in ("loss",
+                                                         "grad_norm")}
+    if not (np.isfinite(sc["loss"]) and np.isfinite(sc["r2"])
+            and errs["loss"] <= STEP_TOL["loss"]
+            and errs["grad_norm"] <= STEP_TOL["grad_norm"]):
+        raise AssertionError(f"[encoder-card-vs-cpu] card {sc}, CPU {sp}")
+    lr, eps = tcfg.learning_rate, tcfg.eps
+    worst, near = 0.0, 0
+    for a, b, g_c, g_p in zip(pc, pp, gc, gp):
+        du = np.abs(g_c / (np.abs(g_c) + eps) - g_p / (np.abs(g_p) + eps))
+        diff = np.abs(a.astype(np.float64) - b)
+        if (diff > STEP_TOL["params"] + lr * du).any():
+            raise AssertionError(f"[encoder-card-vs-cpu] params off by "
+                                 f"{diff.max():.3g}")
+        worst = max(worst, float(diff.max()))
+        near += int((du > 0.1).sum())
+    log(f"[encoder-train] card vs CPU, one f32 step from {SHIPPED_ENCODER} "
+        f"at B={ENCODER_BATCH}, TF32 off: loss {sc['loss']:.7g} vs "
+        f"{sp['loss']:.7g} (rel {errs['loss']:.3g} <= {STEP_TOL['loss']}), "
+        f"r2 {sc['r2']:.7g} vs {sp['r2']:.7g}, grad_norm "
+        f"{sc['grad_norm']:.7g} vs {sp['grad_norm']:.7g} (rel "
+        f"{errs['grad_norm']:.3g} <= {STEP_TOL['grad_norm']}), param_norm "
+        f"{sc['param_norm']:.7g}; params max abs err {worst:.3g}, each <= "
+        f"{STEP_TOL['params']} + lr |u(g_card) - u(g_cpu)| ({near} elements "
+        f"whose updates differ by over 0.1); CPU step {cpu_s:.1f} s")
+
+
+def phase_encoder_test(case, save_dir):
+    """`encoder test` through the CLI on the card and on the CPU, on the
+    encoder [encoder-train] wrote."""
+    from sea_tpu_torch import cli
+    got = {}
+    for device in ("cuda", "cpu"):
+        got[device] = cli.main([TRAIN_CASE, "encoder", "test", "--synthetic",
+                                "--save_dir", save_dir, "--device", device])
+    for k, v in got["cuda"].items():
+        ref = got["cpu"][k]
+        if not (np.isfinite(v) and abs(v - ref) <= ENCODER_TEST_RTOL
+                * abs(ref)):
+            raise AssertionError(f"[encoder-test] {k}: card {v}, CPU {ref}")
+    log(f"[encoder-test] {TRAIN_CASE} encoder test --synthetic: card "
+        f"{got['cuda']}, CPU {got['cpu']} (rtol {ENCODER_TEST_RTOL})")
+
+
+def phase_encoder_train_time():
+    """The f32 stage-1 step at the full cylinder recipe from the shipped
+    weights: median wall ms over TRAIN_TIMED_STEPS after 3 warm-ups, each
+    ended by torch.cuda.synchronize(); peak memory; a torch.profiler pass
+    over 5 steps for device busy and events a step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from sea_tpu_torch.utils.params import tree_leaves
+    from sea_tpu_torch.utils.prng import prng_key, split
+    step, params, state, batch, _ = _encoder_step("cuda")
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    key, it = prng_key(0), 0
+
+    def run(n):
+        nonlocal params, state, key, it
+        times = []
+        for _ in range(n):
+            key, step_key = split(key)
+            t0 = time.perf_counter()
+            params, state, stats = step(params, state, batch, step_key, it)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            it += 1
+        if not np.isfinite(float(stats["loss"])):
+            raise AssertionError("stage-1 train step loss is not finite")
+        return times
+
+    run(3)
+    torch.cuda.reset_peak_memory_stats()
+    times = run(TRAIN_TIMED_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(times)
+    smi = _smi()
+    B, P = batch.shape[:2]
+    log(f"[encoder-train-time] {TRAIN_CASE} stage-1 f32 step B={B}, P={P}, "
+        f"n_inp {batch.shape[-1]}, {n_params} parameters (pe table "
+        f"included), AdamW: median {1e3 * med:.3f} ms/step over "
+        f"{TRAIN_TIMED_STEPS} (min {1e3 * min(times):.3f}, max "
+        f"{1e3 * max(times):.3f}) -> {B / med:.1f} snapshots/s; peak device "
+        f"memory {peak / 2 ** 30:.3f} GiB; {smi}")
+    n_prof = 5
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(n_prof)
+        wall_us = 1e6 * (time.perf_counter() - t0) / n_prof
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in events) / n_prof
+    if not busy_us > 0:
+        raise AssertionError("the profiler saw no device time")
+    log(f"[encoder-train-time] {sum(e.count for e in events) / n_prof:.0f} "
+        f"device events/step, device busy {busy_us / 1e3:.3f} ms/step, "
+        f"profiled wall {wall_us / 1e3:.3f} ms/step, busy share "
+        f"{100 * busy_us / wall_us:.1f}%; {smi}")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+        us = e.self_device_time_total / n_prof
+        log(f"[encoder-train-time] {us / 1e3:8.3f} ms/step "
             f"{e.count / n_prof:6.1f}/step {100 * us / busy_us:5.1f}% "
             f"{e.key[:90]}")
     return med
@@ -2054,6 +2317,11 @@ def main():
         "adaln_bwd")})
     launches.update({k: bf16_launches[k] for k in (
         "flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16")})
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as save_dir:
+        _timed(phase_encoder_train, train_case, save_dir)
+        _timed(phase_encoder_test, train_case, save_dir)
+    _timed(phase_encoder_card_vs_cpu)
+    _timed(phase_encoder_train_time)
     f32_step = _timed(phase_train_card_vs_cpu, train_case, train_np)
     _timed(phase_train_card_vs_cpu_bf16, train_case, train_np, f32_step)
     _timed(phase_train_time, train_case, train_np)

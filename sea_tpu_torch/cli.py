@@ -1,6 +1,14 @@
 """Command-line entry point of the port.
 
+    python -m sea_tpu_torch.cli <flow_type> encoder train
+        [--epochs N] [--batch_size N] [--synthetic] [--save_dir DIR]
+        [--model_path PATH] [--compute_dtype f32|bf16|bf16_mixed|bf16_shadow]
+        [--adam_mu_dtype f32|bf16] [--seed N] [--device cuda|cpu|cuda:N]
+    python -m sea_tpu_torch.cli <flow_type> encoder test
+        [--model_path PATH] [--synthetic] [--save_dir DIR] [--seed N]
+        [--device cuda|cpu|cuda:N]
     python -m sea_tpu_torch.cli <flow_type> temporal train
+        [--model_path PATH]
         [--epochs N] [--batch_size N] [--synthetic] [--save_dir DIR]
         [--compute_dtype f32|bf16|bf16_mixed|bf16_shadow]
         [--adam_mu_dtype f32|bf16] [--seed N] [--device cuda|cpu|cuda:N]
@@ -13,7 +21,11 @@
         [--horizon H] [--trajectory IDX] [--output PATH]
         [the serving flags of `temporal test`]
 
-Same grammar as ``python -m sea_tpu.cli``. Ported so far: ``temporal
+Same grammar as ``python -m sea_tpu.cli``. Ported so far: ``encoder
+train`` and ``encoder test``, stage 1 (the autoencoder's training loop on
+one device, under the same numerics policies and optimizer as stage 2,
+writing the JAX loop's ``encoder_decoder`` checkpoint; the test's three
+reconstruction metrics, without the field plots); ``temporal
 train`` (single device, AdamW with f32 or bf16 first moments, under the
 f32 or a bf16 numerics policy, the bf16 shadow included; it writes the JAX
 training loop's npz checkpoints; evaluation runs f32 on the master weights);
@@ -25,7 +37,11 @@ teacher-forced drift gate; f32, bf16 or int8 KV caches); and ``temporal
 generate``, the surrogate simulation: a test window's initial state
 rolled ``--horizon`` steps, past the dataset window, decoded to fields
 [H, N, F] and saved as ``.npy``; all as the JAX CLI serves on one device.
-Every other mode and flag exits with a parser error that points to
+``--model_path`` with a train mode resumes from an npz checkpoint: its
+params and, where the checkpoint's optimizer state has the configured
+recipe's structure, its Adam moments (else a fresh optimizer, with the
+JAX CLI's warning). Every other mode and flag exits with a parser error
+that points to
 ROADMAP.md. As in the JAX CLI, ``--seed`` overrides the random seed of the
 data splits; the training keys start from seed 0 in both.
 
@@ -46,8 +62,8 @@ import sys
 import numpy as np
 import torch
 
-PORTED = (("temporal", "train"), ("temporal", "test"),
-          ("temporal", "generate"))
+PORTED = (("encoder", "train"), ("encoder", "test"), ("temporal", "train"),
+          ("temporal", "test"), ("temporal", "generate"))
 
 
 def get_case(flow_type: str):
@@ -95,8 +111,9 @@ def main(argv=None):
     parser.add_argument("model_type", choices=["encoder", "temporal"])
     parser.add_argument("mode", choices=["train", "test", "generate"])
     parser.add_argument("--model_path", default=None,
-                        help="temporal .npz checkpoint (default: the case's "
-                             "temporal checkpoint under --save_dir)")
+                        help=".npz checkpoint to test, serve or resume "
+                             "training from (default for test and serve: "
+                             "the case's checkpoint under --save_dir)")
     parser.add_argument("--synthetic", action="store_true",
                         help="use generated synthetic data")
     parser.add_argument("--save_dir", default=None)
@@ -170,8 +187,7 @@ def main(argv=None):
         parser.error("generate is a temporal (stage-2) serving mode")
     if (args.model_type, args.mode) not in PORTED:
         parser.error(f"`{args.model_type} {args.mode}` is not ported to "
-                     "sea_tpu_torch yet; only `temporal train`, `temporal "
-                     "test` and `temporal generate` are (see ROADMAP.md)")
+                     "sea_tpu_torch yet (see ROADMAP.md)")
     if (args.compute_dtype or args.batch_size is not None
             or args.adam_mu_dtype) and args.mode != "train":
         parser.error("--compute_dtype/--batch_size/--adam_mu_dtype only "
@@ -184,8 +200,9 @@ def main(argv=None):
                      "`temporal generate`")
     if args.horizon is not None and args.horizon < 1:
         parser.error(f"--horizon must be >= 1; got {args.horizon}")
-    if args.mode == "train" and (args.precision != "f32"
-                                 or args.kv_cache != "auto"):
+    if (args.model_type, args.mode) not in (("temporal", "test"),
+                                            ("temporal", "generate")) and (
+            args.precision != "f32" or args.kv_cache != "auto"):
         parser.error("--precision/--kv_cache only apply to `temporal test` "
                      "and `temporal generate` (rollout serving); training "
                      "takes --compute_dtype")
@@ -208,7 +225,11 @@ def main(argv=None):
                                                     save_dir=args.save_dir))
     if args.compute_dtype or args.batch_size is not None \
             or args.adam_mu_dtype:
+        # The recipe of the stage being trained, set before any resume
+        # template is built: bf16_shadow carries state of its own.
         from sea_tpu_torch.utils.precision import POLICY_BY_FLAG
+        stage = ("spatial_train" if args.model_type == "encoder"
+                 else "temporal_train")
         updates = {}
         if args.compute_dtype:
             updates["compute_dtype"] = POLICY_BY_FLAG[args.compute_dtype]
@@ -217,8 +238,8 @@ def main(argv=None):
         if args.adam_mu_dtype:
             updates["adam_mu_dtype"] = ("bfloat16" if args.adam_mu_dtype
                                         == "bf16" else "float32")
-        case = case.replace(temporal_train=dataclasses.replace(
-            case.temporal_train, **updates))
+        case = case.replace(**{stage: dataclasses.replace(
+            getattr(case, stage), **updates)})
     data = _load_data(case, args.synthetic)
     if data is not None:
         # Synthetic data is smaller than the configured datasets: clamp
@@ -230,25 +251,118 @@ def main(argv=None):
         case = case.replace(temporal_train=dataclasses.replace(
             tt, dataset_src_len=min(tt.dataset_src_len, T - 1),
             batch_size=min(tt.batch_size, n_train)))
+    if args.model_type == "encoder":
+        if args.mode == "train":
+            return _train_encoder(case, args, data, device)
+        return _test_encoder(case, args, data, device)
     if args.mode == "train":
         return _train(case, args, data, device)
     return _serve(case, args, data, device, parser)
 
 
-def _train(case, args, data, device):
-    """`temporal train`: returns the best-validation params (numpy)."""
-    if args.model_path:
-        raise SystemExit("--model_path with `temporal train` (resume) is "
-                         "not ported to sea_tpu_torch yet (see ROADMAP.md)")
+def _tracker(case, args):
     from sea_tpu_torch.train.tracking import create_error_tracker
-    from sea_tpu_torch.train.train_temporal import train
-    from sea_tpu_torch.utils.checkpoint import save_checkpoint
-    tracker = create_error_tracker(
+    return create_error_tracker(
         use_wandb=case.run.use_wandb, project_name=case.run.project_name,
         run_name=f"{args.flow_type}_{args.model_type}_{args.mode}",
         save_dir=case.run.save_dir)
-    params, _ = train(case, tracker, device=device, data=data,
-                      epochs=args.epochs)
+
+
+def load_train_checkpoint(path: str, template, train_cfg):
+    """(params, opt_state | None), numpy trees, for --model_path resume:
+    the checkpoint's params and, when it carries an optimizer state of the
+    structure ``train_cfg``'s optimizer has (AdamW with f32 or bf16 mu,
+    alone or under the bf16 shadow), that state, so resume continues the
+    Adam moments. A state of another structure (most often one written
+    under another --compute_dtype recipe) resumes the params with a fresh
+    optimizer and a warning. ``template``: the model's params, numpy."""
+    from sea_tpu_torch.train.optim import make_optimizer
+    from sea_tpu_torch.utils.checkpoint import load_full_checkpoint
+    from sea_tpu_torch.utils.params import opt_state_template
+    opt_template = opt_state_template(make_optimizer(train_cfg), template)
+    try:
+        params, opt_state, _ = load_full_checkpoint(path, template,
+                                                    opt_template)
+    except KeyError as exc:
+        print(f"Warning: optimizer state in {path} does not match the "
+              f"configured optimizer structure (missing leaf {exc}) — "
+              "likely saved under a different --compute_dtype recipe "
+              "(bf16_shadow vs plain). Resuming params with a FRESH "
+              "optimizer; pass the original recipe flags to continue "
+              "the Adam moments.")
+        params, _, _ = load_full_checkpoint(path, template, None)
+        return params, None
+    if opt_state is not None:
+        print("Restored optimizer state (resume continues Adam moments)")
+    return params, opt_state
+
+
+def _train_encoder(case, args, data, device):
+    """`encoder train`: returns the best-validation params (numpy)."""
+    from sea_tpu_torch.models.spatial import init_spatial
+    from sea_tpu_torch.train.train_spatial import process_data, train
+    from sea_tpu_torch.utils.checkpoint import save_checkpoint
+    from sea_tpu_torch.utils.params import to_numpy
+    init_params = init_opt = precomputed = None
+    if args.model_path:
+        # The template needs n_inp, derived from the data: process it once
+        # and hand it to the training loop.
+        precomputed = process_data(case, data=data)
+        template = to_numpy(init_spatial(precomputed.spatial_cfg,
+                                         torch.Generator().manual_seed(0),
+                                         device="cpu"))
+        init_params, init_opt = load_train_checkpoint(
+            args.model_path, template, case.spatial_train)
+        print(f"Continuing training from model: {args.model_path}")
+    params, _ = train(case, _tracker(case, args), device=device, data=data,
+                      epochs=args.epochs, init_params=init_params,
+                      init_opt_state=init_opt, precomputed=precomputed)
+    if case.spatial_train.final_save:
+        save_checkpoint(case.run.save_dir, "final_model_encoder",
+                        case.run.case_name, case.run.run_name, params)
+    return params
+
+
+def _test_encoder(case, args, data, device):
+    """`encoder test`: returns the three reconstruction metrics."""
+    from sea_tpu_torch.models.spatial import init_spatial
+    from sea_tpu_torch.train.evaluate import test_encoder_decoder
+    from sea_tpu_torch.train.train_spatial import process_data
+    from sea_tpu_torch.utils.checkpoint import checkpoint_path, load_params
+    from sea_tpu_torch.utils.params import from_numpy, to_numpy
+    sd = process_data(case, data=data)
+    template = to_numpy(init_spatial(sd.spatial_cfg,
+                                     torch.Generator().manual_seed(0),
+                                     device="cpu"))
+    path = args.model_path or checkpoint_path(
+        case.run.save_dir, "encoder_decoder", case.run.case_name,
+        case.run.run_name)
+    params = from_numpy(load_params(path, template), device)
+    print(f"Using pretrained encoder model: {path}")
+    results = test_encoder_decoder(params, case, sd.test, sd.mesh_processor,
+                                   device=device, spatial_cfg=sd.spatial_cfg)
+    print("Field plots (original and decoded snapshots) are not ported to "
+          "sea_tpu_torch yet (see ROADMAP.md)")
+    return results
+
+
+def _train(case, args, data, device):
+    """`temporal train`: returns the best-validation params (numpy)."""
+    from sea_tpu_torch.models.temporal import init_temporal
+    from sea_tpu_torch.train.train_temporal import train
+    from sea_tpu_torch.utils.checkpoint import save_checkpoint
+    from sea_tpu_torch.utils.params import to_numpy
+    init_params = init_opt = None
+    if args.model_path:
+        template = to_numpy(init_temporal(case.temporal,
+                                          torch.Generator().manual_seed(0),
+                                          device="cpu"))
+        init_params, init_opt = load_train_checkpoint(
+            args.model_path, template, case.temporal_train)
+        print(f"Continuing training from model: {args.model_path}")
+    params, _ = train(case, _tracker(case, args), device=device, data=data,
+                      epochs=args.epochs, init_params=init_params,
+                      init_opt_state=init_opt)
     if case.temporal_train.final_save:
         save_checkpoint(case.run.save_dir, "final_model_temporal",
                         case.run.case_name, case.run.run_name, params)

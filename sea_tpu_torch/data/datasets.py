@@ -1,7 +1,8 @@
 """Datasets and batching.
 
-The port's own copy of the numpy module ``sea_tpu/data/datasets.py``
-(the device-memory budget helper, which needs JAX, is left out).
+The port's own copy of the numpy module ``sea_tpu/data/datasets.py``;
+``device_resident_budget`` asks torch for the card's free memory where
+the JAX one asks its device.
 
 Mirrors the reference's data objects re-expressed as plain-array pipelines:
 - EncoderDecoderDataset (utils/data_processors.py:376-386): trivial snapshot
@@ -35,6 +36,16 @@ def apply_sea_layout(patched: np.ndarray, layout: str) -> np.ndarray:
     if layout == "mixed":
         B, P, C, F = patched.shape
         return patched.reshape(B, P, F, C)
+    raise ValueError(f"Invalid SEA layout: {layout!r}")
+
+
+def invert_sea_layout(x: np.ndarray, layout: str) -> np.ndarray:
+    """[B, P, F, C] -> [B, P, C, F], the inverse of apply_sea_layout."""
+    if layout == "isolate":
+        return np.ascontiguousarray(x.transpose(0, 1, 3, 2))
+    if layout == "mixed":
+        B, P, F, C = x.shape
+        return x.reshape(B, P, C, F)
     raise ValueError(f"Invalid SEA layout: {layout!r}")
 
 
@@ -140,6 +151,19 @@ def padded_batch_index_iterator(n: int, batch_size: int
             idx = np.concatenate(
                 [idx, np.full(batch_size - k, end - 1, dtype=idx.dtype)])
         yield idx, k
+
+
+def device_resident_budget(configured_max: int, device) -> int:
+    """Bytes a training loop may pin on ``device`` for its train and validation
+    splits (TrainConfig.device_resident_max_bytes): the configured cap,
+    and on a CUDA device at most half of its free memory, so a split that
+    fits a per-step copy never takes the step's working memory."""
+    import torch
+    device = torch.device(device)
+    if device.type != "cuda":
+        return configured_max
+    free, _ = torch.cuda.mem_get_info(device)
+    return min(configured_max, free // 2)
 
 
 def ib_is_time_constant(*window_sets) -> bool:

@@ -2,8 +2,9 @@
 
 Mirror of reference utils/data_processors.py MeshProcessor (:454-597):
 optionally fit per-field-group min-max scalers, build the partitioner and
-patchify [T, N, F] fields into [T, P, C, F] (the inverse runs on the
-device, ``rollout/e2e.py``). Optionally runs the
+patchify [T, N, F] fields into [T, P, C, F], and back
+(``inverse_scale_and_unpatch`` on the host for the stage-1 test; the
+rollout's inverse runs on the device, ``rollout/e2e.py``). Optionally runs the
 round-trip invariant check on construction (``perform_initial_test``,
 :535-536, 575-597).
 
@@ -100,6 +101,18 @@ class MeshProcessor:
         out = np.zeros_like(fields)
         for scaler, group in zip(self.scalers, self.field_groups):
             out[..., group] = scaler.transform(fields[..., group])
+        return out
+
+    def inverse_scale_and_unpatch(self, patched: np.ndarray) -> np.ndarray:
+        """[T, P, C, F] -> [T, N, F]: unpatchify, then undo each group's
+        scaling."""
+        flat = unpatchify(self.partition, np.asarray(patched))
+        if not self.scalers:
+            return flat
+        self._check_group_coverage(flat.shape[-1])
+        out = np.zeros_like(flat)
+        for scaler, group in zip(self.scalers, self.field_groups):
+            out[..., group] = scaler.inverse_transform(flat[..., group])
         return out
 
     def _roundtrip_check(self, scaled: np.ndarray, patched: np.ndarray,

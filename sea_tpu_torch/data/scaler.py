@@ -47,6 +47,13 @@ class MinMaxScaler:
         std = (data - self.min_val) / (self.max_val - self.min_val)
         return std * (hi - lo) + lo
 
+    def inverse_transform(self, scaled: np.ndarray) -> np.ndarray:
+        if self.min_val is None or self.max_val is None:
+            raise ValueError("The scaler has not been fitted yet.")
+        lo, hi = self.feature_range
+        std = (scaled - lo) / (hi - lo)
+        return std * (self.max_val - self.min_val) + self.min_val
+
     def _record_values(self) -> None:
         os.makedirs(os.path.dirname(self.save_file) or ".", exist_ok=True)
         np.savez(self.save_file, min_val=self.min_val, max_val=self.max_val,

@@ -15,6 +15,14 @@ keep PyTorch's default init.
 The encoder's attention over the 64 patches is the plain path
 (``impl="plain"``): the JAX package never sends it to a kernel either
 (T < 1024), and its head dim of 4 is not one the flash kernels take.
+
+Training mode (``rng`` a ``utils.prng`` key and ``deterministic``
+False) follows the JAX key tree: ``split(rng, 2 + num_layers)``; key 0,
+folded with the group index, draws the variational noise
+(``prng.normal``); key 1 drops the positional encoding's output; key
+2 + i drives block i, split into its attention and MLP dropout keys.
+Every dropout is the JAX package's position hash, so the masks and the
+noise's uniforms are JAX's bit for bit.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ from torch import nn
 from sea_tpu_torch.configs.base import SpatialModelConfig
 from sea_tpu_torch.ops import layers as L
 from sea_tpu_torch.ops.attention import init_attention, mha
+from sea_tpu_torch.utils import prng
 from sea_tpu_torch.utils.params import tree_map
 
 PAD_SENTINEL = -9999.0
@@ -45,11 +54,17 @@ def init_encoder_block(gen: torch.Generator, embed_dim: int, n_heads: int, *,
     }
 
 
-def encoder_block(params, x, *, n_heads: int):
+def encoder_block(params, x, *, n_heads: int, dropout_rate: float = 0.0,
+                  rng=None, deterministic: bool = True):
+    k1 = k2 = None
+    if rng is not None and not deterministic:
+        k1, k2 = prng.split(rng)
     h = L.layernorm(params["ln1"], x)
     x = x + mha(params["attn"], h, h, n_heads=n_heads, causal=False,
-                rope=False, impl="plain")
-    return x + L.mlp(params["mlp"], L.layernorm(params["ln2"], x))
+                rope=False, dropout_rate=dropout_rate, dropout_key=k1,
+                deterministic=deterministic, impl="plain")
+    return x + L.mlp(params["mlp"], L.layernorm(params["ln2"], x),
+                     dropout_rate=dropout_rate, dropout_key=k2)
 
 
 def init_spatial(cfg: SpatialModelConfig, gen: torch.Generator, *,
@@ -101,10 +116,8 @@ class SpatialModel(nn.Module):
         return self
 
     def forward(self, x):
-        z = spatial_encode(self.params, self.cfg, apply_padding_mask(x))
-        if self.cfg.variational:
-            z = z[0]
-        return spatial_decode(self.params, self.cfg, z)
+        out = spatial_forward(self.params, self.cfg, x)
+        return out[0] if self.cfg.variational else out
 
 
 def apply_padding_mask(x, pad_idx: float = PAD_SENTINEL):
@@ -112,26 +125,38 @@ def apply_padding_mask(x, pad_idx: float = PAD_SENTINEL):
     return x.masked_fill(x == pad_idx, 0.0)
 
 
-def spatial_encode(params, cfg: SpatialModelConfig, x):
+def spatial_encode(params, cfg: SpatialModelConfig, x, *, rng=None,
+                   deterministic: bool = True):
     """x: [B, P, F, C] -> z [B, P, G, D]; variational models return
-    (z, mu, logvar) with z = mu (serving is deterministic)."""
+    (z, mu, logvar), z = mu when deterministic, else reparameterized."""
     B, P, F, C = x.shape
+    n_split = 2 + cfg.num_layers
+    training = rng is not None and not deterministic
+    rngs = prng.split(rng, n_split) if training else [None] * n_split
 
     def heads(name):
-        return torch.cat([
-            L.scale_mlp(params[name][i],
-                        x[:, :, list(group), :].reshape(B, P, 1,
-                                                        len(group) * C))
-            for i, group in enumerate(cfg.field_groups)], dim=-2)
+        return [L.scale_mlp(params[name][i],
+                            x[:, :, list(group), :].reshape(
+                                B, P, 1, len(group) * C))
+                for i, group in enumerate(cfg.field_groups)]
 
-    z = heads("encoders")  # [B, P, G, D]
+    zs = heads("encoders")  # G x [B, P, 1, D]
     mu = logvar = None
     if cfg.variational:
-        mu, logvar = z, heads("encoders_logvar")
-    z = z.reshape(B, P, cfg.num_groups * cfg.embed_dim)
-    z = L.positional_encoding(params["pe"], z)
-    for block in params["blocks"]:
-        z = encoder_block(block, z, n_heads=cfg.n_heads)
+        logvars = heads("encoders_logvar")
+        mu, logvar = torch.cat(zs, dim=-2), torch.cat(logvars, dim=-2)
+        if training:
+            zs = [m + torch.exp(0.5 * lv) * prng.normal(
+                      prng.fold_in(rngs[0], i), lv.shape, lv.dtype,
+                      device=lv.device)
+                  for i, (m, lv) in enumerate(zip(zs, logvars))]
+    z = torch.cat(zs, dim=-2).reshape(B, P, cfg.num_groups * cfg.embed_dim)
+    z = L.positional_encoding(params["pe"], z, dropout_rate=cfg.dropout,
+                              dropout_key=rngs[1])
+    for i, block in enumerate(params["blocks"]):
+        z = encoder_block(block, z, n_heads=cfg.n_heads,
+                          dropout_rate=cfg.dropout, rng=rngs[2 + i],
+                          deterministic=deterministic)
     z = L.layernorm(params["ln"], z)
     z = z.reshape(B, P, cfg.num_groups, cfg.embed_dim)
     if cfg.variational:
@@ -146,3 +171,16 @@ def spatial_decode(params, cfg: SpatialModelConfig, z):
         L.scale_mlp(params["decoders"][i], z[:, :, i:i + 1, :]).reshape(
             B, P, len(group), cfg.n_inp)
         for i, group in enumerate(cfg.field_groups)], dim=2)
+
+
+def spatial_forward(params, cfg: SpatialModelConfig, x, *, rng=None,
+                    deterministic: bool = True):
+    """Encode and decode x [B, P, F, C] (padding sentinels zeroed first);
+    variational models return (recon, mu, logvar)."""
+    x = apply_padding_mask(x)
+    if cfg.variational:
+        z, mu, logvar = spatial_encode(params, cfg, x, rng=rng,
+                                       deterministic=deterministic)
+        return spatial_decode(params, cfg, z), mu, logvar
+    z = spatial_encode(params, cfg, x, rng=rng, deterministic=deterministic)
+    return spatial_decode(params, cfg, z)

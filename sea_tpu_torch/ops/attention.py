@@ -10,7 +10,10 @@ to its kernel, thresholds measured on a TPU; below them its XLA path keys
 dropout on the flat index of the probabilities instead of (bh, q, k), so
 the bits differ there while the distribution is the same (ROADMAP.md,
 Queue 3). ``impl="plain"`` keeps the einsum path for the stage-1 encoder,
-which the JAX package never sends to a kernel either.
+which the JAX package never sends to a kernel either; its dropout is the
+JAX XLA path's, the position hash over the flat index of the
+probabilities [B, H, Tq, Tk] (``layers.dropout``), so its masks are
+JAX's bit for bit.
 
 ``mha_step``, the one-token form the rollout runs, attends over a
 head-major [B, H, T, hd] KV cache through ``ops.decode_attention`` — the
@@ -40,7 +43,7 @@ import torch
 
 from sea_tpu_torch.ops.decode_attention import decode_attention
 from sea_tpu_torch.ops.flash_attention import flash_attention
-from sea_tpu_torch.ops.layers import init_linear, linear
+from sea_tpu_torch.ops.layers import dropout, init_linear, linear
 from sea_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 from sea_tpu_torch.utils.prng import key_to_seed
 
@@ -80,9 +83,12 @@ def _project_qkv(params, x_q, x_kv):
     return q, k, v
 
 
-def attention_core(q, k, v, *, causal: bool, src_len: int = 0):
+def attention_core(q, k, v, *, causal: bool, src_len: int = 0,
+                   dropout_rate: float = 0.0, dropout_key=None):
     """q: [B,Tq,H,hd], k/v: [B,Tk,H,hd] -> [B,Tq,H,hd]. The causal mask
-    admits key j for query i when j <= i + src_len."""
+    admits key j for query i when j <= i + src_len. With a rate and a key
+    (``utils.prng``) the f32 probabilities are dropped by ``layers.
+    dropout``."""
     hd = q.shape[-1]
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(),
                           k.float()) * hd ** -0.5
@@ -91,7 +97,7 @@ def attention_core(q, k, v, *, causal: bool, src_len: int = 0):
         qi = torch.arange(Tq, device=q.device)[:, None]
         kj = torch.arange(Tk, device=q.device)[None, :]
         scores = scores.masked_fill(kj > qi + src_len, float("-inf"))
-    probs = torch.softmax(scores, dim=-1)
+    probs = dropout(torch.softmax(scores, dim=-1), dropout_rate, dropout_key)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(),
                        v.float())
     return out.to(q.dtype)
@@ -106,7 +112,8 @@ def multihead_core(q, k, v, *, n_heads: int, causal: bool, rope: bool,
 
     Dropout applies when training (``deterministic`` False) with a rate
     and a key (``utils.prng``), as in the JAX package. impl: "flash" (the
-    kernels on CUDA) or "plain" (einsum, no dropout). ``valid_len`` (an
+    kernels on CUDA) or "plain" (einsum; dropout on the probabilities'
+    flat index, as JAX's XLA path). ``valid_len`` (an
     int): only keys at positions < valid_len are attended (the masked
     prefix engine); it raises with dropout or a gradient."""
     B, Tq, C = q.shape
@@ -139,10 +146,8 @@ def multihead_core(q, k, v, *, n_heads: int, causal: bool, rope: bool,
             q, k, v, causal, src_len, dropout_rate=rate,
             dropout_seed=key_to_seed(dropout_key) if rate else None)
     elif impl == "plain":
-        if rate:
-            raise NotImplementedError("impl='plain' has no dropout; the "
-                                      "training path is impl='flash'")
-        out = attention_core(q, k, v, causal=causal, src_len=src_len)
+        out = attention_core(q, k, v, causal=causal, src_len=src_len,
+                             dropout_rate=rate, dropout_key=dropout_key)
     else:
         raise ValueError(f"impl {impl!r}: want 'flash' or 'plain'")
     return out.reshape(B, Tq, C)

@@ -305,7 +305,10 @@ def sinusoidal_pe_table(d_model: int, max_len: int = 5000, *, device,
     return pe.to(dtype)
 
 
-def positional_encoding(pe_table, x):
-    """x: [..., T, D]; adds pe_table[:T], result in x's dtype."""
+def positional_encoding(pe_table, x, *, dropout_rate: float = 0.0,
+                        dropout_key=None):
+    """x: [..., T, D]; adds pe_table[:T], result in x's dtype, then the
+    training dropout when given a key."""
     T = x.shape[-2]
-    return (x + pe_table[:T]).to(x.dtype)
+    return dropout((x + pe_table[:T]).to(x.dtype), dropout_rate,
+                   dropout_key)

@@ -1,9 +1,10 @@
 """Serving evaluation and generation: rollout, decode, un-patch (and
-score) on the device.
+score) on the device; and the stage-1 test.
 
-Counterparts of ``fused_autoregressive_evaluation`` and
-``generate_trajectory`` in ``sea_tpu/train/evaluate.py``, with the same
-metrics, the same rollout CSV and the same generated fields.
+Counterparts of ``fused_autoregressive_evaluation``,
+``generate_trajectory`` and ``test_encoder_decoder`` in
+``sea_tpu/train/evaluate.py``, with the same metrics, the same rollout
+CSV and the same generated fields.
 
 Documented divergences from the JAX functions:
 
@@ -14,8 +15,9 @@ Documented divergences from the JAX functions:
   trajectory batch 1 to the prefix engine (a v5e measurement). The two
   engines are equal (tests/test_rollout.py, tests/test_torch_rollout.py),
   so the metrics agree (held to rtol 1e-4 by tests/test_torch_e2e.py).
-- Only the per-time CSV is written. The field and error plots wait: the
-  GPU machine has no matplotlib (ROADMAP.md).
+- Only the per-time CSV is written. The field and error plots, and
+  the stage-1 test's original and decoded field plots, wait: the GPU
+  machine has no matplotlib (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -28,12 +30,14 @@ import numpy as np
 import torch
 
 from sea_tpu_torch.configs.base import CaseConfig
+from sea_tpu_torch.data.datasets import invert_sea_layout
 from sea_tpu_torch.data.mesh import MeshProcessor
 from sea_tpu_torch.data.latents import LatentService
 from sea_tpu_torch.rollout.e2e import (make_e2e_rollout_eval,
                                        make_eval_tail, make_generate)
 from sea_tpu_torch.rollout.engine import (is_scan_incremental, rollout,
                                           select_engine)
+from sea_tpu_torch.train.metrics import relative_mse
 
 
 def fused_autoregressive_evaluation(params, case: CaseConfig, windows,
@@ -132,6 +136,42 @@ def generate_trajectory(params, case: CaseConfig, windows,
                  torch.from_numpy(np.ascontiguousarray(ib_h[None])).to(
                      device))
     return fields[0].cpu().numpy()  # [H, N, F]
+
+
+def test_encoder_decoder(spatial_params, case: CaseConfig, tokens,
+                         mesh_processor: MeshProcessor, *, device,
+                         save_artifacts: bool = False,
+                         spatial_cfg=None) -> Dict[str, float]:
+    """Autoencode the test snapshots ``tokens`` [B, P, F, C] (SEA layout
+    applied) with the stage-1 params (a tree of tensors) on ``device``,
+    print and return the reconstruction MSE before un-patching
+    ("mse_patched"), after inverse scaling and un-patching
+    ("mse_unpatched"), and the relative MSE over nodes, averaged over
+    snapshots and fields ("relative_mse"). ``save_artifacts`` (the field
+    plots) is not ported."""
+    if save_artifacts:
+        raise NotImplementedError(
+            "save_artifacts: the stage-1 field plots are not ported to "
+            "sea_tpu_torch yet (see ROADMAP.md)")
+    svc = LatentService(spatial_cfg or case.spatial, spatial_params,
+                        batch_size=case.run.spatial_batch_size, device=device)
+    recon = svc.decode_dataset(svc.encode_dataset(tokens))
+    pre_unpatch_mse = float(np.mean((recon - tokens) ** 2))
+    decoded = mesh_processor.inverse_scale_and_unpatch(
+        invert_sea_layout(recon, case.run.sea_layout))
+    original = mesh_processor.inverse_scale_and_unpatch(
+        invert_sea_layout(np.asarray(tokens), case.run.sea_layout))
+    post_unpatch_mse = float(np.mean((decoded - original) ** 2))
+    rel = float(relative_mse(torch.from_numpy(decoded),
+                             torch.from_numpy(original), axis=1).mean())
+    print(f"Test Loss before inverse scaling and unpatching: "
+          f"{pre_unpatch_mse:.6f}")
+    print(f"Test Loss after inverse scaling and unpatching: "
+          f"{post_unpatch_mse:.6f}")
+    print(f"Test Relative MSE after inverse scaling and unpatching: "
+          f"{rel:.6f}")
+    return {"mse_patched": pre_unpatch_mse, "mse_unpatched": post_unpatch_mse,
+            "relative_mse": rel}
 
 
 def _write_rollout_csv(case: CaseConfig, per_time: np.ndarray) -> None:

@@ -105,6 +105,21 @@ def opt_state_from_numpy(tree, device, mu_dtype=None):
             ) + tuple(() for _ in tree[1:])
 
 
+def opt_state_template(tx, params_np):
+    """The numpy tree ``opt_state_to_numpy(tx.init(params))`` would give,
+    for restoring a checkpoint's optimizer state, with no moment buffers
+    allocated: each leaf a zero-stride f32 view of the param's shape (a
+    bf16 mu and the shadow are stored widened to f32), the count int32.
+    ``tx``: an AdamW or a with_bf16_shadow around one."""
+    from sea_tpu_torch.train.optim import ScaleByAdamState, ShadowOptState
+    zeros = tree_map(lambda a: np.broadcast_to(np.float32(0), np.shape(a)),
+                     params_np)
+    state = (ScaleByAdamState(np.int32(0), zeros, zeros), (), ())
+    if hasattr(tx, "inner"):
+        return ShadowOptState(state, zeros)
+    return state
+
+
 def save_init_checkpoints(case, save_dir: str, *, seed: int) -> dict:
     """Initialise the port's stage-1 and stage-2 models for ``case`` from
     seeded ``torch.Generator``s (``seed`` and ``seed + 1``), the stage-1

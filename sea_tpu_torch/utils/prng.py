@@ -16,11 +16,24 @@ since 0.5):
 - ``split(k, n)[i]`` is ``fold_in(k, i)``.
 
 tests/test_torch_train.py holds all four functions to ``jax.random``.
+
+``normal`` is ``jax.random.normal`` on tensors, for the variational
+encoder's reparameterization noise: threefry2x32 of the key over the
+flat index of each element, split into (hi, lo) 32-bit counter words;
+the two output words XORed into 32 random bits (the low 8 for bf16);
+their top mantissa bits under the exponent of 1.0 give a float in [1, 2),
+mapped to a uniform on [nextafter(-1, 0), 1); then sqrt(2) erfinv(u).
+tests/test_torch_spatial_train.py holds the bits and the uniform to
+``jax.random`` exactly and the normal within a few ulps (XLA's erfinv is
+another polynomial than PyTorch's).
 """
 
 from __future__ import annotations
 
+import math
 from typing import List, Tuple
+
+import torch
 
 Key = Tuple[int, int]
 
@@ -70,3 +83,58 @@ def key_to_seed(key: Key) -> Tuple[int, int]:
     """The key's two words read as int32, as the JAX package hands them to
     its dropout hash (``ops/attention._key_to_seed``)."""
     return tuple(w - (1 << 32) if w & 0x80000000 else w for w in key)
+
+
+def _threefry2x32_tensor(key: Key, x0, x1):
+    """threefry2x32 on int64 tensors of uint32 words (a host key)."""
+    ks = (key[0] & _M32, key[1] & _M32,
+          (key[0] ^ key[1] ^ 0x1BD11BDA) & _M32)
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = (((x1 << r) | (x1 >> (32 - r))) & _M32) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x0, x1
+
+
+def random_bits(key: Key, shape, *, device) -> torch.Tensor:
+    """``jax.random.bits(key, shape, uint32)`` as int64 values in
+    [0, 2**32): threefry over the partitionable counters (hi, lo) of each
+    element's flat index, the two words XORed."""
+    idx = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
+    b0, b1 = _threefry2x32_tensor(key, idx >> 32, idx & _M32)
+    return (b0 ^ b1).reshape(shape)
+
+
+def uniform_open(key: Key, shape, dtype=torch.float32, *, device):
+    """The uniform ``jax.random.normal`` draws: U[nextafter(-1, 0), 1) in
+    ``dtype`` (float32 or bfloat16), from the random bits' top mantissa
+    bits under the exponent of 1.0."""
+    bits = random_bits(key, shape, device=device)
+    if dtype == torch.float32:
+        floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(
+            torch.float32)
+    elif dtype == torch.bfloat16:
+        # Seven mantissa bits take 8 random bits (the words' low byte).
+        floats = (((bits & 0xFF) >> 1) | 0x3F80).to(torch.int16).view(
+            torch.bfloat16)
+    else:
+        raise ValueError(f"uniform_open: dtype {dtype}, want float32 or "
+                         "bfloat16")
+    # nextafter(-1, 0) in dtype: -1 plus half the spacing of [1, 2).
+    lo = torch.tensor(-1.0 + torch.finfo(dtype).eps / 2, dtype=dtype,
+                      device=device)
+    floats = floats - 1.0
+    return torch.maximum(lo, floats * (1.0 - lo) + lo)
+
+
+def normal(key: Key, shape, dtype=torch.float32, *, device) -> torch.Tensor:
+    """``jax.random.normal(key, shape, dtype)`` for float32 or bfloat16:
+    sqrt(2) erfinv(u) of ``uniform_open`` (erfinv in f32 for bf16, as XLA
+    widens it)."""
+    u = uniform_open(key, tuple(shape), dtype, device=device)
+    z = torch.erfinv(u.float()).to(dtype)
+    return z * torch.tensor(math.sqrt(2.0), dtype=dtype, device=device)

@@ -353,8 +353,9 @@ def test_cuda_device_without_cuda_raises():
 
 
 @pytest.mark.parametrize("argv", [
-    ["encoder", "train"], ["temporal", "train", "--seq_parallel", "2"],
-    ["encoder", "test"],
+    ["encoder", "train", "--profile", "d"],
+    ["temporal", "train", "--seq_parallel", "2"],
+    ["encoder", "test", "--model_path", "model.pt"],
     ["temporal", "test", "--mesh", "2x1"],
     ["temporal", "test", "--model_path", "model.pt"],
     ["temporal", "train", "--optimizer", "adafactor"]])
