@@ -45,6 +45,19 @@ before and read just after:
   each count exact; the checkpoint's shadow is the bf16 cast of its
   parameters; one step on the card against the CPU within bf16 noise.
 
+- the other exchange modes, ib scalings, remat and optimizers: the
+  multiphase width in the pool, addition and simple exchanges (32 scan
+  steps on the card against the CPU, exact decode counts; pool also at
+  int4 weights with an int8 cache, exact q8 and int4 counts); one
+  cylinder step on the card against the CPU in each of seven variants
+  (pool's three updates, addition, simple, fourier and linear ib), exact
+  flash and AdaLN counts; remat at 4 layers (the same gradients, the
+  flash forwards doubled, a lower forward-and-backward peak under
+  "full"); `cylinder_flow temporal train --optimizer adafactor` through
+  the CLI, f32 and bf16_shadow, its state read back and resumed, an
+  Adafactor step on the card against the CPU, the linear schedule's
+  learning rates, and the Adafactor update and step timed beside
+  AdamW's.
 - stage 1: `cylinder_flow encoder train --synthetic --epochs 2` at full
   width (12 layers, B=128; it launches none of the port's kernels: its
   attention over 64 patches is the plain path, as in the JAX package),
@@ -615,12 +628,30 @@ def phase_flash_dropout():
 
 def _attentions(cfg):
     """(attentions a scan step, attentions a full forward) of a config:
-    per layer G self and G(G-1) exchange decodes a step; G self, G(G-1)
-    exchange and, with attention-mode ib, G ib-attention flash forwards a
-    forward."""
+    per layer G self decodes a step and the exchange's, G(G-1) for sea (a
+    pair each), G for pool (a field each), none for addition and simple;
+    a full forward's flash forwards are the same and, with attention-mode
+    ib, G ib-attentions."""
     G, nl = cfg.num_fields, cfg.num_layers
+    exchange = {"sea": G * (G - 1), "pool": G}.get(cfg.exchange_mode, 0)
     ib = G if cfg.ib_addition_mode == "attention" else 0
-    return nl * (G + G * (G - 1)), nl * (G * G + ib)
+    return nl * (G + exchange), nl * (G + exchange + ib)
+
+
+def _adaln_sites(cfg):
+    """(forwards, backwards) of the AdaLN kernels a train step runs: per
+    layer ln_exp[i][0] and [i][2] of each field and the exchange's norms
+    (sea: one per field on its own side and one per pair on the other,
+    G^2; pool and addition: G; simple: none), and the G final norms; pool
+    also norms its dead token each forward (no backward: nothing reads
+    it). 0 for a plain-LN config."""
+    if cfg.ln_type.lower() != "adaln":
+        return 0, 0
+    G, nl = cfg.num_fields, cfg.num_layers
+    cross = {"sea": G * G, "pool": G, "addition": G}.get(cfg.exchange_mode,
+                                                          0)
+    sites = nl * (2 * G + cross) + G
+    return sites + (nl if cfg.exchange_mode == "pool" else 0), sites
 
 
 def phase_serve(case, save_dir):
@@ -711,25 +742,39 @@ def phase_generate(case, save_dir):
 def _int4_sites_per_step(qparams, cfg):
     """The int4 linears one rollout step runs (models/temporal.temporal_step
     on fused, int4-quantized params): per layer and field the self-attention
-    qkv and proj; the exchange's cross_down of field i and, per partner j,
-    cross_down of j and the cross-attention q, kv and proj and cross_up;
-    the MLP and the block proj; once per layer the ib MLP unless the AdaLN
-    cond tables carry it. A site counts where the quantizer rewrote it
-    (w_p4), so the count follows min_size and the matrix shapes. Returns
-    the count of each (K, N)."""
-    G = cfg.num_fields
+    qkv and proj; the exchange's: for sea, cross_down of field i and, per
+    partner j, cross_down of j and the cross-attention q, kv and proj and
+    cross_up; for pool and addition, cross_down and cross_up of each field
+    and, for pool, its cross-attention q, kv and proj and, once per layer,
+    the pool update (linear, or the MLP's fc1 and fc2); the MLP and the
+    block proj; once per layer the ib MLP unless the AdaLN cond tables
+    carry it. A site counts where the quantizer rewrote it (w_p4), so the
+    count follows min_size and the matrix shapes. Returns the count of
+    each (K, N)."""
+    G, mode = cfg.num_fields, cfg.exchange_mode
     sites = []
     for block in qparams["blocks"]:
         if cfg.ln_type.lower() != "adaln":
             sites += [lay["lin"] for lay in block["ib"]["layers"]]
+        if mode == "pool" and cfg.pool_update_method != "pooling":
+            update = block["pool_update"]
+            sites += ([update] if cfg.pool_update_method == "linear"
+                      else [update["fc1"], update["fc2"]])
         for i in range(G):
             att = block["self_attn"][i]
-            sites += [att["qkv"], att["proj"], block["cross_down"][i]]
-            for j in range(G):
-                if j != i:
-                    ca = block["cross_attn"][i][j]
-                    sites += [block["cross_down"][j], ca["q"], ca["kv"],
-                              ca["proj"], block["cross_up"][i]]
+            sites += [att["qkv"], att["proj"]]
+            if mode == "sea":
+                sites.append(block["cross_down"][i])
+                for j in range(G):
+                    if j != i:
+                        ca = block["cross_attn"][i][j]
+                        sites += [block["cross_down"][j], ca["q"], ca["kv"],
+                                  ca["proj"], block["cross_up"][i]]
+            elif mode in ("pool", "addition"):
+                sites += [block["cross_down"][i], block["cross_up"][i]]
+                if mode == "pool":
+                    ca = block["cross_attn"][i]
+                    sites += [ca["q"], ca["kv"], ca["proj"]]
             sites += [lay["lin"] for lay in block["mlp"][i]["layers"]]
             sites.append(block["proj"][i])
     return collections.Counter((2 * p["w_p4"].shape[0], p["w_p4"].shape[1])
@@ -1453,6 +1498,35 @@ def _train_schedule(case):
     return steps, evals
 
 
+def _expected_train_launches(cfg, steps, evals, bf16):
+    """The kernel launches of `temporal train` at ``steps`` train steps and
+    ``evals`` evaluation forwards: each step's attentions through the
+    flash forward, dQ and dK/dV (the bf16 forms under the bf16 policies)
+    and its AdaLN sites through the AdaLN forward and backward (on bf16 x
+    under those policies: the AdaLN counters count every launch and,
+    apart, those on bf16 x), each evaluation forward's through the f32
+    forwards."""
+    attn = _attentions(cfg)[1]
+    fwd, bwd = _adaln_sites(cfg)
+    expected = dict.fromkeys(_launch_counts(), 0)
+    if bf16:
+        expected.update({"flash_fwd_bf16": attn * steps,
+                         "flash_bwd_dq_bf16": attn * steps,
+                         "flash_bwd_dkv_bf16": attn * steps,
+                         "flash_fwd": attn * evals,
+                         "adaln_fwd": fwd * (steps + evals),
+                         "adaln_bwd": bwd * steps,
+                         "adaln_fwd_bf16": fwd * steps,
+                         "adaln_bwd_bf16": bwd * steps})
+    else:
+        expected.update({"flash_fwd": attn * (steps + evals),
+                         "flash_bwd_dq": attn * steps,
+                         "flash_bwd_dkv": attn * steps,
+                         "adaln_fwd": fwd * (steps + evals),
+                         "adaln_bwd": bwd * steps})
+    return expected
+
+
 def phase_train(case, save_dir, bf16=False):
     """`temporal train` through the port's CLI on the card. Per train step
     the G=2, one-layer model runs L*G^2 = 4 attentions (2 self, 2
@@ -1474,8 +1548,7 @@ def phase_train(case, save_dir, bf16=False):
     tcfg = (dataclasses.replace(case.temporal_train, **BF16_RECIPE) if bf16
             else case.temporal_train)
     cfg = case.temporal
-    G, nl = cfg.num_fields, cfg.num_layers
-    attn, norms = nl * G * G, nl * (2 * G + G * G) + G
+    attn, norms = _attentions(cfg)[1], _adaln_sites(cfg)[0]
     steps, evals = _train_schedule(case)
     _reset_launch_counts()
     t0 = time.perf_counter()
@@ -1485,22 +1558,7 @@ def phase_train(case, save_dir, bf16=False):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = _launch_counts()
-    expected = {name: 0 for name in launches}
-    if bf16:
-        expected.update({"flash_fwd_bf16": attn * steps,
-                         "flash_bwd_dq_bf16": attn * steps,
-                         "flash_bwd_dkv_bf16": attn * steps,
-                         "flash_fwd": attn * evals,
-                         "adaln_fwd": norms * (steps + evals),
-                         "adaln_bwd": norms * steps,
-                         "adaln_fwd_bf16": norms * steps,
-                         "adaln_bwd_bf16": norms * steps})
-    else:
-        expected.update({"flash_fwd": attn * (steps + evals),
-                         "flash_bwd_dq": attn * steps,
-                         "flash_bwd_dkv": attn * steps,
-                         "adaln_fwd": norms * (steps + evals),
-                         "adaln_bwd": norms * steps})
+    expected = _expected_train_launches(cfg, steps, evals, bf16)
     if launches != expected:
         raise AssertionError(f"{label} launches {launches}, expected "
                              f"{expected}")
@@ -1687,16 +1745,18 @@ def phase_train_card_vs_cpu_bf16(case, params_np, f32_stats):
         f"bf16(params) bit for bit; CPU step {cpu_s:.1f} s")
 
 
-def phase_train_time(case, params_np, recipe=None):
+def phase_train_time(case, params_np, recipe=None, tag=None, what=None):
     """Median wall ms of the full-recipe step over TRAIN_TIMED_STEPS steps
     after 3 warm-up steps, each ended by torch.cuda.synchronize(); peak
     device memory over them; then a torch.profiler pass over 5 steps.
-    ``recipe`` (BF16_RECIPE): the bf16 step, as [train-time-bf16]."""
+    ``recipe`` (BF16_RECIPE): the bf16 step, as [train-time-bf16]; another
+    recipe names its own ``tag`` and ``what``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from sea_tpu_torch.utils.prng import prng_key, split
-    tag = "-bf16" if recipe else ""
-    what = " ".join(BF16_FLAGS) if recipe else "f32"
+    if tag is None:
+        tag = "-bf16" if recipe else ""
+        what = (" ".join(BF16_FLAGS) if recipe else "f32") + ", AdamW"
     _, step, params, state, batch = _step_fn(case, params_np, "cuda", recipe)
     B, T = batch[0].shape[:2]
     key = prng_key(0)
@@ -1720,7 +1780,7 @@ def phase_train_time(case, params_np, recipe=None):
     peak = torch.cuda.max_memory_allocated()
     med = statistics.median(times)
     log(f"[train-time{tag}] {TRAIN_CASE} full-recipe step B={B}, T={T} "
-        f"({what}, dropout {case.temporal.dropout}, AdamW): median "
+        f"({what}, dropout {case.temporal.dropout}): median "
         f"{1e3 * med:.3f} "
         f"ms/step over {TRAIN_TIMED_STEPS} (min {1e3 * min(times):.3f}, "
         f"max {1e3 * max(times):.3f}) -> {B / med:.2f} windows/s, "
@@ -2240,6 +2300,519 @@ def phase_time_reduced_kernels():
     return out
 
 
+# ---------------------------------------------------------------------------
+# The exchange modes, the ib scalings, remat and the optimizers
+# ---------------------------------------------------------------------------
+
+# [serve-modes]: the multiphase width (E=2048, dd=1024, 8 heads) in the
+# exchange modes other than sea, random seeded weights, B=1: every step of
+# a MODE_ROLLOUT_STEPS rollout on the card against the CPU at
+# ROLLOUT_ATOL, and pool at int4 weights with an int8 cache over the first
+# ROLLOUT_STEPS_CHECKED at ROLLOUT_Q_ATOL (the bounds of [card-vs-cpu] and
+# [card-vs-cpu-int4]).
+MODE_ROLLOUT_STEPS = 32
+SERVE_MODES = [("pool", {"exchange_mode": "pool",
+                         "pool_update_method": "mlp"}),
+               ("addition", {"exchange_mode": "addition"}),
+               ("simple", {"exchange_mode": "simple"})]
+# [train-modes]: the cylinder recipe's step (E=1024, T=399, B=2, dropout
+# 0.1, AdaLN) in each variant, card against CPU at STEP_TOL.
+TRAIN_MODES = [
+    ("pool-linear", {"exchange_mode": "pool", "pool_update_method": "linear"}),
+    ("pool-mlp", {"exchange_mode": "pool", "pool_update_method": "mlp"}),
+    ("pool-pooling", {"exchange_mode": "pool",
+                      "pool_update_method": "pooling"}),
+    ("addition", {"exchange_mode": "addition"}),
+    ("simple", {"exchange_mode": "simple"}),
+    ("ib-fourier", {"ib_scale_mode": "fourier"}),
+    ("ib-linear", {"ib_scale_mode": "linear"})]
+# [train-remat]: the cylinder width at 4 layers (with one block the block
+# recomputed is the whole peak, so remat could save nothing), B=4.
+REMAT_LAYERS = 4
+REMAT_BATCH = 4
+REMAT_TIMED_STEPS = 10
+ADAFACTOR = {"optimizer": "adafactor"}
+
+
+def _grads(params, cfg, batch, key):
+    """(loss, [gradient a leaf]) of the train step's loss: the dropout
+    forward's MSE, autograd to every leaf (zeros where none reaches)."""
+    from sea_tpu_torch.models.temporal import temporal_forward
+    from sea_tpu_torch.train import metrics as M
+    from sea_tpu_torch.utils.params import tree_leaves
+    leaves = tree_leaves(params)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    x, tgt, ib = batch
+    loss = M.mse(temporal_forward(params, cfg, x, ib, rng=key,
+                                  deterministic=False).float(), tgt)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    for leaf in leaves:
+        leaf.requires_grad_(False)
+    return loss.detach(), [torch.zeros_like(p) if g is None else g
+                           for p, g in zip(leaves, grads)]
+
+
+def phase_serve_modes(case):
+    """The scan rollout at the multiphase width in the pool (MLP update),
+    addition and simple exchanges, card against CPU from the same seeded
+    weights: every attention of every step one flash-decode launch (pool 4
+    a step: 2 self, 2 pool; addition and simple 2), exact. Pool again with
+    int4 weights (the port's quantizer, MSE scales, on the card) and an
+    int8 cache: the decodes on the q8 kernel, every int4 linear (the pool
+    update's fc1 [2048, 2048] and fc2 [2048, 1024] among them) on the int4
+    matvec, exact."""
+    from sea_tpu_torch.models.temporal import init_temporal
+    from sea_tpu_torch.rollout.engine import rollout_scan
+    from sea_tpu_torch.utils import precision as prec
+    from sea_tpu_torch.utils.params import tree_map
+    for name, change in SERVE_MODES:
+        cfg = dataclasses.replace(case.temporal, **change)
+        params = init_temporal(cfg, torch.Generator().manual_seed(3),
+                               device="cpu")
+        card = tree_map(lambda a: a.cuda(), params)
+        runs = [(name, params, card, torch.float32, MODE_ROLLOUT_STEPS)]
+        if name == "pool":
+            q = prec.quantize_weights_int4(
+                prec.fuse_attention_projections(card))
+            runs.append(("pool int4 weights, int8 cache",
+                         tree_map(lambda a: a.cpu(), q), q, torch.int8,
+                         ROLLOUT_STEPS_CHECKED))
+        per_step = _attentions(cfg)[0]
+        for label, cpu_tree, card_tree, cache_dtype, n in runs:
+            x0, ib = _rollout_inputs(cfg, 1, n, seed=5)
+            on_cpu = rollout_scan(cpu_tree, cfg, x0, ib,
+                                  cache_dtype=cache_dtype)
+            _reset_launch_counts()
+            t0 = time.perf_counter()
+            on_card = rollout_scan(card_tree, cfg, x0.cuda(), ib.cuda(),
+                                   cache_dtype=cache_dtype).cpu()
+            seconds = time.perf_counter() - t0
+            counts = _launch_counts()
+            expected = dict.fromkeys(counts, 0)
+            if cache_dtype == torch.int8:
+                int4 = sum(_int4_sites_per_step(card_tree, cfg).values())
+                expected["decode_q8"] = per_step * n
+                expected["int4_matvec"] = int4 * n
+                tol = ROLLOUT_Q_ATOL
+            else:
+                int4 = 0
+                expected["decode_attention"] = per_step * n
+                tol = ROLLOUT_ATOL
+            if counts != expected:
+                raise AssertionError(f"[serve-modes] {label}: launches "
+                                     f"{counts}, expected {expected}")
+            per_t = [_err(on_card[:, t], on_cpu[:, t]) for t in range(n)]
+            err = max(per_t)
+            if not (torch.isfinite(on_card).all() and err <= tol):
+                raise AssertionError(f"[serve-modes] {label} card vs CPU: "
+                                     f"max abs err {err}; per step {per_t}")
+            log(f"[serve-modes] {CASE} width, {label}, B=1: {n} scan steps "
+                f"in {seconds:.2f} s (first call); launches "
+                f"{ {k: v for k, v in counts.items() if v} } = {per_step} "
+                f"attentions and {int4} int4 linears x {n} steps; card vs "
+                f"CPU max abs err {err:.3g} <= {tol} (steps 1, {n // 2}, "
+                f"{n}: {per_t[0]:.3g}, {per_t[n // 2 - 1]:.3g}, "
+                f"{per_t[-1]:.3g}; |y| max {on_cpu.abs().max().item():.3g})")
+        del params, card, runs
+
+
+def phase_train_modes(case):
+    """One full-recipe cylinder step (B=2, T=399, dropout 0.1, AdaLN, time-
+    constant ib, AdamW) in each TRAIN_MODES variant, seeded random weights,
+    on the card and on the CPU: loss, grad norm and updated parameters at
+    STEP_TOL, as [train-card-vs-cpu]; the card's flash forward, dQ and
+    dK/dV launches (4 a step for pool and the sea variants, 2 for addition
+    and simple) and AdaLN forwards and backwards exact."""
+    from sea_tpu_torch.models.temporal import init_temporal
+    from sea_tpu_torch.utils.params import to_numpy, tree_leaves
+    from sea_tpu_torch.utils.prng import fold_in, prng_key
+    key = fold_in(prng_key(0), 1)
+    for name, change in TRAIN_MODES:
+        mcase = case.replace(temporal=dataclasses.replace(case.temporal,
+                                                          **change))
+        params_np = to_numpy(init_temporal(
+            mcase.temporal, torch.Generator().manual_seed(4), device="cpu"))
+        out = {}
+        for device in ("cuda", "cpu"):
+            cfg, step, params, state, batch = _step_fn(mcase, params_np,
+                                                       device)
+            _reset_launch_counts()
+            t0 = time.perf_counter()
+            params, state, stats = step(params, state, *batch, key)
+            out[device] = (tree_leaves(to_numpy(params)),
+                           {k: float(v) for k, v in stats.items()},
+                           _launch_counts(), time.perf_counter() - t0)
+        (pc, sc, counts, card_s), (pp, sp, _, cpu_s) = (out["cuda"],
+                                                        out["cpu"])
+        attn = _attentions(cfg)[1]
+        expected = _expected_train_launches(cfg, 1, 0, bf16=False)
+        if counts != expected:
+            raise AssertionError(f"[train-modes] {name}: launches {counts}, "
+                                 f"expected {expected}")
+        loss_err = abs(sc["loss"] - sp["loss"]) / abs(sp["loss"])
+        gn_err = abs(sc["grad_norm"] - sp["grad_norm"]) / sp["grad_norm"]
+        p_err = max(float(np.abs(a - b).max()) for a, b in zip(pc, pp))
+        if not (np.isfinite(sc["loss"]) and loss_err <= STEP_TOL["loss"]
+                and gn_err <= STEP_TOL["grad_norm"]
+                and p_err <= STEP_TOL["params"]):
+            raise AssertionError(f"[train-modes] {name} card vs CPU: loss "
+                                 f"rel err {loss_err}, grad_norm rel err "
+                                 f"{gn_err}, params max abs err {p_err}")
+        log(f"[train-modes] {TRAIN_CASE} {name} ({change}), B=2, T=399, "
+            f"{sum(a.size for a in pp)} parameters: loss {sc['loss']:.7g} "
+            f"vs {sp['loss']:.7g} (rel {loss_err:.3g}), grad_norm "
+            f"{sc['grad_norm']:.7g} vs {sp['grad_norm']:.7g} (rel "
+            f"{gn_err:.3g}), params max abs err {p_err:.3g} (STEP_TOL "
+            f"{STEP_TOL}); launches a step: flash fwd/dq/dkv {attn} each, "
+            f"AdaLN fwd {expected['adaln_fwd']}, bwd "
+            f"{expected['adaln_bwd']}; card step {card_s:.2f} s (first "
+            f"call), CPU {cpu_s:.1f} s")
+
+
+def phase_train_remat(case):
+    """The cylinder width at REMAT_LAYERS layers, B=REMAT_BATCH, T=399,
+    dropout 0.1, remat False, "full" and "dots": the loss and every
+    gradient of one step from the same weights, batch and key against
+    remat=False's on the card (reported; held to the gradient bounds of
+    tests/test_torch_train.py); the flash forwards of a step doubled under
+    both remat policies (the backward recomputes each block's forward),
+    dQ and dK/dV not; the peak device memory of that forward and backward;
+    then the AdamW step's median wall ms over REMAT_TIMED_STEPS (after 2
+    warm-up steps), its peak memory and device busy ms a step
+    (torch.profiler over 3). Both peaks must be lower under "full" than
+    without remat: what remat trades time for. (AdamW updates in groups
+    of leaves, train/optim.py, so its temporaries do not set the step's
+    peak.)"""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from sea_tpu_torch.models.temporal import init_temporal
+    from sea_tpu_torch.train.optim import make_optimizer
+    from sea_tpu_torch.train.train_temporal import make_train_step
+    from sea_tpu_torch.utils.params import from_numpy, to_numpy
+    from sea_tpu_torch.utils.prng import fold_in, prng_key, split
+    base = dataclasses.replace(case.temporal, num_layers=REMAT_LAYERS,
+                               ib_time_constant=True)
+    params_np = to_numpy(init_temporal(base, torch.Generator().manual_seed(5),
+                                       device="cpu"))
+    batch = [torch.from_numpy(a).cuda()
+             for a in _step_batch(base, B=REMAT_BATCH)]  # x, tgt, ib
+    key = fold_in(prng_key(0), 1)
+    attn = _attentions(base)[1]
+    ref = None
+    rows = {}
+    for remat in (False, "full", "dots"):
+        cfg = dataclasses.replace(base, remat=remat)
+        params = from_numpy(params_np, "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launch_counts()
+        loss, grads = _grads(params, cfg, batch, key)
+        torch.cuda.synchronize()
+        fb_peak = torch.cuda.max_memory_allocated()
+        counts = _launch_counts()
+        want = {"flash_fwd": attn * (2 if remat else 1),
+                "flash_bwd_dq": attn, "flash_bwd_dkv": attn}
+        if any(counts[k] != v for k, v in want.items()):
+            raise AssertionError(f"[train-remat] remat={remat!r}: launches "
+                                 f"{counts}, expected {want}")
+        grads = [g.cpu().numpy() for g in grads]
+        if ref is None:
+            ref = (float(loss), grads)
+            diff = (0.0, 0.0)
+        else:
+            scale = float(np.sqrt(sum(float(np.sum(g.astype(np.float64)
+                                                   ** 2)) for g in ref[1])))
+            diff = (abs(float(loss) - ref[0]),
+                    max(float(np.abs(a - b).max())
+                        for a, b in zip(grads, ref[1])))
+            bad = [i for i, (a, b) in enumerate(zip(grads, ref[1]))
+                   if not np.allclose(a, b, rtol=1e-4, atol=1e-7 * scale)]
+            if diff[0] > 1e-5 * abs(ref[0]) or bad:
+                raise AssertionError(f"[train-remat] remat={remat!r}: loss "
+                                     f"off by {diff[0]}, gradients of "
+                                     f"{len(bad)} leaves off (max {diff[1]})")
+        del params, grads, loss
+        torch.cuda.empty_cache()
+        tx = make_optimizer(case.temporal_train)
+        params = from_numpy(params_np, "cuda")
+        state = tx.init(params)
+        step = make_train_step(cfg, tx)
+        k = prng_key(1)
+
+        def run(n):
+            nonlocal params, state, k
+            times = []
+            for _ in range(n):
+                k, sk = split(k)
+                t0 = time.perf_counter()
+                params, state, stats = step(params, state, *batch, sk)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            if not np.isfinite(float(stats["loss"])):
+                raise AssertionError(f"[train-remat] remat={remat!r}: loss "
+                                     f"{float(stats['loss'])}")
+            return times
+        run(2)
+        torch.cuda.reset_peak_memory_stats()
+        times = run(REMAT_TIMED_STEPS)
+        peak = torch.cuda.max_memory_allocated()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run(3)
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA) / 3 / 1e3
+        med = statistics.median(times)
+        rows[remat] = (med, fb_peak, peak, busy)
+        log(f"[train-remat] {TRAIN_CASE} width, {REMAT_LAYERS} layers, "
+            f"B={REMAT_BATCH}, T=399, remat={remat!r}: loss and gradients "
+            f"vs remat=False max abs diff {diff[0]:.3g} / {diff[1]:.3g}; "
+            f"flash launches a step fwd {counts['flash_fwd']}, dq "
+            f"{counts['flash_bwd_dq']}, dkv {counts['flash_bwd_dkv']}; "
+            f"forward + backward peak device memory "
+            f"{fb_peak / 2 ** 30:.3f} GiB; AdamW step median "
+            f"{1e3 * med:.3f} ms over {REMAT_TIMED_STEPS} (min "
+            f"{1e3 * min(times):.3f}, max {1e3 * max(times):.3f}), device "
+            f"busy {busy:.3f} ms, step peak {peak / 2 ** 30:.3f} GiB")
+        del params, state, step, tx
+        torch.cuda.empty_cache()
+    for i, what in ((1, "forward + backward"), (2, "AdamW step")):
+        if not rows["full"][i] < rows[False][i]:
+            raise AssertionError(f"[train-remat] {what} peak under 'full' "
+                                 f"{rows['full'][i]} not below "
+                                 f"remat=False's {rows[False][i]}")
+    return rows
+
+
+def _optimizer_time(case, params_np, recipe):
+    """The optimizer's update alone on the card at the cylinder model's
+    86M parameters (random gradients of each leaf's shape): device ms by
+    CUDA events, median of TRAIN_TIMED_STEPS after 3 warm-up updates, and
+    a torch.profiler pass over 5 (device events and busy ms an update).
+    Returns (ms, events, busy ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from sea_tpu_torch.train.optim import make_optimizer
+    from sea_tpu_torch.utils.params import from_numpy, tree_leaves
+    tx = make_optimizer(dataclasses.replace(case.temporal_train, **recipe))
+    params = from_numpy(params_np, "cuda")
+    state = tx.init(params)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    grads = [1e-3 * torch.randn(p.shape, generator=gen, device="cuda")
+             for p in tree_leaves(params)]
+
+    def update(n):
+        nonlocal state
+        for _ in range(n):
+            state = tx.step(grads, state, params)
+    update(3)
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(TRAIN_TIMED_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        update(1)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        update(5)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 5 / 1e3
+    return (statistics.median(ms), sum(e.count for e in events) / 5, busy)
+
+
+def phase_train_optim(case, params_np):
+    """Adafactor and the linear schedule on the card:
+
+    - `temporal train --synthetic --epochs 2 --optimizer adafactor` through
+      the CLI, then with `--compute_dtype bf16_shadow` too: launch counts
+      as [train] and [train-bf16], the checkpoint's optimizer state read
+      back through opt_state_template (its count the steps'), and a
+      --model_path resume that prints "Restored optimizer state" and goes
+      on counting;
+    - one full-recipe Adafactor step on the card against the CPU: the loss,
+      the grad norm and every gradient (at the bounds of
+      tests/test_torch_train.py), then the card's update of the card's
+      gradients against the CPU's update of the same gradients (the first
+      Adafactor update turns a gradient's sign into +-lr down to |g| ~
+      1e-15, so updates from two sides' own noise-level gradients may
+      differ by 2 lr where the gradients agree);
+    - scheduler="linear" (epoch_num 4): the learning rate of steps 0-2
+      is 0.1 lr + 0.9 lr k / 4 to 1e-6 (the schedule rounds in f32, as
+      optax does), and the first step equals a step at the formula's
+      constant learning rate, every parameter within an f32 ulp of itself
+      (a rounding-level change of lr moves p - lr u across a rounding
+      boundary of p) plus 1e-6 lr;
+    - the optimizer's update timed alone, Adafactor beside AdamW
+      (_optimizer_time), and the whole Adafactor step as [train-time]."""
+    import contextlib
+    import io
+    from sea_tpu_torch import cli
+    from sea_tpu_torch.models.temporal import init_temporal
+    from sea_tpu_torch.train.optim import make_optimizer
+    from sea_tpu_torch.utils.checkpoint import (checkpoint_path,
+                                                load_full_checkpoint)
+    from sea_tpu_torch.utils.params import (from_numpy, opt_state_template,
+                                            save_init_checkpoints, to_numpy,
+                                            tree_leaves)
+    from sea_tpu_torch.utils.prng import fold_in, prng_key
+    steps, evals = _train_schedule(case)
+    template = to_numpy(init_temporal(case.temporal,
+                                      torch.Generator().manual_seed(0),
+                                      device="cpu"))
+    for flags, recipe in (([], ADAFACTOR),
+                          (["--compute_dtype", "bf16_shadow"],
+                           {**ADAFACTOR,
+                            "compute_dtype": "bfloat16_shadow"})):
+        bf16 = bool(flags)
+        tcfg = dataclasses.replace(case.temporal_train, **recipe)
+        with tempfile.TemporaryDirectory(dir=REPO / "build") as save_dir:
+            save_init_checkpoints(case, save_dir, seed=1)
+            argv = [TRAIN_CASE, "temporal", "train", "--synthetic",
+                    "--save_dir", save_dir, "--device", "cuda",
+                    "--optimizer", "adafactor"] + flags
+            _reset_launch_counts()
+            t0 = time.perf_counter()
+            cli.main(argv + ["--epochs", str(TRAIN_EPOCHS)])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = _launch_counts()
+            expected = _expected_train_launches(case.temporal, steps, evals,
+                                                bf16)
+            if launches != expected:
+                raise AssertionError(f"[train-optim] {' '.join(flags)} "
+                                     f"launches {launches}, expected "
+                                     f"{expected}")
+            path = checkpoint_path(save_dir, "temporal", case.run.case_name,
+                                   case.run.run_name)
+
+            def factored(p):
+                _, opt, _ = load_full_checkpoint(
+                    p, template, opt_state_template(make_optimizer(tcfg),
+                                                    template))
+                return (opt.inner if bf16 else opt)[0]
+            count = int(factored(path).count)
+            if count != steps:
+                raise AssertionError(f"[train-optim] checkpoint count "
+                                     f"{count}, {steps} steps")
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                cli.main(argv + ["--epochs", "1", "--model_path", path])
+            resumed = int(factored(path).count)
+            if "Restored optimizer state" not in printed.getvalue() \
+                    or resumed != steps + steps // TRAIN_EPOCHS:
+                raise AssertionError(f"[train-optim] resume: count "
+                                     f"{resumed}; printed "
+                                     f"{printed.getvalue()[-2000:]}")
+        log(f"[train-optim] {TRAIN_CASE} temporal train --synthetic --epochs "
+            f"{TRAIN_EPOCHS} --optimizer adafactor {' '.join(flags)}: "
+            f"{steps} steps + {evals} evaluation forwards in {seconds:.2f} "
+            f"s; launches as [train{'-bf16' if bf16 else ''}] "
+            f"({ {k: v for k, v in launches.items() if v} }); checkpoint's "
+            f"FactoredState read back through the template (count {count});"
+            f" --model_path resume printed \"Restored optimizer state\", "
+            f"count {count} -> {resumed}")
+
+    # One full-recipe Adafactor step, card vs CPU.
+    tcfg = dataclasses.replace(case.temporal_train, **ADAFACTOR)
+    cfg = dataclasses.replace(case.temporal, ib_time_constant=True)
+    key = fold_in(prng_key(0), 1)
+    side = {}
+    for device in ("cuda", "cpu"):
+        params = from_numpy(params_np, device)
+        batch = [torch.from_numpy(a).to(device) for a in _step_batch(cfg)]
+        loss, grads = _grads(params, cfg, batch, key)
+        side[device] = (float(loss), [g.cpu().numpy() for g in grads])
+    (lc, gc), (lp, gp) = side["cuda"], side["cpu"]
+    scale = float(np.sqrt(sum(float(np.sum(g.astype(np.float64) ** 2))
+                              for g in gp)))
+    bad = [i for i, (a, b) in enumerate(zip(gc, gp))
+           if not np.allclose(a, b, rtol=1e-4, atol=1e-7 * scale)]
+    loss_err = abs(lc - lp) / abs(lp)
+    if loss_err > STEP_TOL["loss"] or bad:
+        raise AssertionError(f"[train-optim] card vs CPU: loss rel err "
+                             f"{loss_err}, {len(bad)} gradient leaves off")
+    updated = {}
+    for device in ("cuda", "cpu"):
+        tx = make_optimizer(tcfg)
+        params = from_numpy(params_np, device)
+        state = tx.init(params)
+        tx.step([torch.from_numpy(g).to(device) for g in gc], state, params)
+        updated[device] = tree_leaves(to_numpy(params))
+    p_err = max(float(np.abs(a - b).max())
+                for a, b in zip(updated["cuda"], updated["cpu"]))
+    moved = max(float(np.abs(a - b).max())
+                for a, b in zip(updated["cpu"], tree_leaves(params_np)))
+    if p_err > STEP_TOL["params"]:
+        raise AssertionError(f"[train-optim] Adafactor update card vs CPU "
+                             f"off by {p_err}")
+    log(f"[train-optim] one {TRAIN_CASE} Adafactor step, B=2, T=399, dropout "
+        f"{case.temporal.dropout}: loss {lc:.7g} vs {lp:.7g} (rel "
+        f"{loss_err:.3g} <= {STEP_TOL['loss']}), every gradient within rtol "
+        f"1e-4 + 1e-7 x |g| ({scale:.4g}); the update of the card's "
+        f"gradients card vs CPU max abs err {p_err:.3g} <= "
+        f"{STEP_TOL['params']} (largest move {moved:.3g})")
+
+    # The linear schedule against the formula, three steps.
+    lr = case.temporal_train.learning_rate
+    sched_cfg = dataclasses.replace(case.temporal_train, scheduler="linear",
+                                    epoch_num=4)
+    runs = {}
+    for kind in ("schedule", "formula"):
+        tx = make_optimizer(sched_cfg if kind == "schedule"
+                            else case.temporal_train)
+        params = from_numpy(params_np, "cuda")
+        state = tx.init(params)
+        batch = [torch.from_numpy(a).cuda() for a in _step_batch(cfg)]
+        used, first = [], None
+        for k in range(3):
+            if kind == "formula":
+                tx.lr = 0.1 * lr + 0.9 * lr * k / sched_cfg.epoch_num
+            used.append(tx.lr(k) if callable(tx.lr) else tx.lr)
+            _, grads = _grads(params, cfg, batch, fold_in(key, k))
+            state = tx.step(grads, state, params)
+            if first is None:  # copies (a CPU tensor's numpy is a view)
+                first = [a.copy() for a in tree_leaves(to_numpy(params))]
+        runs[kind] = (first, used)
+    lr_err = max(abs(a - b) / b for a, b in zip(runs["schedule"][1],
+                                                 runs["formula"][1]))
+    s_err, excess = 0.0, 0.0
+    for a, b in zip(runs["schedule"][0], runs["formula"][0]):
+        diff = np.abs(a - b)
+        s_err = max(s_err, float(diff.max()))
+        excess = max(excess, float((diff - np.spacing(np.abs(b))
+                                    - 1e-6 * lr).max()))
+    if lr_err > 1e-6 or excess > 0:
+        raise AssertionError(f"[train-optim] linear schedule vs formula: "
+                             f"lr {runs['schedule'][1]} vs "
+                             f"{runs['formula'][1]}; first step's params "
+                             f"off by {s_err}, past the bound by {excess}")
+    log(f"[train-optim] scheduler=linear, epoch_num 4: learning rates of "
+        f"steps 0-2 {runs['schedule'][1]} (0.1 lr + 0.9 lr k/4: "
+        f"{runs['formula'][1]}; rel err {lr_err:.3g} <= 1e-6: optax's f32 "
+        f"arithmetic); the first step's params vs the formula's max abs "
+        f"err {s_err:.3g}, each within an f32 ulp of itself + 1e-6 lr")
+
+    # The update alone, then the whole step.
+    smi = _smi()
+    times = {name: _optimizer_time(case, params_np, recipe) for name, recipe
+             in (("AdamW", {}), ("Adafactor", ADAFACTOR))}
+    for name, (ms, events, busy) in times.items():
+        log(f"[train-optim-time] {name} update of the {TRAIN_CASE} model "
+            f"({sum(a.size for a in tree_leaves(params_np))} parameters, "
+            f"{len(tree_leaves(params_np))} leaves): {ms:.3f} ms by CUDA "
+            f"events (median of {TRAIN_TIMED_STEPS}), {events:.0f} device "
+            f"events, device busy {busy:.3f} ms; {smi}")
+    phase_train_time(case, params_np, ADAFACTOR, tag="-adafactor",
+                     what="f32, Adafactor")
+    return times
+
+
 KERNELS = [  # name, route, source, the TPU kernel it replaces
     ("decode_attention", "cuda", "sea_tpu_torch/csrc/decode_attention.cu",
      "sea_tpu/ops/decode_attention.py:48"),
@@ -2326,6 +2899,10 @@ def main():
     _timed(phase_train_card_vs_cpu_bf16, train_case, train_np, f32_step)
     _timed(phase_train_time, train_case, train_np)
     _timed(phase_train_time, train_case, train_np, BF16_RECIPE)
+    _timed(phase_train_optim, train_case, train_np)
+    _timed(phase_train_modes, train_case)
+    _timed(phase_train_remat, train_case)
+    _timed(phase_serve_modes, case)
     _timed(phase_card_vs_cpu, case, params_np)
     _timed(phase_serve_prefix, case, params_np)
     _timed(phase_serve_prefix_masked, case)

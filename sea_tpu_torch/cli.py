@@ -3,7 +3,8 @@
     python -m sea_tpu_torch.cli <flow_type> encoder train
         [--epochs N] [--batch_size N] [--synthetic] [--save_dir DIR]
         [--model_path PATH] [--compute_dtype f32|bf16|bf16_mixed|bf16_shadow]
-        [--adam_mu_dtype f32|bf16] [--seed N] [--device cuda|cpu|cuda:N]
+        [--adam_mu_dtype f32|bf16] [--optimizer adamw|adafactor] [--seed N]
+        [--device cuda|cpu|cuda:N]
     python -m sea_tpu_torch.cli <flow_type> encoder test
         [--model_path PATH] [--synthetic] [--save_dir DIR] [--seed N]
         [--device cuda|cpu|cuda:N]
@@ -11,7 +12,8 @@
         [--model_path PATH]
         [--epochs N] [--batch_size N] [--synthetic] [--save_dir DIR]
         [--compute_dtype f32|bf16|bf16_mixed|bf16_shadow]
-        [--adam_mu_dtype f32|bf16] [--seed N] [--device cuda|cpu|cuda:N]
+        [--adam_mu_dtype f32|bf16] [--optimizer adamw|adafactor] [--seed N]
+        [--device cuda|cpu|cuda:N]
     python -m sea_tpu_torch.cli <flow_type> temporal test
         [--model_path PATH] [--synthetic] [--save_dir DIR] [--seed N]
         [--precision f32|bf16|int8|int4] [--no_calibrate]
@@ -26,9 +28,10 @@ train`` and ``encoder test``, stage 1 (the autoencoder's training loop on
 one device, under the same numerics policies and optimizer as stage 2,
 writing the JAX loop's ``encoder_decoder`` checkpoint; the test's three
 reconstruction metrics, without the field plots); ``temporal
-train`` (single device, AdamW with f32 or bf16 first moments, under the
-f32 or a bf16 numerics policy, the bf16 shadow included; it writes the JAX
-training loop's npz checkpoints; evaluation runs f32 on the master weights);
+train`` (single device, AdamW with f32 or bf16 first moments or Adafactor
+(``--optimizer``), under the f32 or a bf16 numerics policy, the bf16
+shadow included; it writes the JAX training loop's npz checkpoints;
+evaluation runs f32 on the master weights);
 ``temporal test``, the serving rollout with decoded evaluation, on the
 engine ``rollout.engine.select_engine`` picks (an explicit ``--kv_cache``
 forces the scan engine), at f32 or reduced precision (bf16 weights; int8
@@ -39,8 +42,8 @@ rolled ``--horizon`` steps, past the dataset window, decoded to fields
 [H, N, F] and saved as ``.npy``; all as the JAX CLI serves on one device.
 ``--model_path`` with a train mode resumes from an npz checkpoint: its
 params and, where the checkpoint's optimizer state has the configured
-recipe's structure, its Adam moments (else a fresh optimizer, with the
-JAX CLI's warning). Every other mode and flag exits with a parser error
+recipe's structure, its optimizer state (else a fresh optimizer, with
+the JAX CLI's warning). Every other mode and flag exits with a parser error
 that points to
 ROADMAP.md. As in the JAX CLI, ``--seed`` overrides the random seed of the
 data splits; the training keys start from seed 0 in both.
@@ -137,6 +140,11 @@ def main(argv=None):
                         default=None,
                         help="train modes: AdamW first-moment storage dtype "
                              "(TrainConfig.adam_mu_dtype)")
+    parser.add_argument("--optimizer", choices=["adamw", "adafactor"],
+                        default=None,
+                        help="train modes: optimizer family "
+                             "(TrainConfig.optimizer). adafactor factors "
+                             "the second moment and keeps no first moment")
     parser.add_argument("--precision",
                         choices=["f32", "bf16", "int8", "int4"],
                         default="f32",
@@ -189,10 +197,10 @@ def main(argv=None):
         parser.error(f"`{args.model_type} {args.mode}` is not ported to "
                      "sea_tpu_torch yet (see ROADMAP.md)")
     if (args.compute_dtype or args.batch_size is not None
-            or args.adam_mu_dtype) and args.mode != "train":
-        parser.error("--compute_dtype/--batch_size/--adam_mu_dtype only "
-                     "apply to train modes (serving precision is "
-                     "--precision)")
+            or args.adam_mu_dtype or args.optimizer) and args.mode != "train":
+        parser.error("--compute_dtype/--batch_size/--adam_mu_dtype/"
+                     "--optimizer only apply to train modes (serving "
+                     "precision is --precision)")
     if args.mode != "generate" and (args.horizon is not None
                                     or args.trajectory != 0
                                     or args.output is not None):
@@ -224,7 +232,7 @@ def main(argv=None):
         case = case.replace(run=dataclasses.replace(case.run,
                                                     save_dir=args.save_dir))
     if args.compute_dtype or args.batch_size is not None \
-            or args.adam_mu_dtype:
+            or args.adam_mu_dtype or args.optimizer:
         # The recipe of the stage being trained, set before any resume
         # template is built: bf16_shadow carries state of its own.
         from sea_tpu_torch.utils.precision import POLICY_BY_FLAG
@@ -238,6 +246,8 @@ def main(argv=None):
         if args.adam_mu_dtype:
             updates["adam_mu_dtype"] = ("bfloat16" if args.adam_mu_dtype
                                         == "bf16" else "float32")
+        if args.optimizer:
+            updates["optimizer"] = args.optimizer
         case = case.replace(**{stage: dataclasses.replace(
             getattr(case, stage), **updates)})
     data = _load_data(case, args.synthetic)
@@ -271,29 +281,29 @@ def _tracker(case, args):
 def load_train_checkpoint(path: str, template, train_cfg):
     """(params, opt_state | None), numpy trees, for --model_path resume:
     the checkpoint's params and, when it carries an optimizer state of the
-    structure ``train_cfg``'s optimizer has (AdamW with f32 or bf16 mu,
-    alone or under the bf16 shadow), that state, so resume continues the
-    Adam moments. A state of another structure (most often one written
-    under another --compute_dtype recipe) resumes the params with a fresh
-    optimizer and a warning. ``template``: the model's params, numpy."""
+    structure ``train_cfg``'s optimizer has (AdamW with f32 or bf16 mu, or
+    Adafactor; with the schedule's count or without; alone or under the
+    bf16 shadow), that state, so resume continues it. A state of another
+    structure (written under another --compute_dtype or --optimizer
+    recipe: a leaf missing, or one of another shape) resumes the params
+    with a fresh optimizer and a warning. ``template``: the model's
+    params, numpy."""
     from sea_tpu_torch.train.optim import make_optimizer
     from sea_tpu_torch.utils.checkpoint import load_full_checkpoint
     from sea_tpu_torch.utils.params import opt_state_template
     opt_template = opt_state_template(make_optimizer(train_cfg), template)
+    params, _, _ = load_full_checkpoint(path, template, None)
     try:
-        params, opt_state, _ = load_full_checkpoint(path, template,
-                                                    opt_template)
-    except KeyError as exc:
+        _, opt_state, _ = load_full_checkpoint(path, template, opt_template)
+    except (KeyError, ValueError) as exc:
         print(f"Warning: optimizer state in {path} does not match the "
-              f"configured optimizer structure (missing leaf {exc}) — "
-              "likely saved under a different --compute_dtype recipe "
-              "(bf16_shadow vs plain). Resuming params with a FRESH "
-              "optimizer; pass the original recipe flags to continue "
-              "the Adam moments.")
-        params, _, _ = load_full_checkpoint(path, template, None)
+              f"configured optimizer structure ({exc}) — likely saved "
+              "under a different --compute_dtype or --optimizer recipe. "
+              "Resuming params with a FRESH optimizer; pass the original "
+              "recipe flags to continue its state.")
         return params, None
     if opt_state is not None:
-        print("Restored optimizer state (resume continues Adam moments)")
+        print("Restored optimizer state (resume continues its moments)")
     return params, opt_state
 
 

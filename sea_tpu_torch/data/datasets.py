@@ -24,7 +24,7 @@ size.
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator, Tuple
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -83,15 +83,21 @@ class TemporalWindows:
 
 
 def make_temporal_windows(latents: np.ndarray, originals: np.ndarray,
-                          ib: np.ndarray, src_len: int, overlap: int = 0
-                          ) -> TemporalWindows:
+                          ib: np.ndarray, src_len: int, overlap: int = 0, *,
+                          time_shift_rng: Optional[np.random.RandomState]
+                          = None) -> TemporalWindows:
     """latents: [tr, T, G, E]; originals: [tr, T, N, F]; ib: [tr, T, ib_num].
 
     Window extraction mirrors TemporalDataset.__getitem__
     (data_processors.py:412-452): per trajectory, num_windows = T // step
     windows at starts w*step, with src = lat[s:s+L], tgt = lat[s+1:s+L+1],
-    tgt_original = orig[s+1:s+L+1], ib_out = ib[s:s+L]. (The reference's
-    random time shifting, ``dataset_time_shifting``, is not ported.)
+    tgt_original = orig[s+1:s+L+1], ib_out = ib[s:s+L].
+
+    ``time_shift_rng``: the reference's random time shifting
+    (``dataset_time_shifting``, data_processors.py:436-439): each window's
+    start moves by a shift drawn from [0, T - step), clamped so the window
+    stays inside the trajectory, as the JAX package draws it. The training
+    loop calls this once per epoch with a seeded RandomState.
     """
     if overlap >= src_len:
         raise ValueError(
@@ -105,6 +111,9 @@ def make_temporal_windows(latents: np.ndarray, originals: np.ndarray,
         num = T // step
         for w in range(num):
             s = w * step
+            if time_shift_rng is not None and T - step > 0:
+                shift = int(time_shift_rng.randint(0, T - step))
+                s = max(0, min(s + shift, T - src_len - 1))
             if s + src_len + 1 > T:
                 # The reference would produce a ragged (short) tgt here and
                 # crash in the DataLoader collate; we skip such windows.

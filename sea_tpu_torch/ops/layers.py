@@ -12,6 +12,8 @@ Two init families, as in the JAX package: ``normal002`` (N(0, 0.02)
 weights, zero bias) and ``torch_default`` (uniform +-1/sqrt(fan_in)).
 Init draws from an explicit ``torch.Generator`` on the generator's device.
 
+The Gaussian Fourier features of the ib scaling (``gaussian_fourier``)
+read their fixed matrix detached, as the JAX package's stop_gradient.
 Dropout is the JAX package's position hash (``dropout``), so the masks
 equal its masks from the same key. ``linear`` serves the reduced-precision
 layouts of ``utils.precision`` as the JAX package does: bf16 ``w`` (up-cast
@@ -312,3 +314,20 @@ def positional_encoding(pe_table, x, *, dropout_rate: float = 0.0,
     T = x.shape[-2]
     return dropout((x + pe_table[:T]).to(x.dtype), dropout_rate,
                    dropout_key)
+
+
+def init_gaussian_fourier(gen: torch.Generator, input_dim: int,
+                          half_dim: int = 256, scale: float = 1.0,
+                          dtype=torch.float32):
+    """GaussianFourierProjection: a fixed N(0, scale^2) matrix W
+    [input_dim, half_dim]."""
+    return {"W": torch.randn((input_dim, half_dim), generator=gen,
+                             dtype=dtype, device=gen.device) * scale}
+
+
+def gaussian_fourier(params, x):
+    """[sin(2 pi x W), cos(2 pi x W)] over the last axis. W is read
+    detached, as the JAX package's stop_gradient: it takes no gradient
+    (the train step hands the optimizer zeros for it)."""
+    proj = (x @ params["W"].detach()) * (2.0 * math.pi)
+    return torch.cat([torch.sin(proj), torch.cos(proj)], dim=-1)

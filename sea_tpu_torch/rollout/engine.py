@@ -33,8 +33,7 @@ from __future__ import annotations
 import torch
 
 from sea_tpu_torch.configs.base import TemporalModelConfig
-from sea_tpu_torch.models.temporal import (check_supported,
-                                           init_temporal_cache,
+from sea_tpu_torch.models.temporal import (init_temporal_cache,
                                            is_scan_incremental,
                                            precompute_cond_tables,
                                            temporal_forward, temporal_step)
@@ -55,7 +54,6 @@ def rollout_scan(params, cfg: TemporalModelConfig, x0, ib, *,
     tables are computed once for the horizon (AdaLN configs only; a
     plain-LN config's only ib-only activation is the small ib
     embedding)."""
-    check_supported(cfg)
     if not is_scan_incremental(cfg):
         raise ValueError(_NOT_INCREMENTAL)
     B, T = x0.shape[0], ib.shape[1]
@@ -86,7 +84,6 @@ def rollout_prefix_bucketed(params, cfg: TemporalModelConfig, x0, ib, *,
     its row i at buf[:, i+1]. Causal configs run the forward unmasked
     (the rows past i do not reach row i); the others with valid_len =
     i+1, as the JAX package's masked chunk does."""
-    check_supported(cfg)
     masked = not is_scan_incremental(cfg)
     B, T = x0.shape[0], ib.shape[1]
     buf = torch.zeros((B, T + 1) + tuple(x0.shape[1:]), dtype=x0.dtype,

@@ -1,16 +1,27 @@
-"""AdamW with optax's semantics and state layout, and the bf16 shadow.
+"""The optimizers of the JAX package, with optax's semantics and state
+layouts, and the bf16 shadow.
 
-Counterpart of ``make_optimizer`` in ``sea_tpu/train/optim.py`` for the
-recipe both shipped cases train with: ``optax.adamw`` with betas, eps and
-weight decay from the TrainConfig, a constant learning rate, f32 second
-moments and f32 or bf16 first moments (``adam_mu_dtype``). The state has
-the layout of ``tx.init(params)`` in the JAX package — ``(ScaleByAdamState
-(count, mu, nu), EmptyState(), EmptyState())`` — so it flattens to the same
-npz paths (``opt_state/0/0`` the step count, ``opt_state/0/1/...`` mu,
-``opt_state/0/2/...`` nu) and a checkpoint's moments load in either
-package (``utils.params.opt_state_to_numpy`` / ``opt_state_from_numpy``).
+Counterpart of ``make_optimizer`` in ``sea_tpu/train/optim.py``:
+``optax.adamw`` with betas, eps and weight decay from the TrainConfig and
+f32 or bf16 first moments (``adam_mu_dtype``), or ``optax.adafactor`` as
+the JAX package configures it (``optimizer="adafactor"``); either at a
+constant learning rate or on ``optax.linear_schedule`` from 0.1 lr to lr
+over ``epoch_num`` optimizer steps (``scheduler="linear"``: the JAX
+package's clock is the update count, not the epoch). The states have the
+layout of ``tx.init(params)`` in the JAX package, so they flatten to the
+same npz paths and a checkpoint's state loads in either package
+(``utils.params.opt_state_to_numpy`` / ``opt_state_from_numpy``):
 
-Per step, in optax's order of operations:
+- AdamW: ``(ScaleByAdamState(count, mu, nu), EmptyState(), EmptyState())``
+  (``opt_state/0/0`` the step count, ``opt_state/0/1/...`` mu,
+  ``opt_state/0/2/...`` nu); with the schedule the third element is
+  ``ScaleByScheduleState(count)``.
+- Adafactor: ``(FactoredState(count, v_row, v_col, v), EmptyState(),
+  EmptyState(), [EmptyState(),] EmptyState())`` (the bracketed element
+  with weight decay), the schedule's state again third.
+EmptyState is ``()`` here.
+
+AdamW per step, in optax's order of operations:
     mu = (1 - b1) g + b1 mu;   nu = (1 - b2) g^2 + b2 nu;   count += 1
     u  = (mu / (1 - b1^count)) / (sqrt(nu / (1 - b2^count)) + eps)
     u += weight_decay * p;     p += -lr * u
@@ -20,23 +31,36 @@ from that f32 mu, and only then is mu stored rounded to bf16. XLA on the
 CPU fuses ``(1 - b1) g + b1 mu`` and rounds it once; here the two products
 round to f32 before the add, an f32 ulp of mu at most, which moves the
 stored bf16 mu by an ulp only where it lies on a rounding boundary.
-Unlike optax, which returns new trees, the update writes the moments and
-the parameters IN PLACE (``torch._foreach_*`` over all tensors at once):
-no second copy of 2 x params of state. ``count`` is a 0-d int32 tensor
-kept on the host, so the bias corrections need no read from the device.
+
+Adafactor per step (optax's chain: scale_by_factored_rms, then
+clip_by_block_rms(1), the learning rate, add_decayed_weights, scale(-1)),
+with d = 1 - (count + 1)^-0.8 and g2 = g^2 + 1e-30:
+- a leaf whose two largest dims are both at least 128 keeps the row and
+  column means of g2 (v_row, v_col: the leaf's shape without its largest,
+  resp. second-largest, dim), v = d v + (1 - d) mean(g2); u = g
+  rsqrt(v_row / mean(v_row)) rsqrt(v_col), each factor broadcast back;
+- any other leaf keeps v = d v + (1 - d) g2 whole; u = g rsqrt(v);
+then u /= max(1, rms(u)) per leaf, u *= lr, u += weight_decay * p (after
+the learning rate, so the decay is not scaled by it), p -= u.
+
+Unlike optax, which returns new trees, the updates write the statistics
+and the parameters IN PLACE (``torch._foreach_*`` where a pass covers
+many tensors): no second copy of the state. AdamW runs over groups of
+leaves (``UPDATE_GROUPS``), so its temporaries stay a fraction of a
+parameter copy. The counts are 0-d int32 tensors kept on the host, so
+the bias corrections, the decay and the schedule need no read from the
+device.
 
 ``with_bf16_shadow`` wraps an optimizer for compute_dtype
 "bfloat16_shadow": its state, ``ShadowOptState(inner, shadow)``, carries a
 bf16 copy of the f32 master parameters that the train step differentiates;
 each step widens the bf16 gradients to f32, updates the masters and the
 inner state, and refreshes the shadow from the updated masters, in place.
-
-Not ported (each raises, ROADMAP.md): the 'linear' scheduler and
-adafactor.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -50,6 +74,20 @@ class ScaleByAdamState(NamedTuple):
     count: Any  # 0-d int32 tensor on the host
     mu: Any     # tree like params, f32 or bf16
     nu: Any
+
+
+class ScaleByScheduleState(NamedTuple):
+    count: Any  # 0-d int32 tensor on the host: updates made so far
+
+
+class FactoredState(NamedTuple):
+    """Adafactor's statistics (optax's FactoredState): per leaf, v_row and
+    v_col for a factored leaf (v a [1] placeholder), v for the others
+    (v_row and v_col [1] placeholders)."""
+    count: Any  # 0-d int32 tensor on the host
+    v_row: Any
+    v_col: Any
+    v: Any
 
 
 class ShadowOptState(NamedTuple):
@@ -74,8 +112,43 @@ def global_norm(tensors):
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
+def linear_schedule(init_value: float, end_value: float,
+                    transition_steps: int):
+    """optax.linear_schedule: count -> the learning rate of the update
+    made at that count, in f32 as optax computes it, from init_value to
+    end_value over transition_steps counts, then held."""
+    if transition_steps <= 0:
+        return lambda count: init_value
+
+    def schedule(count: int) -> float:
+        k = np.float32(min(max(count, 0), transition_steps))
+        frac = np.float32(1) - k / np.float32(transition_steps)
+        return float(np.float32(init_value - end_value) * frac
+                     + np.float32(end_value))
+    return schedule
+
+
+def _lr_init(learning_rate):
+    """The state element of optax's scale_by_learning_rate: EmptyState for
+    a constant, ScaleByScheduleState for a schedule."""
+    if callable(learning_rate):
+        return ScaleByScheduleState(torch.zeros((), dtype=torch.int32))
+    return ()
+
+
+def _lr_step(learning_rate, lr_state):
+    """(this update's learning rate, the next lr state)."""
+    if not callable(learning_rate):
+        return learning_rate, lr_state
+    return (learning_rate(int(lr_state.count)),
+            ScaleByScheduleState(lr_state.count + 1))
+
+
 class AdamW:
-    def __init__(self, learning_rate: float, b1: float = 0.9,
+    """optax.adamw. ``learning_rate``: a float, or a schedule (a function
+    of the update count, ``linear_schedule``)."""
+
+    def __init__(self, learning_rate, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8,
                  weight_decay: float = 0.0, mu_dtype=torch.float32):
         if mu_dtype not in (torch.float32, torch.bfloat16):
@@ -85,19 +158,21 @@ class AdamW:
         self.mu_dtype = mu_dtype
 
     def init(self, params):
-        """(ScaleByAdamState(0, zeros, zeros), (), ()) — tx.init's tree."""
+        """(ScaleByAdamState(0, zeros, zeros), (), () or the schedule's
+        state) — tx.init's tree."""
         return (ScaleByAdamState(
             torch.zeros((), dtype=torch.int32),
             tree_map(lambda p: torch.zeros_like(p, dtype=self.mu_dtype),
                      params),
-            tree_map(torch.zeros_like, params)), (), ())
+            tree_map(torch.zeros_like, params)), (), _lr_init(self.lr))
 
     @torch.no_grad()
     def step(self, grads, state, params):
         """Apply one update IN PLACE to ``params`` (the tree's tensors) and
-        to the moments of ``state``; returns the new state (the count
+        to the moments of ``state``; returns the new state (the counts
         advanced)."""
         adam = state[0]
+        lr, lr_state = _lr_step(self.lr, state[2])
         p = tree_leaves(params)
         mu, nu = tree_leaves(adam.mu), tree_leaves(adam.nu)
         g = list(grads)
@@ -108,6 +183,13 @@ class AdamW:
         n = int(count)
         bc1 = float(np.float32(1) - np.float32(self.b1) ** np.int32(n))
         bc2 = float(np.float32(1) - np.float32(self.b2) ** np.int32(n))
+        for group in leaf_groups(p, UPDATE_GROUPS):
+            self._update(*([x[i] for i in group] for x in (p, mu, nu, g)),
+                         lr, bc1, bc2)
+        return (ScaleByAdamState(count, adam.mu, adam.nu), state[1],
+                lr_state)
+
+    def _update(self, p, mu, nu, g, lr, bc1, bc2):
         if self.mu_dtype == torch.bfloat16:
             b1 = float(torch.tensor(self.b1, dtype=torch.bfloat16))
             mu32 = torch._foreach_mul(g, 1.0 - self.b1)
@@ -129,19 +211,152 @@ class AdamW:
         del denom
         if self.weight_decay:
             torch._foreach_add_(u, p, alpha=self.weight_decay)
-        torch._foreach_mul_(u, -self.lr)
+        torch._foreach_mul_(u, -lr)
         torch._foreach_add_(p, u)
-        return (ScaleByAdamState(count, adam.mu, adam.nu),) + tuple(state[1:])
+
+
+# AdamW updates its leaves in consecutive groups of at most 1/UPDATE_GROUPS
+# of the parameters' elements (or one leaf, where a leaf is larger): the
+# update's temporaries (u and the denominator; with a bf16 mu, mu in f32
+# too) then take a fraction of a parameter copy, not two whole copies,
+# which set the step's peak where the activations are small (a 4-layer
+# cylinder step under remat, PERF.md). Per element the arithmetic is the
+# same.
+UPDATE_GROUPS = 4
+
+
+def leaf_groups(leaves, n_groups: int):
+    """Consecutive groups of leaf indices, each of at most
+    max(total / n_groups, the largest leaf) elements."""
+    sizes = [x.numel() for x in leaves]
+    budget = max(sum(sizes) / n_groups, max(sizes, default=0))
+    groups, total = [[]], 0
+    for i, size in enumerate(sizes):
+        if groups[-1] and total + size > budget:
+            groups.append([])
+            total = 0
+        groups[-1].append(i)
+        total += size
+    return [group for group in groups if group]
+
+
+def factored_dims(shape, min_dim_size_to_factor: int = 128):
+    """optax's _factored_dims: (second-largest, largest) dim of a leaf
+    whose second-largest dim is at least min_dim_size_to_factor, else
+    None (np.argsort's order, so equal dims split as optax splits them)."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < min_dim_size_to_factor:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+class Adafactor:
+    """optax.adafactor(learning_rate, multiply_by_parameter_scale=False,
+    clipping_threshold=1.0, momentum=None, weight_decay_rate=wd or None):
+    the JAX package's adafactor. ``learning_rate``: a float or a
+    schedule."""
+
+    DECAY_RATE = 0.8
+    EPS = 1e-30
+    CLIP = 1.0
+
+    def __init__(self, learning_rate, weight_decay: float = 0.0):
+        self.lr, self.weight_decay = learning_rate, weight_decay
+
+    def init(self, params):
+        def stats(p, which):
+            dims = factored_dims(p.shape)
+            if dims is None:
+                shape = tuple(p.shape) if which == "v" else (1,)
+            elif which == "v":
+                shape = (1,)
+            else:  # v_row drops the largest dim, v_col the second-largest
+                drop = dims[1] if which == "v_row" else dims[0]
+                shape = tuple(d for i, d in enumerate(p.shape) if i != drop)
+            return torch.zeros(shape, dtype=p.dtype, device=p.device)
+
+        factored = FactoredState(
+            torch.zeros((), dtype=torch.int32),
+            *(tree_map(lambda p, w=which: stats(p, w), params)
+              for which in ("v_row", "v_col", "v")))
+        tail = ((),) if self.weight_decay else ()
+        return (factored, (), _lr_init(self.lr)) + tail + ((),)
+
+    @torch.no_grad()
+    def step(self, grads, state, params):
+        """Apply one update IN PLACE to ``params`` and the statistics of
+        ``state``; returns the new state (the counts advanced)."""
+        fac = state[0]
+        lr, lr_state = _lr_step(self.lr, state[2])
+        p, g = tree_leaves(params), list(grads)
+        v_row, v_col = tree_leaves(fac.v_row), tree_leaves(fac.v_col)
+        v = tree_leaves(fac.v)
+        if not len(p) == len(g) == len(v):
+            raise ValueError(f"{len(g)} grads for {len(p)} params, "
+                             f"{len(v)} statistics")
+        decay = np.float32(1) - np.float32(int(fac.count) + 1) ** np.float32(
+            -self.DECAY_RATE)
+        keep, take = float(decay), float(np.float32(1) - decay)
+        dims = [factored_dims(x.shape) for x in p]
+        u = [None] * len(p)
+        whole = [i for i, d in enumerate(dims) if d is None]
+        if whole:  # one pass over every unfactored leaf
+            gw, vw = [g[i] for i in whole], [v[i] for i in whole]
+            g2 = torch._foreach_mul(gw, gw)
+            torch._foreach_add_(g2, self.EPS)
+            torch._foreach_mul_(vw, keep)
+            torch._foreach_add_(vw, g2, alpha=take)
+            del g2
+            for i, x in zip(whole, torch._foreach_mul(gw, torch._foreach_rsqrt(
+                    vw))):
+                u[i] = x
+        fac_i = [i for i, d in enumerate(dims) if d is not None]
+        if fac_i:
+            rows, cols = [], []
+            for i in fac_i:  # a leaf's squares at a time, not all at once
+                d1, d0 = dims[i]
+                g2 = g[i] * g[i] + self.EPS
+                rows.append(g2.mean(dim=d0))
+                cols.append(g2.mean(dim=d1))
+                del g2
+            vr, vc = [v_row[i] for i in fac_i], [v_col[i] for i in fac_i]
+            for stat, new in ((vr, rows), (vc, cols)):
+                torch._foreach_mul_(stat, keep)
+                torch._foreach_add_(stat, new, alpha=take)
+            del rows, cols
+            for i, r, c in zip(fac_i, vr, torch._foreach_rsqrt(vc)):
+                d1, d0 = dims[i]
+                rd1 = d1 - 1 if d1 > d0 else d1
+                row = torch.rsqrt(r / r.mean(dim=rd1, keepdim=True))
+                u[i] = g[i] * row.unsqueeze(d0) * c.unsqueeze(d1)
+        # clip_by_block_rms: u / max(1, rms(u) / threshold), per leaf; the
+        # rms as norm / sqrt(size), every leaf's in a few multi-tensor
+        # launches.
+        scale = torch._foreach_norm(u)
+        torch._foreach_div_(scale, [math.sqrt(x.numel()) * self.CLIP
+                                    for x in u])
+        torch._foreach_clamp_min_(scale, 1.0)
+        for x, c in zip(u, scale):
+            x.div_(c)
+        torch._foreach_mul_(u, lr)
+        if self.weight_decay:
+            torch._foreach_add_(u, p, alpha=self.weight_decay)
+        torch._foreach_sub_(p, u)
+        return ((FactoredState(fac.count + 1, fac.v_row, fac.v_col, fac.v),
+                 state[1], lr_state) + tuple(state[3:]))
 
 
 class with_bf16_shadow:  # noqa: N801 — the JAX package's name
-    """Wrap ``tx`` (an AdamW) for compute_dtype "bfloat16_shadow": its
-    state carries the bf16 shadow of the master params, refreshed after
-    each update as to_bf16 of the updated masters. The inner update sees
-    f32 gradients (the bf16 ones widened) and the f32 masters, so the
-    moments, bias corrections and weight decay are the plain recipe's."""
+    """Wrap ``tx`` (AdamW or Adafactor) for compute_dtype
+    "bfloat16_shadow": its state carries the bf16 shadow of the master
+    params, refreshed after each update as to_bf16 of the updated masters.
+    The inner update sees f32 gradients (the bf16 ones widened) and the
+    f32 masters, so its statistics and weight decay are the plain
+    recipe's."""
 
-    def __init__(self, tx: AdamW):
+    def __init__(self, tx):
         self.inner = tx
 
     def init(self, params):
@@ -160,23 +375,30 @@ class with_bf16_shadow:  # noqa: N801 — the JAX package's name
 
 
 def make_optimizer(cfg: TrainConfig):
-    """The optimizer of a TrainConfig, as the JAX package builds it: AdamW,
-    its first moment in bf16 when adam_mu_dtype is "bfloat16", wrapped by
-    with_bf16_shadow when compute_dtype is "bfloat16_shadow"."""
-    unported = []
-    if cfg.scheduler is not None:
-        unported.append(f"scheduler={cfg.scheduler!r}")
-    if getattr(cfg, "optimizer", "adamw") != "adamw":
-        unported.append(f"optimizer={cfg.optimizer!r}")
-    if unported:
-        raise NotImplementedError(
-            f"{', '.join(unported)}: not ported to sea_tpu_torch yet; the "
-            "port trains AdamW with a constant learning rate (see "
-            "ROADMAP.md)")
-    bf16_mu = getattr(cfg, "adam_mu_dtype", "float32") == "bfloat16"
-    tx = AdamW(cfg.learning_rate, b1=cfg.betas[0], b2=cfg.betas[1],
-               eps=cfg.eps, weight_decay=cfg.weight_decay,
-               mu_dtype=torch.bfloat16 if bf16_mu else torch.float32)
+    """The optimizer of a TrainConfig, as the JAX package builds it: AdamW
+    (its first moment in bf16 when adam_mu_dtype is "bfloat16") or
+    Adafactor (``optimizer``), at the constant learning rate or on the
+    linear schedule (``scheduler="linear"``: 0.1 lr to lr over epoch_num
+    updates), wrapped by with_bf16_shadow when compute_dtype is
+    "bfloat16_shadow"."""
+    if cfg.scheduler == "linear":
+        lr = linear_schedule(0.1 * cfg.learning_rate, cfg.learning_rate,
+                             cfg.epoch_num)
+    elif cfg.scheduler is None:
+        lr = cfg.learning_rate
+    else:
+        raise ValueError(f"unknown scheduler {cfg.scheduler!r}")
+    family = getattr(cfg, "optimizer", "adamw")
+    if family == "adafactor":
+        tx = Adafactor(lr, weight_decay=cfg.weight_decay)
+    elif family == "adamw":
+        bf16_mu = getattr(cfg, "adam_mu_dtype", "float32") == "bfloat16"
+        tx = AdamW(lr, b1=cfg.betas[0], b2=cfg.betas[1], eps=cfg.eps,
+                   weight_decay=cfg.weight_decay,
+                   mu_dtype=torch.bfloat16 if bf16_mu else torch.float32)
+    else:
+        raise ValueError(f"unknown optimizer {family!r} (expected 'adamw' "
+                         "or 'adafactor')")
     if getattr(cfg, "compute_dtype", "float32") == "bfloat16_shadow":
         return with_bf16_shadow(tx)
     return tx

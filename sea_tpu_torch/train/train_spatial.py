@@ -4,8 +4,9 @@ Counterpart of ``sea_tpu/train/train_spatial.py``: ``process_data``
 (load, split at snapshot level, patchify, SEA layout, derive n_inp),
 ``make_train_step`` (the MSE of the dropout forward, or the VAE loss
 with its KL weight annealed over the loop's optimizer steps, under the
-f32 or a bf16 numerics policy; AdamW with f32 or bf16 first moments, the
-bf16 shadow kept; the gradient and parameter norms and R^2),
+f32 or a bf16 numerics policy; the optimizer of ``train/optim.py``,
+AdamW or Adafactor, the bf16 shadow kept; the gradient and parameter
+norms and R^2),
 ``make_eval_step`` (masked metrics over padded batches) and ``train``,
 the epoch loop with validation and the best-validation-reconstruction
 checkpoint, written as the npz the JAX loop writes.

@@ -4,15 +4,17 @@ Counterpart of ``sea_tpu/train/train_temporal.py``: ``process_data``
 (load, split at trajectory level, patchify, encode with the frozen
 stage-1 encoder, cut the temporal windows), ``make_train_step``
 (teacher-forced next-step MSE under the f32 or a bf16 numerics policy,
-gradients by autograd through the flash and fused AdaLN kernels, AdamW
-with f32 or bf16 first moments, the bf16 shadow), ``make_eval_step`` (f32,
-on the master parameters) and ``train``, the
+gradients by autograd through the flash and fused AdaLN kernels, the
+optimizer of ``train/optim.py``: AdamW or Adafactor, the bf16 shadow),
+``make_eval_step`` (f32, on the master parameters) and ``train``, the
 epoch loop with validation, the full autoregressive evaluation cadence
 and the best-validation and best-rollout checkpoints, written as the same
 npz files the JAX driver writes.
 
-Single device only: the data-, sequence- and pipeline-parallel meshes and
-the profiler capture of the JAX driver raise "not ported" (ROADMAP.md).
+Single device only: the data-, sequence- and pipeline-parallel meshes,
+the per-tensor norms (``log_per_tensor``) and the profiler capture of the
+JAX driver raise "not ported" (ROADMAP.md). ``dataset_time_shifting``
+cuts the train windows anew each epoch, from the JAX driver's seeds.
 Dropout keys come from ``utils.prng``, JAX's threefry key functions on the
 host, with the JAX driver's key sequence, so a run from the same initial
 weights draws the JAX run's dropout masks.
@@ -59,6 +61,9 @@ class TemporalData:
     test: TemporalWindows
     mesh_processor: MeshProcessor
     latent_service: LatentService
+    # (latents, fields, ib) of the train split's trajectories, from which
+    # dataset_time_shifting cuts each epoch's windows anew.
+    train_raw: tuple = None
 
 
 def process_data(case: CaseConfig, *, device,
@@ -109,7 +114,9 @@ def process_data(case: CaseConfig, *, device,
 
     return TemporalData(train=windows(train_idx), val=windows(val_idx),
                         test=windows(test_idx), mesh_processor=mp,
-                        latent_service=svc)
+                        latent_service=svc,
+                        train_raw=(temporal_tokens[train_idx],
+                                   fields[train_idx], ib[train_idx]))
 
 
 def make_train_step(cfg: TemporalModelConfig, tx, *,
@@ -173,8 +180,6 @@ def _unported(tcfg, mesh, seq_mesh, pipe_mesh, profile_dir):
                                       ("pipe_mesh", pipe_mesh),
                                       ("profile_dir", profile_dir))
              if value is not None]
-    if tcfg.dataset_time_shifting:
-        names.append("dataset_time_shifting")
     if tcfg.log_per_tensor:
         names.append("log_per_tensor")
     if names:
@@ -237,8 +242,11 @@ def train(case: CaseConfig,
     best_params = to_numpy(params)
     start = time.time()
 
-    # The train and validation splits live on the device; each step
-    # gathers its batch there with the host's index stream.
+    # The validation split and, while its windows stay fixed, the train
+    # split live on the device; each step gathers its batch there with the
+    # host's index stream. With dataset_time_shifting the train windows
+    # are cut anew each epoch on the host, as in the JAX driver, and each
+    # batch is copied to the device.
     def resident(w: TemporalWindows):
         return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
                      for a in (w.src, w.tgt, w.ib))
@@ -247,16 +255,31 @@ def train(case: CaseConfig,
         sel = torch.from_numpy(np.asarray(idx)).to(device)
         return tuple(a.index_select(0, sel) for a in arrays)
 
-    train_split, val_split = resident(td.train), resident(td.val)
+    train_split = (None if tcfg.dataset_time_shifting
+                   else resident(td.train))
+    val_split = resident(td.val)
 
     for epoch in range(1, n_epochs + 1):
+        train_windows = td.train
+        if tcfg.dataset_time_shifting:
+            shift_rng = np.random.RandomState(
+                (case.temporal_split.random_seed * 7919 + epoch) % (2**31))
+            train_windows = make_temporal_windows(
+                *td.train_raw, tcfg.dataset_src_len, tcfg.dataset_overlap,
+                time_shift_rng=shift_rng)
         acc = M.StatsAccumulator()
         for sel in batch_index_iterator(
-                len(td.train.src), batch_size, shuffle=True,
+                len(train_windows.src), batch_size, shuffle=True,
                 seed=case.temporal_split.random_seed, epoch=epoch,
                 drop_remainder=True):
             rng, step_key = split(rng)
-            src, tgt, ib = gather(train_split, sel)
+            if train_split is None:
+                src, tgt, ib = (torch.from_numpy(np.ascontiguousarray(
+                    a[sel])).to(device) for a in (train_windows.src,
+                                                  train_windows.tgt,
+                                                  train_windows.ib))
+            else:
+                src, tgt, ib = gather(train_split, sel)
             params, opt_state, stats = train_step(params, opt_state, src,
                                                   tgt, ib, step_key)
             acc.add(stats)

@@ -6,8 +6,9 @@ weights ``[d_in, d_out]`` — with ``torch.Tensor`` leaves. ``from_numpy``
 and ``to_numpy`` move a tree between the two packages unchanged, so a
 checkpoint written by either CLI (npz, ``utils.checkpoint.save_pytree``)
 serves in the other; ``opt_state_to_numpy`` and ``opt_state_from_numpy``
-do the same for the optimizer state (AdamW, with f32 or bf16 first
-moments, alone or inside the bf16 shadow's state).
+do the same for the optimizer state (AdamW with f32 or bf16 first
+moments, or Adafactor; with the linear schedule's count or without; alone
+or inside the bf16 shadow's state).
 """
 
 from __future__ import annotations
@@ -70,54 +71,67 @@ def to_numpy(tree) -> dict:
 def opt_state_to_numpy(state):
     """The port's optimizer state (train/optim.py) -> the numpy tree of
     ``jax.tree.map(np.asarray, tx.init(params))``: the same npz paths,
-    count as int32, a bf16 mu and the bf16 shadow widened to f32."""
-    from sea_tpu_torch.train.optim import ScaleByAdamState, ShadowOptState
-    if isinstance(state, ShadowOptState):
-        return ShadowOptState(opt_state_to_numpy(state.inner),
-                              to_numpy(state.shadow))
-    adam = state[0]
-    return (ScaleByAdamState(np.asarray(adam.count, dtype=np.int32),
-                             to_numpy(adam.mu), to_numpy(adam.nu)),
-            ) + tuple(() for _ in state[1:])
+    counts as int32, a bf16 mu and the bf16 shadow widened to f32. That is
+    ``to_numpy`` of the state; this name only pairs it with
+    ``opt_state_from_numpy``, which is not ``from_numpy``."""
+    return to_numpy(state)
 
 
 def opt_state_from_numpy(tree, device, mu_dtype=None):
     """An optimizer state of numpy arrays (``jax.tree.map(np.asarray,
-    tx.init(p))``, or a ``restore_pytree`` result) -> the port's: moments
-    and shadow on ``device``, the count on the host. A state with a shadow
-    (two children, the first a state itself) comes back as a
-    ``ShadowOptState`` with bf16 shadow leaves. ``mu_dtype``: the first
-    moment's dtype (a checkpoint stores a bf16 mu widened to f32); None
-    keeps the arrays' own."""
-    from sea_tpu_torch.train.optim import ScaleByAdamState, ShadowOptState
+    tx.init(p))``, or a ``restore_pytree`` result) -> the port's:
+    statistics and shadow on ``device``, the counts on the host. Each part
+    is recognised by its fields (an AdamW, Adafactor or schedule state;
+    EmptyState becomes ``()``). A state with a shadow (two children, the
+    first a state itself) comes back as a ``ShadowOptState`` with bf16
+    shadow leaves. ``mu_dtype``: AdamW's first-moment dtype (a checkpoint
+    stores a bf16 mu widened to f32); None keeps the arrays' own."""
+    from sea_tpu_torch.train.optim import (FactoredState, ScaleByAdamState,
+                                           ScaleByScheduleState,
+                                           ShadowOptState)
     from sea_tpu_torch.utils.precision import to_bf16
     if len(tree) == 2 and isinstance(tree[0], tuple):
         return ShadowOptState(
             opt_state_from_numpy(tree[0], device, mu_dtype),
             to_bf16(from_numpy(tree[1], device)))
-    count, mu, nu = tree[0]
-    mu = from_numpy(mu, device)
-    if mu_dtype is not None:
-        mu = tree_map(lambda m: m.to(mu_dtype), mu)
-    return (ScaleByAdamState(torch.tensor(np.asarray(count),
-                                          dtype=torch.int32),
-                             mu, from_numpy(nu, device)),
-            ) + tuple(() for _ in tree[1:])
+
+    def count(c):
+        return torch.tensor(np.asarray(c), dtype=torch.int32)
+
+    def part(s):
+        fields = getattr(s, "_fields", ())  # (a tuple has a count method)
+        if "mu" in fields:
+            mu = from_numpy(s.mu, device)
+            if mu_dtype is not None:
+                mu = tree_map(lambda m: m.to(mu_dtype), mu)
+            return ScaleByAdamState(count(s.count), mu,
+                                    from_numpy(s.nu, device))
+        if "v_row" in fields:
+            return FactoredState(count(s.count),
+                                 *(from_numpy(getattr(s, k), device)
+                                   for k in ("v_row", "v_col", "v")))
+        if "count" in fields:
+            return ScaleByScheduleState(count(s.count))
+        return ()
+
+    return tuple(part(s) for s in tree)
 
 
 def opt_state_template(tx, params_np):
     """The numpy tree ``opt_state_to_numpy(tx.init(params))`` would give,
-    for restoring a checkpoint's optimizer state, with no moment buffers
-    allocated: each leaf a zero-stride f32 view of the param's shape (a
-    bf16 mu and the shadow are stored widened to f32), the count int32.
-    ``tx``: an AdamW or a with_bf16_shadow around one."""
-    from sea_tpu_torch.train.optim import ScaleByAdamState, ShadowOptState
-    zeros = tree_map(lambda a: np.broadcast_to(np.float32(0), np.shape(a)),
-                     params_np)
-    state = (ScaleByAdamState(np.int32(0), zeros, zeros), (), ())
-    if hasattr(tx, "inner"):
-        return ShadowOptState(state, zeros)
-    return state
+    for restoring a checkpoint's optimizer state, with no statistics
+    allocated: ``tx.init`` runs on meta tensors of the params' shapes, and
+    each floating leaf becomes a zero-stride f32 view of its shape (a bf16
+    mu and the shadow are stored widened to f32), each count an int32.
+    ``tx``: any optimizer of train/optim.py, shadowed or not."""
+    meta = tree_map(lambda a: torch.empty(np.shape(a), dtype=torch.float32,
+                                          device="meta"), params_np)
+
+    def leaf(t):
+        if t.is_floating_point():
+            return np.broadcast_to(np.float32(0), tuple(t.shape))
+        return np.int32(0)
+    return tree_map(leaf, tx.init(meta))
 
 
 def save_init_checkpoints(case, save_dir: str, *, seed: int) -> dict:

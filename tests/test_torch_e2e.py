@@ -357,8 +357,7 @@ def test_cuda_device_without_cuda_raises():
     ["temporal", "train", "--seq_parallel", "2"],
     ["encoder", "test", "--model_path", "model.pt"],
     ["temporal", "test", "--mesh", "2x1"],
-    ["temporal", "test", "--model_path", "model.pt"],
-    ["temporal", "train", "--optimizer", "adafactor"]])
+    ["temporal", "test", "--model_path", "model.pt"]])
 def test_unported_modes_and_flags_name_the_roadmap(argv, capsys):
     with pytest.raises(SystemExit):
         torch_cli.main(["cylinder_flow_smoke"] + argv + ["--device", "cpu"])
@@ -366,7 +365,8 @@ def test_unported_modes_and_flags_name_the_roadmap(argv, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--compute_dtype", "bf16"],
-                                  ["--adam_mu_dtype", "bf16"]])
+                                  ["--adam_mu_dtype", "bf16"],
+                                  ["--optimizer", "adafactor"]])
 def test_train_precision_flags_refused_outside_train(flag, capsys):
     """As in the JAX CLI: the training numerics flags apply to train
     modes only."""

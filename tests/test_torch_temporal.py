@@ -171,30 +171,3 @@ def test_module_owns_and_moves_params():
     model = model.to(torch.float64)
     assert model.params["blocks"][0]["mlp"][0]["layers"][0]["lin"][
         "w"].dtype == torch.float64
-
-
-@pytest.mark.parametrize("change", [dict(exchange_mode="pool"),
-                                    dict(exchange_mode="addition"),
-                                    dict(ib_scale_mode="fourier")])
-def test_configs_outside_the_slice_raise(change):
-    cfg = dataclasses.replace(_cfg("adaln"), **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TT.init_temporal(cfg, torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TT.temporal_forward({}, cfg, torch.zeros(1, 1, cfg.num_fields,
-                                                 cfg.embed_dim),
-                            torch.zeros(1, 1, 1))
-
-
-@pytest.mark.parametrize("remat", [True, "full", "dots"])
-def test_remat_raises(remat):
-    """remat is not ported: a config that sets it raises, naming
-    ROADMAP.md, instead of running without the memory saving it asks
-    for."""
-    cfg = dataclasses.replace(_cfg("ln"), remat=remat)
-    with pytest.raises(NotImplementedError, match="remat.*ROADMAP.md"):
-        TT.init_temporal(cfg, torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="remat.*ROADMAP.md"):
-        TT.temporal_forward({}, cfg, torch.zeros(1, 1, cfg.num_fields,
-                                                 cfg.embed_dim),
-                            torch.zeros(1, 1, 1))

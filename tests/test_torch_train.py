@@ -287,13 +287,20 @@ def test_optimizer_state_has_optax_layout():
 
 
 def test_unported_options_raise():
-    """The scheduler and adafactor still raise, naming ROADMAP.md; bf16
-    first moments and the bf16 shadow now build."""
+    """The sequence-parallel mesh still raises, naming ROADMAP.md; the
+    linear schedule, adafactor (alone and under the shadow), bf16 first
+    moments and the bf16 shadow build."""
     from sea_tpu_torch.configs.cylinder_flow import get_case
     tcfg = get_case().temporal_train
-    for change in (dict(scheduler="linear"), dict(optimizer="adafactor")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TO.make_optimizer(dataclasses.replace(tcfg, **change))
+    tx = TO.make_optimizer(dataclasses.replace(tcfg, scheduler="linear"))
+    assert isinstance(tx, TO.AdamW) and callable(tx.lr)
+    assert tx.lr(0) == pytest.approx(0.1 * tcfg.learning_rate)
+    tx = TO.make_optimizer(dataclasses.replace(tcfg, optimizer="adafactor"))
+    assert isinstance(tx, TO.Adafactor)
+    tx = TO.make_optimizer(dataclasses.replace(
+        tcfg, optimizer="adafactor", compute_dtype="bfloat16_shadow"))
+    assert isinstance(tx, TO.with_bf16_shadow)
+    assert isinstance(tx.inner, TO.Adafactor)
     tx = TO.make_optimizer(dataclasses.replace(tcfg,
                                                adam_mu_dtype="bfloat16"))
     assert isinstance(tx, TO.AdamW) and tx.mu_dtype == torch.bfloat16
