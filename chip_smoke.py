@@ -66,6 +66,16 @@ before and read just after:
   card against the CPU; `encoder test` on the card against the CPU; and
   the step timed (median of 25, device busy, events a step, peak
   memory).
+- the rest of the CLI surface: the f32 `temporal train` run above passes
+  `--profile`, and the port's flash and AdaLN kernels in its trace of
+  epoch 2 are counted against the model's sites ([train-profile-cli]);
+  the per-tensor norms of the card-vs-CPU step ([train-per-tensor]);
+  `full_autoregressive_evaluation` against the fused evaluation at the
+  multiphase width, with the rollout CSV and the plots or their one skip
+  line ([serve-artifacts]); reference `.pt` state dicts through
+  `--model_path`, the shipped stage-1 weights in `encoder test` and
+  seeded cylinder weights in `temporal test`, equal to their npz's bit
+  for bit ([checkpoint-pt]).
 
 Last, every kernel is timed against its plain version, its bound and,
 where one PyTorch call computes the same function, that call. Any failure
@@ -78,8 +88,10 @@ Output: one line per check and timing, then a JSON line of the kernels
 """
 
 import collections
+import contextlib
 import csv
 import dataclasses
+import io
 import json
 import math
 import re
@@ -1536,7 +1548,10 @@ def phase_train(case, save_dir, bf16=False):
     BF16_FLAGS recipe: a train step runs the bf16 flash kernels and the
     AdaLN kernels on bf16 x, an evaluation forward the f32 ones (f32 on
     the master weights), and the checkpoint's shadow is the bf16 cast of
-    its parameters."""
+    its parameters. The f32 run passes --profile: [train-profile-cli]
+    reads the trace of its second epoch (``_profile_cli``). Returns the
+    launch counts and that trace's (events, busy ms) a step (None under
+    bf16)."""
     from sea_tpu_torch import cli
     from sea_tpu_torch.models.temporal import init_temporal
     from sea_tpu_torch.train.optim import make_optimizer
@@ -1550,11 +1565,14 @@ def phase_train(case, save_dir, bf16=False):
     cfg = case.temporal
     attn, norms = _attentions(cfg)[1], _adaln_sites(cfg)[0]
     steps, evals = _train_schedule(case)
+    profile_dir = Path(save_dir) / "profile"
     _reset_launch_counts()
     t0 = time.perf_counter()
     params = cli.main([TRAIN_CASE, "temporal", "train", "--synthetic",
                        "--epochs", str(TRAIN_EPOCHS), "--save_dir", save_dir,
-                       "--device", "cuda"] + (BF16_FLAGS if bf16 else []))
+                       "--device", "cuda"]
+                      + (BF16_FLAGS if bf16 else
+                         ["--profile", str(profile_dir)]))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = _launch_counts()
@@ -1609,7 +1627,63 @@ def phase_train(case, save_dir, bf16=False):
         f"{'; shadow = bf16(params)' if bf16 else ''}); launches "
         f"{launches} = {per_step}, per evaluation forward {attn} + {norms} "
         f"f32 forwards")
-    return launches
+    if bf16:
+        return launches, None
+    return launches, _profile_cli(profile_dir, cfg, steps // TRAIN_EPOCHS)
+
+
+# The port's kernels in a trace, by the function name nvcc gave them.
+TRACE_KERNELS = {"flash_fwd": "fwd_kernel", "flash_bwd_dq": "dq_kernel",
+                 "flash_bwd_dkv": "dkv_kernel",
+                 "adaln_fwd": "adaln_fwd_kernel",
+                 "adaln_bwd": "adaln_bwd_kernel"}
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _profile_cli(profile_dir, cfg, steps):
+    """[train-profile-cli]: --profile wrote one trace, of epoch 2 (its
+    ``steps`` train steps, no validation). Its device events of each of
+    the port's f32 flash and AdaLN kernels (matched by their demangled
+    names, as the trace gives them) must equal the per-step counts of
+    _attentions/_adaln_sites times ``steps``. Returns (device events, busy ms) a step: kernels,
+    copies and sets, as [train-profile] counts them."""
+    files = sorted(p.name for p in profile_dir.iterdir())
+    if files != ["train_epoch2.pt.trace.json"]:
+        raise AssertionError(f"[train-profile-cli] {profile_dir} holds "
+                             f"{files}, expected epoch 2's trace only")
+    with open(profile_dir / files[0]) as fh:
+        events = [e for e in json.load(fh)["traceEvents"]
+                  if e.get("ph") == "X"
+                  and e.get("cat") in DEVICE_CATEGORIES]
+    attn = _attentions(cfg)[1]
+    fwd, bwd = _adaln_sites(cfg)
+    expected = {"flash_fwd": attn * steps, "flash_bwd_dq": attn * steps,
+                "flash_bwd_dkv": attn * steps, "adaln_fwd": fwd * steps,
+                "adaln_bwd": bwd * steps}
+    found = {}
+    for key, fn in TRACE_KERNELS.items():
+        rx = re.compile(rf"(?<!\w){fn}(?!\w)")
+        found[key] = sum(1 for e in events if e["cat"] == "kernel"
+                         and rx.search(e["name"]))
+    if found != expected:
+        raise AssertionError(f"[train-profile-cli] kernels in the trace "
+                             f"{found}, expected {expected}")
+    per_step = len(events) / steps
+    busy_ms = sum(e.get("dur", 0) for e in events) / steps / 1e3
+    log(f"[train-profile-cli] {TRAIN_CASE} temporal train --profile: "
+        f"{files[0]} ({steps} steps, B x T of the synthetic windows); "
+        f"port kernels {found} = per step {attn} attentions and "
+        f"({fwd}, {bwd}) AdaLN sites x {steps}; {per_step:.1f} device "
+        f"events/step, device busy {busy_ms:.3f} ms/step; {_smi()}")
+    by_name = collections.defaultdict(lambda: [0, 0.0])
+    for e in events:
+        by_name[e["name"]][0] += 1
+        by_name[e["name"]][1] += e.get("dur", 0)
+    for name, (n, us) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][1])[:8]:
+        log(f"[train-profile-cli] {us / steps / 1e3:8.3f} ms/step "
+            f"{n / steps:6.1f}/step {name[:90]}")
+    return per_step, busy_ms
 
 
 def _step_batch(cfg, B=2, T=399, seed=0):
@@ -1621,10 +1695,11 @@ def _step_batch(cfg, B=2, T=399, seed=0):
     return x, tgt, ib
 
 
-def _step_fn(case, params_np, device, recipe=None):
+def _step_fn(case, params_np, device, recipe=None, per_tensor=False):
     """A full-recipe train step of the case on device: time-constant ib
     (as the driver detects on the data), dropout on, AdamW; ``recipe``
-    (BF16_RECIPE) overrides the TrainConfig's numerics."""
+    (BF16_RECIPE) overrides the TrainConfig's numerics; ``per_tensor``
+    adds the per-tensor norms (log_per_tensor) to its stats."""
     from sea_tpu_torch.train.optim import make_optimizer
     from sea_tpu_torch.train.train_temporal import make_train_step
     from sea_tpu_torch.utils.params import from_numpy
@@ -1633,22 +1708,27 @@ def _step_fn(case, params_np, device, recipe=None):
     tx = make_optimizer(tcfg)
     params = from_numpy(params_np, device)
     state = tx.init(params)
-    step = make_train_step(cfg, tx, compute_dtype=tcfg.compute_dtype)
+    step = make_train_step(cfg, tx, compute_dtype=tcfg.compute_dtype,
+                           per_tensor=per_tensor)
     batch = [torch.from_numpy(a).to(device) for a in _step_batch(cfg)]
     return cfg, step, params, state, batch
 
 
 def phase_train_card_vs_cpu(case, params_np):
-    """One full-width f32 step on the card and on the CPU; returns the
+    """One full-width f32 step on the card and on the CPU, with the
+    per-tensor norms of log_per_tensor ([train-per-tensor]); returns the
     card's stats (the bf16 check's reference)."""
+    from sea_tpu_torch.train.metrics import read_norms
     from sea_tpu_torch.utils.params import to_numpy, tree_leaves
     from sea_tpu_torch.utils.prng import fold_in, prng_key
     key = fold_in(prng_key(0), 1)
-    out = {}
+    out, norms = {}, {}
     for device in ("cuda", "cpu"):
         t0 = time.perf_counter()
-        _, step, params, state, batch = _step_fn(case, params_np, device)
+        _, step, params, state, batch = _step_fn(case, params_np, device,
+                                                 per_tensor=True)
         params, state, stats = step(params, state, *batch, key)
+        norms[device] = read_norms(stats.pop("tensors"))
         out[device] = (tree_leaves(to_numpy(params)),
                        {k: float(v) for k, v in stats.items()},
                        time.perf_counter() - t0)
@@ -1672,7 +1752,35 @@ def phase_train_card_vs_cpu(case, params_np):
         f"{STEP_TOL['grad_norm']}), updated params max abs err "
         f"{p_err:.3g} <= {STEP_TOL['params']} (largest move {moved:.3g}); "
         f"CPU step {cpu_s:.1f} s")
+    _check_per_tensor(norms["cuda"], norms["cpu"], params_np, sp["grad_norm"])
     return sc
+
+
+def _check_per_tensor(card, cpu, params_np, grad_norm):
+    """[train-per-tensor]: the keys are Grad_Norm/ and Param_Norm/ over the
+    npz paths of the checkpoint's params; each card norm is within
+    STEP_TOL["grad_norm"] (relative) of the CPU's, plus 1e-7 of the
+    global gradient norm (the gradient of a key projection's bias is
+    zero up to rounding: softmax ignores a shift shared by every key)."""
+    from sea_tpu_torch.utils.checkpoint import _flatten
+    paths = set(_flatten(params_np))
+    want = {f"{kind}/{p}" for kind in ("Grad_Norm", "Param_Norm")
+            for p in paths}
+    if set(card) != want or set(cpu) != want:
+        raise AssertionError(f"[train-per-tensor] keys: card {len(card)}, "
+                             f"CPU {len(cpu)}, npz paths {len(paths)}; "
+                             f"{sorted(set(card) ^ want)[:5]}")
+    atol = 1e-7 * grad_norm
+    worst = max(((abs(card[k] - cpu[k]) - atol) / max(abs(cpu[k]), 1e-30),
+                 k) for k in want)
+    if worst[0] > STEP_TOL["grad_norm"]:
+        raise AssertionError(f"[train-per-tensor] {worst[1]}: card "
+                             f"{card[worst[1]]}, CPU {cpu[worst[1]]}")
+    log(f"[train-per-tensor] one {TRAIN_CASE} step with per_tensor=True: "
+        f"{len(want)} norms (Grad_Norm/ and Param_Norm/ over the "
+        f"{len(paths)} npz paths), card vs CPU within rel "
+        f"{STEP_TOL['grad_norm']} + {atol:.3g} (worst {worst[1]}: "
+        f"{max(worst[0], 0.0):.3g})")
 
 
 def _first_step_grads(state, b2):
@@ -1745,12 +1853,15 @@ def phase_train_card_vs_cpu_bf16(case, params_np, f32_stats):
         f"bf16(params) bit for bit; CPU step {cpu_s:.1f} s")
 
 
-def phase_train_time(case, params_np, recipe=None, tag=None, what=None):
+def phase_train_time(case, params_np, recipe=None, tag=None, what=None,
+                     cli_trace=None):
     """Median wall ms of the full-recipe step over TRAIN_TIMED_STEPS steps
     after 3 warm-up steps, each ended by torch.cuda.synchronize(); peak
     device memory over them; then a torch.profiler pass over 5 steps.
     ``recipe`` (BF16_RECIPE): the bf16 step, as [train-time-bf16]; another
-    recipe names its own ``tag`` and ``what``."""
+    recipe names its own ``tag`` and ``what``. ``cli_trace``: the (events,
+    busy ms) a step of [train-profile-cli], logged beside this
+    profile's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from sea_tpu_torch.utils.prng import prng_key, split
@@ -1797,10 +1908,18 @@ def phase_train_time(case, params_np, recipe=None, tag=None, what=None):
     busy_us = sum(e.self_device_time_total for e in events) / n_prof
     if not busy_us > 0:
         raise AssertionError("the profiler saw no device time")
-    log(f"[train-profile{tag}] {sum(e.count for e in events) / n_prof:.0f} "
+    n_events = sum(e.count for e in events) / n_prof
+    log(f"[train-profile{tag}] {n_events:.0f} "
         f"device events/step, device busy {busy_us / 1e3:.3f} ms/step, "
         f"profiled wall {wall_us / 1e3:.3f} ms/step, busy share "
         f"{100 * busy_us / wall_us:.1f}%")
+    if cli_trace is not None:
+        log(f"[train-profile-cli] the CLI's trace against this profile: "
+            f"{cli_trace[0]:.1f} / {n_events:.1f} device events a step "
+            f"(ratio {cli_trace[0] / n_events:.4f}), busy "
+            f"{cli_trace[1]:.3f} / {busy_us / 1e3:.3f} ms a step (ratio "
+            f"{cli_trace[1] * 1e3 / busy_us:.4f}); the CLI's steps run the "
+            f"synthetic windows, this profile B={B}, T={T}")
     # The 14 largest, and the port's own kernels wherever they rank.
     ours = ("fwd_kernel", "bwd_kernel", "dq_kernel", "dkv_kernel")
     for i, e in enumerate(sorted(events,
@@ -2813,6 +2932,270 @@ def phase_train_optim(case, params_np):
     return times
 
 
+ARTIFACT_RTOL = 1e-5
+
+
+def _captured(fn, *args, **kwargs):
+    """(fn's result, what it printed); the print is passed on."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kwargs)
+    sys.stdout.write(buf.getvalue())
+    return out, buf.getvalue()
+
+
+def phase_serve_artifacts(case, save_dir, params_np):
+    """[serve-artifacts]: at the multiphase width, on [serve]'s synthetic
+    test split and weights, full_autoregressive_evaluation (rollout on the
+    card, decode through the latent service, un-patch and score on the
+    host) against fused_autoregressive_evaluation (all on the card): the
+    rel MSEs within ARTIFACT_RTOL, each run's decode launches one a step
+    per attention (scan engine, as [serve]), the rollout CSV written, and
+    the plots drawn or their one skip line printed."""
+    from sea_tpu_torch.cli import _load_data, fit_to_data
+    from sea_tpu_torch.rollout.engine import select_engine
+    from sea_tpu_torch.train import evaluate as E
+    from sea_tpu_torch.train.train_temporal import process_data
+    from sea_tpu_torch.utils.params import from_numpy
+    case = case.replace(run=dataclasses.replace(case.run,
+                                                save_dir=str(save_dir)))
+    data = _load_data(case, synthetic=True)
+    case = fit_to_data(case, data)
+    td = process_data(case, data=data, device="cuda")
+    params = from_numpy(params_np, "cuda")
+    B, T_roll = td.test.src.shape[:2]
+    engine = select_engine(case.temporal, B, T_roll, params)
+    if engine != "scan":
+        raise AssertionError(f"[serve-artifacts] auto picked {engine}")
+    run = case.run
+    csv_path = Path(save_dir) / (f"rollout_error_{run.case_name}_"
+                                 f"{run.run_name}.csv")
+    plots = [f"rollout_error_{run.case_name}_{run.run_name}.png"]
+    results = {}
+    for name in ("full", "fused"):
+        csv_path.unlink(missing_ok=True)
+        for p in Path(save_dir).glob("temporal_*_data_*_0.png"):
+            p.unlink()
+        fn = getattr(E, f"{name}_autoregressive_evaluation")
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        res, printed = _captured(fn, params, case, td.test,
+                                 td.latent_service, td.mesh_processor)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = _launch_counts()
+        expected = dict.fromkeys(counts, 0)
+        expected["decode_attention"] = _attentions(case.temporal)[0] * T_roll
+        if counts != expected:
+            raise AssertionError(f"[serve-artifacts] {name} launched "
+                                 f"{counts}, expected {expected}")
+        drawn = sorted(p.name for p in Path(save_dir).glob(
+            "temporal_*_data_*_0.png"))
+        skipped = [line for line in printed.splitlines()
+                   if "is not installed, so the plots" in line]
+        if not csv_path.exists():
+            raise AssertionError(f"[serve-artifacts] {name}: no {csv_path}")
+        if not (len(drawn) == 10 and (Path(save_dir) / plots[0]).exists()
+                or len(skipped) == 1 and plots[0] in skipped[0]
+                and not drawn):
+            raise AssertionError(f"[serve-artifacts] {name}: plots {drawn}, "
+                                 f"skip lines {skipped}")
+        results[name] = res
+        log(f"[serve-artifacts] {name}_autoregressive_evaluation: {B} x "
+            f"{T_roll} steps in {seconds:.2f} s, decode launches "
+            f"{counts['decode_attention']}; {csv_path.name} written; "
+            + (f"{len(drawn) + 1} plots drawn" if drawn else
+               "plots skipped (one line printed)"))
+    full, fused = results["full"], results["fused"]
+    for key in ("encoded_rel_mse", "decoded_rel_mse",
+                "decoded_rel_mse_per_time"):
+        if not np.allclose(full[key], fused[key], rtol=ARTIFACT_RTOL,
+                           atol=0):
+            raise AssertionError(f"[serve-artifacts] {key}: full "
+                                 f"{full[key]}, fused {fused[key]}")
+    rel = float(np.max(np.abs(full["decoded_rel_mse_per_time"]
+                              - fused["decoded_rel_mse_per_time"])
+                       / np.abs(fused["decoded_rel_mse_per_time"])))
+    log(f"[serve-artifacts] full vs fused: encoded_rel_mse "
+        f"{full['encoded_rel_mse']:.9g} / {fused['encoded_rel_mse']:.9g}, "
+        f"decoded_rel_mse {full['decoded_rel_mse']:.9g} / "
+        f"{fused['decoded_rel_mse']:.9g}, per time max rel diff {rel:.3g} "
+        f"<= {ARTIFACT_RTOL}")
+
+
+def phase_checkpoint_pt():
+    """[checkpoint-pt]: reference PyTorch state dicts through --model_path.
+    Stage 1: the shipped trained weights written as a reference-named
+    .pt (``module.`` prefixes, an extra ``freqs_cis`` buffer that the
+    mapper must skip). Its sinusoidal ``pe`` is no key of a reference
+    state dict (the reference keeps it as a buffer; the mapper rebuilds
+    it), while the shipped npz carries the JAX run's trained table, so the
+    .pt is held against its npz twin: the shipped weights with the
+    mapper's table. `encoder test` from both must print the same three
+    metrics, bit for bit (the transposes are exact); the shipped npz's own
+    are logged beside. Stage 2: seeded cylinder temporal weights as .npz
+    and as .pt; `temporal test` from both, the same decoded_rel_mse bit
+    for bit."""
+    from sea_tpu_torch import cli
+    from sea_tpu_torch.models.spatial import init_spatial
+    from sea_tpu_torch.ops.layers import sinusoidal_pe_table
+    from sea_tpu_torch.utils.checkpoint import (checkpoint_path,
+                                                load_params, save_pytree)
+    from sea_tpu_torch.utils.params import save_init_checkpoints, to_numpy
+    case = cli.get_case(TRAIN_CASE)
+    with np.load(REPO / SHIPPED_ENCODER) as f:
+        n_inp = f["params/decoders/1/fc2/w"].shape[1]
+    scfg = case.spatial.with_n_inp(n_inp)
+    template = to_numpy(init_spatial(scfg, torch.Generator().manual_seed(0),
+                                     device="cpu"))
+    shipped = load_params(str(REPO / SHIPPED_ENCODER), template)
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as d:
+        sd = _reference_state_dict(shipped, "spatial", prefix="module.")
+        sd["module.encode.blocks.0.attn_1.freqs_cis"] = torch.zeros(64, 8)
+        torch.save(sd, f"{d}/enc.pt")
+        twin = dict(shipped, pe=sinusoidal_pe_table(
+            scfg.token_dim, 5000, device="cpu").numpy())
+        save_pytree(f"{d}/enc.npz", {"params": twin})
+        got = {}
+        for name, path in (("pt", f"{d}/enc.pt"), ("npz", f"{d}/enc.npz"),
+                           ("shipped", str(REPO / SHIPPED_ENCODER))):
+            got[name] = cli.main([TRAIN_CASE, "encoder", "test",
+                                  "--synthetic", "--save_dir", d,
+                                  "--device", "cuda", "--model_path", path])
+        if got["pt"] != got["npz"] or not all(
+                np.isfinite(v) for v in got["pt"].values()):
+            raise AssertionError(f"[checkpoint-pt] encoder test: .pt "
+                                 f"{got['pt']}, .npz {got['npz']}")
+        log(f"[checkpoint-pt] {TRAIN_CASE} encoder test --model_path: .pt "
+            f"({len(sd)} reference keys, module. prefixes, freqs_cis "
+            f"skipped) {got['pt']} == npz twin {got['npz']} bit for bit; "
+            f"the shipped npz (its trained pe) {got['shipped']}")
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as d:
+        tparams = save_init_checkpoints(case, d, seed=3)["temporal"]
+        npz = checkpoint_path(d, "temporal", case.run.case_name,
+                              case.run.run_name)
+        torch.save(_reference_state_dict(tparams, "temporal"), f"{d}/t.pt")
+        out = {}
+        for path in (f"{d}/t.pt", npz):
+            out[Path(path).suffix] = cli.main(
+                [TRAIN_CASE, "temporal", "test", "--synthetic", "--save_dir",
+                 d, "--device", "cuda", "--model_path", path])
+        a, b = out[".pt"], out[".npz"]
+        if not (np.isfinite(a["decoded_rel_mse"])
+                and a["decoded_rel_mse"] == b["decoded_rel_mse"]
+                and a["encoded_rel_mse"] == b["encoded_rel_mse"]):
+            raise AssertionError(f"[checkpoint-pt] temporal test: .pt {a}, "
+                                 f".npz {b}")
+        log(f"[checkpoint-pt] {TRAIN_CASE} temporal test --model_path t.pt "
+            f"== t.npz bit for bit: decoded_rel_mse "
+            f"{a['decoded_rel_mse']!r}, encoded_rel_mse "
+            f"{a['encoded_rel_mse']!r}")
+
+
+def _reference_state_dict(tree, kind: str, prefix: str = ""):
+    """The inverse of utils/torch_compat's mapping (a copy of
+    tests/_reference_state_dict.py): {name: tensor} of a ``kind``
+    ("spatial" or "temporal") numpy tree as the original SEA modules name
+    their state dicts, every name under ``prefix`` ("module." for an
+    nn.DataParallel export); the sinusoidal tables left out."""
+    sd = {}
+
+    def put(name, a):
+        sd[prefix + name] = torch.from_numpy(np.ascontiguousarray(a))
+
+    def lin(name, p):
+        put(f"{name}.weight", p["w"].T)
+        if "b" in p:
+            put(f"{name}.bias", p["b"])
+
+    def norm(name, p):
+        put(f"{name}.weight", p["w"])
+        if "b" in p:
+            put(f"{name}.bias", p["b"])
+        if "cond_fc1" in p:
+            lin(f"{name}.cond_mlp.0", p["cond_fc1"])
+            lin(f"{name}.cond_mlp.2", p["cond_fc2"])
+
+    def attn(name, p):
+        for k in ("q", "k", "v"):
+            lin(f"{name}.{k}", p[k])
+        lin(f"{name}.projection", p["proj"])
+
+    def mlp(name, p):
+        idx = 0  # [Linear, LayerNorm, GELU] per hidden layer, then Linear
+        for layer in p["layers"]:
+            lin(f"{name}.layers.{idx}", layer["lin"])
+            if "ln" in layer:
+                norm(f"{name}.layers.{idx + 1}", layer["ln"])
+                idx += 3
+            else:
+                idx += 1
+
+    def scale(name, p):
+        lin(f"{name}.layer1", p["fc1"])
+        lin(f"{name}.layer2", p["fc2"])
+
+    if kind == "spatial":
+        norm("encode.ln", tree["ln"])
+        for i, b in enumerate(tree["blocks"]):
+            norm(f"encode.blocks.{i}.ln_exp1_1", b["ln1"])
+            norm(f"encode.blocks.{i}.ln_exp1_2", b["ln2"])
+            attn(f"encode.blocks.{i}.attn_1", b["attn"])
+            mlp(f"encode.blocks.{i}.mlp_1", b["mlp"])
+        mu = "encoders_mu" if "encoders_logvar" in tree else "encoders"
+        for g, p in enumerate(tree["encoders"]):
+            scale(f"encode.{mu}.{g}", p)
+        for g, p in enumerate(tree.get("encoders_logvar", [])):
+            scale(f"encode.encoders_logvar.{g}", p)
+        for g, p in enumerate(tree["decoders"]):
+            scale(f"decode.decoders.{g}", p)
+        return sd
+
+    for i, p in enumerate(tree["ln_final"]):
+        norm(f"ln.{i}", p)
+    for l, b in enumerate(tree["blocks"]):
+        n = f"blocks.{l}"
+        ib = b["ib"]
+        if "W" in ib:
+            put(f"{n}.ib.W", ib["W"])
+        elif "layers" in ib:
+            mlp(f"{n}.ib", ib)
+        else:
+            lin(f"{n}.ib", ib)
+        for i, field in enumerate(b["ln_exp"]):
+            for j, p in enumerate(field):
+                norm(f"{n}.ln.exp.{i}.{j}", p)
+        for i in range(len(b["self_attn"])):
+            attn(f"{n}.attn.self.{i}", b["self_attn"][i])
+            mlp(f"{n}.mlp.{i}", b["mlp"][i])
+            lin(f"{n}.proj.{i}", b["proj"][i])
+        for i, p in enumerate(b.get("cross_attn_ib", [])):
+            attn(f"{n}.cross_attn_ib.{i}", p)
+        for i in range(len(b.get("cross_down", []))):
+            lin(f"{n}.cross_down.{i}", b["cross_down"][i])
+            lin(f"{n}.cross_up.{i}", b["cross_up"][i])
+            norm(f"{n}.ln_cross.{i}", b["ln_cross"][i])
+        for i, row in enumerate(b.get("cross_attn", [])):
+            if isinstance(row, list):  # sea: the G x G lattice
+                for j, p in enumerate(row):
+                    attn(f"{n}.cross_attn.{i}.{j}", p)
+            else:  # pool: one per field
+                attn(f"{n}.cross_attn.{i}", row)
+        if "pool_token" in b:
+            put(f"{n}.pool_token", b["pool_token"])
+            norm(f"{n}.ln_pool", b["ln_pool"])
+            upd = b["pool_update"]
+            if isinstance(upd, np.ndarray):  # pooling weights
+                put(f"{n}.pool_update", upd)
+            elif "fc1" in upd:
+                lin(f"{n}.pool_update.0", upd["fc1"])
+                lin(f"{n}.pool_update.2", upd["fc2"])
+            else:
+                lin(f"{n}.pool_update", upd)
+    return sd
+
+
 KERNELS = [  # name, route, source, the TPU kernel it replaces
     ("decode_attention", "cuda", "sea_tpu_torch/csrc/decode_attention.cu",
      "sea_tpu/ops/decode_attention.py:48"),
@@ -2841,10 +3224,10 @@ KERNELS = [  # name, route, source, the TPU kernel it replaces
 ]
 
 
-def _timed(fn, *args):
-    """fn(*args), with its wall time logged."""
+def _timed(fn, *args, **kwargs):
+    """fn(*args, **kwargs), with its wall time logged."""
     t0 = time.perf_counter()
-    out = fn(*args)
+    out = fn(*args, **kwargs)
     log(f"[time] {fn.__name__}: {time.perf_counter() - t0:.1f} s")
     return out
 
@@ -2874,6 +3257,7 @@ def main():
         params_np = save_init_checkpoints(case, save_dir,
                                           seed=1)["temporal"]
         launches["decode_attention"] = phase_serve(case, save_dir)
+        _timed(phase_serve_artifacts, case, save_dir, params_np)
         _timed(phase_generate, case, save_dir)
         reduced = phase_serve_reduced(case, save_dir, params_np)
     launches.update({k: reduced["int4"][k]
@@ -2881,10 +3265,10 @@ def main():
     with tempfile.TemporaryDirectory(dir=REPO / "build") as save_dir:
         train_np = save_init_checkpoints(train_case, save_dir,
                                          seed=1)["temporal"]
-        train_launches = phase_train(train_case, save_dir)
+        train_launches, cli_trace = phase_train(train_case, save_dir)
     with tempfile.TemporaryDirectory(dir=REPO / "build") as save_dir:
         save_init_checkpoints(train_case, save_dir, seed=1)
-        bf16_launches = phase_train(train_case, save_dir, bf16=True)
+        bf16_launches, _ = phase_train(train_case, save_dir, bf16=True)
     launches.update({k: train_launches[k] for k in (
         "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "adaln_fwd",
         "adaln_bwd")})
@@ -2894,10 +3278,11 @@ def main():
         _timed(phase_encoder_train, train_case, save_dir)
         _timed(phase_encoder_test, train_case, save_dir)
     _timed(phase_encoder_card_vs_cpu)
+    _timed(phase_checkpoint_pt)
     _timed(phase_encoder_train_time)
     f32_step = _timed(phase_train_card_vs_cpu, train_case, train_np)
     _timed(phase_train_card_vs_cpu_bf16, train_case, train_np, f32_step)
-    _timed(phase_train_time, train_case, train_np)
+    _timed(phase_train_time, train_case, train_np, cli_trace=cli_trace)
     _timed(phase_train_time, train_case, train_np, BF16_RECIPE)
     _timed(phase_train_optim, train_case, train_np)
     _timed(phase_train_modes, train_case)

@@ -4,7 +4,7 @@
         [--epochs N] [--batch_size N] [--synthetic] [--save_dir DIR]
         [--model_path PATH] [--compute_dtype f32|bf16|bf16_mixed|bf16_shadow]
         [--adam_mu_dtype f32|bf16] [--optimizer adamw|adafactor] [--seed N]
-        [--device cuda|cpu|cuda:N]
+        [--profile DIR] [--device cuda|cpu|cuda:N]
     python -m sea_tpu_torch.cli <flow_type> encoder test
         [--model_path PATH] [--synthetic] [--save_dir DIR] [--seed N]
         [--device cuda|cpu|cuda:N]
@@ -13,7 +13,7 @@
         [--epochs N] [--batch_size N] [--synthetic] [--save_dir DIR]
         [--compute_dtype f32|bf16|bf16_mixed|bf16_shadow]
         [--adam_mu_dtype f32|bf16] [--optimizer adamw|adafactor] [--seed N]
-        [--device cuda|cpu|cuda:N]
+        [--profile DIR] [--device cuda|cpu|cuda:N]
     python -m sea_tpu_torch.cli <flow_type> temporal test
         [--model_path PATH] [--synthetic] [--save_dir DIR] [--seed N]
         [--precision f32|bf16|int8|int4] [--no_calibrate]
@@ -23,30 +23,39 @@
         [--horizon H] [--trajectory IDX] [--output PATH]
         [the serving flags of `temporal test`]
 
-Same grammar as ``python -m sea_tpu.cli``. Ported so far: ``encoder
-train`` and ``encoder test``, stage 1 (the autoencoder's training loop on
-one device, under the same numerics policies and optimizer as stage 2,
-writing the JAX loop's ``encoder_decoder`` checkpoint; the test's three
-reconstruction metrics, without the field plots); ``temporal
-train`` (single device, AdamW with f32 or bf16 first moments or Adafactor
+Same grammar as ``python -m sea_tpu.cli``, every flag and mode of it on
+one device: ``encoder train`` and ``encoder test``, stage 1 (the
+autoencoder's training loop under the same numerics policies and
+optimizers as stage 2, writing the JAX loop's ``encoder_decoder``
+checkpoint; the test's three reconstruction metrics and its field plots);
+``temporal train`` (AdamW with f32 or bf16 first moments or Adafactor
 (``--optimizer``), under the f32 or a bf16 numerics policy, the bf16
-shadow included; it writes the JAX training loop's npz checkpoints;
-evaluation runs f32 on the master weights);
-``temporal test``, the serving rollout with decoded evaluation, on the
-engine ``rollout.engine.select_engine`` picks (an explicit ``--kv_cache``
-forces the scan engine), at f32 or reduced precision (bf16 weights; int8
-or int4 weights, int4 calibrated on a few train windows by default; the
-teacher-forced drift gate; f32, bf16 or int8 KV caches); and ``temporal
+shadow included; it writes the JAX training loop's npz checkpoints and,
+at its full-evaluation epochs, its rollout artifacts; evaluation runs f32
+on the master weights); ``temporal test``, the serving rollout with
+decoded evaluation, on the engine ``rollout.engine.select_engine`` picks
+(an explicit ``--kv_cache`` forces the scan engine), at f32 or reduced
+precision (bf16 weights; int8 or int4 weights, int4 calibrated on a few
+train windows by default; the teacher-forced drift gate; f32, bf16 or
+int8 KV caches), writing the rollout CSV and plots; and ``temporal
 generate``, the surrogate simulation: a test window's initial state
 rolled ``--horizon`` steps, past the dataset window, decoded to fields
-[H, N, F] and saved as ``.npy``; all as the JAX CLI serves on one device.
-``--model_path`` with a train mode resumes from an npz checkpoint: its
-params and, where the checkpoint's optimizer state has the configured
-recipe's structure, its optimizer state (else a fresh optimizer, with
-the JAX CLI's warning). Every other mode and flag exits with a parser error
-that points to
-ROADMAP.md. As in the JAX CLI, ``--seed`` overrides the random seed of the
-data splits; the training keys start from seed 0 in both.
+[H, N, F] and saved as ``.npy``.
+
+``--model_path`` takes an ``.npz`` checkpoint of either package or a
+reference PyTorch state dict (``.pt``, ``module.`` prefixes stripped,
+``utils/torch_compat.py``) in every mode. A train mode resumes from it:
+an npz's params and, where its optimizer state has the configured
+recipe's structure, that state (else a fresh optimizer, with the JAX
+CLI's warning); a ``.pt``'s params with a fresh optimizer.
+``--profile DIR`` (train modes) writes a trace of one steady-state epoch
+into DIR. Plots need matplotlib; without it the run prints which plots
+it skipped and writes everything else. The parallel flags (``--mesh``,
+``--seq_parallel``, ``--pp``, ``--pp_microbatches``) exit with a parser
+error that points to ROADMAP.md. As in the JAX CLI, ``--seed`` overrides
+the random seed of the data splits and seeds every host RNG
+(``utils.seeding.set_seed``); the training keys start from seed 0 in
+both.
 
 ``--device`` takes the place of the JAX CLI's ``--platform``. It defaults
 to ``cuda`` and raises when CUDA is absent: the port never moves to the
@@ -96,6 +105,18 @@ def _load_data(case, synthetic: bool):
     return gen(tr=8, T=41, n_nodes=800, seed=case.spatial_split.random_seed)
 
 
+def fit_to_data(case, data):
+    """The case fitted to synthetic data, which is smaller than the
+    configured datasets: the window clamped to T-1 and the batch to the
+    training trajectories, as the JAX CLI does."""
+    tr, T = data[0].shape[:2]
+    tt = case.temporal_train
+    n_train = max(1, int(round(tr * case.temporal_split.train_fraction)))
+    return case.replace(temporal_train=dataclasses.replace(
+        tt, dataset_src_len=min(tt.dataset_src_len, T - 1),
+        batch_size=min(tt.batch_size, n_train)))
+
+
 def resolve_device(name: str) -> torch.device:
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -114,7 +135,8 @@ def main(argv=None):
     parser.add_argument("model_type", choices=["encoder", "temporal"])
     parser.add_argument("mode", choices=["train", "test", "generate"])
     parser.add_argument("--model_path", default=None,
-                        help=".npz checkpoint to test, serve or resume "
+                        help=".npz checkpoint, or reference PyTorch .pt "
+                             "state dict, to test, serve or resume "
                              "training from (default for test and serve: "
                              "the case's checkpoint under --save_dir)")
     parser.add_argument("--synthetic", action="store_true",
@@ -122,7 +144,8 @@ def main(argv=None):
     parser.add_argument("--save_dir", default=None)
     parser.add_argument("--seed", type=int, default=None,
                         help="override the random_seed of the spatial and "
-                             "temporal splits")
+                             "temporal splits, and seed every host-side RNG "
+                             "(python random, numpy, torch)")
     parser.add_argument("--epochs", type=int, default=None,
                         help="override the config's epoch count (train)")
     parser.add_argument("--batch_size", type=int, default=None,
@@ -185,12 +208,18 @@ def main(argv=None):
                         help="`temporal generate`: .npy path of the decoded "
                              "fields [H, nodes, fields] (default "
                              "{save_dir}/generated_{case}_{run}.npy)")
+    parser.add_argument("--profile", default=None, metavar="DIR",
+                        help="train modes: write a torch.profiler trace "
+                             "(Chrome/Perfetto, TensorBoard) of one "
+                             "steady-state training epoch into DIR")
     parser.add_argument("--device", default="cuda",
                         help="torch device: cuda (default), cuda:N or cpu")
     args, unknown = parser.parse_known_args(argv)
     if unknown:
         parser.error(f"{' '.join(unknown)}: not ported to sea_tpu_torch "
                      "yet (see ROADMAP.md)")
+    if args.profile and args.mode != "train":
+        parser.error("--profile only applies to train modes")
     if args.mode == "generate" and args.model_type != "temporal":
         parser.error("generate is a temporal (stage-2) serving mode")
     if (args.model_type, args.mode) not in PORTED:
@@ -216,13 +245,15 @@ def main(argv=None):
                      "takes --compute_dtype")
     if args.batch_size is not None and args.batch_size < 1:
         parser.error(f"--batch_size must be >= 1; got {args.batch_size}")
-    if args.model_path and not args.model_path.endswith(".npz"):
-        parser.error("--model_path: only .npz checkpoints are ported yet "
-                     "(see ROADMAP.md)")
+    if args.model_path and not args.model_path.endswith((".npz", ".pt")):
+        parser.error(f"--model_path {args.model_path}: expected an .npz "
+                     "checkpoint or a reference PyTorch .pt state dict")
     device = resolve_device(args.device)
 
     case = get_case(args.flow_type)
     if args.seed is not None:
+        from sea_tpu_torch.utils.seeding import set_seed
+        set_seed(args.seed)
         case = case.replace(
             spatial_split=dataclasses.replace(case.spatial_split,
                                               random_seed=args.seed),
@@ -252,15 +283,7 @@ def main(argv=None):
             getattr(case, stage), **updates)})
     data = _load_data(case, args.synthetic)
     if data is not None:
-        # Synthetic data is smaller than the configured datasets: clamp
-        # the window to T-1 and the batch to the training trajectories, as
-        # the JAX CLI does.
-        tr, T = data[0].shape[:2]
-        tt = case.temporal_train
-        n_train = max(1, int(round(tr * case.temporal_split.train_fraction)))
-        case = case.replace(temporal_train=dataclasses.replace(
-            tt, dataset_src_len=min(tt.dataset_src_len, T - 1),
-            batch_size=min(tt.batch_size, n_train)))
+        case = fit_to_data(case, data)
     if args.model_type == "encoder":
         if args.mode == "train":
             return _train_encoder(case, args, data, device)
@@ -278,7 +301,31 @@ def _tracker(case, args):
         save_dir=case.run.save_dir)
 
 
-def load_train_checkpoint(path: str, template, train_cfg):
+def load_any_checkpoint(path: str, template, cfg, *, kind: str):
+    """The params of an npz checkpoint, or of a reference PyTorch state
+    dict (``.pt``, mapped by utils/torch_compat.py for ``kind`` "spatial"
+    or "temporal" under ``cfg``), as a numpy tree of ``template``'s
+    structure and shapes (a mapped tree of another is refused)."""
+    if not path.endswith(".pt"):
+        from sea_tpu_torch.utils.checkpoint import load_params
+        return load_params(path, template)
+    from sea_tpu_torch.utils import torch_compat as TC
+    from sea_tpu_torch.utils.checkpoint import _flatten
+    mapper = (TC.spatial_params_from_torch if kind == "spatial"
+              else TC.temporal_params_from_torch)
+    params = mapper(TC.load_torch_state_dict(path), cfg)
+    got, want = _flatten(params), _flatten(template)
+    bad = sorted(k for k in got.keys() | want.keys()
+                 if k not in got or k not in want
+                 or got[k].shape != want[k].shape)
+    if bad:
+        raise ValueError(f"{path}: the mapped {kind} tree differs from the "
+                         f"configured model at {bad[:5]}")
+    return params
+
+
+def load_train_checkpoint(path: str, template, train_cfg, cfg=None,
+                          kind: str = "temporal"):
     """(params, opt_state | None), numpy trees, for --model_path resume:
     the checkpoint's params and, when it carries an optimizer state of the
     structure ``train_cfg``'s optimizer has (AdamW with f32 or bf16 mu, or
@@ -286,8 +333,15 @@ def load_train_checkpoint(path: str, template, train_cfg):
     bf16 shadow), that state, so resume continues it. A state of another
     structure (written under another --compute_dtype or --optimizer
     recipe: a leaf missing, or one of another shape) resumes the params
-    with a fresh optimizer and a warning. ``template``: the model's
-    params, numpy."""
+    with a fresh optimizer and a warning. A reference ``.pt`` state dict
+    (the ``kind`` model of ``cfg``) carries no optimizer state: its params
+    resume with a fresh optimizer. ``template``: the model's params,
+    numpy."""
+    if path.endswith(".pt"):
+        params = load_any_checkpoint(path, template, cfg, kind=kind)
+        print(f"{path} is a reference state dict with no optimizer state: "
+              "resuming its params with a FRESH optimizer")
+        return params, None
     from sea_tpu_torch.train.optim import make_optimizer
     from sea_tpu_torch.utils.checkpoint import load_full_checkpoint
     from sea_tpu_torch.utils.params import opt_state_template
@@ -322,11 +376,13 @@ def _train_encoder(case, args, data, device):
                                          torch.Generator().manual_seed(0),
                                          device="cpu"))
         init_params, init_opt = load_train_checkpoint(
-            args.model_path, template, case.spatial_train)
+            args.model_path, template, case.spatial_train,
+            precomputed.spatial_cfg, kind="spatial")
         print(f"Continuing training from model: {args.model_path}")
     params, _ = train(case, _tracker(case, args), device=device, data=data,
                       epochs=args.epochs, init_params=init_params,
-                      init_opt_state=init_opt, precomputed=precomputed)
+                      init_opt_state=init_opt, precomputed=precomputed,
+                      profile_dir=args.profile)
     if case.spatial_train.final_save:
         save_checkpoint(case.run.save_dir, "final_model_encoder",
                         case.run.case_name, case.run.run_name, params)
@@ -338,7 +394,7 @@ def _test_encoder(case, args, data, device):
     from sea_tpu_torch.models.spatial import init_spatial
     from sea_tpu_torch.train.evaluate import test_encoder_decoder
     from sea_tpu_torch.train.train_spatial import process_data
-    from sea_tpu_torch.utils.checkpoint import checkpoint_path, load_params
+    from sea_tpu_torch.utils.checkpoint import checkpoint_path
     from sea_tpu_torch.utils.params import from_numpy, to_numpy
     sd = process_data(case, data=data)
     template = to_numpy(init_spatial(sd.spatial_cfg,
@@ -347,13 +403,11 @@ def _test_encoder(case, args, data, device):
     path = args.model_path or checkpoint_path(
         case.run.save_dir, "encoder_decoder", case.run.case_name,
         case.run.run_name)
-    params = from_numpy(load_params(path, template), device)
+    params = from_numpy(load_any_checkpoint(path, template, sd.spatial_cfg,
+                                            kind="spatial"), device)
     print(f"Using pretrained encoder model: {path}")
-    results = test_encoder_decoder(params, case, sd.test, sd.mesh_processor,
-                                   device=device, spatial_cfg=sd.spatial_cfg)
-    print("Field plots (original and decoded snapshots) are not ported to "
-          "sea_tpu_torch yet (see ROADMAP.md)")
-    return results
+    return test_encoder_decoder(params, case, sd.test, sd.mesh_processor,
+                                device=device, spatial_cfg=sd.spatial_cfg)
 
 
 def _train(case, args, data, device):
@@ -368,11 +422,12 @@ def _train(case, args, data, device):
                                           torch.Generator().manual_seed(0),
                                           device="cpu"))
         init_params, init_opt = load_train_checkpoint(
-            args.model_path, template, case.temporal_train)
+            args.model_path, template, case.temporal_train, case.temporal,
+            kind="temporal")
         print(f"Continuing training from model: {args.model_path}")
     params, _ = train(case, _tracker(case, args), device=device, data=data,
                       epochs=args.epochs, init_params=init_params,
-                      init_opt_state=init_opt)
+                      init_opt_state=init_opt, profile_dir=args.profile)
     if case.temporal_train.final_save:
         save_checkpoint(case.run.save_dir, "final_model_temporal",
                         case.run.case_name, case.run.run_name, params)
@@ -383,7 +438,7 @@ def _serve(case, args, data, device, parser):
     """`temporal test` (returns the evaluation metrics) and `temporal
     generate` (returns the generated fields [H, N, F]): one load and one
     set of serving transforms."""
-    from sea_tpu_torch.utils.checkpoint import checkpoint_path, load_params
+    from sea_tpu_torch.utils.checkpoint import checkpoint_path
     from sea_tpu_torch.models.temporal import (init_temporal,
                                                is_scan_incremental)
     from sea_tpu_torch.train.evaluate import fused_autoregressive_evaluation
@@ -398,7 +453,8 @@ def _serve(case, args, data, device, parser):
     path = args.model_path or checkpoint_path(
         case.run.save_dir, "temporal", case.run.case_name, case.run.run_name)
     print(f"Using pretrained model: {path}")
-    params = from_numpy(load_params(path, template), device)
+    params = from_numpy(load_any_checkpoint(path, template, case.temporal,
+                                            kind="temporal"), device)
     # --precision applies end to end: the rollout and the stage-1 decoder
     # run the reduced-precision weights (encoding stays f32), and the
     # temporal attention projections are fused (qkv/kv) before any cast.

@@ -58,6 +58,14 @@ class LatentService:
         """[B, P, G, D] -> fields [B, P, F, C]."""
         return self._batched(self._decode, latents)
 
+    def with_params(self, params) -> "LatentService":
+        """A copy of this service running other weights (the CLI's
+        reduced-precision casts of the stage-1 model)."""
+        import copy
+        svc = copy.copy(self)
+        svc.params = params
+        return svc
+
 
 def transform_latents_to_temporal(latents: np.ndarray, tr: int, T: int,
                                   n_patches: int, num_groups: int
@@ -68,3 +76,15 @@ def transform_latents_to_temporal(latents: np.ndarray, tr: int, T: int,
     x = latents.reshape(tr, T, n_patches, num_groups, D)
     x = x.transpose(0, 1, 3, 2, 4)
     return x.reshape(tr, T, num_groups, n_patches * D)
+
+
+def inverse_transform_latents(temporal: np.ndarray, n_patches: int
+                              ) -> np.ndarray:
+    """[tr, T, G, P*D] -> [tr*T, P, G, D], the inverse of
+    transform_latents_to_temporal (a copy of the JAX package's numpy
+    function)."""
+    tr, T, G, E = temporal.shape
+    D = E // n_patches
+    x = temporal.reshape(tr, T, G, n_patches, D)
+    x = x.transpose(0, 1, 3, 2, 4)
+    return x.reshape(tr * T, n_patches, G, D)

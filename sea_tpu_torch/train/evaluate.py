@@ -1,10 +1,17 @@
-"""Serving evaluation and generation: rollout, decode, un-patch (and
-score) on the device; and the stage-1 test.
+"""Evaluation flows: the rollout evaluations, generation and the stage-1
+test.
 
-Counterparts of ``fused_autoregressive_evaluation``,
-``generate_trajectory`` and ``test_encoder_decoder`` in
-``sea_tpu/train/evaluate.py``, with the same metrics, the same rollout
-CSV and the same generated fields.
+Counterparts of ``autoregressive_validation``,
+``full_autoregressive_evaluation`` (the staged path: rollout on the
+device, then decode, un-patch and score through ``LatentService`` and the
+mesh processor), ``fused_autoregressive_evaluation`` (rollout, decode,
+un-patch and score on the device), ``generate_trajectory`` and
+``test_encoder_decoder`` in ``sea_tpu/train/evaluate.py``, with the same
+metrics, the same generated fields and the same artifact files: the
+rollout CSV, 5 original/decoded field plot pairs and the error-vs-time
+plot (``_write_rollout_artifacts``), and the stage-1 test's 5 pairs.
+The port runs in one process, so the JAX package's "primary process"
+guard on the writes has no counterpart.
 
 Documented divergences from the JAX functions:
 
@@ -15,9 +22,12 @@ Documented divergences from the JAX functions:
   trajectory batch 1 to the prefix engine (a v5e measurement). The two
   engines are equal (tests/test_rollout.py, tests/test_torch_rollout.py),
   so the metrics agree (held to rtol 1e-4 by tests/test_torch_e2e.py).
-- Only the per-time CSV is written. The field and error plots, and
-  the stage-1 test's original and decoded field plots, wait: the GPU
-  machine has no matplotlib (ROADMAP.md).
+- The plots need matplotlib, imported only to draw them. Where it does
+  not import (the H100 machine the port is measured on has none), the
+  writers print one line naming the plots they skip and the missing
+  module, and still write the CSV.
+- ``full_autoregressive_evaluation(mesh=...)`` raises: the sharded
+  rollout comes with the parallel paths (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -31,19 +41,157 @@ import torch
 
 from sea_tpu_torch.configs.base import CaseConfig
 from sea_tpu_torch.data.datasets import invert_sea_layout
+from sea_tpu_torch.data.latents import (LatentService,
+                                        inverse_transform_latents)
 from sea_tpu_torch.data.mesh import MeshProcessor
-from sea_tpu_torch.data.latents import LatentService
 from sea_tpu_torch.rollout.e2e import (make_e2e_rollout_eval,
                                        make_eval_tail, make_generate)
 from sea_tpu_torch.rollout.engine import (is_scan_incremental, rollout,
                                           select_engine)
-from sea_tpu_torch.train.metrics import relative_mse
+from sea_tpu_torch.train import metrics as M
+from sea_tpu_torch.utils import plotting
+from sea_tpu_torch.utils.params import tree_leaves
+
+
+def _to(device, a):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def autoregressive_validation(params, case: CaseConfig, windows, *,
+                              sample: int = 0):
+    """Rollout check on ONE window, on the parameters' device: (MSE, mean
+    relative MSE over time) of the rolled-out latents against the
+    window's targets."""
+    device = tree_leaves(params)[0].device
+    src = _to(device, windows.src[sample:sample + 1])
+    tgt = _to(device, windows.tgt[sample:sample + 1])
+    ib = _to(device, windows.ib[sample:sample + 1])
+    with torch.inference_mode():
+        preds = rollout(params, case.temporal, src[:, 0], ib)
+        loss = float(M.mse(preds, tgt))
+        rel = float(torch.mean(M.relative_mse_with_time(preds, tgt,
+                                                        axis=3)))
+    return loss, rel
+
+
+def full_autoregressive_evaluation(params, case: CaseConfig, windows,
+                                   latent_service: LatentService,
+                                   mesh_processor: MeshProcessor, *,
+                                   spatial_params=None, epoch: int = 0,
+                                   plot_traj: bool = True,
+                                   save_artifacts: bool = True,
+                                   cache_dtype=torch.float32,
+                                   mesh=None) -> Dict[str, Any]:
+    """windows: TemporalWindows (src, tgt, tgt_original, ib) as numpy.
+
+    The staged evaluation: every window rolls out as one batch on the
+    latent service's device (``rollout``, the engine select_engine picks,
+    caches of ``cache_dtype`` on scan); the latents come to the host, are
+    decoded in batches by the latent service (``spatial_params`` override
+    its weights), un-patched and un-scaled, and scored per (time, field).
+    Returns {encoded_rel_mse, decoded_rel_mse, decoded_rel_mse_per_time
+    [T, F]} averaged over the set; with ``save_artifacts`` writes the
+    rollout artifacts, the plots tagged with ``epoch``."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "full_autoregressive_evaluation(mesh=...): the sharded rollout "
+            "is not ported to sea_tpu_torch yet (see ROADMAP.md)")
+    if spatial_params is not None:
+        latent_service = latent_service.with_params(spatial_params)
+    device = latent_service.device
+    x0, ib = _to(device, windows.src[:, 0]), _to(device, windows.ib)
+    with torch.inference_mode():
+        preds_dev = rollout(params, case.temporal, x0, ib,
+                            cache_dtype=cache_dtype)  # [B, T, G, E]
+        encoded_rel_mse = float(torch.mean(M.relative_mse(
+            preds_dev, _to(device, windows.tgt))))
+    preds = preds_dev.cpu().numpy()
+    B, T = preds.shape[:2]
+
+    lat = inverse_transform_latents(preds, case.mesh.num_patches)
+    decoded = latent_service.decode_dataset(lat)  # [B*T, P, F, C]
+    decoded = invert_sea_layout(decoded, case.run.sea_layout)
+    flat = mesh_processor.inverse_scale_and_unpatch(decoded)  # [B*T, N, F]
+    decoded_fields = flat.reshape(B, T, *flat.shape[1:])
+    original = np.asarray(windows.tgt_original)  # [B, T, N, F]
+    rel = M.relative_mse_with_time(torch.from_numpy(decoded_fields),
+                                   torch.from_numpy(original)).numpy()
+    per_time = rel.mean(axis=0)  # [T, F]
+    if save_artifacts:
+        _write_rollout_artifacts(case, mesh_processor, per_time, original,
+                                 decoded_fields, epoch=epoch,
+                                 plot_traj=plot_traj)
+    return {"encoded_rel_mse": encoded_rel_mse,
+            "decoded_rel_mse": float(per_time.mean()),
+            "decoded_rel_mse_per_time": per_time}
+
+
+def _plot_or_skip(names, what: str) -> bool:
+    """True where matplotlib imports; else prints the one skip line
+    naming the plots ``names`` and the missing module."""
+    missing = plotting.matplotlib_missing()
+    if missing is not None:
+        print(f"{what}: {missing} is not installed, so the plots "
+              f"{', '.join(names)} were not drawn")
+    return missing is None
+
+
+def _write_rollout_artifacts(case: CaseConfig, mesh_processor, per_time,
+                             original, decoded_fields, *, epoch: int,
+                             plot_traj: bool) -> None:
+    """The JAX package's rollout artifacts in ``case.run.save_dir``: the
+    per-time CSV [T, F], the original and decoded fields [B, T, N, F] of
+    trajectory 0 at 5
+    timesteps drawn by ``RandomState(case.temporal_split.random_seed)``
+    (``temporal_{original,decoded}_data_{t}_{epoch}.png``) and, with
+    ``plot_traj``, the error-vs-time plot."""
+    T = original.shape[1]
+    save_dir, run = case.run.save_dir, case.run
+    os.makedirs(save_dir, exist_ok=True)
+    csv_path = os.path.join(
+        save_dir, f"rollout_error_{run.case_name}_{run.run_name}.csv")
+    with open(csv_path, "w", newline="") as fh:
+        writer = csv.writer(fh)
+        writer.writerow(["Time Step"] + [f"Field {i+1}"
+                                         for i in range(per_time.shape[1])])
+        for i, row in enumerate(per_time):
+            writer.writerow([i + 1] + list(row))
+    rng = np.random.RandomState(case.temporal_split.random_seed)
+    sample_idx = rng.choice(T, min(5, T), replace=False)
+    fields = {f"temporal_{kind}_data_{idx}_{epoch}.png": (data[0], int(idx))
+              for idx in sample_idx
+              for kind, data in (("original", original),
+                                 ("decoded", decoded_fields))}
+    error_plot = f"rollout_error_{run.case_name}_{run.run_name}.png"
+    names = list(fields) + ([error_plot] if plot_traj else [])
+    if not _plot_or_skip(names, f"rollout artifacts (wrote {csv_path})"):
+        return
+    _plot_fields(case, mesh_processor, fields)
+    if plot_traj:
+        plotting.plot_rollout_error(per_time,
+                                    os.path.join(save_dir, error_plot))
+
+
+def _plot_fields(case: CaseConfig, mesh_processor, fields) -> None:
+    """{file name: (snapshots [T, N, F], t)}: all fields at t, drawn in
+    case.run.save_dir at the mesh's coordinates."""
+    c = mesh_processor.coordinates
+    for name, (data, idx) in fields.items():
+        path = os.path.join(case.run.save_dir, name)
+        if case.mesh.dimension == "2D":
+            plotting.plot_all_fields_2d(data, c[:, 0], c[:, 1], idx,
+                                        filename=path)
+        else:
+            plotting.plot_all_fields_3d(data, c[:, 0], c[:, 1], c[:, 2],
+                                        idx, filename=path)
 
 
 def fused_autoregressive_evaluation(params, case: CaseConfig, windows,
                                     latent_service: LatentService,
                                     mesh_processor: MeshProcessor, *,
-                                    spatial_params=None,
+                                    spatial_params=None, epoch: int = 0,
+                                    plot_traj: bool = True,
+                                    save_artifacts: bool = True,
                                     cache_dtype=torch.float32,
                                     engine: str = "auto"
                                     ) -> Dict[str, Any]:
@@ -61,7 +209,8 @@ def fused_autoregressive_evaluation(params, case: CaseConfig, windows,
 
     Returns {encoded_rel_mse, decoded_rel_mse, decoded_rel_mse_per_time
     [T, F]} averaged over the set, and the engine that served the rollout
-    ("scan" or "prefix"); writes the rollout CSV."""
+    ("scan" or "prefix"); with ``save_artifacts``, writes the artifacts of
+    full_autoregressive_evaluation (``_write_rollout_artifacts``)."""
     device = latent_service.device
 
     def dev(a):
@@ -89,15 +238,19 @@ def fused_autoregressive_evaluation(params, case: CaseConfig, windows,
         run = make_e2e_rollout_eval(case.temporal, latent_service.cfg,
                                     mesh_processor.partition,
                                     cache_dtype=cache_dtype, **kw)
-        _, rel, enc_rel = run(params, sparams, x0, ib, truth, tgt_lat)
+        fields, rel, enc_rel = run(params, sparams, x0, ib, truth, tgt_lat)
     else:
         preds = rollout(params, case.temporal, x0, ib, engine=engine)
         tail = make_eval_tail(latent_service.cfg, mesh_processor.partition,
                               **kw)
         with torch.inference_mode():
-            _, rel, enc_rel = tail(sparams, preds, truth, tgt_lat)
+            fields, rel, enc_rel = tail(sparams, preds, truth, tgt_lat)
     per_time = rel.cpu().numpy().mean(axis=0)  # [T, F]
-    _write_rollout_csv(case, per_time)
+    if save_artifacts:  # the plots draw trajectory 0 only
+        _write_rollout_artifacts(case, mesh_processor, per_time,
+                                 np.asarray(windows.tgt_original[:1]),
+                                 fields[:1].cpu().numpy(), epoch=epoch,
+                                 plot_traj=plot_traj)
     return {"encoded_rel_mse": float(enc_rel),
             "decoded_rel_mse": float(per_time.mean()),
             "decoded_rel_mse_per_time": per_time, "engine": engine}
@@ -140,19 +293,17 @@ def generate_trajectory(params, case: CaseConfig, windows,
 
 def test_encoder_decoder(spatial_params, case: CaseConfig, tokens,
                          mesh_processor: MeshProcessor, *, device,
-                         save_artifacts: bool = False,
+                         save_artifacts: bool = True,
                          spatial_cfg=None) -> Dict[str, float]:
     """Autoencode the test snapshots ``tokens`` [B, P, F, C] (SEA layout
     applied) with the stage-1 params (a tree of tensors) on ``device``,
     print and return the reconstruction MSE before un-patching
     ("mse_patched"), after inverse scaling and un-patching
     ("mse_unpatched"), and the relative MSE over nodes, averaged over
-    snapshots and fields ("relative_mse"). ``save_artifacts`` (the field
-    plots) is not ported."""
-    if save_artifacts:
-        raise NotImplementedError(
-            "save_artifacts: the stage-1 field plots are not ported to "
-            "sea_tpu_torch yet (see ROADMAP.md)")
+    snapshots and fields ("relative_mse"). ``save_artifacts``: the
+    original and decoded fields of 5 snapshots drawn by
+    ``RandomState(case.spatial_split.random_seed)``
+    (``{original,decoded}_data_{i}.png`` in case.run.save_dir)."""
     svc = LatentService(spatial_cfg or case.spatial, spatial_params,
                         batch_size=case.run.spatial_batch_size, device=device)
     recon = svc.decode_dataset(svc.encode_dataset(tokens))
@@ -162,8 +313,18 @@ def test_encoder_decoder(spatial_params, case: CaseConfig, tokens,
     original = mesh_processor.inverse_scale_and_unpatch(
         invert_sea_layout(np.asarray(tokens), case.run.sea_layout))
     post_unpatch_mse = float(np.mean((decoded - original) ** 2))
-    rel = float(relative_mse(torch.from_numpy(decoded),
-                             torch.from_numpy(original), axis=1).mean())
+    rel = float(M.relative_mse(torch.from_numpy(decoded),
+                               torch.from_numpy(original), axis=1).mean())
+    if save_artifacts:
+        os.makedirs(case.run.save_dir, exist_ok=True)
+        rng = np.random.RandomState(case.spatial_split.random_seed)
+        idx = rng.choice(original.shape[0], min(5, original.shape[0]),
+                         replace=False)
+        fields = {f"{kind}_data_{i}.png": (data, int(i)) for i in idx
+                  for kind, data in (("original", original),
+                                     ("decoded", decoded))}
+        if _plot_or_skip(list(fields), "stage-1 test artifacts"):
+            _plot_fields(case, mesh_processor, fields)
     print(f"Test Loss before inverse scaling and unpatching: "
           f"{pre_unpatch_mse:.6f}")
     print(f"Test Loss after inverse scaling and unpatching: "
@@ -173,16 +334,3 @@ def test_encoder_decoder(spatial_params, case: CaseConfig, tokens,
     return {"mse_patched": pre_unpatch_mse, "mse_unpatched": post_unpatch_mse,
             "relative_mse": rel}
 
-
-def _write_rollout_csv(case: CaseConfig, per_time: np.ndarray) -> None:
-    """The rollout CSV of sea_tpu.train.evaluate._write_rollout_artifacts."""
-    os.makedirs(case.run.save_dir, exist_ok=True)
-    path = os.path.join(
-        case.run.save_dir,
-        f"rollout_error_{case.run.case_name}_{case.run.run_name}.csv")
-    with open(path, "w", newline="") as fh:
-        writer = csv.writer(fh)
-        writer.writerow(["Time Step"] + [f"Field {i+1}"
-                                         for i in range(per_time.shape[1])])
-        for i, row in enumerate(per_time):
-            writer.writerow([i + 1] + list(row))

@@ -1,8 +1,8 @@
 """Metrics and losses: counterpart of ``relative_mse``,
 ``relative_mse_with_time``, ``mse``, ``r2``, the masked metrics of padded
 evaluation batches (``masked_mse``, ``masked_r2``, ``masked_kl``), the
-VAE loss (``vloss``, ``kl_anneal_weight``) and ``StatsAccumulator`` in
-``sea_tpu/train/metrics.py``.
+VAE loss (``vloss``, ``kl_anneal_weight``), ``per_tensor_norms`` and
+``StatsAccumulator`` in ``sea_tpu/train/metrics.py``.
 
 ``n_valid`` (the real rows of a padded batch) and ``iteration`` are host
 ints here: the port's loops know them on the host, so no metric waits on
@@ -15,6 +15,9 @@ import math
 
 import numpy as np
 import torch
+
+from sea_tpu_torch.train.optim import tensor_norms
+from sea_tpu_torch.utils.params import tree_leaves, tree_paths
 
 EPS = 1e-8
 
@@ -96,9 +99,29 @@ def vloss(x, recon, mu, logvar, *, kl_weight_min: float,
     return recon_loss + kl_weight * kl, recon_loss, kl
 
 
+def per_tensor_norms(tree, prefix: str = ""):
+    """Flat {prefix + npz path: f32 L2 norm} over every leaf of a tree,
+    0-d tensors on the leaves' device (the JAX function's keys: its
+    ``blocks/0/attn/q/w`` path spelling). The stand-in for the
+    reference's per-tensor ``wandb.watch`` histograms; the training loops
+    read an epoch's norms back in one transfer (``read_norms``)."""
+    return dict(zip((prefix + p for p in tree_paths(tree)),
+                    tensor_norms(tree_leaves(tree))))
+
+
+def read_norms(norms) -> dict:
+    """per_tensor_norms' dict as host floats, in one transfer."""
+    if not norms:
+        return {}
+    values = torch.stack(list(norms.values())).cpu().tolist()
+    return dict(zip(norms, values))
+
+
 class StatsAccumulator:
     """Sums per-step scalar stats on the device; ``means()`` reads them
-    back once, so the train loop never waits on the device per step."""
+    back once, so the train loop never waits on the device per step. The
+    nested "tensors" entry (log_per_tensor) is left out: the loops read
+    the last batch's apart."""
 
     def __init__(self):
         self._agg = None
@@ -106,7 +129,7 @@ class StatsAccumulator:
 
     def add(self, stats):
         scal = stats if isinstance(stats, dict) else {"loss": stats}
-        scal = {k: v.detach() for k, v in scal.items()}
+        scal = {k: v.detach() for k, v in scal.items() if k != "tensors"}
         self._agg = (scal if self._agg is None
                      else {k: self._agg[k] + v for k, v in scal.items()})
         self.count += 1

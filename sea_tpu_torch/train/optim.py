@@ -98,18 +98,27 @@ class ShadowOptState(NamedTuple):
     shadow: Any  # to_bf16(master params)
 
 
+def _norms(tensors):
+    """Each tensor's L2 norm, 0-d on its device: f32 from _foreach_norm
+    on the card; on the CPU accumulated in f64, where an f32 norm of the
+    cylinder model's multi-million-element gradients came out ~1e-4
+    (relative) below the card's."""
+    if tensors[0].device.type == "cpu":
+        return [torch.linalg.vector_norm(t, dtype=torch.float64)
+                for t in tensors]
+    return torch._foreach_norm([t.float() for t in tensors])
+
+
+def tensor_norms(tensors):
+    """[the f32 L2 norm of each tensor], 0-d tensors on their device."""
+    return [n.float() for n in _norms(tensors)]
+
+
 def global_norm(tensors):
     """optax.global_norm: sqrt of the sum of squares of every element, as
-    an f32 0-d tensor on the tensors' device. On the CPU each tensor's norm
-    accumulates in f64: there an f32 norm of the cylinder model's
-    multi-million-element gradients came out ~1e-4 (relative) below the
-    card's, whose _foreach_norm needs no such help."""
-    if tensors[0].device.type == "cpu":
-        norms = [torch.linalg.vector_norm(t, dtype=torch.float64)
-                 for t in tensors]
-        return torch.linalg.vector_norm(torch.stack(norms)).float()
-    norms = torch._foreach_norm([t.float() for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    an f32 0-d tensor on the tensors' device (each tensor's norm as in
+    ``tensor_norms``, in f64 on the CPU)."""
+    return torch.linalg.vector_norm(torch.stack(_norms(tensors))).float()
 
 
 def linear_schedule(init_value: float, end_value: float,

@@ -15,14 +15,17 @@ The stage-1 model reaches no kernel (its attention over 64 patches is the
 plain path, ``models/spatial.py``): the step is PyTorch's GEMMs and
 elementwise kernels. Under "bfloat16_shadow" the step differentiates the
 f32 masters through the bf16 cast, as the JAX spatial step does (its
-shadow is kept and refreshed, never read). Single device only: ``mesh``,
-``profile_dir`` and ``log_per_tensor`` raise "not ported" (ROADMAP.md).
+shadow is kept and refreshed, never read). ``profile_dir`` traces one
+steady-state epoch (``utils.profiling.trace``); ``log_per_tensor``
+records a norm per gradient and parameter tensor from each epoch's last
+batch. Single device only: ``mesh`` raises "not ported" (ROADMAP.md).
 Dropout keys and the variational noise come from ``utils.prng`` with the
 JAX loop's key sequence.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Optional
@@ -45,8 +48,9 @@ from sea_tpu_torch.train.tracking import BaseErrorTracker, NoOpErrorTracker
 from sea_tpu_torch.utils.checkpoint import save_checkpoint
 from sea_tpu_torch.utils.params import (from_numpy, opt_state_from_numpy,
                                         opt_state_to_numpy, to_numpy,
-                                        tree_leaves)
+                                        tree_leaves, tree_paths)
 from sea_tpu_torch.utils.precision import train_cast
+from sea_tpu_torch.utils.profiling import trace
 from sea_tpu_torch.utils.prng import prng_key, split
 
 
@@ -87,7 +91,8 @@ def process_data(case: CaseConfig, *, data=None) -> SpatialData:
 
 def make_train_step(cfg: SpatialModelConfig, tx, *, kl_weight_min=0.0,
                     kl_weight_max=0.0, total_steps: int = 1,
-                    compute_dtype: str = "float32", log_norms: bool = True):
+                    compute_dtype: str = "float32", log_norms: bool = True,
+                    per_tensor: bool = False):
     """step(params, opt_state, batch, key, iteration) -> (params,
     opt_state, stats): the JAX loop's step. ``key`` is a ``utils.prng``
     key, ``iteration`` the host's optimizer-step count (the KL anneal's
@@ -96,8 +101,10 @@ def make_train_step(cfg: SpatialModelConfig, tx, *, kl_weight_min=0.0,
     policy; the loss terms are f32 against the f32 batch. Stats: loss,
     recon_loss, kl_loss (0 unless variational), grad_norm and param_norm
     (global norms of the gradients and of the masters before the update;
-    zeros with ``log_norms=False``) and r2, 0-d tensors on the device.
-    The parameters and the optimizer state are updated IN PLACE."""
+    zeros with ``log_norms=False``) and r2, 0-d tensors on the device;
+    ``per_tensor`` (with log_norms) adds "tensors", ``Grad_Norm/<path>``
+    and ``Param_Norm/<path>`` of each tensor, as the JAX step. The
+    parameters and the optimizer state are updated IN PLACE."""
     cast_p, cast_x = train_cast(compute_dtype)
 
     def step(params, opt_state, batch, key, iteration: int):
@@ -124,6 +131,12 @@ def make_train_step(cfg: SpatialModelConfig, tx, *, kl_weight_min=0.0,
             if log_norms:
                 norms = {"grad_norm": global_norm(grads),
                          "param_norm": global_norm(leaves)}
+                if per_tensor:
+                    norms["tensors"] = {
+                        **M.per_tensor_norms(
+                            dict(zip(tree_paths(params), grads)),
+                            "Grad_Norm/"),
+                        **M.per_tensor_norms(params, "Param_Norm/")}
             else:
                 zero = torch.zeros((), device=batch.device)
                 norms = {"grad_norm": zero, "param_norm": zero}
@@ -157,16 +170,11 @@ def make_eval_step(cfg: SpatialModelConfig, *, kl_weight_min=0.0,
     return step
 
 
-def _unported(tcfg, mesh, profile_dir):
-    names = [name for name, value in (("mesh", mesh),
-                                      ("profile_dir", profile_dir))
-             if value is not None]
-    if tcfg.log_per_tensor:
-        names.append("log_per_tensor")
-    if names:
+def _unported(mesh):
+    if mesh is not None:
         raise NotImplementedError(
-            f"{', '.join(names)}: not ported to sea_tpu_torch yet; the port "
-            "trains on one device (see ROADMAP.md)")
+            "mesh: not ported to sea_tpu_torch yet; the port trains on one "
+            "device (see ROADMAP.md)")
 
 
 def train(case: CaseConfig,
@@ -185,10 +193,12 @@ def train(case: CaseConfig,
     Everything after the init (batch order, keys, the update) follows the
     JAX loop. ``precomputed``: process_data's result, when the caller
     already ran it. ``epochs`` overrides the config's count; the KL
-    anneal runs over the optimizer steps of that many epochs."""
+    anneal runs over the optimizer steps of that many epochs.
+    ``profile_dir``: a trace of ONE steady-state epoch, epoch min(2,
+    epochs), into this directory (CLI: --profile)."""
     tracker = error_tracker or NoOpErrorTracker()
     tcfg = case.spatial_train
-    _unported(tcfg, mesh, profile_dir)
+    _unported(mesh)
     device = torch.device(device)
     sd = precomputed if precomputed is not None else process_data(
         case, data=data)
@@ -215,7 +225,8 @@ def train(case: CaseConfig,
     kl = dict(kl_weight_min=tcfg.kl_weight_min,
               kl_weight_max=tcfg.kl_weight_max, total_steps=total_steps)
     train_step = make_train_step(cfg, tx, compute_dtype=tcfg.compute_dtype,
-                                 log_norms=tcfg.log_norms, **kl)
+                                 log_norms=tcfg.log_norms,
+                                 per_tensor=tcfg.log_per_tensor, **kl)
     eval_step = make_eval_step(cfg, **kl)
 
     # The splits live on the device when they fit the budget; each step
@@ -241,25 +252,36 @@ def train(case: CaseConfig,
     start = time.time()
     for epoch in range(1, n_epochs + 1):
         acc = M.StatsAccumulator()
-        for sel in batch_index_iterator(len(sd.train), batch_size,
-                                        shuffle=True,
-                                        seed=case.spatial_split.random_seed,
-                                        epoch=epoch, drop_remainder=True):
-            rng, step_key = split(rng)
-            params, opt_state, stats = train_step(
-                params, opt_state, gather("train", sel), step_key, iteration)
-            acc.add(stats)
-            iteration += 1
-        if acc.count == 0:
-            raise ValueError(f"train split has fewer than one batch of "
-                             f"{batch_size} snapshots")
-        agg = acc.means()  # the epoch's one read from the device
+        last_stats = None
+        profiling = profile_dir and epoch == min(2, n_epochs)
+        with (trace(profile_dir, name=f"train_epoch{epoch}") if profiling
+              else contextlib.nullcontext()):
+            for sel in batch_index_iterator(
+                    len(sd.train), batch_size, shuffle=True,
+                    seed=case.spatial_split.random_seed, epoch=epoch,
+                    drop_remainder=True):
+                rng, step_key = split(rng)
+                params, opt_state, stats = train_step(
+                    params, opt_state, gather("train", sel), step_key,
+                    iteration)
+                acc.add(stats)
+                iteration += 1
+                last_stats = stats
+            if acc.count == 0:
+                raise ValueError(f"train split has fewer than one batch of "
+                                 f"{batch_size} snapshots")
+            agg = acc.means()  # the epoch's one read from the device
+        if profiling:
+            print(f"profiler trace (epoch {epoch}) written to {profile_dir}")
         train_metrics = {"Loss": agg["loss"], "Recon_Loss": agg["recon_loss"],
                          "R2": agg["r2"], "Grad_Norm": agg["grad_norm"],
                          "Param_Norm": agg["param_norm"]}
         if cfg.variational:
             train_metrics["KL_Loss"] = agg["kl_loss"]
         tracker.record_error("train", epoch, train_metrics)
+        if last_stats is not None and "tensors" in last_stats:
+            tracker.record_error("tensors", epoch,
+                                 M.read_norms(last_stats["tensors"]))
 
         if epoch % tcfg.validation_interval == 0 or epoch == n_epochs:
             vacc = M.StatsAccumulator()

@@ -11,10 +11,18 @@ epoch loop with validation, the full autoregressive evaluation cadence
 and the best-validation and best-rollout checkpoints, written as the same
 npz files the JAX driver writes.
 
-Single device only: the data-, sequence- and pipeline-parallel meshes,
-the per-tensor norms (``log_per_tensor``) and the profiler capture of the
-JAX driver raise "not ported" (ROADMAP.md). ``dataset_time_shifting``
-cuts the train windows anew each epoch, from the JAX driver's seeds.
+The full evaluation calls ``evaluate.fused_autoregressive_evaluation``
+(the rollout, decode and scores on the device, as the CLI's `temporal
+test` runs them) with the epoch, so it writes the artifacts the JAX loop's
+``full_autoregressive_evaluation`` writes: the same metrics and files.
+``profile_dir`` traces one steady-state epoch (``utils.profiling.trace``);
+``log_per_tensor`` records a norm per gradient and parameter tensor from
+each epoch's last batch (the tracker's "tensors" rows).
+
+Single device only: the data-, sequence- and pipeline-parallel meshes of
+the JAX training loop raise "not ported" (ROADMAP.md).
+``dataset_time_shifting`` cuts the train windows anew each epoch, from
+the JAX loop's seeds.
 Dropout keys come from ``utils.prng``, JAX's threefry key functions on the
 host, with the JAX driver's key sequence, so a run from the same initial
 weights draws the JAX run's dropout masks.
@@ -22,6 +30,7 @@ weights draws the JAX run's dropout masks.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Optional
@@ -49,8 +58,9 @@ from sea_tpu_torch.utils.checkpoint import (checkpoint_path, load_params,
                                             save_checkpoint)
 from sea_tpu_torch.utils.params import (from_numpy, opt_state_from_numpy,
                                         opt_state_to_numpy, to_numpy,
-                                        tree_leaves)
+                                        tree_leaves, tree_paths)
 from sea_tpu_torch.utils.precision import train_cast
+from sea_tpu_torch.utils.profiling import trace
 from sea_tpu_torch.utils.prng import prng_key, split
 
 
@@ -120,7 +130,8 @@ def process_data(case: CaseConfig, *, device,
 
 
 def make_train_step(cfg: TemporalModelConfig, tx, *,
-                    compute_dtype: str = "float32", log_norms: bool = True):
+                    compute_dtype: str = "float32", log_norms: bool = True,
+                    per_tensor: bool = False):
     """step(params, opt_state, src, tgt, ib, key) -> (params, opt_state,
     stats): the JAX driver's step. The loss is the MSE, in f32, of the
     dropout forward (``key`` a ``utils.prng`` key) under the numerics
@@ -131,10 +142,13 @@ def make_train_step(cfg: TemporalModelConfig, tx, *,
     optimizer state (``train.optim.with_bf16_shadow``), whose update
     widens those bf16 gradients. ``grad_norm`` and ``param_norm`` are
     optax.global_norm of the gradients (in f32) and of the master
-    parameters before the update (zeros with ``log_norms=False``). The
-    parameters and the optimizer state are updated IN PLACE
-    (train/optim.py); the returned stats are 0-d tensors on the device,
-    not read back."""
+    parameters before the update (zeros with ``log_norms=False``).
+    ``per_tensor`` (with log_norms) adds stats["tensors"], the JAX step's
+    per-tensor norms: ``Grad_Norm/<path>`` of each gradient (of the
+    shadow under "bfloat16_shadow", in f32) and ``Param_Norm/<path>`` of
+    each master parameter before the update. The parameters and the
+    optimizer state are updated IN PLACE (train/optim.py); the returned
+    stats are 0-d tensors on the device, not read back."""
     cast_p, cast_x = train_cast(compute_dtype)
     shadow = compute_dtype == "bfloat16_shadow"
 
@@ -157,6 +171,11 @@ def make_train_step(cfg: TemporalModelConfig, tx, *,
             if log_norms:
                 norms = {"grad_norm": global_norm(grads),
                          "param_norm": global_norm(tree_leaves(params))}
+                if per_tensor:
+                    norms["tensors"] = {
+                        **M.per_tensor_norms(
+                            dict(zip(tree_paths(wrt), grads)), "Grad_Norm/"),
+                        **M.per_tensor_norms(params, "Param_Norm/")}
             else:
                 zero = torch.zeros((), device=loss.device)
                 norms = {"grad_norm": zero, "param_norm": zero}
@@ -175,13 +194,10 @@ def make_eval_step(cfg: TemporalModelConfig):
     return step
 
 
-def _unported(tcfg, mesh, seq_mesh, pipe_mesh, profile_dir):
+def _unported(mesh, seq_mesh, pipe_mesh):
     names = [name for name, value in (("mesh", mesh), ("seq_mesh", seq_mesh),
-                                      ("pipe_mesh", pipe_mesh),
-                                      ("profile_dir", profile_dir))
+                                      ("pipe_mesh", pipe_mesh))
              if value is not None]
-    if tcfg.log_per_tensor:
-        names.append("log_per_tensor")
     if names:
         raise NotImplementedError(
             f"{', '.join(names)}: not ported to sea_tpu_torch yet; the port "
@@ -191,7 +207,8 @@ def _unported(tcfg, mesh, seq_mesh, pipe_mesh, profile_dir):
 def train(case: CaseConfig,
           error_tracker: Optional[BaseErrorTracker] = None, *, device,
           data=None, seed: int = 0, epochs: Optional[int] = None,
-          init_params=None, init_opt_state=None, mesh=None, seq_mesh=None,
+          init_params=None, init_opt_state=None,
+          save_artifacts: bool = True, mesh=None, seq_mesh=None,
           pipe_mesh=None, profile_dir: Optional[str] = None):
     """Train the temporal model of ``case`` on ``device``; returns
     (best-validation params as a numpy tree, TemporalData).
@@ -202,10 +219,15 @@ def train(case: CaseConfig,
     the weights are the port's own init, drawn from a torch.Generator
     seeded with the 64 bits of the init key: the JAX init's
     distributions, not its numbers. Everything after the init — batch
-    order, dropout masks, the update — follows the JAX driver."""
+    order, dropout masks, the update — follows the JAX loop.
+
+    ``save_artifacts``: the full evaluations write the rollout CSV and
+    plots (``evaluate._write_rollout_artifacts``). ``profile_dir``:
+    a trace of ONE steady-state epoch, epoch min(2, epochs), into this
+    directory (CLI: --profile)."""
     tracker = error_tracker or NoOpErrorTracker()
     tcfg = case.temporal_train
-    _unported(tcfg, mesh, seq_mesh, pipe_mesh, profile_dir)
+    _unported(mesh, seq_mesh, pipe_mesh)
     device = torch.device(device)
     td = process_data(case, data=data, device=device)
     cfg = case.temporal
@@ -232,7 +254,8 @@ def train(case: CaseConfig,
     opt_state = (opt_state_from_numpy(init_opt_state, device, mu_dtype)
                  if init_opt_state is not None else tx.init(params))
     train_step = make_train_step(cfg, tx, compute_dtype=tcfg.compute_dtype,
-                                 log_norms=tcfg.log_norms)
+                                 log_norms=tcfg.log_norms,
+                                 per_tensor=tcfg.log_per_tensor)
     eval_step = make_eval_step(cfg)
 
     n_epochs = epochs if epochs is not None else tcfg.epoch_num
@@ -268,29 +291,41 @@ def train(case: CaseConfig,
                 *td.train_raw, tcfg.dataset_src_len, tcfg.dataset_overlap,
                 time_shift_rng=shift_rng)
         acc = M.StatsAccumulator()
-        for sel in batch_index_iterator(
-                len(train_windows.src), batch_size, shuffle=True,
-                seed=case.temporal_split.random_seed, epoch=epoch,
-                drop_remainder=True):
-            rng, step_key = split(rng)
-            if train_split is None:
-                src, tgt, ib = (torch.from_numpy(np.ascontiguousarray(
-                    a[sel])).to(device) for a in (train_windows.src,
-                                                  train_windows.tgt,
-                                                  train_windows.ib))
-            else:
-                src, tgt, ib = gather(train_split, sel)
-            params, opt_state, stats = train_step(params, opt_state, src,
-                                                  tgt, ib, step_key)
-            acc.add(stats)
-        if acc.count == 0:
-            raise ValueError(f"train split has fewer than one batch of "
-                             f"{batch_size} windows")
-        agg = acc.means()  # the epoch's one read from the device
+        last_stats = None
+        profiling = profile_dir and epoch == min(2, n_epochs)
+        with (trace(profile_dir, name=f"train_epoch{epoch}") if profiling
+              else contextlib.nullcontext()):
+            for sel in batch_index_iterator(
+                    len(train_windows.src), batch_size, shuffle=True,
+                    seed=case.temporal_split.random_seed, epoch=epoch,
+                    drop_remainder=True):
+                rng, step_key = split(rng)
+                if train_split is None:
+                    src, tgt, ib = (torch.from_numpy(np.ascontiguousarray(
+                        a[sel])).to(device) for a in (train_windows.src,
+                                                      train_windows.tgt,
+                                                      train_windows.ib))
+                else:
+                    src, tgt, ib = gather(train_split, sel)
+                params, opt_state, stats = train_step(params, opt_state,
+                                                      src, tgt, ib, step_key)
+                acc.add(stats)
+                last_stats = stats
+            if acc.count == 0:
+                raise ValueError(f"train split has fewer than one batch of "
+                                 f"{batch_size} windows")
+            agg = acc.means()  # the epoch's one read from the device
+        if profiling:
+            print(f"profiler trace (epoch {epoch}) written to {profile_dir}")
         train_loss = agg["loss"]
         tracker.record_error("train", epoch, {
             "Loss": train_loss, "Grad_Norm": agg["grad_norm"],
             "Param_Norm": agg["param_norm"]})
+        if last_stats is not None and "tensors" in last_stats:
+            # One norm per gradient and parameter tensor of the epoch's
+            # last batch, read in one transfer.
+            tracker.record_error("tensors", epoch,
+                                 M.read_norms(last_stats["tensors"]))
 
         if epoch % tcfg.validation_interval == 0 or epoch == n_epochs:
             vacc = M.StatsAccumulator()
@@ -306,7 +341,8 @@ def train(case: CaseConfig,
                     fused_autoregressive_evaluation
                 results = fused_autoregressive_evaluation(
                     params, case, td.val, td.latent_service,
-                    td.mesh_processor)
+                    td.mesh_processor, epoch=epoch,
+                    save_artifacts=save_artifacts)
                 val_metrics["Full_Encoded_Rel_MSE"] = \
                     results["encoded_rel_mse"]
                 val_metrics["Full_Decoded_Rel_MSE"] = \

@@ -41,6 +41,18 @@ def tree_leaves(tree):
     return [] if tree is None else [tree]
 
 
+def tree_paths(tree, prefix: str = ""):
+    """The npz path of each leaf (``blocks/0/attn/q/w``), in
+    ``tree_leaves``' order."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items()
+                for p in tree_paths(v, f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree)
+                for p in tree_paths(v, f"{prefix}{i}/")]
+    return [] if tree is None else [prefix[:-1]]
+
+
 def _tensor(a, device):
     """A numpy leaf as a tensor on ``device``, dtype kept. numpy has no
     bf16: JAX's bf16 arrays (ml_dtypes) come in by their bits."""

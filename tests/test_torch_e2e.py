@@ -158,8 +158,8 @@ def test_cli_temporal_test_matches_jax_cli(tmp_path, capsys, monkeypatch):
     from sea_tpu import cli as jax_cli
     from sea_tpu.train import evaluate as jax_evaluate
     # The JAX CLI's field and error plots enter no printed metric and take
-    # most of its run on the CPU; the port draws none (no matplotlib on the
-    # card). Drawing them is left out here.
+    # most of its run on the CPU: drawing them is left out on its side;
+    # the port draws its own.
     for name in ("plot_all_fields_2d", "plot_all_fields_3d",
                  "plot_rollout_error"):
         monkeypatch.setattr(jax_evaluate, name, lambda *a, **k: None)
@@ -179,6 +179,8 @@ def test_cli_temporal_test_matches_jax_cli(tmp_path, capsys, monkeypatch):
                                    err_msg=key)
     assert os.path.exists(
         os.path.join(save, "rollout_error_cylinder_flow_run1.csv"))
+    # The port draws its 5 field-plot pairs and the error plot.
+    assert len([n for n in os.listdir(save) if n.endswith(".png")]) == 11
 
 
 QUANT_MIN_SIZE = 64
@@ -213,10 +215,13 @@ def test_cli_reduced_precision_matches_jax_cli(flags, smoke_checkpoints,
     from sea_tpu.ops import quant_matmul as jax_quant
     from sea_tpu.train import evaluate as jax_evaluate
     from sea_tpu.utils import precision as jax_precision
+    from sea_tpu_torch.utils import plotting
     from sea_tpu_torch.utils import precision as torch_precision
+    # The plots enter no printed metric; neither side draws them here.
     for name in ("plot_all_fields_2d", "plot_all_fields_3d",
                  "plot_rollout_error"):
         monkeypatch.setattr(jax_evaluate, name, lambda *a, **k: None)
+        monkeypatch.setattr(plotting, name, lambda *a, **k: None)
     _small_min_size(monkeypatch, jax_precision)
     _small_min_size(monkeypatch, torch_precision)
     if flags[1] == "int4":
@@ -272,8 +277,11 @@ def test_cli_no_calibrate_no_drift_check(smoke_checkpoints, capsys,
     bias correction); --no_drift_check skips the gate even at budget 0.
     The auto cache of int4 is bf16."""
     from sea_tpu_torch.rollout import e2e
+    from sea_tpu_torch.utils import plotting
     from sea_tpu_torch.utils import precision as torch_precision
     _small_min_size(monkeypatch, torch_precision)
+    for name in ("plot_all_fields_2d", "plot_rollout_error"):
+        monkeypatch.setattr(plotting, name, lambda *a, **k: None)
     seen = []
     make = e2e.make_e2e_rollout_eval
 
@@ -353,11 +361,11 @@ def test_cuda_device_without_cuda_raises():
 
 
 @pytest.mark.parametrize("argv", [
-    ["encoder", "train", "--profile", "d"],
+    ["encoder", "train", "--mesh", "2x1"],
     ["temporal", "train", "--seq_parallel", "2"],
-    ["encoder", "test", "--model_path", "model.pt"],
+    ["temporal", "train", "--pp", "2"],
     ["temporal", "test", "--mesh", "2x1"],
-    ["temporal", "test", "--model_path", "model.pt"]])
+    ["temporal", "train", "--pp", "2", "--pp_microbatches", "4"]])
 def test_unported_modes_and_flags_name_the_roadmap(argv, capsys):
     with pytest.raises(SystemExit):
         torch_cli.main(["cylinder_flow_smoke"] + argv + ["--device", "cpu"])

@@ -288,7 +288,8 @@ def test_evaluation_serves_ib_attention_as_jax(tmp_path):
     want = jax_eval(tparams, case, windows, jax_svc, mp, plot_traj=False,
                     save_artifacts=False)
     got = fused_autoregressive_evaluation(from_numpy(tparams, "cpu"), case,
-                                          windows, port_svc, mp)
+                                          windows, port_svc, mp,
+                                          save_artifacts=False)
     assert got["engine"] == "prefix"
     for key in ("encoded_rel_mse", "decoded_rel_mse"):
         np.testing.assert_allclose(got[key], want[key], rtol=1e-4,

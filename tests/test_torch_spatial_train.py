@@ -485,7 +485,7 @@ def test_train_matches_jax_and_checkpoint_crosses(tmp_path, monkeypatch,
         np.testing.assert_allclose(a, b, rtol=2e-3, atol=1e-12)
 
 
-def test_encoder_test_metrics_match_jax(tmp_path, capsys):
+def test_encoder_test_metrics_match_jax(tmp_path, capsys, monkeypatch):
     """test_encoder_decoder's three numbers against JAX's on the smoke
     preset's synthetic test split, from the same weights."""
     from sea_tpu.models.spatial import init_spatial as jax_init
@@ -503,6 +503,7 @@ def test_encoder_test_metrics_match_jax(tmp_path, capsys):
                                    spatial_cfg=jsd.spatial_cfg)
     got = TE.test_encoder_decoder(from_numpy(params, "cpu"), cases["port"],
                                   sd.test, sd.mesh_processor, device="cpu",
+                                  save_artifacts=False,
                                   spatial_cfg=sd.spatial_cfg)
     assert got.keys() == want.keys() == {"mse_patched", "mse_unpatched",
                                          "relative_mse"}
@@ -511,11 +512,18 @@ def test_encoder_test_metrics_match_jax(tmp_path, capsys):
         np.testing.assert_allclose(got[k], want[k], rtol=1e-5, err_msg=k)
     out = capsys.readouterr().out
     assert out.count("Test Relative MSE after inverse scaling") == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TE.test_encoder_decoder(from_numpy(params, "cpu"), cases["port"],
-                                sd.test, sd.mesh_processor, device="cpu",
-                                spatial_cfg=sd.spatial_cfg,
-                                save_artifacts=True)
+    # save_artifacts=True draws the original and decoded fields of 5
+    # snapshots into the save_dir (recorded here, not drawn).
+    from sea_tpu_torch.utils import plotting
+    drawn = []
+    monkeypatch.setattr(plotting, "plot_all_fields_2d",
+                        lambda *a, filename, **k: drawn.append(
+                            os.path.basename(filename)))
+    TE.test_encoder_decoder(from_numpy(params, "cpu"), cases["port"],
+                            sd.test, sd.mesh_processor, device="cpu",
+                            spatial_cfg=sd.spatial_cfg, save_artifacts=True)
+    assert len(drawn) == 10 and len(set(drawn)) == 10
+    assert sum(n.startswith("original_data_") for n in drawn) == 5
 
 
 # ---------------------------------------------------------------------------
@@ -529,7 +537,7 @@ def _count(path):
         return int(d[key])
 
 
-def test_port_pipeline_and_resume(tmp_path, capsys):
+def test_port_pipeline_and_resume(tmp_path, capsys, monkeypatch):
     """`encoder train` -> `temporal train` -> `temporal test` through the
     port's CLI alone, the temporal steps on the encoder it wrote; then
     `--model_path` resume of both trains: the Adam moments restored (the
@@ -537,7 +545,11 @@ def test_port_pipeline_and_resume(tmp_path, capsys):
     params with fresh moments and the JAX CLI's warning."""
     from sea_tpu_torch import cli
     from sea_tpu_torch.train import train_temporal as TTT
+    from sea_tpu_torch.utils import plotting
     from sea_tpu_torch.utils.params import opt_state_template
+    # The test and the stage-1 test draw their plots: left out here.
+    monkeypatch.setattr(plotting, "plot_all_fields_2d", lambda *a, **k: None)
+    monkeypatch.setattr(plotting, "plot_rollout_error", lambda *a, **k: None)
     save = str(tmp_path / "run")
     common = ["--synthetic", "--save_dir", save, "--device", "cpu"]
     enc = cli.main(["cylinder_flow_smoke", "encoder", "train", "--epochs",
