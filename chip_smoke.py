@@ -77,6 +77,19 @@ before and read just after:
   seeded cylinder weights in `temporal test`, equal to their npz's bit
   for bit ([checkpoint-pt]).
 
+- the mesh (`--mesh DxM`, sea_tpu_torch/parallel): the six flash entries
+  with a permuted bh_map and position offsets against their plain
+  versions, a row block of an unsharded call bit-equal to the call on
+  that block with its bh_map, both maps timed ([mesh-kernels]); the full
+  cylinder recipe step in two ranks sharing the card over gloo at 2x1
+  and 1x2 against one rank (STEP_TOL; every rank's flash launches and
+  bh_maps), the stage-1 step at B=128 at 2x1, and `torchrun
+  --nproc_per_node 2 -m sea_tpu_torch cylinder_flow encoder train --mesh
+  2x1` ([train-mesh]); multiphase `temporal test --mesh 1x2` at int4
+  with an int8 cache and `--mesh 2x1` at f32 against one device, rtol
+  1e-4, every rank's decodes on its heads and its int4 count
+  ([serve-mesh]).
+
 Last, every kernel is timed against its plain version, its bound and,
 where one PyTorch call computes the same function, that call. Any failure
 raises and the exit code is not 0; without CUDA, or without the rest of
@@ -94,6 +107,7 @@ import dataclasses
 import io
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -380,23 +394,42 @@ def _positions(T, plan):
 
 def _one_kernel_a_call(fn, label, calls=4):
     """torch.profiler over `calls` calls of fn (after one warm-up): each
-    must run exactly one device kernel. Returns the kernels' names."""
+    must run exactly one device kernel. Returns the kernels' names, the
+    marker's among them.
+
+    A marker kernel (an in-place add on a one-element tensor, made before
+    the session) runs in the session too, so a session whose trace holds
+    no device event at all, the marker's included, is the profiler's
+    miss, not the kernel's: torch.profiler has returned such an empty
+    trace between sessions that recorded every launch (for the AdaLN and
+    the q8 decode checks, once each). Such a session is run again, at
+    most twice, and logged; any other count fails at once."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
+    marker = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
-    n = sum(e.count for e in events)
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            marker.add_(1)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        if events:
+            break
+        log(f"[kernel] {label}: torch.profiler's trace held no device "
+            f"event, not even the marker's (session {attempt + 1}); "
+            "profiling again")
+    total = sum(e.count for e in events)
+    n = total - 1  # the marker's add
     names = sorted({e.key[:80] for e in events})
     if n != calls:
         raise AssertionError(f"{label}: {n} device events over {calls} "
-                             f"calls ({names}), want one a call")
+                             f"calls ({names}, the marker's among them), "
+                             "want one a call")
     return names
 
 
@@ -752,17 +785,18 @@ def phase_generate(case, save_dir):
 
 
 def _int4_sites_per_step(qparams, cfg):
-    """The int4 linears one rollout step runs (models/temporal.temporal_step
-    on fused, int4-quantized params): per layer and field the self-attention
-    qkv and proj; the exchange's: for sea, cross_down of field i and, per
-    partner j, cross_down of j and the cross-attention q, kv and proj and
-    cross_up; for pool and addition, cross_down and cross_up of each field
-    and, for pool, its cross-attention q, kv and proj and, once per layer,
-    the pool update (linear, or the MLP's fc1 and fc2); the MLP and the
-    block proj; once per layer the ib MLP unless the AdaLN cond tables
-    carry it. A site counts where the quantizer rewrote it (w_p4), so the
-    count follows min_size and the matrix shapes. Returns the count of
-    each (K, N)."""
+    """The int4 linears one rollout step runs
+    (models/temporal.temporal_step on int4-quantized params, fused or, as
+    a mesh serves them, not): per layer and field the self-attention qkv
+    (or q, k and v) and proj; the exchange's: for sea, cross_down of field
+    i and, per partner j, cross_down of j and the cross-attention q, kv
+    and proj and cross_up; for pool and addition, cross_down and cross_up
+    of each field and, for pool, its cross-attention q, kv and proj and,
+    once per layer, the pool update (linear, or the MLP's fc1 and fc2);
+    the MLP and the block proj; once per layer the ib MLP unless the AdaLN
+    cond tables carry it. A site counts where the quantizer rewrote it
+    (w_p4), so the count follows min_size and the matrix shapes. Returns
+    the count of each (K, N)."""
     G, mode = cfg.num_fields, cfg.exchange_mode
     sites = []
     for block in qparams["blocks"]:
@@ -772,21 +806,22 @@ def _int4_sites_per_step(qparams, cfg):
             update = block["pool_update"]
             sites += ([update] if cfg.pool_update_method == "linear"
                       else [update["fc1"], update["fc2"]])
+        def attention(att):  # fused (qkv or q, kv) or not (q, k, v)
+            return [att[k] for k in ("qkv", "q", "k", "v", "kv", "proj")
+                    if k in att]
         for i in range(G):
-            att = block["self_attn"][i]
-            sites += [att["qkv"], att["proj"]]
+            sites += attention(block["self_attn"][i])
             if mode == "sea":
                 sites.append(block["cross_down"][i])
                 for j in range(G):
                     if j != i:
-                        ca = block["cross_attn"][i][j]
-                        sites += [block["cross_down"][j], ca["q"], ca["kv"],
-                                  ca["proj"], block["cross_up"][i]]
+                        sites += ([block["cross_down"][j]]
+                                  + attention(block["cross_attn"][i][j])
+                                  + [block["cross_up"][i]])
             elif mode in ("pool", "addition"):
                 sites += [block["cross_down"][i], block["cross_up"][i]]
                 if mode == "pool":
-                    ca = block["cross_attn"][i]
-                    sites += [ca["q"], ca["kv"], ca["proj"]]
+                    sites += attention(block["cross_attn"][i])
             sites += [lay["lin"] for lay in block["mlp"][i]["layers"]]
             sites.append(block["proj"][i])
     return collections.Counter((2 * p["w_p4"].shape[0], p["w_p4"].shape[1])
@@ -859,16 +894,17 @@ def phase_serve_reduced(case, save_dir, params_np):
     return out
 
 
-def _reduced_params(params_np, mode):
+def _reduced_params(params_np, mode, fuse=True):
     """The multiphase params on the card in a serving mode of the port's
-    own transforms (fused projections first, as the CLI does; int4 with
-    MSE scales, no calibration)."""
+    own transforms (fused projections first, as the CLI does on one
+    device; ``fuse`` False: unfused, as a mesh serves them; int4 with MSE
+    scales, no calibration)."""
     from sea_tpu_torch.utils import precision as prec
     from sea_tpu_torch.utils.params import from_numpy
     params = from_numpy(params_np, "cuda")
     if mode == "f32":
         return params
-    fused = prec.fuse_attention_projections(params)
+    fused = prec.fuse_attention_projections(params) if fuse else params
     return {"bf16": prec.cast_weights_bf16, "int8": prec.quantize_weights_int8,
             "int4": prec.quantize_weights_int4}[mode](fused)
 
@@ -1151,15 +1187,24 @@ def phase_rollout_reduced(case, params_np):
             _profile_rollout(trees[mode], cfg, B, cache_dtype, label)
 
 
-def _device_ms(fn, flush, iters=50, lead=1):
+# Clock cycles the card spins before a held timing (_device_ms): about
+# 50 ms on an H100, longer than a slow host takes to enqueue 50 calls.
+HOLD_CYCLES = 100_000_000
+
+
+def _device_ms(fn, flush, iters=50, lead=1, hold=False):
     """Median device time of fn() in ms. Each call starts with L2 cold: a
     sum over 512 MB (~0.16 ms) runs first (a read, so no dirty lines are
     left to write back) and keeps the card busy while the host enqueues
     the call, so the events time the device, not the host. A call whose
     enqueue takes longer (autograd through a library op) asks for `lead`
-    such sums in a row."""
+    such sums in a row. `hold`: the card first spins for HOLD_CYCLES
+    while the host enqueues every call, so no host delay can reach the
+    events however slow the host is."""
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    if hold:
+        torch.cuda._sleep(HOLD_CYCLES)
     for s, e in zip(starts, ends):
         for _ in range(lead):
             flush.sum()
@@ -1303,6 +1348,143 @@ def phase_flash_check():
                 f"dropout={rate}: max abs err fwd {errs['flash_fwd']:.3g}"
                 f" <= {FLASH_TOL['out']}, dq {errs['flash_bwd_dq']:.3g}, "
                 f"dk/dv {errs['flash_bwd_dkv']:.3g} <= {FLASH_TOL['grad']}")
+    return worst
+
+
+# [mesh-kernels]: the global rows and positions a sharded call hashes with
+# (``bh_map``, ``pos_off``), here a permutation of [0, 4 B H) cut to B H
+# rows and offsets as a rank of a (data, model) grid or a ring step has.
+MESH_POS_OFF = (37, 1001)
+
+
+def _mesh_map(B, H, seed=0):
+    g = torch.Generator().manual_seed(seed + B * H)
+    return torch.randperm(4 * B * H, generator=g)[:B * H].to(
+        torch.int32).cuda()
+
+
+def phase_mesh_kernels():
+    """The six flash entries (f32 and bf16 forward, dQ and dK/dV) with a
+    permuted ``bh_map`` and position offsets against their plain versions
+    on the same arguments, at FLASH_SHAPES, dropout 0.1: o, lse, dq, dk
+    and dv within the kernels' tolerances (a dropout bit the two disagree
+    on is off by about |v| / (1 - rate), far outside them); then one row
+    block (batch row 1 of 2, the upper half of the heads) of an unsharded
+    call against the call on that block alone with its bh_map, bit for
+    bit; then the f32 and bf16 kernels at (2, 399, 8, 128) timed with the
+    identity map and with the permuted one, in alternating rounds, each
+    round's calls all enqueued before the card runs the first (the
+    permuted call's argument checks take the host longer)."""
+    from sea_tpu_torch.ops import flash_attention as FA
+    worst = {}
+    for dtype, sfx in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        for shape in FLASH_SHAPES:
+            B, Tq, Tk, H = shape[:4]
+            q, k, v, g = (x.to(dtype) for x in _flash_inputs(shape))
+            kw = dict(_flash_kw(shape, 0.1), bh_map=_mesh_map(B, H),
+                      pos_off=MESH_POS_OFF)
+            o, lse = FA.flash_fwd(q, k, v, **kw)
+            o_ref, lse_ref = FA.flash_forward_ref(q, k, v, **kw)
+            dsum = FA.row_dot(g, o_ref)
+            dq = FA.flash_bwd_dq(q, k, v, g, lse_ref, dsum, **kw)
+            dk, dv = FA.flash_bwd_dkv(q, k, v, g, lse_ref, dsum, **kw)
+            dq_ref = FA.flash_bwd_dq_ref(q, k, v, g, lse_ref, dsum, **kw)
+            dk_ref, dv_ref = FA.flash_bwd_dkv_ref(q, k, v, g, lse_ref, dsum,
+                                                  **kw)
+            torch.cuda.synchronize()
+            pairs = {"flash_fwd": [(o, o_ref, "out")],
+                     "flash_bwd_dq": [(dq, dq_ref, "grad")],
+                     "flash_bwd_dkv": [(dk, dk_ref, "grad"),
+                                       (dv, dv_ref, "grad")]}
+            lse_err = _err(lse, lse_ref)
+            if not lse_err <= 1e-5:
+                raise AssertionError(f"[mesh-kernels] lse{sfx} {shape}: "
+                                     f"{lse_err} > 1e-5")
+            line = []
+            for name, cases in pairs.items():
+                errs = []
+                for got, want, kind in cases:
+                    if dtype == torch.bfloat16:
+                        errs.append(_bf16_err(got, want, FLASH_BF16_REL[kind],
+                                              FLASH_TOL[kind]))
+                    else:
+                        errs.append((_err(got, want), FLASH_TOL[kind]))
+                for err, bound in errs:
+                    if not err <= bound:
+                        raise AssertionError(
+                            f"[mesh-kernels] {name}{sfx} {shape} with a "
+                            f"bh_map and pos_off {MESH_POS_OFF}: max abs "
+                            f"err {err} > {bound}")
+                key = name + sfx
+                worst[key] = max(worst.get(key, 0.0), *(e for e, _ in errs))
+                line.append(f"{key} {max(e for e, _ in errs):.3g}")
+            # One row block of the unsharded call, alone with its bh_map.
+            blk = None
+            if B >= 2 and H % 2 == 0:
+                full = dict(_flash_kw(shape, 0.1))
+                o_f, lse_f = FA.flash_fwd(q, k, v, **full)
+                dq_f = FA.flash_bwd_dq(q, k, v, g, lse_f, FA.row_dot(g, o_f),
+                                       **full)
+                dk_f, dv_f = FA.flash_bwd_dkv(q, k, v, g, lse_f,
+                                              FA.row_dot(g, o_f), **full)
+                h0 = H // 2
+                part = [x[1:2, :, h0:].contiguous() for x in (q, k, v, g)]
+                bh = (1 * H + torch.arange(h0, H, dtype=torch.int32)).cuda()
+                sub = dict(full, bh_map=bh)
+                o_b, lse_b = FA.flash_fwd(*part[:3], **sub)
+                dsum_b = FA.row_dot(part[3], o_b)
+                dq_b = FA.flash_bwd_dq(*part, lse_b, dsum_b, **sub)
+                dk_b, dv_b = FA.flash_bwd_dkv(*part, lse_b, dsum_b, **sub)
+                torch.cuda.synchronize()
+                for got, whole in ((o_b, o_f), (dq_b, dq_f), (dk_b, dk_f),
+                                   (dv_b, dv_f)):
+                    if not torch.equal(got, whole[1:2, :, h0:]):
+                        raise AssertionError(
+                            f"[mesh-kernels] {dtype} {shape}: the block "
+                            "call with its bh_map differs from the "
+                            "unsharded call's block")
+                lse_rows = lse_f.reshape(B, H, Tq)[1, h0:]
+                if not torch.equal(lse_b, lse_rows):
+                    raise AssertionError(f"[mesh-kernels] {dtype} {shape}: "
+                                         "block lse differs")
+                blk = "block (b=1, h>=H/2) bit-equal to the unsharded call"
+            log(f"[mesh-kernels] {str(dtype)[6:]} (B,Tq,Tk,H,hd,src_len,"
+                f"causal)={shape} dropout 0.1, permuted bh_map, pos_off "
+                f"{MESH_POS_OFF}: max abs err {', '.join(line)}; lse "
+                f"{lse_err:.3g}" + (f"; {blk}" if blk else ""))
+    flush = torch.ones(128 << 20, dtype=torch.float32, device="cuda")
+    shape = FLASH_SHAPES[0]
+    B, H = shape[0], shape[3]
+    for dtype, sfx in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        q, k, v, g = (x.to(dtype) for x in _flash_inputs(shape))
+        ident = _flash_kw(shape, 0.1)
+        perm = dict(ident, bh_map=_mesh_map(B, H), pos_off=MESH_POS_OFF)
+        o, lse = FA.flash_forward_ref(q, k, v, **ident)
+        dsum = FA.row_dot(g, o)
+        fns = {"flash_fwd": lambda kw: FA.flash_fwd(q, k, v, **kw),
+               "flash_bwd_dq": lambda kw: FA.flash_bwd_dq(
+                   q, k, v, g, lse, dsum, **kw),
+               "flash_bwd_dkv": lambda kw: FA.flash_bwd_dkv(
+                   q, k, v, g, lse, dsum, **kw)}
+        for name, fn in fns.items():
+            for kw in (ident, perm):
+                _device_ms(lambda kw=kw: fn(kw), flush, iters=5)
+            # Four rounds, each map first in two of them (ABBA BAAB), so a
+            # drift of the card's clock falls on both maps alike.
+            runs = {"identity": [], "permuted": []}
+            for first in (True, False, False, True):
+                for which in (("identity", "permuted") if first else
+                              ("permuted", "identity")):
+                    kw = ident if which == "identity" else perm
+                    runs[which].append(
+                        _device_ms(lambda kw=kw: fn(kw), flush, hold=True))
+            log(f"[mesh-kernels-time] {name}{sfx} (B,T,H,hd)=(2,399,8,128)"
+                f" dropout 0.1, L2 cold, the card held while the host "
+                f"enqueues, median of 4 rounds (each round's median of 50 "
+                f"calls): " + ", ".join(
+                    f"{which} {statistics.median(ms):.4f} ms ("
+                    + ", ".join(f"{t:.4f}" for t in ms) + ")"
+                    for which, ms in runs.items()))
     return worst
 
 
@@ -1557,8 +1739,7 @@ def phase_train(case, save_dir, bf16=False):
     from sea_tpu_torch.train.optim import make_optimizer
     from sea_tpu_torch.utils.checkpoint import (checkpoint_path,
                                                 load_full_checkpoint)
-    from sea_tpu_torch.utils.params import (opt_state_to_numpy, to_numpy,
-                                            tree_leaves)
+    from sea_tpu_torch.utils.params import to_numpy, tree_leaves
     label = "[train-bf16]" if bf16 else "[train]"
     tcfg = (dataclasses.replace(case.temporal_train, **BF16_RECIPE) if bf16
             else case.temporal_train)
@@ -1593,7 +1774,7 @@ def phase_train(case, save_dir, bf16=False):
                            case.run.run_name)
     template = init_temporal(cfg, torch.Generator().manual_seed(0),
                              device="cpu")
-    opt_template = opt_state_to_numpy(make_optimizer(tcfg).init(template))
+    opt_template = to_numpy(make_optimizer(tcfg).init(template))
     loaded, opt, meta = load_full_checkpoint(path, to_numpy(template),
                                              opt_template)
     adam = None if opt is None else (opt.inner if bf16 else opt)[0]
@@ -3196,6 +3377,401 @@ def _reference_state_dict(tree, kind: str, prefix: str = ""):
     return sd
 
 
+# [train-mesh] / [serve-mesh]: two ranks on cuda:0 over gloo (NCCL takes
+# one rank a card), spawned by sea_tpu_torch.parallel.multihost.run_ranks
+# (steps) or driving the CLI in each rank; torchrun for one CLI run.
+MESH_SHAPES = [(2, 1), (1, 2)]
+MESH_DEVICE = "cuda:0"
+
+
+def _mesh_rank_setup():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _train_mesh_rank(shape, params_np, key):
+    """One rank of [train-mesh]: the full-recipe cylinder step on its
+    shard, twice more timed. Returns (stats, launches of the first step,
+    the bh_maps its flash forwards took, the gathered params after it
+    (rank 0), the wall ms of the third step)."""
+    _mesh_rank_setup()
+    from sea_tpu_torch.ops import flash_attention as FA
+    from sea_tpu_torch.parallel.mesh import (make_mesh, temporal_param_dims,
+                                             unshard)
+    from sea_tpu_torch.parallel.multihost import is_primary
+    from sea_tpu_torch.parallel.train_step import \
+        make_sharded_temporal_train_step
+    from sea_tpu_torch.train.optim import make_optimizer
+    from sea_tpu_torch.utils.params import to_numpy
+    from sea_tpu_torch.cli import get_case
+    case = get_case(TRAIN_CASE)
+    cfg = dataclasses.replace(case.temporal, ib_time_constant=True)
+    grid = make_mesh(*shape)
+    step, p, o, place = make_sharded_temporal_train_step(
+        grid, cfg, make_optimizer(case.temporal_train), params_np,
+        device=MESH_DEVICE)
+    batch = place(*_step_batch(cfg))
+    maps, real = [], FA.flash_fwd
+
+    def recording(*args, **kwargs):
+        bh = kwargs.get("bh_map")
+        maps.append(None if bh is None else bh.tolist())
+        return real(*args, **kwargs)
+    FA.flash_fwd = recording
+    _reset_launch_counts()
+    try:
+        p, o, stats = step(p, o, *batch, key)
+        torch.cuda.synchronize()
+    finally:
+        FA.flash_fwd = real
+    counts = _launch_counts()
+    full = unshard(grid, p, temporal_param_dims(params_np))
+    full = to_numpy(full) if is_primary() else None
+    ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        p, o, _ = step(p, o, *batch, key)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return ({k: float(v) for k, v in stats.items()}, counts, maps, full,
+            ms[-1])
+
+
+def _encoder_mesh_rank(shape, params_np, batch, key):
+    """One rank of the [train-mesh] stage-1 step: (stats, gathered params
+    and AdamW mu after it (rank 0))."""
+    _mesh_rank_setup()
+    from sea_tpu_torch.cli import get_case
+    from sea_tpu_torch.parallel.mesh import (make_mesh, spatial_param_dims,
+                                             unshard)
+    from sea_tpu_torch.parallel.multihost import is_primary
+    from sea_tpu_torch.parallel.train_step import \
+        make_sharded_spatial_train_step
+    from sea_tpu_torch.train.optim import make_optimizer
+    from sea_tpu_torch.utils.params import to_numpy
+    case = get_case(TRAIN_CASE)
+    n_inp = batch.shape[-1]
+    cfg = case.spatial.with_n_inp(n_inp)
+    grid = make_mesh(*shape)
+    step, p, o, place = make_sharded_spatial_train_step(
+        grid, cfg, make_optimizer(case.spatial_train), params_np,
+        device=MESH_DEVICE)
+    p, o, stats = step(p, o, place(batch), key, 0)
+    dims = spatial_param_dims(params_np)
+    full = (unshard(grid, p, dims), unshard(grid, o[0].mu, dims))
+    return ({k: float(v) for k, v in stats.items()},
+            to_numpy(full) if is_primary() else None)
+
+
+def _serve_mesh_rank(argv):
+    """One rank of [serve-mesh]: the CLI's `temporal test` on its shard;
+    (its metrics, its launches, the head counts its decodes took)."""
+    _mesh_rank_setup()
+    from sea_tpu_torch import cli
+    from sea_tpu_torch.ops import attention as A
+    heads, real = collections.Counter(), A.decode_attention
+
+    def recording(q, *args, **kwargs):
+        heads[q.shape[1]] += 1
+        return real(q, *args, **kwargs)
+    A.decode_attention = recording
+    _reset_launch_counts()
+    try:
+        results = cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        A.decode_attention = real
+    return ({k: np.asarray(results[k]) for k in (
+        "encoded_rel_mse", "decoded_rel_mse", "decoded_rel_mse_per_time")},
+        _launch_counts(), dict(heads))
+
+
+def _u_close(got, want, got_mu, want_mu, tcfg):
+    """The largest parameter gap and the largest left after the first
+    AdamW step's ill-conditioning near eps: |a - b| - lr |u(g_a) - u(g_b)|
+    (u(g) = g / (|g| + eps), g = mu / (1 - b1)), the rule of
+    [encoder-card-vs-cpu]."""
+    from sea_tpu_torch.utils.params import tree_leaves
+    lr, eps, b1 = tcfg.learning_rate, tcfg.eps, tcfg.betas[0]
+    worst = left = 0.0
+    for a, b, ma, mb in zip(*(tree_leaves(t) for t in (got, want, got_mu,
+                                                      want_mu))):
+        ga, gb = (np.asarray(m, np.float64) / (1 - b1) for m in (ma, mb))
+        diff = np.abs(np.asarray(a, np.float64) - b)
+        worst = max(worst, float(diff.max()))
+        left = max(left, float((diff - lr * np.abs(
+            ga / (np.abs(ga) + eps) - gb / (np.abs(gb) + eps))).max()))
+    return worst, left
+
+
+def phase_train_mesh(case, params_np):
+    """[train-mesh]: the full cylinder recipe step (E=1024, T=399, B=2,
+    dropout 0.1) in two ranks sharing the card over gloo, at 2x1 and 1x2,
+    against the one-rank step: loss, grad_norm and params within STEP_TOL;
+    each rank launches the flash forward, dQ and dK/dV 4 times a step,
+    each forward with the rank's own bh_map. Then the stage-1 step at
+    B=128 from the shipped weights at 2x1 against one rank, and `encoder
+    train --mesh 2x1` at B=128 through torchrun."""
+    from sea_tpu_torch.parallel.mesh import make_mesh
+    from sea_tpu_torch.parallel.multihost import run_ranks
+    from sea_tpu_torch.utils.params import tree_leaves
+    from sea_tpu_torch.utils.prng import fold_in, prng_key
+    key = fold_in(prng_key(0), 1)
+    per_step = _attentions(case.temporal)[1]  # flash calls of a forward
+    t0 = time.perf_counter()
+    # One rank: no process group here, so make_mesh gives a 1 x 1 grid.
+    ref = _train_mesh_rank((1, 1), params_np, key)
+    log(f"[train-mesh] one-rank step: {time.perf_counter() - t0:.1f} s "
+        f"(build and first step); wall {ref[4]:.1f} ms a step after")
+    H = case.temporal.n_heads
+    for shape in MESH_SHAPES:
+        t0 = time.perf_counter()
+        ranks = run_ranks(_train_mesh_rank, 2, shape, params_np, key,
+                          device=MESH_DEVICE)
+        seconds = time.perf_counter() - t0
+        stats, _, _, full, ms = ranks[0]
+        loss_err = abs(stats["loss"] - ref[0]["loss"]) / abs(ref[0]["loss"])
+        gn_err = abs(stats["grad_norm"] - ref[0]["grad_norm"]) / \
+            ref[0]["grad_norm"]
+        p_err = max(float(np.abs(a - b).max()) for a, b in
+                    zip(tree_leaves(full), tree_leaves(ref[3])))
+        if not (loss_err <= STEP_TOL["loss"]
+                and gn_err <= STEP_TOL["grad_norm"]
+                and p_err <= STEP_TOL["params"]):
+            raise AssertionError(
+                f"[train-mesh] {shape}: loss rel err {loss_err}, grad_norm "
+                f"rel err {gn_err}, params max abs err {p_err}")
+        b_loc, h_loc = 2 // shape[0], H // shape[1]
+        for rank, (_, counts, maps, _, _) in enumerate(ranks):
+            for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+                if counts[name] != per_step:
+                    raise AssertionError(
+                        f"[train-mesh] {shape} rank {rank}: {name} launched "
+                        f"{counts[name]} times a step, not {per_step}")
+            d, m = rank // shape[1], rank % shape[1]
+            want = [(b0 * b_loc + b) * H + m * h_loc + h
+                    for b0 in (d,) for b in range(b_loc)
+                    for h in range(h_loc)]
+            if len(maps) != per_step or any(x != want for x in maps):
+                raise AssertionError(
+                    f"[train-mesh] {shape} rank {rank}: flash bh_maps "
+                    f"{maps[:1]}..., want {want} at every forward")
+        log(f"[train-mesh] {TRAIN_CASE} step {shape[0]}x{shape[1]} (2 ranks "
+            f"on one card, gloo), B=2, T=399, dropout "
+            f"{case.temporal.dropout}: loss {stats['loss']:.7g} vs one "
+            f"rank {ref[0]['loss']:.7g} (rel {loss_err:.3g} <= "
+            f"{STEP_TOL['loss']}), grad_norm rel {gn_err:.3g} <= "
+            f"{STEP_TOL['grad_norm']}, params max abs err {p_err:.3g} <= "
+            f"{STEP_TOL['params']}; every rank: flash fwd/dq/dkv "
+            f"{per_step} each a step, its bh_map {want[:4]}...; wall "
+            f"{ms:.1f} ms a step (rank 0, third step); {seconds:.1f} s "
+            "with spawning")
+    _encoder_mesh(case)
+
+
+def _encoder_mesh(case):
+    """The stage-1 half of [train-mesh] (phase_train_mesh's docstring)."""
+    from sea_tpu_torch.cli import get_case
+    from sea_tpu_torch.models.spatial import init_spatial
+    from sea_tpu_torch.parallel.multihost import free_port, run_ranks
+    from sea_tpu_torch.utils.checkpoint import load_params
+    from sea_tpu_torch.utils.params import to_numpy
+    from sea_tpu_torch.utils.prng import fold_in, prng_key
+    tcase = get_case(TRAIN_CASE)
+    with np.load(REPO / SHIPPED_ENCODER) as f:
+        n_inp = f["params/decoders/1/fc2/w"].shape[1]
+    cfg = tcase.spatial.with_n_inp(n_inp)
+    template = to_numpy(init_spatial(cfg, torch.Generator().manual_seed(0),
+                                     device="cpu"))
+    params = load_params(str(REPO / SHIPPED_ENCODER), template)
+    n_patches = (tcase.mesh.m - 1) * (tcase.mesh.n - 1)
+    n_fields = sum(len(g) for g in cfg.field_groups)
+    batch = np.random.RandomState(0).randn(ENCODER_BATCH, n_patches,
+                                           n_fields, n_inp).astype(np.float32)
+    key = fold_in(prng_key(0), 2)
+    ref_stats, ref_full = _encoder_mesh_rank((1, 1), params, batch, key)
+    ranks = run_ranks(_encoder_mesh_rank, 2, (2, 1), params, batch, key,
+                      device=MESH_DEVICE)
+    stats, full = ranks[0]
+    loss_err = abs(stats["loss"] - ref_stats["loss"]) / abs(ref_stats["loss"])
+    gn_err = abs(stats["grad_norm"] - ref_stats["grad_norm"]) / \
+        ref_stats["grad_norm"]
+    worst, left = _u_close(full[0], ref_full[0], full[1], ref_full[1],
+                           tcase.spatial_train)
+    if not (loss_err <= STEP_TOL["loss"] and gn_err <= STEP_TOL["grad_norm"]
+            and left <= STEP_TOL["params"]):
+        raise AssertionError(f"[train-mesh] encoder 2x1: loss rel {loss_err},"
+                             f" grad_norm rel {gn_err}, params {left}")
+    log(f"[train-mesh] {TRAIN_CASE} stage-1 step 2x1, B={ENCODER_BATCH}, "
+        f"shipped weights: loss {stats['loss']:.7g} vs one rank "
+        f"{ref_stats['loss']:.7g} (rel {loss_err:.3g}), grad_norm rel "
+        f"{gn_err:.3g}, params max abs err {worst:.3g} ({left:.3g} past "
+        f"lr |u - u'| <= {STEP_TOL['params']})")
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as save_dir:
+        cmd = [sys.executable, "-m", "torch.distributed.run",
+               "--nproc_per_node", "2", "--master_port", str(free_port()),
+               "-m", "sea_tpu_torch", TRAIN_CASE, "encoder", "train",
+               "--synthetic", "--epochs", "1", "--batch_size",
+               str(ENCODER_BATCH), "--mesh", "2x1", "--save_dir", save_dir,
+               "--device", "cuda"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=600, cwd=REPO)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"[train-mesh] torchrun encoder train "
+                                 f"--mesh 2x1 exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-3000:]}\n"
+                                 f"{proc.stderr[-3000:]}")
+        epoch = [l for l in proc.stdout.splitlines() if "Epoch 1/1" in l]
+        path = os.path.join(save_dir,
+                            "encoder_decoder_cylinder_flow_run1.npz")
+        with np.load(path) as f:
+            finite = all(np.isfinite(f[k]).all() for k in f.files)
+        if len(epoch) != 1 or not finite:
+            raise AssertionError(f"[train-mesh] torchrun encoder train: "
+                                 f"epoch lines {epoch}, finite {finite}")
+        log(f"[train-mesh] torchrun --nproc_per_node 2 -m sea_tpu_torch "
+            f"{TRAIN_CASE} encoder train --mesh 2x1 --batch_size "
+            f"{ENCODER_BATCH}: {epoch[0].strip()}; one line from rank 0; "
+            f"the npz finite; {seconds:.1f} s")
+
+
+def _one_device_unfused(argv):
+    """`temporal test` on one device with the attention projections left
+    unfused (as a mesh serves them): the same math, other launch shapes
+    for the int4 kernel, so other orders of its sums."""
+    from sea_tpu_torch import cli
+    from sea_tpu_torch.utils import precision as prec
+    real = prec.fuse_attention_projections
+    prec.fuse_attention_projections = lambda params: params
+    try:
+        return cli.main(argv)
+    finally:
+        prec.fuse_attention_projections = real
+
+
+SERVE_MESH_KEYS = ("encoded_rel_mse", "decoded_rel_mse",
+                   "decoded_rel_mse_per_time")
+# [serve-mesh]'s int4 cells, by KV cache: the gap between the one-device
+# runs with the projections fused and unfused, as recorded on an H100
+# 80GB HBM3 at 700 W (the same to four digits in three runs; PERF.md
+# section 6). A mesh run is held to 4 x the gap measured in the same call,
+# capped at 4 x the recorded gap; a measured gap over twice its record
+# fails on its own.
+SERVE_MESH_GAP = {
+    "f32": {"encoded_rel_mse": 8.128e-5, "decoded_rel_mse": 9.331e-5,
+            "decoded_rel_mse_per_time": 1.7962e-3},
+    "int8": {"encoded_rel_mse": 6.297e-5, "decoded_rel_mse": 1.5910e-4,
+             "decoded_rel_mse_per_time": 1.7892e-3}}
+SERVE_MESH_GAP_FACTOR = 2.0
+
+
+def phase_serve_mesh(case, save_dir, params_np):
+    """[serve-mesh]: multiphase `temporal test` (E=2048) through the CLI in
+    two ranks sharing the card over gloo, against the one-device run:
+    --mesh 1x2 at int4 weights with an f32 and with an int8 cache, and
+    --mesh 2x1 at f32 (a trajectory a rank, every head), rtol 1e-4. Every
+    rank's decodes run on its heads (H/2 at 1x2), its int4 matvecs on its
+    slices, the unfused projections' count a step.
+    The int4 kernel's split-K plan follows the matrix shape and it rounds
+    its input to bf16, so a sum in another order can move an input by a
+    bf16 ulp, and a random 40-step rollout carries that on: a one-device
+    run with the projections unfused (other shapes, the same math) is
+    1.8e-3 from the fused one in decoded_rel_mse_per_time (an H100 80GB
+    HBM3 at 700 W), and tensor parallelism changes the shapes more. The
+    int4 cells are held to 4 times that one-device fused/unfused gap,
+    measured in the same call but at most 4 times its record
+    (SERVE_MESH_GAP), or 1e-4, whichever is larger; a gap over
+    SERVE_MESH_GAP_FACTOR times its record fails."""
+    from sea_tpu_torch import cli
+    from sea_tpu_torch.parallel.multihost import run_ranks
+    per_step = _attentions(case.temporal)[0]
+    H = case.temporal.n_heads
+    base = [CASE, "temporal", "test", "--synthetic", "--save_dir", save_dir,
+            "--device", "cuda", "--no_drift_check"]
+    int4 = ["--precision", "int4", "--no_calibrate"]
+    cells = [("1x2", int4 + ["--kv_cache", "f32"]),
+             ("1x2", int4 + ["--kv_cache", "int8"]), ("2x1", [])]
+    # The int4 linears a step runs unfused, as a mesh serves them.
+    int4_sites = sum(_int4_sites_per_step(_reduced_params(
+        params_np, "int4", fuse=False), case.temporal).values())
+    for spec, flags in cells:
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        one = cli.main(base + flags)
+        one_s = time.perf_counter() - t0
+        one_counts = _launch_counts()
+        rtol, noise = 1e-4, None
+        bounds = dict.fromkeys(SERVE_MESH_KEYS, rtol)
+        if "int4" in flags:
+            unfused = _one_device_unfused(base + flags)
+            noise = {k: float(np.max(np.abs(unfused[k] - one[k])
+                                     / np.abs(one[k]))) for k in
+                     SERVE_MESH_KEYS}
+            record = SERVE_MESH_GAP[flags[flags.index("--kv_cache") + 1]]
+            for k in SERVE_MESH_KEYS:
+                if not noise[k] <= SERVE_MESH_GAP_FACTOR * record[k]:
+                    raise AssertionError(
+                        f"[serve-mesh] {' '.join(flags)}: the one-device "
+                        f"fused/unfused gap in {k} is {noise[k]}, over "
+                        f"{SERVE_MESH_GAP_FACTOR} x its record {record[k]}")
+                bounds[k] = max(rtol, min(4 * noise[k], 4 * record[k]))
+        t0 = time.perf_counter()
+        ranks = run_ranks(_serve_mesh_rank, 2,
+                          base + flags + ["--mesh", spec],
+                          device=MESH_DEVICE)
+        seconds = time.perf_counter() - t0
+        T_roll = one["decoded_rel_mse_per_time"].shape[0]
+        worst = {}
+        for rank, (metrics, counts, heads) in enumerate(ranks):
+            for key in SERVE_MESH_KEYS:
+                bound = bounds[key]
+                rel = float(np.max(np.abs(metrics[key] - one[key])
+                                   / np.abs(one[key])))
+                worst[key] = max(worst.get(key, 0.0), rel)
+                if not rel <= bound:
+                    raise AssertionError(
+                        f"[serve-mesh] {spec} {' '.join(flags)} rank "
+                        f"{rank}: {key} {metrics[key]} vs one device "
+                        f"{one[key]}: rel {rel} > {bound}")
+            q8 = "int8" in flags
+            decodes = counts["decode_q8" if q8 else "decode_attention"]
+            want_heads = {H // int(spec[-1]): per_step * T_roll}
+            if decodes != per_step * T_roll or heads != want_heads:
+                raise AssertionError(
+                    f"[serve-mesh] {spec} rank {rank}: {decodes} decodes, "
+                    f"heads {heads}; want {per_step * T_roll} on "
+                    f"{want_heads}")
+            if int4[1] in flags and \
+                    counts["int4_matvec"] != int4_sites * T_roll:
+                raise AssertionError(
+                    f"[serve-mesh] {spec} rank {rank}: "
+                    f"{counts['int4_matvec']} int4 launches, want "
+                    f"{int4_sites} a step x {T_roll}")
+        what = " ".join(flags[:2] + flags[3:]) or "f32"
+        log(f"[serve-mesh] {CASE} temporal test --mesh {spec} {what} (2 "
+            f"ranks on one card, gloo), {T_roll} steps: encoded_rel_mse "
+            f"{ranks[0][0]['encoded_rel_mse']:.7g} vs one device "
+            f"{one['encoded_rel_mse']:.7g}, decoded_rel_mse "
+            f"{ranks[0][0]['decoded_rel_mse']:.7g} vs "
+            f"{one['decoded_rel_mse']:.7g}; worst rel over every rank "
+            + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+            + (f" (bound 1e-4)" if noise is None else
+               " (bound max(1e-4, 4 x min(the one-device fused/unfused "
+               "gap, its record)): gap " + ", ".join(
+                   f"{k} {v:.4g}" for k, v in noise.items())
+               + "; bound " + ", ".join(
+                   f"{k} {v:.4g}" for k, v in bounds.items()) + ")")
+            + f"; every rank {per_step * T_roll} decodes on "
+            f"{H // int(spec[-1])} heads"
+            + (f", {ranks[0][1]['int4_matvec'] // T_roll} int4 matvecs a "
+               f"step on its slices (one device, fused: "
+               f"{one_counts['int4_matvec'] // T_roll})"
+               if int4[1] in flags else "")
+            + f"; {seconds:.1f} s with spawning, one device {one_s:.1f} s")
+
+
 KERNELS = [  # name, route, source, the TPU kernel it replaces
     ("decode_attention", "cuda", "sea_tpu_torch/csrc/decode_attention.cu",
      "sea_tpu/ops/decode_attention.py:48"),
@@ -3249,6 +3825,8 @@ def main():
               "dropout_mask": phase_mask_check(),
               **phase_flash_check(), **phase_flash_check_bf16(),
               **phase_adaln_check()}
+    for name, err in _timed(phase_mesh_kernels).items():
+        errors[name] = max(errors[name], err)
     launches = {"dropout_mask": phase_flash_dropout()}
     case = get_case(CASE)
     train_case = get_case(TRAIN_CASE)
@@ -3260,6 +3838,7 @@ def main():
         _timed(phase_serve_artifacts, case, save_dir, params_np)
         _timed(phase_generate, case, save_dir)
         reduced = phase_serve_reduced(case, save_dir, params_np)
+        _timed(phase_serve_mesh, case, save_dir, params_np)
     launches.update({k: reduced["int4"][k]
                      for k in ("decode_q8", "int4_matvec")})
     with tempfile.TemporaryDirectory(dir=REPO / "build") as save_dir:
@@ -3282,6 +3861,7 @@ def main():
     _timed(phase_encoder_train_time)
     f32_step = _timed(phase_train_card_vs_cpu, train_case, train_np)
     _timed(phase_train_card_vs_cpu_bf16, train_case, train_np, f32_step)
+    _timed(phase_train_mesh, train_case, train_np)
     _timed(phase_train_time, train_case, train_np, cli_trace=cli_trace)
     _timed(phase_train_time, train_case, train_np, BF16_RECIPE)
     _timed(phase_train_optim, train_case, train_np)

@@ -4,7 +4,7 @@
         [--epochs N] [--batch_size N] [--synthetic] [--save_dir DIR]
         [--model_path PATH] [--compute_dtype f32|bf16|bf16_mixed|bf16_shadow]
         [--adam_mu_dtype f32|bf16] [--optimizer adamw|adafactor] [--seed N]
-        [--profile DIR] [--device cuda|cpu|cuda:N]
+        [--profile DIR] [--device cuda|cpu|cuda:N] [--mesh auto|none|DxM]
     python -m sea_tpu_torch.cli <flow_type> encoder test
         [--model_path PATH] [--synthetic] [--save_dir DIR] [--seed N]
         [--device cuda|cpu|cuda:N]
@@ -13,12 +13,12 @@
         [--epochs N] [--batch_size N] [--synthetic] [--save_dir DIR]
         [--compute_dtype f32|bf16|bf16_mixed|bf16_shadow]
         [--adam_mu_dtype f32|bf16] [--optimizer adamw|adafactor] [--seed N]
-        [--profile DIR] [--device cuda|cpu|cuda:N]
+        [--profile DIR] [--device cuda|cpu|cuda:N] [--mesh auto|none|DxM]
     python -m sea_tpu_torch.cli <flow_type> temporal test
         [--model_path PATH] [--synthetic] [--save_dir DIR] [--seed N]
         [--precision f32|bf16|int8|int4] [--no_calibrate]
         [--kv_cache auto|f32|bf16|int8] [--drift_budget REL_L2]
-        [--no_drift_check] [--device cuda|cpu|cuda:N]
+        [--no_drift_check] [--device cuda|cpu|cuda:N] [--mesh DxM]
     python -m sea_tpu_torch.cli <flow_type> temporal generate
         [--horizon H] [--trajectory IDX] [--output PATH]
         [the serving flags of `temporal test`]
@@ -50,9 +50,22 @@ recipe's structure, that state (else a fresh optimizer, with the JAX
 CLI's warning); a ``.pt``'s params with a fresh optimizer.
 ``--profile DIR`` (train modes) writes a trace of one steady-state epoch
 into DIR. Plots need matplotlib; without it the run prints which plots
-it skipped and writes everything else. The parallel flags (``--mesh``,
-``--seq_parallel``, ``--pp``, ``--pp_microbatches``) exit with a parser
-error that points to ROADMAP.md. As in the JAX CLI, ``--seed`` overrides
+it skipped and writes everything else.
+
+``--mesh`` runs over the ranks of a process group, one process per rank:
+``torchrun --nproc_per_node N -m sea_tpu_torch <case> temporal train
+--mesh DxM`` (D x M = N) trains data-parallel over D ranks and
+Megatron-tensor-parallel over M (``sea_tpu_torch/parallel``); ``encoder
+train`` likewise; ``temporal test --mesh DxM`` serves the rollout
+sharded (trajectories over D, params over M). As in the JAX CLI, "auto"
+(the default) trains data-parallel over every rank when there are two or
+more and serves on one device; "none" keeps one device. Rank 0 prints
+and writes the files; each rank computes on cuda:LOCAL_RANK, or on
+cuda:0 where the host has fewer cards than ranks (over gloo). Like the
+JAX CLI, ``--mesh`` is refused with ``generate`` and an explicit DxM
+with ``--seq_parallel`` or ``--pp``; those two and ``--pp_microbatches``
+are not ported yet and exit with a parser error that points to
+ROADMAP.md. As in the JAX CLI, ``--seed`` overrides
 the random seed of the data splits and seeds every host RNG
 (``utils.seeding.set_seed``); the training keys start from seed 0 in
 both.
@@ -66,13 +79,17 @@ kernel (the CPU tests use it).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import importlib.util
+import io
 import os
 import sys
 
 import numpy as np
 import torch
+
+from sea_tpu_torch.parallel.multihost import is_primary
 
 PORTED = (("encoder", "train"), ("encoder", "test"), ("temporal", "train"),
           ("temporal", "test"), ("temporal", "generate"))
@@ -213,11 +230,41 @@ def main(argv=None):
                              "(Chrome/Perfetto, TensorBoard) of one "
                              "steady-state training epoch into DIR")
     parser.add_argument("--device", default="cuda",
-                        help="torch device: cuda (default), cuda:N or cpu")
+                        help="torch device: cuda (default: cuda:LOCAL_RANK "
+                             "under torchrun), cuda:N or cpu")
+    parser.add_argument("--mesh", default="auto",
+                        help="rank grid for train modes: 'auto' (every rank "
+                             "data-parallel when the process group has more "
+                             "than one), 'none' (one device), or 'DxM' "
+                             "(data x model/tensor-parallel, e.g. 4x2; D*M "
+                             "ranks, launched by torchrun). `temporal test` "
+                             "takes an explicit DxM: sharded serving")
+    parser.add_argument("--seq_parallel", type=int, default=0, metavar="N",
+                        help="temporal train only: sequence parallelism "
+                             "(not ported yet, see ROADMAP.md)")
+    parser.add_argument("--pp", type=int, default=0, metavar="S",
+                        help="temporal train only: pipeline parallelism "
+                             "(not ported yet, see ROADMAP.md)")
+    parser.add_argument("--pp_microbatches", type=int, default=0,
+                        metavar="M",
+                        help="GPipe microbatches per step with --pp (not "
+                             "ported yet)")
     args, unknown = parser.parse_known_args(argv)
     if unknown:
         parser.error(f"{' '.join(unknown)}: not ported to sea_tpu_torch "
                      "yet (see ROADMAP.md)")
+    if args.seq_parallel and (args.model_type, args.mode) != \
+            ("temporal", "train"):
+        parser.error("--seq_parallel only applies to `temporal train`")
+    if args.pp:
+        if (args.model_type, args.mode) != ("temporal", "train"):
+            parser.error("--pp only applies to `temporal train`")
+        if args.seq_parallel:
+            parser.error("--pp and --seq_parallel are mutually exclusive")
+        if args.pp < 2:
+            parser.error(f"--pp needs at least 2 stages; got {args.pp}")
+    if args.pp_microbatches and not args.pp:
+        parser.error("--pp_microbatches requires --pp")
     if args.profile and args.mode != "train":
         parser.error("--profile only applies to train modes")
     if args.mode == "generate" and args.model_type != "temporal":
@@ -249,7 +296,20 @@ def main(argv=None):
         parser.error(f"--model_path {args.model_path}: expected an .npz "
                      "checkpoint or a reference PyTorch .pt state dict")
     device = resolve_device(args.device)
+    # A process group (torchrun) must be joined before the mesh; nothing
+    # happens on one process.
+    from sea_tpu_torch.parallel.multihost import (initialize_multihost,
+                                                  local_device)
+    device = local_device(device)
+    initialize_multihost(device=device)
+    mesh = _resolve_meshes(parser, args)
+    # Every rank but 0 computes without printing.
+    with (contextlib.nullcontext() if is_primary()
+          else contextlib.redirect_stdout(io.StringIO())):
+        return _run(parser, args, device, mesh)
 
+
+def _run(parser, args, device, mesh):
     case = get_case(args.flow_type)
     if args.seed is not None:
         from sea_tpu_torch.utils.seeding import set_seed
@@ -286,11 +346,70 @@ def main(argv=None):
         case = fit_to_data(case, data)
     if args.model_type == "encoder":
         if args.mode == "train":
-            return _train_encoder(case, args, data, device)
+            return _train_encoder(case, args, data, device, mesh)
         return _test_encoder(case, args, data, device)
     if args.mode == "train":
-        return _train(case, args, data, device)
-    return _serve(case, args, data, device, parser)
+        return _train(case, args, data, device, mesh)
+    return _serve(case, args, data, device, parser, mesh)
+
+
+def _resolve_meshes(parser, args):
+    """The rank grid (``parallel.collectives.Grid``) of --mesh, or None:
+    the JAX CLI's ``_resolve_meshes`` for --mesh. Train modes: 'auto'
+    spans every rank data-parallel when the process group has two or
+    more, else the plain one-device path. `temporal test`: an explicit
+    DxM shards the serving rollout; 'auto' serves on one device.
+    --seq_parallel and --pp are not ported: after the JAX CLI's conflict
+    checks they exit naming ROADMAP.md."""
+    from sea_tpu_torch.parallel.mesh import make_mesh, parse_mesh
+    from sea_tpu_torch.parallel.multihost import world_size
+
+    def parse_dxm(spec):
+        try:
+            n_data, n_model = parse_mesh(spec)
+        except ValueError:
+            parser.error(f"--mesh must be 'auto', 'none', or DxM "
+                         f"(e.g. 4x2); got {args.mesh!r}")
+        try:
+            return make_mesh(n_data, n_model)
+        except ValueError as exc:
+            parser.error(str(exc))
+
+    spec = args.mesh.strip().lower()
+    if args.mode != "train":
+        if (args.model_type, args.mode) == ("temporal", "test") \
+                and spec not in ("auto", "none"):
+            return parse_dxm(spec)
+        if args.mode == "generate" and spec not in ("auto", "none"):
+            parser.error("--mesh sharding applies to train modes and "
+                         "`temporal test`; generate runs the single-device "
+                         "fused program")
+        return None
+    if args.seq_parallel:
+        if spec not in ("auto", "none"):
+            parser.error(
+                f"--seq_parallel and --mesh {args.mesh} are mutually "
+                "exclusive: sequence parallelism shards the time axis "
+                "over ALL requested devices (ring attention)")
+        parser.error("--seq_parallel: not ported to sea_tpu_torch yet "
+                     "(see ROADMAP.md)")
+    if args.pp:
+        if spec not in ("auto", "none"):
+            parser.error(
+                f"--pp and --mesh {args.mesh} are mutually exclusive: "
+                "pipeline parallelism builds its own ('data', 'pipe') "
+                "mesh — devices beyond the S stages join the data axis")
+        parser.error("--pp: not ported to sea_tpu_torch yet (see "
+                     "ROADMAP.md)")
+    if spec == "none":
+        return None
+    if spec == "auto":
+        n = world_size()
+        if n == 1:
+            return None
+        print(f"auto mesh: data={n} x model=1 over {n} ranks")
+        return make_mesh(n, 1)
+    return parse_dxm(spec)
 
 
 def _tracker(case, args):
@@ -361,7 +480,7 @@ def load_train_checkpoint(path: str, template, train_cfg, cfg=None,
     return params, opt_state
 
 
-def _train_encoder(case, args, data, device):
+def _train_encoder(case, args, data, device, mesh=None):
     """`encoder train`: returns the best-validation params (numpy)."""
     from sea_tpu_torch.models.spatial import init_spatial
     from sea_tpu_torch.train.train_spatial import process_data, train
@@ -382,8 +501,8 @@ def _train_encoder(case, args, data, device):
     params, _ = train(case, _tracker(case, args), device=device, data=data,
                       epochs=args.epochs, init_params=init_params,
                       init_opt_state=init_opt, precomputed=precomputed,
-                      profile_dir=args.profile)
-    if case.spatial_train.final_save:
+                      profile_dir=args.profile, mesh=mesh)
+    if case.spatial_train.final_save and is_primary():
         save_checkpoint(case.run.save_dir, "final_model_encoder",
                         case.run.case_name, case.run.run_name, params)
     return params
@@ -410,7 +529,7 @@ def _test_encoder(case, args, data, device):
                                 device=device, spatial_cfg=sd.spatial_cfg)
 
 
-def _train(case, args, data, device):
+def _train(case, args, data, device, mesh=None):
     """`temporal train`: returns the best-validation params (numpy)."""
     from sea_tpu_torch.models.temporal import init_temporal
     from sea_tpu_torch.train.train_temporal import train
@@ -427,14 +546,15 @@ def _train(case, args, data, device):
         print(f"Continuing training from model: {args.model_path}")
     params, _ = train(case, _tracker(case, args), device=device, data=data,
                       epochs=args.epochs, init_params=init_params,
-                      init_opt_state=init_opt, profile_dir=args.profile)
-    if case.temporal_train.final_save:
+                      init_opt_state=init_opt, profile_dir=args.profile,
+                      mesh=mesh)
+    if case.temporal_train.final_save and is_primary():
         save_checkpoint(case.run.save_dir, "final_model_temporal",
                         case.run.case_name, case.run.run_name, params)
     return params
 
 
-def _serve(case, args, data, device, parser):
+def _serve(case, args, data, device, parser, mesh=None):
     """`temporal test` (returns the evaluation metrics) and `temporal
     generate` (returns the generated fields [H, N, F]): one load and one
     set of serving transforms."""
@@ -456,20 +576,24 @@ def _serve(case, args, data, device, parser):
     params = from_numpy(load_any_checkpoint(path, template, case.temporal,
                                             kind="temporal"), device)
     # --precision applies end to end: the rollout and the stage-1 decoder
-    # run the reduced-precision weights (encoding stays f32), and the
-    # temporal attention projections are fused (qkv/kv) before any cast.
+    # run the reduced-precision weights (encoding stays f32), and on one
+    # device the temporal attention projections are fused (qkv/kv) before
+    # any cast; a mesh keeps them apart (its ranks split q, k and v by
+    # heads) and skips the int4 calibration, as the JAX CLI does.
     spatial_params = None
     params_f32 = params  # for the per-checkpoint drift gate
+    fuse = (prec.fuse_attention_projections if mesh is None
+            else (lambda p: p))
     if args.precision == "bf16":
-        params = prec.cast_weights_bf16(
-            prec.fuse_attention_projections(params))
+        params = prec.cast_weights_bf16(fuse(params))
         spatial_params = prec.cast_weights_bf16(td.latent_service.params)
         print("Serving precision: bf16 weights (rollout + decode)")
     elif args.precision in ("int8", "int4"):
         quantize = (prec.quantize_weights_int8 if args.precision == "int8"
                     else prec.quantize_weights_int4)
-        params = prec.fuse_attention_projections(params)
-        if args.precision == "int4" and not args.no_calibrate:
+        params = fuse(params)
+        if args.precision == "int4" and not args.no_calibrate \
+                and mesh is None:
             from sea_tpu_torch.utils.calibration import calibrate_temporal
             n_cal = min(4, td.train.src.shape[0])
             stats = calibrate_temporal(
@@ -527,10 +651,22 @@ def _serve(case, args, data, device, parser):
         engine = "scan"
         print(f"kv_cache={args.kv_cache}: scan engine forced (the prefix "
               "engine has no KV cache)")
-    results = fused_autoregressive_evaluation(
-        params, case, td.test, td.latent_service, td.mesh_processor,
-        spatial_params=spatial_params, cache_dtype=cache_dtype,
-        engine=engine)
+    if mesh is not None and is_scan_incremental(case.temporal):
+        # Explicit --mesh DxM: trajectories over the data ranks, the
+        # params tensor-parallel over the model ranks; every rank decodes
+        # and scores, rank 0 writes the files.
+        from sea_tpu_torch.train.evaluate import \
+            full_autoregressive_evaluation
+        print(f"sharded serving: mesh {mesh.shape}")
+        results = full_autoregressive_evaluation(
+            params, case, td.test, td.latent_service, td.mesh_processor,
+            spatial_params=spatial_params, epoch=0, plot_traj=True,
+            cache_dtype=cache_dtype, mesh=mesh)
+    else:
+        results = fused_autoregressive_evaluation(
+            params, case, td.test, td.latent_service, td.mesh_processor,
+            spatial_params=spatial_params, cache_dtype=cache_dtype,
+            engine=engine)
     print("Test Results:")
     for key in ("encoded_rel_mse", "decoded_rel_mse"):
         print(f"{key}: {results[key]}")

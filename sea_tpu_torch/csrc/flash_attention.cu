@@ -23,6 +23,14 @@
 // forward and both backward kernels, the plain PyTorch version and the
 // JAX package all draw the same mask. The keep threshold and the scale
 // are computed on the host.
+// Sharded calls (sea_tpu_torch/parallel) hash GLOBAL positions, as the TPU
+// kernels do under shard_map and in the ring: an optional int32 bh_map
+// [B*H] names the global b*H + h of each local row (one __ldg a block;
+// null: the identity), and (q_off, k_off) are added to the q and k
+// positions (seed words 2-3 of the TPU kernels). The offsets enter the
+// hash as one host-computed constant, q_off * A + k_off * B in uint32,
+// which is 0 by default, so an unsharded call computes what it did
+// before. The causal mask stays on local positions.
 //
 // What bounds them: operations. At the training shapes (B=2, T=399, H=8,
 // hd 128 and 64) the causal forward does about 2 B H T^2 hd multiply-adds
@@ -296,12 +304,20 @@ struct Shape {
   unsigned seed0, seed1, threshold;
   float inv_keep;
   int dropout;
+  const int* bh_map;  // local -> global b*H + h; null: the identity
+  unsigned pos_hash;  // q_off * 0x9E3779B9 + k_off * 0x3243F6A9
 };
+
+// The global b*H + h that local row bh hashes with.
+__device__ __forceinline__ unsigned global_bh(const Shape& s, int bh) {
+  return s.bh_map ? static_cast<unsigned>(__ldg(s.bh_map + bh))
+                  : static_cast<unsigned>(bh);
+}
 
 __device__ __forceinline__ float dropout_scale(const Shape& s, unsigned bh,
                                                unsigned q, unsigned k) {
   unsigned x = q * 0x9E3779B9u + k * 0x3243F6A9u + bh * 0x27D4EB2Fu +
-               s.seed0 * 0x165667B1u + s.seed1;
+               s.seed0 * 0x165667B1u + s.seed1 + s.pos_hash;
   x ^= x >> 16; x *= 0x85EBCA6Bu;
   x ^= x >> 16; x *= 0xC2B2AE35u;
   x ^= x >> 16; x *= 0x85EBCA6Bu;
@@ -465,6 +481,7 @@ fwd_kernel(View q, View k, View v, float* __restrict__ o,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.y, b = bh / s.H, h = bh % s.H;
+  const unsigned gbh = global_bh(s, bh);
   const int q0 = blockIdx.x * kFwdBQ;
   const int n_tiles = (key_end(s, q0, kFwdBQ) + BK - 1) / BK;
 
@@ -602,7 +619,7 @@ fwd_kernel(View q, View k, View v, float* __restrict__ o,
         for (int n = 0; n < NS; ++n)
 #pragma unroll
           for (int e = 0; e < 2; ++e)
-            sc[n][2 * r + e] *= dropout_scale(s, bh, row0 + 8 * r,
+            sc[n][2 * r + e] *= dropout_scale(s, gbh, row0 + 8 * r,
                                               k0 + 8 * n + 2 * t + e);
     }
 
@@ -865,6 +882,7 @@ dq_kernel(View q, View k, View v, View dout, const float* __restrict__ lse,
   // The q tiles in reverse, the longest walks first: where the grid is
   // over a wave, the short ones fill in behind them.
   const int bh = blockIdx.x, b = bh / s.H, h = bh % s.H;
+  const unsigned gbh = global_bh(s, bh);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
   const int n_tiles = (key_end(s, q0, BQ) + BK - 1) / BK;  // in band
   const int mine = walk_count(n_tiles, group);
@@ -936,7 +954,7 @@ dq_kernel(View q, View k, View v, View dout, const float* __restrict__ lse,
       for (int n = 0; n < NS; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          dp[n][e] *= dropout_scale(s, bh, row0 + 8 * (e >> 1),
+          dp[n][e] *= dropout_scale(s, gbh, row0 + 8 * (e >> 1),
                                     k0 + 8 * n + 2 * t + (e & 1));
     }
 #pragma unroll
@@ -993,6 +1011,7 @@ dkv_kernel(View q, View k, View v, View dout, const float* __restrict__ lse,
   const int rw = gw % T::RW, dcol = (gw / T::RW) * T::DW;
   const int gtid = threadIdx.x - group * kGroupThreads;
   const int bh = blockIdx.x, b = bh / s.H, h = bh % s.H;
+  const unsigned gbh = global_bh(s, bh);
   const int k0 = blockIdx.y * BK;  // the first key tiles walk the longest
   // q tiles from the first that may see key k0 (keys above the band get
   // no gradient)
@@ -1083,7 +1102,7 @@ dkv_kernel(View q, View k, View v, View dout, const float* __restrict__ lse,
         for (int e = 0; e < 4; ++e) {
           const int c = 8 * n + 2 * t + (e & 1);
           const float m =
-              dropout_scale(s, bh, q0 + c, key0 + 8 * (e >> 1));
+              dropout_scale(s, gbh, q0 + c, key0 + 8 * (e >> 1));
           const float p = st[n][e];
           dpt[n][e] = p * (dpt[n][e] * m - cD[c]);
           st[n][e] = p * m;
@@ -1305,6 +1324,7 @@ fwd_kernel_bf16_mma(View16 q, View16 k, View16 v, bf16* __restrict__ o,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.y, b = bh / s.H, h = bh % s.H;
+  const unsigned gbh = global_bh(s, bh);
   const int q0 = blockIdx.x * kFwdBQ;
   const int n_tiles = (key_end(s, q0, kFwdBQ) + BK - 1) / BK;
 
@@ -1399,7 +1419,7 @@ fwd_kernel_bf16_mma(View16 q, View16 k, View16 v, bf16* __restrict__ o,
         for (int n = 0; n < NS; ++n)
 #pragma unroll
           for (int e = 0; e < 2; ++e)
-            sc[n][2 * r + e] *= dropout_scale(s, bh, row0 + 8 * r,
+            sc[n][2 * r + e] *= dropout_scale(s, gbh, row0 + 8 * r,
                                               k0 + 8 * n + 2 * t + e);
     }
 
@@ -1871,6 +1891,7 @@ fwd_kernel_bf16(const __grid_constant__ CUtensorMap qmap,
   uint64_t* empty = v_full + T::kStages;
   uint64_t* q_full = empty + T::kStages;
   const int bh = blockIdx.x, b = bh / s.H, h = bh % s.H;
+  const unsigned gbh = global_bh(s, bh);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kFwdBQ;  // longest first
   const int n_tiles = (key_end(s, q0, kFwdBQ) + BK - 1) / BK;
   // The warpgroup, read from lane 0 so that the compiler sees it is the
@@ -1955,10 +1976,10 @@ fwd_kernel_bf16(const __grid_constant__ CUtensorMap qmap,
   auto softmax = [&](int i, float (&alpha)[2], uint32_t (&pt)[NS / 2][4]) {
     const int k0 = (group + G * i) * BK;
     if (k0 + BK > warp_lim)
-      softmax_tile<BK, true>(sc, pt, m, l, alpha, lim, k0, row0, t, bh,
+      softmax_tile<BK, true>(sc, pt, m, l, alpha, lim, k0, row0, t, gbh,
                              scale_log2, s);
     else
-      softmax_tile<BK, false>(sc, pt, m, l, alpha, lim, k0, row0, t, bh,
+      softmax_tile<BK, false>(sc, pt, m, l, alpha, lim, k0, row0, t, gbh,
                               scale_log2, s);
   };
   mbar_wait(q_full, 0);
@@ -2139,6 +2160,7 @@ dq_kernel_bf16_mma(View16 q, View16 k, View16 v, View16 dout,
   const int rw = gw % T::RW, dcol = (gw / T::RW) * T::DW;
   const int gtid = threadIdx.x - group * kGroupThreads;
   const int bh = blockIdx.x, b = bh / s.H, h = bh % s.H;
+  const unsigned gbh = global_bh(s, bh);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest walks first
   const int n_tiles = (key_end(s, q0, BQ) + BK - 1) / BK;  // in band
   const int mine = walk_count(n_tiles, group);
@@ -2212,7 +2234,7 @@ dq_kernel_bf16_mma(View16 q, View16 k, View16 v, View16 dout,
       for (int n = 0; n < NS; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          dp[n][e] *= dropout_scale(s, bh, row0 + 8 * (e >> 1),
+          dp[n][e] *= dropout_scale(s, gbh, row0 + 8 * (e >> 1),
                                     k0 + 8 * n + 2 * t + (e & 1));
     }
 #pragma unroll
@@ -2271,6 +2293,7 @@ dkv_kernel_bf16_mma(View16 q, View16 k, View16 v, View16 dout,
   const int rw = gw % T::RW, dcol = (gw / T::RW) * T::DW;
   const int gtid = threadIdx.x - group * kGroupThreads;
   const int bh = blockIdx.x, b = bh / s.H, h = bh % s.H;
+  const unsigned gbh = global_bh(s, bh);
   const int k0 = blockIdx.y * BK;  // the first key tiles walk the longest
   const int first = (s.causal ? max(0, k0 - s.src_len) : 0) / BQ;
   const int n_tiles = max(0, (s.Tq + BQ - 1) / BQ - first);
@@ -2362,7 +2385,7 @@ dkv_kernel_bf16_mma(View16 q, View16 k, View16 v, View16 dout,
         for (int e = 0; e < 4; ++e) {
           const int c = 8 * n + 2 * t + (e & 1);
           const float m =
-              dropout_scale(s, bh, q0 + c, key0 + 8 * (e >> 1));
+              dropout_scale(s, gbh, q0 + c, key0 + 8 * (e >> 1));
           const float p = st[n][e];
           dpt[n][e] = p * (dpt[n][e] * m - cD[c]);
           st[n][e] = p * m;
@@ -2518,6 +2541,7 @@ dq_kernel_bf16(const __grid_constant__ CUtensorMap qmap,
   uint64_t* empty = v_full + T::kStages;
   uint64_t* qo_full = empty + T::kStages;
   const int bh = blockIdx.x, b = bh / s.H, h = bh % s.H;
+  const unsigned gbh = global_bh(s, bh);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kFwdBQ;  // longest first
   const int n_tiles = (key_end(s, q0, kFwdBQ) + BK - 1) / BK;
   // The warpgroup, read from lane 0 so that the compiler sees it is the
@@ -2611,10 +2635,10 @@ dq_kernel_bf16(const __grid_constant__ CUtensorMap qmap,
   auto grad = [&](int i) {
     const int k0 = (group + kWalkers * i) * BK;
     if (k0 + BK > warp_lim)
-      dq_grad_tile<BK, true>(sc, dp, ds, lim, lse2, dr, k0, row0, t, bh,
+      dq_grad_tile<BK, true>(sc, dp, ds, lim, lse2, dr, k0, row0, t, gbh,
                              scale_log2, s);
     else
-      dq_grad_tile<BK, false>(sc, dp, ds, lim, lse2, dr, k0, row0, t, bh,
+      dq_grad_tile<BK, false>(sc, dp, ds, lim, lse2, dr, k0, row0, t, gbh,
                               scale_log2, s);
   };
   mbar_wait(qo_full, 0);
@@ -2844,6 +2868,7 @@ dkv_kernel_bf16(const __grid_constant__ CUtensorMap qmap,
   uint64_t* empty = o_full + T::kStages;
   uint64_t* kv_full = empty + T::kStages;
   const int bh = blockIdx.x, b = bh / s.H, h = bh % s.H;
+  const unsigned gbh = global_bh(s, bh);
   const int k0 = blockIdx.y * kFwdBQ;  // the first key tiles walk the longest
   const int first = (s.causal ? max(0, k0 - s.src_len) : 0) / BQ;
   const int n_tiles = max(0, (s.Tq + BQ - 1) / BQ - first);
@@ -2978,10 +3003,10 @@ dkv_kernel_bf16(const __grid_constant__ CUtensorMap qmap,
     const float* slot = rows + (ring0 + i % ST) * 2 * BQ;
     if (q0 < warp_qlo || q0 + BQ > s.Tq)
       dkv_grad_tile<BQ, true>(st, dpt, pm, ds, slot, slot + BQ, qlo, q0,
-                              key0, t, bh, scale_log2, s);
+                              key0, t, gbh, scale_log2, s);
     else
       dkv_grad_tile<BQ, false>(st, dpt, pm, ds, slot, slot + BQ, qlo, q0,
-                               key0, t, bh, scale_log2, s);
+                               key0, t, gbh, scale_log2, s);
   };
   mbar_wait(kv_full, 0);
 
@@ -3300,6 +3325,8 @@ Shape make_shape(int B, int H, int Tq, int Tk, int hd, int causal,
   s.scale = 1.f / sqrtf(static_cast<float>(hd));
   s.seed0 = seed0; s.seed1 = seed1; s.threshold = threshold;
   s.inv_keep = inv_keep; s.dropout = dropout;
+  s.bh_map = nullptr;
+  s.pos_hash = 0u;
   return s;
 }
 
@@ -3315,6 +3342,14 @@ View16 view16(const void* p, long long sb, long long st, long long sh) {
   x.p = static_cast<const bf16*>(p);
   x.sb = sb; x.st = st; x.sh = sh;
   return x;
+}
+
+// s with a bh_map (null: the identity) and global position offsets.
+Shape sharded(Shape s, const void* bh_map, int q_off, int k_off) {
+  s.bh_map = static_cast<const int*>(bh_map);
+  s.pos_hash = static_cast<unsigned>(q_off) * 0x9E3779B9u +
+               static_cast<unsigned>(k_off) * 0x3243F6A9u;
+  return s;
 }
 
 // out[bh, q, k] = M(bh_map[bh], q, k), flat over [BH, Tq, Tk].
@@ -3340,15 +3375,18 @@ dropout_mask_kernel(const int* __restrict__ bh_map, float* __restrict__ out,
 // Tensors are f32 [B, T, H, hd] with hd contiguous, given by pointer and
 // (batch, time, head) strides in elements; o/dq/dk/dv are contiguous
 // [B, T, H, hd], lse and dsum contiguous [B*H, Tq]. hd must be 8, 16, 64,
-// 128 or 256. Each entry returns cudaGetLastError() after its launch (0 on
-// success); an unsupported hd returns cudaErrorInvalidValue.
+// 128 or 256. bh_map: null or int32 [B*H], the global b*H + h each local
+// row hashes with; q_off, k_off: added to the q and k positions the
+// dropout hash sees. Each entry returns cudaGetLastError() after its
+// launch (0 on success); an unsupported hd returns cudaErrorInvalidValue.
 #define SEA_FLASH_ARGS                                                    \
   int B, int H, int Tq, int Tk, int hd, int causal, int src_len,          \
       unsigned seed0, unsigned seed1, unsigned threshold, float inv_keep, \
-      int dropout, void* stream
-#define SEA_FLASH_SHAPE                                                  \
-  make_shape(B, H, Tq, Tk, hd, causal, src_len, seed0, seed1, threshold, \
-             inv_keep, dropout)
+      int dropout, const void* bh_map, int q_off, int k_off, void* stream
+#define SEA_FLASH_SHAPE                                                   \
+  sharded(make_shape(B, H, Tq, Tk, hd, causal, src_len, seed0, seed1,     \
+                     threshold, inv_keep, dropout),                       \
+          bh_map, q_off, k_off)
 
 extern "C" int sea_flash_fwd(const void* q, long long qsb, long long qst,
                              long long qsh, const void* k, long long ksb,

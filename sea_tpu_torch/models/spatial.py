@@ -22,7 +22,10 @@ folded with the group index, draws the variational noise
 (``prng.normal``); key 1 drops the positional encoding's output; key
 2 + i drives block i, split into its attention and MLP dropout keys.
 Every dropout is the JAX package's position hash, so the masks and the
-noise's uniforms are JAX's bit for bit.
+noise's uniforms are JAX's bit for bit. Under a ``--mesh`` grid
+(``parallel.collectives.sharded``) the blocks' attention runs on this
+rank's heads (``parallel.mesh.spatial_param_dims``), and the dropout and
+the noise take the global positions of the rank's batch block.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from torch import nn
 from sea_tpu_torch.configs.base import SpatialModelConfig
 from sea_tpu_torch.ops import layers as L
 from sea_tpu_torch.ops.attention import init_attention, mha
+from sea_tpu_torch.parallel import collectives
 from sea_tpu_torch.utils import prng
 from sea_tpu_torch.utils.params import tree_map
 
@@ -146,9 +150,12 @@ def spatial_encode(params, cfg: SpatialModelConfig, x, *, rng=None,
         logvars = heads("encoders_logvar")
         mu, logvar = torch.cat(zs, dim=-2), torch.cat(logvars, dim=-2)
         if training:
+            # Under a grid, this rank's rows of the global noise.
+            grid = collectives.current()
+            first = 0 if grid is None else grid.data_rank
             zs = [m + torch.exp(0.5 * lv) * prng.normal(
                       prng.fold_in(rngs[0], i), lv.shape, lv.dtype,
-                      device=lv.device)
+                      device=lv.device, offset=first * lv.numel())
                   for i, (m, lv) in enumerate(zip(zs, logvars))]
     z = torch.cat(zs, dim=-2).reshape(B, P, cfg.num_groups * cfg.embed_dim)
     z = L.positional_encoding(params["pe"], z, dropout_rate=cfg.dropout,

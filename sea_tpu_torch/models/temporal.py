@@ -40,6 +40,12 @@ and takes ``valid_len`` for the masked prefix engine (rollout/engine.py).
 block's inputs, "dots" also keeps the outputs of the matrix products.
 Ring attention is not ported, and the stacked per-field path
 (``stack_fields``) is the same math as the per-field loop.
+
+Under a ``--mesh`` grid (``parallel.collectives.sharded``) the same code
+runs on this rank's shards (``parallel.mesh.temporal_param_dims``): every
+attention on its H/M heads, each field's MLP Megatron-split (``tp=True``),
+the batch on its B/D rows; the caches of ``init_temporal_cache`` hold
+the rank's heads.
 """
 
 from __future__ import annotations
@@ -54,8 +60,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from sea_tpu_torch.configs.base import TemporalModelConfig
 from sea_tpu_torch.ops import layers as L
-from sea_tpu_torch.ops.attention import (init_attention, init_kv_cache, mha,
-                                         mha_step)
+from sea_tpu_torch.ops.attention import (init_attention, init_kv_cache,
+                                         local_heads, mha, mha_step)
 from sea_tpu_torch.utils.params import tree_map
 from sea_tpu_torch.utils.prng import fold_in, split
 
@@ -369,7 +375,7 @@ def temporal_block(block, cfg: TemporalModelConfig, x_vars, ib, ib_cond, *,
         h = L.apply_norm(block["ln_exp"][i][2], x_vars[i], ib_cond)
         x_vars[i] = x_vars[i] + L.mlp(block["mlp"][i], h,
                                       dropout_rate=cfg.dropout,
-                                      dropout_key=_fold(rngs[3], i))
+                                      dropout_key=_fold(rngs[3], i), tp=True)
         x_vars[i] = L.linear(block["proj"][i], x_vars[i])
     return x_vars
 
@@ -456,9 +462,9 @@ def init_temporal_cache(cfg: TemporalModelConfig, batch: int, t_max: int,
     hd_self = cfg.internal_embed_dim // cfg.n_heads
     hd_cross = cfg.down_dim // cfg.n_heads
 
-    def kv(hd):
-        return init_kv_cache(batch, t_max, cfg.n_heads, hd, device=device,
-                             dtype=dtype)
+    def kv(hd):  # this rank's heads under a tensor-parallel grid
+        return init_kv_cache(batch, t_max, local_heads(cfg.n_heads), hd,
+                             device=device, dtype=dtype)
 
     layers = []
     for _ in range(cfg.num_layers):
@@ -605,7 +611,7 @@ def temporal_step(params, cfg: TemporalModelConfig, x_t, ib_t, cache, t,
         for i in range(G):
             h = _norm_t(block["ln_exp"][i][2], x_vars[i], ib_t,
                         _get(bc, "ln_exp", i, 1))
-            x_vars[i] = x_vars[i] + L.mlp(block["mlp"][i], h)
+            x_vars[i] = x_vars[i] + L.mlp(block["mlp"][i], h, tp=True)
             x_vars[i] = L.linear(block["proj"][i], x_vars[i])
 
     x_vars = [_norm_t(params["ln_final"][i], x_vars[i], ib_t,

@@ -32,6 +32,14 @@ Tk = valid_len, so on the card the flash forward kernel bounds every
 row's key walk there with no argument of its own. Serving only: with
 dropout or a gradient it raises.
 
+Under a tensor-parallel grid (``parallel.collectives.sharded``) the
+attention params are this rank's H/M heads (``parallel.mesh``): q, k and
+v column-parallel, the output projection row-parallel and summed over the
+model ranks. ``mha`` then runs the flash kernels on (B/D, H/M) with
+``bh_map`` = (b0 + b) H + (h0 + h), so the dropout hashes the global rows
+(the plain path hashes the probabilities' global flat positions), and
+``mha_step`` attends over this rank's caches [B/D, H/M, T, hd].
+
 Not ported: ``src_len != 0`` in ``mha_step`` (the non-causal configs
 serve on the masked prefix engine, as in the JAX package) and ring
 attention (ROADMAP.md).
@@ -43,8 +51,10 @@ import torch
 
 from sea_tpu_torch.ops.decode_attention import decode_attention
 from sea_tpu_torch.ops.flash_attention import flash_attention
-from sea_tpu_torch.ops.layers import dropout, init_linear, linear
+from sea_tpu_torch.ops.layers import (block_positions, dropout, init_linear,
+                                      linear)
 from sea_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from sea_tpu_torch.parallel import collectives
 from sea_tpu_torch.utils.prng import key_to_seed
 
 
@@ -75,12 +85,20 @@ def _project_qkv(params, x_q, x_kv):
                 "cross-attention params should carry fused 'kv' instead "
                 "(utils.precision.fuse_attention_projections)")
         return torch.chunk(linear(params["qkv"], x_q), 3, dim=-1)
-    q = linear(params["q"], x_q)
+    q = linear(params["q"], x_q, tp_role="col")
     if "kv" in params:
         k, v = torch.chunk(linear(params["kv"], x_kv), 2, dim=-1)
     else:
-        k, v = linear(params["k"], x_kv), linear(params["v"], x_kv)
+        k, v = (linear(params["k"], x_kv, tp_role="col"),
+                linear(params["v"], x_kv, tp_role="col"))
     return q, k, v
+
+
+def local_heads(n_heads: int) -> int:
+    """The heads this rank holds: n_heads, or its share under a
+    tensor-parallel grid."""
+    grid = collectives.tensor_parallel()
+    return n_heads if grid is None else grid.local_heads(n_heads)
 
 
 def attention_core(q, k, v, *, causal: bool, src_len: int = 0,
@@ -88,7 +106,8 @@ def attention_core(q, k, v, *, causal: bool, src_len: int = 0,
     """q: [B,Tq,H,hd], k/v: [B,Tk,H,hd] -> [B,Tq,H,hd]. The causal mask
     admits key j for query i when j <= i + src_len. With a rate and a key
     (``utils.prng``) the f32 probabilities are dropped by ``layers.
-    dropout``."""
+    dropout``, at their global flat positions under a grid (the rank's
+    batch block and heads of [B, H, Tq, Tk])."""
     hd = q.shape[-1]
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(),
                           k.float()) * hd ** -0.5
@@ -97,7 +116,16 @@ def attention_core(q, k, v, *, causal: bool, src_len: int = 0,
         qi = torch.arange(Tq, device=q.device)[:, None]
         kj = torch.arange(Tk, device=q.device)[None, :]
         scores = scores.masked_fill(kj > qi + src_len, float("-inf"))
-    probs = dropout(torch.softmax(scores, dim=-1), dropout_rate, dropout_key)
+    probs = torch.softmax(scores, dim=-1)
+    grid = collectives.current()
+    positions = None
+    if grid is not None and dropout_rate and dropout_key is not None:
+        B, H = probs.shape[:2]  # this rank's batch block and heads
+        positions = block_positions(
+            probs.shape, (grid.data_rank * B, grid.model_rank * H, 0, 0),
+            (B * grid.n_data, H * grid.n_model) + tuple(probs.shape[2:]),
+            probs.device)
+    probs = dropout(probs, dropout_rate, dropout_key, positions)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(),
                        v.float())
     return out.to(q.dtype)
@@ -142,9 +170,15 @@ def multihead_core(q, k, v, *, n_heads: int, causal: bool, rope: bool,
         # they are. Query rows past the prefix stay finite, never read.
         k, v = k[:, :valid_len], v[:, :valid_len]
     if impl == "flash":
+        grid = collectives.current()
+        bh_map = None
+        if grid is not None and rate:  # n_heads: this rank's heads
+            bh_map = grid.bh_map(B, n_heads, n_heads * grid.n_model,
+                                 q.device)
         out = flash_attention(
             q, k, v, causal, src_len, dropout_rate=rate,
-            dropout_seed=key_to_seed(dropout_key) if rate else None)
+            dropout_seed=key_to_seed(dropout_key) if rate else None,
+            bh_map=bh_map)
     elif impl == "plain":
         out = attention_core(q, k, v, causal=causal, src_len=src_len,
                              dropout_rate=rate, dropout_key=dropout_key)
@@ -159,12 +193,12 @@ def mha(params, x_q, x_kv, *, n_heads: int, causal: bool, rope: bool,
     """Full-sequence multi-head attention. x_q: [B, Tq, C]; x_kv:
     [B, Tk, C]; ``valid_len``: see ``multihead_core``."""
     q, k, v = _project_qkv(params, x_q, x_kv)
-    out = multihead_core(q, k, v, n_heads=n_heads, causal=causal,
+    out = multihead_core(q, k, v, n_heads=local_heads(n_heads), causal=causal,
                          rope=rope, src_len=src_len,
                          dropout_rate=dropout_rate, dropout_key=dropout_key,
                          deterministic=deterministic, impl=impl,
                          valid_len=valid_len)
-    return linear(params["proj"], out)
+    return linear(params["proj"], out, tp_role="row")
 
 
 def init_kv_cache(batch: int, t_max: int, n_heads: int, head_dim: int, *,
@@ -212,6 +246,8 @@ def mha_step(params, x_q_t, x_kv_t, cache, t, *, n_heads: int, rope: bool):
     """
     B, C = x_q_t.shape
     hd = C // n_heads
+    n_heads = local_heads(n_heads)
+    C = n_heads * hd
     q, k, v = _project_qkv(params, x_q_t, x_kv_t)
     q = q.reshape(B, 1, n_heads, hd)
     k = k.reshape(B, 1, n_heads, hd)
@@ -236,4 +272,5 @@ def mha_step(params, x_q_t, x_kv_t, cache, t, *, n_heads: int, rope: bool):
         cache_v[:, :, t] = v.to(cache_v.dtype)
     out = decode_attention(q.reshape(B, n_heads, hd), cache_k, cache_v, t,
                            **scales)
-    return linear(params["proj"], out.to(x_q_t.dtype).reshape(B, C))
+    return linear(params["proj"], out.to(x_q_t.dtype).reshape(B, C),
+                  tp_role="row")

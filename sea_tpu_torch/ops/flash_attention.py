@@ -17,7 +17,13 @@ M(bh, q, k) in {0, 1/(1-rate)} multiplies the probabilities before p.V.
 M comes from the position hash ``layers.dropout_scale_from_positions``
 keyed on the two seed words, bh = b*H + h and the global q and k
 positions — the function the TPU kernels compute, so the masks equal the
-JAX package's bit for bit. The backward identity D = rowsum(dO * O)
+JAX package's bit for bit. A sharded call (``sea_tpu_torch/parallel``)
+names the global rows and positions, as the TPU kernels' ``bh_map`` and
+seed words 2-3 do: ``bh_map`` (int32 [B*H], local row -> global b*H + h;
+default the identity) and ``pos_off`` = (q_off, k_off), added to the q
+and k positions the hash sees (default (0, 0)). The causal band stays on
+local positions. Every function below takes both, kernels and plain
+versions alike. The backward identity D = rowsum(dO * O)
 holds with dropout; D is computed here with torch in f32, outside the
 kernels, as the JAX package does.
 
@@ -98,21 +104,26 @@ def _valid(Tq, Tk, causal, src_len, device):
     return kj <= qi + src_len
 
 
-def dropout_mask_dense_ref(bh_map, Tq, Tk, seed, rate):
+def dropout_mask_dense_ref(bh_map, Tq, Tk, seed, rate, pos_off=None):
     """Plain version of the dense mask kernel: [BH, Tq, Tk] f32 scale,
-    row bh hashed with the global bh_map[bh]."""
+    row bh hashed with the global bh_map[bh], positions shifted by
+    pos_off = (q_off, k_off)."""
+    q_off, k_off = pos_off or (0, 0)
     dev = bh_map.device
     bh = bh_map.to(torch.int64).reshape(-1, 1, 1)
-    qp = torch.arange(Tq, device=dev).reshape(1, Tq, 1)
-    kp = torch.arange(Tk, device=dev).reshape(1, 1, Tk)
+    qp = torch.arange(Tq, device=dev).reshape(1, Tq, 1) + int(q_off)
+    kp = torch.arange(Tk, device=dev).reshape(1, 1, Tk) + int(k_off)
     return dropout_scale_from_positions(seed[0], seed[1], bh, qp, kp,
                                         rate=rate)
 
 
-def dropout_mask(B, H, Tq, Tk, seed, rate, device):
-    """[B, H, Tq, Tk] f32 dropout scale of the kernels (bh = b*H + h)."""
-    bh = torch.arange(B * H, device=device)
-    return dropout_mask_dense_ref(bh, Tq, Tk, seed, rate).reshape(
+def dropout_mask(B, H, Tq, Tk, seed, rate, device, bh_map=None,
+                 pos_off=None):
+    """[B, H, Tq, Tk] f32 dropout scale of the kernels: row b*H + h hashes
+    with bh_map[b*H + h] (default b*H + h), positions with pos_off."""
+    bh = (torch.arange(B * H, device=device) if bh_map is None
+          else bh_map.to(device))
+    return dropout_mask_dense_ref(bh, Tq, Tk, seed, rate, pos_off).reshape(
         B, H, Tq, Tk)
 
 
@@ -125,7 +136,8 @@ def _scores(q, k, causal, src_len):
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, src_len: int = 0,
-                        dropout_rate: float = 0.0, dropout_seed=None):
+                        dropout_rate: float = 0.0, dropout_seed=None,
+                        bh_map=None, pos_off=None):
     """Plain version: materialises the [B, H, Tq, Tk] scores and mask.
     f32: differentiable by autograd. bf16: the plain forward and backward
     pieces inside the kernels' autograd Function, so its gradients round
@@ -135,19 +147,20 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, src_len: int = 0,
     if q.dtype != torch.float32:
         seed = tuple(dropout_seed) if dropout_rate > 0.0 else None
         return _FlashAttention.apply(q, k, v, bool(causal), int(src_len),
-                                     float(dropout_rate), seed, True)
+                                     float(dropout_rate), seed, bh_map,
+                                     _offsets(pos_off), True)
     B, Tq, H, hd = q.shape
     Tk = k.shape[1]
     p = torch.softmax(_scores(q, k, causal, src_len), dim=-1)
     if dropout_rate > 0.0:
         p = p * dropout_mask(B, H, Tq, Tk, dropout_seed, dropout_rate,
-                             q.device)
+                             q.device, bh_map, pos_off)
     out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
     return out.to(q.dtype)
 
 
 def flash_forward_ref(q, k, v, *, causal=True, src_len=0, dropout_rate=0.0,
-                      dropout_seed=None):
+                      dropout_seed=None, bh_map=None, pos_off=None):
     """The forward kernel's outputs: (o [B, Tq, H, hd] in q's dtype, lse
     [B*H, Tq] f32). In bf16, o = (round(exp(s - m) M) . v) / l with m the
     row max and l = sum exp(s - m)."""
@@ -158,21 +171,22 @@ def flash_forward_ref(q, k, v, *, causal=True, src_len=0, dropout_rate=0.0,
     if q.dtype == torch.float32:
         out = flash_attention_ref(q, k, v, causal=causal, src_len=src_len,
                                   dropout_rate=dropout_rate,
-                                  dropout_seed=dropout_seed)
+                                  dropout_seed=dropout_seed, bh_map=bh_map,
+                                  pos_off=pos_off)
         return out, lse.reshape(B * H, Tq)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     den = p.sum(dim=-1, keepdim=True)  # the undropped p, as the kernels
     if dropout_rate > 0.0:
         p = p * dropout_mask(B, H, Tq, Tk, dropout_seed, dropout_rate,
-                             q.device)
+                             q.device, bh_map, pos_off)
     out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
     out = out / den.permute(0, 2, 1, 3)
     return out.to(q.dtype), lse.reshape(B * H, Tq)
 
 
 def _bwd_ref_pieces(q, k, v, do, lse, dsum, causal, src_len, dropout_rate,
-                    dropout_seed):
+                    dropout_seed, bh_map=None, pos_off=None):
     """(P * M, dS) [B, H, Tq, Tk] f32 of the backward, P from the
     forward's lse."""
     B, Tq, H, hd = q.shape
@@ -180,29 +194,32 @@ def _bwd_ref_pieces(q, k, v, do, lse, dsum, causal, src_len, dropout_rate,
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * hd ** -0.5
     p = torch.exp(s - lse.reshape(B, H, Tq, 1))
     p = p.masked_fill(~_valid(Tq, Tk, causal, src_len, q.device), 0.0)
-    m = (dropout_mask(B, H, Tq, Tk, dropout_seed, dropout_rate, q.device)
+    m = (dropout_mask(B, H, Tq, Tk, dropout_seed, dropout_rate, q.device,
+                      bh_map, pos_off)
          if dropout_rate > 0.0 else torch.ones_like(p))
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
     return p * m, p * (dp * m - dsum.reshape(B, H, Tq, 1))
 
 
 def flash_bwd_dq_ref(q, k, v, do, lse, dsum, *, causal=True, src_len=0,
-                     dropout_rate=0.0, dropout_seed=None):
+                     dropout_rate=0.0, dropout_seed=None, bh_map=None,
+                     pos_off=None):
     """The dQ kernel's output, in q's dtype, from the forward's lse and D
     [B*H, Tq]; dS rounded to k's dtype before dS.K."""
     _, ds = _bwd_ref_pieces(q, k, v, do, lse, dsum, causal, src_len,
-                            dropout_rate, dropout_seed)
+                            dropout_rate, dropout_seed, bh_map, pos_off)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(),
                       k.float()) * q.shape[3] ** -0.5
     return dq.to(q.dtype)
 
 
 def flash_bwd_dkv_ref(q, k, v, do, lse, dsum, *, causal=True, src_len=0,
-                      dropout_rate=0.0, dropout_seed=None):
+                      dropout_rate=0.0, dropout_seed=None, bh_map=None,
+                      pos_off=None):
     """The dK/dV kernel's outputs (dk, dv) in k's and v's dtypes; dS
     rounded to q's dtype before dS^T.Q, P.M to dO's before (P.M)^T.dO."""
     pm, ds = _bwd_ref_pieces(q, k, v, do, lse, dsum, causal, src_len,
-                             dropout_rate, dropout_seed)
+                             dropout_rate, dropout_seed, bh_map, pos_off)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(),
                       q.float()) * q.shape[3] ** -0.5
     dv = torch.einsum("bhqk,bqhd->bkhd", pm.to(do.dtype).float(), do.float())
@@ -232,7 +249,8 @@ def _library():
     P, L = ctypes.c_void_p, ctypes.c_longlong
     view = [P, L, L, L]
     shape = ([ctypes.c_int] * 7 + [ctypes.c_uint32] * 3
-             + [ctypes.c_float, ctypes.c_int, P])
+             + [ctypes.c_float, ctypes.c_int, P, ctypes.c_int, ctypes.c_int,
+                P])
     fns = {}
     for suffix in ("", "_bf16"):
         fns.update({
@@ -317,7 +335,28 @@ def _check(q, k, v):
                          "kernels launch on the current device")
 
 
-def _shape_args(q, k, causal, src_len, dropout_rate, dropout_seed):
+def _offsets(pos_off):
+    """(q_off, k_off) as two ints; None is (0, 0)."""
+    q_off, k_off = pos_off or (0, 0)
+    return int(q_off), int(k_off)
+
+
+def _check_bh_map(bh_map, q):
+    """bh_map as the kernels read it: None, or int32 [B*H] contiguous on
+    q's device."""
+    if bh_map is None:
+        return None
+    B, _, H, _ = q.shape
+    if bh_map.shape != (B * H,) or bh_map.dtype != torch.int32 \
+            or not bh_map.is_contiguous() or bh_map.device != q.device:
+        raise ValueError(f"bh_map must be contiguous int32 [{B * H}] on "
+                         f"{q.device}; got {bh_map.dtype} "
+                         f"{tuple(bh_map.shape)} on {bh_map.device}")
+    return bh_map
+
+
+def _shape_args(q, k, causal, src_len, dropout_rate, dropout_seed,
+                bh_map=None, pos_off=None):
     B, Tq, H, hd = q.shape
     if dropout_rate > 0.0:
         s0, s1 = (w & 0xFFFFFFFF for w in dropout_seed)
@@ -327,8 +366,11 @@ def _shape_args(q, k, causal, src_len, dropout_rate, dropout_seed):
     else:
         s0 = s1 = threshold = 0
         inv = 1.0
+    bh_map = _check_bh_map(bh_map, q)
     return [B, H, Tq, k.shape[1], hd, int(causal), src_len, s0, s1,
             threshold, inv, int(dropout_rate > 0.0),
+            None if bh_map is None else bh_map.data_ptr(),
+            *_offsets(pos_off),
             torch.cuda.current_stream(q.device).cuda_stream]
 
 
@@ -339,7 +381,7 @@ def _raise_on(rc, name):
 
 
 def flash_fwd(q, k, v, *, causal=True, src_len=0, dropout_rate=0.0,
-              dropout_seed=None):
+              dropout_seed=None, bh_map=None, pos_off=None):
     """Forward kernel: (o [B, Tq, H, hd] contiguous in q's dtype, lse
     [B*H, Tq] f32)."""
     _check(q, k, v)
@@ -348,7 +390,8 @@ def flash_fwd(q, k, v, *, causal=True, src_len=0, dropout_rate=0.0,
     lse = torch.empty((B * H, Tq), dtype=torch.float32, device=q.device)
     rc = _entry("fwd", q.dtype)(
         *_view(q), *_view(k), *_view(v), o.data_ptr(), lse.data_ptr(),
-        *_shape_args(q, k, causal, src_len, dropout_rate, dropout_seed))
+        *_shape_args(q, k, causal, src_len, dropout_rate, dropout_seed,
+                     bh_map, pos_off))
     _raise_on(rc, "forward")
     _count("fwd", q.dtype)
     return o, lse
@@ -379,10 +422,11 @@ def _bwd_inputs(q, k, v, do, lse, dsum):
 
 
 def flash_bwd_dq(q, k, v, do, lse, dsum, *, causal=True, src_len=0,
-                 dropout_rate=0.0, dropout_seed=None):
+                 dropout_rate=0.0, dropout_seed=None, bh_map=None,
+                 pos_off=None):
     """dQ kernel: dq [B, Tq, H, hd] contiguous in q's dtype."""
     kw = dict(causal=causal, src_len=src_len, dropout_rate=dropout_rate,
-              dropout_seed=dropout_seed)
+              dropout_seed=dropout_seed, bh_map=bh_map, pos_off=pos_off)
     do = _bwd_inputs(q, k, v, do, lse, dsum)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     rc = _entry("dq", q.dtype)(
@@ -394,11 +438,12 @@ def flash_bwd_dq(q, k, v, do, lse, dsum, *, causal=True, src_len=0,
 
 
 def flash_bwd_dkv(q, k, v, do, lse, dsum, *, causal=True, src_len=0,
-                  dropout_rate=0.0, dropout_seed=None):
+                  dropout_rate=0.0, dropout_seed=None, bh_map=None,
+                  pos_off=None):
     """dK/dV kernel: (dk, dv), each [B, Tk, H, hd] contiguous in q's dtype.
     Keys above the causal band get zeros."""
     kw = dict(causal=causal, src_len=src_len, dropout_rate=dropout_rate,
-              dropout_seed=dropout_seed)
+              dropout_seed=dropout_seed, bh_map=bh_map, pos_off=pos_off)
     do = _bwd_inputs(q, k, v, do, lse, dsum)
     dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(k.shape, dtype=q.dtype, device=q.device)
@@ -453,9 +498,9 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, src_len, dropout_rate, dropout_seed,
-                plain=False):
+                bh_map=None, pos_off=(0, 0), plain=False):
         kw = dict(causal=causal, src_len=src_len, dropout_rate=dropout_rate,
-                  dropout_seed=dropout_seed)
+                  dropout_seed=dropout_seed, bh_map=bh_map, pos_off=pos_off)
         o, lse = (flash_forward_ref if plain else flash_fwd)(q, k, v, **kw)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.kw, ctx.plain = kw, plain
@@ -469,28 +514,32 @@ class _FlashAttention(torch.autograd.Function):
                          else (flash_bwd_dq, flash_bwd_dkv))
         dq = dq_fn(q, k, v, do, lse, dsum, **ctx.kw)
         dk, dv = dkv_fn(q, k, v, do, lse, dsum, **ctx.kw)
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def flash_attention(q, k, v, causal: bool = True, src_len: int = 0, *,
-                    dropout_rate: float = 0.0, dropout_seed=None):
+                    dropout_rate: float = 0.0, dropout_seed=None,
+                    bh_map=None, pos_off=None):
     """q: [B, Tq, H, hd]; k, v: [B, Tk, H, hd], f32 or bf16 ->
     [B, Tq, H, hd] in q's dtype.
 
     dropout_seed: the two int32 words of the dropout key
-    (``utils.prng.key_to_seed``); required when dropout_rate > 0. CUDA
-    tensors take the kernels; CPU tensors the plain version,
-    ``flash_attention_ref``."""
+    (``utils.prng.key_to_seed``); required when dropout_rate > 0.
+    bh_map, pos_off: the global rows and position offsets the dropout
+    hash sees (module docstring). CUDA tensors take the kernels; CPU
+    tensors the plain version, ``flash_attention_ref``."""
     if dropout_rate > 0.0 and dropout_seed is None:
         raise ValueError("flash_attention: dropout_rate > 0 requires a "
                          "dropout_seed")
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, src_len=src_len,
                                    dropout_rate=dropout_rate,
-                                   dropout_seed=dropout_seed)
+                                   dropout_seed=dropout_seed, bh_map=bh_map,
+                                   pos_off=pos_off)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CPU or CUDA tensors, "
                          f"not {q.device}")
     seed = tuple(dropout_seed) if dropout_rate > 0.0 else None
     return _FlashAttention.apply(q, k, v, bool(causal), int(src_len),
-                                 float(dropout_rate), seed)
+                                 float(dropout_rate), seed,
+                                 _check_bh_map(bh_map, q), _offsets(pos_off))

@@ -20,6 +20,14 @@ layouts of ``utils.precision`` as the JAX package does: bf16 ``w`` (up-cast
 per call), int8 ``w_q`` with a per-column ``w_s``, and packed int4
 ``w_p4`` through ``ops.quant_matmul`` (the hand-written int4 kernel on the
 card).
+
+Inside ``parallel.collectives.sharded`` (a rank of a ``--mesh`` grid) the
+leaves are this rank's shards (``parallel.mesh``): ``linear(tp_role=)``
+runs a column- or row-parallel linear with Megatron's operators, ``mlp``
+(``tp=True``) its distributed hidden LayerNorm, whose mean and variance
+run over the global hidden width, and ``dropout`` hashes each element's
+global flat position: its batch block's row offset included, so a rank
+drops what one device drops.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from sea_tpu_torch.ops import fused_adaln, quant_matmul
+from sea_tpu_torch.parallel import collectives
 from sea_tpu_torch.utils.prng import key_to_seed
 
 LN_EPS = 1e-5
@@ -70,7 +79,51 @@ def init_linear(gen: torch.Generator, d_in: int, d_out: int, *,
 _CALIBRATION = None
 
 
-def linear(params, x):
+def linear(params, x, tp_role=None):
+    """y = x @ w + b over the layouts of a linear param dict (below).
+
+    ``tp_role``, under a tensor-parallel grid (``parallel.collectives``):
+    how this weight is split over the model ranks (``parallel.mesh``).
+    "col": w's output columns, so the replicated x enters through
+    ``copy_to_model`` and y is this rank's columns. "row": w's input rows,
+    so x is this rank's slice of the input, the partial products are
+    summed over the model ranks (``reduce_from_model``) and the
+    replicated bias is added once, after the sum. A row-parallel packed
+    int4 weight holds packed rows [m K/2M, (m+1) K/2M) of [K/2, N], each
+    pairing inputs k and k + K/2: its x is the two slices of the gathered
+    input at those offsets (the scales, linear, apply before the sum).
+    None, or no grid: the plain linear."""
+    grid = collectives.tensor_parallel() if tp_role else None
+    if grid is None:
+        return _linear(params, x)
+    if tp_role == "col":
+        return _linear(params, collectives.copy_to_model(x))
+    if tp_role != "row":
+        raise ValueError(f"tp_role {tp_role!r}: want 'col', 'row' or None")
+    if "w_p4" in params:
+        x = _int4_row_input(x, grid)
+    y = collectives.reduce_from_model(
+        _linear({k: v for k, v in params.items() if k != "b"}, x))
+    return y + params["b"] if "b" in params else y
+
+
+def _int4_row_input(x, grid):
+    """The x slices a row-parallel packed int4 shard multiplies: of the
+    input gathered over the model ranks, [m K/2M, (m+1) K/2M) and the
+    same offset by K/2 (``parallel/kernel_shard.py``'s decomposition)."""
+    full = collectives.all_gather_cat(x, x.dim() - 1, grid.model_group,
+                                      grid.n_model)
+    K = full.shape[-1]
+    if (K // 2) % grid.n_model or K % 2:
+        raise ValueError(f"a row-parallel int4 linear needs (K/2) % n_model "
+                         f"== 0; got K={K} over {grid.n_model} model ranks")
+    s = K // (2 * grid.n_model)
+    lo = grid.model_rank * s
+    return torch.cat([full[..., lo:lo + s],
+                      full[..., K // 2 + lo:K // 2 + lo + s]], dim=-1)
+
+
+def _linear(params, x):
     """y = x @ w + b over the layouts of a linear param dict:
     - "w" f32: one GEMM (F.linear takes [d_out, d_in]; the transposed view
       of the JAX-layout weight costs no copy and fuses the bias add);
@@ -203,15 +256,44 @@ def init_mlp(gen: torch.Generator, dim_in: int, *, scale_ratio: float = 4,
     return {"layers": layers}
 
 
-def mlp(params, x, *, dropout_rate: float = 0.0, dropout_key=None):
+def mlp(params, x, *, dropout_rate: float = 0.0, dropout_key=None,
+        tp: bool = False):
     """``dropout_key``: a PRNG key (``utils.prng``) for the trailing
-    dropout of training; None (or rate 0) leaves the output as it is."""
-    for entry in params["layers"]:
-        x = linear(entry["lin"], x)
+    dropout of training; None (or rate 0) leaves the output as it is.
+    ``tp``: the params are tensor-parallel (``parallel.mesh``'s MLP
+    layout: first linear column-, last row-parallel), so under a
+    tensor-parallel grid the hidden activation stays split over the model
+    ranks and its LayerNorm is the distributed one."""
+    layers = params["layers"]
+    grid = collectives.tensor_parallel() if tp else None
+    if grid is not None and len(layers) != 2:
+        raise ValueError(f"a tensor-parallel MLP has two linears; this one "
+                         f"has {len(layers)} (the middle ones would need the "
+                         "hidden activation gathered)")
+    for i, entry in enumerate(layers):
+        role = None if grid is None else ("col" if i == 0 else "row")
+        x = linear(entry["lin"], x, tp_role=role)
         if "ln" in entry:
             # GELU always follows a hidden LayerNorm (the reference MLP).
-            x = gelu(layernorm(entry["ln"], x))
+            norm = layernorm if grid is None else distributed_layernorm
+            x = gelu(norm(entry["ln"], x))
     return dropout(x, dropout_rate, dropout_key)
+
+
+def distributed_layernorm(params, x, eps: float = LN_EPS):
+    """LayerNorm of a hidden activation split over the model ranks, x and
+    the weights being this rank's columns: the mean, then the biased
+    variance of the deviations, over the global width, each a per-row sum
+    all-reduced over the model group (in f32)."""
+    xf = x.float()
+    n = xf.shape[-1] * collectives.tensor_parallel().n_model
+    mean = collectives.all_reduce_model(xf.sum(-1, keepdim=True)) / n
+    d = xf - mean
+    var = collectives.all_reduce_model((d * d).sum(-1, keepdim=True)) / n
+    y = d * torch.rsqrt(var + eps) * params["w"]
+    if "b" in params:
+        y = y + params["b"]
+    return y.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -260,18 +342,40 @@ def dropout_scale_from_positions(seed0: int, seed1: int, bh, q_pos, k_pos, *,
                                    device=keep.device))
 
 
-def dropout(x, rate: float, key):
+def dropout(x, rate: float, key, positions=None):
     """Inverted dropout with the JAX package's flat-position hash
     (``sea_tpu/ops/layers.py::dropout``): element i of x in row-major
     order keeps when hash(s0=key[0], s1=key[1], bh=0, q=i, k=0) passes.
-    ``key`` None or rate 0 returns x."""
+    ``key`` None or rate 0 returns x. ``positions``: each element's
+    global flat position (``block_positions``); by default its flat index,
+    offset under a grid by the rank's batch block (x split over the data
+    ranks on its leading dim, as every activation of the models is)."""
     if rate == 0.0 or key is None:
         return x
     s0, s1 = key_to_seed(key)
-    pos = torch.arange(x.numel(), dtype=torch.int64,
-                       device=x.device).reshape(x.shape)
-    scale = dropout_scale_from_positions(s0, s1, 0, pos, 0, rate=rate)
+    if positions is None:
+        grid = collectives.current()
+        start = 0 if grid is None else grid.data_rank * x.numel()
+        positions = torch.arange(start, start + x.numel(), dtype=torch.int64,
+                                 device=x.device).reshape(x.shape)
+    scale = dropout_scale_from_positions(s0, s1, 0, positions, 0, rate=rate)
     return x * scale.to(x.dtype)
+
+
+def block_positions(shape, starts, global_shape, device):
+    """int64 [shape]: the row-major flat position in a tensor of
+    ``global_shape`` of each element of its block of ``shape`` starting
+    at index ``starts``."""
+    pos = torch.zeros((), dtype=torch.int64, device=device)
+    stride = 1
+    for dim in reversed(range(len(shape))):
+        idx = torch.arange(starts[dim], starts[dim] + shape[dim],
+                           dtype=torch.int64, device=device)
+        view = [1] * len(shape)
+        view[dim] = shape[dim]
+        pos = pos + idx.reshape(view) * stride
+        stride *= global_shape[dim]
+    return pos
 
 
 def init_scale_mlp(gen: torch.Generator, d_in: int, d_out: int, hidden: int,

@@ -10,8 +10,8 @@ un-patch and score on the device), ``generate_trajectory`` and
 metrics, the same generated fields and the same artifact files: the
 rollout CSV, 5 original/decoded field plot pairs and the error-vs-time
 plot (``_write_rollout_artifacts``), and the stage-1 test's 5 pairs.
-The port runs in one process, so the JAX package's "primary process"
-guard on the writes has no counterpart.
+On a ``--mesh`` grid every rank runs these functions and rank 0 alone
+writes the files (the JAX package's "primary process" guard).
 
 Documented divergences from the JAX functions:
 
@@ -26,8 +26,6 @@ Documented divergences from the JAX functions:
   not import (the H100 machine the port is measured on has none), the
   writers print one line naming the plots they skip and the missing
   module, and still write the CSV.
-- ``full_autoregressive_evaluation(mesh=...)`` raises: the sharded
-  rollout comes with the parallel paths (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -44,6 +42,7 @@ from sea_tpu_torch.data.datasets import invert_sea_layout
 from sea_tpu_torch.data.latents import (LatentService,
                                         inverse_transform_latents)
 from sea_tpu_torch.data.mesh import MeshProcessor
+from sea_tpu_torch.parallel.multihost import is_primary
 from sea_tpu_torch.rollout.e2e import (make_e2e_rollout_eval,
                                        make_eval_tail, make_generate)
 from sea_tpu_torch.rollout.engine import (is_scan_incremental, rollout,
@@ -91,18 +90,27 @@ def full_autoregressive_evaluation(params, case: CaseConfig, windows,
     its weights), un-patched and un-scaled, and scored per (time, field).
     Returns {encoded_rel_mse, decoded_rel_mse, decoded_rel_mse_per_time
     [T, F]} averaged over the set; with ``save_artifacts`` writes the
-    rollout artifacts, the plots tagged with ``epoch``."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "full_autoregressive_evaluation(mesh=...): the sharded rollout "
-            "is not ported to sea_tpu_torch yet (see ROADMAP.md)")
+    rollout artifacts, the plots tagged with ``epoch``.
+
+    ``mesh``: a ``parallel.collectives.Grid`` (``parallel.mesh.make_mesh``;
+    every rank calls this): the trajectories split over its data ranks
+    (padded up to a multiple of the axis by repeating the last, the
+    padding trimmed) and the params, the global serving tree, over its
+    model ranks (``parallel.train_step.make_sharded_rollout``); the
+    rollouts are gathered on every rank, which decodes and scores them,
+    and rank 0 writes the files. Scan-incremental configs only; the
+    others take the one-device engine, as in the JAX function."""
     if spatial_params is not None:
         latent_service = latent_service.with_params(spatial_params)
     device = latent_service.device
-    x0, ib = _to(device, windows.src[:, 0]), _to(device, windows.ib)
     with torch.inference_mode():
-        preds_dev = rollout(params, case.temporal, x0, ib,
-                            cache_dtype=cache_dtype)  # [B, T, G, E]
+        if mesh is not None and is_scan_incremental(case.temporal):
+            preds_dev = _sharded_rollout(mesh, params, case, windows, device,
+                                         cache_dtype)
+        else:
+            x0, ib = _to(device, windows.src[:, 0]), _to(device, windows.ib)
+            preds_dev = rollout(params, case.temporal, x0, ib,
+                                cache_dtype=cache_dtype)  # [B, T, G, E]
         encoded_rel_mse = float(torch.mean(M.relative_mse(
             preds_dev, _to(device, windows.tgt))))
     preds = preds_dev.cpu().numpy()
@@ -117,13 +125,32 @@ def full_autoregressive_evaluation(params, case: CaseConfig, windows,
     rel = M.relative_mse_with_time(torch.from_numpy(decoded_fields),
                                    torch.from_numpy(original)).numpy()
     per_time = rel.mean(axis=0)  # [T, F]
-    if save_artifacts:
+    if save_artifacts and is_primary():
         _write_rollout_artifacts(case, mesh_processor, per_time, original,
                                  decoded_fields, epoch=epoch,
                                  plot_traj=plot_traj)
     return {"encoded_rel_mse": encoded_rel_mse,
             "decoded_rel_mse": float(per_time.mean()),
             "decoded_rel_mse_per_time": per_time}
+
+
+def _sharded_rollout(grid, params, case, windows, device, cache_dtype):
+    """Every window's rollout [B, T, G, E] on every rank of ``grid``: each
+    rank rolls out its block of trajectories on its shards, then the
+    blocks are gathered over the data ranks."""
+    from sea_tpu_torch.parallel.collectives import all_gather_cat
+    from sea_tpu_torch.parallel.train_step import make_sharded_rollout
+    run, placed, place = make_sharded_rollout(grid, case.temporal, params,
+                                              device=device,
+                                              cache_dtype=cache_dtype)
+    x0, ib = np.asarray(windows.src[:, 0]), np.asarray(windows.ib)
+    B = x0.shape[0]
+    pad = (-B) % grid.n_data
+    if pad:  # repeat the last trajectory; trimmed below
+        x0 = np.concatenate([x0, np.repeat(x0[-1:], pad, 0)], axis=0)
+        ib = np.concatenate([ib, np.repeat(ib[-1:], pad, 0)], axis=0)
+    local = run(placed, *place(x0, ib))
+    return all_gather_cat(local, 0, grid.data_group, grid.n_data)[:B]
 
 
 def _plot_or_skip(names, what: str) -> bool:

@@ -16,7 +16,7 @@ import math
 import numpy as np
 import torch
 
-from sea_tpu_torch.train.optim import tensor_norms
+from sea_tpu_torch.train.optim import sharded_tensor_norms, tensor_norms
 from sea_tpu_torch.utils.params import tree_leaves, tree_paths
 
 EPS = 1e-8
@@ -42,6 +42,21 @@ def r2(pred, truth):
     pred, truth = pred.reshape(-1), truth.reshape(-1)
     residual = torch.sum((pred - truth) ** 2)
     total = torch.sum((truth - torch.mean(truth)) ** 2)
+    return 1.0 - residual / total
+
+
+def sharded_r2(pred, truth, grid):
+    """``r2`` of the global batch a data-parallel rank holds a block of:
+    the truth's mean, the residual and the total summed over the data
+    ranks."""
+    if grid is None or grid.n_data == 1:
+        return r2(pred, truth)
+    from sea_tpu_torch.parallel.collectives import all_reduce
+    pred, truth = pred.reshape(-1), truth.reshape(-1)
+    g = grid.data_group
+    mean = all_reduce(torch.sum(truth), g) / (truth.numel() * grid.n_data)
+    residual = all_reduce(torch.sum((pred - truth) ** 2), g)
+    total = all_reduce(torch.sum((truth - mean) ** 2), g)
     return 1.0 - residual / total
 
 
@@ -99,14 +114,18 @@ def vloss(x, recon, mu, logvar, *, kl_weight_min: float,
     return recon_loss + kl_weight * kl, recon_loss, kl
 
 
-def per_tensor_norms(tree, prefix: str = ""):
+def per_tensor_norms(tree, prefix: str = "", dims=None, grid=None):
     """Flat {prefix + npz path: f32 L2 norm} over every leaf of a tree,
     0-d tensors on the leaves' device (the JAX function's keys: its
     ``blocks/0/attn/q/w`` path spelling). The stand-in for the
     reference's per-tensor ``wandb.watch`` histograms; the training loops
-    read an epoch's norms back in one transfer (``read_norms``)."""
-    return dict(zip((prefix + p for p in tree_paths(tree)),
-                    tensor_norms(tree_leaves(tree))))
+    read an epoch's norms back in one transfer (``read_norms``). On a
+    tensor-parallel ``grid`` (``dims``: each leaf's split axis) the norms
+    of the global leaves."""
+    leaves = tree_leaves(tree)
+    norms = (tensor_norms(leaves) if grid is None
+             else sharded_tensor_norms(leaves, dims, grid))
+    return dict(zip((prefix + p for p in tree_paths(tree)), norms))
 
 
 def read_norms(norms) -> dict:

@@ -10,7 +10,7 @@ over ``epoch_num`` optimizer steps (``scheduler="linear"``: the JAX
 package's clock is the update count, not the epoch). The states have the
 layout of ``tx.init(params)`` in the JAX package, so they flatten to the
 same npz paths and a checkpoint's state loads in either package
-(``utils.params.opt_state_to_numpy`` / ``opt_state_from_numpy``):
+(``utils.params.to_numpy`` / ``opt_state_from_numpy``):
 
 - AdamW: ``(ScaleByAdamState(count, mu, nu), EmptyState(), EmptyState())``
   (``opt_state/0/0`` the step count, ``opt_state/0/1/...`` mu,
@@ -56,6 +56,18 @@ device.
 bf16 copy of the f32 master parameters that the train step differentiates;
 each step widens the bf16 gradients to f32, updates the masters and the
 inner state, and refreshes the shadow from the updated masters, in place.
+
+On a ``--mesh`` grid (``parallel``) a rank updates its shards of the
+tensor-parallel leaves. AdamW is elementwise and needs nothing more.
+``on_grid`` gives Adafactor each leaf's split axis and global shape: it
+factors a leaf as its global shape says, and its row and column means,
+the mean of v_row and the update's RMS clip sum over the model ranks
+where the leaf is split. ``state_dims`` gives each state leaf the axis it
+is split on (the shadow's and the moments' are their params'), so
+``parallel.mesh.shard`` and ``unshard`` move a state between the global
+npz layout and a rank's shards. ``global_norm`` and
+``sharded_tensor_norms`` sum a split leaf's squares over the model ranks
+and count a replicated one once.
 """
 
 from __future__ import annotations
@@ -67,6 +79,8 @@ import numpy as np
 import torch
 
 from sea_tpu_torch.configs.base import TrainConfig
+from sea_tpu_torch.parallel import collectives
+from sea_tpu_torch.parallel.mesh import REPLICATED
 from sea_tpu_torch.utils.params import tree_leaves, tree_map
 
 
@@ -114,11 +128,30 @@ def tensor_norms(tensors):
     return [n.float() for n in _norms(tensors)]
 
 
-def global_norm(tensors):
+def global_norm(tensors, dims=None, grid=None):
     """optax.global_norm: sqrt of the sum of squares of every element, as
     an f32 0-d tensor on the tensors' device (each tensor's norm as in
-    ``tensor_norms``, in f64 on the CPU)."""
-    return torch.linalg.vector_norm(torch.stack(_norms(tensors))).float()
+    ``tensor_norms``, in f64 on the CPU). ``dims`` (each tensor's split
+    axis, ``parallel.mesh``) and a tensor-parallel ``grid``: the norm of
+    the global tensors, whose split leaves this rank holds a slice of."""
+    if grid is None or grid.n_model == 1:
+        return torch.linalg.vector_norm(torch.stack(_norms(tensors))).float()
+    sq = torch.stack(sharded_tensor_norms(tensors, dims, grid, f32=False))
+    return torch.linalg.vector_norm(sq).float()
+
+
+def sharded_tensor_norms(tensors, dims, grid, f32: bool = True):
+    """``tensor_norms`` of the global tensors a rank holds slices of: a
+    split leaf's squares summed over the model ranks (``dims``: each
+    tensor's split axis)."""
+    norms = _norms(tensors)
+    if grid is not None and grid.n_model > 1:
+        sq = torch.stack(norms) ** 2
+        split = torch.tensor([d != REPLICATED for d in dims],
+                             device=sq.device)
+        total = collectives.all_reduce(sq, grid.model_group)
+        norms = list(torch.sqrt(torch.where(split, total, sq)).unbind())
+    return [n.float() for n in norms] if f32 else norms
 
 
 def linear_schedule(init_value: float, end_value: float,
@@ -145,6 +178,13 @@ def _lr_init(learning_rate):
     return ()
 
 
+def _lr_dims(learning_rate):
+    """The split axes of the lr state: a replicated count, or nothing."""
+    if callable(learning_rate):
+        return ScaleByScheduleState(REPLICATED)
+    return ()
+
+
 def _lr_step(learning_rate, lr_state):
     """(this update's learning rate, the next lr state)."""
     if not callable(learning_rate):
@@ -165,6 +205,16 @@ class AdamW:
         self.lr, self.b1, self.b2 = learning_rate, b1, b2
         self.eps, self.weight_decay = eps, weight_decay
         self.mu_dtype = mu_dtype
+
+    def on_grid(self, grid, dims, shapes):
+        """Elementwise: a rank's shards update as the global leaves."""
+        return self
+
+    def state_dims(self, dims, shapes):
+        """Split axes of the state (``parallel.mesh``): mu and nu as
+        their params."""
+        return (ScaleByAdamState(REPLICATED, dims, dims), (),
+                _lr_dims(self.lr))
 
     def init(self, params):
         """(ScaleByAdamState(0, zeros, zeros), (), () or the schedule's
@@ -273,10 +323,65 @@ class Adafactor:
 
     def __init__(self, learning_rate, weight_decay: float = 0.0):
         self.lr, self.weight_decay = learning_rate, weight_decay
+        # On a tensor-parallel grid: the grid, and each leaf's split axis
+        # and global shape in tree_leaves order (``on_grid``).
+        self.grid, self.dims, self.shapes = None, None, None
+
+    def on_grid(self, grid, dims, shapes):
+        """A copy for a rank holding slices of the leaves: ``dims`` and
+        ``shapes`` are each leaf's split axis (``parallel.mesh``) and its
+        global shape, in ``tree_leaves`` order."""
+        tx = Adafactor(self.lr, self.weight_decay)
+        if grid is not None and grid.n_model > 1:
+            tx.grid, tx.dims = grid, list(dims)
+            tx.shapes = [tuple(x) for x in shapes]
+        return tx
+
+    def _shape(self, i: int, p):
+        """Leaf i's global shape (p its local slice)."""
+        return tuple(p.shape) if self.shapes is None else self.shapes[i]
+
+    def _mean(self, x, dim: int, i: int, axis: int, keepdim: bool = False):
+        """x.mean(dim) of a statistic of leaf i whose dim ``dim`` is the
+        leaf's axis ``axis``: where the leaf is split on that axis, over
+        the global axis (the sum all-reduced over the model ranks)."""
+        if self.dims is None or self.dims[i] != axis:
+            return x.mean(dim=dim, keepdim=keepdim)
+        return (collectives.all_reduce(x.sum(dim=dim, keepdim=keepdim),
+                                       self.grid.model_group)
+                / self.shapes[i][axis])
+
+    def state_dims(self, dims, shapes):
+        """Split axes of the state (``parallel.mesh``): v as its param
+        where unfactored; v_row and v_col along the param's split axis
+        where they keep it. ``shapes``: the global params (anything with
+        a shape)."""
+        def stat_dim(d, shape, which):
+            f = factored_dims(shape)
+            if d == REPLICATED or (f is None) != (which == "v"):
+                return REPLICATED
+            if which == "v":
+                return d
+            drop = f[1] if which == "v_row" else f[0]
+            return REPLICATED if d == drop else d - (d > drop)
+        flat = list(zip(tree_leaves(dims),
+                        (tuple(np.shape(a)) for a in tree_leaves(shapes))))
+
+        def tree(which):
+            it = iter(flat)
+            return tree_map(lambda _: stat_dim(*next(it), which), dims)
+        tail = ((),) if self.weight_decay else ()
+        return ((FactoredState(REPLICATED, tree("v_row"), tree("v_col"),
+                               tree("v")), (), _lr_dims(self.lr))
+                + tail + ((),))
 
     def init(self, params):
+        shapes = iter([self._shape(i, p)
+                       for i, p in enumerate(tree_leaves(params))] * 3)
+
         def stats(p, which):
-            dims = factored_dims(p.shape)
+            # factored as the global leaf; the statistic's local shape
+            dims = factored_dims(next(shapes))
             if dims is None:
                 shape = tuple(p.shape) if which == "v" else (1,)
             elif which == "v":
@@ -308,7 +413,7 @@ class Adafactor:
         decay = np.float32(1) - np.float32(int(fac.count) + 1) ** np.float32(
             -self.DECAY_RATE)
         keep, take = float(decay), float(np.float32(1) - decay)
-        dims = [factored_dims(x.shape) for x in p]
+        dims = [factored_dims(self._shape(i, x)) for i, x in enumerate(p)]
         u = [None] * len(p)
         whole = [i for i, d in enumerate(dims) if d is None]
         if whole:  # one pass over every unfactored leaf
@@ -327,8 +432,8 @@ class Adafactor:
             for i in fac_i:  # a leaf's squares at a time, not all at once
                 d1, d0 = dims[i]
                 g2 = g[i] * g[i] + self.EPS
-                rows.append(g2.mean(dim=d0))
-                cols.append(g2.mean(dim=d1))
+                rows.append(self._mean(g2, d0, i, d0))
+                cols.append(self._mean(g2, d1, i, d1))
                 del g2
             vr, vc = [v_row[i] for i in fac_i], [v_col[i] for i in fac_i]
             for stat, new in ((vr, rows), (vc, cols)):
@@ -338,14 +443,18 @@ class Adafactor:
             for i, r, c in zip(fac_i, vr, torch._foreach_rsqrt(vc)):
                 d1, d0 = dims[i]
                 rd1 = d1 - 1 if d1 > d0 else d1
-                row = torch.rsqrt(r / r.mean(dim=rd1, keepdim=True))
+                row = torch.rsqrt(r / self._mean(r, rd1, i, d1,
+                                                 keepdim=True))
                 u[i] = g[i] * row.unsqueeze(d0) * c.unsqueeze(d1)
         # clip_by_block_rms: u / max(1, rms(u) / threshold), per leaf; the
         # rms as norm / sqrt(size), every leaf's in a few multi-tensor
         # launches.
-        scale = torch._foreach_norm(u)
-        torch._foreach_div_(scale, [math.sqrt(x.numel()) * self.CLIP
-                                    for x in u])
+        if self.grid is None:
+            scale = torch._foreach_norm(u)
+        else:  # the norms of the global updates
+            scale = sharded_tensor_norms(u, self.dims, self.grid)
+        torch._foreach_div_(scale, [math.sqrt(math.prod(self._shape(i, x)))
+                                    * self.CLIP for i, x in enumerate(u)])
         torch._foreach_clamp_min_(scale, 1.0)
         for x, c in zip(u, scale):
             x.div_(c)
@@ -367,6 +476,13 @@ class with_bf16_shadow:  # noqa: N801 — the JAX package's name
 
     def __init__(self, tx):
         self.inner = tx
+
+    def on_grid(self, grid, dims, shapes):
+        return with_bf16_shadow(self.inner.on_grid(grid, dims, shapes))
+
+    def state_dims(self, dims, shapes):
+        """The inner state's, and the shadow split as the params."""
+        return ShadowOptState(self.inner.state_dims(dims, shapes), dims)
 
     def init(self, params):
         from sea_tpu_torch.utils.precision import to_bf16

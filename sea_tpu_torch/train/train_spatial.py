@@ -18,7 +18,11 @@ f32 masters through the bf16 cast, as the JAX spatial step does (its
 shadow is kept and refreshed, never read). ``profile_dir`` traces one
 steady-state epoch (``utils.profiling.trace``); ``log_per_tensor``
 records a norm per gradient and parameter tensor from each epoch's last
-batch. Single device only: ``mesh`` raises "not ported" (ROADMAP.md).
+batch. ``mesh`` (a ``parallel.collectives.Grid``) trains data- and
+tensor-parallel over the ranks (``parallel.train_step``), as the JAX
+loop's mesh: the blocks' attention split over the model ranks, each
+batch over the data ranks; evaluation on the gathered params, files and
+metrics from rank 0.
 Dropout keys and the variational noise come from ``utils.prng`` with the
 JAX loop's key sequence.
 """
@@ -42,13 +46,17 @@ from sea_tpu_torch.data.datasets import (apply_sea_layout,
 from sea_tpu_torch.data.io import load_case_data
 from sea_tpu_torch.data.mesh import MeshProcessor
 from sea_tpu_torch.models.spatial import init_spatial, spatial_forward
+from sea_tpu_torch.parallel.collectives import (all_reduce, data_mean,
+                                                sharded, sum_over_data)
 from sea_tpu_torch.train import metrics as M
 from sea_tpu_torch.train.optim import global_norm, make_optimizer
 from sea_tpu_torch.train.tracking import BaseErrorTracker, NoOpErrorTracker
 from sea_tpu_torch.utils.checkpoint import save_checkpoint
+from sea_tpu_torch.parallel.mesh import spatial_param_dims, unshard
+from sea_tpu_torch.parallel.multihost import is_primary
+from sea_tpu_torch.parallel.train_step import make_sharded_spatial_train_step
 from sea_tpu_torch.utils.params import (from_numpy, opt_state_from_numpy,
-                                        opt_state_to_numpy, to_numpy,
-                                        tree_leaves, tree_paths)
+                                        to_numpy, tree_leaves, tree_paths)
 from sea_tpu_torch.utils.precision import train_cast
 from sea_tpu_torch.utils.profiling import trace
 from sea_tpu_torch.utils.prng import prng_key, split
@@ -92,7 +100,7 @@ def process_data(case: CaseConfig, *, data=None) -> SpatialData:
 def make_train_step(cfg: SpatialModelConfig, tx, *, kl_weight_min=0.0,
                     kl_weight_max=0.0, total_steps: int = 1,
                     compute_dtype: str = "float32", log_norms: bool = True,
-                    per_tensor: bool = False):
+                    per_tensor: bool = False, grid=None, dims=None):
     """step(params, opt_state, batch, key, iteration) -> (params,
     opt_state, stats): the JAX loop's step. ``key`` is a ``utils.prng``
     key, ``iteration`` the host's optimizer-step count (the KL anneal's
@@ -104,45 +112,66 @@ def make_train_step(cfg: SpatialModelConfig, tx, *, kl_weight_min=0.0,
     zeros with ``log_norms=False``) and r2, 0-d tensors on the device;
     ``per_tensor`` (with log_norms) adds "tensors", ``Grad_Norm/<path>``
     and ``Param_Norm/<path>`` of each tensor, as the JAX step. The
-    parameters and the optimizer state are updated IN PLACE."""
+    parameters and the optimizer state are updated IN PLACE.
+
+    ``grid`` and ``dims``: a rank's step of the sharded one
+    (``parallel.train_step``), as in ``train_temporal.make_train_step``.
+    The global loss is the mean reconstruction error plus the weighted
+    KL summed over the batch, so a rank differentiates its block's
+    recon / n_data + weight * KL, and the gradients sum over the data
+    ranks."""
     cast_p, cast_x = train_cast(compute_dtype)
+    n_data = 1 if grid is None else grid.n_data
 
     def step(params, opt_state, batch, key, iteration: int):
         leaves = tree_leaves(params)
         for leaf in leaves:
             leaf.requires_grad_(True)
         (x,) = cast_x(batch)
-        out = spatial_forward(cast_p(params), cfg, x, rng=key,
-                              deterministic=False)
+        with sharded(grid):
+            out = spatial_forward(cast_p(params), cfg, x, rng=key,
+                                  deterministic=False)
         if cfg.variational:
             recon, mu, logvar = out
             loss, recon_loss, kl = M.vloss(
                 batch, recon.float(), mu.float(), logvar.float(),
                 kl_weight_min=kl_weight_min, kl_weight_max=kl_weight_max,
                 iteration=iteration, total_steps=total_steps)
+            if n_data > 1:
+                loss = recon_loss / n_data + M.kl_anneal_weight(
+                    kl_weight_min, kl_weight_max, iteration,
+                    total_steps) * kl
         else:
             recon = out
             loss = recon_loss = M.mse(recon.float(), batch)
             kl = torch.zeros((), device=batch.device)
+            if n_data > 1:
+                loss = loss / n_data
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, torch.autograd.grad(
                      loss, leaves, allow_unused=True))]
+        grads = sum_over_data(grads, grid)
         with torch.no_grad():
+            if n_data > 1:  # the global batch's terms
+                loss = all_reduce(loss.detach(), grid.data_group)
+                recon_loss = data_mean(recon_loss.detach(), grid)
+                kl = all_reduce(kl.detach(), grid.data_group)
             if log_norms:
-                norms = {"grad_norm": global_norm(grads),
-                         "param_norm": global_norm(leaves)}
+                norms = {"grad_norm": global_norm(grads, dims, grid),
+                         "param_norm": global_norm(leaves, dims, grid)}
                 if per_tensor:
                     norms["tensors"] = {
                         **M.per_tensor_norms(
                             dict(zip(tree_paths(params), grads)),
-                            "Grad_Norm/"),
-                        **M.per_tensor_norms(params, "Param_Norm/")}
+                            "Grad_Norm/", dims, grid),
+                        **M.per_tensor_norms(params, "Param_Norm/", dims,
+                                             grid)}
             else:
                 zero = torch.zeros((), device=batch.device)
                 norms = {"grad_norm": zero, "param_norm": zero}
             stats = {"loss": loss.detach(), "recon_loss": recon_loss.detach(),
                      "kl_loss": kl.detach(), **norms,
-                     "r2": M.r2(recon.detach(), batch)}
+                     "r2": M.sharded_r2(recon.detach(), batch, grid)}
             opt_state = tx.step(grads, opt_state, params)
         return params, opt_state, stats
     return step
@@ -170,13 +199,6 @@ def make_eval_step(cfg: SpatialModelConfig, *, kl_weight_min=0.0,
     return step
 
 
-def _unported(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: not ported to sea_tpu_torch yet; the port trains on one "
-            "device (see ROADMAP.md)")
-
-
 def train(case: CaseConfig,
           error_tracker: Optional[BaseErrorTracker] = None, *, device,
           data=None, seed: int = 0, epochs: Optional[int] = None,
@@ -197,8 +219,9 @@ def train(case: CaseConfig,
     ``profile_dir``: a trace of ONE steady-state epoch, epoch min(2,
     epochs), into this directory (CLI: --profile)."""
     tracker = error_tracker or NoOpErrorTracker()
+    if mesh is not None and not is_primary():
+        tracker = NoOpErrorTracker()  # rank 0 records the run
     tcfg = case.spatial_train
-    _unported(mesh)
     device = torch.device(device)
     sd = precomputed if precomputed is not None else process_data(
         case, data=data)
@@ -216,18 +239,40 @@ def train(case: CaseConfig,
                       tcfg.optimizer)
     mu_dtype = (torch.bfloat16 if tcfg.adam_mu_dtype == "bfloat16"
                 else torch.float32)
-    opt_state = (opt_state_from_numpy(init_opt_state, device, mu_dtype)
-                 if init_opt_state is not None else tx.init(params))
-
     n_epochs = epochs if epochs is not None else tcfg.epoch_num
     batch_size = tcfg.batch_size
+    if mesh is not None:
+        batch_size = -(-batch_size // mesh.n_data) * mesh.n_data
+        if batch_size != tcfg.batch_size:
+            print(f"note: batch size {tcfg.batch_size} -> {batch_size} "
+                  f"(next multiple of the mesh data axis {mesh.n_data})")
     total_steps = max(1, n_epochs * max(1, len(sd.train) // batch_size))
     kl = dict(kl_weight_min=tcfg.kl_weight_min,
               kl_weight_max=tcfg.kl_weight_max, total_steps=total_steps)
-    train_step = make_train_step(cfg, tx, compute_dtype=tcfg.compute_dtype,
-                                 log_norms=tcfg.log_norms,
-                                 per_tensor=tcfg.log_per_tensor, **kl)
+    place_batch = None
+    if mesh is not None:
+        params_np = to_numpy(params)
+        train_step, params, opt_state, place_batch = \
+            make_sharded_spatial_train_step(
+                mesh, cfg, tx, params_np, device=device,
+                compute_dtype=tcfg.compute_dtype,
+                init_opt_state=init_opt_state, mu_dtype=mu_dtype,
+                log_norms=tcfg.log_norms, per_tensor=tcfg.log_per_tensor,
+                **kl)
+        dims = spatial_param_dims(params_np)
+        opt_dims = tx.state_dims(dims, params_np)
+        del params_np
+    else:
+        opt_state = (opt_state_from_numpy(init_opt_state, device, mu_dtype)
+                     if init_opt_state is not None else tx.init(params))
+        train_step = make_train_step(
+            cfg, tx, compute_dtype=tcfg.compute_dtype,
+            log_norms=tcfg.log_norms, per_tensor=tcfg.log_per_tensor, **kl)
     eval_step = make_eval_step(cfg, **kl)
+
+    def global_params():
+        """The global params (a mesh rank gathers its shards)."""
+        return params if mesh is None else unshard(mesh, params, dims)
 
     # The splits live on the device when they fit the budget; each step
     # gathers its batch there with the host's index stream. Otherwise each
@@ -247,7 +292,7 @@ def train(case: CaseConfig,
         return src.index_select(0, sel.to(src.device)).to(device)
 
     best_val = float("inf")
-    best_params = to_numpy(params)
+    best_params = to_numpy(global_params())
     iteration = 0
     start = time.time()
     for epoch in range(1, n_epochs + 1):
@@ -261,9 +306,10 @@ def train(case: CaseConfig,
                     seed=case.spatial_split.random_seed, epoch=epoch,
                     drop_remainder=True):
                 rng, step_key = split(rng)
+                batch = (gather("train", sel) if place_batch is None
+                         else place_batch(sd.train[sel]))
                 params, opt_state, stats = train_step(
-                    params, opt_state, gather("train", sel), step_key,
-                    iteration)
+                    params, opt_state, batch, step_key, iteration)
                 acc.add(stats)
                 iteration += 1
                 last_stats = stats
@@ -284,10 +330,11 @@ def train(case: CaseConfig,
                                  M.read_norms(last_stats["tensors"]))
 
         if epoch % tcfg.validation_interval == 0 or epoch == n_epochs:
+            full = global_params()  # every rank evaluates the global model
             vacc = M.StatsAccumulator()
             for idx, n_valid in padded_batch_index_iterator(len(sd.val),
                                                             batch_size):
-                vacc.add(eval_step(params, gather("val", idx), n_valid,
+                vacc.add(eval_step(full, gather("val", idx), n_valid,
                                    iteration))
             vagg = vacc.means()
             val_metrics = {"Loss": vagg["loss"],
@@ -301,13 +348,16 @@ def train(case: CaseConfig,
                   f" | val Loss {val_metrics['Loss']:.8f}")
             if val_metrics["Recon_Loss"] < best_val:
                 best_val = val_metrics["Recon_Loss"]
-                best_params = to_numpy(params)
-                save_checkpoint(
-                    case.run.save_dir, "encoder_decoder", case.run.case_name,
-                    case.run.run_name, best_params,
-                    opt_state=opt_state_to_numpy(opt_state),
-                    meta={"epoch": epoch, "val_loss": best_val})
-                print("--- New Best Model Saved ---")
+                best_params = to_numpy(full)
+                opt_np = to_numpy(opt_state if mesh is None
+                                  else unshard(mesh, opt_state, opt_dims))
+                if is_primary():  # one npz, the one-device layout
+                    save_checkpoint(
+                        case.run.save_dir, "encoder_decoder",
+                        case.run.case_name, case.run.run_name, best_params,
+                        opt_state=opt_np,
+                        meta={"epoch": epoch, "val_loss": best_val})
+                    print("--- New Best Model Saved ---")
 
     print(f"Total training time: {time.time() - start:.2f} seconds")
     tracker.finish()

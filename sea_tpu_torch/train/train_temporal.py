@@ -19,8 +19,13 @@ test` runs them) with the epoch, so it writes the artifacts the JAX loop's
 ``log_per_tensor`` records a norm per gradient and parameter tensor from
 each epoch's last batch (the tracker's "tensors" rows).
 
-Single device only: the data-, sequence- and pipeline-parallel meshes of
-the JAX training loop raise "not ported" (ROADMAP.md).
+``mesh`` (a ``parallel.collectives.Grid`` from ``parallel.mesh.
+make_mesh``) trains data- and tensor-parallel over the process group's
+ranks, as the JAX loop's mesh does: the batch rounded up to a multiple of
+the data axis, each rank's step on its block and shards
+(``parallel.train_step``), evaluation and checkpoints on the gathered
+global params, files and metrics from rank 0 alone. The sequence- and
+pipeline-parallel meshes raise "not ported" (ROADMAP.md).
 ``dataset_time_shifting`` cuts the train windows anew each epoch, from
 the JAX loop's seeds.
 Dropout keys come from ``utils.prng``, JAX's threefry key functions on the
@@ -51,14 +56,19 @@ from sea_tpu_torch.data.latents import (LatentService,
 from sea_tpu_torch.data.mesh import MeshProcessor
 from sea_tpu_torch.models.spatial import init_spatial
 from sea_tpu_torch.models.temporal import init_temporal, temporal_forward
+from sea_tpu_torch.parallel.collectives import (data_mean, sharded,
+                                                sum_over_data)
+from sea_tpu_torch.parallel.mesh import temporal_param_dims, unshard
+from sea_tpu_torch.parallel.multihost import is_primary
+from sea_tpu_torch.parallel.train_step import \
+    make_sharded_temporal_train_step
 from sea_tpu_torch.train import metrics as M
 from sea_tpu_torch.train.optim import global_norm, make_optimizer
 from sea_tpu_torch.train.tracking import BaseErrorTracker, NoOpErrorTracker
 from sea_tpu_torch.utils.checkpoint import (checkpoint_path, load_params,
                                             save_checkpoint)
 from sea_tpu_torch.utils.params import (from_numpy, opt_state_from_numpy,
-                                        opt_state_to_numpy, to_numpy,
-                                        tree_leaves, tree_paths)
+                                        to_numpy, tree_leaves, tree_paths)
 from sea_tpu_torch.utils.precision import train_cast
 from sea_tpu_torch.utils.profiling import trace
 from sea_tpu_torch.utils.prng import prng_key, split
@@ -131,7 +141,7 @@ def process_data(case: CaseConfig, *, device,
 
 def make_train_step(cfg: TemporalModelConfig, tx, *,
                     compute_dtype: str = "float32", log_norms: bool = True,
-                    per_tensor: bool = False):
+                    per_tensor: bool = False, grid=None, dims=None):
     """step(params, opt_state, src, tgt, ib, key) -> (params, opt_state,
     stats): the JAX driver's step. The loss is the MSE, in f32, of the
     dropout forward (``key`` a ``utils.prng`` key) under the numerics
@@ -148,9 +158,17 @@ def make_train_step(cfg: TemporalModelConfig, tx, *,
     shadow under "bfloat16_shadow", in f32) and ``Param_Norm/<path>`` of
     each master parameter before the update. The parameters and the
     optimizer state are updated IN PLACE (train/optim.py); the returned
-    stats are 0-d tensors on the device, not read back."""
+    stats are 0-d tensors on the device, not read back.
+
+    ``grid`` (``parallel.collectives.Grid``) and ``dims`` (each leaf's
+    split axis, ``parallel.mesh``): a rank's step of the sharded one
+    (``parallel.train_step``). The forward runs on the rank's batch block
+    and shards; the gradient of the global mean loss is the sum over the
+    data ranks of each block's loss / n_data; loss and norms are the
+    global batch's and the global leaves'."""
     cast_p, cast_x = train_cast(compute_dtype)
     shadow = compute_dtype == "bfloat16_shadow"
+    n_data = 1 if grid is None else grid.n_data
 
     def step(params, opt_state, src, tgt, ib, key):
         wrt = opt_state.shadow if shadow else params
@@ -158,24 +176,31 @@ def make_train_step(cfg: TemporalModelConfig, tx, *,
         for leaf in leaves:
             leaf.requires_grad_(True)
         s, i = cast_x(src, ib)
-        out = temporal_forward(wrt if shadow else cast_p(params), cfg, s, i,
-                               rng=key, deterministic=False)
+        with sharded(grid):
+            out = temporal_forward(wrt if shadow else cast_p(params), cfg,
+                                   s, i, rng=key, deterministic=False)
         loss = M.mse(out.float(), tgt)
         # Parameters the forward never reads (the unused ln_exp[i][1]
         # norms and the diagonal of the cross-attention lattice) get zero
         # gradients, as under jax.grad.
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, torch.autograd.grad(
-                     loss, leaves, allow_unused=True))]
+                     loss / n_data if n_data > 1 else loss, leaves,
+                     allow_unused=True))]
+        grads = sum_over_data(grads, grid)
         with torch.no_grad():
+            loss = data_mean(loss.detach(), grid)
             if log_norms:
-                norms = {"grad_norm": global_norm(grads),
-                         "param_norm": global_norm(tree_leaves(params))}
+                norms = {"grad_norm": global_norm(grads, dims, grid),
+                         "param_norm": global_norm(tree_leaves(params),
+                                                   dims, grid)}
                 if per_tensor:
                     norms["tensors"] = {
                         **M.per_tensor_norms(
-                            dict(zip(tree_paths(wrt), grads)), "Grad_Norm/"),
-                        **M.per_tensor_norms(params, "Param_Norm/")}
+                            dict(zip(tree_paths(wrt), grads)), "Grad_Norm/",
+                            dims, grid),
+                        **M.per_tensor_norms(params, "Param_Norm/", dims,
+                                             grid)}
             else:
                 zero = torch.zeros((), device=loss.device)
                 norms = {"grad_norm": zero, "param_norm": zero}
@@ -195,13 +220,17 @@ def make_eval_step(cfg: TemporalModelConfig):
 
 
 def _unported(mesh, seq_mesh, pipe_mesh):
-    names = [name for name, value in (("mesh", mesh), ("seq_mesh", seq_mesh),
+    if sum(m is not None for m in (mesh, seq_mesh, pipe_mesh)) > 1:
+        raise ValueError("pass at most one of mesh (DP x TP), seq_mesh "
+                         "(sequence-parallel), pipe_mesh (pipeline)")
+    names = [name for name, value in (("seq_mesh", seq_mesh),
                                       ("pipe_mesh", pipe_mesh))
              if value is not None]
     if names:
         raise NotImplementedError(
             f"{', '.join(names)}: not ported to sea_tpu_torch yet; the port "
-            "trains on one device (see ROADMAP.md)")
+            "trains on one device or over a data x model mesh (see "
+            "ROADMAP.md)")
 
 
 def train(case: CaseConfig,
@@ -248,21 +277,50 @@ def train(case: CaseConfig,
                                             | init_key[1])
         params = init_temporal(cfg, gen, device=device)
     tx = make_optimizer(tcfg)
+    if mesh is not None and not is_primary():
+        tracker = NoOpErrorTracker()  # rank 0 records the run
     tracker.log_model(params, "MSE", tcfg.optimizer)
     mu_dtype = (torch.bfloat16 if tcfg.adam_mu_dtype == "bfloat16"
                 else torch.float32)
-    opt_state = (opt_state_from_numpy(init_opt_state, device, mu_dtype)
-                 if init_opt_state is not None else tx.init(params))
-    train_step = make_train_step(cfg, tx, compute_dtype=tcfg.compute_dtype,
-                                 log_norms=tcfg.log_norms,
-                                 per_tensor=tcfg.log_per_tensor)
+    batch_size = tcfg.batch_size
+    place_batch = None
+    if mesh is not None:
+        n_data = mesh.n_data
+        batch_size = -(-batch_size // n_data) * n_data
+        if batch_size != tcfg.batch_size:
+            print(f"note: batch size {tcfg.batch_size} -> {batch_size} "
+                  f"(next multiple of the mesh data axis {n_data})")
+        params_np = to_numpy(params)
+        train_step, params, opt_state, place_batch = \
+            make_sharded_temporal_train_step(
+                mesh, cfg, tx, params_np, device=device,
+                compute_dtype=tcfg.compute_dtype,
+                init_opt_state=init_opt_state, mu_dtype=mu_dtype,
+                log_norms=tcfg.log_norms, per_tensor=tcfg.log_per_tensor)
+        dims = temporal_param_dims(params_np)
+        opt_dims = tx.state_dims(dims, params_np)
+        del params_np
+    else:
+        opt_state = (opt_state_from_numpy(init_opt_state, device, mu_dtype)
+                     if init_opt_state is not None else tx.init(params))
+        train_step = make_train_step(cfg, tx,
+                                     compute_dtype=tcfg.compute_dtype,
+                                     log_norms=tcfg.log_norms,
+                                     per_tensor=tcfg.log_per_tensor)
     eval_step = make_eval_step(cfg)
 
+    def global_params():
+        """The global params (a mesh rank gathers its shards)."""
+        return params if mesh is None else unshard(mesh, params, dims)
+
+    def global_opt_state():
+        return (opt_state if mesh is None
+                else unshard(mesh, opt_state, opt_dims))
+
     n_epochs = epochs if epochs is not None else tcfg.epoch_num
-    batch_size = tcfg.batch_size
     best_val = float("inf")
     best_rollout = float("inf")
-    best_params = to_numpy(params)
+    best_params = to_numpy(global_params())
     start = time.time()
 
     # The validation split and, while its windows stay fixed, the train
@@ -278,7 +336,8 @@ def train(case: CaseConfig,
         sel = torch.from_numpy(np.asarray(idx)).to(device)
         return tuple(a.index_select(0, sel) for a in arrays)
 
-    train_split = (None if tcfg.dataset_time_shifting
+    # Under a mesh each rank takes its block of the host's batch.
+    train_split = (None if tcfg.dataset_time_shifting or mesh is not None
                    else resident(td.train))
     val_split = resident(td.val)
 
@@ -300,7 +359,11 @@ def train(case: CaseConfig,
                     seed=case.temporal_split.random_seed, epoch=epoch,
                     drop_remainder=True):
                 rng, step_key = split(rng)
-                if train_split is None:
+                if place_batch is not None:
+                    src, tgt, ib = place_batch(train_windows.src[sel],
+                                               train_windows.tgt[sel],
+                                               train_windows.ib[sel])
+                elif train_split is None:
                     src, tgt, ib = (torch.from_numpy(np.ascontiguousarray(
                         a[sel])).to(device) for a in (train_windows.src,
                                                       train_windows.tgt,
@@ -312,8 +375,11 @@ def train(case: CaseConfig,
                 acc.add(stats)
                 last_stats = stats
             if acc.count == 0:
-                raise ValueError(f"train split has fewer than one batch of "
-                                 f"{batch_size} windows")
+                raise ValueError(
+                    f"train split has fewer than one batch of {batch_size} "
+                    f"windows" + (" (batch was rounded up for the device "
+                                  "mesh; use a smaller --mesh data axis or "
+                                  "more data)" if mesh is not None else ""))
             agg = acc.means()  # the epoch's one read from the device
         if profiling:
             print(f"profiler trace (epoch {epoch}) written to {profile_dir}")
@@ -328,11 +394,12 @@ def train(case: CaseConfig,
                                  M.read_norms(last_stats["tensors"]))
 
         if epoch % tcfg.validation_interval == 0 or epoch == n_epochs:
+            full = global_params()  # every rank evaluates the global model
             vacc = M.StatsAccumulator()
             for idx, n_valid in padded_batch_index_iterator(
                     len(td.val.src), tcfg.eval_batch_size):
                 src, tgt, ib = gather(val_split, idx)
-                vacc.add(eval_step(params, src, tgt, ib, n_valid))
+                vacc.add(eval_step(full, src, tgt, ib, n_valid))
             val_loss = vacc.means().get("loss", 0.0)
             val_metrics = {"Loss": val_loss}
 
@@ -340,22 +407,23 @@ def train(case: CaseConfig,
                 from sea_tpu_torch.train.evaluate import \
                     fused_autoregressive_evaluation
                 results = fused_autoregressive_evaluation(
-                    params, case, td.val, td.latent_service,
+                    full, case, td.val, td.latent_service,
                     td.mesh_processor, epoch=epoch,
-                    save_artifacts=save_artifacts)
+                    save_artifacts=save_artifacts and is_primary())
                 val_metrics["Full_Encoded_Rel_MSE"] = \
                     results["encoded_rel_mse"]
                 val_metrics["Full_Decoded_Rel_MSE"] = \
                     results["decoded_rel_mse"]
                 if results["decoded_rel_mse"] < best_rollout:
                     best_rollout = results["decoded_rel_mse"]
-                    save_checkpoint(
-                        case.run.save_dir, "temporal_Checkpoint",
-                        case.run.case_name, case.run.run_name,
-                        to_numpy(params),
-                        meta={"epoch": epoch,
-                              "decoded_rel_mse": best_rollout})
-                    print("--- Checkpoint Model Saved ---")
+                    if is_primary():
+                        save_checkpoint(
+                            case.run.save_dir, "temporal_Checkpoint",
+                            case.run.case_name, case.run.run_name,
+                            to_numpy(full),
+                            meta={"epoch": epoch,
+                                  "decoded_rel_mse": best_rollout})
+                        print("--- Checkpoint Model Saved ---")
 
             tracker.record_error("val", epoch, val_metrics)
             print(f"Epoch {epoch}/{n_epochs} train Loss {train_loss:.8f} | "
@@ -363,13 +431,16 @@ def train(case: CaseConfig,
 
             if val_loss < best_val:
                 best_val = val_loss
-                best_params = to_numpy(params)
-                save_checkpoint(
-                    case.run.save_dir, "temporal", case.run.case_name,
-                    case.run.run_name, best_params,
-                    opt_state=opt_state_to_numpy(opt_state),
-                    meta={"epoch": epoch, "val_loss": best_val})
-                print("--- New Best Model Saved ---")
+                best_params = to_numpy(full)
+                # A mesh gathers the state on every rank; rank 0 writes
+                # the one-device npz.
+                opt_np = to_numpy(global_opt_state())
+                if is_primary():
+                    save_checkpoint(
+                        case.run.save_dir, "temporal", case.run.case_name,
+                        case.run.run_name, best_params, opt_state=opt_np,
+                        meta={"epoch": epoch, "val_loss": best_val})
+                    print("--- New Best Model Saved ---")
 
     print(f"Total training time: {time.time() - start:.2f} seconds")
     tracker.finish()

@@ -5,8 +5,8 @@ lists with the npz paths as keys (``blocks/0/self_attn/0/q/w``), linear
 weights ``[d_in, d_out]`` — with ``torch.Tensor`` leaves. ``from_numpy``
 and ``to_numpy`` move a tree between the two packages unchanged, so a
 checkpoint written by either CLI (npz, ``utils.checkpoint.save_pytree``)
-serves in the other; ``opt_state_to_numpy`` and ``opt_state_from_numpy``
-do the same for the optimizer state (AdamW with f32 or bf16 first
+serves in the other; ``to_numpy`` and ``opt_state_from_numpy`` do the
+same for the optimizer state (AdamW with f32 or bf16 first
 moments, or Adafactor; with the linear schedule's count or without; alone
 or inside the bf16 shadow's state).
 """
@@ -73,20 +73,14 @@ def from_numpy(tree, device) -> dict:
 def to_numpy(tree) -> dict:
     """The port's tree of tensors -> a tree of numpy arrays that
     ``save_pytree`` writes as a checkpoint either CLI loads. bf16 leaves are
-    widened to f32 (exact), as the JAX package widens them on save."""
+    widened to f32 (exact), as the JAX package widens them on save. Of an
+    optimizer state (train/optim.py) it gives the numpy tree of
+    ``jax.tree.map(np.asarray, tx.init(params))``: the same npz paths,
+    counts as int32, a bf16 mu and the bf16 shadow widened to f32."""
     def leaf(t):
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
     return tree_map(leaf, tree)
-
-
-def opt_state_to_numpy(state):
-    """The port's optimizer state (train/optim.py) -> the numpy tree of
-    ``jax.tree.map(np.asarray, tx.init(params))``: the same npz paths,
-    counts as int32, a bf16 mu and the bf16 shadow widened to f32. That is
-    ``to_numpy`` of the state; this name only pairs it with
-    ``opt_state_from_numpy``, which is not ``from_numpy``."""
-    return to_numpy(state)
 
 
 def opt_state_from_numpy(tree, device, mu_dtype=None):
@@ -130,7 +124,7 @@ def opt_state_from_numpy(tree, device, mu_dtype=None):
 
 
 def opt_state_template(tx, params_np):
-    """The numpy tree ``opt_state_to_numpy(tx.init(params))`` would give,
+    """The numpy tree ``to_numpy(tx.init(params))`` would give,
     for restoring a checkpoint's optimizer state, with no statistics
     allocated: ``tx.init`` runs on meta tensors of the params' shapes, and
     each floating leaf becomes a zero-stride f32 view of its shape (a bf16

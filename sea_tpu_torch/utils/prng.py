@@ -100,20 +100,24 @@ def _threefry2x32_tensor(key: Key, x0, x1):
     return x0, x1
 
 
-def random_bits(key: Key, shape, *, device) -> torch.Tensor:
+def random_bits(key: Key, shape, *, device, offset: int = 0) -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)`` as int64 values in
     [0, 2**32): threefry over the partitionable counters (hi, lo) of each
-    element's flat index, the two words XORed."""
-    idx = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
+    element's flat index, the two words XORed. ``offset``: the flat index
+    of the first element, for a block of rows of a larger array (a rank's
+    batch block draws what one device draws for those rows)."""
+    idx = torch.arange(offset, offset + math.prod(shape), dtype=torch.int64,
+                       device=device)
     b0, b1 = _threefry2x32_tensor(key, idx >> 32, idx & _M32)
     return (b0 ^ b1).reshape(shape)
 
 
-def uniform_open(key: Key, shape, dtype=torch.float32, *, device):
+def uniform_open(key: Key, shape, dtype=torch.float32, *, device,
+                 offset: int = 0):
     """The uniform ``jax.random.normal`` draws: U[nextafter(-1, 0), 1) in
     ``dtype`` (float32 or bfloat16), from the random bits' top mantissa
     bits under the exponent of 1.0."""
-    bits = random_bits(key, shape, device=device)
+    bits = random_bits(key, shape, device=device, offset=offset)
     if dtype == torch.float32:
         floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(
             torch.float32)
@@ -131,10 +135,11 @@ def uniform_open(key: Key, shape, dtype=torch.float32, *, device):
     return torch.maximum(lo, floats * (1.0 - lo) + lo)
 
 
-def normal(key: Key, shape, dtype=torch.float32, *, device) -> torch.Tensor:
+def normal(key: Key, shape, dtype=torch.float32, *, device,
+           offset: int = 0) -> torch.Tensor:
     """``jax.random.normal(key, shape, dtype)`` for float32 or bfloat16:
     sqrt(2) erfinv(u) of ``uniform_open`` (erfinv in f32 for bf16, as XLA
-    widens it)."""
-    u = uniform_open(key, tuple(shape), dtype, device=device)
+    widens it). ``offset``: see ``random_bits``."""
+    u = uniform_open(key, tuple(shape), dtype, device=device, offset=offset)
     z = torch.erfinv(u.float()).to(dtype)
     return z * torch.tensor(math.sqrt(2.0), dtype=dtype, device=device)

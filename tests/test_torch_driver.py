@@ -475,12 +475,26 @@ def test_autoregressive_validation_matches_jax(eval_side):
         np.testing.assert_allclose(got, want, rtol=EVAL_RTOL)
 
 
-def test_full_evaluation_mesh_raises(eval_side):
+def test_full_evaluation_mesh_raises(eval_side, jax_full):
+    """full_autoregressive_evaluation(mesh=...) no longer raises: in 2
+    gloo ranks on a 2x1 grid each rolls out one of the 2 windows and
+    gathers both, and the metrics equal JAX's one-device evaluation
+    within rtol 1e-4 on every rank (tests/test_torch_parallel.py holds
+    the sharded rollout itself to the one-device one)."""
+    import _torch_ranks as R
+    from sea_tpu_torch.parallel.multihost import run_ranks
     side, windows = eval_side
     p = side["port"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TE.full_autoregressive_evaluation(p.params, p.case, windows, p.svc,
-                                          p.mp, mesh=object())
+    args = (p.case, to_numpy(p.params), windows, to_numpy(p.svc.params),
+            p.mp, p.scfg)
+    got = run_ranks(R.run_grid, 2, (2, 1),
+                    {"eval": ("evaluation", args)})
+    want = jax_full[0]
+    for rank in got:
+        for key in ("encoded_rel_mse", "decoded_rel_mse",
+                    "decoded_rel_mse_per_time"):
+            np.testing.assert_allclose(rank["eval"][key], want[key],
+                                       rtol=EVAL_RTOL, err_msg=key)
 
 
 def test_plots_skipped_without_matplotlib(eval_side, tmp_path, monkeypatch,

@@ -34,8 +34,7 @@ from sea_tpu_torch.train import metrics as TM
 from sea_tpu_torch.train import optim as TO
 from sea_tpu_torch.utils import prng
 from sea_tpu_torch.utils.params import (from_numpy, opt_state_from_numpy,
-                                        opt_state_template,
-                                        opt_state_to_numpy, to_numpy,
+                                        opt_state_template, to_numpy,
                                         tree_leaves, tree_map)
 
 torch.set_num_threads(2)
@@ -380,11 +379,11 @@ def test_optimizer_matches_optax(recipe, tmp_path):
             np.concatenate([np.asarray(a).ravel()
                             for a in jax.tree.leaves(jp)]),
             rtol=0, atol=OPT_ATOL)
-        _assert_states_close(opt_state_to_numpy(ts),
+        _assert_states_close(to_numpy(ts),
                              jax.tree.map(np.asarray, js))
     # Port -> JAX and JAX -> port through the npz files.
     port_path = TC.save_checkpoint(str(tmp_path), "port", "c", "r",
-                                   to_numpy(tp), opt_state_to_numpy(ts))
+                                   to_numpy(tp), to_numpy(ts))
     jax_path = JC.save_checkpoint(str(tmp_path), "jax", "c", "r",
                                   jax.tree.map(np.asarray, jp),
                                   jax.tree.map(np.asarray, js))
@@ -394,7 +393,7 @@ def test_optimizer_matches_optax(recipe, tmp_path):
     _, ts_from_jax, _ = TC.load_full_checkpoint(
         jax_path, params_np, opt_state_template(ttx, params_np))
     ts_from_jax = opt_state_from_numpy(ts_from_jax, "cpu")
-    _assert_states_close(opt_state_to_numpy(ts_from_jax),
+    _assert_states_close(to_numpy(ts_from_jax),
                          jax.tree.map(np.asarray, js))
     jp, _ = jax_step(jp, jax.tree.map(jnp.asarray, js_from_port), grads[3])
     port_step(tp, ts_from_jax, grads[3])
@@ -430,7 +429,7 @@ def test_adamw_groups_change_no_bit(mu_dtype, monkeypatch):
         for g in grads:
             state = tx.step(g, state, p)
         out[n_groups] = tree_leaves(to_numpy(p)) + tree_leaves(
-            opt_state_to_numpy(state))
+            to_numpy(state))
     assert len(out) == 2
     for a, b in zip(out[n], out[1]):
         np.testing.assert_array_equal(a, b)
@@ -584,23 +583,22 @@ def test_cli_adafactor_trains_and_resumes(tmp_path, capsys):
 
 @pytest.mark.parametrize("what", ["log_per_tensor", "profile_dir"])
 def test_still_unported_options_raise(what):
-    """The per-tensor norms and the profiler train in both stages: with a
-    mesh beside them, only the mesh raises, before any work, naming
-    ROADMAP.md."""
+    """The per-tensor norms and the profiler train: with a sequence- or
+    pipeline-parallel mesh beside them (the data x model mesh trains,
+    tests/test_torch_parallel.py), only that mesh raises, before any
+    work, naming ROADMAP.md."""
     from sea_tpu_torch.configs.cylinder_flow_smoke import \
         get_case as port_case
-    from sea_tpu_torch.train import train_spatial as TTS
     from sea_tpu_torch.train import train_temporal as TTR
-    case, kw = port_case(), {"mesh": object()}
+    case, kw = port_case(), {}
     if what == "log_per_tensor":
         case = case.replace(
-            spatial_train=dataclasses.replace(case.spatial_train,
-                                              log_per_tensor=True),
             temporal_train=dataclasses.replace(case.temporal_train,
                                                log_per_tensor=True))
     else:
         kw["profile_dir"] = "trace"
-    for train in (TTR.train, TTS.train):
-        with pytest.raises(NotImplementedError, match="mesh.*ROADMAP") as e:
-            train(case, device="cpu", **kw)
+    for mesh in ("seq_mesh", "pipe_mesh"):
+        with pytest.raises(NotImplementedError,
+                           match=f"{mesh}.*ROADMAP") as e:
+            TTR.train(case, device="cpu", **kw, **{mesh: object()})
         assert what not in str(e.value)

@@ -38,8 +38,7 @@ from sea_tpu_torch.train import metrics as TM
 from sea_tpu_torch.train import optim as TO
 from sea_tpu_torch.train import train_spatial as TTS
 from sea_tpu_torch.utils import prng
-from sea_tpu_torch.utils.params import (from_numpy, opt_state_to_numpy,
-                                        to_numpy, tree_leaves)
+from sea_tpu_torch.utils.params import from_numpy, to_numpy, tree_leaves
 
 torch.set_num_threads(2)
 
@@ -296,7 +295,7 @@ def test_spatial_train_step_matches_jax(compute_dtype, mu_dtype,
         assert abs(tstats[k] - ref[k]) <= tol, (k, tstats[k], jstats[k])
     if variational:
         assert tstats["kl_loss"] > 0
-    g_port = _grads_from_moments(_adam(opt_state_to_numpy(tstate)), b2)
+    g_port = _grads_from_moments(_adam(to_numpy(tstate)), b2)
     g_jax = _grads_from_moments(_adam(jstate), b2)
     g_ref = _grads_from_moments(_adam(f32["jax"][1]), b2)
     gscale = ref["grad_norm"]

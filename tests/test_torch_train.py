@@ -73,8 +73,7 @@ from sea_tpu_torch.train import optim as TO
 from sea_tpu_torch.train import train_temporal as TTR
 from sea_tpu_torch.utils import prng
 from sea_tpu_torch.utils.params import (from_numpy, opt_state_from_numpy,
-                                        opt_state_to_numpy, to_numpy,
-                                        tree_leaves)
+                                        to_numpy, tree_leaves)
 
 torch.set_num_threads(2)
 
@@ -258,7 +257,7 @@ def _check_train_step(cfg):
     for k in ("grad_norm", "param_norm"):
         np.testing.assert_allclose(float(tstats[k]), float(jstats[k]),
                                    rtol=1e-4, err_msg=k)
-    got_state = opt_state_to_numpy(tstate)
+    got_state = to_numpy(tstate)
     want_state = _np(jstate)
     assert int(got_state[0].count) == int(want_state[0].count) == 1
     gscale = float(jstats["grad_norm"])
@@ -279,10 +278,10 @@ def test_optimizer_state_has_optax_layout():
               "b": [np.zeros(4, np.float32)]}
     want = _np(optax.adamw(1e-4).init(params))
     state = TO.AdamW(1e-4).init(from_numpy(params, "cpu"))
-    got = opt_state_to_numpy(state)
+    got = to_numpy(state)
     assert {k: (v.shape, v.dtype) for k, v in _flatten(got).items()} == \
         {k: (v.shape, v.dtype) for k, v in _flatten(want).items()}
-    back = opt_state_to_numpy(opt_state_from_numpy(want, "cpu"))
+    back = to_numpy(opt_state_from_numpy(want, "cpu"))
     _assert_tree_close(back, got, atol=0)
 
 
@@ -394,7 +393,7 @@ def test_bf16_train_step_matches_jax(compute_dtype, mu_dtype, jax_kernels):
     ref_loss = f32["jax"][2]["loss"]
     assert abs(tstats["loss"] - ref_loss) <= BF16_NOISE * abs(
         jstats["loss"] - ref_loss) + FWD_ATOL
-    got_state = opt_state_to_numpy(tstate)
+    got_state = to_numpy(tstate)
     assert int(_adam(got_state).count) == 1
     g_port = _grads_from_moments(_adam(got_state), b2)
     g_jax = _grads_from_moments(_adam(jstate), b2)
@@ -451,7 +450,7 @@ def test_bf16_shadow_checkpoint_crosses_from_jax(tmp_path, jax_kernels):
     template = from_numpy(steps["init"], "cpu")
     params, opt, _ = load_full_checkpoint(
         str(tmp_path / "temporal_case_run.npz"), to_numpy(template),
-        opt_state_to_numpy(tx.init(template)))
+        to_numpy(tx.init(template)))
     state = opt_state_from_numpy(opt, "cpu", torch.bfloat16)
     assert isinstance(state, TO.ShadowOptState)
     want = jax.tree.map(lambda a: np.asarray(a, np.float32), jstate)
