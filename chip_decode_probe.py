@@ -77,13 +77,13 @@ VARIANTS = {
 }
 MAX_CLUSTER = {"cluster16": 16}
 # %globaltimer marks per block, written by thread 0 of the source as it
-# is: start; t read and the first two stages' copies issued; the first
-# stage's K landed (after the block barrier); its V landed; the key loop
-# done; the block's partial pushed to its owners; the cluster barrier
-# passed; the merge of this rank's elements written;
-# the end; then the SM the block ran on.
-PHASES = ("t and issue", "K wait", "scores + V wait", "rest of keys",
-          "block merge and push", "cluster wait", "rank merge")
+# is: start; t read and the first two copies issued; the first stage's K
+# landed (after the block barrier); the chunk's scores done; the tile
+# maxima taken (and for bf16 and int8 exchanged over the cluster); p . V
+# done; the cluster barrier of
+# the merge passed; the end; then the SM the block ran on.
+PHASES = ("t and issue", "K wait", "scores", "tile maxima", "p . V",
+          "block sum, push and cluster wait", "rank sum")
 _WRITE = ("  if (threadIdx.x == 0) {\n"
           "    const unsigned b = blockIdx.y * gridDim.x + blockIdx.x;\n"
           "    unsigned smid;\n"
@@ -107,18 +107,17 @@ _MARKS = [
      "  cg::cluster_group cluster = cg::this_cluster();\n"),
     ("  issue(0);\n  issue(1);\n",
      "  issue(0);\n  issue(1);\n  mk[1] = mk[2] = mk[3] = gtimer();\n"),
-    ("    cp_async_wait<3>();\n    __syncthreads();\n",
-     "    cp_async_wait<3>();\n    __syncthreads();\n"
-     "    if (st == 0) mk[2] = gtimer();\n"),
-    ("    cp_async_wait<2>();\n    __syncthreads();\n",
-     "    cp_async_wait<2>();\n    __syncthreads();\n"
-     "    if (st == 0) mk[3] = gtimer();\n"),
+    ("    cp_async_wait<1>();\n    __syncthreads();\n    // Every lane",
+     "    cp_async_wait<1>();\n    __syncthreads();\n"
+     "    if (st == 0) mk[2] = gtimer();\n    // Every lane"),
+    ("  // This block's row of tile maxima",
+     "  mk[3] = gtimer();\n  // This block's row of tile maxima"),
+    ("  // Pass 2: p = exp", "  mk[4] = gtimer();\n  // Pass 2: p = exp"),
     ("  __syncthreads();  // the ring is spent: the stream partials alias it\n",
      "  __syncthreads();  // the ring is spent: the stream partials alias it\n"
-     "  mk[4] = gtimer();\n"),
+     "  mk[5] = gtimer();\n"),
     ("  cluster.sync();\n  // Warp 0 weighs",
-     "  mk[5] = gtimer();\n  cluster.sync();\n  mk[6] = gtimer();\n"
-     "  // Warp 0 weighs"),
+     "  cluster.sync();\n  mk[6] = gtimer();\n  // Warp 0 weighs"),
     ("    out[static_cast<size_t>(bh) * HD + d0 + i] = a / denom;\n  }\n}\n",
      "    out[static_cast<size_t>(bh) * HD + d0 + i] = a / denom;\n  }\n"
      + _WRITE + "}\n"),

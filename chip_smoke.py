@@ -21,7 +21,8 @@ before and read just after:
   int4 linear of every rollout step ran its kernel, compares rollout steps
   on the card with the same steps on the CPU (f32, and int4 weights with
   an int8 cache), times 250-step rollouts and profiles them with
-  torch.profiler. `temporal test` runs on the engine select_engine picks
+  torch.profiler (100-step rollouts, PROFILE_STEPS). `temporal test`
+  runs on the engine select_engine picks
   and again with `--kv_cache f32` (the scan engine).
 - the prefix engine: `rollout(engine="prefix")` at full width, B=1, 250
   steps (one flash forward per attention of each forward, no decode),
@@ -89,6 +90,16 @@ before and read just after:
   with an int8 cache and `--mesh 2x1` at f32 against one device, rtol
   1e-4, every rank's decodes on its heads and its int4 count
   ([serve-mesh]).
+- sequence parallelism and the pipeline (`--seq_parallel N`, `--pp S`):
+  the causal ring attention (dropout 0.1, f32 and bf16, (2, 399, 8, 128)
+  and hd 64) in three ranks sharing the card over gloo against the
+  one-device flash kernels, rank r launching r + 1 forwards, dQ and dK/dV
+  ([seq-ring]); the full cylinder recipe step on a ring of three ranks
+  against one rank, and `torchrun ... temporal train --seq_parallel 2`
+  ([train-seq]); 4 layers at E=1024 over two pipeline stages with two
+  microbatches: the forward and a dropout-0 step against one rank, a
+  dropout step against the one-stage pipeline, and `torchrun ...
+  cylinder_flow_smoke_deep temporal train --pp 2` ([train-pipe]).
 
 Last, every kernel is timed against its plain version, its bound and,
 where one PyTorch call computes the same function, that call. Any failure
@@ -127,7 +138,9 @@ CASE = "multiphase_flow"
 KERNEL_SHAPES = [(1, 8, 250, 256), (1, 8, 250, 128), (8, 8, 250, 256),
                  (2, 8, 399, 64), (2, 2, 42, 16), (2, 2, 42, 8)]
 # Kernel vs plain: f32 differs only in summation order; bf16 rounds q and
-# the probabilities to bf16 in both versions, at different points.
+# each probability to bf16 at the same points in both versions (against
+# the running max of the 256-key tiles), so they differ where an f32
+# summation order tips a rounding: one bf16 ulp of one p.
 KERNEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # Card vs CPU over the first rollout steps, f32 on both: cuBLAS and the
 # CPU BLAS sum in different orders, and errors feed back through the
@@ -135,9 +148,11 @@ KERNEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 ROLLOUT_STEPS_CHECKED = 8
 ROLLOUT_ATOL = 1e-3
 TIMED_STEPS = 250
-# int8-KV decode: the kernel rounds p * v_scale to bf16 against each
-# stream's running max, the plain version against the global max (bf16
-# order, as for the bf16 cache).
+# The profiled rollouts' depth (at 250 steps each took ~50 s under the
+# profiler; cut to make room for the parallel phases).
+PROFILE_STEPS = 100
+# int8-KV decode: both round p * v_scale to bf16 against the running max
+# of the 256-key tiles (as for the bf16 cache).
 Q8_SHAPES = [(1, 8, 250, 256), (8, 8, 250, 256), (8, 8, 250, 128),
              (2, 8, 399, 64), (2, 2, 42, 16), (2, 2, 42, 8)]
 Q8_TOL = 2e-2
@@ -1094,7 +1109,8 @@ def _time_rollout(params, cfg, B, cache_dtype):
 
 
 def _profile_rollout(params, cfg, B, cache_dtype, label, run=None):
-    """torch.profiler over one 250-step rollout after a warm-up one: device
+    """torch.profiler over one PROFILE_STEPS-step rollout after a warm-up
+    one (per-step figures, so not those of a 250-step rollout): device
     events and busy time per step, their share of the profiled wall, and
     the kernels that take the most device time. run: the engine (default
     the scan engine, with cache_dtype; else run(params, cfg, x0, ib))."""
@@ -1104,7 +1120,8 @@ def _profile_rollout(params, cfg, B, cache_dtype, label, run=None):
     if run is None:
         def run(params, cfg, x0, ib):
             return rollout_scan(params, cfg, x0, ib, cache_dtype=cache_dtype)
-    x0, ib = (a.cuda() for a in _rollout_inputs(cfg, B, TIMED_STEPS, seed=B))
+    x0, ib = (a.cuda() for a in _rollout_inputs(cfg, B, PROFILE_STEPS,
+                                                 seed=B))
     run(params, cfg, x0, ib)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1112,28 +1129,28 @@ def _profile_rollout(params, cfg, B, cache_dtype, label, run=None):
         t0 = time.perf_counter()
         run(params, cfg, x0, ib)
         torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t0) / TIMED_STEPS
+        wall_us = 1e6 * (time.perf_counter() - t0) / PROFILE_STEPS
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in events) / TIMED_STEPS
+    busy_us = sum(e.self_device_time_total for e in events) / PROFILE_STEPS
     if not busy_us > 0:
         raise AssertionError(f"{label}: the profiler saw no device time")
-    log(f"[profile] {CASE} {label}, {TIMED_STEPS}-step rollout: "
-        f"{sum(e.count for e in events) / TIMED_STEPS:.1f} device "
+    log(f"[profile] {CASE} {label}, {PROFILE_STEPS}-step rollout: "
+        f"{sum(e.count for e in events) / PROFILE_STEPS:.1f} device "
         f"events/step, device busy {busy_us:.1f} us/step, profiled "
         f"wall {wall_us:.1f} us/step, busy share "
         f"{100 * busy_us / wall_us:.1f}%")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:14]:
-        us = e.self_device_time_total / TIMED_STEPS
+        us = e.self_device_time_total / PROFILE_STEPS
         log(f"[profile] {label} {us:8.2f} us/step "
-            f"{e.count / TIMED_STEPS:6.1f}/step {e.key[:100]}")
+            f"{e.count / PROFILE_STEPS:6.1f}/step {e.key[:100]}")
     for name in ("int4", "decode", "fwd_kernel"):
         mine = [e for e in events if name in e.key]
         if mine:
-            us = sum(e.self_device_time_total for e in mine) / TIMED_STEPS
+            us = sum(e.self_device_time_total for e in mine) / PROFILE_STEPS
             log(f"[profile] {label} {name} kernels "
                 f"{sorted({e.key[:60] for e in mine})}: {us:.2f} us/step, "
-                f"{sum(e.count for e in mine) / TIMED_STEPS:.1f}/step")
+                f"{sum(e.count for e in mine) / PROFILE_STEPS:.1f}/step")
 
 
 def phase_time_rollout(case, params_np):
@@ -3567,6 +3584,7 @@ def phase_train_mesh(case, params_np):
             f"{ms:.1f} ms a step (rank 0, third step); {seconds:.1f} s "
             "with spawning")
     _encoder_mesh(case)
+    return ref
 
 
 def _encoder_mesh(case):
@@ -3635,6 +3653,481 @@ def _encoder_mesh(case):
             f"{TRAIN_CASE} encoder train --mesh 2x1 --batch_size "
             f"{ENCODER_BATCH}: {epoch[0].strip()}; one line from rank 0; "
             f"the npz finite; {seconds:.1f} s")
+
+
+# [seq-ring] / [train-seq] / [train-pipe]: sequence parallelism (ring
+# attention) and the GPipe pipeline, ranks sharing the card over gloo.
+SEQ_RANKS = 3  # T = 399 splits into 3 blocks of 133 (399 = 3 x 7 x 19)
+SEQ_SHAPES = [(2, 399, 8, 128), (2, 399, 8, 64)]  # (B, T, H, hd)
+SEQ_SEED = (1357, -2468)
+# The CLI epoch's ring: the synthetic data's 40-step window splits over 2
+# (not over 3).
+SEQ_CLI_RANKS = 2
+PIPE_LAYERS, PIPE_STAGES, PIPE_MICRO, PIPE_BATCH = 4, 2, 2, 4
+# [train-pipe]'s AdamW mu (the step's gradient times 1 - b1) against the
+# reference's: MU_RTOL of it plus MU_ATOL of the global grad_norm, the
+# CPU test's bound (tests/test_torch_pipeline_step.py). A parameter
+# within STEP_TOL["params"], plus lr |u(g) - u(g')| only where the
+# reference's |g| <= NEAR_EPS eps: there the first AdamW update
+# u(g) = g / (|g| + eps) is ill-conditioned.
+MU_RTOL, MU_ATOL, NEAR_EPS = 1e-4, 1e-7, 100
+
+
+def _seq_inputs(shape, dtype):
+    """q, k, v and the cotangent [B, T, H, hd] on the card, from a seed."""
+    g = torch.Generator(device="cuda").manual_seed(sum(shape))
+    return [torch.randn(shape, device="cuda", generator=g).to(dtype)
+            for _ in range(4)]
+
+
+def _seq_ring_rank():
+    """One rank of [seq-ring]: at each SEQ_SHAPES shape, f32 and bf16, the
+    causal ring's forward and backward on this rank's time block, dropout
+    0.1; per case (its launches, and on rank 0 the gathered out, dq, dk,
+    dv on the CPU), and the fwd+bwd wall ms of a second call."""
+    _mesh_rank_setup()
+    from sea_tpu_torch.parallel.collectives import all_gather_cat
+    from sea_tpu_torch.parallel.mesh import make_seq_mesh, shard_seq
+    from sea_tpu_torch.parallel.multihost import is_primary
+    from sea_tpu_torch.parallel.ring_attention import ring_attention
+    grid = make_seq_mesh()
+    out = {}
+    for shape in SEQ_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, g = (shard_seq(grid, x).contiguous()
+                          for x in _seq_inputs(shape, dtype))
+            ms = []
+            for _ in range(2):
+                qb, kb, vb = (x.clone().requires_grad_(True)
+                              for x in (q, k, v))
+                torch.cuda.synchronize()
+                _reset_launch_counts()
+                t0 = time.perf_counter()
+                o = ring_attention(qb, kb, vb, grid, causal=True,
+                                   dropout_rate=DROPOUT_RATE,
+                                   dropout_seed=SEQ_SEED)
+                o.backward(g)
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+                counts = _launch_counts()
+            full = [all_gather_cat(x.detach(), 1, grid.seq_group,
+                                   grid.n_seq)
+                    for x in (o, qb.grad, kb.grad, vb.grad)]
+            # numpy (f32) across the process boundary: a CPU tensor would
+            # travel as a shared-memory handle the rank takes with it.
+            out[(shape, str(dtype))] = (
+                counts, [x.float().cpu().numpy() for x in full]
+                if is_primary() else None, ms[-1])
+    return out
+
+
+def phase_seq_ring():
+    """[seq-ring]: the causal ring (dropout 0.1, f32 and bf16) in
+    SEQ_RANKS ranks sharing the card over gloo, at SEQ_SHAPES, against the
+    one-device flash kernels on the same inputs: out and dq/dk/dv within
+    the kernels' tolerances (f32: FLASH_TOL; bf16: FLASH_BF16_REL x
+    max|ref| + FLASH_TOL). Rank r launches r + 1 forwards and r + 1 dQ and
+    dK/dV (the pairs at or below the diagonal; the others launch
+    nothing), in the dtype's form."""
+    from sea_tpu_torch.ops import flash_attention as FA
+    from sea_tpu_torch.parallel.multihost import run_ranks
+    t0 = time.perf_counter()
+    ranks = run_ranks(_seq_ring_rank, SEQ_RANKS, device=MESH_DEVICE)
+    seconds = time.perf_counter() - t0
+    for shape in SEQ_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            sfx = "_bf16" if dtype == torch.bfloat16 else ""
+            key = (shape, str(dtype))
+            for r, result in enumerate(ranks):
+                counts = result[key][0]
+                want = {f"{n}{sfx}": r + 1 for n in (
+                    "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+                got = {n: counts[n] for n in want}
+                others = {n: c for n, c in counts.items()
+                          if n not in want and c}
+                if got != want or others:
+                    raise AssertionError(f"[seq-ring] {shape} {dtype} rank "
+                                         f"{r}: launches {got} {others}, "
+                                         f"want {want}")
+            q, k, v, g = (x.requires_grad_(True) if i < 3 else x
+                          for i, x in enumerate(_seq_inputs(shape, dtype)))
+            o = FA.flash_attention(q, k, v, True, 0,
+                                   dropout_rate=DROPOUT_RATE,
+                                   dropout_seed=SEQ_SEED)
+            o.backward(g)
+            torch.cuda.synchronize()
+            ref = [o.detach(), q.grad, k.grad, v.grad]
+            line = []
+            for name, got, want in zip(("out", "dq", "dk", "dv"),
+                                       ranks[0][key][1], ref):
+                kind = "out" if name == "out" else "grad"
+                got = torch.from_numpy(got).cuda().to(dtype)
+                if dtype == torch.bfloat16:
+                    err, bound = _bf16_err(got, want, FLASH_BF16_REL[kind],
+                                           FLASH_TOL[kind])
+                else:
+                    err, bound = _err(got, want), FLASH_TOL[kind]
+                if not err <= bound:
+                    raise AssertionError(f"[seq-ring] {shape} {dtype} "
+                                         f"{name}: max abs err {err} > "
+                                         f"{bound}")
+                line.append(f"{name} {err:.3g} <= {bound:.3g}")
+            walls = [f"{res[key][2]:.2f}" for res in ranks]
+            log(f"[seq-ring] (B,T,H,hd)={shape} {str(dtype)[6:]} causal "
+                f"dropout {DROPOUT_RATE}, {SEQ_RANKS} ranks of "
+                f"{shape[1] // SEQ_RANKS} steps: vs the one-device flash "
+                f"kernels {', '.join(line)}; rank r launched r+1 fwd, dq "
+                f"and dkv{sfx or ' (f32)'}, nothing else; fwd+bwd wall ms "
+                f"by rank {walls}")
+    log(f"[seq-ring] {seconds:.1f} s with spawning")
+
+
+def _train_seq_rank(params_np, key):
+    """One rank of [train-seq]: the full-recipe cylinder step on the seq
+    ring; (stats, launches of the first step, the params after it (rank
+    0), the wall ms of the third step)."""
+    _mesh_rank_setup()
+    from sea_tpu_torch.cli import get_case
+    from sea_tpu_torch.parallel.mesh import make_seq_mesh
+    from sea_tpu_torch.parallel.multihost import is_primary
+    from sea_tpu_torch.parallel.train_step import \
+        make_seq_parallel_train_step
+    from sea_tpu_torch.train.optim import make_optimizer
+    from sea_tpu_torch.utils.params import to_numpy
+    case = get_case(TRAIN_CASE)
+    grid = make_seq_mesh()
+    step, p, o, place = make_seq_parallel_train_step(
+        grid, case.temporal, make_optimizer(case.temporal_train), params_np,
+        device=MESH_DEVICE)
+    batch = place(*_step_batch(case.temporal))
+    _reset_launch_counts()
+    p, o, stats = step(p, o, *batch, key)
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    full = to_numpy(p) if is_primary() else None
+    ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        p, o, _ = step(p, o, *batch, key)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return ({k: float(v) for k, v in stats.items()}, counts, full, ms[-1])
+
+
+def _step_errors(stats, full, ref_stats, ref_full):
+    """(loss rel err, grad_norm rel err, params max abs err)."""
+    from sea_tpu_torch.utils.params import tree_leaves
+    return (abs(stats["loss"] - ref_stats["loss"]) / abs(ref_stats["loss"]),
+            abs(stats["grad_norm"] - ref_stats["grad_norm"])
+            / ref_stats["grad_norm"],
+            max(float(np.abs(a - b).max()) for a, b in
+                zip(tree_leaves(full), tree_leaves(ref_full))))
+
+
+def _within_step_tol(errs):
+    return (errs[0] <= STEP_TOL["loss"] and errs[1] <= STEP_TOL["grad_norm"]
+            and errs[2] <= STEP_TOL["params"])
+
+
+def _torchrun_train(case_name, flags, save_dir, label):
+    """`torchrun --nproc_per_node 2 -m sea_tpu_torch <case> temporal train
+    --synthetic --epochs 1 <flags>` on the card: its one epoch line (rank
+    0 prints), the written npz finite; returns (the line, seconds)."""
+    from sea_tpu_torch.parallel.multihost import free_port
+    cmd = [sys.executable, "-m", "torch.distributed.run",
+           "--nproc_per_node", "2", "--master_port", str(free_port()),
+           "-m", "sea_tpu_torch", case_name, "temporal", "train",
+           "--synthetic", "--epochs", "1", "--save_dir", save_dir,
+           "--device", "cuda"] + flags
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=REPO)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"[{label}] torchrun temporal train {flags} "
+                             f"exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    epoch = [l for l in proc.stdout.splitlines() if "Epoch 1/1" in l]
+    with np.load(os.path.join(save_dir,
+                              "temporal_cylinder_flow_run1.npz")) as f:
+        finite = all(np.isfinite(f[k]).all() for k in f.files)
+    if len(epoch) != 1 or not finite:
+        raise AssertionError(f"[{label}] torchrun temporal train {flags}: "
+                             f"epoch lines {epoch}, finite {finite}")
+    return epoch[0].strip(), seconds
+
+
+def phase_train_seq(case, params_np, ref):
+    """[train-seq]: the full cylinder recipe step (E=1024, B=2, T=399,
+    dropout 0.1) on a ring of SEQ_RANKS ranks sharing the card over gloo,
+    133 steps a rank, against the one-rank step ``ref`` (from
+    [train-mesh]): loss, grad_norm and params within STEP_TOL; rank r
+    launches r + 1 flash forwards, dQ and dK/dV per attention. Then
+    `torchrun ... temporal train --seq_parallel SEQ_CLI_RANKS` for one
+    epoch on the synthetic data."""
+    from sea_tpu_torch.parallel.multihost import run_ranks
+    from sea_tpu_torch.utils.params import save_init_checkpoints
+    from sea_tpu_torch.utils.prng import fold_in, prng_key
+    key = fold_in(prng_key(0), 1)
+    per_step = _attentions(case.temporal)[1]
+    t0 = time.perf_counter()
+    ranks = run_ranks(_train_seq_rank, SEQ_RANKS, params_np, key,
+                      device=MESH_DEVICE)
+    seconds = time.perf_counter() - t0
+    stats, _, full, ms = ranks[0]
+    errs = _step_errors(stats, full, ref[0], ref[3])
+    if not _within_step_tol(errs):
+        raise AssertionError(f"[train-seq] loss rel err {errs[0]}, "
+                             f"grad_norm rel err {errs[1]}, params max abs "
+                             f"err {errs[2]}")
+    for r, (_, counts, _, _) in enumerate(ranks):
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            if counts[name] != per_step * (r + 1):
+                raise AssertionError(
+                    f"[train-seq] rank {r}: {name} launched {counts[name]} "
+                    f"times a step, not {per_step} x {r + 1}")
+    log(f"[train-seq] {TRAIN_CASE} step --seq_parallel {SEQ_RANKS} "
+        f"({SEQ_RANKS} ranks on one card, gloo, {399 // SEQ_RANKS} steps a "
+        f"rank), B=2, T=399, dropout {case.temporal.dropout}: loss "
+        f"{stats['loss']:.7g} "
+        f"vs one rank {ref[0]['loss']:.7g} (rel {errs[0]:.3g} <= "
+        f"{STEP_TOL['loss']}), grad_norm rel {errs[1]:.3g} <= "
+        f"{STEP_TOL['grad_norm']}, params max abs err {errs[2]:.3g} <= "
+        f"{STEP_TOL['params']}; rank r: flash fwd/dq/dkv {per_step} x "
+        f"(r+1) a step, AdaLN kernels "
+        f"{[c['adaln_fwd'] for _, c, _, _ in ranks]} (per-token cond, as "
+        f"in JAX); wall ms a step (third step) by rank "
+        f"{[round(r[3], 1) for r in ranks]} vs one rank {ref[4]:.1f}; "
+        f"{seconds:.1f} s with spawning")
+    from sea_tpu_torch.cli import get_case
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as save_dir:
+        save_init_checkpoints(get_case(TRAIN_CASE), save_dir, seed=1)
+        line, seconds = _torchrun_train(
+            TRAIN_CASE, ["--seq_parallel", str(SEQ_CLI_RANKS)], save_dir,
+            "train-seq")
+    log(f"[train-seq] torchrun --nproc_per_node 2 -m sea_tpu_torch "
+        f"{TRAIN_CASE} temporal train --seq_parallel {SEQ_CLI_RANKS}: "
+        f"{line}; one line from rank 0; the npz finite; {seconds:.1f} s")
+
+
+def _pipe_model():
+    """(cfg, params as a numpy tree, batch) of [train-pipe]: the cylinder
+    width at PIPE_LAYERS layers from a seed, B=PIPE_BATCH, T=399."""
+    from sea_tpu_torch.cli import get_case
+    from sea_tpu_torch.models.temporal import init_temporal
+    from sea_tpu_torch.utils.params import to_numpy
+    cfg = dataclasses.replace(get_case(TRAIN_CASE).temporal,
+                              num_layers=PIPE_LAYERS)
+    params = to_numpy(init_temporal(cfg, torch.Generator().manual_seed(5),
+                                    device="cpu"))
+    return cfg, params, _step_batch(cfg, B=PIPE_BATCH)
+
+
+def _samples(params, mu, first_layer=0):
+    """{npz path: (params, AdamW mu)} of every leaf, each a strided sample
+    of at most 4096 of its elements (numpy): what [train-pipe] compares,
+    so that no 1.4 GB tree crosses a process. ``first_layer``: the global
+    index of the tree's first block."""
+    from sea_tpu_torch.utils.params import tree_leaves, tree_paths
+
+    def flat(t):
+        t = t.detach().reshape(-1)
+        # A copy: the step updates the tree in place afterwards.
+        return t[::max(1, t.numel() // 4096)].float().cpu().numpy().copy()
+    out = {}
+    for path, p, m in zip(tree_paths(params), tree_leaves(params),
+                          tree_leaves(mu)):
+        if path.startswith("blocks/"):
+            i, rest = path[len("blocks/"):].split("/", 1)
+            path = f"blocks/{int(i) + first_layer}/{rest}"
+        out[path] = (flat(p), flat(m))
+    return out
+
+
+def _pipe_step(grid, cfg, params_np, batch, key):
+    """One pipelined AdamW step on ``grid``: (stats, launches, this
+    stage's ``_samples``, the wall ms of a third step)."""
+    from sea_tpu_torch.cli import get_case
+    from sea_tpu_torch.parallel.pipeline import make_pipeline_train_step
+    from sea_tpu_torch.train.optim import make_optimizer
+    step, p, o, place = make_pipeline_train_step(
+        grid, cfg, make_optimizer(get_case(TRAIN_CASE).temporal_train),
+        params_np, device=MESH_DEVICE, n_microbatches=PIPE_MICRO)
+    placed = place(*batch)
+    _reset_launch_counts()
+    p, o, stats = step(p, o, *placed, key)
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    got = _samples(p, o[0].mu, grid.layers(cfg.num_layers).start)
+    ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        p, o, _ = step(p, o, *placed, key)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return ({k: float(v) for k, v in stats.items()}, counts, got, ms[-1])
+
+
+def _pipe_rank(n_pipe, key):
+    """One stage of [train-pipe] (n_pipe 1: the one-stage pipeline in
+    this process): the deterministic pipelined forward (its launches and,
+    from the first stage, the output), then one step at dropout 0 and one
+    at the recipe's dropout (``_pipe_step``)."""
+    _mesh_rank_setup()
+    from sea_tpu_torch.parallel.pipeline import (make_pipe_mesh,
+                                                 pipeline_forward,
+                                                 stage_params)
+    from sea_tpu_torch.utils.params import from_numpy
+    cfg, params_np, batch = _pipe_model()
+    grid = make_pipe_mesh(n_pipe)
+    out = {}
+    if n_pipe > 1:
+        stage = from_numpy(stage_params(grid, params_np, cfg.num_layers),
+                           MESH_DEVICE)
+        _reset_launch_counts()
+        y = pipeline_forward(stage, cfg, *(torch.from_numpy(a).to(
+            MESH_DEVICE) for a in batch[::2]), grid=grid,
+            n_microbatches=PIPE_MICRO)
+        torch.cuda.synchronize()
+        out["forward"] = (_launch_counts(), y.cpu().numpy()
+                          if grid.pipe_rank == 0 else None)
+        del stage
+        out["step0"] = _pipe_step(grid, dataclasses.replace(
+            cfg, dropout=0.0), params_np, batch, key)
+    out["step"] = _pipe_step(grid, cfg, params_np, batch, key)
+    return out
+
+
+def _merged(stages):
+    """One dict of ``_samples`` from every stage's."""
+    return {k: v for part in stages for k, v in part.items()}
+
+
+def _sample_errors(stats, got, ref_stats, want):
+    """(loss rel err, grad_norm rel err, the largest params gap left past
+    lr |u(g) - u(g')| where |g| <= NEAR_EPS eps, the largest mu gap over
+    its bound MU_RTOL |mu| + MU_ATOL grad_norm, the raw params gap) over
+    the samples."""
+    from sea_tpu_torch.cli import get_case
+    tcfg = get_case(TRAIN_CASE).temporal_train
+    lr, eps, b1 = tcfg.learning_rate, tcfg.eps, tcfg.betas[0]
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"[train-pipe] leaves {sorted(got)[:3]}... "
+                             f"!= {sorted(want)[:3]}...")
+    left = mu_ratio = raw = 0.0
+    for path, (p, m) in want.items():
+        gp, gm = (np.asarray(x, np.float64) for x in got[path])
+        m = np.asarray(m, np.float64)
+        mu_ratio = max(mu_ratio, float((np.abs(gm - m) / (
+            MU_RTOL * np.abs(m) + MU_ATOL * ref_stats["grad_norm"])).max()))
+        ga, gb = gm / (1 - b1), m / (1 - b1)
+        diff = np.abs(gp - p)
+        raw = max(raw, float(diff.max()))
+        allow = np.where(np.abs(gb) > NEAR_EPS * eps, 0.0, lr * np.abs(
+            ga / (np.abs(ga) + eps) - gb / (np.abs(gb) + eps)))
+        left = max(left, float((diff - allow).max()))
+    return (abs(stats["loss"] - ref_stats["loss"]) / abs(ref_stats["loss"]),
+            abs(stats["grad_norm"] - ref_stats["grad_norm"])
+            / ref_stats["grad_norm"], left, mu_ratio, raw)
+
+
+def phase_train_pipe(case):
+    """[train-pipe]: the cylinder width at PIPE_LAYERS layers, B=PIPE_BATCH,
+    T=399, over PIPE_STAGES stages sharing the card over gloo, PIPE_MICRO
+    microbatches: the deterministic forward against the one-device
+    forward (max abs err within STEP_TOL["loss"] of max|out|), and a
+    dropout-0 step against the one-rank step (loss, grad_norm within
+    STEP_TOL; params and AdamW mu sampled, 4096 elements a leaf, mu
+    within MU_RTOL plus MU_ATOL of grad_norm, params within STEP_TOL
+    past lr |u - u'| where |g| <= NEAR_EPS eps); a dropout-0.1 step against the one-stage
+    pipeline's (the keys do not depend on the stages); each stage's flash
+    forwards, dQ and dK/dV = its layers' attentions x the microbatches.
+    Then `torchrun ... temporal train --pp 2` for one epoch on
+    cylinder_flow_smoke_deep."""
+    from sea_tpu_torch.cli import get_case
+    from sea_tpu_torch.models.temporal import temporal_forward
+    from sea_tpu_torch.parallel.multihost import run_ranks
+    from sea_tpu_torch.train.optim import make_optimizer
+    from sea_tpu_torch.train.train_temporal import make_train_step
+    from sea_tpu_torch.utils.params import from_numpy, save_init_checkpoints
+    from sea_tpu_torch.utils.prng import fold_in, prng_key
+    key = fold_in(prng_key(0), 1)
+    t0 = time.perf_counter()
+    ranks = run_ranks(_pipe_rank, PIPE_STAGES, PIPE_STAGES, key,
+                      device=MESH_DEVICE)
+    spawned = time.perf_counter() - t0
+    cfg, params_np, batch = _pipe_model()
+    per_stage = (_attentions(cfg)[1] // PIPE_STAGES) * PIPE_MICRO
+    x, tgt, ib = (torch.from_numpy(a).to(MESH_DEVICE) for a in batch)
+    params = from_numpy(params_np, MESH_DEVICE)
+    with torch.no_grad():
+        want = temporal_forward(params, cfg, x, ib)
+    # Relative to the output's scale, as STEP_TOL holds the loss: 4
+    # layers of f32 sums in another order (2-row microbatches).
+    f_err = (_err(torch.from_numpy(ranks[0]["forward"][1]).to(MESH_DEVICE),
+                  want) / want.abs().max().item())
+    if not f_err <= STEP_TOL["loss"]:
+        raise AssertionError(f"[train-pipe] forward max abs err {f_err} of "
+                             "max|out|")
+    # dropout 0: the one-rank step (make_train_step) is the reference.
+    tx = make_optimizer(case.temporal_train)
+    state = tx.init(params)
+    step = make_train_step(dataclasses.replace(cfg, dropout=0.0), tx)
+    params, state, stats = step(params, state, x, tgt, ib, key)
+    torch.cuda.synchronize()
+    ref = ({k: float(v) for k, v in stats.items()},
+           _samples(params, state[0].mu))
+    del params, state
+    errs0 = _sample_errors(ranks[0]["step0"][0],
+                           _merged(r["step0"][2] for r in ranks), *ref)
+    one = _pipe_rank(1, key)["step"]
+    errs1 = _sample_errors(ranks[0]["step"][0],
+                           _merged(r["step"][2] for r in ranks), one[0],
+                           one[2])
+    for label, errs in (("dropout-0 step vs one rank", errs0),
+                        ("dropout step vs one stage", errs1)):
+        if not (_within_step_tol(errs) and errs[3] <= 1.0):
+            raise AssertionError(f"[train-pipe] {label}: {errs}")
+    for r, result in enumerate(ranks):
+        counts = {what: result[what][0 if what == "forward" else 1]
+                  for what in ("forward", "step0", "step")}
+        want_n = {"forward": {"flash_fwd": per_stage},
+                  "step0": dict.fromkeys(
+                      ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                      per_stage)}
+        want_n["step"] = want_n["step0"]
+        for what, names in want_n.items():
+            for name, n in names.items():
+                if counts[what][name] != n:
+                    raise AssertionError(
+                        f"[train-pipe] stage {r} {what}: {name} launched "
+                        f"{counts[what][name]} times, not {n}")
+    seconds = time.perf_counter() - t0
+    log(f"[train-pipe] {TRAIN_CASE} width, {PIPE_LAYERS} layers, "
+        f"B={PIPE_BATCH}, T=399, {PIPE_STAGES} stages on one card (gloo), "
+        f"{PIPE_MICRO} microbatches: deterministic forward max abs err "
+        f"{f_err:.3g} of max|out| vs one device; dropout-0 step vs one "
+        f"rank: loss rel {errs0[0]:.3g}, grad_norm rel {errs0[1]:.3g}, "
+        f"mu gap {errs0[3]:.3g} of its bound, params {errs0[4]:.3g} "
+        f"({errs0[2]:.3g} past lr |u - u'| near eps; 4096 samples a "
+        f"leaf); dropout {case.temporal.dropout} step vs the one-stage "
+        f"pipeline: loss rel {errs1[0]:.3g}, grad_norm rel "
+        f"{errs1[1]:.3g}, mu gap {errs1[3]:.3g} of its bound, params "
+        f"{errs1[4]:.3g} ({errs1[2]:.3g} past the allowance) (STEP_TOL "
+        f"{STEP_TOL}); each stage: flash "
+        f"fwd/dq/dkv {per_stage} a step; wall ms a step (third step) by "
+        f"stage {[round(r['step'][3], 1) for r in ranks]} vs one stage "
+        f"{one[3]:.1f}; {spawned:.1f} s with spawning, {seconds:.1f} s "
+        "in all")
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as save_dir:
+        save_init_checkpoints(get_case("cylinder_flow_smoke_deep"), save_dir,
+                              seed=1)
+        line, seconds = _torchrun_train("cylinder_flow_smoke_deep",
+                                        ["--pp", "2"], save_dir,
+                                        "train-pipe")
+    log(f"[train-pipe] torchrun --nproc_per_node 2 -m sea_tpu_torch "
+        f"cylinder_flow_smoke_deep temporal train --pp 2: {line}; one line "
+        f"from rank 0; the npz finite; {seconds:.1f} s")
 
 
 def _one_device_unfused(argv):
@@ -3861,7 +4354,10 @@ def main():
     _timed(phase_encoder_train_time)
     f32_step = _timed(phase_train_card_vs_cpu, train_case, train_np)
     _timed(phase_train_card_vs_cpu_bf16, train_case, train_np, f32_step)
-    _timed(phase_train_mesh, train_case, train_np)
+    mesh_ref = _timed(phase_train_mesh, train_case, train_np)
+    _timed(phase_seq_ring)
+    _timed(phase_train_seq, train_case, train_np, mesh_ref)
+    _timed(phase_train_pipe, train_case)
     _timed(phase_train_time, train_case, train_np, cli_trace=cli_trace)
     _timed(phase_train_time, train_case, train_np, BF16_RECIPE)
     _timed(phase_train_optim, train_case, train_np)

@@ -63,9 +63,12 @@ more and serves on one device; "none" keeps one device. Rank 0 prints
 and writes the files; each rank computes on cuda:LOCAL_RANK, or on
 cuda:0 where the host has fewer cards than ranks (over gloo). Like the
 JAX CLI, ``--mesh`` is refused with ``generate`` and an explicit DxM
-with ``--seq_parallel`` or ``--pp``; those two and ``--pp_microbatches``
-are not ported yet and exit with a parser error that points to
-ROADMAP.md. As in the JAX CLI, ``--seed`` overrides
+with ``--seq_parallel`` or ``--pp``. ``temporal train --seq_parallel N``
+over N ranks trains with the time axis on a ring (ring attention,
+``parallel/ring_attention.py``); ``temporal train --pp S
+[--pp_microbatches M]`` over a multiple of S ranks pipelines the blocks
+over S stages (GPipe, ``parallel/pipeline.py``), the other ranks joining
+a data axis. As in the JAX CLI, ``--seed`` overrides
 the random seed of the data splits and seeds every host RNG
 (``utils.seeding.set_seed``); the training keys start from seed 0 in
 both.
@@ -240,15 +243,17 @@ def main(argv=None):
                              "ranks, launched by torchrun). `temporal test` "
                              "takes an explicit DxM: sharded serving")
     parser.add_argument("--seq_parallel", type=int, default=0, metavar="N",
-                        help="temporal train only: sequence parallelism "
-                             "(not ported yet, see ROADMAP.md)")
+                        help="temporal train only: sequence parallelism, "
+                             "the time axis over a ring of N ranks (ring "
+                             "attention on the flash kernels)")
     parser.add_argument("--pp", type=int, default=0, metavar="S",
-                        help="temporal train only: pipeline parallelism "
-                             "(not ported yet, see ROADMAP.md)")
+                        help="temporal train only: pipeline parallelism, "
+                             "the blocks over S stages (GPipe); the ranks "
+                             "beyond S join a data axis")
     parser.add_argument("--pp_microbatches", type=int, default=0,
                         metavar="M",
-                        help="GPipe microbatches per step with --pp (not "
-                             "ported yet)")
+                        help="GPipe microbatches per step with --pp "
+                             "(default S)")
     args, unknown = parser.parse_known_args(argv)
     if unknown:
         parser.error(f"{' '.join(unknown)}: not ported to sea_tpu_torch "
@@ -302,14 +307,15 @@ def main(argv=None):
                                                   local_device)
     device = local_device(device)
     initialize_multihost(device=device)
-    mesh = _resolve_meshes(parser, args)
+    meshes = _resolve_meshes(parser, args)
     # Every rank but 0 computes without printing.
     with (contextlib.nullcontext() if is_primary()
           else contextlib.redirect_stdout(io.StringIO())):
-        return _run(parser, args, device, mesh)
+        return _run(parser, args, device, meshes)
 
 
-def _run(parser, args, device, mesh):
+def _run(parser, args, device, meshes):
+    mesh = meshes[0]
     case = get_case(args.flow_type)
     if args.seed is not None:
         from sea_tpu_torch.utils.seeding import set_seed
@@ -349,20 +355,23 @@ def _run(parser, args, device, mesh):
             return _train_encoder(case, args, data, device, mesh)
         return _test_encoder(case, args, data, device)
     if args.mode == "train":
-        return _train(case, args, data, device, mesh)
+        return _train(case, args, data, device, *meshes)
     return _serve(case, args, data, device, parser, mesh)
 
 
 def _resolve_meshes(parser, args):
-    """The rank grid (``parallel.collectives.Grid``) of --mesh, or None:
-    the JAX CLI's ``_resolve_meshes`` for --mesh. Train modes: 'auto'
-    spans every rank data-parallel when the process group has two or
-    more, else the plain one-device path. `temporal test`: an explicit
-    DxM shards the serving rollout; 'auto' serves on one device.
-    --seq_parallel and --pp are not ported: after the JAX CLI's conflict
-    checks they exit naming ROADMAP.md."""
-    from sea_tpu_torch.parallel.mesh import make_mesh, parse_mesh
+    """(mesh, seq_mesh, pipe_mesh), each a grid of ranks or None: the JAX
+    CLI's ``_resolve_meshes``. Train modes: 'auto' spans every rank
+    data-parallel when the process group has two or more, else the plain
+    one-device path; --seq_parallel N puts the time axis on a ring of the
+    N ranks; --pp S builds the (data, pipe) grid with data = ranks / S.
+    `temporal test`: an explicit DxM shards the serving rollout; 'auto'
+    serves on one device. Where the JAX CLI idles devices the port
+    raises: N and S x data must cover every rank (ROADMAP.md Queue 3)."""
+    from sea_tpu_torch.parallel.mesh import (make_mesh, make_seq_mesh,
+                                             parse_mesh)
     from sea_tpu_torch.parallel.multihost import world_size
+    from sea_tpu_torch.parallel.pipeline import make_pipe_mesh
 
     def parse_dxm(spec):
         try:
@@ -379,37 +388,46 @@ def _resolve_meshes(parser, args):
     if args.mode != "train":
         if (args.model_type, args.mode) == ("temporal", "test") \
                 and spec not in ("auto", "none"):
-            return parse_dxm(spec)
+            return parse_dxm(spec), None, None
         if args.mode == "generate" and spec not in ("auto", "none"):
             parser.error("--mesh sharding applies to train modes and "
                          "`temporal test`; generate runs the single-device "
                          "fused program")
-        return None
+        return None, None, None
     if args.seq_parallel:
         if spec not in ("auto", "none"):
             parser.error(
                 f"--seq_parallel and --mesh {args.mesh} are mutually "
                 "exclusive: sequence parallelism shards the time axis "
                 "over ALL requested devices (ring attention)")
-        parser.error("--seq_parallel: not ported to sea_tpu_torch yet "
-                     "(see ROADMAP.md)")
+        try:
+            return None, make_seq_mesh(args.seq_parallel), None
+        except ValueError as exc:
+            parser.error(str(exc))
     if args.pp:
         if spec not in ("auto", "none"):
             parser.error(
                 f"--pp and --mesh {args.mesh} are mutually exclusive: "
                 "pipeline parallelism builds its own ('data', 'pipe') "
                 "mesh — devices beyond the S stages join the data axis")
-        parser.error("--pp: not ported to sea_tpu_torch yet (see "
-                     "ROADMAP.md)")
+        n = world_size()
+        if n < args.pp:
+            parser.error(f"--pp {args.pp} needs {args.pp} devices; "
+                         f"{n} visible")
+        if n % args.pp:
+            parser.error(f"--pp {args.pp} needs the {n} ranks to split "
+                         "into whole pipelines (a multiple of the stages)")
+        print(f"pipeline mesh: data={n // args.pp} x pipe={args.pp}")
+        return None, None, make_pipe_mesh(args.pp, n // args.pp)
     if spec == "none":
-        return None
+        return None, None, None
     if spec == "auto":
         n = world_size()
         if n == 1:
-            return None
+            return None, None, None
         print(f"auto mesh: data={n} x model=1 over {n} ranks")
-        return make_mesh(n, 1)
-    return parse_dxm(spec)
+        return make_mesh(n, 1), None, None
+    return parse_dxm(spec), None, None
 
 
 def _tracker(case, args):
@@ -529,7 +547,8 @@ def _test_encoder(case, args, data, device):
                                 device=device, spatial_cfg=sd.spatial_cfg)
 
 
-def _train(case, args, data, device, mesh=None):
+def _train(case, args, data, device, mesh=None, seq_mesh=None,
+           pipe_mesh=None):
     """`temporal train`: returns the best-validation params (numpy)."""
     from sea_tpu_torch.models.temporal import init_temporal
     from sea_tpu_torch.train.train_temporal import train
@@ -547,7 +566,8 @@ def _train(case, args, data, device, mesh=None):
     params, _ = train(case, _tracker(case, args), device=device, data=data,
                       epochs=args.epochs, init_params=init_params,
                       init_opt_state=init_opt, profile_dir=args.profile,
-                      mesh=mesh)
+                      mesh=mesh, seq_mesh=seq_mesh, pipe_mesh=pipe_mesh,
+                      pipe_microbatches=args.pp_microbatches)
     if case.temporal_train.final_save and is_primary():
         save_checkpoint(case.run.save_dir, "final_model_temporal",
                         case.run.case_name, case.run.run_name, params)

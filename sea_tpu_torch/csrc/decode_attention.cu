@@ -15,6 +15,16 @@
 //    unnormalised probability times v_s[t'] is rounded to bf16 before it
 //    multiplies the int8 values; the denominator sums the probabilities
 //    without v_s. Nothing is dequantized into memory.
+//  - "unnormalised" as the TPU kernel has it: the TPU kernel walks the keys
+//    in tiles of 256 (one tile up to T = 256) with an online softmax, so a
+//    key's probability is exp(s - m) with m the running max over the tiles
+//    up to and including its own, and it is rounded so. This kernel rounds
+//    at the same m (a cluster-wide table of tile maxima), then weighs each
+//    key by exp(m - max over all keys), so the rounding is the TPU
+//    kernel's and the plain version's (ops/decode_attention.
+//    decode_attention_ref) whatever the split of the keys. An f32 cache
+//    rounds nothing, so there each key stream takes its own max instead
+//    and the table and its cluster barrier are skipped.
 // The TPU kernels' gates (hd % 128, T >= 128, B*H <= 64), their 8-row
 // sublane replication of q and the scales and the Precision.HIGHEST pin
 // are Mosaic's and are not carried over.
@@ -38,28 +48,34 @@
 //    of the same V rows (and the int8 scales with them), into shared
 //    memory, as two commit groups; the scores start when K has landed,
 //    while V may still arrive. A chunk larger than one shared-memory
-//    stage streams through a two-stage ring (T = 4096 at hd 256 f32). No
-//    key, value or scale past t is copied: t is read on the device, so a
-//    CUDA graph captured over a rollout could replay the launch.
-//  - merges inside the cluster: each block merges its key streams into a
+//    stage streams through a two-stage ring (T = 4096 at hd 256 f32):
+//    first its K stages, then its V stages. No key, value or scale past t
+//    is copied: t is read on the device, so a CUDA graph captured over a
+//    rollout could replay the launch.
+//  - scores the whole chunk first (kept in shared memory, 4 bytes a key);
+//    for bf16 and int8 takes the maxima of its 256-key tiles and
+//    exchanges them over the cluster (distributed shared memory and one
+//    cluster barrier); then weighs and sums p . V against the running
+//    maxima (f32: against each key stream's own max).
+//  - merges inside the cluster: each block sums its key streams into a
 //    partial (m, l, acc[hd]); rank o owns a 1/splits share of hd, and
 //    every rank pushes its partial sums of those elements, with its
 //    (m, l), into the owner's shared memory over distributed shared
 //    memory (stores, nothing waits on a remote load). After one cluster
 //    barrier each rank merges its share in rank order (so a call is
-//    deterministic) from its own shared memory and writes out. No second
-//    kernel, no scratch in device memory, and no rank touches another's
-//    shared memory after the barrier. A block whose keys start past t
-//    publishes m = -inf, l = 0 and takes part in every barrier; the
-//    pushes wait on a cluster barrier armed at the block's start, so
-//    every peer has started.
+//    deterministic) from its own shared memory and writes out. Where the
+//    table was exchanged every rank's m is the max over all keys and
+//    each weight is exactly 1. No second kernel, no scratch in device
+//    memory, and no rank touches another's shared memory after the
+//    barrier. A block whose keys start past t publishes zeros and takes
+//    part in every barrier; the first pushes wait on a cluster barrier
+//    armed at the block's start, so every peer has started.
 //  - inside a block, 8 warps (4 for int8); lanes read 16 bytes of a row at a time (8
 //    for int8 at hd 8), G = hd / E lanes a key row (E = elements a lane,
 //    at least hd / 32), so a warp takes 32 / G keys at once, each lane
-//    group a key stream with its own running max and sum; the
-//    shared-memory vectors of a lane are interleaved with its
-//    neighbours' (conflict-free 16-byte loads). A stream rescales once a
-//    stage, not once a key.
+//    group a key stream with its own sums; the shared-memory vectors of a
+//    lane are interleaved with its neighbours' (conflict-free 16-byte
+//    loads).
 // Measured variants (chip_decode_probe.py, PERF.md): clusters of up to 16
 // blocks and the other warp count were no faster; nor, in this design's
 // development, one bulk copy (cp.async.bulk) a stage for the rows.
@@ -81,15 +97,22 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kMaxCluster = 8;
+// The TPU kernel's key block past 256 keys: each probability is rounded
+// against the running max over these tiles up to its own (ops/
+// decode_attention.decode_attention_ref).
+constexpr int kTile = 256;
 
 // The cache element types. round() is applied to q and to each
-// unnormalised probability (times v_s for int8) before p . V. kWarps: a
+// unnormalised probability (times v_s for int8) before p . V; kRounds
+// says whether it changes anything (where the probability is taken
+// against which max then matters). kWarps: a
 // block's warps (chip_decode_probe.py measured 8 faster for f32 and bf16
 // rows, 4 for int8, whose 16-byte lane slices give twice the streams to
 // merge).
 struct F32 {
   using Raw = float;
   static constexpr bool kScaled = false;
+  static constexpr bool kRounds = false;
   static constexpr int kWarps = 8;
   __device__ static float load(Raw x) { return x; }
   __device__ static float round(float x) { return x; }
@@ -98,6 +121,7 @@ struct F32 {
 struct BF16 {
   using Raw = unsigned short;  // bf16 bits
   static constexpr bool kScaled = false;
+  static constexpr bool kRounds = true;
   static constexpr int kWarps = 8;
   __device__ static float load(Raw x) {
     return __uint_as_float(static_cast<unsigned>(x) << 16);
@@ -110,6 +134,7 @@ struct BF16 {
 struct I8 {
   using Raw = int8_t;
   static constexpr bool kScaled = true;  // per-token k_s, v_s
+  static constexpr bool kRounds = true;
   static constexpr int kWarps = 4;
   __device__ static float load(Raw x) { return static_cast<float>(x); }
   __device__ static float round(float x) { return BF16::round(x); }
@@ -136,13 +161,29 @@ struct Lanes {
 
 __host__ __device__ constexpr int align16(int n) { return (n + 15) & ~15; }
 
-// Dynamic shared memory: the scores of a stage, then one or two ring slots
-// of [K rows][V rows][k_s][v_s] (scales for int8 only). Once the ring is
-// spent, the block's stream partials alias its start.
+// 0 for a partial that saw no key (m = -inf), else exp(m - mx).
+__device__ __forceinline__ float weight(float m, float mx) {
+  return m == -INFINITY ? 0.f : expf(m - mx);
+}
+
+// Dynamic shared memory: the scores of the block's whole chunk, the
+// cluster's table of key-tile maxima ([ranks + 2][tiles]: a row per rank,
+// then the running max and its weight per tile; none for f32), then one
+// or two ring
+// slots of [K rows][V rows][k_s][v_s] (scales for int8 only). Once the
+// ring is spent, the block's stream partials alias its start.
 template <typename Dt, int HD>
 struct Smem {
   using L = Lanes<Dt, HD>;
-  __host__ __device__ static int scores(int stage) { return align16(4 * stage); }
+  __host__ __device__ static int scores(int chunk) {
+    return align16(4 * chunk);
+  }
+  __host__ __device__ static int tiles(int T) {
+    return (T + kTile - 1) / kTile;
+  }
+  __host__ __device__ static int table(int T, int ranks) {
+    return Dt::kRounds ? align16(4 * (ranks + 2) * tiles(T)) : 0;
+  }
   __host__ __device__ static int rows(int stage) {
     return align16(stage * L::kRowBytes);
   }
@@ -153,8 +194,10 @@ struct Smem {
     return 2 * rows(stage) + 2 * scales(stage);
   }
   static constexpr int kMerge = 4 * (L::S * HD + 3 * L::S);
-  __host__ __device__ static int bytes(int stage, int slots) {
-    const int ring = scores(stage) + slots * slot(stage);
+  __host__ __device__ static int bytes(int T, int ranks, int chunk, int stage,
+                                       int slots) {
+    const int ring =
+        scores(chunk) + table(T, ranks) + slots * slot(stage);
     return ring > kMerge ? ring : kMerge;
   }
 };
@@ -221,11 +264,6 @@ __device__ __forceinline__ void load_vec(const typename Dt::Raw* p,
   for (int i = 0; i < VE; ++i) out[i] = Dt::load(u.raw[i]);
 }
 
-// 0 for a partial that saw no key (m = -inf), else exp(m - mx).
-__device__ __forceinline__ float weight(float m, float mx) {
-  return m == -INFINITY ? 0.f : expf(m - mx);
-}
-
 // One cluster per (b, h) = blockIdx.x; rank r = blockIdx.y of the cluster
 // takes keys [r chunk, (r + 1) chunk) cut at t, in stages of `stage` keys.
 template <typename Dt, int HD>
@@ -253,7 +291,8 @@ decode_cluster(const float* __restrict__ q, const typename Dt::Raw* __restrict__
   const int rank = static_cast<int>(cluster.block_rank());
   const int ranks = static_cast<int>(cluster.num_blocks());
   // Every block of the cluster has started before any writes into
-  // another's shared memory (the wait is at the merge, long after).
+  // another's shared memory (the wait is at the tile maxima, after the
+  // scores, or for f32 at the merge).
   asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
   const int bh = blockIdx.x;
   // The kernel cannot raise: an out-of-range position is clamped so that
@@ -268,36 +307,37 @@ decode_cluster(const float* __restrict__ q, const typename Dt::Raw* __restrict__
   const int sub = lane % G;
   const int stream = warp * KPW + grp;
 
-  float* sc = reinterpret_cast<float*>(smem);
-  unsigned char* ring = smem + Sm::scores(stage);
+  const int tiles = Sm::tiles(T);
+  float* sc = reinterpret_cast<float*>(smem);  // [chunk] scores
+  float* table = reinterpret_cast<float*>(smem + Sm::scores(chunk));
+  float* run_max = table + ranks * tiles;      // [tiles]
+  float* tile_w = run_max + tiles;             // [tiles]
+  unsigned char* ring = smem + Sm::scores(chunk) + Sm::table(T, ranks);
   const int slot_bytes = Sm::slot(stage), rows = Sm::rows(stage),
             scales = Sm::scales(stage);
-  // Stage st's copies into slot st % 2, as two commit groups (K with k_s,
-  // then V with v_s); a stage past the block's keys commits empty groups,
-  // so that every iteration waits on the same group counts.
-  auto issue = [&](int st) {
-    if (st < stages) {
+  // Copies as 2 * stages items, each one commit group: K (with k_s) of
+  // stage i into slot i % 2, then V (with v_s) of stage i into the V half
+  // of slot i % 2. Item i + 2 is issued once item i is consumed; an item
+  // past the last commits an empty group, so that every wait counts the
+  // same groups.
+  auto issue = [&](int i) {
+    if (i < 2 * stages) {
+      const bool is_k = i < stages;
+      const int st = is_k ? i : i - stages;
       unsigned char* slot = ring + (st & 1) * slot_bytes;
       const int nk = min(stage, n - st * stage);
       const size_t row = static_cast<size_t>(bh) * T + start + st * stage;
-      const auto* kb = reinterpret_cast<const unsigned char*>(k + row * HD);
-      copy_block<kCopy, kThreads>(slot, kb, nk * L::kRowBytes);
+      const Raw* src = (is_k ? k : v) + row * HD;
+      copy_block<kCopy, kThreads>(slot + (is_k ? 0 : rows),
+                                  reinterpret_cast<const unsigned char*>(src),
+                                  nk * L::kRowBytes);
       if constexpr (Dt::kScaled)
         copy_block<4, kThreads>(
-            slot + 2 * rows,
-            reinterpret_cast<const unsigned char*>(k_s + row), 4 * nk);
-      cp_async_commit();
-      const auto* vb = reinterpret_cast<const unsigned char*>(v + row * HD);
-      copy_block<kCopy, kThreads>(slot + rows, vb, nk * L::kRowBytes);
-      if constexpr (Dt::kScaled)
-        copy_block<4, kThreads>(
-            slot + 2 * rows + scales,
-            reinterpret_cast<const unsigned char*>(v_s + row), 4 * nk);
-      cp_async_commit();
-    } else {
-      cp_async_commit();
-      cp_async_commit();
+            slot + 2 * rows + (is_k ? 0 : scales),
+            reinterpret_cast<const unsigned char*>((is_k ? k_s : v_s) + row),
+            4 * nk);
     }
+    cp_async_commit();
   };
   issue(0);
   issue(1);
@@ -309,30 +349,20 @@ decode_cluster(const float* __restrict__ q, const typename Dt::Raw* __restrict__
 #pragma unroll
     for (int e = 0; e < VE; ++e) qv[i][e] = Dt::round(qv[i][e]);
   }
-  float m = -INFINITY;
-  float l = 0.f;
-  float acc[NV][VE];
-#pragma unroll
-  for (int i = 0; i < NV; ++i)
-#pragma unroll
-    for (int e = 0; e < VE; ++e) acc[i][e] = 0.f;
 
+  // Pass 1: the scores of every key of the chunk, stage by stage. Stream
+  // w takes keys w, w + S, w + 2 S, ... of each stage, here and in pass 2;
+  // m_str: the max its terms are weighed to (f32: its own keys' max).
+  float m_str = -INFINITY;
   for (int st = 0; st < stages; ++st) {
-    const unsigned char* slot = ring + (st & 1) * slot_bytes;
-    const Raw* ks = reinterpret_cast<const Raw*>(slot);
-    const Raw* vs = reinterpret_cast<const Raw*>(slot + rows);
-    const float* kscale = reinterpret_cast<const float*>(slot + 2 * rows);
-    const float* vscale = kscale + scales / 4;
+    const Raw* ks = reinterpret_cast<const Raw*>(ring + (st & 1) * slot_bytes);
+    const float* kscale = reinterpret_cast<const float*>(
+        ring + (st & 1) * slot_bytes + 2 * rows);
     const int nk = min(stage, n - st * stage);
-
-    // Scores, once this stage's K has landed (3 younger groups may still
-    // be in flight: its V and the next stage's K and V).
-    cp_async_wait<3>();
+    cp_async_wait<1>();
     __syncthreads();
-    float m_new = m;
     // Every lane of a warp runs the same count (the shuffles need all 32);
     // a group whose key is past the stage joins them and skips the rest.
-    // Stream w takes keys w, w + S, w + 2 S, ...
     for (int b = warp * KPW; b < nk; b += S) {
       const int j = b + grp;
       const bool valid = j < nk;
@@ -354,31 +384,95 @@ decode_cluster(const float* __restrict__ q, const typename Dt::Raw* __restrict__
           s = s * scale * kscale[j];
         else
           s *= scale;
-        if (sub == 0) sc[j] = s;
-        m_new = fmaxf(m_new, s);
+        if (sub == 0) sc[st * stage + j] = s;
+        m_str = fmaxf(m_str, s);
       }
     }
-    if (m_new != m) {  // the stream saw a key: rescale to the new max
-      const float alpha = expf(m - m_new);  // 0 while m = -inf
-      l *= alpha;
-#pragma unroll
-      for (int i = 0; i < NV; ++i)
-#pragma unroll
-        for (int e = 0; e < VE; ++e) acc[i][e] *= alpha;
-      m = m_new;
-    }
+    // Item st + 2 refills this slot's K once every warp has left it (past
+    // the K items it is a V item, into a V half no one reads yet).
+    if (st + 2 < stages) __syncthreads();
+    issue(st + 2);
+  }
 
-    // p . V, once V has landed (the next stage's two groups may not have).
-    cp_async_wait<2>();
+  // This block's row of tile maxima (-inf where it holds no key of a
+  // tile), where Dt rounds: pushed into every rank's table once all have
+  // started; after a cluster barrier each rank holds the running max over
+  // the tiles up to each one, as the TPU kernel's online softmax sees it,
+  // and every stream weighs its terms to the max over all keys. An f32
+  // stream keeps its own max (nothing rounds, so no term depends on it).
+  if constexpr (Dt::kRounds) {
+    float* row_t = table + rank * tiles;
+    for (int j = threadIdx.x; j < tiles; j += kThreads) row_t[j] = -INFINITY;
+    __syncthreads();
+    if (n > 0) {
+      const int t_lo = start / kTile, t_hi = (start + n - 1) / kTile;
+      for (int j = t_lo + warp; j <= t_hi; j += Dt::kWarps) {
+        const int lo = max(start, j * kTile) - start;
+        const int hi = min(start + n, (j + 1) * kTile) - start;
+        float mx = -INFINITY;
+        for (int i = lo + lane; i < hi; i += 32) mx = fmaxf(mx, sc[i]);
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        if (lane == 0) row_t[j] = mx;
+      }
+    }
+    __syncthreads();
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+    for (int e = threadIdx.x; e < ranks * tiles; e += kThreads) {
+      const int r = e / tiles;
+      if (r != rank)
+        cluster.map_shared_rank(table, r)[rank * tiles + e % tiles] =
+            row_t[e % tiles];
+    }
+    cluster.sync();
+    // Rank 0 always holds key 0 <= t, so every running max is finite.
+    if (threadIdx.x == 0) {
+      float m = -INFINITY;
+      for (int j = 0; j < tiles; ++j) {
+        for (int r = 0; r < ranks; ++r) m = fmaxf(m, table[r * tiles + j]);
+        run_max[j] = m;
+      }
+      for (int j = 0; j < tiles; ++j) tile_w[j] = expf(run_max[j] - m);
+    }
+    __syncthreads();
+    m_str = run_max[tiles - 1];
+  }
+
+  // Pass 2: p = exp(s - running max of its tile), rounded to the value
+  // dtype (times v_s for int8) before p . V; the key's sums are weighed
+  // by exp(running max - the max over all keys), so that every stream,
+  // block and rank sums against one max. f32: p = exp(s - m_str).
+  float l = 0.f;
+  float acc[NV][VE];
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+#pragma unroll
+    for (int e = 0; e < VE; ++e) acc[i][e] = 0.f;
+  for (int st = 0; st < stages; ++st) {
+    const unsigned char* slot = ring + (st & 1) * slot_bytes;
+    const Raw* vs = reinterpret_cast<const Raw*>(slot + rows);
+    const float* vscale =
+        reinterpret_cast<const float*>(slot + 2 * rows + scales);
+    const int nk = min(stage, n - st * stage);
+    cp_async_wait<1>();
     __syncthreads();
     for (int j = stream; j < nk; j += S) {
-      const float p = expf(sc[j] - m);
-      l += p;
+      float p, w;
+      if constexpr (Dt::kRounds) {
+        const int tile = (start + st * stage + j) / kTile;
+        p = expf(sc[st * stage + j] - run_max[tile]);
+        w = tile_w[tile];
+      } else {
+        p = expf(sc[st * stage + j] - m_str);
+        w = 1.f;
+      }
+      l = fmaf(p, w, l);
       float pr;
       if constexpr (Dt::kScaled)
-        pr = Dt::round(p * vscale[j]);
+        pr = Dt::round(p * vscale[j]) * w;
       else
-        pr = Dt::round(p);
+        pr = Dt::round(p) * w;
 #pragma unroll
       for (int i = 0; i < NV; ++i) {
         float vv[VE];
@@ -387,23 +481,25 @@ decode_cluster(const float* __restrict__ q, const typename Dt::Raw* __restrict__
         for (int e = 0; e < VE; ++e) acc[i][e] = fmaf(pr, vv[e], acc[i][e]);
       }
     }
-    // Stage st + 2 refills this slot once every warp has left it.
+    // Item stages + st + 2 refills this slot's V once every warp has left
+    // it.
     if (st + 2 < stages) __syncthreads();
-    issue(st + 2);
+    issue(stages + st + 2);
   }
   cp_async_wait<0>();
   __syncthreads();  // the ring is spent: the stream partials alias it
 
-  // The block's partial: its streams merged in stream order. A stream
-  // that saw no key has m = -inf and weight 0; a block past t has no key
-  // at all and publishes m = -inf, l = 0, acc = 0.
+  // The block's partial (m_blk, l, acc): its streams summed in stream
+  // order. Where Dt rounds, every stream's terms are weighed to the max
+  // over all keys already; an f32 stream is weighed by exp(m_str - m_blk)
+  // (one that saw no key holds zeros and m_str = -inf: weight 0).
   float* sm_acc = reinterpret_cast<float*>(smem);  // [S][HD]
-  float* sm_m = sm_acc + S * HD;
-  float* sm_l = sm_m + S;
-  float* sm_w = sm_l + S;
+  float* sm_l = sm_acc + S * HD;
+  float* sm_m = sm_l + S;
+  float* sm_w = sm_m + S;
   if (sub == 0) {
-    sm_m[stream] = m;
     sm_l[stream] = l;
+    sm_m[stream] = m_str;
   }
 #pragma unroll
   for (int i = 0; i < NV; ++i)
@@ -411,11 +507,18 @@ decode_cluster(const float* __restrict__ q, const typename Dt::Raw* __restrict__
     for (int e = 0; e < VE; ++e)
       sm_acc[stream * HD + (i * G + sub) * VE + e] = acc[i][e];
   __syncthreads();
-  float mx = -INFINITY;
+  float m_blk = m_str;
+  if constexpr (!Dt::kRounds) {
 #pragma unroll
-  for (int w = 0; w < S; ++w) mx = fmaxf(mx, sm_m[w]);
-  for (int w = threadIdx.x; w < S; w += kThreads) sm_w[w] = weight(sm_m[w], mx);
-  __syncthreads();
+    for (int w = 0; w < S; ++w) m_blk = fmaxf(m_blk, sm_m[w]);
+    for (int w = threadIdx.x; w < S; w += kThreads)
+      sm_w[w] = weight(sm_m[w], m_blk);
+    __syncthreads();
+  }
+  auto stream_w = [&](int w) {
+    if constexpr (Dt::kRounds) return 1.f;
+    else return sm_w[w];
+  };
 
   // The cluster's merge. Rank o owns elements [o share, (o + 1) share) of
   // out. Each rank pushes its partial sum of every element, and its
@@ -423,28 +526,28 @@ decode_cluster(const float* __restrict__ q, const typename Dt::Raw* __restrict__
   // its own rank's row; after one cluster barrier each rank merges its
   // elements from its own shared memory, in rank order, so a call is
   // deterministic, and no rank touches another's shared memory after the
-  // barrier (a block may leave at once). Rank 0 always holds key 0 <= t,
-  // so the cluster's max is finite.
+  // barrier (a block may leave at once).
+  if constexpr (!Dt::kRounds)
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
   const int share = (HD + ranks - 1) / ranks;
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
   for (int d = threadIdx.x; d < HD; d += kThreads) {
     float a = 0.f;
 #pragma unroll
-    for (int w = 0; w < S; ++w) a = fmaf(sm_acc[w * HD + d], sm_w[w], a);
+    for (int w = 0; w < S; ++w) a = fmaf(sm_acc[w * HD + d], stream_w(w), a);
     const int o = d / share;
     cluster.map_shared_rank(gather, o)[rank * share + d - o * share] = a;
   }
   if (static_cast<int>(threadIdx.x) < ranks) {
     float sum = 0.f;
 #pragma unroll
-    for (int w = 0; w < S; ++w) sum = fmaf(sm_l[w], sm_w[w], sum);
+    for (int w = 0; w < S; ++w) sum = fmaf(sm_l[w], stream_w(w), sum);
     float* ml = cluster.map_shared_rank(&gather_ml[0][0], threadIdx.x);
-    ml[2 * rank] = mx;
+    ml[2 * rank] = m_blk;
     ml[2 * rank + 1] = sum;
   }
   cluster.sync();
-  // Warp 0 weighs the ranks against the cluster's max and sums the
-  // denominator, in a fixed order.
+  // Warp 0 weighs the ranks against the cluster's max (rank 0 always
+  // holds key 0 <= t, so it is finite) and sums the denominator.
   if (warp == 0) {
     const float mr = lane < ranks ? gather_ml[lane][0] : -INFINITY;
     const float lr = lane < ranks ? gather_ml[lane][1] : 0.f;
@@ -464,7 +567,8 @@ decode_cluster(const float* __restrict__ q, const typename Dt::Raw* __restrict__
   const int d0 = rank * share;
   for (int i = threadIdx.x; i < share && d0 + i < HD; i += kThreads) {
     float a = 0.f;
-    for (int r = 0; r < ranks; ++r) a = fmaf(gather[r * share + i], rank_w[r], a);
+    for (int r = 0; r < ranks; ++r)
+      a = fmaf(gather[r * share + i], rank_w[r], a);
     out[static_cast<size_t>(bh) * HD + d0 + i] = a / denom;
   }
 }
@@ -512,7 +616,8 @@ cudaError_t configure(int smem) {
 template <typename Dt, int HD>
 cudaError_t run(const Args& a, int* clusters) {
   using Raw = typename Dt::Raw;
-  const int smem = Smem<Dt, HD>::bytes(a.stage, a.slots);
+  const int smem =
+      Smem<Dt, HD>::bytes(a.T, a.splits, a.chunk, a.stage, a.slots);
   cudaError_t err = configure<Dt, HD>(smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};

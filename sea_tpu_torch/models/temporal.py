@@ -38,8 +38,14 @@ and takes ``valid_len`` for the masked prefix engine (rollout/engine.py).
 ``remat`` recomputes each block in the backward pass
 (``torch.utils.checkpoint``, non-reentrant): True or "full" keeps only the
 block's inputs, "dots" also keeps the outputs of the matrix products.
-Ring attention is not ported, and the stacked per-field path
-(``stack_fields``) is the same math as the per-field loop.
+The stacked per-field path (``stack_fields``) is the same math as the
+per-field loop.
+
+Under a seq grid (``parallel.mesh.make_seq_mesh``) the same code runs on
+this rank's time block: every attention over time as ring attention
+(``ops.attention``), RoPE, the ``pool_pe`` rows and every dropout mask at
+global positions (``ops.layers``), ``ib_time_constant`` off, as under the
+JAX package's ``seq_mesh``.
 
 Under a ``--mesh`` grid (``parallel.collectives.sharded``) the same code
 runs on this rank's shards (``parallel.mesh.temporal_param_dims``): every
@@ -62,6 +68,7 @@ from sea_tpu_torch.configs.base import TemporalModelConfig
 from sea_tpu_torch.ops import layers as L
 from sea_tpu_torch.ops.attention import (init_attention, init_kv_cache,
                                          local_heads, mha, mha_step)
+from sea_tpu_torch.parallel import collectives
 from sea_tpu_torch.utils.params import tree_map
 from sea_tpu_torch.utils.prng import fold_in, split
 
@@ -414,9 +421,10 @@ def temporal_forward(params, cfg: TemporalModelConfig, x, ib, *, rng=None,
 
     ``rng``: a PRNG key (``utils.prng``); with ``deterministic=False`` it
     drives dropout, block ``li`` taking ``fold_in(rng, li)`` as in the JAX
-    package, so the masks are the JAX package's. No ring; the stacked
-    per-field path of the JAX package (``stack_fields``) is the same math
-    as this per-field loop. ``cfg.remat`` checkpoints each block where a
+    package, so the masks are the JAX package's. Under a seq grid it runs
+    on this rank's time block (module docstring); the stacked per-field
+    path of the JAX package (``stack_fields``) is the same math as this
+    per-field loop. ``cfg.remat`` checkpoints each block where a
     gradient is being taken (``_remat_block``).
 
     ``valid_len`` (an int, serving only): every attention reads the keys
@@ -429,9 +437,10 @@ def temporal_forward(params, cfg: TemporalModelConfig, x, ib, *, rng=None,
     G = cfg.num_fields
     if x.shape[2] != G:
         raise ValueError(f"x has {x.shape[2]} fields, the config {G}")
-    # ib_time_constant: ib-only sites compute on [B, 1] rows (same values).
+    # ib_time_constant: ib-only sites compute on [B, 1] rows (same values);
+    # off under a seq grid, as in the JAX package.
     ib_cond = (ib[:, :1] if cfg.ib_time_constant and valid_len is None
-               else ib)
+               and collectives.seq_parallel() is None else ib)
     train = rng is not None and not deterministic
     block_fn = (_remat_block if cfg.remat and torch.is_grad_enabled()
                 else temporal_block)

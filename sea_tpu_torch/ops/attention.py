@@ -40,9 +40,14 @@ model ranks. ``mha`` then runs the flash kernels on (B/D, H/M) with
 (the plain path hashes the probabilities' global flat positions), and
 ``mha_step`` attends over this rank's caches [B/D, H/M, T, hd].
 
+Under a seq grid (``parallel.mesh.make_seq_mesh``, ``--seq_parallel``)
+every full-sequence attention runs as ring attention
+(``parallel.ring_attention``) on this rank's time block, with RoPE at the
+block's global positions, as the JAX package's ``impl="ring"`` does under
+its ``seq_mesh``.
+
 Not ported: ``src_len != 0`` in ``mha_step`` (the non-causal configs
-serve on the masked prefix engine, as in the JAX package) and ring
-attention (ROADMAP.md).
+serve on the masked prefix engine, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -141,22 +146,36 @@ def multihead_core(q, k, v, *, n_heads: int, causal: bool, rope: bool,
     Dropout applies when training (``deterministic`` False) with a rate
     and a key (``utils.prng``), as in the JAX package. impl: "flash" (the
     kernels on CUDA) or "plain" (einsum; dropout on the probabilities'
-    flat index, as JAX's XLA path). ``valid_len`` (an
-    int): only keys at positions < valid_len are attended (the masked
-    prefix engine); it raises with dropout or a gradient."""
+    flat index, as JAX's XLA path); a current seq grid
+    (``collectives.seq_parallel``) runs ring attention whatever impl
+    says. ``valid_len`` (an int): only keys at positions < valid_len are
+    attended (the masked prefix engine); it raises with dropout or a
+    gradient."""
     B, Tq, C = q.shape
     hd = C // n_heads
     q = q.reshape(B, Tq, n_heads, hd)
     k = k.reshape(B, k.shape[1], n_heads, hd)
     v = v.reshape(B, v.shape[1], n_heads, hd)
-    if rope:
-        cos_q, sin_q = rope_cos_sin(hd, torch.arange(Tq, device=q.device))
+    seq = collectives.seq_parallel()
+    if rope:  # global positions: this rank's time block under a seq grid
+        def positions(t):
+            t0 = collectives.time_offset(t)
+            return torch.arange(t0, t0 + t, device=q.device)
+        cos_q, sin_q = rope_cos_sin(hd, positions(Tq))
         q = apply_rope(q, cos_q, sin_q)
-        cos_k, sin_k = rope_cos_sin(hd, torch.arange(k.shape[1],
-                                                     device=k.device))
+        cos_k, sin_k = rope_cos_sin(hd, positions(k.shape[1]))
         k = apply_rope(k, cos_k, sin_k)
     rate = (dropout_rate if dropout_rate > 0.0 and not deterministic
             and dropout_key is not None else 0.0)
+    if seq is not None:
+        if valid_len is not None:
+            raise ValueError("valid_len (masked prefix rollout) is not "
+                             "supported under ring attention")
+        from sea_tpu_torch.parallel.ring_attention import ring_attention
+        out = ring_attention(
+            q, k, v, seq, causal=causal, src_len=src_len, dropout_rate=rate,
+            dropout_seed=key_to_seed(dropout_key) if rate else None)
+        return out.reshape(B, Tq, C)
     if valid_len is not None:
         if rate or (torch.is_grad_enabled()
                     and (q.requires_grad or k.requires_grad

@@ -12,7 +12,9 @@ B*H, hd, the cache dtype and the card (read once, ``device_plan``).
 Semantics (both versions): softmax(q . K[:t+1]^T / sqrt(hd)) . V[:t+1] for
 one query per (b, h) over a head-major [B, H, T, hd] f32 or bf16 cache, f32
 accumulation, f32 [B, H, hd] out; q is cast to the cache dtype and the
-probabilities to the value dtype before p . V, as the TPU kernel does.
+unnormalised probabilities to the value dtype before p . V, each against
+the running max of the TPU kernel's 256-key tiles up to its own, as the
+TPU kernel does (``_tile_softmax_terms``).
 
 An int8 cache (``k_scale``/``v_scale`` given: per-token f32 scales
 [B, H, T]) takes the int8 variant of the same source, which replaces
@@ -44,6 +46,10 @@ HEAD_DIMS = (8, 16, 64, 128, 256)
 MAX_CLUSTER = 8
 MIN_KEYS_PER_SPLIT = 16
 RING_BYTES = 104 * 1024
+# The TPU kernel's key block past 256 keys (block_k = min(256, max(128,
+# T))): its online softmax rounds each probability against the running
+# max over these tiles, and both versions here round at that max.
+TILE = 256
 _KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
@@ -99,10 +105,31 @@ def decode_plan(T: int, bh: int, hd: int, dtype, sm_count: int,
                        f"(T={T}, hd={hd}, {dtype})")
 
 
+def _tile_softmax_terms(s):
+    """s: f32 [..., T] scores, -inf at masked keys. Returns (p, w): the
+    TPU kernel's unnormalised probability of each key, exp(s - m), m the
+    running max over the TILE-key tiles up to and including the key's
+    own (its online softmax over key blocks), and w = exp(m - M), M the
+    max over all keys, which brings every term to one max. Key 0 is
+    never masked, so every m is finite."""
+    T = s.shape[-1]
+    nt = -(-T // TILE)
+    tiles = torch.nn.functional.pad(s, (0, nt * TILE - T),
+                                    value=float("-inf"))
+    tile_max = tiles.reshape(*s.shape[:-1], nt, TILE).amax(dim=-1)
+    run_max = torch.cummax(tile_max, dim=-1).values
+    m = run_max.repeat_interleave(TILE, dim=-1)[..., :T]
+    p = torch.where(s == float("-inf"), 0.0, torch.exp(s - m))
+    return p, torch.exp(m - run_max[..., -1:])
+
+
 def decode_attention_ref(q, cache_k, cache_v, t):
     """Plain version. q: [B, H, hd]; cache_k/v: [B, H, T, hd]; t: int or
     int tensor of one element (on the cache's device). Returns f32
-    [B, H, hd]."""
+    [B, H, hd]. q is rounded to the cache dtype; each unnormalised
+    probability (``_tile_softmax_terms``) is rounded to the value dtype
+    before it multiplies V, the denominator sums them unrounded: where
+    and against what max the TPU kernel rounds."""
     hd = q.shape[-1]
     T = cache_k.shape[2]
     qc = q.to(cache_k.dtype).float()
@@ -110,19 +137,20 @@ def decode_attention_ref(q, cache_k, cache_v, t):
     pos = torch.arange(T, device=cache_k.device)
     s = s.masked_fill(pos > torch.as_tensor(t, device=cache_k.device)
                       .reshape(-1), float("-inf"))
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhk,bhkd->bhd", p.to(cache_v.dtype).float(),
-                        cache_v.float())
+    p, w = _tile_softmax_terms(s)
+    out = torch.einsum("bhk,bhkd->bhd", p.to(cache_v.dtype).float() * w,
+                       cache_v.float())
+    return out / (p * w).sum(dim=-1, keepdim=True)
 
 
 def decode_attention_q8_ref(q, cache_k, cache_v, k_scale, v_scale, t):
     """Plain version of the int8 kernel. q: [B, H, hd]; cache_k/v: int8
     [B, H, T, hd]; k_scale/v_scale: f32 [B, H, T]; t as for
     decode_attention_ref. q is rounded to bf16; the score of key t' is
-    (q . k) * hd^-0.5 * k_scale[t']; the unnormalised probability (against
-    the max over keys <= t) times v_scale[t'] is rounded to bf16 before it
-    multiplies V; the denominator sums the probabilities alone. Returns f32
-    [B, H, hd]."""
+    (q . k) * hd^-0.5 * k_scale[t']; the unnormalised probability
+    (``_tile_softmax_terms``) times v_scale[t'] is rounded to bf16 before
+    it multiplies V; the denominator sums the probabilities alone.
+    Returns f32 [B, H, hd]."""
     hd = q.shape[-1]
     T = cache_k.shape[2]
     qb = q.to(torch.bfloat16).float()
@@ -131,10 +159,10 @@ def decode_attention_q8_ref(q, cache_k, cache_v, k_scale, v_scale, t):
     pos = torch.arange(T, device=cache_k.device)
     valid = pos <= torch.as_tensor(t, device=cache_k.device).reshape(-1)
     s = torch.where(valid, s, float("-inf"))
-    p = torch.exp(s - s.max(dim=-1, keepdim=True).values)
-    pv = torch.where(valid, p * v_scale, 0.0).to(torch.bfloat16).float()
+    p, w = _tile_softmax_terms(s)
+    pv = torch.where(valid, p * v_scale, 0.0).to(torch.bfloat16).float() * w
     out = torch.einsum("bhk,bhkd->bhd", pv, cache_v.float())
-    return out / p.sum(dim=-1, keepdim=True)
+    return out / (p * w).sum(dim=-1, keepdim=True)
 
 
 @functools.cache

@@ -349,10 +349,18 @@ def dropout(x, rate: float, key, positions=None):
     ``key`` None or rate 0 returns x. ``positions``: each element's
     global flat position (``block_positions``); by default its flat index,
     offset under a grid by the rank's batch block (x split over the data
-    ranks on its leading dim, as every activation of the models is)."""
+    ranks on its leading dim, as every activation of the models is), or
+    under a seq grid the positions of its time block (x [B, Tl, ...]
+    split over the seq ranks on dim 1)."""
     if rate == 0.0 or key is None:
         return x
     s0, s1 = key_to_seed(key)
+    seq = collectives.seq_parallel()
+    if positions is None and seq is not None:
+        B, tl = x.shape[:2]
+        positions = block_positions(
+            x.shape, (0, collectives.time_offset(tl)) + (0,) * (x.dim() - 2),
+            (B, tl * seq.n_seq) + tuple(x.shape[2:]), x.device)
     if positions is None:
         grid = collectives.current()
         start = 0 if grid is None else grid.data_rank * x.numel()
@@ -413,10 +421,12 @@ def sinusoidal_pe_table(d_model: int, max_len: int = 5000, *, device,
 
 def positional_encoding(pe_table, x, *, dropout_rate: float = 0.0,
                         dropout_key=None):
-    """x: [..., T, D]; adds pe_table[:T], result in x's dtype, then the
-    training dropout when given a key."""
+    """x: [..., T, D]; adds pe_table[:T] (under a seq grid the rows of
+    this rank's time block), result in x's dtype, then the training
+    dropout when given a key."""
     T = x.shape[-2]
-    return dropout((x + pe_table[:T]).to(x.dtype), dropout_rate,
+    t0 = collectives.time_offset(T)
+    return dropout((x + pe_table[t0:t0 + T]).to(x.dtype), dropout_rate,
                    dropout_key)
 
 

@@ -17,8 +17,19 @@ computed from sharded ones that feeds sharded ones again. The data group
 sums gradients (``sum_over_data``); every norm of a sharded leaf sums its
 squares over the model group.
 
-Only ``all_reduce`` and ``all_gather`` are called: gloo carries both
-for CUDA tensors. A bf16 tensor is summed in f32 and rounded once.
+A sequence-parallel grid (``mesh.make_seq_mesh``) is 1 x 1 with a seq
+axis of n ranks: rank r holds time steps [r T/n, (r+1) T/n) of every
+activation and all of the params; its ``seq_group`` carries the ring
+(``parallel.ring_attention``), the loss and the gradient sums.
+
+``all_reduce`` and ``all_gather`` carry the collectives: gloo carries
+both for CUDA tensors. A bf16 tensor is summed in f32 and rounded once.
+``ring_shift``, the counterpart of ``jax.lax.ppermute`` on a ring or a
+chain, moves tensors between neighbouring ranks point to point: under
+NCCL the tensors themselves, under gloo (ranks sharing a card, or the
+CPU) a CUDA tensor through a host copy: gloo's send of a CUDA tensor
+fails on the H100 machine ("writev ... Bad address": it reads the
+device pointer as host memory; PERF.md).
 
 ``sharded(grid)`` makes a grid current while the model runs: ops
 (``ops.layers``, ``ops.attention``) then take their local shapes, the
@@ -46,10 +57,13 @@ class Grid:
     model_rank: int = 0
     data_group: object = None
     model_group: object = None
+    n_seq: int = 1
+    seq_rank: int = 0
+    seq_group: object = None
 
     @property
     def size(self) -> int:
-        return self.n_data * self.n_model
+        return self.n_data * self.n_model * self.n_seq
 
     @property
     def shape(self) -> dict:
@@ -108,6 +122,19 @@ def tensor_parallel() -> Optional[Grid]:
     """The current grid when its model axis splits weights, else None."""
     g = current()
     return g if g is not None and g.n_model > 1 else None
+
+
+def seq_parallel() -> Optional[Grid]:
+    """The current grid when it splits the time axis, else None."""
+    g = current()
+    return g if g is not None and g.n_seq > 1 else None
+
+
+def time_offset(t_local: int) -> int:
+    """The global position of the first of the t_local time steps this
+    rank holds (0 unless the current grid splits time)."""
+    g = seq_parallel()
+    return 0 if g is None else g.seq_rank * t_local
 
 
 def _group_size(group) -> int:
@@ -190,15 +217,26 @@ def all_reduce_model(x):
     return x if g is None else _AllReduceBoth.apply(x, g.model_group)
 
 
-def sum_over_data(tensors, grid: Optional[Grid]):
-    """Each tensor summed over the data group, in one all-reduce of one
-    flat f32 buffer; a list of new tensors (a bf16 gradient comes back in
-    f32: its ranks' parts are summed in f32). Without a data axis the
-    tensors come back as they are."""
-    if grid is None or grid.n_data == 1 or not tensors:
+def _replica_group(grid: Optional[Grid]):
+    """The group over which the params are replicated and the batch is
+    split: the data group, or the seq group of a seq grid (None when
+    there is neither)."""
+    if grid is None:
+        return None
+    if grid.n_seq > 1:
+        return grid.seq_group
+    return grid.data_group if grid.n_data > 1 else None
+
+
+def sum_over(tensors, group):
+    """Each tensor summed over ``group``, in one all-reduce of one flat
+    f32 buffer; a list of new tensors (a bf16 gradient comes back in f32:
+    its ranks' parts are summed in f32). Over no group, or a group of one
+    rank, the tensors come back as they are."""
+    if _group_size(group) == 1 or not tensors:
         return list(tensors)
     flat = torch.cat([t.reshape(-1).float() for t in tensors])
-    dist.all_reduce(flat, group=grid.data_group)
+    dist.all_reduce(flat, group=group)
     out, at = [], 0
     for t in tensors:
         out.append(flat[at:at + t.numel()].view(t.shape))
@@ -206,8 +244,60 @@ def sum_over_data(tensors, grid: Optional[Grid]):
     return out
 
 
-def data_mean(x, grid: Optional[Grid]):
-    """The mean of a per-rank value over the data group (no gradient)."""
-    if grid is None or grid.n_data == 1:
+def mean_over(x, group):
+    """The mean of a per-rank value over ``group``, no gradient."""
+    if _group_size(group) == 1:
         return x
-    return all_reduce(x, grid.data_group) / grid.n_data
+    return all_reduce(x, group) / _group_size(group)
+
+
+def sum_over_data(tensors, grid: Optional[Grid]):
+    """``sum_over`` the data group (the seq group of a seq grid: each
+    rank's gradient is that of its time steps' share of the loss)."""
+    return sum_over(tensors, _replica_group(grid))
+
+
+def data_mean(x, grid: Optional[Grid]):
+    """``mean_over`` the data group (the seq group of a seq grid)."""
+    return mean_over(x, _replica_group(grid))
+
+
+def ring_shift(tensors, group, direction: int = 1, wrap: bool = True):
+    """``jax.lax.ppermute`` over ``group``: each rank sends its tensors to
+    the rank ``direction`` places on in the group's order and returns the
+    tensors of the rank as far the other way, new tensors of the same
+    shapes and dtypes. ``wrap`` True: a ring. False: a chain, whose last
+    rank (in ``direction``) sends nothing and whose first receives zeros.
+    All ranks of the group call it together, with tensors of the same
+    shapes. The transport is chosen by the backend's name: under NCCL the
+    tensors go as they are; under gloo a CUDA tensor goes through a host
+    copy (gloo's point-to-point does not carry CUDA tensors)."""
+    tensors = list(tensors)
+    n = _group_size(group)
+    if n == 1:
+        return ([t.detach().clone() for t in tensors] if wrap
+                else [torch.zeros_like(t) for t in tensors])
+    me = dist.get_rank(group)
+    to, frm = me + direction, me - direction
+    send = wrap or 0 <= to < n
+    recv = wrap or 0 <= frm < n
+    staged = dist.get_backend(group) != "nccl"
+    ops, bufs = [], []
+    for i, t in enumerate(tensors):
+        if send:
+            x = t.detach().contiguous()
+            if staged and x.device.type != "cpu":
+                x = x.cpu()
+            ops.append(dist.P2POp(dist.isend, x, dist.get_global_rank(
+                group, to % n), group, tag=i))
+        if recv:
+            bufs.append(torch.empty(
+                t.shape, dtype=t.dtype,
+                device="cpu" if staged else t.device))
+            ops.append(dist.P2POp(dist.irecv, bufs[-1], dist.get_global_rank(
+                group, frm % n), group, tag=i))
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    if not recv:
+        return [torch.zeros_like(t) for t in tensors]
+    return [b.to(t.device) for b, t in zip(bufs, tensors)]

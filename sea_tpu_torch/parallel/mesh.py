@@ -75,6 +75,40 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1) -> Grid:
                 data_group, model_group)
 
 
+def make_seq_mesh(n_seq: Optional[int] = None) -> Grid:
+    """This rank's place on a ring of n_seq ranks over the time axis
+    (``--seq_parallel N``; default: every rank of the process group). It
+    raises unless n_seq is the world size, the same divergence as
+    ``make_mesh``: the JAX function takes the first n_seq devices. Every
+    rank must call it: it creates the group."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    n_seq = world if n_seq is None else n_seq
+    if n_seq != world:
+        raise ValueError(
+            f"make_seq_mesh(n_seq={n_seq}) needs {n_seq} ranks; the process "
+            f"group has {world}. Launch N ranks (torchrun --nproc_per_node "
+            "N) for --seq_parallel N.")
+    if world == 1:
+        return Grid(1, 1)
+    group = dist.new_group(list(range(world)))
+    return Grid(1, 1, n_seq=world, seq_rank=rank, seq_group=group)
+
+
+def shard_seq(grid: Grid, x, *, axis: int = 1):
+    """This rank's contiguous block of x's time axis (the JAX
+    P(None, 'seq') placement); numpy or torch. The axis must divide by
+    the ring size."""
+    n = x.shape[axis]
+    if n % grid.n_seq:
+        raise ValueError(f"{n} time steps do not split over the "
+                         f"{grid.n_seq} ranks of the seq axis")
+    t = n // grid.n_seq
+    index = [slice(None)] * x.ndim
+    index[axis] = slice(grid.seq_rank * t, (grid.seq_rank + 1) * t)
+    return x[tuple(index)]
+
+
 def parse_mesh(spec: str):
     """'DxM' -> (D, M); ValueError for anything else."""
     parts = spec.strip().lower().split("x")

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from sea_tpu_torch.parallel.collectives import Grid, sharded
-from sea_tpu_torch.parallel.mesh import (shard, shard_batch,
+from sea_tpu_torch.parallel.mesh import (shard, shard_batch, shard_seq,
                                          spatial_param_dims,
                                          temporal_param_dims)
 from sea_tpu_torch.utils.params import (from_numpy, opt_state_from_numpy,
@@ -67,6 +67,32 @@ def make_sharded_temporal_train_step(grid: Grid, cfg, tx, params, *, device,
                            log_norms=log_norms, per_tensor=per_tensor,
                            grid=grid, dims=tree_leaves(dims))
     return step, placed, opt, _batch_placer(grid, device)
+
+
+def make_seq_parallel_train_step(grid: Grid, cfg, tx, params, *, device,
+                                 compute_dtype: str = "float32",
+                                 init_opt_state=None, mu_dtype=None,
+                                 log_norms: bool = True,
+                                 per_tensor: bool = False):
+    """The temporal step over a seq grid (``mesh.make_seq_mesh``): the
+    time axis of src, tgt and ib split over the ring, the params and the
+    optimizer state replicated, every attention a ring
+    (``parallel.ring_attention``), the loss the global MSE (each rank's
+    time block's share, summed) and the gradients summed over the seq
+    ranks before the norms and the update. place_batch(src, tgt, ib)
+    takes global numpy batches whose time axis divides by the ring."""
+    from sea_tpu_torch.train.train_temporal import make_train_step
+    placed = from_numpy(params, device)
+    opt = (tx.init(placed) if init_opt_state is None
+           else opt_state_from_numpy(init_opt_state, device, mu_dtype))
+    step = make_train_step(cfg, tx, compute_dtype=compute_dtype,
+                           log_norms=log_norms, per_tensor=per_tensor,
+                           grid=grid)
+
+    def place(*arrays):
+        return tuple(torch.from_numpy(np.ascontiguousarray(
+            shard_seq(grid, np.asarray(a)))).to(device) for a in arrays)
+    return step, placed, opt, place
 
 
 def make_sharded_spatial_train_step(grid: Grid, cfg, tx, params, *, device,

@@ -24,8 +24,10 @@ make_mesh``) trains data- and tensor-parallel over the process group's
 ranks, as the JAX loop's mesh does: the batch rounded up to a multiple of
 the data axis, each rank's step on its block and shards
 (``parallel.train_step``), evaluation and checkpoints on the gathered
-global params, files and metrics from rank 0 alone. The sequence- and
-pipeline-parallel meshes raise "not ported" (ROADMAP.md).
+global params, files and metrics from rank 0 alone. ``seq_mesh`` trains
+sequence-parallel (ring attention over the time axis) and ``pipe_mesh``
+pipeline-parallel (GPipe over the blocks), likewise from the one-device
+params and to one-device checkpoints.
 ``dataset_time_shifting`` cuts the train windows anew each epoch, from
 the JAX loop's seeds.
 Dropout keys come from ``utils.prng``, JAX's threefry key functions on the
@@ -60,8 +62,10 @@ from sea_tpu_torch.parallel.collectives import (data_mean, sharded,
                                                 sum_over_data)
 from sea_tpu_torch.parallel.mesh import temporal_param_dims, unshard
 from sea_tpu_torch.parallel.multihost import is_primary
-from sea_tpu_torch.parallel.train_step import \
-    make_sharded_temporal_train_step
+from sea_tpu_torch.parallel.pipeline import (gather_params,
+                                             make_pipeline_train_step)
+from sea_tpu_torch.parallel.train_step import (
+    make_seq_parallel_train_step, make_sharded_temporal_train_step)
 from sea_tpu_torch.train import metrics as M
 from sea_tpu_torch.train.optim import global_norm, make_optimizer
 from sea_tpu_torch.train.tracking import BaseErrorTracker, NoOpErrorTracker
@@ -165,10 +169,13 @@ def make_train_step(cfg: TemporalModelConfig, tx, *,
     (``parallel.train_step``). The forward runs on the rank's batch block
     and shards; the gradient of the global mean loss is the sum over the
     data ranks of each block's loss / n_data; loss and norms are the
-    global batch's and the global leaves'."""
+    global batch's and the global leaves'. A seq grid
+    (``parallel.mesh.make_seq_mesh``) splits the time axis instead: the
+    params replicated, each rank's loss over its time block / n_seq, the
+    gradients summed over the seq ranks."""
     cast_p, cast_x = train_cast(compute_dtype)
     shadow = compute_dtype == "bfloat16_shadow"
-    n_data = 1 if grid is None else grid.n_data
+    n_data = 1 if grid is None else grid.n_data * grid.n_seq
 
     def step(params, opt_state, src, tgt, ib, key):
         wrt = opt_state.shadow if shadow else params
@@ -219,18 +226,26 @@ def make_eval_step(cfg: TemporalModelConfig):
     return step
 
 
-def _unported(mesh, seq_mesh, pipe_mesh):
+def _check_meshes(case: CaseConfig, mesh, seq_mesh, pipe_mesh):
+    """The JAX driver's refusals of a mesh, before any work: more than
+    one, a window that does not split over the ring, a layer stack that
+    does not split over the stages."""
     if sum(m is not None for m in (mesh, seq_mesh, pipe_mesh)) > 1:
         raise ValueError("pass at most one of mesh (DP x TP), seq_mesh "
                          "(sequence-parallel), pipe_mesh (pipeline)")
-    names = [name for name, value in (("seq_mesh", seq_mesh),
-                                      ("pipe_mesh", pipe_mesh))
-             if value is not None]
-    if names:
-        raise NotImplementedError(
-            f"{', '.join(names)}: not ported to sea_tpu_torch yet; the port "
-            "trains on one device or over a data x model mesh (see "
-            "ROADMAP.md)")
+    tcfg = case.temporal_train
+    if seq_mesh is not None and tcfg.dataset_src_len % seq_mesh.n_seq:
+        raise ValueError(
+            f"sequence-parallel training needs dataset_src_len "
+            f"({tcfg.dataset_src_len}) divisible by the ring size "
+            f"({seq_mesh.n_seq}); adjust --seq_parallel or the window "
+            "length")
+    if pipe_mesh is not None and case.temporal.num_layers % pipe_mesh.n_pipe:
+        raise ValueError(
+            f"pipeline-parallel training needs num_layers "
+            f"({case.temporal.num_layers}) divisible by the pipe size "
+            f"({pipe_mesh.n_pipe}); the shipped 1-layer presets should "
+            "train DP/TP instead")
 
 
 def train(case: CaseConfig,
@@ -238,7 +253,8 @@ def train(case: CaseConfig,
           data=None, seed: int = 0, epochs: Optional[int] = None,
           init_params=None, init_opt_state=None,
           save_artifacts: bool = True, mesh=None, seq_mesh=None,
-          pipe_mesh=None, profile_dir: Optional[str] = None):
+          pipe_mesh=None, pipe_microbatches: int = 0,
+          profile_dir: Optional[str] = None):
     """Train the temporal model of ``case`` on ``device``; returns
     (best-validation params as a numpy tree, TemporalData).
 
@@ -253,16 +269,26 @@ def train(case: CaseConfig,
     ``save_artifacts``: the full evaluations write the rollout CSV and
     plots (``evaluate._write_rollout_artifacts``). ``profile_dir``:
     a trace of ONE steady-state epoch, epoch min(2, epochs), into this
-    directory (CLI: --profile)."""
+    directory (CLI: --profile).
+
+    ``seq_mesh`` (``parallel.mesh.make_seq_mesh``): the time axis over the
+    ring of ranks (``parallel.train_step.make_seq_parallel_train_step``).
+    ``pipe_mesh`` (``parallel.pipeline.make_pipe_mesh``): the blocks over
+    the stages, ``pipe_microbatches`` per step (default the stage count),
+    the batch over the data replicas (``parallel.pipeline.
+    make_pipeline_train_step``); a resume restores the params only.
+    Either way evaluation and checkpoints see the one-device layout, and
+    rank 0 records and writes."""
     tracker = error_tracker or NoOpErrorTracker()
     tcfg = case.temporal_train
-    _unported(mesh, seq_mesh, pipe_mesh)
+    _check_meshes(case, mesh, seq_mesh, pipe_mesh)
     device = torch.device(device)
     td = process_data(case, data=data, device=device)
     cfg = case.temporal
     # Time-constant conditioning, detected from the data (never guessed):
     # the ib-only sites compute on [B, 1] rows and the fused AdaLN kernels
-    # take the [B, 1, E] cond, as in the JAX driver.
+    # take the [B, 1, E] cond, as in the JAX driver (the seq and pipe
+    # steps leave it off).
     if not cfg.ib_time_constant and cfg.ln_type == "adaln" \
             and ib_is_time_constant(td.train, td.val, td.test):
         cfg = dataclasses.replace(cfg, ib_time_constant=True)
@@ -277,7 +303,8 @@ def train(case: CaseConfig,
                                             | init_key[1])
         params = init_temporal(cfg, gen, device=device)
     tx = make_optimizer(tcfg)
-    if mesh is not None and not is_primary():
+    sharded_run = any(m is not None for m in (mesh, seq_mesh, pipe_mesh))
+    if sharded_run and not is_primary():
         tracker = NoOpErrorTracker()  # rank 0 records the run
     tracker.log_model(params, "MSE", tcfg.optimizer)
     mu_dtype = (torch.bfloat16 if tcfg.adam_mu_dtype == "bfloat16"
@@ -300,6 +327,30 @@ def train(case: CaseConfig,
         dims = temporal_param_dims(params_np)
         opt_dims = tx.state_dims(dims, params_np)
         del params_np
+    elif pipe_mesh is not None:
+        mb = pipe_microbatches or pipe_mesh.n_pipe
+        q = mb * pipe_mesh.n_data
+        batch_size = -(-batch_size // q) * q
+        if batch_size != tcfg.batch_size:
+            print(f"note: batch size {tcfg.batch_size} -> {batch_size} "
+                  f"(next multiple of microbatches x data axis = {q})")
+        if init_opt_state is not None:
+            print("note: pipeline-parallel resume restores params only "
+                  "(optimizer restarts fresh — PP checkpoints don't carry "
+                  "stacked-layout moments)")
+        train_step, params, opt_state, place_batch = \
+            make_pipeline_train_step(pipe_mesh, cfg, tx, to_numpy(params),
+                                     device=device, n_microbatches=mb,
+                                     compute_dtype=tcfg.compute_dtype,
+                                     log_norms=tcfg.log_norms,
+                                     per_tensor=tcfg.log_per_tensor)
+    elif seq_mesh is not None:
+        train_step, params, opt_state, place_batch = \
+            make_seq_parallel_train_step(
+                seq_mesh, cfg, tx, to_numpy(params), device=device,
+                compute_dtype=tcfg.compute_dtype,
+                init_opt_state=init_opt_state, mu_dtype=mu_dtype,
+                log_norms=tcfg.log_norms, per_tensor=tcfg.log_per_tensor)
     else:
         opt_state = (opt_state_from_numpy(init_opt_state, device, mu_dtype)
                      if init_opt_state is not None else tx.init(params))
@@ -310,10 +361,17 @@ def train(case: CaseConfig,
     eval_step = make_eval_step(cfg)
 
     def global_params():
-        """The global params (a mesh rank gathers its shards)."""
+        """The global params (a mesh rank gathers its shards, a stage
+        every stage's blocks)."""
+        if pipe_mesh is not None:
+            return gather_params(pipe_mesh, params, cfg.num_layers)
         return params if mesh is None else unshard(mesh, params, dims)
 
     def global_opt_state():
+        """The one-device optimizer state; None under a pipeline (its
+        state is per stage and a resume restarts it)."""
+        if pipe_mesh is not None:
+            return None
         return (opt_state if mesh is None
                 else unshard(mesh, opt_state, opt_dims))
 
@@ -337,7 +395,7 @@ def train(case: CaseConfig,
         return tuple(a.index_select(0, sel) for a in arrays)
 
     # Under a mesh each rank takes its block of the host's batch.
-    train_split = (None if tcfg.dataset_time_shifting or mesh is not None
+    train_split = (None if tcfg.dataset_time_shifting or sharded_run
                    else resident(td.train))
     val_split = resident(td.val)
 
@@ -434,7 +492,8 @@ def train(case: CaseConfig,
                 best_params = to_numpy(full)
                 # A mesh gathers the state on every rank; rank 0 writes
                 # the one-device npz.
-                opt_np = to_numpy(global_opt_state())
+                opt = global_opt_state()
+                opt_np = None if opt is None else to_numpy(opt)
                 if is_primary():
                     save_checkpoint(
                         case.run.save_dir, "temporal", case.run.case_name,

@@ -176,3 +176,108 @@ def cli(grid, argv, stub_plots=True):
         return {k: float(out[k]) for k in ("encoded_rel_mse",
                                            "decoded_rel_mse")}
     return None
+
+
+def cli_printed(grid, argv):
+    """What sea_tpu_torch.cli.main(argv) prints on this rank (rank 0
+    prints; the others run silent), plots stubbed."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli(grid, argv)
+    return buf.getvalue()
+
+
+def run_seq(jobs):
+    """{name: result} of each job on the seq ring over every rank of the
+    process group (``make_seq_mesh``)."""
+    from sea_tpu_torch.parallel.mesh import make_seq_mesh
+    torch.set_num_threads(1)
+    grid = make_seq_mesh()
+    return {name: globals()[fn](grid, *args)
+            for name, (fn, args) in jobs.items()}
+
+
+def run_pipe(shape, jobs):
+    """{name: result} of each job on the (data, pipe) grid of ``shape``
+    (n_data, n_pipe) over the process group."""
+    from sea_tpu_torch.parallel.pipeline import make_pipe_mesh
+    torch.set_num_threads(1)
+    grid = make_pipe_mesh(shape[1], shape[0])
+    return {name: globals()[fn](grid, *args)
+            for name, (fn, args) in jobs.items()}
+
+
+def ring(grid, q, k, v, g, kw):
+    """Ring attention of the global numpy [B, T, H, hd] q, k, v on this
+    rank's time block, and its backward of the cotangent g: (out, dq, dk,
+    dv), each gathered to the global [B, T, H, hd] (numpy)."""
+    from sea_tpu_torch.parallel.mesh import shard_seq
+    from sea_tpu_torch.parallel.ring_attention import ring_attention
+    qb, kb, vb = (torch.from_numpy(np.ascontiguousarray(
+        shard_seq(grid, a))).requires_grad_(True) for a in (q, k, v))
+    out = ring_attention(qb, kb, vb, grid, **kw)
+    out.backward(torch.from_numpy(np.ascontiguousarray(shard_seq(grid, g))))
+    return tuple(collectives.all_gather_cat(x.detach(), 1, grid.seq_group,
+                                            grid.n_seq).numpy()
+                 for x in (out, qb.grad, kb.grad, vb.grad))
+
+
+def seq_steps(grid, cfg, tcfg, params, batch, keys):
+    """len(keys) sequence-parallel temporal steps from the global
+    ``params`` (numpy) on the global ``batch``: (per-step stats as
+    floats, params and optimizer state after them, numpy)."""
+    from sea_tpu_torch.parallel.train_step import \
+        make_seq_parallel_train_step
+    tx = make_optimizer(tcfg)
+    step, p, o, place = make_seq_parallel_train_step(
+        grid, cfg, tx, params, device="cpu",
+        compute_dtype=tcfg.compute_dtype, mu_dtype=_mu_dtype(tcfg))
+    stats = []
+    for key in keys:
+        p, o, st = step(p, o, *place(*batch), key)
+        stats.append({k: float(v) for k, v in st.items()})
+    return stats, to_numpy(p), to_numpy(o)
+
+
+def pipe_forward(grid, cfg, params, x, ib, n_microbatches, key):
+    """``pipeline_forward`` of the global numpy batch (deterministic when
+    key is None): the global output, numpy."""
+    from sea_tpu_torch.parallel.pipeline import (pipeline_forward,
+                                                 stage_params)
+    from sea_tpu_torch.utils.params import from_numpy
+    stage = from_numpy(stage_params(grid, params, cfg.num_layers), "cpu")
+    return pipeline_forward(
+        stage, cfg, torch.from_numpy(x), torch.from_numpy(ib), grid=grid,
+        n_microbatches=n_microbatches, rng=key,
+        deterministic=key is None).numpy()
+
+
+def pipe_steps(grid, cfg, tcfg, params, batch, keys, n_microbatches,
+               plain_attention=False):
+    """len(keys) pipeline-parallel temporal steps: (per-step stats, the
+    one-device params after them, and the one-device AdamW mu).
+    ``plain_attention``: the model's attentions take the plain path,
+    whose dropout hashes the flat index of the probabilities as the JAX
+    package's XLA attention does (its pipeline cannot host the Pallas
+    kernels: a pallas_call inside its shard_map is refused)."""
+    import functools
+
+    from sea_tpu_torch.models import temporal as TT
+    from sea_tpu_torch.ops.attention import mha
+    from sea_tpu_torch.parallel.pipeline import (gather_params,
+                                                 make_pipeline_train_step)
+    if plain_attention:
+        TT.mha = functools.partial(mha, impl="plain")
+    tx = make_optimizer(tcfg)
+    step, p, o, place = make_pipeline_train_step(
+        grid, cfg, tx, params, device="cpu", n_microbatches=n_microbatches,
+        compute_dtype=tcfg.compute_dtype)
+    stats = []
+    for key in keys:
+        p, o, st = step(p, o, *place(*batch), key)
+        stats.append({k: float(v) for k, v in st.items()})
+    adam = (o.inner if hasattr(o, "inner") else o)[0]
+    return (stats, to_numpy(gather_params(grid, p, cfg.num_layers)),
+            to_numpy(gather_params(grid, adam.mu, cfg.num_layers)))

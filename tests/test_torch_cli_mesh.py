@@ -9,9 +9,14 @@ rank, plots stubbed), against the same command on one device in this
 process: `encoder train --mesh 2x1` and `temporal train --mesh 1x2` write
 the one-device checkpoints (params within 1e-5, the optimizer state's
 npz paths and shapes equal), and `temporal test --mesh 2x1` and `--mesh
-1x2` give the one-device metrics within rtol 1e-4.
+1x2` give the one-device metrics within rtol 1e-4. `temporal train
+--seq_parallel 2` writes the one-device run's checkpoint, and `--pp 2`
+(with 2 or 4 microbatches, on the 4-layer ``cylinder_flow_smoke_deep``)
+that of an in-process one-stage pipeline with the same microbatches, the
+params within 1e-5; each prints one epoch line.
 """
 
+import dataclasses
 import os
 import shutil
 
@@ -29,6 +34,7 @@ torch.set_num_threads(2)
 PARAM_ATOL = 1e-5
 METRIC_RTOL = 1e-4
 CASE = "cylinder_flow_smoke"
+DEEP = "cylinder_flow_smoke_deep"
 
 
 def _error_line(main, argv, capsys):
@@ -56,13 +62,14 @@ def test_parse_errors_are_the_jax_clis(argv, capsys):
     assert got.split("error:", 1)[1] == want.split("error:", 1)[1]
 
 
-@pytest.mark.parametrize("argv", [
-    ["temporal", "train", "--seq_parallel", "2"],
-    ["temporal", "train", "--pp", "2"],
-    ["temporal", "train", "--pp", "2", "--pp_microbatches", "4"]])
-def test_unported_parallel_flags_name_the_roadmap(argv, capsys):
-    line = _error_line(torch_cli.main, argv + ["--device", "cpu"], capsys)
-    assert "not ported" in line and "ROADMAP.md" in line
+# --seq_parallel and --pp through the CLI in 2 ranks: argv, ranks, the
+# case, and the in-process run each must equal (None: the one-device
+# `temporal train` of the dirs fixture; else the pipeline's microbatches
+# for an in-process one-stage pipeline, PipeGrid(1)).
+PARALLEL_RUNS = {
+    "seq2": (["--seq_parallel", "2"], CASE, None),
+    "pp2": (["--pp", "2"], DEEP, 2),
+    "pp2-mb4": (["--pp", "2", "--pp_microbatches", "4"], DEEP, 4)}
 
 
 def _cli(argv):
@@ -102,6 +109,60 @@ def dirs(tmp_path_factory):
                               {"cli": ("cli", (test + ["--mesh", spec],))})
             metrics[spec] = [r["cli"] for r in ranks]
     return one, mesh, metrics
+
+
+@pytest.fixture(scope="module")
+def parallel_runs(dirs, tmp_path_factory):
+    """{name: (rank 0's printed lines, the checkpoint's params, the params
+    it must equal)} of each PARALLEL_RUNS entry."""
+    from sea_tpu_torch.parallel.pipeline import PipeGrid
+    from sea_tpu_torch.train.train_temporal import train
+    one = dirs[0]
+    enc = "encoder_decoder_cylinder_flow_run1.npz"
+    ckpt = "temporal_cylinder_flow_run1.npz"
+    out = {}
+    for name, (flags, case_name, mb) in PARALLEL_RUNS.items():
+        d = str(tmp_path_factory.mktemp(name))
+        shutil.copy(os.path.join(one, enc), os.path.join(d, enc))
+        ranks = run_ranks(R.run_grid, 2, None, {"cli": ("cli_printed", (
+            [case_name, "temporal", "train", "--synthetic", "--epochs", "1",
+             "--device", "cpu", "--save_dir", d] + flags,))})
+        if mb is None:
+            want = _npz(os.path.join(one, ckpt))
+        else:
+            case = torch_cli.get_case(case_name)
+            case = case.replace(run=dataclasses.replace(case.run,
+                                                        save_dir=d))
+            data = torch_cli._load_data(case, True)
+            params, _ = train(torch_cli.fit_to_data(case, data),
+                              device="cpu", data=data, epochs=1,
+                              pipe_mesh=PipeGrid(1), pipe_microbatches=mb,
+                              save_artifacts=False)
+            from sea_tpu_torch.utils.checkpoint import _flatten
+            want = {f"params/{k}": v for k, v in _flatten(params).items()}
+        got = _npz(os.path.join(d, ckpt))
+        out[name] = (ranks[0]["cli"], got, want)
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(PARALLEL_RUNS))
+def test_parallel_flags_train_through_the_cli(name, parallel_runs):
+    """`temporal train --seq_parallel 2`, `--pp 2` and `--pp 2
+    --pp_microbatches 4` in 2 ranks: one epoch line from rank 0 and a
+    finite checkpoint of the one-device layout, whose params equal the
+    one-device step's (seq) or an in-process one-stage pipeline's with
+    the same microbatches (pp: the dropout keys are per microbatch and
+    global layer, so the stages do not change them)."""
+    printed, got, want = parallel_runs[name]
+    assert sum(line.startswith("Epoch 1/1 train Loss")
+               for line in printed.splitlines()) == 1
+    params = sorted(k for k in want if k.startswith("params/"))
+    assert params and params == sorted(k for k in got
+                                       if k.startswith("params/"))
+    for key in params:
+        assert np.isfinite(got[key]).all(), key
+        np.testing.assert_allclose(got[key], want[key], rtol=0,
+                                   atol=PARAM_ATOL, err_msg=key)
 
 
 def _npz(path):

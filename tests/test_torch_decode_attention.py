@@ -5,16 +5,16 @@ Pallas kernel in interpret mode and against the XLA path of JAX
 ``mha_step`` it replaces, for every head dim the kernel takes, f32 and bf16
 caches, at the first position, both sides of the TPU kernel's 256-key
 block edge, and the last position. Tolerances: atol 1e-5 for f32 (summation
-order), 2e-2 for bf16 (the kernel and the reference round q and the
-probabilities to bf16; the XLA path does not round q).
+order), 2e-2 for bf16 against the XLA path (which rounds the normalised
+probabilities and not q); against the TPU kernel the bf16 plain version
+is held to 1e-5 as well: both round q to bf16 and each unnormalised
+probability against the running max of the 256-key tiles up to its own.
 
 The int8 cache: ``attention._quantize_token`` bit for bit against JAX's;
 ``decode_attention_q8_ref`` against the TPU kernel ``_decode_kernel_q8``
 in interpret mode at the same head dims and positions, atol 1e-5 (both
-round q and each p * v_scale to bf16, relative to the running max; past
-the TPU kernel's first 256-key block that max could differ from the plain
-version's, and a rounding with it, but on these inputs it does not: the
-measured max abs err is 1.2e-07, f32 order); and eight int8-cache
+round q and each p * v_scale to bf16, p against the running max of the
+256-key tiles up to its own); and eight int8-cache
 ``mha_step``s against JAX's with its kernel forced (interpret mode): the
 same bound for the outputs; the scales written within an f32 ulp and the
 planes within one step on under 1% of entries (the tokens themselves
@@ -102,6 +102,18 @@ def test_ref_matches_jax_kernel_and_xla_path(hd, dtype, t):
                  xla(q, kv, K, V, jnp.int32(t))):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                    atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("t", POSITIONS)
+@pytest.mark.parametrize("hd", DA.HEAD_DIMS)
+def test_bf16_ref_rounds_where_the_jax_kernel_rounds(hd, t):
+    jnp = pytest.importorskip("jax.numpy")
+    q, _, K, V, tK, tV = _inputs(hd, "bfloat16", t)
+    got = DA.decode_attention_ref(torch.from_numpy(q), tK, tV,
+                                  torch.tensor([t], dtype=torch.int32))
+    kernel, _ = _jax_paths(hd, "bfloat16")
+    np.testing.assert_allclose(got.numpy(), np.asarray(kernel(
+        q, K, V, jnp.int32(t))), rtol=0, atol=1e-5)
 
 
 def test_cpu_tensors_take_the_plain_version():

@@ -362,15 +362,17 @@ def test_cuda_device_without_cuda_raises():
 
 @pytest.mark.parametrize("argv,message", [
     (["encoder", "train", "--mesh", "2x1"], "needs 2 ranks"),
-    (["temporal", "train", "--seq_parallel", "2"], "ROADMAP.md"),
-    (["temporal", "train", "--pp", "2"], "ROADMAP.md"),
+    (["temporal", "train", "--seq_parallel", "2"], "needs 2 ranks"),
+    (["temporal", "train", "--pp", "2"], "--pp 2 needs 2 devices; 1 "
+     "visible"),
     (["temporal", "test", "--mesh", "2x1"], "needs 2 ranks"),
     (["temporal", "train", "--pp", "2", "--pp_microbatches", "4"],
-     "ROADMAP.md")])
+     "--pp 2 needs 2 devices; 1 visible")])
 def test_unported_modes_and_flags_name_the_roadmap(argv, message, capsys):
-    """--seq_parallel and --pp still exit naming ROADMAP.md; --mesh runs
-    (tests/test_torch_cli_mesh.py), and in one process a 2x1 grid is
-    refused: it needs 2 ranks."""
+    """--mesh, --seq_parallel and --pp run over ranks
+    (tests/test_torch_cli_mesh.py); in one process a grid of 2 is
+    refused before any work: it needs 2 ranks (--pp: the JAX CLI's
+    message for too few devices)."""
     with pytest.raises(SystemExit):
         torch_cli.main(["cylinder_flow_smoke"] + argv + ["--device", "cpu"])
     assert message in capsys.readouterr().err

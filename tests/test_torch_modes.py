@@ -583,10 +583,11 @@ def test_cli_adafactor_trains_and_resumes(tmp_path, capsys):
 
 @pytest.mark.parametrize("what", ["log_per_tensor", "profile_dir"])
 def test_still_unported_options_raise(what):
-    """The per-tensor norms and the profiler train: with a sequence- or
-    pipeline-parallel mesh beside them (the data x model mesh trains,
-    tests/test_torch_parallel.py), only that mesh raises, before any
-    work, naming ROADMAP.md."""
+    """The per-tensor norms and the profiler train beside a sequence- or
+    pipeline-parallel mesh too (they train, tests/test_torch_cli_mesh.py):
+    with one that does not fit the config (a ring that does not split the
+    window, stages that do not split the layers) only the mesh raises,
+    before any work, and the error does not name the option."""
     from sea_tpu_torch.configs.cylinder_flow_smoke import \
         get_case as port_case
     from sea_tpu_torch.train import train_temporal as TTR
@@ -597,8 +598,11 @@ def test_still_unported_options_raise(what):
                                                log_per_tensor=True))
     else:
         kw["profile_dir"] = "trace"
-    for mesh in ("seq_mesh", "pipe_mesh"):
-        with pytest.raises(NotImplementedError,
-                           match=f"{mesh}.*ROADMAP") as e:
-            TTR.train(case, device="cpu", **kw, **{mesh: object()})
+    from sea_tpu_torch.parallel.collectives import Grid
+    from sea_tpu_torch.parallel.pipeline import PipeGrid
+    for mesh, grid, why in (
+            ("seq_mesh", Grid(1, 1, n_seq=3, seq_rank=0), "ring size"),
+            ("pipe_mesh", PipeGrid(2), "pipe size")):
+        with pytest.raises(ValueError, match=why) as e:
+            TTR.train(case, device="cpu", **kw, **{mesh: grid})
         assert what not in str(e.value)

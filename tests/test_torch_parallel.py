@@ -396,9 +396,19 @@ def test_uneven_splits_raise():
 
 
 def test_seq_mesh_still_raises():
+    """The JAX driver's refusals of the seq and pipe meshes, before any
+    work: a window that does not split over the ring, a layer stack that
+    does not split over the stages, two meshes at once."""
+    from sea_tpu_torch.parallel.collectives import Grid
+    from sea_tpu_torch.parallel.pipeline import PipeGrid
     from sea_tpu_torch.train import train_temporal as TTR
-    with pytest.raises(NotImplementedError, match="seq_mesh.*ROADMAP"):
-        TTR.train(get_case(), device="cpu", seq_mesh=object())
+    ring3 = Grid(1, 1, n_seq=3, seq_rank=0)
+    with pytest.raises(ValueError, match=r"dataset_src_len \(40\) "
+                       r"divisible by the ring size \(3\)"):
+        TTR.train(get_case(), device="cpu", seq_mesh=ring3)
+    with pytest.raises(ValueError, match=r"num_layers \(1\) divisible "
+                       r"by the pipe size \(2\)"):
+        TTR.train(get_case(), device="cpu", pipe_mesh=PipeGrid(2))
     with pytest.raises(ValueError, match="at most one"):
         TTR.train(get_case(), device="cpu", mesh=object(), seq_mesh=object())
 

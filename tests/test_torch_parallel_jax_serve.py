@@ -11,16 +11,13 @@ gloo ranks (tests/_torch_ranks.py). Cells: f32 on 2x1, int8 weights on
 1x2, int4 weights with an int8 cache on 1x2 and with a bf16 cache on 2x2,
 ``cylinder_flow_smoke`` over 6 steps from 4 trajectories. Bounds: f32 and
 int8 atol 2e-4, the one-device rollout's against JAX
-(tests/test_torch_temporal.py); int4 with an int8 cache atol 5e-3, the
-bf16-cache rollout's there. int4 with a bf16 cache: 2^-7 of the largest
-|value|. There the int4 kernel's bf16 rounding of its input turns the
-bf16 cache's own gap (the port and the kernels round p and q at their
-own points: ~2e-4, as with f32 weights) into whole bf16 ulps of the
-projections' inputs: the port's ONE-device rollout is 2.6e-2 from JAX's
-at step 5 (values up to 7.3), 1.6e-4 to 2.4e-4 with that rounding off on
-both sides, while the JAX sharded rollouts equal JAX's one-device one bit
-for bit and the port's equal the port's within 2e-4
-(tests/test_torch_parallel.py).
+(tests/test_torch_temporal.py); int4 with an int8 or a bf16 cache atol
+5e-3. The port's one-device scan rollout with a bf16 cache is held to
+JAX's ``rollout_scan`` with its decode kernel on (interpret mode) within
+1e-5 with f32 weights and with int4 ones: both round each unnormalised
+probability to bf16 against the running max of the TPU kernel's 256-key
+tiles (``ops/decode_attention._tile_softmax_terms``), and q to the cache
+dtype.
 """
 
 import concurrent.futures
@@ -47,8 +44,10 @@ CELLS = {
     "int8-1x2": ((1, 2), "int8", torch.float32, jnp.float32, 2e-4),
     "int4-int8cache-1x2": ((1, 2), "int4", torch.int8, jnp.int8, 5e-3),
     "int4-bf16cache-2x2": ((2, 2), "int4", torch.bfloat16, jnp.bfloat16,
-                           None),  # 2^-7 x max|value|: the note above
+                           5e-3),
 }
+# One device, bf16 cache: weights -> atol against JAX's rollout_scan.
+ONE_DEVICE_BF16 = {"f32": 1e-5, "int4": 1e-5}
 
 
 def _setup():
@@ -67,21 +66,26 @@ def _setup():
     return get_case().temporal, jax_case().temporal, trees, x0, ib
 
 
-def _jax_rollout(shape, cfg, tree, x0, ib, cache_dtype):
+def _kernels_on(mp):
+    """JAX's int4 and decode kernels on, in interpret mode, at the shapes
+    the port's kernels take (tests/test_torch_e2e.py's switches)."""
     from sea_tpu.ops import decode_attention as jax_decode
     from sea_tpu.ops import quant_matmul as jax_quant
+    pick = jax_quant._pick_block_n
+    mp.setattr(jax_quant, "kernel_supported",
+               lambda M, K, N, backend=None: M <= 8 and K % 2 == 0)
+    mp.setattr(jax_quant, "_pick_block_n", lambda K, N: pick(K, N) or N)
+    mp.setattr(jax_quant, "_FORCE_INTERPRET", True)
+    mp.setattr(jax_decode, "decode_supported", lambda *a, **k: True)
+    mp.setattr(jax_decode, "_FORCE_INTERPRET", True)
+
+
+def _jax_rollout(shape, cfg, tree, x0, ib, cache_dtype):
     from sea_tpu.parallel.mesh import make_mesh
     from sea_tpu.parallel.train_step import make_sharded_rollout
-    pick = jax_quant._pick_block_n
     with pytest.MonkeyPatch.context() as mp, warnings.catch_warnings():
         warnings.simplefilter("ignore")  # the idle virtual devices
-        mp.setattr(jax_quant, "kernel_supported",
-                   lambda M, K, N, backend=None: M <= 8 and K % 2 == 0)
-        mp.setattr(jax_quant, "_pick_block_n",
-                   lambda K, N: pick(K, N) or N)
-        mp.setattr(jax_quant, "_FORCE_INTERPRET", True)
-        mp.setattr(jax_decode, "decode_supported", lambda *a, **k: True)
-        mp.setattr(jax_decode, "_FORCE_INTERPRET", True)
+        _kernels_on(mp)
         run, placed, place = make_sharded_rollout(
             make_mesh(*shape), cfg, jax.tree.map(jnp.asarray, tree),
             cache_dtype=cache_dtype)
@@ -108,7 +112,24 @@ def test_sharded_rollout_matches_jax(name, rollouts):
     got, want = rollouts[name]
     assert got.shape == want.shape == (4, 6, 2, 32)
     assert np.isfinite(got).all()
-    atol = CELLS[name][4]
-    if atol is None:
-        atol = 2.0 ** -7 * np.abs(want).max()
-    np.testing.assert_allclose(got, want, rtol=0, atol=atol)
+    np.testing.assert_allclose(got, want, rtol=0, atol=CELLS[name][4])
+
+
+@pytest.mark.parametrize("weights", sorted(ONE_DEVICE_BF16))
+def test_one_device_bf16_cache_rollout_matches_jax(weights):
+    """The scan rollout on one device with a bf16 KV cache against JAX's
+    rollout_scan with its kernels on: the two round at the same points."""
+    from sea_tpu.rollout.engine import rollout_scan as jax_rollout_scan
+    from sea_tpu_torch.rollout.engine import rollout_scan
+    cfg, jcfg, trees, x0, ib = _setup()
+    with pytest.MonkeyPatch.context() as mp:
+        _kernels_on(mp)
+        want = np.asarray(jax.jit(lambda p, x, i: jax_rollout_scan(
+            p, jcfg, x, i, cache_dtype=jnp.bfloat16))(
+                jax.tree.map(jnp.asarray, trees[weights]), x0, ib))
+    got = rollout_scan(from_numpy(trees[weights], "cpu"), cfg,
+                       torch.from_numpy(x0), torch.from_numpy(ib),
+                       cache_dtype=torch.bfloat16).numpy()
+    assert got.shape == want.shape == (4, 6, 2, 32)
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=ONE_DEVICE_BF16[weights])

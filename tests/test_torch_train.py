@@ -286,9 +286,10 @@ def test_optimizer_state_has_optax_layout():
 
 
 def test_unported_options_raise():
-    """The sequence-parallel mesh still raises, naming ROADMAP.md; the
-    linear schedule, adafactor (alone and under the shadow), bf16 first
-    moments and the bf16 shadow build."""
+    """A sequence-parallel mesh whose ring does not split the window
+    raises, as in the JAX driver; the linear schedule, adafactor (alone
+    and under the shadow), bf16 first moments and the bf16 shadow
+    build."""
     from sea_tpu_torch.configs.cylinder_flow import get_case
     tcfg = get_case().temporal_train
     tx = TO.make_optimizer(dataclasses.replace(tcfg, scheduler="linear"))
@@ -307,8 +308,10 @@ def test_unported_options_raise():
         tcfg, compute_dtype="bfloat16_shadow"))
     assert isinstance(tx, TO.with_bf16_shadow)
     assert tx.inner.mu_dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TTR.train(get_case(), device="cpu", seq_mesh=object())
+    from sea_tpu_torch.parallel.collectives import Grid
+    with pytest.raises(ValueError, match="divisible by the ring size"):
+        TTR.train(get_case(), device="cpu",
+                  seq_mesh=Grid(1, 1, n_seq=2, seq_rank=0))
 
 
 _BF16_STEPS = {}  # (compute_dtype, adam_mu_dtype) -> both sides' step
