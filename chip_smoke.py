@@ -5,7 +5,7 @@ Run from the root of a checkout, on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It builds every hand-written kernel of the port from the sources in the
-checkout (the four CUDA sources with one nvcc each, started together)
+checkout (the five CUDA sources with one nvcc each, started together)
 and holds each against its
 plain PyTorch version at the shapes its path gives it. Then it drives the
 port's paths at full width, each with the launch counts set to 0 just
@@ -21,7 +21,7 @@ before and read just after:
   int4 linear of every rollout step ran its kernel, compares rollout steps
   on the card with the same steps on the CPU (f32, and int4 weights with
   an int8 cache), times 250-step rollouts and profiles them with
-  torch.profiler (100-step rollouts, PROFILE_STEPS). `temporal test`
+  torch.profiler (50-step rollouts, PROFILE_STEPS). `temporal test`
   runs on the engine select_engine picks
   and again with `--kv_cache f32` (the scan engine).
 - the prefix engine: `rollout(engine="prefix")` at full width, B=1, 250
@@ -101,6 +101,14 @@ before and read just after:
   dropout step against the one-stage pipeline, and `torchrun ...
   cylinder_flow_smoke_deep temporal train --pp 2` ([train-pipe]).
 
+- the int4 matvec microbenchmarks (`sea_tpu_torch/tools/`, ports of
+  tools/bench_quant_matvec.py and tools/bench_unpack_ceiling.py): each of
+  their eight kernels against its plain version at (B, K, N) = (1, 2048,
+  16384) and (8, 2048, 16384) (_unpack_only_call's integer sums exactly,
+  its check shown to reject planted faults), one device kernel a call,
+  timed; and both entry points at a short loop, whose GB/s must stay
+  within 1.05 x the HBM rate ([tools-quant]).
+
 Last, every kernel is timed against its plain version, its bound and,
 where one PyTorch call computes the same function, that call. Any failure
 raises and the exit code is not 0; without CUDA, or without the rest of
@@ -115,6 +123,7 @@ import collections
 import contextlib
 import csv
 import dataclasses
+import functools
 import io
 import json
 import math
@@ -148,9 +157,10 @@ KERNEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 ROLLOUT_STEPS_CHECKED = 8
 ROLLOUT_ATOL = 1e-3
 TIMED_STEPS = 250
-# The profiled rollouts' depth (at 250 steps each took ~50 s under the
-# profiler; cut to make room for the parallel phases).
-PROFILE_STEPS = 100
+# The profiled rollouts' depth: per-step figures need few steps, and the
+# profiler's processing grows with them (at 250 steps each took ~50 s;
+# the run has a time limit).
+PROFILE_STEPS = 50
 # int8-KV decode: both round p * v_scale to bf16 against the running max
 # of the 256-key tiles (as for the bf16 cache).
 Q8_SHAPES = [(1, 8, 250, 256), (8, 8, 250, 256), (8, 8, 250, 128),
@@ -280,20 +290,21 @@ def _smi():
 
 
 def phase_build():
-    """The four CUDA sources with one nvcc each, started together."""
+    """The five CUDA sources with one nvcc each, started together."""
     from sea_tpu_torch.ops import _build
     from sea_tpu_torch.ops import decode_attention as DA
     from sea_tpu_torch.ops import flash_attention as FA
     from sea_tpu_torch.ops import fused_adaln as FAL
     from sea_tpu_torch.ops import quant_matmul as QM
+    from sea_tpu_torch.tools import bench_quant_matvec as PQ
     log(_smi())
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         for future in [pool.submit(lib._library)
-                       for lib in (DA, FA, FAL, QM)]:
+                       for lib in (DA, FA, FAL, QM, PQ)]:
             future.result()
     log(f"[build] decode_attention.cu, flash_attention.cu, fused_adaln.cu, "
-        f"quant_matmul.cu -> {_build.BUILD_DIR} in "
+        f"quant_matmul.cu, quant_bench.cu -> {_build.BUILD_DIR} in "
         f"{time.perf_counter() - t0:.2f} s")
     # Registers and static shared memory of the int4 kernel, the flash
     # backward kernels and the bf16 forward's wgmma form (their tiles are
@@ -304,8 +315,10 @@ def phase_build():
     # forward, dQ and dK/dV at hd 64, 128 and 256 must each be one
     # instance running wgmma (HGMMA) on tiles that TMA loads (UTMALDG),
     # the backward's with no mma.sync and no stack or local memory (a
-    # spill).
+    # spill); and the microbenchmark kernels of quant_bench.cu.
     for name, kernels in (("quant_matmul", ("",)),
+                          ("quant_bench", ("matvec_in", "matvec_out",
+                                           "reduce_kernel", "copy_kernel")),
                           ("flash_attention", ("dq_kernel", "dkv_kernel",
                                                FWD_WGMMA)),
                           ("fused_adaln", ("3F32ELi4ELi32E",
@@ -1648,6 +1661,8 @@ def phase_adaln_check():
 
 
 def _launch_counts():
+    """Every kernel's launch count, the microbenchmarks' (which no path
+    runs) among them."""
     from sea_tpu_torch.ops import decode_attention as DA
     from sea_tpu_torch.ops import flash_attention as FA
     from sea_tpu_torch.ops import fused_adaln as FAL
@@ -1661,7 +1676,9 @@ def _launch_counts():
             "dropout_mask": FA.mask_launches, "int4_matvec": QM.launches,
             "adaln_fwd": FAL.fwd_launches, "adaln_bwd": FAL.bwd_launches,
             "adaln_fwd_bf16": FAL.fwd_launches_bf16,
-            "adaln_bwd_bf16": FAL.bwd_launches_bf16}
+            "adaln_bwd_bf16": FAL.bwd_launches_bf16,
+            **{name: mod.launches[name] for mod in _tools_modules().values()
+               for name in mod.launches}}
 
 
 def _reset_launch_counts():
@@ -1676,6 +1693,9 @@ def _reset_launch_counts():
     QM.launches = 0
     FAL.fwd_launches = FAL.bwd_launches = 0
     FAL.fwd_launches_bf16 = FAL.bwd_launches_bf16 = 0
+    for mod in _tools_modules().values():
+        for name in mod.launches:
+            mod.launches[name] = 0
 
 
 def _train_schedule(case):
@@ -2647,7 +2667,7 @@ TRAIN_MODES = [
 # recomputed is the whole peak, so remat could save nothing), B=4.
 REMAT_LAYERS = 4
 REMAT_BATCH = 4
-REMAT_TIMED_STEPS = 10
+REMAT_TIMED_STEPS = 5  # a median of 5: the run has a time limit
 ADAFACTOR = {"optimizer": "adafactor"}
 
 
@@ -4265,6 +4285,226 @@ def phase_serve_mesh(case, save_dir, params_np):
             + f"; {seconds:.1f} s with spawning, one device {one_s:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# The int4 matvec microbenchmarks (sea_tpu_torch/tools/)
+# ---------------------------------------------------------------------------
+
+# [tools-quant]: the eight kernels of csrc/quant_bench.cu at the tools'
+# shape, B = 1 and 8 rows of x, block_n 512; both entry points at
+# TOOLS_REPEATS steps (their defaults: 100 and 2000).
+TOOLS_SHAPES = [(1, 2048, 16384), (8, 2048, 16384)]
+TOOLS_BLOCK_N = 512
+TOOLS_REPEATS = 100
+TOOLS_KERNELS = [  # name, module, the TPU function it replaces
+    ("matvec_p4", "bench_quant_matvec", "tools/bench_quant_matvec.py:56"),
+    ("matvec_p4b", "bench_quant_matvec", "tools/bench_quant_matvec.py:85"),
+    ("matvec_p4c", "bench_quant_matvec", "tools/bench_quant_matvec.py:118"),
+    ("matvec_s8", "bench_quant_matvec", "tools/bench_quant_matvec.py:142"),
+    ("stream_bytes", "bench_quant_matvec",
+     "tools/bench_quant_matvec.py:169"),
+    ("dma_only", "bench_quant_matvec", "tools/bench_quant_matvec.py:186"),
+    ("_unpack_only_call", "bench_unpack_ceiling",
+     "tools/bench_unpack_ceiling.py:73"),
+    ("_mvt_call", "bench_unpack_ceiling",
+     "tools/bench_unpack_ceiling.py:115"),
+]
+
+
+def _tools_modules():
+    from sea_tpu_torch.tools import bench_quant_matvec as PQ
+    from sea_tpu_torch.tools import bench_unpack_ceiling as PU
+    return {"bench_quant_matvec": PQ, "bench_unpack_ceiling": PU}
+
+
+def _tools_cases(B, K, N, bn):
+    """{name: (kernel, plain, check, magnitude, bytes, library)} of the
+    eight kernels on seeded inputs on the card: x bf16 [B, K], an int4 q
+    (-8..7) packed input- and output-major, int8 w8, s f32 [1, N]. check is
+    "rel" (|err| <= INT4_REL_TOL x sum|x w s|, elementwise; mag is sum|x w
+    s|), "equal", or "parts" for _unpack_only_call, whose mag is then
+    (parts, faults): its kernel's parts (bench_unpack_ceiling.
+    unpack_only_parts) and the check that lists what is wrong in any
+    parts (unpack_only_faults: integer sums exact, sum(x) within
+    UNPACK_X_TOL x sum|x|, out their f32 sum bit for bit). The library
+    call computes the same function in one PyTorch call (cuBLAS bf16 over
+    the dequantized weight; torch.sum over the byte tiles), or is None."""
+    mods = _tools_modules()
+    PQ, PU = mods["bench_quant_matvec"], mods["bench_unpack_ceiling"]
+    g = torch.Generator(device="cuda").manual_seed(B + K + N)
+    q = torch.randint(-8, 8, (K, N), device="cuda", generator=g,
+                      dtype=torch.int8)
+    w8 = torch.randint(-128, 128, (K, N), device="cuda", generator=g,
+                       dtype=torch.int8)
+    x = torch.randn(B, K, device="cuda", generator=g).to(torch.bfloat16)
+    s = torch.rand(1, N, device="cuda", generator=g) * 0.01 + 1e-3
+    wp, wpt, st = PQ.pack_nibbles(q), PU.pack_int4_t(q), s.reshape(N, 1)
+    xa = x.float().abs()
+    mag4, mag8 = (xa @ q.float().abs()) * s, (xa @ w8.float().abs()) * s
+    W4 = (q.float() * s).to(torch.bfloat16)
+    W8 = (w8.float() * s).to(torch.bfloat16)
+    io = B * K * 2 + N * 4 + B * N * 4  # x read, s read, y written
+    kw = {"block_n": bn}
+    cases = {}
+    for name, w, mag, W, nbytes in (
+            ("matvec_p4", wp, mag4, W4, K * N // 2),
+            ("matvec_p4b", wp, mag4, W4, K * N // 2),
+            ("matvec_p4c", wp, mag4, W4, K * N // 2),
+            ("matvec_s8", w8, mag8, W8, K * N)):
+        cases[name] = (functools.partial(getattr(PQ, name), x, w, s, **kw),
+                       functools.partial(getattr(PQ, name + "_ref"), x, w, s,
+                                         **kw), "rel", mag, nbytes + io,
+                       functools.partial(torch.matmul, x, W))
+    cases["_mvt_call"] = (
+        functools.partial(PU._mvt_call, x, wpt, st, **kw),
+        functools.partial(PU._mvt_call_ref, x, wpt, st, **kw), "rel", mag4,
+        K * N // 2 + io, functools.partial(torch.matmul, x, W4))
+    tiles = wp.view(K // 2, N // bn, bn)
+    cases["stream_bytes"] = (
+        functools.partial(PQ.stream_bytes, wp, **kw),
+        functools.partial(PQ.stream_bytes_ref, wp, **kw), "equal", None,
+        K * N // 2 + bn * 4,
+        lambda: torch.sum(tiles, dim=(0, 1), dtype=torch.int32))
+    cases["dma_only"] = (
+        functools.partial(PQ.dma_only, wp, **kw),
+        functools.partial(PQ.dma_only_ref, wp, **kw), "equal", None,
+        K * N // 2 + bn * 4, None)
+    cases["_unpack_only_call"] = (
+        functools.partial(PU._unpack_only_call, x, wp, **kw),
+        functools.partial(PU._unpack_only_call_ref, x, wp, **kw), "parts",
+        (functools.partial(PU.unpack_only_parts, x, wp, **kw),
+         functools.partial(PU.unpack_only_faults, x=x, wp=wp, **kw)),
+        K * N // 2 + B * K * 2 + 4, None)
+    return cases
+
+
+def _planted_unpack_faults(parts):
+    """Wrong forms of _unpack_only_call's parts (out, ints, xsum), each as
+    a faulty kernel would write it, out formed from its own parts where
+    the fault would be upstream of it: out less sum(x); sum(x) dropped;
+    one 0x0F byte too many in the sums (lo + 7)."""
+    out, ints, xsum = parts
+
+    def formed(i, xs):
+        return ((i[0].float() + i[1].float()) + xs).reshape(1, 1)
+
+    more = ints + torch.tensor([7, 0], device=ints.device)
+    return {"out - sum(x)": (out - xsum, ints, xsum),
+            "sum(x) dropped": (formed(ints, 0 * xsum), ints, 0 * xsum),
+            "a byte too many": (formed(more, xsum), more, xsum)}
+
+
+def _tools_entry(module, argv):
+    """Run an entry point's main on the card; its last line, parsed."""
+    _, printed = _captured(module.main, argv)
+    last = json.loads(printed.strip().splitlines()[-1])
+    if last["device"] != torch.cuda.get_device_name(0) or not last["results"]:
+        raise AssertionError(f"[tools-quant] {module.__name__}: last line "
+                             f"{last}")
+    return last
+
+
+def phase_tools_quant():
+    """[tools-quant]: each of the eight kernels of sea_tpu_torch/tools/
+    against its plain version at TOOLS_SHAPES, block_n TOOLS_BLOCK_N, each
+    call one device kernel (torch.profiler) and two calls the same bits;
+    then each timed as [kernel-time] times the others (L2 cold, in turns
+    plain, kernel, kernel, plain), beside its bound, its plain version and
+    the library call where there is one; then both entry points at
+    TOOLS_REPEATS steps, whose mains fail on a reading above 1.05 x the HBM
+    rate. Returns (max abs err, times at B = 1, launches in the phase
+    before the entry points) by kernel name."""
+    mods = _tools_modules()
+    for mod in mods.values():
+        for key in mod.launches:
+            mod.launches[key] = 0
+    flush = torch.ones(128 << 20, dtype=torch.float32, device="cuda")
+    errors = dict.fromkeys((n for n, _, _ in TOOLS_KERNELS), 0.0)
+    times = {}
+    for B, K, N in TOOLS_SHAPES:
+        cases = _tools_cases(B, K, N, TOOLS_BLOCK_N)
+        for name, module, _ in TOOLS_KERNELS:
+            kernel, plain, check, mag, nbytes, library = cases[name]
+            label = f"[tools-quant] {name} (B,K,N)=({B},{K},{N})"
+            got, again = kernel(), kernel()
+            want = plain()
+            torch.cuda.synchronize()
+            err = _err(got, want)
+            if check == "equal":
+                ok = torch.equal(got, want)
+                bound_text = "bit for bit"
+            elif check == "parts":
+                parts_fn, faults_of = mag
+                parts = parts_fn()
+                faults = faults_of(parts)
+                ok = not faults and torch.equal(parts[0], got)
+                if not ok:
+                    raise AssertionError(f"{label}: {faults}; out as "
+                                         f"_unpack_only_call's {got.item()!r}"
+                                         f", as its parts' "
+                                         f"{parts[0].item()!r}")
+                planted = _planted_unpack_faults(parts)
+                missed = [k for k, p in planted.items() if not faults_of(p)]
+                if missed:
+                    raise AssertionError(f"{label}: the check passed the "
+                                         f"planted faults {missed}")
+                bound_text = (f"integer sums exact, sum(x) within "
+                              f"{mods['bench_unpack_ceiling'].UNPACK_X_TOL}"
+                              f" x sum|x|, out their f32 sum; planted "
+                              f"faults rejected {sorted(planted)}")
+            else:
+                ok = bool(((got - want).abs() <= INT4_REL_TOL * mag).all())
+                bound_text = f"within {INT4_REL_TOL} x sum|x w s|"
+            if not ok or not torch.equal(got, again):
+                raise AssertionError(f"{label}: max abs err {err} ({check}),"
+                                     f" two calls equal "
+                                     f"{torch.equal(got, again)}")
+            errors[name] = max(errors[name], err)
+            names = _one_kernel_a_call(kernel, label)
+            log(f"{label}: max abs err {err:.3g} {bound_text}; repeat bit "
+                f"for bit; one device kernel a call ({names})")
+            if name in ("stream_bytes", "dma_only") and B != 1:
+                continue  # no x: timed once
+            ms, plain_ms, runs = _kernel_vs_plain(kernel, plain, flush)
+            # Operations: a multiply-add a weight and row of x (bf16 x
+            # times an exact small integer: the bf16 tensor-core peak);
+            # the stream kernels an add or less a byte.
+            flops = (2 * B * K * N if check == "rel" else K * N)
+            bound, bound_by = _bound_ms(nbytes, flops, BF16_FLOP_PER_S)
+            lib = _library_ms(library, flush) if library else None
+            if B == 1:
+                times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                                   bound_by=bound_by, library_ms=lib)
+            log(f"[kernel-time] {name} (B,K,N)=({B},{K},{N}) block_n "
+                f"{TOOLS_BLOCK_N}, L2 cold: kernel {ms:.4f} ms "
+                f"({runs[1]:.4f}, {runs[2]:.4f}; "
+                f"{nbytes / (ms * 1e-3) / 1e9:.0f} GB/s), plain "
+                f"{plain_ms:.4f} ms ({runs[0]:.4f}, {runs[3]:.4f}), bound "
+                f"{bound:.4f} ms ({bound_by}), "
+                + (f"library {lib:.4f} ms" if lib is not None
+                   else "no single PyTorch call"))
+        del cases
+    # The kernels line's launches: the calls above, each a launch.
+    launches = {name: mods[module].launches[name]
+                for name, module, _ in TOOLS_KERNELS}
+    log(f"[tools-quant] launches in the phase's checks and timings: "
+        f"{launches}")
+    for module in mods.values():
+        last = _tools_entry(module, ["--repeats", str(TOOLS_REPEATS)])
+        log(f"[tools-quant] python -m {module.__name__} --repeats "
+            f"{TOOLS_REPEATS}: " + "; ".join(
+                f"{k} {r['us']:.3f} us {r['GB/s']:.1f} GB/s "
+                f"({r['hbm_share']:.3f} of 3.35 TB/s)"
+                for k, r in last["results"].items()))
+    # The mains' timed loops run as CUDA graphs: a captured call records
+    # its kernel and counts nothing, and the replays pass no wrapper. What
+    # the mains add is their correctness checks' direct launches.
+    log("[tools-quant] launches in the entry points' checks (their graphs' "
+        "replays uncounted): " + str({
+            name: mods[module].launches[name] - launches[name]
+            for name, module, _ in TOOLS_KERNELS}))
+    return errors, times, launches
+
+
 KERNELS = [  # name, route, source, the TPU kernel it replaces
     ("decode_attention", "cuda", "sea_tpu_torch/csrc/decode_attention.cu",
      "sea_tpu/ops/decode_attention.py:48"),
@@ -4290,7 +4530,8 @@ KERNELS = [  # name, route, source, the TPU kernel it replaces
      "sea_tpu/ops/flash_attention.py:415"),
     ("flash_bwd_dkv_bf16", "cuda", "sea_tpu_torch/csrc/flash_attention.cu",
      "sea_tpu/ops/flash_attention.py:451"),
-]
+] + [(name, "cuda", "sea_tpu_torch/csrc/quant_bench.cu", tpu)
+     for name, _, tpu in TOOLS_KERNELS]
 
 
 def _timed(fn, *args, **kwargs):
@@ -4318,6 +4559,12 @@ def main():
               "dropout_mask": phase_mask_check(),
               **phase_flash_check(), **phase_flash_check_bf16(),
               **phase_adaln_check()}
+    # Early, while torch.profiler records every launch: once the process
+    # has run a while without a session (from [serve] on), sessions lose
+    # device events at random, PyTorch's own kernels' too
+    # (chip_profiler_probe.py), and this phase counts kernels under it.
+    tools_errors, tools_times, tools_launches = _timed(phase_tools_quant)
+    errors.update(tools_errors)
     for name, err in _timed(phase_mesh_kernels).items():
         errors[name] = max(errors[name], err)
     launches = {"dropout_mask": phase_flash_dropout()}
@@ -4382,6 +4629,8 @@ def main():
         times[name + "_bf16"] = flash[(name + "_bf16", 128, 0.1)]
     for name in ("adaln_fwd", "adaln_bwd"):
         times[name] = adaln[(name, 1024)]
+    times.update(tools_times)
+    launches.update(tools_launches)
     shapes = {"decode_attention": "(B,H,T,hd)=(1,8,250,256) f32, t=T-1",
               "decode_q8": "(B,H,T,hd)=(8,8,250,256) int8, t=T-1",
               "int4_matvec": "(M,K,N)=(1,2048,16384)",
@@ -4390,7 +4639,9 @@ def main():
                  for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
                  for sfx, dt in (("", "f32"), ("_bf16", "bf16"))},
               **{n: "(B,T,E)=(2,399,1024)" for n in ("adaln_fwd",
-                                                     "adaln_bwd")}}
+                                                     "adaln_bwd")},
+              **{n: f"(B,K,N)={TOOLS_SHAPES[0]} block_n {TOOLS_BLOCK_N}"
+                 for n, _, _ in TOOLS_KERNELS}}
     log(f"[time] chip_smoke.py: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": route, "source": source, "replaces": tpu,
