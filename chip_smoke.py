@@ -315,9 +315,11 @@ def phase_build():
     # forward, dQ and dK/dV at hd 64, 128 and 256 must each be one
     # instance running wgmma (HGMMA) on tiles that TMA loads (UTMALDG),
     # the backward's with no mma.sync and no stack or local memory (a
-    # spill); and the microbenchmark kernels of quant_bench.cu.
+    # spill); and the microbenchmark kernels of quant_bench.cu, whose
+    # matvec_s8 and _mvt_call kernels must run mma.sync (HMMA) with no
+    # stack or local memory.
     for name, kernels in (("quant_matmul", ("",)),
-                          ("quant_bench", ("matvec_in", "matvec_out",
+                          ("quant_bench", ("matvec_in", *QB_MMA,
                                            "reduce_kernel", "copy_kernel")),
                           ("flash_attention", ("dq_kernel", "dkv_kernel",
                                                FWD_WGMMA)),
@@ -337,6 +339,31 @@ def phase_build():
                 log(f"[build] {name}.cu {line.strip()}")
         if name == "flash_attention":
             _wgmma_gate(_sass_counts(lib, kernels), usage)
+        if name == "quant_bench":
+            _hmma_gate(_sass_counts(lib, QB_MMA), usage)
+
+
+# The tensor-core kernels of quant_bench.cu: matvec_s8's, and _mvt_call's
+# two instances (16- and 8-byte loads, or words).
+QB_MMA = ("s8_mma", "mvt_mma")
+
+
+def _hmma_gate(counts, usage):
+    """Log the SASS counts of quant_bench.cu's tensor-core kernels; raise
+    unless there are three instances (s8_mma, mvt_mma<true|false>), each
+    with HMMA and with STACK 0 and LOCAL 0."""
+    for fn, n in counts.items():
+        use = usage.get(fn, {})
+        log(f"[build] quant_bench.cu SASS {fn}: "
+            + ", ".join(f"{k} {v}" for k, v in n.items()) + "; "
+            + ", ".join(f"{k} {use.get(k)}" for k in ("REG", "STACK",
+                                                      "LOCAL")))
+        if not n["HMMA"] or use.get("STACK") != 0 or use.get("LOCAL") != 0:
+            raise AssertionError(f"{fn}: want HMMA, STACK 0 and LOCAL 0, "
+                                 f"got HMMA {n['HMMA']}, {use}")
+    if len(counts) != 3:
+        raise AssertionError(f"quant_bench.cu: want 3 tensor-core kernel "
+                             f"instances {QB_MMA}, got {sorted(counts)}")
 
 
 def _wgmma_gate(counts, usage):

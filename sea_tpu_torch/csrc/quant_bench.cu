@@ -9,11 +9,11 @@
 //   tools/bench_quant_matvec.py:56    matvec_p4          matvec_in<kP4>
 //   tools/bench_quant_matvec.py:85    matvec_p4b         matvec_in<kP4b>
 //   tools/bench_quant_matvec.py:118   matvec_p4c         matvec_in<kP4c>
-//   tools/bench_quant_matvec.py:142   matvec_s8          matvec_in<kS8>
+//   tools/bench_quant_matvec.py:142   matvec_s8          s8_mma
 //   tools/bench_quant_matvec.py:169   stream_bytes       reduce_kernel<0>
 //   tools/bench_quant_matvec.py:186   dma_only           copy_kernel
 //   tools/bench_unpack_ceiling.py:73  _unpack_only_call  reduce_kernel<1>
-//   tools/bench_unpack_ceiling.py:115 _mvt_call          matvec_out
+//   tools/bench_unpack_ceiling.py:115 _mvt_call          mvt_mma<kVec>
 //
 // (reduce_kernel<0> is kColumnSums, reduce_kernel<1> kUnpackSums.)
 //
@@ -25,38 +25,99 @@
 //
 // What bounds them: memory. Each reads its weight once, K/2 * N bytes
 // (K * N for matvec_s8): 16.8 MB at the tools' (K, N) = (2048, 16384),
-// 5.0 us at 3.35 TB/s. The matvecs do 2 B multiply-adds a weight, nothing
-// against the tensor cores; they run as f32 FMAs on the CUDA cores, where
-// the unpack's integer operations and the conversions compete with the
-// FMAs for the schedulers' slots. So every form converts its small
-// integers to f32 with one integer add and one f32 subtraction (the
-// 1.5 * 2^23 bias, exact below 2^22), not with I2F, which runs at an
-// eighth of the FMA rate on sm_90; the forms differ only in their integer
-// formulas, which
-// keep the TPU kernels' own:
+// 5.0 us at 3.35 TB/s. The matvecs do 2 B multiply-adds a weight, far
+// below the ~295 operations a byte at which the bf16 tensor cores, and not
+// the memory, would limit.
 //
-//   kP4   32-bit: ((w & 0xF) ^ 8) - 8 and ((w >> 4) ^ 8) - 8;
-//   kP4b  byte-width sign extension: int8(w << 4) >> 4 and int8(w) >> 4;
-//   kP4c  the bias form: (w & 0xF) ^ 8 = lo + 8 and int8(w) & -16 = 16 hi;
-//         x's high half is read times 1/16 (exact) and 8 sum(x_lo) is
-//         taken off the sum once a row, as the TPU kernel's rank-1 term;
-//   kS8   int8(w) as it is.
+// Three of the matvecs run on the CUDA cores, two on the tensor cores:
 //
-// Design, simple first:
+//  - matvec_in (matvec_p4, p4b, p4c) keeps f32 FMAs. The unpack's integer
+//    operations and the conversions compete with the FMAs for the
+//    schedulers' slots, so every form converts its small integers to f32
+//    with one integer add and one f32 subtraction (the 1.5 * 2^23 bias,
+//    exact below 2^22), not with I2F, which runs at an eighth of the FMA
+//    rate on sm_90; the forms differ only in their integer formulas, which
+//    keep the TPU kernels' own:
 //
-//  - matvec_in: a block owns 64 output columns and all of K; 256 threads
-//    are 4 column groups of 16 bytes by 64 row slices, so one warp load
-//    reads 8 rows of 64 contiguous bytes. Each thread loads 8 rows' (4 at
-//    B > 4) 16-byte pieces before it uses any (bytes in flight), keeps
-//    B x 16 f32 sums, and reads x from shared memory, where the block
-//    stages it once as f32 [K][BT] (BT = B rounded up to 1, 2, 4 or 8;
-//    rows past B zero).
-//    The 64 slices are summed in a fixed order: shuffles inside a warp,
-//    then the 8 warps in order through shared memory.
-//  - matvec_out: a warp owns 8 output columns (weight rows) at a time, its
-//    lanes reading 4 contiguous bytes of each (a warp reads 128-byte
-//    lines) and x once for the 8; the lane sums meet in a fixed shuffle
-//    order. Blocks walk the columns (a persistent grid of 2 an SM).
+//      kP4   32-bit: ((w & 0xF) ^ 8) - 8 and ((w >> 4) ^ 8) - 8;
+//      kP4b  byte-width sign extension: int8(w << 4) >> 4 and int8(w) >> 4;
+//      kP4c  the bias form: (w & 0xF) ^ 8 = lo + 8 and int8(w) & -16 =
+//            16 hi; x's high half is read times 1/16 (exact) and 8 sum(x_lo)
+//            is taken off the sum once a row, as the TPU kernel's rank-1
+//            term.
+//
+//    A block owns 64 output columns and all of K; 256 threads are 4 column
+//    groups of 16 bytes by 64 row slices, so one warp load reads 8 rows of
+//    64 contiguous bytes. Each thread loads 8 rows' (4 at B > 4) 16-byte
+//    pieces before it uses any (bytes in flight), keeps B x 16 f32 sums,
+//    and reads x from shared memory, where the block stages it once as f32
+//    [K][BT] (BT = B rounded up to 1, 2, 4 or 8; rows past B zero). The 64
+//    slices are summed in a fixed order: shuffles inside a warp, then the 8
+//    warps in order through shared memory. At B = 8 that is 8 FMAs a
+//    weight on top of its unpack.
+//
+//  - s8_mma (matvec_s8) and mvt_mma (_mvt_call) run the products as bf16
+//    mma.sync.m16n8k16 with f32 accumulators, the serving int4 matvec's
+//    mechanism (csrc/quant_matmul.cu): the weights are A (16 output columns
+//    x 16 k), x is B (16 k x 8 rows of x; rows at or past B are zero, so
+//    every B in 1..8 runs the same MMAs and costs the same). A weight
+//    becomes its exact value in bf16 and meets bf16 x in an exact product;
+//    sums are f32 and s multiplies once at the end. Lane (g, t) = (lane /
+//    4, lane % 4) holds A rows g and g + 8 at k slots {2t, 2t + 1} and {2t
+//    + 8, 2t + 9}. The k order inside an MMA is free as long as x's B
+//    fragment follows it; each kernel picks it so that a lane's A comes
+//    from few, contiguous bytes and its B from one load. Neither stages
+//    anything: weights go from device memory into registers with 16- or
+//    8-byte loads, a warp's load covering whole 32-byte sectors, and the
+//    next step's loads are issued before the current step's MMAs (bytes in
+//    flight); x comes through L1, where every warp of the block reads it.
+//    Split-K runs across the warps of a block, whose sums meet in shared
+//    memory in warp order: a fixed order, so two calls give the same bits.
+//
+//    s8_mma, input-major int8 w8 [K, N]: a warp owns 128 columns, lane
+//    group g the 16 bytes [16 g, 16 g + 16) of each row, so one warp load
+//    reads 4 rows of 128 contiguous bytes. An MMA step covers 16 rows; k
+//    slot 2t is row t, 2t + 1 row t + 4, 2t + 8 row t + 8, 2t + 9 row t +
+//    12, so a lane holds 4 rows' 16 bytes and MMA tile j (of 8) takes bytes
+//    2j and 2j + 1 of them as its A rows g and g + 8: tile j's 16 rows are
+//    the columns {16 g + 2j, 16 g + 2j + 1 : g = 0..7}. B is x[g] at k t,
+//    t + 4, t + 8, t + 12: four 2-byte loads and two byte permutes a step.
+//    An int8 is exact in bf16 (8 significant bits), but the lop3 trick of
+//    the nibbles gives only 7 mantissa bits. Two ways were counted from the
+//    instruction sequences, per 8 weight bytes (one MMA tile of a lane):
+//    (a) one XOR of the word with 0x80808080 (w + 128; a quarter a byte),
+//    one byte permute building the f32 1.5 * 2^23 + (w + 128), one f32
+//    subtraction, and one cvt.rn.bf16x2.f32 a pair: 2 + 8 + 8 + 4 = 22
+//    instructions and 1 MMA; (b) the byte split into an unsigned low
+//    nibble and a signed high one, x times 16 for the latter, two exact
+//    bf16 planes by the lop3 trick: 2 permutes + 4 x (lop3 + subtraction)
+//    + 4 x (shift + lop3 + subtraction) + the shifts of the second
+//    register = 24 and 2 MMAs. (a) is the kernel's. 16 warps a block
+//    split the block's K in steps of 16 rows, taken in turn; one block an
+//    SM, N / 128 blocks: 128 at N = 16384.
+//
+//    mvt_mma, output-major wt uint8 [N, K/2]: a block owns 64 columns, 4
+//    MMA tiles; tile j's A rows g and g + 8 are the columns 16 j + g and 16
+//    j + g + 8. A step covers 32 packed bytes of every column (4 MMAs):
+//    lane t reads the 8 bytes [8 t, 8 t + 8) of its two columns, so a
+//    quad reads 32 contiguous bytes, one sector. The byte's low nibble is
+//    k = p and its high one k = p + K/2, the two halves of the reduction:
+//    MMA s takes bytes 2s and 2s + 1 of the lane's 8, their low nibbles as
+//    k slots 2t, 2t + 1 and their high ones as 2t + 8, 2t + 9. So B is
+//    x[g][p], x[g][p + 1] and x[g][K/2 + p], x[g][K/2 + p + 1]: contiguous
+//    pairs, one 16-byte load of each half a step. One byte permute pairs
+//    bytes (2s, 2s + 1) of the two columns; then per A register a shift
+//    and one lop3, (v & 0x000F000F) ^ 0x43084308, give 128 + (nibble ^ 8)
+//    = 136 + w as two bf16, and one bf16x2 subtraction of 136 gives w
+//    exactly (csrc/quant_matmul.cu's nibbles_to_bf16x2): about 12
+//    instructions an MMA, 3 a weight byte. The TPU kernel's bias form (lo
+//    + 8, 16 hi, the rank-1 term) is a Mosaic workaround and is not
+//    carried over. 8 warps a block split K/2 in steps of 32 bytes, taken
+//    in turn; two blocks an SM, N / 64 blocks: 256 at N = 16384. K/2 not a
+//    multiple of 8, or x or w off their 16- and 8-byte alignment, take the
+//    kernel's other form, which reads w in 4-byte words and x element by
+//    element.
+//
 //  - reduce_kernel: a grid of (row splits, column tiles), enough blocks to
 //    fill the card twice; 16-byte loads, 4 rows in flight a thread. The
 //    column sums (stream_bytes) and the unpacked tile sums
@@ -86,10 +147,19 @@ constexpr int kSlices = kThreads / kGroups;
 // Rows a thread loads before it uses any: 8, or 4 at B > 4, where its B x 16
 // sums already take 128 registers.
 __host__ __device__ constexpr int unroll(int bt) { return bt > 4 ? 4 : 8; }
-// matvec_out: weight rows a warp, 4-byte loads a lane a row per step, steps
-// unrolled.
-constexpr int kRowsPerWarp = 8;
-constexpr int kOutSteps = 2;
+// s8_mma: warps a block; columns a block (and a warp), MMA tiles of 16 of
+// them, rows an MMA step. mvt_mma: warps a block; MMA tiles a block; packed
+// bytes of a column an MMA step.
+constexpr int kS8Warps = 16;
+constexpr int kS8Threads = kS8Warps * 32;
+constexpr int kS8Cols = 128;
+constexpr int kS8Tiles = kS8Cols / 16;
+constexpr int kS8StepRows = 16;
+constexpr int kMvtWarps = 8;
+constexpr int kMvtThreads = kMvtWarps * 32;
+constexpr int kMvtTiles = 4;
+constexpr int kMvtCols = 16 * kMvtTiles;
+constexpr int kMvtStepBytes = 32;
 // reduce_kernel: rows in flight a thread. copy_kernel: ring of stages.
 constexpr int kReduceUnroll = 4;
 constexpr int kRing = 4;
@@ -115,7 +185,7 @@ __device__ __forceinline__ void planes(uint32_t w, float& lo, float& hi) {
     const int8_t shl = static_cast<int8_t>(static_cast<uint8_t>(w << 4));
     lo = small_int_to_float(shl >> 4);
     hi = small_int_to_float(b >> 4);
-  } else {  // kP4c, kOut
+  } else {  // kP4c
     lo = small_int_to_float(static_cast<int>((w & 0xF) ^ 8));
     hi = small_int_to_float(static_cast<int8_t>(w) & -16);
   }
@@ -144,12 +214,12 @@ __device__ void stage_x(const __nv_bfloat16* __restrict__ x, int B, int K,
     const int k = i / BT, b = i % BT;
     float v = b < B ? __bfloat162float(x[static_cast<size_t>(b) * K + k])
                     : 0.0f;
-    if constexpr (F == kP4c || F == kOut) {
+    if constexpr (F == kP4c) {
       if (k >= K2) v *= 0.0625f;
     }
     xs[i] = v;
   }
-  if constexpr (F == kP4c || F == kOut) {
+  if constexpr (F == kP4c) {
     for (int b = 0; b < BT; ++b) {
       float v = 0.0f;
       if (b < B)
@@ -161,8 +231,8 @@ __device__ void stage_x(const __nv_bfloat16* __restrict__ x, int B, int K,
   }
 }
 
-// y = (x @ W) * s over input-major weights: w uint8 [K/2, N] (int4 forms)
-// or int8 [K, N] (kS8), N a multiple of 16, w on 16 bytes.
+// y = (x @ W) * s over input-major int4 weights: w uint8 [K/2, N], N a
+// multiple of 16, w on 16 bytes.
 template <int F, int BT>
 __global__ void __launch_bounds__(kThreads)
     matvec_in(const __nv_bfloat16* __restrict__ x,
@@ -176,7 +246,7 @@ __global__ void __launch_bounds__(kThreads)
   stage_x<F, BT>(x, B, K, xs, corr, part);
   __syncthreads();
 
-  const int rows = F == kS8 ? K : K / 2;
+  const int rows = K / 2;
   const int K2 = K / 2;
   const int group = threadIdx.x % kGroups;
   const int slice = threadIdx.x / kGroups;
@@ -203,34 +273,20 @@ __global__ void __launch_bounds__(kThreads)
         const int r = r0 + u * kSlices;
         if (r >= rows) break;
         const uint32_t words[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
-        if constexpr (F == kS8) {
-          float xr[BT];
+        float xl[BT], xh[BT];
 #pragma unroll
-          for (int b = 0; b < BT; ++b) xr[b] = xs[r * BT + b];
+        for (int b = 0; b < BT; ++b) {
+          xl[b] = xs[r * BT + b];
+          xh[b] = xs[(r + K2) * BT + b];
+        }
 #pragma unroll
-          for (int j = 0; j < 16; ++j) {
-            const int8_t q =
-                static_cast<int8_t>(words[j / 4] >> (8 * (j % 4)));
-            const float f = small_int_to_float(q);
-#pragma unroll
-            for (int b = 0; b < BT; ++b) acc[b][j] = fmaf(xr[b], f, acc[b][j]);
-          }
-        } else {
-          float xl[BT], xh[BT];
+        for (int j = 0; j < 16; ++j) {
+          float lo, hi;
+          planes<F>((words[j / 4] >> (8 * (j % 4))) & 0xFFu, lo, hi);
 #pragma unroll
           for (int b = 0; b < BT; ++b) {
-            xl[b] = xs[r * BT + b];
-            xh[b] = xs[(r + K2) * BT + b];
-          }
-#pragma unroll
-          for (int j = 0; j < 16; ++j) {
-            float lo, hi;
-            planes<F>((words[j / 4] >> (8 * (j % 4))) & 0xFFu, lo, hi);
-#pragma unroll
-            for (int b = 0; b < BT; ++b) {
-              acc[b][j] = fmaf(xl[b], lo, acc[b][j]);
-              acc[b][j] = fmaf(xh[b], hi, acc[b][j]);
-            }
+            acc[b][j] = fmaf(xl[b], lo, acc[b][j]);
+            acc[b][j] = fmaf(xh[b], hi, acc[b][j]);
           }
         }
       }
@@ -265,85 +321,299 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// y = (x @ W) * s over output-major weights, the bias form (kP4c's):
-// wt uint8 [N, K/2], K/2 a multiple of 4, wt on 4 bytes.
-template <int BT>
-__global__ void __launch_bounds__(kThreads)
-    matvec_out(const __nv_bfloat16* __restrict__ x,
-               const uint8_t* __restrict__ wt, const float* __restrict__ s,
-               float* __restrict__ y, int B, int K, int N) {
-  extern __shared__ __align__(16) float smem[];
-  float* xs = smem;  // [K][BT]
-  __shared__ float corr[BT];
-  __shared__ float part[kWarps];
-  stage_x<kOut, BT>(x, B, K, xs, corr, part);
-  __syncthreads();
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
 
-  const int K2 = K / 2;
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  const int stride = gridDim.x * kWarps * kRowsPerWarp;
-  for (int n0 = (blockIdx.x * kWarps + warp) * kRowsPerWarp; n0 < N;
-       n0 += stride) {
-    float acc[kRowsPerWarp][BT];
+// Two f32 -> bf16x2 (round to nearest even; exact for the small integers
+// here), a in the low half.
+__device__ __forceinline__ uint32_t bf16x2(float a, float b) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// Two bf16 bit patterns (in the low halves of a and b) as bf16x2, a low.
+__device__ __forceinline__ uint32_t pair(uint32_t a, uint32_t b) {
+  return __byte_perm(a, b, 0x5410);
+}
+
+// Byte b of u, which holds int8 weights XOR 0x80 (w + 128), as the f32 w:
+// one permute builds the f32 1.5 * 2^23 + (w + 128) (bytes: u's byte b,
+// 0x00, 0x40, 0x4B), one subtraction takes 1.5 * 2^23 + 128 off. Exact.
+template <int b>
+__device__ __forceinline__ float s8_value(uint32_t u) {
+  return __int_as_float(__byte_perm(u, 0x4B400000u, 0x7650 | b)) -
+         12583040.0f;
+}
+
+// Nibbles at bits 0-3 and 16-19 of v -> their two exact signed values as
+// bf16x2: (v & 0x000F000F) ^ 0x43084308 in one lop3 is 0x4300 | (n ^ 8),
+// i.e. 128 + (w + 8); minus 136 (which is 0x4308 in bf16).
+__device__ __forceinline__ uint32_t nibbles_to_bf16x2(uint32_t v) {
+  constexpr uint32_t k136 = 0x43084308u;
+  uint32_t r;
+  asm("lop3.b32 %0, %1, 0x000F000F, 0x43084308, 0x6a;\n" : "=r"(r) : "r"(v));
+  __nv_bfloat162 h = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&r),
+                             *reinterpret_cast<const __nv_bfloat162*>(&k136));
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// One MMA step of s8_mma: rows 16 st + t + 4 i (i = 0..3) of the lane's 16
+// columns, and its B fragment, x[g] at those rows.
+struct S8Step {
+  uint4 w[4];
+  uint32_t b0, b1;
+};
+
+__device__ __forceinline__ void s8_load(S8Step& s, const uint8_t* w,
+                                        const unsigned short* xg, int st,
+                                        int t, int K, int N, int col,
+                                        bool cols_in, bool x_in) {
+  uint32_t xv[4];
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r)
+  for (int i = 0; i < 4; ++i) {
+    const int k = kS8StepRows * st + t + 4 * i;
+    s.w[i] = k < K && cols_in
+                 ? __ldg(reinterpret_cast<const uint4*>(
+                       w + static_cast<size_t>(k) * N + col))
+                 : make_uint4(0u, 0u, 0u, 0u);
+    xv[i] = k < K && x_in ? __ldg(xg + k) : 0u;
+  }
+  s.b0 = pair(xv[0], xv[1]);
+  s.b1 = pair(xv[2], xv[3]);
+}
+
+// The step's 8 MMA tiles: tile j = 2q + h takes bytes 2h and 2h + 1 of word
+// q of each row (columns 16 g + 2j and 16 g + 2j + 1) as its A rows g and
+// g + 8; k slots 2t, 2t + 1, 2t + 8, 2t + 9 are rows t, t + 4, t + 8,
+// t + 12. Zero bytes (past K or N) are the weight 0.
+__device__ __forceinline__ void s8_step(float (&acc)[kS8Tiles][4],
+                                        const S8Step& s) {
+  uint32_t u[4][4];
 #pragma unroll
-      for (int b = 0; b < BT; ++b) acc[r][b] = 0.0f;
-    for (int k0 = 4 * lane; k0 < K2; k0 += 128 * kOutSteps) {
-      uint32_t v[kOutSteps][kRowsPerWarp];
+  for (int i = 0; i < 4; ++i) {
+    u[i][0] = s.w[i].x ^ 0x80808080u;
+    u[i][1] = s.w[i].y ^ 0x80808080u;
+    u[i][2] = s.w[i].z ^ 0x80808080u;
+    u[i][3] = s.w[i].w ^ 0x80808080u;
+  }
 #pragma unroll
-      for (int t = 0; t < kOutSteps; ++t)
+  for (int q = 0; q < 4; ++q) {
+    mma_bf16(acc[2 * q],
+             bf16x2(s8_value<0>(u[0][q]), s8_value<0>(u[1][q])),
+             bf16x2(s8_value<1>(u[0][q]), s8_value<1>(u[1][q])),
+             bf16x2(s8_value<0>(u[2][q]), s8_value<0>(u[3][q])),
+             bf16x2(s8_value<1>(u[2][q]), s8_value<1>(u[3][q])), s.b0, s.b1);
+    mma_bf16(acc[2 * q + 1],
+             bf16x2(s8_value<2>(u[0][q]), s8_value<2>(u[1][q])),
+             bf16x2(s8_value<3>(u[0][q]), s8_value<3>(u[1][q])),
+             bf16x2(s8_value<2>(u[2][q]), s8_value<2>(u[3][q])),
+             bf16x2(s8_value<3>(u[2][q]), s8_value<3>(u[3][q])), s.b0, s.b1);
+  }
+}
+
+// The x row and column (inside the block's tile) of accumulator element e
+// of the fragment order [tile j][lane][c0..c3], in a kernel whose tile j
+// has the columns col(j, g) and col(j, g) + d as A rows g and g + 8: c0,
+// c1 are x rows 2t, 2t + 1 of A row g, c2, c3 of A row g + 8.
+struct Element {
+  int j, g, m, hi;
+  __device__ __forceinline__ explicit Element(int e) {
+    j = e >> 7;
+    const int lane = (e >> 2) & 31, c = e & 3;
+    g = lane >> 2;
+    m = 2 * (lane & 3) + (c & 1);
+    hi = c >> 1;
+  }
+};
+
+// The block's sum over its warps, in warp order, of each accumulator
+// element, times s, into y. red: [kWarps][kTiles][32] float4, each warp's
+// accumulators written there before the barrier this starts with.
+// col(el) is an element's column inside the tile.
+template <int kWarpsT, int kTiles, int kThreadsT, typename Col>
+__device__ __forceinline__ void warp_sums_out(const float* red, int n0,
+                                              int B, int N,
+                                              const float* __restrict__ s,
+                                              float* __restrict__ y,
+                                              Col col) {
+  constexpr int kAcc = kTiles * 32 * 4;  // a warp's accumulators
+  __syncthreads();
+  for (int e = threadIdx.x; e < kAcc; e += kThreadsT) {
+    const Element el(e);
+    const int n = n0 + col(el);
+    if (el.m >= B || n >= N) continue;
+    float sum = 0.f;
 #pragma unroll
-        for (int r = 0; r < kRowsPerWarp; ++r) {
-          const int k = k0 + 128 * t;
-          v[t][r] = (k < K2 && n0 + r < N)
-                        ? __ldg(reinterpret_cast<const uint32_t*>(
-                              wt + static_cast<size_t>(n0 + r) * K2 + k))
-                        : 0u;
-        }
+    for (int w = 0; w < kWarpsT; ++w) sum += red[w * kAcc + e];
+    y[static_cast<size_t>(el.m) * N + n] = sum * s[n];
+  }
+}
+
+// y = (x @ W) * s over input-major int8 weights w8 [K, N], N a multiple of
+// 16, w8 on 16 bytes. Grid: one block a 128-column tile.
+__global__ void __launch_bounds__(kS8Threads, 1)
+    s8_mma(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
+           const float* __restrict__ s, float* __restrict__ y, int B, int K,
+           int N) {
+  extern __shared__ __align__(16) float red[];  // [warp][tile][lane] x 4
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * kS8Cols;
+  const int col = n0 + 16 * g;
+  const bool cols_in = col < N, x_in = g < B;
+  const unsigned short* xg =
+      reinterpret_cast<const unsigned short*>(x) + static_cast<size_t>(g) * K;
+  const int steps = (K + kS8StepRows - 1) / kS8StepRows;
+
+  float acc[kS8Tiles][4];
 #pragma unroll
-      for (int t = 0; t < kOutSteps; ++t) {
-        const int k = k0 + 128 * t;
-        if (k >= K2) break;
+  for (int j = 0; j < kS8Tiles; ++j)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float xl[BT], xh[BT];
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+  // Step st + kS8Warps is loaded before step st is multiplied.
+  S8Step cur, nxt;
+  if (warp < steps) s8_load(cur, w, xg, warp, t, K, N, col, cols_in, x_in);
+  for (int st = warp; st < steps; st += kS8Warps) {
+    if (st + kS8Warps < steps)
+      s8_load(nxt, w, xg, st + kS8Warps, t, K, N, col, cols_in, x_in);
+    s8_step(acc, cur);
+    cur = nxt;
+  }
+
+  float4* r4 = reinterpret_cast<float4*>(red);
 #pragma unroll
-          for (int b = 0; b < BT; ++b) {
-            xl[b] = xs[(k + j) * BT + b];
-            xh[b] = xs[(k + j + K2) * BT + b];
-          }
+  for (int j = 0; j < kS8Tiles; ++j)
+    r4[(warp * kS8Tiles + j) * 32 + lane] =
+        make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
+  warp_sums_out<kS8Warps, kS8Tiles, kS8Threads>(
+      red, n0, B, N, s, y,
+      [](const Element& el) { return 16 * el.g + 2 * el.j + el.hi; });
+}
+
+// One MMA step of mvt_mma: the packed bytes [p, p + 8), p = 32 st + 8 t, of
+// the lane's two columns of each tile (A rows g and g + 8), and x[g]'s
+// elements [p, p + 8) and [K/2 + p, K/2 + p + 8): bf16 pairs, word s of
+// each the B fragment of MMA s. Past K/2 and N zero.
+struct MvtStep {
+  uint2 w[kMvtTiles][2];
+  uint4 xl, xh;
+};
+
+template <bool kVec>
+__device__ __forceinline__ void mvt_load(MvtStep& s, const uint8_t* wt,
+                                         const unsigned short* xg, int st,
+                                         int t, int K2, int N, int n0, int g,
+                                         bool x_in) {
+  const int p = kMvtStepBytes * st + 8 * t;
 #pragma unroll
-          for (int r = 0; r < kRowsPerWarp; ++r) {
-            float lo, hi;
-            planes<kOut>((v[t][r] >> (8 * j)) & 0xFFu, lo, hi);
+  for (int j = 0; j < kMvtTiles; ++j)
 #pragma unroll
-            for (int b = 0; b < BT; ++b) {
-              acc[r][b] = fmaf(xl[b], lo, acc[r][b]);
-              acc[r][b] = fmaf(xh[b], hi, acc[r][b]);
-            }
-          }
-        }
+    for (int r = 0; r < 2; ++r) {
+      const int n = n0 + 16 * j + g + 8 * r;
+      const uint8_t* src = wt + static_cast<size_t>(n) * K2 + p;
+      if constexpr (kVec) {
+        s.w[j][r] = p < K2 && n < N
+                        ? __ldg(reinterpret_cast<const uint2*>(src))
+                        : make_uint2(0u, 0u);
+      } else {  // K2 a multiple of 4: a word is in or out whole
+        const uint32_t* s32 = reinterpret_cast<const uint32_t*>(src);
+        s.w[j][r].x = p < K2 && n < N ? __ldg(s32) : 0u;
+        s.w[j][r].y = p + 4 < K2 && n < N ? __ldg(s32 + 1) : 0u;
       }
     }
+  if constexpr (kVec) {
+    const bool in = x_in && p < K2;
+    s.xl = in ? __ldg(reinterpret_cast<const uint4*>(xg + p))
+              : make_uint4(0u, 0u, 0u, 0u);
+    s.xh = in ? __ldg(reinterpret_cast<const uint4*>(xg + K2 + p))
+              : make_uint4(0u, 0u, 0u, 0u);
+  } else {
+    uint32_t v[2][8];
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r)
+    for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int b = 0; b < BT; ++b)
+      for (int e = 0; e < 8; ++e)
+        v[h][e] = x_in && p + e < K2 ? __ldg(xg + h * K2 + p + e) : 0u;
+    s.xl = make_uint4(pair(v[0][0], v[0][1]), pair(v[0][2], v[0][3]),
+                      pair(v[0][4], v[0][5]), pair(v[0][6], v[0][7]));
+    s.xh = make_uint4(pair(v[1][0], v[1][1]), pair(v[1][2], v[1][3]),
+                      pair(v[1][4], v[1][5]), pair(v[1][6], v[1][7]));
+  }
+}
+
+// The step's MMAs: MMA s (0..3) of tile j takes bytes 2s and 2s + 1 of the
+// lane's 8 of each column; a byte permute puts (column g: byte 2s, column
+// g + 8: byte 2s, column g: byte 2s + 1, column g + 8: byte 2s + 1) in v,
+// so that v, v >> 8, v >> 4, v >> 12 hold a0..a3's nibbles at bits 0-3
+// and 16-19: the low nibbles are k slots 2t, 2t + 1, the high 2t + 8,
+// 2t + 9.
+__device__ __forceinline__ void mvt_step(float (&acc)[kMvtTiles][4],
+                                         const MvtStep& s) {
+  const uint32_t bl[4] = {s.xl.x, s.xl.y, s.xl.z, s.xl.w};
+  const uint32_t bh[4] = {s.xh.x, s.xh.y, s.xh.z, s.xh.w};
 #pragma unroll
-        for (int o = 16; o > 0; o >>= 1)
-          acc[r][b] += __shfl_xor_sync(0xffffffffu, acc[r][b], o);
-    if (lane == 0) {
+  for (int j = 0; j < kMvtTiles; ++j) {
+    const uint32_t wa[2] = {s.w[j][0].x, s.w[j][0].y};
+    const uint32_t wb[2] = {s.w[j][1].x, s.w[j][1].y};
 #pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-        for (int b = 0; b < BT; ++b)
-          if (b < B && n0 + r < N)
-            y[static_cast<size_t>(b) * N + n0 + r] =
-                (acc[r][b] - corr[b]) * s[n0 + r];
+    for (int m = 0; m < 4; ++m) {
+      const uint32_t v =
+          __byte_perm(wa[m >> 1], wb[m >> 1], (m & 1) ? 0x7362 : 0x5140);
+      mma_bf16(acc[j], nibbles_to_bf16x2(v), nibbles_to_bf16x2(v >> 8),
+               nibbles_to_bf16x2(v >> 4), nibbles_to_bf16x2(v >> 12), bl[m],
+               bh[m]);
     }
   }
+}
+
+// y = (x @ W) * s over output-major int4 weights wt uint8 [N, K/2], K/2 a
+// multiple of 4; kVec: K/2 a multiple of 8, x on 16 bytes and wt on 8.
+// Grid: one block a 64-column tile.
+template <bool kVec>
+__global__ void __launch_bounds__(kMvtThreads, 2)
+    mvt_mma(const __nv_bfloat16* __restrict__ x,
+            const uint8_t* __restrict__ wt, const float* __restrict__ s,
+            float* __restrict__ y, int B, int K, int N) {
+  __shared__ __align__(16) float red[kMvtWarps * kMvtTiles * 32 * 4];
+  const int K2 = K / 2;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * kMvtCols;
+  const bool x_in = g < B;
+  const unsigned short* xg =
+      reinterpret_cast<const unsigned short*>(x) + static_cast<size_t>(g) * K;
+  const int steps = (K2 + kMvtStepBytes - 1) / kMvtStepBytes;
+
+  float acc[kMvtTiles][4];
+#pragma unroll
+  for (int j = 0; j < kMvtTiles; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+  // Step st + kMvtWarps is loaded before step st is multiplied.
+  MvtStep cur, nxt;
+  if (warp < steps) mvt_load<kVec>(cur, wt, xg, warp, t, K2, N, n0, g, x_in);
+  for (int st = warp; st < steps; st += kMvtWarps) {
+    if (st + kMvtWarps < steps)
+      mvt_load<kVec>(nxt, wt, xg, st + kMvtWarps, t, K2, N, n0, g, x_in);
+    mvt_step(acc, cur);
+    cur = nxt;
+  }
+
+  float4* r4 = reinterpret_cast<float4*>(red);
+#pragma unroll
+  for (int j = 0; j < kMvtTiles; ++j)
+    r4[(warp * kMvtTiles + j) * 32 + lane] =
+        make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
+  warp_sums_out<kMvtWarps, kMvtTiles, kMvtThreads>(
+      red, n0, B, N, s, y,
+      [](const Element& el) { return 16 * el.j + el.g + 8 * el.hi; });
 }
 
 // The block's share of the grid (row splits, column tiles): rows
@@ -570,59 +840,50 @@ cudaError_t launch_in(const __nv_bfloat16* x, const uint8_t* w,
   return cudaGetLastError();
 }
 
-template <int BT>
-cudaError_t launch_out(const __nv_bfloat16* x, const uint8_t* w,
-                       const float* s, float* y, int B, int K, int N,
-                       int blocks, cudaStream_t stream) {
+cudaError_t launch_s8(const __nv_bfloat16* x, const uint8_t* w,
+                      const float* s, float* y, int B, int K, int N,
+                      cudaStream_t stream) {
   static size_t allowed[64] = {};
-  const size_t smem = sizeof(float) * static_cast<size_t>(K) * BT;
-  cudaError_t err = allow_smem(matvec_out<BT>, smem, allowed);
+  constexpr size_t smem = sizeof(float4) * kS8Warps * kS8Tiles * 32;
+  cudaError_t err = allow_smem(s8_mma, smem, allowed);
   if (err != cudaSuccess) return err;
-  const int need = (N + kWarps * kRowsPerWarp - 1) / (kWarps * kRowsPerWarp);
-  matvec_out<BT><<<blocks < need ? blocks : need, kThreads, smem, stream>>>(
+  s8_mma<<<(N + kS8Cols - 1) / kS8Cols, kS8Threads, smem, stream>>>(
+      x, w, s, y, B, K, N);
+  return cudaGetLastError();
+}
+
+template <bool kVec>
+cudaError_t launch_mvt(const __nv_bfloat16* x, const uint8_t* w,
+                       const float* s, float* y, int B, int K, int N,
+                       cudaStream_t stream) {
+  mvt_mma<kVec><<<(N + kMvtCols - 1) / kMvtCols, kMvtThreads, 0, stream>>>(
       x, w, s, y, B, K, N);
   return cudaGetLastError();
 }
 
 template <int F>
-cudaError_t launch_form(int bt, const __nv_bfloat16* x, const uint8_t* w,
-                        const float* s, float* y, int B, int K, int N,
-                        int blocks, cudaStream_t stream) {
-  if constexpr (F == kOut) {
-    switch (bt) {
-      case 1: return launch_out<1>(x, w, s, y, B, K, N, blocks, stream);
-      case 2: return launch_out<2>(x, w, s, y, B, K, N, blocks, stream);
-      case 4: return launch_out<4>(x, w, s, y, B, K, N, blocks, stream);
-      default: return launch_out<8>(x, w, s, y, B, K, N, blocks, stream);
-    }
-  } else {
-    switch (bt) {
-      case 1: return launch_in<F, 1>(x, w, s, y, B, K, N, stream);
-      case 2: return launch_in<F, 2>(x, w, s, y, B, K, N, stream);
-      case 4: return launch_in<F, 4>(x, w, s, y, B, K, N, stream);
-      default: return launch_in<F, 8>(x, w, s, y, B, K, N, stream);
-    }
-  }
+cudaError_t launch_in_form(int B, const __nv_bfloat16* x, const uint8_t* w,
+                           const float* s, float* y, int K, int N,
+                           cudaStream_t stream) {
+  // The rows of x an instance is built for: B rounded up to 1, 2, 4, 8.
+  if (B <= 1) return launch_in<F, 1>(x, w, s, y, B, K, N, stream);
+  if (B <= 2) return launch_in<F, 2>(x, w, s, y, B, K, N, stream);
+  if (B <= 4) return launch_in<F, 4>(x, w, s, y, B, K, N, stream);
+  return launch_in<F, 8>(x, w, s, y, B, K, N, stream);
 }
 
 }  // namespace
 
-// The rows of x a matvec instance is built for: B rounded up to 1, 2, 4, 8.
-static int rows_instance(int B) {
-  return B <= 1 ? 1 : B <= 2 ? 2 : B <= 4 ? 4 : 8;
-}
-
 // form: kP4, kP4b, kP4c, kS8 (input-major w, N a multiple of 16, w on 16
 // bytes) or kOut (w uint8 [N, K/2], K/2 a multiple of 4, w on 4 bytes).
 // x: bf16 [B, K], 1 <= B <= 8, K even; s: f32 [N]; y: f32 [B, N]. All
-// contiguous. blocks: kOut's persistent grid. Enqueues one launch on
-// `stream`; returns its error, or cudaGetLastError() after it.
+// contiguous. Enqueues one launch on `stream`; returns its error, or
+// cudaGetLastError() after it.
 extern "C" int sea_qb_matvec(int form, const void* x, const void* w,
                              const void* s, void* y, int B, int K, int N,
-                             int blocks, void* stream) {
-  if (B < 1 || B > kMaxB || K < 2 || K % 2 || N < 1 || blocks < 1)
+                             void* stream) {
+  if (B < 1 || B > kMaxB || K < 2 || K % 2 || N < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int bt = rows_instance(B);
   const auto* X = static_cast<const __nv_bfloat16*>(x);
   const auto* W = static_cast<const uint8_t*>(w);
   const auto* S = static_cast<const float*>(s);
@@ -630,12 +891,19 @@ extern "C" int sea_qb_matvec(int form, const void* x, const void* w,
   auto st = static_cast<cudaStream_t>(stream);
   if (form == kOut ? (K / 2) % 4 != 0 : N % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  // mvt_mma's 8-byte weight and 16-byte x loads need K/2 a multiple of 8
+  // and both pointers on their size; otherwise its word-wise form.
+  const bool vec = (K / 2) % 8 == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(w) % 8 == 0;
   switch (form) {
-    case kP4: return launch_form<kP4>(bt, X, W, S, Y, B, K, N, blocks, st);
-    case kP4b: return launch_form<kP4b>(bt, X, W, S, Y, B, K, N, blocks, st);
-    case kP4c: return launch_form<kP4c>(bt, X, W, S, Y, B, K, N, blocks, st);
-    case kS8: return launch_form<kS8>(bt, X, W, S, Y, B, K, N, blocks, st);
-    case kOut: return launch_form<kOut>(bt, X, W, S, Y, B, K, N, blocks, st);
+    case kP4: return launch_in_form<kP4>(B, X, W, S, Y, K, N, st);
+    case kP4b: return launch_in_form<kP4b>(B, X, W, S, Y, K, N, st);
+    case kP4c: return launch_in_form<kP4c>(B, X, W, S, Y, K, N, st);
+    case kS8: return launch_s8(X, W, S, Y, B, K, N, st);
+    case kOut:
+      return vec ? launch_mvt<true>(X, W, S, Y, B, K, N, st)
+                 : launch_mvt<false>(X, W, S, Y, B, K, N, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

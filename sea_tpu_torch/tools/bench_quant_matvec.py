@@ -182,7 +182,7 @@ def _library():
     lib = load_library("quant_bench")
     lib.sea_qb_matvec.restype = ctypes.c_int
     lib.sea_qb_matvec.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
-                                  + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                                  + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.sea_qb_stream.restype = ctypes.c_int
     lib.sea_qb_stream.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 2
                                   + [ctypes.c_int] + [ctypes.c_void_p] * 3
@@ -230,10 +230,11 @@ def matvec_kernel(name, x, w, s, block_n, counts, output_major=False):
     """Launch matvec form ``name`` on CUDA tensors: x bf16 [B, K] (B <= 8),
     w input-major (uint8 [K/2, N], or int8 [K, N] for matvec_s8) or, with
     ``output_major``, uint8 [N, K/2]; s f32 with N elements. Returns f32
-    [B, N] and adds one to counts[name] (_count). A block stages x as f32
-    in shared memory, 4 K bytes a row of x (B rounded up to 1, 2, 4 or
-    8) beside its partial sums: past the 227 KB a block may have, the
-    launch fails and this raises."""
+    [B, N] and adds one to counts[name] (_count). matvec_p4, p4b and p4c
+    stage x as f32 in shared memory, 4 K bytes a row of x (B rounded up
+    to 1, 2, 4 or 8) beside their partial sums: past the 227 KB a block
+    may have, the launch fails and this raises. matvec_s8 and _mvt_call
+    (tensor-core kernels) stage nothing, so shared memory bounds no K."""
     B, K = x.shape
     N = w.shape[0] if output_major else w.shape[1]
     rows = K if name == "matvec_s8" else K // 2
@@ -259,8 +260,7 @@ def matvec_kernel(name, x, w, s, block_n, counts, output_major=False):
     out = torch.empty((B, N), dtype=torch.float32, device=dev)
     rc = _library().sea_qb_matvec(
         MATVEC_FORMS[name], x.data_ptr(), w.data_ptr(), s.data_ptr(),
-        out.data_ptr(), B, K, N, 2 * _sm_count(dev.index),
-        torch.cuda.current_stream(dev).cuda_stream)
+        out.data_ptr(), B, K, N, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed at B={B}, K={K}, "
                            f"N={N}: CUDA error {rc}")

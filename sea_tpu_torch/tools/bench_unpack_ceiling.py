@@ -12,7 +12,9 @@ reached a little more than the full kernel. Here, at [2048, 16384]:
   full    the port's serving int4 kernel (``ops/quant_matmul.int4_matmul``,
           input-major weights)
   fullT   ``_mvt_call``: the same product over output-major weights
-          (``pack_int4_t``) with the bias form of matvec_p4c
+          (``pack_int4_t``); the plain version keeps the JAX function's
+          bias form (matvec_p4c's), the kernel runs the exact nibbles on
+          the tensor cores as ``full`` does
 
 ``_unpack_only_call`` and ``_mvt_call`` are wrappers: a CPU tensor runs
 the plain PyTorch version beside each (``<name>_ref``); a CUDA tensor

@@ -150,10 +150,33 @@ def test_trace_writes_profile(tmp_path):
     assert any(e.get("name") == "matmul-span" for e in events)
 
 
+def _swap_two_nodes(part):
+    """part's index_map with the nodes of two valid slots swapped: the
+    first valid slot of the first patch that has one, and the first valid
+    slot of a later patch whose coordinates differ from it."""
+    index_map = part.index_map.copy()
+    slots = np.argwhere(part.valid_mask)
+    first = tuple(slots[0])
+    second = next(tuple(s) for s in slots
+                  if s[0] != first[0]
+                  and not np.array_equal(part.coords[tuple(s)],
+                                         part.coords[first]))
+    index_map[first], index_map[second] = (part.index_map[second],
+                                           part.index_map[first])
+    return index_map
+
+
 def test_verification_matches_jax():
     """Both packages' round-trip stats on the same data are equal, and a
     corrupted partition raises VerificationError (an AssertionError) in
-    both."""
+    both.
+
+    The corruption swaps the nodes of two valid slots in different
+    patches, so the map stays a permutation: the fields' gather and
+    scatter agree and every node is written, while the coordinates land
+    on the wrong nodes. A corruption that leaves a node unwritten would
+    read it from unpatchify's np.empty buffer, and a NaN there compares
+    False against atol, so the check would pass or fail by chance."""
     from sea_tpu.configs.base import MeshConfig as JMeshConfig
     from sea_tpu.data.mesh import MeshProcessor as JMP
     from sea_tpu.data.partitioner import build_partition_index as jbuild
@@ -174,8 +197,9 @@ def test_verification_matches_jax():
         mp.patchify_and_scale(fields)
         stats[side] = (V.verify_partition_roundtrip(part, fields, coords),
                        V.verify_mesh_processor(mp, fields))
-        bad = dataclasses.replace(part, index_map=np.roll(part.index_map, 1,
-                                                          axis=1))
+        bad = dataclasses.replace(part, index_map=_swap_two_nodes(part))
+        written = np.sort(bad.index_map[bad.valid_mask])
+        assert np.array_equal(written, np.arange(len(coords))), side
         with pytest.raises(V.VerificationError, match="round-trip failed"):
             V.verify_partition_roundtrip(bad, fields, coords)
         assert issubclass(V.VerificationError, AssertionError)

@@ -228,16 +228,21 @@ def test_cuda_kernels_match_plain():
     at the tools' shape, a small one and one whose K/2 is not a multiple
     of the matvec's row slices, B = 1, 3 and 8; the matvecs to 1e-5 x
     sum|x w s| (f32 order), stream_bytes and dma_only bit for bit (twice),
-    _unpack_only_call's parts by unpack_only_faults."""
+    _unpack_only_call's parts by unpack_only_faults. The tensor-core
+    kernels (matvec_s8, _mvt_call) also at K = 72, N = 400: a k tail
+    shorter than one MMA step in both, _mvt_call's word-wise form (K/2 not
+    a multiple of 8; also at K = 520), and a last column tile cut by N."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
-    for K, N, block_n in ((2048, 16384, 512), (64, 256, 128),
-                          (520, 4096, 2048)):
+    for K, N, block_n, only in ((2048, 16384, 512, None),
+                                (64, 256, 128, None),
+                                (520, 4096, 2048, None),
+                                (72, 400, 16, ("matvec_s8", "_mvt_call"))):
         for B in (1, 3, 8):
-            _check_kernels(K, N, block_n, B)
+            _check_kernels(K, N, block_n, B, only)
 
 
-def _check_kernels(K, N, block_n, B):
+def _check_kernels(K, N, block_n, B, only=None):
     g = torch.Generator(device="cuda").manual_seed(K + N + B)
     q = torch.randint(-8, 8, (K, N), device="cuda", generator=g,
                       dtype=torch.int8)
@@ -270,6 +275,8 @@ def _check_kernels(K, N, block_n, B):
          functools.partial(PU.unpack_only_parts, x, wp, **kw),
          functools.partial(PU.unpack_only_faults, x=x, wp=wp, **kw), None)]
     for name, counts, kernel, plain, mag in cases:
+        if only is not None and name not in only:
+            continue
         before = counts[name]
         got, again = kernel(), kernel()
         assert counts[name] == before + 2, (name, K, N, block_n, B)
