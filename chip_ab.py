@@ -1,6 +1,6 @@
 """Time two or more checkouts of this repo on one card, in turn.
 
-    python3 chip_ab.py [--kernels] ROOT [ROOT ...]
+    python3 chip_ab.py [--kernels | --tools] ROOT [ROOT ...]
 
 Each ROOT is a checkout that holds ``chip_smoke.py`` and ``sea_tpu_torch/``
 (for instance a parent commit unpacked with ``git archive`` into
@@ -25,6 +25,11 @@ its kernels (``[ab-regs]``, from ``cuobjdump``), and runs its
 ``chip_smoke.py`` ``phase_time_flash()`` in f32 and in bf16: the
 forward, dQ and dK/dV ``[kernel-time]`` lines of both forms, kernel
 against kernel across the roots.
+
+With ``--tools`` each root's process runs its ``chip_smoke.py``
+``phase_tools_quant()`` (the eight kernels of the ``tools/`` int4
+microbenchmarks checked and timed at B = 1 and 8, then both entry points
+at B = 1) and ``bench_quant_matvec``'s entry point at B = 8.
 """
 
 import subprocess
@@ -82,10 +87,27 @@ cs.phase_time_flash()
 cs.phase_time_flash(torch.bfloat16)
 """
 
+_TOOLS_CHILD = """
+import sys
+from pathlib import Path
+root = Path(sys.argv[1])
+sys.path.insert(0, str(root))
+import chip_smoke as cs
+from sea_tpu_torch.tools import bench_quant_matvec as PQ
+cs.phase_tools_quant()
+argv = ["--repeats", str(cs.TOOLS_REPEATS), "--B", "8"]
+last = cs._tools_entry(PQ, argv)
+print("[tools-quant] python -m sea_tpu_torch.tools.bench_quant_matvec "
+      + " ".join(argv) + ": " + "; ".join(
+          f"{k} {r['us']:.3f} us {r['GB/s']:.1f} GB/s"
+          for k, r in last["results"].items()), flush=True)
+"""
+_CHILDREN = {"--kernels": _KERNELS_CHILD, "--tools": _TOOLS_CHILD}
+
 
 def main(argv):
-    kernels = argv[:1] == ["--kernels"]
-    roots = argv[1:] if kernels else argv
+    mode = argv[0] if argv[:1] and argv[0] in _CHILDREN else None
+    roots = argv[1:] if mode else argv
     if not roots:
         sys.exit(__doc__)
     print(subprocess.run(
@@ -96,7 +118,7 @@ def main(argv):
     for i, root in enumerate(roots):
         root = Path(root).resolve()
         proc = subprocess.run(
-            [sys.executable, "-c", _KERNELS_CHILD if kernels else _CHILD,
+            [sys.executable, "-c", _CHILDREN.get(mode, _CHILD),
              str(root), str(Path(__file__).resolve().parent /
                             "chip_smoke.py")],
             cwd=root, capture_output=True, text=True)

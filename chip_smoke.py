@@ -67,9 +67,10 @@ before and read just after:
   card against the CPU; `encoder test` on the card against the CPU; and
   the step timed (median of 25, device busy, events a step, peak
   memory).
-- the rest of the CLI surface: the f32 `temporal train` run above passes
-  `--profile`, and the port's flash and AdaLN kernels in its trace of
-  epoch 2 are counted against the model's sites ([train-profile-cli]);
+- the rest of the CLI surface: the f32 `temporal train` run above is
+  run again with `--profile` as a process of its own, and the port's
+  flash and AdaLN kernels in its trace of epoch 2 are counted against
+  the model's sites ([train-profile-cli]);
   the per-tensor norms of the card-vs-CPU step ([train-per-tensor]);
   `full_autoregressive_evaluation` against the fused evaluation at the
   multiphase width, with the rollout CSV and the plots or their one skip
@@ -316,8 +317,8 @@ def phase_build():
     # instance running wgmma (HGMMA) on tiles that TMA loads (UTMALDG),
     # the backward's with no mma.sync and no stack or local memory (a
     # spill); and the microbenchmark kernels of quant_bench.cu, whose
-    # matvec_s8 and _mvt_call kernels must run mma.sync (HMMA) with no
-    # stack or local memory.
+    # matvec_p4b, p4c, s8 and _mvt_call kernels must run mma.sync (HMMA)
+    # with no stack or local memory.
     for name, kernels in (("quant_matmul", ("",)),
                           ("quant_bench", ("matvec_in", *QB_MMA,
                                            "reduce_kernel", "copy_kernel")),
@@ -343,15 +344,17 @@ def phase_build():
             _hmma_gate(_sass_counts(lib, QB_MMA), usage)
 
 
-# The tensor-core kernels of quant_bench.cu: matvec_s8's, and _mvt_call's
-# two instances (16- and 8-byte loads, or words).
-QB_MMA = ("s8_mma", "mvt_mma")
+# The tensor-core kernels of quant_bench.cu: matvec_s8's, _mvt_call's two
+# instances (16- and 8-byte loads, or words), and matvec_p4b's and
+# matvec_p4c's (p4_mma<kP4b|kP4c>).
+QB_MMA = ("s8_mma", "mvt_mma", "p4_mma")
+QB_MMA_INSTANCES = 5
 
 
 def _hmma_gate(counts, usage):
     """Log the SASS counts of quant_bench.cu's tensor-core kernels; raise
-    unless there are three instances (s8_mma, mvt_mma<true|false>), each
-    with HMMA and with STACK 0 and LOCAL 0."""
+    unless there are QB_MMA_INSTANCES (s8_mma, mvt_mma<true|false>,
+    p4_mma<kP4b|kP4c>), each with HMMA and with STACK 0 and LOCAL 0."""
     for fn, n in counts.items():
         use = usage.get(fn, {})
         log(f"[build] quant_bench.cu SASS {fn}: "
@@ -361,9 +364,10 @@ def _hmma_gate(counts, usage):
         if not n["HMMA"] or use.get("STACK") != 0 or use.get("LOCAL") != 0:
             raise AssertionError(f"{fn}: want HMMA, STACK 0 and LOCAL 0, "
                                  f"got HMMA {n['HMMA']}, {use}")
-    if len(counts) != 3:
-        raise AssertionError(f"quant_bench.cu: want 3 tensor-core kernel "
-                             f"instances {QB_MMA}, got {sorted(counts)}")
+    if len(counts) != QB_MMA_INSTANCES:
+        raise AssertionError(f"quant_bench.cu: want {QB_MMA_INSTANCES} "
+                             f"tensor-core kernel instances {QB_MMA}, got "
+                             f"{sorted(counts)}")
 
 
 def _wgmma_gate(counts, usage):
@@ -1794,10 +1798,10 @@ def phase_train(case, save_dir, bf16=False):
     BF16_FLAGS recipe: a train step runs the bf16 flash kernels and the
     AdaLN kernels on bf16 x, an evaluation forward the f32 ones (f32 on
     the master weights), and the checkpoint's shadow is the bf16 cast of
-    its parameters. The f32 run passes --profile: [train-profile-cli]
-    reads the trace of its second epoch (``_profile_cli``). Returns the
-    launch counts and that trace's (events, busy ms) a step (None under
-    bf16)."""
+    its parameters. After the f32 run, [train-profile-cli] runs the same
+    command with --profile in a process of its own and reads the trace
+    of its second epoch (``_profile_cli``). Returns the launch counts and
+    that trace's (events, busy ms) a step (None under bf16)."""
     from sea_tpu_torch import cli
     from sea_tpu_torch.models.temporal import init_temporal
     from sea_tpu_torch.train.optim import make_optimizer
@@ -1810,14 +1814,11 @@ def phase_train(case, save_dir, bf16=False):
     cfg = case.temporal
     attn, norms = _attentions(cfg)[1], _adaln_sites(cfg)[0]
     steps, evals = _train_schedule(case)
-    profile_dir = Path(save_dir) / "profile"
+    argv = [TRAIN_CASE, "temporal", "train", "--synthetic", "--epochs",
+            str(TRAIN_EPOCHS), "--save_dir", save_dir, "--device", "cuda"]
     _reset_launch_counts()
     t0 = time.perf_counter()
-    params = cli.main([TRAIN_CASE, "temporal", "train", "--synthetic",
-                       "--epochs", str(TRAIN_EPOCHS), "--save_dir", save_dir,
-                       "--device", "cuda"]
-                      + (BF16_FLAGS if bf16 else
-                         ["--profile", str(profile_dir)]))
+    params = cli.main(argv + (BF16_FLAGS if bf16 else []))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = _launch_counts()
@@ -1874,7 +1875,8 @@ def phase_train(case, save_dir, bf16=False):
         f"f32 forwards")
     if bf16:
         return launches, None
-    return launches, _profile_cli(profile_dir, cfg, steps // TRAIN_EPOCHS)
+    return launches, _profile_cli(argv, Path(save_dir) / "profile", cfg,
+                                  steps // TRAIN_EPOCHS)
 
 
 # The port's kernels in a trace, by the function name nvcc gave them.
@@ -1885,13 +1887,25 @@ TRACE_KERNELS = {"flash_fwd": "fwd_kernel", "flash_bwd_dq": "dq_kernel",
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
-def _profile_cli(profile_dir, cfg, steps):
-    """[train-profile-cli]: --profile wrote one trace, of epoch 2 (its
-    ``steps`` train steps, no validation). Its device events of each of
-    the port's f32 flash and AdaLN kernels (matched by their demangled
-    names, as the trace gives them) must equal the per-step counts of
-    _attentions/_adaln_sites times ``steps``. Returns (device events, busy ms) a step: kernels,
-    copies and sets, as [train-profile] counts them."""
+def _profile_cli(argv, profile_dir, cfg, steps):
+    """[train-profile-cli]: `python -m sea_tpu_torch <argv> --profile
+    <profile_dir>`, a fresh process as a user starts it (torch.profiler
+    loses device events in a process that has run a while without a
+    session, ROADMAP Queue 3), wrote one trace, of epoch 2 (its ``steps``
+    train steps, no validation). Its device events of each of the port's
+    f32 flash and AdaLN kernels (matched by their demangled names, as the
+    trace gives them) must equal the per-step counts of
+    _attentions/_adaln_sites times ``steps``. Returns (device events,
+    busy ms) a step: kernels, copies and sets, as [train-profile] counts
+    them."""
+    cmd = [sys.executable, "-m", "sea_tpu_torch", *argv, "--profile",
+           str(profile_dir)]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                          cwd=REPO)
+    if proc.returncode != 0:
+        raise AssertionError(f"[train-profile-cli] {' '.join(cmd[2:])} "
+                             f"exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
     files = sorted(p.name for p in profile_dir.iterdir())
     if files != ["train_epoch2.pt.trace.json"]:
         raise AssertionError(f"[train-profile-cli] {profile_dir} holds "
@@ -1915,7 +1929,8 @@ def _profile_cli(profile_dir, cfg, steps):
                              f"{found}, expected {expected}")
     per_step = len(events) / steps
     busy_ms = sum(e.get("dur", 0) for e in events) / steps / 1e3
-    log(f"[train-profile-cli] {TRAIN_CASE} temporal train --profile: "
+    log(f"[train-profile-cli] python -m sea_tpu_torch {TRAIN_CASE} "
+        f"temporal train --profile, a process of its own: "
         f"{files[0]} ({steps} steps, B x T of the synthetic windows); "
         f"port kernels {found} = per step {attn} attentions and "
         f"({fwd}, {bwd}) AdaLN sites x {steps}; {per_step:.1f} device "

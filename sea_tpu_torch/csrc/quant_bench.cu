@@ -6,9 +6,9 @@
 //
 // They replace the eight Pallas TPU functions under tools/:
 //
-//   tools/bench_quant_matvec.py:56    matvec_p4          matvec_in<kP4>
-//   tools/bench_quant_matvec.py:85    matvec_p4b         matvec_in<kP4b>
-//   tools/bench_quant_matvec.py:118   matvec_p4c         matvec_in<kP4c>
+//   tools/bench_quant_matvec.py:56    matvec_p4          matvec_in
+//   tools/bench_quant_matvec.py:85    matvec_p4b         p4_mma<kP4b>
+//   tools/bench_quant_matvec.py:118   matvec_p4c         p4_mma<kP4c>
 //   tools/bench_quant_matvec.py:142   matvec_s8          s8_mma
 //   tools/bench_quant_matvec.py:169   stream_bytes       reduce_kernel<0>
 //   tools/bench_quant_matvec.py:186   dma_only           copy_kernel
@@ -29,22 +29,15 @@
 // below the ~295 operations a byte at which the bf16 tensor cores, and not
 // the memory, would limit.
 //
-// Three of the matvecs run on the CUDA cores, two on the tensor cores:
+// One of the matvecs runs on the CUDA cores, four on the tensor cores:
 //
-//  - matvec_in (matvec_p4, p4b, p4c) keeps f32 FMAs. The unpack's integer
-//    operations and the conversions compete with the FMAs for the
-//    schedulers' slots, so every form converts its small integers to f32
-//    with one integer add and one f32 subtraction (the 1.5 * 2^23 bias,
-//    exact below 2^22), not with I2F, which runs at an eighth of the FMA
-//    rate on sm_90; the forms differ only in their integer formulas, which
-//    keep the TPU kernels' own:
-//
-//      kP4   32-bit: ((w & 0xF) ^ 8) - 8 and ((w >> 4) ^ 8) - 8;
-//      kP4b  byte-width sign extension: int8(w << 4) >> 4 and int8(w) >> 4;
-//      kP4c  the bias form: (w & 0xF) ^ 8 = lo + 8 and int8(w) & -16 =
-//            16 hi; x's high half is read times 1/16 (exact) and 8 sum(x_lo)
-//            is taken off the sum once a row, as the TPU kernel's rank-1
-//            term.
+//  - matvec_in (matvec_p4) keeps f32 FMAs. The unpack's integer operations
+//    and the conversions compete with the FMAs for the schedulers' slots,
+//    so it converts its small integers to f32 with one integer add and one
+//    f32 subtraction (the 1.5 * 2^23 bias, exact below 2^22), not with
+//    I2F, which runs at an eighth of the FMA rate on sm_90; its integer
+//    formula is the TPU kernel's 32-bit one, ((w & 0xF) ^ 8) - 8 and
+//    ((w >> 4) ^ 8) - 8.
 //
 //    A block owns 64 output columns and all of K; 256 threads are 4 column
 //    groups of 16 bytes by 64 row slices, so one warp load reads 8 rows of
@@ -56,18 +49,18 @@
 //    warps in order through shared memory. At B = 8 that is 8 FMAs a
 //    weight on top of its unpack.
 //
-//  - s8_mma (matvec_s8) and mvt_mma (_mvt_call) run the products as bf16
-//    mma.sync.m16n8k16 with f32 accumulators, the serving int4 matvec's
-//    mechanism (csrc/quant_matmul.cu): the weights are A (16 output columns
-//    x 16 k), x is B (16 k x 8 rows of x; rows at or past B are zero, so
-//    every B in 1..8 runs the same MMAs and costs the same). A weight
-//    becomes its exact value in bf16 and meets bf16 x in an exact product;
-//    sums are f32 and s multiplies once at the end. Lane (g, t) = (lane /
-//    4, lane % 4) holds A rows g and g + 8 at k slots {2t, 2t + 1} and {2t
-//    + 8, 2t + 9}. The k order inside an MMA is free as long as x's B
-//    fragment follows it; each kernel picks it so that a lane's A comes
-//    from few, contiguous bytes and its B from one load. Neither stages
-//    anything: weights go from device memory into registers with 16- or
+//  - s8_mma (matvec_s8), mvt_mma (_mvt_call) and p4_mma (matvec_p4b and
+//    p4c) run the products as bf16 mma.sync.m16n8k16 with f32
+//    accumulators, the serving int4 matvec's mechanism
+//    (csrc/quant_matmul.cu): the weights are A (16 output columns x 16 k),
+//    x is B (16 k x 8 rows of x; rows at or past B are zero, so every B in
+//    1..8 runs the same MMAs and costs the same). A weight becomes its
+//    exact value in bf16 and meets bf16 x in an exact product; sums are f32
+//    and s multiplies once at the end. Lane (g, t) = (lane / 4, lane % 4)
+//    holds A rows g and g + 8 at k slots {2t, 2t + 1} and {2t + 8, 2t + 9}.
+//    The k order inside an MMA is free as long as x's B fragment follows
+//    it; each kernel picks it so that a lane's A comes from few, contiguous
+//    bytes. None stages anything: weights go from device memory into registers with 16- or
 //    8-byte loads, a warp's load covering whole 32-byte sectors, and the
 //    next step's loads are issued before the current step's MMAs (bytes in
 //    flight); x comes through L1, where every warp of the block reads it.
@@ -118,6 +111,47 @@
 //    kernel's other form, which reads w in 4-byte words and x element by
 //    element.
 //
+//    p4_mma<F>, input-major int4 wp [K/2, N] (matvec_p4b, matvec_p4c),
+//    takes s8_mma's grid, warps and loads over packed rows (a warp owns 128
+//    columns, lane group g the 16 bytes [16 g, 16 g + 16) of each row; tile
+//    j's A rows g and g + 8 are the columns 16 g + 2j and 16 g + 2j + 1; 16
+//    warps split K/2 in steps of 16 packed rows, taken in turn; one block an
+//    SM, N / 128 blocks) and mvt_mma's pairing of a byte's two nibbles as
+//    the two halves of K. A step is two k slices: slice s takes packed rows
+//    t + 8 s and t + 8 s + 4 (16 st + those), their low nibbles as k slots
+//    2t and 2t + 1 and their high ones as 2t + 8 and 2t + 9, so B is x[g]
+//    at the two rows and at K/2 plus them; MMA tile j = 2q + h of a slice
+//    takes bytes 2h and 2h + 1 of word q of each of its two rows. Each form
+//    keeps its TPU kernel's integer unpack and turns its small integers
+//    into bf16 exactly:
+//
+//      kP4b  byte-width sign extension, int8(w << 4) >> 4 and int8(w) >> 4.
+//            For the pair (a, b) of an A register (a in the low half): a
+//            byte permute with sign-replicating selectors makes the 32-bit
+//            int8 of a byte whose top nibble is a's nibble (w, or w << 4 for
+//            the low plane), and another 2^16 times the int8 of b's byte with
+//            its low nibble cleared (w & 0xF0, (w << 4) & 0xF0): 2^20 v_b.
+//            One 3-input add sums them with the bias 16 * 0x4308 + 2^20 *
+//            0x4308 (mod 2^32; 0x4308 is the bf16 136), and one funnel shift
+//            right by 4 of (4 : sum), the carry the 32 bits lost, is the
+//            arithmetic shift: it leaves 136 + v in each bf16 half, and one
+//            bf16x2 subtraction of 136 leaves v. An MMA takes 4 x (2
+//            permutes + add + shift + subtraction) and 2 for the shifted and
+//            masked words (3 a word, which serve its two tiles): 22
+//            instructions, 5.5 a weight byte.
+//      kP4c  the bias form: lo + 8 = (w & 0xF) ^ 8 and 16 hi = int8(w) & -16.
+//            One byte permute gathers the MMA's 4 bytes in v; per A register
+//            a shift and one lop3, (v & 0x000F000F) ^ 0x43084308 = 128 + (lo
+//            + 8), or ((v >> 1) & 0x00780078) ^ 0x43C043C0, which puts w &
+//            0xF0 in the mantissa with its sign bit flipped, = 384 + 16 hi,
+//            and one bf16x2 subtraction (of 128 or 384) leave the planes:
+//            12 instructions an MMA, 3 a weight byte, as mvt_mma. x's high
+//            half is read times 1/16 (one bf16x2 multiply a slice, exact),
+//            and 8 sum_{k < K/2} x[b][k] is taken off each row's sum before
+//            the scale, the TPU kernel's rank-1 term: each lane sums its B
+//            fragments' x in f32, then the lanes of a row (two shuffles) and
+//            the warps in order.
+//
 //  - reduce_kernel: a grid of (row splits, column tiles), enough blocks to
 //    fill the card twice; 16-byte loads, 4 rows in flight a thread. The
 //    column sums (stream_bytes) and the unpacked tile sums
@@ -147,9 +181,9 @@ constexpr int kSlices = kThreads / kGroups;
 // Rows a thread loads before it uses any: 8, or 4 at B > 4, where its B x 16
 // sums already take 128 registers.
 __host__ __device__ constexpr int unroll(int bt) { return bt > 4 ? 4 : 8; }
-// s8_mma: warps a block; columns a block (and a warp), MMA tiles of 16 of
-// them, rows an MMA step. mvt_mma: warps a block; MMA tiles a block; packed
-// bytes of a column an MMA step.
+// s8_mma and p4_mma: warps a block; columns a block (and a warp), MMA tiles
+// of 16 of them, rows (packed rows for p4_mma) an MMA step. mvt_mma: warps a
+// block; MMA tiles a block; packed bytes of a column an MMA step.
 constexpr int kS8Warps = 16;
 constexpr int kS8Threads = kS8Warps * 32;
 constexpr int kS8Cols = 128;
@@ -173,22 +207,12 @@ __device__ __forceinline__ float small_int_to_float(int v) {
   return __int_as_float(0x4B400000 + v) - 12582912.0f;
 }
 
-// The two nibble planes of packed byte w (0..255) in form F, as f32.
-template <int F>
+// The two nibble planes of packed byte w (0..255), matvec_p4's formula, as
+// f32.
 __device__ __forceinline__ void planes(uint32_t w, float& lo, float& hi) {
-  if constexpr (F == kP4) {
-    const int v = static_cast<int>(w);
-    lo = small_int_to_float(((v & 0xF) ^ 8) - 8);
-    hi = small_int_to_float(((v >> 4) ^ 8) - 8);
-  } else if constexpr (F == kP4b) {
-    const int8_t b = static_cast<int8_t>(w);
-    const int8_t shl = static_cast<int8_t>(static_cast<uint8_t>(w << 4));
-    lo = small_int_to_float(shl >> 4);
-    hi = small_int_to_float(b >> 4);
-  } else {  // kP4c
-    lo = small_int_to_float(static_cast<int>((w & 0xF) ^ 8));
-    hi = small_int_to_float(static_cast<int8_t>(w) & -16);
-  }
+  const int v = static_cast<int>(w);
+  lo = small_int_to_float(((v & 0xF) ^ 8) - 8);
+  hi = small_int_to_float(((v >> 4) ^ 8) - 8);
 }
 
 // Sum of v over the block's threads in a fixed order (shuffles, then the
@@ -204,36 +228,20 @@ __device__ float block_sum(float v, float* part) {
   return total;
 }
 
-// x bf16 [B, K] into xs f32 [K][BT], rows b >= B zero; for the bias forms
-// k >= K/2 times 1/16 (exact) and corr[b] = 8 * sum_{k < K/2} x[b][k].
-template <int F, int BT>
+// x bf16 [B, K] into xs f32 [K][BT], rows b >= B zero.
+template <int BT>
 __device__ void stage_x(const __nv_bfloat16* __restrict__ x, int B, int K,
-                        float* xs, float* corr, float* part) {
-  const int K2 = K / 2;
+                        float* xs) {
   for (int i = threadIdx.x; i < K * BT; i += kThreads) {
     const int k = i / BT, b = i % BT;
-    float v = b < B ? __bfloat162float(x[static_cast<size_t>(b) * K + k])
-                    : 0.0f;
-    if constexpr (F == kP4c) {
-      if (k >= K2) v *= 0.0625f;
-    }
-    xs[i] = v;
-  }
-  if constexpr (F == kP4c) {
-    for (int b = 0; b < BT; ++b) {
-      float v = 0.0f;
-      if (b < B)
-        for (int k = threadIdx.x; k < K2; k += kThreads)
-          v += __bfloat162float(x[static_cast<size_t>(b) * K + k]);
-      v = block_sum(v, part);
-      if (threadIdx.x == 0) corr[b] = 8.0f * v;
-    }
+    xs[i] = b < B ? __bfloat162float(x[static_cast<size_t>(b) * K + k])
+                  : 0.0f;
   }
 }
 
-// y = (x @ W) * s over input-major int4 weights: w uint8 [K/2, N], N a
-// multiple of 16, w on 16 bytes.
-template <int F, int BT>
+// y = (x @ W) * s over input-major int4 weights (matvec_p4): w uint8 [K/2,
+// N], N a multiple of 16, w on 16 bytes.
+template <int BT>
 __global__ void __launch_bounds__(kThreads)
     matvec_in(const __nv_bfloat16* __restrict__ x,
               const uint8_t* __restrict__ w, const float* __restrict__ s,
@@ -241,9 +249,7 @@ __global__ void __launch_bounds__(kThreads)
   extern __shared__ __align__(16) float smem[];
   float* xs = smem;               // [K][BT]
   float* red = smem + K * BT;     // [kWarps][BT][kCols]
-  __shared__ float corr[BT];
-  __shared__ float part[kWarps];
-  stage_x<F, BT>(x, B, K, xs, corr, part);
+  stage_x<BT>(x, B, K, xs);
   __syncthreads();
 
   const int rows = K / 2;
@@ -282,7 +288,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int j = 0; j < 16; ++j) {
           float lo, hi;
-          planes<F>((words[j / 4] >> (8 * (j % 4))) & 0xFFu, lo, hi);
+          planes((words[j / 4] >> (8 * (j % 4))) & 0xFFu, lo, hi);
 #pragma unroll
           for (int b = 0; b < BT; ++b) {
             acc[b][j] = fmaf(xl[b], lo, acc[b][j]);
@@ -316,7 +322,6 @@ __global__ void __launch_bounds__(kThreads)
     if (col >= N) continue;
     float v = 0.0f;
     for (int wi = 0; wi < kWarps; ++wi) v += red[(wi * BT + b) * kCols + c];
-    if constexpr (F == kP4c) v -= corr[b];
     y[static_cast<size_t>(b) * N + col] = v * s[col];
   }
 }
@@ -436,13 +441,17 @@ struct Element {
 // The block's sum over its warps, in warp order, of each accumulator
 // element, times s, into y. red: [kWarps][kTiles][32] float4, each warp's
 // accumulators written there before the barrier this starts with.
-// col(el) is an element's column inside the tile.
+// col(el) is an element's column inside the tile. xsums, where not null:
+// [kWarps][kMaxB], each warp's sum of x row b's first K/2 elements, written
+// likewise; 8 times their sum in warp order is taken off row b's sums
+// before the scale (p4_mma<kP4c>'s rank-1 term).
 template <int kWarpsT, int kTiles, int kThreadsT, typename Col>
 __device__ __forceinline__ void warp_sums_out(const float* red, int n0,
                                               int B, int N,
                                               const float* __restrict__ s,
                                               float* __restrict__ y,
-                                              Col col) {
+                                              Col col,
+                                              const float* xsums = nullptr) {
   constexpr int kAcc = kTiles * 32 * 4;  // a warp's accumulators
   __syncthreads();
   for (int e = threadIdx.x; e < kAcc; e += kThreadsT) {
@@ -452,6 +461,12 @@ __device__ __forceinline__ void warp_sums_out(const float* red, int n0,
     float sum = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarpsT; ++w) sum += red[w * kAcc + e];
+    if (xsums != nullptr) {
+      float xs = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarpsT; ++w) xs += xsums[w * kMaxB + el.m];
+      sum -= 8.f * xs;
+    }
     y[static_cast<size_t>(el.m) * N + n] = sum * s[n];
   }
 }
@@ -614,6 +629,216 @@ __global__ void __launch_bounds__(kMvtThreads, 2)
   warp_sums_out<kMvtWarps, kMvtTiles, kMvtThreads>(
       red, n0, B, N, s, y,
       [](const Element& el) { return 16 * el.j + el.g + 8 * el.hi; });
+}
+
+// p4_mma's unpack constants (tests/test_torch_tools_unpack.py reads them
+// from here and replays the unpack bit for bit). Byte permutes: kP4Gather[h]
+// takes bytes 2h and 2h + 1 of a word of row r (the low half's k slot) and
+// of row r + 4 (the high half's), so that v holds (column 16 g + 2j, r),
+// (16 g + 2j + 1, r), (16 g + 2j, r + 4), (16 g + 2j + 1, r + 4) in its
+// bytes 0..3; kP4bSext[i] is byte i of the first operand then its sign three
+// times (its 32-bit int8), kP4bHigh[i] two zero bytes (the second operand,
+// 0), byte i and its sign (2^16 times its int8).
+constexpr uint32_t kP4Gather[2] = {0x5410u, 0x7632u};
+constexpr uint32_t kP4bSext[4] = {0x8880u, 0x9991u, 0xAAA2u, 0xBBB3u};
+constexpr uint32_t kP4bHigh[4] = {0x8044u, 0x9144u, 0xA244u, 0xB344u};
+constexpr uint32_t kNibbleMask = 0xF0F0F0F0u;
+// 16 * 0x4308 + 2^20 * 0x4308 mod 2^32; the 2^32s it drops, the high word
+// of the funnel shift.
+constexpr uint32_t kP4bBias = 0x30843080u;
+constexpr uint32_t kP4bCarry = 4u;
+constexpr uint32_t kBf16x2_136 = 0x43084308u;
+// kP4c: the lo plane's lop3 mask, xor and bf16 subtrahend (128); the hi
+// plane's mask and xor, also its subtrahend (384); 1/16 in bf16.
+constexpr uint32_t kP4cLoMask = 0x000F000Fu;
+constexpr uint32_t kP4cLoXor = 0x43084308u;
+constexpr uint32_t kP4cLoSub = 0x43004300u;
+constexpr uint32_t kP4cHiMask = 0x00780078u;
+constexpr uint32_t kP4cHiXor = 0x43C043C0u;
+constexpr uint32_t kBf16x2_1_16 = 0x3D803D80u;
+
+// prmt.b32 in its default mode, where a selector nibble's bit 3 replicates
+// the selected byte's sign (__byte_perm ignores that bit). The selectors
+// come in as template arguments: device code may not index the constant
+// arrays above.
+template <uint32_t kSel>
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(r) : "r"(a), "r"(b), "n"(kSel));
+  return r;
+}
+
+// (a & mask) ^ c in one lop3.
+template <uint32_t kMask, uint32_t kXor>
+__device__ __forceinline__ uint32_t and_xor(uint32_t a) {
+  uint32_t r;
+  asm("lop3.b32 %0, %1, %2, %3, 0x6a;\n"
+      : "=r"(r)
+      : "r"(a), "n"(kMask), "n"(kXor));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t hsub2(uint32_t a, uint32_t b) {
+  __nv_bfloat162 h = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&a),
+                             *reinterpret_cast<__nv_bfloat162*>(&b));
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+__device__ __forceinline__ uint32_t hmul2(uint32_t a, uint32_t b) {
+  __nv_bfloat162 h = __hmul2(*reinterpret_cast<__nv_bfloat162*>(&a),
+                             *reinterpret_cast<__nv_bfloat162*>(&b));
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// kP4b: the A register (int8(p) >> 4, int8(q) >> 4) as bf16x2, p byte i of
+// lo_src, q byte i of hi_src, whose low nibble is zero. The permutes make
+// int8(p) and 2^16 int8(q); the add is exact mod 2^32, and the funnel shift
+// of (kP4bCarry : sum) by 4 is the arithmetic shift of the true sum, 2^20
+// ((int8(q) >> 4) + 0x4308) + 16 ((int8(p) >> 4) + 0x4308) + (p & 0xF):
+// 136 + each value in its bf16 half.
+template <int i>
+__device__ __forceinline__ uint32_t sext_pair(uint32_t lo_src,
+                                              uint32_t hi_src) {
+  const uint32_t sum = prmt<kP4bSext[i]>(lo_src, 0u) +
+                       prmt<kP4bHigh[i]>(hi_src, 0u) + kP4bBias;
+  return hsub2(__funnelshift_r(sum, kP4bCarry, 4), kBf16x2_136);
+}
+
+// kP4c: MMA tile 2q + h of a slice, v gathering its 4 bytes (kSel =
+// kP4Gather[h]) from words ra (row r) and rb (row r + 4).
+template <uint32_t kSel>
+__device__ __forceinline__ void p4c_mma(float (&d)[4], uint32_t ra,
+                                        uint32_t rb, uint32_t b0,
+                                        uint32_t b1) {
+  const uint32_t v = prmt<kSel>(ra, rb);
+  mma_bf16(d, hsub2(and_xor<kP4cLoMask, kP4cLoXor>(v), kP4cLoSub),
+           hsub2(and_xor<kP4cLoMask, kP4cLoXor>(v >> 8), kP4cLoSub),
+           hsub2(and_xor<kP4cHiMask, kP4cHiXor>(v >> 1), kP4cHiXor),
+           hsub2(and_xor<kP4cHiMask, kP4cHiXor>(v >> 9), kP4cHiXor), b0, b1);
+}
+
+// One MMA step of p4_mma: packed rows 16 st + t + 4 i (i = 0..3) of the
+// lane's 16 columns, and its B fragments: slice c (rows t + 8 c and t + 8 c
+// + 4) takes x[g] at those rows (b[c][0]) and at K/2 plus them (b[c][1]).
+// Past K/2 and N zero.
+struct P4Step {
+  uint4 w[4];
+  uint32_t b[2][2];
+};
+
+__device__ __forceinline__ void p4_load(P4Step& s, const uint8_t* w,
+                                        const unsigned short* xg, int st,
+                                        int t, int K2, int N, int col,
+                                        bool cols_in, bool x_in) {
+  uint32_t xl[4], xh[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int k = kS8StepRows * st + t + 4 * i;
+    s.w[i] = k < K2 && cols_in
+                 ? __ldg(reinterpret_cast<const uint4*>(
+                       w + static_cast<size_t>(k) * N + col))
+                 : make_uint4(0u, 0u, 0u, 0u);
+    xl[i] = k < K2 && x_in ? __ldg(xg + k) : 0u;
+    xh[i] = k < K2 && x_in ? __ldg(xg + K2 + k) : 0u;
+  }
+  s.b[0][0] = pair(xl[0], xl[1]);
+  s.b[0][1] = pair(xh[0], xh[1]);
+  s.b[1][0] = pair(xl[2], xl[3]);
+  s.b[1][1] = pair(xh[2], xh[3]);
+}
+
+// The step's 16 MMAs, 8 tiles a slice: tile j = 2q + h takes bytes 2h and
+// 2h + 1 of word q of the slice's rows r = t + 8 c (k slot 2t and, high
+// nibble, 2t + 8) and r + 4 (2t + 1, 2t + 9) as A rows g and g + 8. kP4c
+// also adds the slice's x[g][k < K/2] to xsum, in f32 and in order. Zero
+// bytes (past K/2 or N) are the weight 0 (kP4b) or lo + 8 = 8 against x = 0
+// (kP4c).
+template <int F>
+__device__ __forceinline__ void p4_step(float (&acc)[kS8Tiles][4],
+                                        const P4Step& s, float& xsum) {
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const uint32_t b0 = s.b[c][0];
+    uint32_t b1 = s.b[c][1];
+    if constexpr (F == kP4c) {
+      b1 = hmul2(b1, kBf16x2_1_16);
+      xsum += __uint_as_float(b0 << 16);
+      xsum += __uint_as_float(b0 & 0xFFFF0000u);
+    }
+    const uint32_t ra[4] = {s.w[2 * c].x, s.w[2 * c].y, s.w[2 * c].z,
+                            s.w[2 * c].w};
+    const uint32_t rb[4] = {s.w[2 * c + 1].x, s.w[2 * c + 1].y,
+                            s.w[2 * c + 1].z, s.w[2 * c + 1].w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if constexpr (F == kP4b) {
+        const uint32_t la = ra[q] << 4;
+        const uint32_t lb = (rb[q] << 4) & kNibbleMask;
+        const uint32_t hb = rb[q] & kNibbleMask;
+        mma_bf16(acc[2 * q], sext_pair<0>(la, lb), sext_pair<1>(la, lb),
+                 sext_pair<0>(ra[q], hb), sext_pair<1>(ra[q], hb), b0, b1);
+        mma_bf16(acc[2 * q + 1], sext_pair<2>(la, lb), sext_pair<3>(la, lb),
+                 sext_pair<2>(ra[q], hb), sext_pair<3>(ra[q], hb), b0, b1);
+      } else {
+        p4c_mma<kP4Gather[0]>(acc[2 * q], ra[q], rb[q], b0, b1);
+        p4c_mma<kP4Gather[1]>(acc[2 * q + 1], ra[q], rb[q], b0, b1);
+      }
+    }
+  }
+}
+
+// y = (x @ W) * s over input-major int4 weights wp [K/2, N] in form F (kP4b
+// or kP4c), N a multiple of 16, wp on 16 bytes. Grid: one block a
+// 128-column tile.
+template <int F>
+__global__ void __launch_bounds__(kS8Threads, 1)
+    p4_mma(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
+           const float* __restrict__ s, float* __restrict__ y, int B, int K,
+           int N) {
+  extern __shared__ __align__(16) float red[];  // [warp][tile][lane] x 4
+  __shared__ float xsums[kS8Warps * kMaxB];     // kP4c: [warp][row of x]
+  const int K2 = K / 2;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * kS8Cols;
+  const int col = n0 + 16 * g;
+  const bool cols_in = col < N, x_in = g < B;
+  const unsigned short* xg =
+      reinterpret_cast<const unsigned short*>(x) + static_cast<size_t>(g) * K;
+  const int steps = (K2 + kS8StepRows - 1) / kS8StepRows;
+
+  float acc[kS8Tiles][4];
+#pragma unroll
+  for (int j = 0; j < kS8Tiles; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+  float xsum = 0.f;
+  // Step st + kS8Warps is loaded before step st is multiplied.
+  P4Step cur, nxt;
+  if (warp < steps) p4_load(cur, w, xg, warp, t, K2, N, col, cols_in, x_in);
+  for (int st = warp; st < steps; st += kS8Warps) {
+    if (st + kS8Warps < steps)
+      p4_load(nxt, w, xg, st + kS8Warps, t, K2, N, col, cols_in, x_in);
+    p4_step<F>(acc, cur, xsum);
+    cur = nxt;
+  }
+
+  float4* r4 = reinterpret_cast<float4*>(red);
+#pragma unroll
+  for (int j = 0; j < kS8Tiles; ++j)
+    r4[(warp * kS8Tiles + j) * 32 + lane] =
+        make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
+  if constexpr (F == kP4c) {
+    // The 4 lanes of row g of x hold its partial sums; every lane gets the
+    // same bits ((s0 + s1) + (s2 + s3)).
+    xsum += __shfl_xor_sync(0xffffffffu, xsum, 1);
+    xsum += __shfl_xor_sync(0xffffffffu, xsum, 2);
+    if (t == 0) xsums[warp * kMaxB + g] = xsum;
+  }
+  warp_sums_out<kS8Warps, kS8Tiles, kS8Threads>(
+      red, n0, B, N, s, y,
+      [](const Element& el) { return 16 * el.g + 2 * el.j + el.hi; },
+      F == kP4c ? xsums : nullptr);
 }
 
 // The block's share of the grid (row splits, column tiles): rows
@@ -826,16 +1051,16 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t* allowed) {
   return err;
 }
 
-template <int F, int BT>
+template <int BT>
 cudaError_t launch_in(const __nv_bfloat16* x, const uint8_t* w,
                       const float* s, float* y, int B, int K, int N,
                       cudaStream_t stream) {
   static size_t allowed[64] = {};
   const size_t smem = sizeof(float) * (static_cast<size_t>(K) * BT +
                                        kWarps * BT * kCols);
-  cudaError_t err = allow_smem(matvec_in<F, BT>, smem, allowed);
+  cudaError_t err = allow_smem(matvec_in<BT>, smem, allowed);
   if (err != cudaSuccess) return err;
-  matvec_in<F, BT><<<(N + kCols - 1) / kCols, kThreads, smem, stream>>>(
+  matvec_in<BT><<<(N + kCols - 1) / kCols, kThreads, smem, stream>>>(
       x, w, s, y, B, K, N);
   return cudaGetLastError();
 }
@@ -852,6 +1077,19 @@ cudaError_t launch_s8(const __nv_bfloat16* x, const uint8_t* w,
   return cudaGetLastError();
 }
 
+template <int F>
+cudaError_t launch_p4(const __nv_bfloat16* x, const uint8_t* w,
+                      const float* s, float* y, int B, int K, int N,
+                      cudaStream_t stream) {
+  static size_t allowed[64] = {};
+  constexpr size_t smem = sizeof(float4) * kS8Warps * kS8Tiles * 32;
+  cudaError_t err = allow_smem(p4_mma<F>, smem, allowed);
+  if (err != cudaSuccess) return err;
+  p4_mma<F><<<(N + kS8Cols - 1) / kS8Cols, kS8Threads, smem, stream>>>(
+      x, w, s, y, B, K, N);
+  return cudaGetLastError();
+}
+
 template <bool kVec>
 cudaError_t launch_mvt(const __nv_bfloat16* x, const uint8_t* w,
                        const float* s, float* y, int B, int K, int N,
@@ -861,15 +1099,14 @@ cudaError_t launch_mvt(const __nv_bfloat16* x, const uint8_t* w,
   return cudaGetLastError();
 }
 
-template <int F>
-cudaError_t launch_in_form(int B, const __nv_bfloat16* x, const uint8_t* w,
+cudaError_t launch_in_rows(int B, const __nv_bfloat16* x, const uint8_t* w,
                            const float* s, float* y, int K, int N,
                            cudaStream_t stream) {
   // The rows of x an instance is built for: B rounded up to 1, 2, 4, 8.
-  if (B <= 1) return launch_in<F, 1>(x, w, s, y, B, K, N, stream);
-  if (B <= 2) return launch_in<F, 2>(x, w, s, y, B, K, N, stream);
-  if (B <= 4) return launch_in<F, 4>(x, w, s, y, B, K, N, stream);
-  return launch_in<F, 8>(x, w, s, y, B, K, N, stream);
+  if (B <= 1) return launch_in<1>(x, w, s, y, B, K, N, stream);
+  if (B <= 2) return launch_in<2>(x, w, s, y, B, K, N, stream);
+  if (B <= 4) return launch_in<4>(x, w, s, y, B, K, N, stream);
+  return launch_in<8>(x, w, s, y, B, K, N, stream);
 }
 
 }  // namespace
@@ -897,9 +1134,9 @@ extern "C" int sea_qb_matvec(int form, const void* x, const void* w,
                    reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(w) % 8 == 0;
   switch (form) {
-    case kP4: return launch_in_form<kP4>(B, X, W, S, Y, K, N, st);
-    case kP4b: return launch_in_form<kP4b>(B, X, W, S, Y, K, N, st);
-    case kP4c: return launch_in_form<kP4c>(B, X, W, S, Y, K, N, st);
+    case kP4: return launch_in_rows(B, X, W, S, Y, K, N, st);
+    case kP4b: return launch_p4<kP4b>(X, W, S, Y, B, K, N, st);
+    case kP4c: return launch_p4<kP4c>(X, W, S, Y, B, K, N, st);
     case kS8: return launch_s8(X, W, S, Y, B, K, N, st);
     case kOut:
       return vec ? launch_mvt<true>(X, W, S, Y, B, K, N, st)

@@ -230,10 +230,10 @@ def matvec_kernel(name, x, w, s, block_n, counts, output_major=False):
     """Launch matvec form ``name`` on CUDA tensors: x bf16 [B, K] (B <= 8),
     w input-major (uint8 [K/2, N], or int8 [K, N] for matvec_s8) or, with
     ``output_major``, uint8 [N, K/2]; s f32 with N elements. Returns f32
-    [B, N] and adds one to counts[name] (_count). matvec_p4, p4b and p4c
-    stage x as f32 in shared memory, 4 K bytes a row of x (B rounded up
-    to 1, 2, 4 or 8) beside their partial sums: past the 227 KB a block
-    may have, the launch fails and this raises. matvec_s8 and _mvt_call
+    [B, N] and adds one to counts[name] (_count). matvec_p4 stages x as
+    f32 in shared memory, 4 K bytes a row of x (B rounded up to 1, 2, 4 or
+    8) beside its partial sums: past the 227 KB a block may have, the
+    launch fails and this raises. matvec_p4b, p4c, s8 and _mvt_call
     (tensor-core kernels) stage nothing, so shared memory bounds no K."""
     B, K = x.shape
     N = w.shape[0] if output_major else w.shape[1]
