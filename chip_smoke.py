@@ -107,8 +107,10 @@ before and read just after:
   their eight kernels against its plain version at (B, K, N) = (1, 2048,
   16384) and (8, 2048, 16384) (_unpack_only_call's integer sums exactly,
   its check shown to reject planted faults), one device kernel a call,
-  timed; and both entry points at a short loop, whose GB/s must stay
-  within 1.05 x the HBM rate ([tools-quant]).
+  timed; matvec_p4, _unpack_only_call and dma_only also at N = 65536, a
+  weight past the L2, each with its GB/s and share of the HBM rate; and
+  both entry points at a short loop, whose GB/s must stay within 1.05 x
+  the HBM rate ([tools-quant]).
 
 Last, every kernel is timed against its plain version, its bound and,
 where one PyTorch call computes the same function, that call. Any failure
@@ -317,10 +319,11 @@ def phase_build():
     # instance running wgmma (HGMMA) on tiles that TMA loads (UTMALDG),
     # the backward's with no mma.sync and no stack or local memory (a
     # spill); and the microbenchmark kernels of quant_bench.cu, whose
-    # matvec_p4b, p4c, s8 and _mvt_call kernels must run mma.sync (HMMA)
-    # with no stack or local memory.
+    # matvec_p4, p4b, p4c, s8 and _mvt_call kernels must run mma.sync
+    # (HMMA) and _unpack_only_call's dp4a (IDP), each with no stack or
+    # local memory.
     for name, kernels in (("quant_matmul", ("",)),
-                          ("quant_bench", ("matvec_in", *QB_MMA,
+                          ("quant_bench", (*QB_MMA, QB_DP4A,
                                            "reduce_kernel", "copy_kernel")),
                           ("flash_attention", ("dq_kernel", "dkv_kernel",
                                                FWD_WGMMA)),
@@ -342,19 +345,39 @@ def phase_build():
             _wgmma_gate(_sass_counts(lib, kernels), usage)
         if name == "quant_bench":
             _hmma_gate(_sass_counts(lib, QB_MMA), usage)
+            _dp4a_gate(_sass_counts(lib, (QB_DP4A,)), usage)
 
 
 # The tensor-core kernels of quant_bench.cu: matvec_s8's, _mvt_call's two
-# instances (16- and 8-byte loads, or words), and matvec_p4b's and
-# matvec_p4c's (p4_mma<kP4b|kP4c>).
+# instances (16- and 8-byte loads, or words), and matvec_p4's, matvec_p4b's
+# and matvec_p4c's (p4_mma<kP4|kP4b|kP4c>); and _unpack_only_call's kernel,
+# which sums with dp4a.
 QB_MMA = ("s8_mma", "mvt_mma", "p4_mma")
-QB_MMA_INSTANCES = 5
+QB_MMA_INSTANCES = 6
+QB_DP4A = "unpack_sums"
+
+
+def _dp4a_gate(counts, usage):
+    """Log the SASS counts of _unpack_only_call's kernel; raise unless it
+    is one function with dp4a (IDP) in its SASS and STACK 0 and LOCAL 0."""
+    for fn, n in counts.items():
+        use = usage.get(fn, {})
+        log(f"[build] quant_bench.cu SASS {fn}: IDP {n['IDP']}; "
+            + ", ".join(f"{k} {use.get(k)}" for k in ("REG", "STACK",
+                                                      "LOCAL")))
+    if len(counts) != 1 or any(
+            not n["IDP"] or usage.get(fn, {}).get("STACK") != 0
+            or usage.get(fn, {}).get("LOCAL") != 0
+            for fn, n in counts.items()):
+        raise AssertionError(f"{QB_DP4A}: want one function with IDP, "
+                             f"STACK 0 and LOCAL 0, got {counts}, "
+                             f"{ {fn: usage.get(fn) for fn in counts} }")
 
 
 def _hmma_gate(counts, usage):
     """Log the SASS counts of quant_bench.cu's tensor-core kernels; raise
     unless there are QB_MMA_INSTANCES (s8_mma, mvt_mma<true|false>,
-    p4_mma<kP4b|kP4c>), each with HMMA and with STACK 0 and LOCAL 0."""
+    p4_mma<kP4|kP4b|kP4c>), each with HMMA and with STACK 0 and LOCAL 0."""
     for fn, n in counts.items():
         use = usage.get(fn, {})
         log(f"[build] quant_bench.cu SASS {fn}: "
@@ -415,10 +438,10 @@ def _cuobjdump(*args):
 
 def _sass_counts(lib, kernels):
     """{mangled function: {op: count}} of the tensor-core (mma.sync HMMA,
-    wgmma HGMMA), f32 FMA, shared-load, cp.async and TMA-load
+    wgmma HGMMA), f32 FMA, shared-load, cp.async, TMA-load and dp4a (IDP)
     instructions in the SASS of each function whose name holds one of
     `kernels`."""
-    ops = ("HMMA", "HGMMA", "FFMA", "LDS", "LDGSTS", "UTMALDG")
+    ops = ("HMMA", "HGMMA", "FFMA", "LDS", "LDGSTS", "UTMALDG", "IDP")
     counts, fn = {}, None
     for line in _cuobjdump("-sass", lib):
         if "Function :" in line:
@@ -457,31 +480,48 @@ def _one_kernel_a_call(fn, label, calls=4):
     marker's among them.
 
     A marker kernel (an in-place add on a one-element tensor, made before
-    the session) runs in the session too, so a session whose trace holds
-    no device event at all, the marker's included, is the profiler's
-    miss, not the kernel's: torch.profiler has returned such an empty
-    trace between sessions that recorded every launch (for the AdaLN and
-    the q8 decode checks, once each). Such a session is run again, at
-    most twice, and logged; any other count fails at once."""
+    the session) runs in the session too, first; its event's name is
+    learned from a session of the marker alone. So a session whose trace
+    holds no event of that name is the profiler's miss, not the kernel's:
+    torch.profiler has returned empty traces between sessions that
+    recorded every launch (for the AdaLN and the q8 decode checks, once
+    each), and a trace of 2 events for a marker and 4 launches of
+    _unpack_only_call, the marker's missing, where the same check in
+    another process recorded all 5. Such a session is run again, at most
+    twice, and logged; a third miss fails, as does a trace that holds the
+    marker's event and any other count."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    def session(work):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            work()
+            torch.cuda.synchronize()
+        return [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+
+    def marked():
+        marker.add_(1)
+        for _ in range(calls):
+            fn()
+
     fn()
     marker = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
     for attempt in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            marker.add_(1)
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA]
-        if events:
+        marker_names = {e.key for e in session(lambda: marker.add_(1))}
+        events = session(marked)
+        if marker_names and marker_names <= {e.key for e in events}:
             break
-        log(f"[kernel] {label}: torch.profiler's trace held no device "
-            f"event, not even the marker's (session {attempt + 1}); "
-            "profiling again")
+        log(f"[kernel] {label}: torch.profiler's trace missed the "
+            f"marker's event ({len(events)} event names: "
+            f"{sorted(e.key[:60] for e in events)}; session "
+            f"{attempt + 1}); profiling again")
+    else:
+        raise AssertionError(f"{label}: torch.profiler's trace missed the "
+                             "marker's event in 3 sessions, so it cannot "
+                             "count one kernel a call")
     total = sum(e.count for e in events)
     n = total - 1  # the marker's add
     names = sorted({e.key[:80] for e in events})
@@ -4333,8 +4373,13 @@ def phase_serve_mesh(case, save_dir, params_np):
 
 # [tools-quant]: the eight kernels of csrc/quant_bench.cu at the tools'
 # shape, B = 1 and 8 rows of x, block_n 512; both entry points at
-# TOOLS_REPEATS steps (their defaults: 100 and 2000).
+# TOOLS_REPEATS steps (their defaults: 100 and 2000). At TOOLS_WIDE, a
+# weight of 67 MB, past the 50 MB L2, whose byte bound (0.020 ms) stands
+# well above [kernel-time]'s ~0.005 ms floor, the kernels of
+# TOOLS_WIDE_KERNELS are checked and timed too (dma_only at B = 1 only).
 TOOLS_SHAPES = [(1, 2048, 16384), (8, 2048, 16384)]
+TOOLS_WIDE = [(1, 2048, 65536), (8, 2048, 65536)]
+TOOLS_WIDE_KERNELS = ("matvec_p4", "_unpack_only_call", "dma_only")
 TOOLS_BLOCK_N = 512
 TOOLS_REPEATS = 100
 TOOLS_KERNELS = [  # name, module, the TPU function it replaces
@@ -4445,17 +4490,88 @@ def _tools_entry(module, argv):
     return last
 
 
+def _tools_check(case, label, unpack_tol):
+    """Run one tools kernel twice and its plain version once and raise
+    unless they agree as its check says and the two calls give the same
+    bits; for _unpack_only_call also unless the check rejects the planted
+    faults. Returns (max abs err, what was held)."""
+    kernel, plain, check, mag, _, _ = case
+    got, again = kernel(), kernel()
+    want = plain()
+    torch.cuda.synchronize()
+    err = _err(got, want)
+    if check == "equal":
+        ok = torch.equal(got, want)
+        held = "bit for bit"
+    elif check == "parts":
+        parts_fn, faults_of = mag
+        parts = parts_fn()
+        faults = faults_of(parts)
+        ok = not faults and torch.equal(parts[0], got)
+        if not ok:
+            raise AssertionError(f"{label}: {faults}; out as "
+                                 f"_unpack_only_call's {got.item()!r}, as "
+                                 f"its parts' {parts[0].item()!r}")
+        planted = _planted_unpack_faults(parts)
+        missed = [k for k, p in planted.items() if not faults_of(p)]
+        if missed:
+            raise AssertionError(f"{label}: the check passed the planted "
+                                 f"faults {missed}")
+        held = (f"integer sums exact, sum(x) within {unpack_tol} x sum|x|, "
+                f"out their f32 sum; planted faults rejected "
+                f"{sorted(planted)}")
+    else:
+        ok = bool(((got - want).abs() <= INT4_REL_TOL * mag).all())
+        held = f"within {INT4_REL_TOL} x sum|x w s|"
+    if not ok or not torch.equal(got, again):
+        raise AssertionError(f"{label}: max abs err {err} ({check}), two "
+                             f"calls equal {torch.equal(got, again)}")
+    return err, held
+
+
+def _tools_time(name, case, B, K, N, flush):
+    """[kernel-time] of one tools kernel, L2 cold, in turns plain, kernel,
+    kernel, plain, beside its bound, its plain version and the library call
+    where there is one; the kernel's and the library's GB/s of the
+    function's bytes and their share of 3.35 TB/s. Returns the kernels
+    line's timing keys."""
+    kernel, plain, check, _, nbytes, library = case
+    ms, plain_ms, runs = _kernel_vs_plain(kernel, plain, flush)
+    # Operations: a multiply-add a weight and row of x (bf16 x times an
+    # exact small integer: the bf16 tensor-core peak); the stream kernels
+    # an add or less a byte.
+    flops = 2 * B * K * N if check == "rel" else K * N
+    bound, bound_by = _bound_ms(nbytes, flops, BF16_FLOP_PER_S)
+    lib = _library_ms(library, flush) if library else None
+
+    def rate(t):
+        r = nbytes / (t * 1e-3)
+        return f"{r / 1e9:.0f} GB/s, {r / HBM_BYTES_PER_S:.3f} of 3.35 TB/s"
+
+    log(f"[kernel-time] {name} (B,K,N)=({B},{K},{N}) block_n "
+        f"{TOOLS_BLOCK_N}, L2 cold: kernel {ms:.4f} ms ({runs[1]:.4f}, "
+        f"{runs[2]:.4f}; {rate(ms)}), plain {plain_ms:.4f} ms "
+        f"({runs[0]:.4f}, {runs[3]:.4f}), bound {bound:.4f} ms "
+        f"({bound_by}), "
+        + (f"library {lib:.4f} ms ({rate(lib)})" if lib is not None
+           else "no single PyTorch call"))
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                library_ms=lib)
+
+
 def phase_tools_quant():
     """[tools-quant]: each of the eight kernels of sea_tpu_torch/tools/
     against its plain version at TOOLS_SHAPES, block_n TOOLS_BLOCK_N, each
     call one device kernel (torch.profiler) and two calls the same bits;
     then each timed as [kernel-time] times the others (L2 cold, in turns
     plain, kernel, kernel, plain), beside its bound, its plain version and
-    the library call where there is one; then both entry points at
+    the library call where there is one; the same checks and timings of
+    TOOLS_WIDE_KERNELS at TOOLS_WIDE; then both entry points at
     TOOLS_REPEATS steps, whose mains fail on a reading above 1.05 x the HBM
-    rate. Returns (max abs err, times at B = 1, launches in the phase
-    before the entry points) by kernel name."""
+    rate. Returns (max abs err, times at B = 1 of TOOLS_SHAPES, launches in
+    the phase before the entry points) by kernel name."""
     mods = _tools_modules()
+    unpack_tol = mods["bench_unpack_ceiling"].UNPACK_X_TOL
     for mod in mods.values():
         for key in mod.launches:
             mod.launches[key] = 0
@@ -4464,66 +4580,29 @@ def phase_tools_quant():
     times = {}
     for B, K, N in TOOLS_SHAPES:
         cases = _tools_cases(B, K, N, TOOLS_BLOCK_N)
-        for name, module, _ in TOOLS_KERNELS:
-            kernel, plain, check, mag, nbytes, library = cases[name]
+        for name, _, _ in TOOLS_KERNELS:
             label = f"[tools-quant] {name} (B,K,N)=({B},{K},{N})"
-            got, again = kernel(), kernel()
-            want = plain()
-            torch.cuda.synchronize()
-            err = _err(got, want)
-            if check == "equal":
-                ok = torch.equal(got, want)
-                bound_text = "bit for bit"
-            elif check == "parts":
-                parts_fn, faults_of = mag
-                parts = parts_fn()
-                faults = faults_of(parts)
-                ok = not faults and torch.equal(parts[0], got)
-                if not ok:
-                    raise AssertionError(f"{label}: {faults}; out as "
-                                         f"_unpack_only_call's {got.item()!r}"
-                                         f", as its parts' "
-                                         f"{parts[0].item()!r}")
-                planted = _planted_unpack_faults(parts)
-                missed = [k for k, p in planted.items() if not faults_of(p)]
-                if missed:
-                    raise AssertionError(f"{label}: the check passed the "
-                                         f"planted faults {missed}")
-                bound_text = (f"integer sums exact, sum(x) within "
-                              f"{mods['bench_unpack_ceiling'].UNPACK_X_TOL}"
-                              f" x sum|x|, out their f32 sum; planted "
-                              f"faults rejected {sorted(planted)}")
-            else:
-                ok = bool(((got - want).abs() <= INT4_REL_TOL * mag).all())
-                bound_text = f"within {INT4_REL_TOL} x sum|x w s|"
-            if not ok or not torch.equal(got, again):
-                raise AssertionError(f"{label}: max abs err {err} ({check}),"
-                                     f" two calls equal "
-                                     f"{torch.equal(got, again)}")
+            err, held = _tools_check(cases[name], label, unpack_tol)
             errors[name] = max(errors[name], err)
-            names = _one_kernel_a_call(kernel, label)
-            log(f"{label}: max abs err {err:.3g} {bound_text}; repeat bit "
-                f"for bit; one device kernel a call ({names})")
+            names = _one_kernel_a_call(cases[name][0], label)
+            log(f"{label}: max abs err {err:.3g} {held}; repeat bit for "
+                f"bit; one device kernel a call ({names})")
             if name in ("stream_bytes", "dma_only") and B != 1:
                 continue  # no x: timed once
-            ms, plain_ms, runs = _kernel_vs_plain(kernel, plain, flush)
-            # Operations: a multiply-add a weight and row of x (bf16 x
-            # times an exact small integer: the bf16 tensor-core peak);
-            # the stream kernels an add or less a byte.
-            flops = (2 * B * K * N if check == "rel" else K * N)
-            bound, bound_by = _bound_ms(nbytes, flops, BF16_FLOP_PER_S)
-            lib = _library_ms(library, flush) if library else None
+            timed = _tools_time(name, cases[name], B, K, N, flush)
             if B == 1:
-                times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                                   bound_by=bound_by, library_ms=lib)
-            log(f"[kernel-time] {name} (B,K,N)=({B},{K},{N}) block_n "
-                f"{TOOLS_BLOCK_N}, L2 cold: kernel {ms:.4f} ms "
-                f"({runs[1]:.4f}, {runs[2]:.4f}; "
-                f"{nbytes / (ms * 1e-3) / 1e9:.0f} GB/s), plain "
-                f"{plain_ms:.4f} ms ({runs[0]:.4f}, {runs[3]:.4f}), bound "
-                f"{bound:.4f} ms ({bound_by}), "
-                + (f"library {lib:.4f} ms" if lib is not None
-                   else "no single PyTorch call"))
+                times[name] = timed
+        del cases
+    for B, K, N in TOOLS_WIDE:
+        cases = _tools_cases(B, K, N, TOOLS_BLOCK_N)
+        for name in TOOLS_WIDE_KERNELS:
+            if name == "dma_only" and B != 1:
+                continue
+            label = f"[tools-quant] {name} (B,K,N)=({B},{K},{N})"
+            err, held = _tools_check(cases[name], label, unpack_tol)
+            errors[name] = max(errors[name], err)
+            log(f"{label}: max abs err {err:.3g} {held}; repeat bit for bit")
+            _tools_time(name, cases[name], B, K, N, flush)
         del cases
     # The kernels line's launches: the calls above, each a launch.
     launches = {name: mods[module].launches[name]

@@ -6,16 +6,14 @@
 //
 // They replace the eight Pallas TPU functions under tools/:
 //
-//   tools/bench_quant_matvec.py:56    matvec_p4          matvec_in
+//   tools/bench_quant_matvec.py:56    matvec_p4          p4_mma<kP4>
 //   tools/bench_quant_matvec.py:85    matvec_p4b         p4_mma<kP4b>
 //   tools/bench_quant_matvec.py:118   matvec_p4c         p4_mma<kP4c>
 //   tools/bench_quant_matvec.py:142   matvec_s8          s8_mma
-//   tools/bench_quant_matvec.py:169   stream_bytes       reduce_kernel<0>
+//   tools/bench_quant_matvec.py:169   stream_bytes       reduce_kernel
 //   tools/bench_quant_matvec.py:186   dma_only           copy_kernel
-//   tools/bench_unpack_ceiling.py:73  _unpack_only_call  reduce_kernel<1>
+//   tools/bench_unpack_ceiling.py:73  _unpack_only_call  unpack_sums
 //   tools/bench_unpack_ceiling.py:115 _mvt_call          mvt_mma<kVec>
-//
-// (reduce_kernel<0> is kColumnSums, reduce_kernel<1> kUnpackSums.)
 //
 // Storage is the tools': wp uint8 [K/2, N], byte [k, n] holding w[k, n] in
 // its low nibble and w[k + K/2, n] in its high one (input-major);
@@ -29,29 +27,9 @@
 // below the ~295 operations a byte at which the bf16 tensor cores, and not
 // the memory, would limit.
 //
-// One of the matvecs runs on the CUDA cores, four on the tensor cores:
-//
-//  - matvec_in (matvec_p4) keeps f32 FMAs. The unpack's integer operations
-//    and the conversions compete with the FMAs for the schedulers' slots,
-//    so it converts its small integers to f32 with one integer add and one
-//    f32 subtraction (the 1.5 * 2^23 bias, exact below 2^22), not with
-//    I2F, which runs at an eighth of the FMA rate on sm_90; its integer
-//    formula is the TPU kernel's 32-bit one, ((w & 0xF) ^ 8) - 8 and
-//    ((w >> 4) ^ 8) - 8.
-//
-//    A block owns 64 output columns and all of K; 256 threads are 4 column
-//    groups of 16 bytes by 64 row slices, so one warp load reads 8 rows of
-//    64 contiguous bytes. Each thread loads 8 rows' (4 at B > 4) 16-byte
-//    pieces before it uses any (bytes in flight), keeps B x 16 f32 sums,
-//    and reads x from shared memory, where the block stages it once as f32
-//    [K][BT] (BT = B rounded up to 1, 2, 4 or 8; rows past B zero). The 64
-//    slices are summed in a fixed order: shuffles inside a warp, then the 8
-//    warps in order through shared memory. At B = 8 that is 8 FMAs a
-//    weight on top of its unpack.
-//
-//  - s8_mma (matvec_s8), mvt_mma (_mvt_call) and p4_mma (matvec_p4b and
-//    p4c) run the products as bf16 mma.sync.m16n8k16 with f32
-//    accumulators, the serving int4 matvec's mechanism
+//  - The five matvecs, s8_mma (matvec_s8), mvt_mma (_mvt_call) and p4_mma
+//    (matvec_p4, p4b and p4c), run the products as bf16 mma.sync.m16n8k16
+//    with f32 accumulators, the serving int4 matvec's mechanism
 //    (csrc/quant_matmul.cu): the weights are A (16 output columns x 16 k),
 //    x is B (16 k x 8 rows of x; rows at or past B are zero, so every B in
 //    1..8 runs the same MMAs and costs the same). A weight becomes its
@@ -111,20 +89,33 @@
 //    kernel's other form, which reads w in 4-byte words and x element by
 //    element.
 //
-//    p4_mma<F>, input-major int4 wp [K/2, N] (matvec_p4b, matvec_p4c),
-//    takes s8_mma's grid, warps and loads over packed rows (a warp owns 128
+//    p4_mma<F>, input-major int4 wp [K/2, N] (matvec_p4, p4b, p4c), takes
+//    s8_mma's grid, warps and loads over packed rows (a warp owns 128
 //    columns, lane group g the 16 bytes [16 g, 16 g + 16) of each row; tile
 //    j's A rows g and g + 8 are the columns 16 g + 2j and 16 g + 2j + 1; 16
 //    warps split K/2 in steps of 16 packed rows, taken in turn; one block an
 //    SM, N / 128 blocks) and mvt_mma's pairing of a byte's two nibbles as
-//    the two halves of K. A step is two k slices: slice s takes packed rows
-//    t + 8 s and t + 8 s + 4 (16 st + those), their low nibbles as k slots
-//    2t and 2t + 1 and their high ones as 2t + 8 and 2t + 9, so B is x[g]
-//    at the two rows and at K/2 plus them; MMA tile j = 2q + h of a slice
-//    takes bytes 2h and 2h + 1 of word q of each of its two rows. Each form
-//    keeps its TPU kernel's integer unpack and turns its small integers
-//    into bf16 exactly:
+//    the two halves of K. A step is two k slices: lane t holds the packed
+//    rows 4t .. 4t + 3 of the step (16 st + those), and slice s takes rows
+//    4t + 2s and 4t + 2s + 1, their low nibbles as k slots 2t and 2t + 1
+//    and their high ones as 2t + 8 and 2t + 9, so B is x[g] at the two rows
+//    and at K/2 plus them: the lane's four rows of x[g] are contiguous, one
+//    8-byte load in each half a step (eight 2-byte loads when K/2 is not a
+//    multiple of 4 or x is off 8 bytes; at B = 8 those touch 8 rows'
+//    sectors each: chip_tools_probe.py's scalar_x). MMA tile j = 2q + h of
+//    a slice takes bytes 2h and 2h + 1 of word q of each of its two rows.
+//    Each form keeps its TPU kernel's integer unpack and turns its small
+//    integers into bf16 exactly:
 //
+//      kP4   the 32-bit form, ((w & 0xF) ^ 8) - 8 and ((w >> 4) ^ 8) - 8.
+//            One byte permute gathers the MMA's 4 bytes in v; v and v >> 8
+//            hold the lo plane's nibbles of A rows g and g + 8 at bits 0-3
+//            and 16-19, v >> 4 and v >> 12 the hi plane's. Per A register
+//            one lop3, (u & 0x000F000F) ^ 0x43084308 = 128 + (n ^ 8) in
+//            each bf16 half, and one bf16x2 subtraction of 136 leave (n ^
+//            8) - 8 exactly (mvt_mma's nibbles_to_bf16x2): 1 permute + 3
+//            shifts + 4 x 2 = 12 instructions an MMA, 3 a weight byte. It
+//            needs neither kP4c's 1/16 nor its rank-1 term.
 //      kP4b  byte-width sign extension, int8(w << 4) >> 4 and int8(w) >> 4.
 //            For the pair (a, b) of an A register (a in the low half): a
 //            byte permute with sign-replicating selectors makes the 32-bit
@@ -140,28 +131,58 @@
 //            masked words (3 a word, which serve its two tiles): 22
 //            instructions, 5.5 a weight byte.
 //      kP4c  the bias form: lo + 8 = (w & 0xF) ^ 8 and 16 hi = int8(w) & -16.
-//            One byte permute gathers the MMA's 4 bytes in v; per A register
-//            a shift and one lop3, (v & 0x000F000F) ^ 0x43084308 = 128 + (lo
-//            + 8), or ((v >> 1) & 0x00780078) ^ 0x43C043C0, which puts w &
-//            0xF0 in the mantissa with its sign bit flipped, = 384 + 16 hi,
-//            and one bf16x2 subtraction (of 128 or 384) leave the planes:
-//            12 instructions an MMA, 3 a weight byte, as mvt_mma. x's high
-//            half is read times 1/16 (one bf16x2 multiply a slice, exact),
-//            and 8 sum_{k < K/2} x[b][k] is taken off each row's sum before
-//            the scale, the TPU kernel's rank-1 term: each lane sums its B
-//            fragments' x in f32, then the lanes of a row (two shuffles) and
-//            the warps in order.
+//            v as for kP4; per A register a shift and one lop3, (v &
+//            0x000F000F) ^ 0x43084308 = 128 + (lo + 8), or ((v >> 1) &
+//            0x00780078) ^ 0x43C043C0, which puts w & 0xF0 in the mantissa
+//            with its sign bit flipped, = 384 + 16 hi, and one bf16x2
+//            subtraction (of 128 or 384) leave the planes: 12 instructions
+//            an MMA, 3 a weight byte, as kP4. x's high half is read times
+//            1/16 (one bf16x2 multiply a slice, exact), and 8 sum_{k < K/2}
+//            x[b][k] is taken off each row's sum before the scale, the TPU
+//            kernel's rank-1 term: each lane sums its B fragments' x in
+//            f32, then the lanes of a row (two shuffles) and the warps in
+//            order.
 //
-//  - reduce_kernel: a grid of (row splits, column tiles), enough blocks to
-//    fill the card twice; 16-byte loads, 4 rows in flight a thread. The
-//    column sums (stream_bytes) and the unpacked tile sums
-//    (_unpack_only_call) fold across blocks with 64-bit integer atomics:
-//    exact and independent of order. The last block to arrive (a counter
-//    in the same scratch) writes the result and zeroes the scratch for
-//    the next call. Every block's sums reach the atomics, so no block's
-//    unpack is dead code.
-//  - copy_kernel (dma_only): the same grid, each block copying its rows
-//    into a ring of 4 shared-memory stages of up to 8 KB with 16-byte
+//  - reduce_kernel (stream_bytes): a grid of (row splits, column tiles),
+//    enough blocks to fill the card twice; 16-byte loads, 4 rows in flight
+//    a thread. The column sums fold across blocks with 64-bit integer
+//    atomics: exact and independent of order. The last block to arrive (a
+//    counter in the same scratch) writes the result and zeroes the scratch
+//    for the next call.
+//  - unpack_sums (_unpack_only_call) sums a 32-bit word w of 4 packed bytes
+//    at a time: one lop3, (w & 0x0F0F0F0F) ^ 0x08080808, leaves each byte's
+//    (b & 0xF) ^ 8 (0..15) in place, and one unsigned dp4a against
+//    0x01010101 adds the four to the thread's lo sum; one AND, w &
+//    0xF0F0F0F0, leaves the four int8(b) & -16 as signed bytes, and one
+//    signed dp4a adds them to hi. 4 instructions a word, 1 a byte (the
+//    byte-by-byte form, extract, XOR, add, sign-extend, AND, add, took 6-7).
+//    A block is 256 threads, each loading the 16 bytes of its column group
+//    in 4 rows at once (64 bytes a thread, 16 KB a block; rows past K/2
+//    read as 0x08080808, whose sums are 0), so a block owns lanes x 4 rows
+//    of one column tile, lanes = 256 / (block_n / 16) rows side by side,
+//    and the launcher's grid is (ceil(K/2 / rows), N / block_n): 1024
+//    blocks at the tools' shape whatever block_n, two waves of about 4
+//    blocks an SM (launch bounds: 4 blocks an SM). A block's sums stay
+//    within 2^21 in magnitude (16 KB of bytes, each within 128), exact in
+//    int32; its warps fold by shuffles, then in shared memory. sum(x):
+//    block b (its index in launch order) also sums x's chunks b, b +
+//    blocks, ... of 512 elements (2 a thread; its first chunk loaded
+//    before its weights) in a fixed order into an f32 slot of the scratch,
+//    so the sum is spread over the first blocks and no block reads all of
+//    x. Every block stores its two sums, one 64-bit word, to its own word
+//    of the scratch: they reach memory, so no block's unpack is dead code,
+//    and no block waits for them. Only the blocks whose results the output
+//    reads arrive on a counter (a fence, then an atomic): those of the last
+//    tile, which the first-launched blocks (blockIdx.y = 0) read, and
+//    those holding a chunk of x, the first ones too. The last of them adds
+//    the last tile's words and the x slots in index order, writes the
+//    result and zeroes the counter and the slots: two calls give the same
+//    bits, and the first wave's tails run while the second wave streams.
+//    chip_tools_probe.py takes this apart on the card: every block
+//    arriving (arrive_all), none (no_arrive, the floor), 2 or 8 rows a
+//    thread (rows2, rows8) and 8 elements of x a thread (x8).
+//  - copy_kernel (dma_only): reduce_kernel's grid, each block copying its
+//    rows into a ring of 4 shared-memory stages of up to 8 KB with 16-byte
 //    cp.async, which the compiler cannot drop; only the block holding row
 //    0 of the last tile reads it back and writes the result.
 
@@ -174,13 +195,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxB = 8;
-// matvec_in: column groups of 16 bytes a block, row slices, rows a load.
-constexpr int kGroups = 4;
-constexpr int kCols = 16 * kGroups;
-constexpr int kSlices = kThreads / kGroups;
-// Rows a thread loads before it uses any: 8, or 4 at B > 4, where its B x 16
-// sums already take 128 registers.
-__host__ __device__ constexpr int unroll(int bt) { return bt > 4 ? 4 : 8; }
 // s8_mma and p4_mma: warps a block; columns a block (and a warp), MMA tiles
 // of 16 of them, rows (packed rows for p4_mma) an MMA step. mvt_mma: warps a
 // block; MMA tiles a block; packed bytes of a column an MMA step.
@@ -198,22 +212,17 @@ constexpr int kMvtStepBytes = 32;
 constexpr int kReduceUnroll = 4;
 constexpr int kRing = 4;
 constexpr int kStageBytes = 8192;
+// unpack_sums: rows a thread loads at once (its block's rows are its
+// lanes times these), blocks an SM its launch bounds ask for, and the
+// elements of x a thread adds for its block's chunk of x (kThreads times
+// them).
+constexpr int kUnpackRows = 4;
+constexpr int kUnpackBlocksPerSm = 4;
+constexpr int kXPerThread = 2;
+constexpr int kXChunk = kThreads * kXPerThread;
 
 enum Form : int { kP4 = 0, kP4b = 1, kP4c = 2, kS8 = 3, kOut = 4 };
-enum Reduce : int { kColumnSums = 0, kUnpackSums = 1, kCopy = 2 };
-
-// An integer |v| < 2^22 as f32, exactly, in two full-rate operations.
-__device__ __forceinline__ float small_int_to_float(int v) {
-  return __int_as_float(0x4B400000 + v) - 12582912.0f;
-}
-
-// The two nibble planes of packed byte w (0..255), matvec_p4's formula, as
-// f32.
-__device__ __forceinline__ void planes(uint32_t w, float& lo, float& hi) {
-  const int v = static_cast<int>(w);
-  lo = small_int_to_float(((v & 0xF) ^ 8) - 8);
-  hi = small_int_to_float(((v >> 4) ^ 8) - 8);
-}
+enum Stream : int { kColumnSums = 0, kCopy = 2 };
 
 // Sum of v over the block's threads in a fixed order (shuffles, then the
 // warps in order); every thread gets it. `part` holds kWarps floats.
@@ -228,104 +237,6 @@ __device__ float block_sum(float v, float* part) {
   return total;
 }
 
-// x bf16 [B, K] into xs f32 [K][BT], rows b >= B zero.
-template <int BT>
-__device__ void stage_x(const __nv_bfloat16* __restrict__ x, int B, int K,
-                        float* xs) {
-  for (int i = threadIdx.x; i < K * BT; i += kThreads) {
-    const int k = i / BT, b = i % BT;
-    xs[i] = b < B ? __bfloat162float(x[static_cast<size_t>(b) * K + k])
-                  : 0.0f;
-  }
-}
-
-// y = (x @ W) * s over input-major int4 weights (matvec_p4): w uint8 [K/2,
-// N], N a multiple of 16, w on 16 bytes.
-template <int BT>
-__global__ void __launch_bounds__(kThreads)
-    matvec_in(const __nv_bfloat16* __restrict__ x,
-              const uint8_t* __restrict__ w, const float* __restrict__ s,
-              float* __restrict__ y, int B, int K, int N) {
-  extern __shared__ __align__(16) float smem[];
-  float* xs = smem;               // [K][BT]
-  float* red = smem + K * BT;     // [kWarps][BT][kCols]
-  stage_x<BT>(x, B, K, xs);
-  __syncthreads();
-
-  const int rows = K / 2;
-  const int K2 = K / 2;
-  const int group = threadIdx.x % kGroups;
-  const int slice = threadIdx.x / kGroups;
-  const int col0 = blockIdx.x * kCols + group * 16;
-  float acc[BT][16];
-#pragma unroll
-  for (int b = 0; b < BT; ++b)
-#pragma unroll
-    for (int j = 0; j < 16; ++j) acc[b][j] = 0.0f;
-
-  if (col0 < N) {
-    constexpr int kUnroll = unroll(BT);
-    for (int r0 = slice; r0 < rows; r0 += kSlices * kUnroll) {
-      uint4 v[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int r = r0 + u * kSlices;
-        v[u] = r < rows ? __ldg(reinterpret_cast<const uint4*>(
-                              w + static_cast<size_t>(r) * N + col0))
-                        : make_uint4(0u, 0u, 0u, 0u);
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int r = r0 + u * kSlices;
-        if (r >= rows) break;
-        const uint32_t words[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
-        float xl[BT], xh[BT];
-#pragma unroll
-        for (int b = 0; b < BT; ++b) {
-          xl[b] = xs[r * BT + b];
-          xh[b] = xs[(r + K2) * BT + b];
-        }
-#pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          float lo, hi;
-          planes((words[j / 4] >> (8 * (j % 4))) & 0xFFu, lo, hi);
-#pragma unroll
-          for (int b = 0; b < BT; ++b) {
-            acc[b][j] = fmaf(xl[b], lo, acc[b][j]);
-            acc[b][j] = fmaf(xh[b], hi, acc[b][j]);
-          }
-        }
-      }
-    }
-  }
-
-  // The slices of one column group inside a warp are kGroups lanes apart.
-#pragma unroll
-  for (int b = 0; b < BT; ++b)
-#pragma unroll
-    for (int j = 0; j < 16; ++j)
-#pragma unroll
-      for (int o = kGroups; o < 32; o <<= 1)
-        acc[b][j] += __shfl_xor_sync(0xffffffffu, acc[b][j], o);
-  const int warp = threadIdx.x / 32;
-  if (threadIdx.x % 32 < kGroups) {
-#pragma unroll
-    for (int b = 0; b < BT; ++b)
-#pragma unroll
-      for (int j = 0; j < 16; ++j)
-        red[(warp * BT + b) * kCols + group * 16 + j] = acc[b][j];
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < B * kCols; i += kThreads) {
-    const int b = i / kCols, c = i % kCols;
-    const int col = blockIdx.x * kCols + c;
-    if (col >= N) continue;
-    float v = 0.0f;
-    for (int wi = 0; wi < kWarps; ++wi) v += red[(wi * BT + b) * kCols + c];
-    y[static_cast<size_t>(b) * N + col] = v * s[col];
-  }
-}
-
 __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
                                          uint32_t a1, uint32_t a2,
                                          uint32_t a3, uint32_t b0,
@@ -334,6 +245,81 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// The unpacks' constants (tests/test_torch_tools_unpack.py reads them from
+// here and replays the unpacks bit for bit). Byte permutes: kP4Gather[h]
+// takes bytes 2h and 2h + 1 of a word of row r (the low half's k slot) and
+// of row r + 1 (the high half's), so that v holds (column 16 g + 2j, r),
+// (16 g + 2j + 1, r), (16 g + 2j, r + 1), (16 g + 2j + 1, r + 1) in its
+// bytes 0..3; kP4bSext[i] is byte i of the first operand then its sign three
+// times (its 32-bit int8), kP4bHigh[i] two zero bytes (the second operand,
+// 0), byte i and its sign (2^16 times its int8).
+constexpr uint32_t kP4Gather[2] = {0x5410u, 0x7632u};
+constexpr uint32_t kP4bSext[4] = {0x8880u, 0x9991u, 0xAAA2u, 0xBBB3u};
+constexpr uint32_t kP4bHigh[4] = {0x8044u, 0x9144u, 0xA244u, 0xB344u};
+constexpr uint32_t kNibbleMask = 0xF0F0F0F0u;
+// 16 * 0x4308 + 2^20 * 0x4308 mod 2^32; the 2^32s it drops, the high word
+// of the funnel shift.
+constexpr uint32_t kP4bBias = 0x30843080u;
+constexpr uint32_t kP4bCarry = 4u;
+constexpr uint32_t kBf16x2_136 = 0x43084308u;
+// The nibbles at bits 0-3 and 16-19 as two bf16 128 + (n ^ 8): the lop3
+// mask and xor of nibbles_to_bf16x2 (kP4, mvt_mma) and of kP4c's lo plane.
+constexpr uint32_t kNibMask = 0x000F000Fu;
+constexpr uint32_t kNibXor = 0x43084308u;
+// kP4c: the lo plane's bf16 subtrahend (128); the hi plane's mask and xor,
+// also its subtrahend (384); 1/16 in bf16.
+constexpr uint32_t kP4cLoSub = 0x43004300u;
+constexpr uint32_t kP4cHiMask = 0x00780078u;
+constexpr uint32_t kP4cHiXor = 0x43C043C0u;
+constexpr uint32_t kBf16x2_1_16 = 0x3D803D80u;
+// unpack_sums: each byte's (b & 0xF) ^ 8 in place by one lop3; its int8(b)
+// & -16 by kNibbleMask; the dp4a weights; the word a row past K/2 reads,
+// whose two sums are 0.
+constexpr uint32_t kWordLoMask = 0x0F0F0F0Fu;
+constexpr uint32_t kWordLoXor = 0x08080808u;
+constexpr uint32_t kOnes = 0x01010101u;
+constexpr uint32_t kPadWord = 0x08080808u;
+
+// prmt.b32 in its default mode, where a selector nibble's bit 3 replicates
+// the selected byte's sign (__byte_perm ignores that bit). The selectors
+// come in as template arguments: device code may not index the constant
+// arrays above.
+template <uint32_t kSel>
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(r) : "r"(a), "r"(b), "n"(kSel));
+  return r;
+}
+
+// (a & mask) ^ c in one lop3.
+template <uint32_t kMask, uint32_t kXor>
+__device__ __forceinline__ uint32_t and_xor(uint32_t a) {
+  uint32_t r;
+  asm("lop3.b32 %0, %1, %2, %3, 0x6a;\n"
+      : "=r"(r)
+      : "r"(a), "n"(kMask), "n"(kXor));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t hsub2(uint32_t a, uint32_t b) {
+  __nv_bfloat162 h = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&a),
+                             *reinterpret_cast<__nv_bfloat162*>(&b));
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+__device__ __forceinline__ uint32_t hmul2(uint32_t a, uint32_t b) {
+  __nv_bfloat162 h = __hmul2(*reinterpret_cast<__nv_bfloat162*>(&a),
+                             *reinterpret_cast<__nv_bfloat162*>(&b));
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// Nibbles at bits 0-3 and 16-19 of v -> their two exact signed values as
+// bf16x2: (v & 0x000F000F) ^ 0x43084308 in one lop3 is 0x4300 | (n ^ 8),
+// i.e. 128 + (w + 8); minus 136 (which is 0x4308 in bf16).
+__device__ __forceinline__ uint32_t nibbles_to_bf16x2(uint32_t v) {
+  return hsub2(and_xor<kNibMask, kNibXor>(v), kBf16x2_136);
 }
 
 // Two f32 -> bf16x2 (round to nearest even; exact for the small integers
@@ -355,18 +341,6 @@ template <int b>
 __device__ __forceinline__ float s8_value(uint32_t u) {
   return __int_as_float(__byte_perm(u, 0x4B400000u, 0x7650 | b)) -
          12583040.0f;
-}
-
-// Nibbles at bits 0-3 and 16-19 of v -> their two exact signed values as
-// bf16x2: (v & 0x000F000F) ^ 0x43084308 in one lop3 is 0x4300 | (n ^ 8),
-// i.e. 128 + (w + 8); minus 136 (which is 0x4308 in bf16).
-__device__ __forceinline__ uint32_t nibbles_to_bf16x2(uint32_t v) {
-  constexpr uint32_t k136 = 0x43084308u;
-  uint32_t r;
-  asm("lop3.b32 %0, %1, 0x000F000F, 0x43084308, 0x6a;\n" : "=r"(r) : "r"(v));
-  __nv_bfloat162 h = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&r),
-                             *reinterpret_cast<const __nv_bfloat162*>(&k136));
-  return *reinterpret_cast<uint32_t*>(&h);
 }
 
 // One MMA step of s8_mma: rows 16 st + t + 4 i (i = 0..3) of the lane's 16
@@ -631,65 +605,6 @@ __global__ void __launch_bounds__(kMvtThreads, 2)
       [](const Element& el) { return 16 * el.j + el.g + 8 * el.hi; });
 }
 
-// p4_mma's unpack constants (tests/test_torch_tools_unpack.py reads them
-// from here and replays the unpack bit for bit). Byte permutes: kP4Gather[h]
-// takes bytes 2h and 2h + 1 of a word of row r (the low half's k slot) and
-// of row r + 4 (the high half's), so that v holds (column 16 g + 2j, r),
-// (16 g + 2j + 1, r), (16 g + 2j, r + 4), (16 g + 2j + 1, r + 4) in its
-// bytes 0..3; kP4bSext[i] is byte i of the first operand then its sign three
-// times (its 32-bit int8), kP4bHigh[i] two zero bytes (the second operand,
-// 0), byte i and its sign (2^16 times its int8).
-constexpr uint32_t kP4Gather[2] = {0x5410u, 0x7632u};
-constexpr uint32_t kP4bSext[4] = {0x8880u, 0x9991u, 0xAAA2u, 0xBBB3u};
-constexpr uint32_t kP4bHigh[4] = {0x8044u, 0x9144u, 0xA244u, 0xB344u};
-constexpr uint32_t kNibbleMask = 0xF0F0F0F0u;
-// 16 * 0x4308 + 2^20 * 0x4308 mod 2^32; the 2^32s it drops, the high word
-// of the funnel shift.
-constexpr uint32_t kP4bBias = 0x30843080u;
-constexpr uint32_t kP4bCarry = 4u;
-constexpr uint32_t kBf16x2_136 = 0x43084308u;
-// kP4c: the lo plane's lop3 mask, xor and bf16 subtrahend (128); the hi
-// plane's mask and xor, also its subtrahend (384); 1/16 in bf16.
-constexpr uint32_t kP4cLoMask = 0x000F000Fu;
-constexpr uint32_t kP4cLoXor = 0x43084308u;
-constexpr uint32_t kP4cLoSub = 0x43004300u;
-constexpr uint32_t kP4cHiMask = 0x00780078u;
-constexpr uint32_t kP4cHiXor = 0x43C043C0u;
-constexpr uint32_t kBf16x2_1_16 = 0x3D803D80u;
-
-// prmt.b32 in its default mode, where a selector nibble's bit 3 replicates
-// the selected byte's sign (__byte_perm ignores that bit). The selectors
-// come in as template arguments: device code may not index the constant
-// arrays above.
-template <uint32_t kSel>
-__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b) {
-  uint32_t r;
-  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(r) : "r"(a), "r"(b), "n"(kSel));
-  return r;
-}
-
-// (a & mask) ^ c in one lop3.
-template <uint32_t kMask, uint32_t kXor>
-__device__ __forceinline__ uint32_t and_xor(uint32_t a) {
-  uint32_t r;
-  asm("lop3.b32 %0, %1, %2, %3, 0x6a;\n"
-      : "=r"(r)
-      : "r"(a), "n"(kMask), "n"(kXor));
-  return r;
-}
-
-__device__ __forceinline__ uint32_t hsub2(uint32_t a, uint32_t b) {
-  __nv_bfloat162 h = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&a),
-                             *reinterpret_cast<__nv_bfloat162*>(&b));
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ uint32_t hmul2(uint32_t a, uint32_t b) {
-  __nv_bfloat162 h = __hmul2(*reinterpret_cast<__nv_bfloat162*>(&a),
-                             *reinterpret_cast<__nv_bfloat162*>(&b));
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
 // kP4b: the A register (int8(p) >> 4, int8(q) >> 4) as bf16x2, p byte i of
 // lo_src, q byte i of hi_src, whose low nibble is zero. The permutes make
 // int8(p) and 2^16 int8(q); the add is exact mod 2^32, and the funnel shift
@@ -704,55 +619,85 @@ __device__ __forceinline__ uint32_t sext_pair(uint32_t lo_src,
   return hsub2(__funnelshift_r(sum, kP4bCarry, 4), kBf16x2_136);
 }
 
-// kP4c: MMA tile 2q + h of a slice, v gathering its 4 bytes (kSel =
-// kP4Gather[h]) from words ra (row r) and rb (row r + 4).
-template <uint32_t kSel>
-__device__ __forceinline__ void p4c_mma(float (&d)[4], uint32_t ra,
-                                        uint32_t rb, uint32_t b0,
-                                        uint32_t b1) {
+// kP4 and kP4c: MMA tile 2q + h of a slice, v gathering its 4 bytes (kSel =
+// kP4Gather[h]) from words ra (row r) and rb (row r + 1): v and v >> 8 hold
+// the lo plane's nibbles of A rows g and g + 8 at bits 0-3 and 16-19, v >> 4
+// and v >> 12 the hi plane's.
+template <int F, uint32_t kSel>
+__device__ __forceinline__ void gather_mma(float (&d)[4], uint32_t ra,
+                                           uint32_t rb, uint32_t b0,
+                                           uint32_t b1) {
   const uint32_t v = prmt<kSel>(ra, rb);
-  mma_bf16(d, hsub2(and_xor<kP4cLoMask, kP4cLoXor>(v), kP4cLoSub),
-           hsub2(and_xor<kP4cLoMask, kP4cLoXor>(v >> 8), kP4cLoSub),
-           hsub2(and_xor<kP4cHiMask, kP4cHiXor>(v >> 1), kP4cHiXor),
-           hsub2(and_xor<kP4cHiMask, kP4cHiXor>(v >> 9), kP4cHiXor), b0, b1);
+  if constexpr (F == kP4) {
+    mma_bf16(d, nibbles_to_bf16x2(v), nibbles_to_bf16x2(v >> 8),
+             nibbles_to_bf16x2(v >> 4), nibbles_to_bf16x2(v >> 12), b0, b1);
+  } else {
+    mma_bf16(d, hsub2(and_xor<kNibMask, kNibXor>(v), kP4cLoSub),
+             hsub2(and_xor<kNibMask, kNibXor>(v >> 8), kP4cLoSub),
+             hsub2(and_xor<kP4cHiMask, kP4cHiXor>(v >> 1), kP4cHiXor),
+             hsub2(and_xor<kP4cHiMask, kP4cHiXor>(v >> 9), kP4cHiXor), b0,
+             b1);
+  }
 }
 
-// One MMA step of p4_mma: packed rows 16 st + t + 4 i (i = 0..3) of the
-// lane's 16 columns, and its B fragments: slice c (rows t + 8 c and t + 8 c
-// + 4) takes x[g] at those rows (b[c][0]) and at K/2 plus them (b[c][1]).
-// Past K/2 and N zero.
+// One MMA step of p4_mma: packed rows 16 st + 4 t + i (i = 0..3) of the
+// lane's 16 columns, and its B fragments: slice c (rows 16 st + 4 t + 2 c
+// and + 1) takes x[g] at those rows (b[c][0]) and at K/2 plus them
+// (b[c][1]). Past K/2 and N zero.
 struct P4Step {
   uint4 w[4];
   uint32_t b[2][2];
 };
 
+// vec_x: K/2 a multiple of 4 and x on 8 bytes, so the lane's four rows of
+// x[g] are one 8-byte load in each half (two bf16 pairs, the B fragments
+// of its two slices), in or past K/2 together; otherwise 2-byte loads.
 __device__ __forceinline__ void p4_load(P4Step& s, const uint8_t* w,
                                         const unsigned short* xg, int st,
                                         int t, int K2, int N, int col,
-                                        bool cols_in, bool x_in) {
-  uint32_t xl[4], xh[4];
+                                        bool cols_in, bool x_in,
+                                        bool vec_x) {
+  const int k0 = kS8StepRows * st + 4 * t;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int k = kS8StepRows * st + t + 4 * i;
+    const int k = k0 + i;
     s.w[i] = k < K2 && cols_in
                  ? __ldg(reinterpret_cast<const uint4*>(
                        w + static_cast<size_t>(k) * N + col))
                  : make_uint4(0u, 0u, 0u, 0u);
-    xl[i] = k < K2 && x_in ? __ldg(xg + k) : 0u;
-    xh[i] = k < K2 && x_in ? __ldg(xg + K2 + k) : 0u;
   }
-  s.b[0][0] = pair(xl[0], xl[1]);
-  s.b[0][1] = pair(xh[0], xh[1]);
-  s.b[1][0] = pair(xl[2], xl[3]);
-  s.b[1][1] = pair(xh[2], xh[3]);
+  if (vec_x) {
+    const bool in = x_in && k0 < K2;
+    const uint2 lo = in ? __ldg(reinterpret_cast<const uint2*>(xg + k0))
+                        : make_uint2(0u, 0u);
+    const uint2 hi = in ? __ldg(reinterpret_cast<const uint2*>(xg + K2 + k0))
+                        : make_uint2(0u, 0u);
+    s.b[0][0] = lo.x;
+    s.b[1][0] = lo.y;
+    s.b[0][1] = hi.x;
+    s.b[1][1] = hi.y;
+  } else {
+    uint32_t xl[4], xh[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int k = k0 + i;
+      xl[i] = k < K2 && x_in ? __ldg(xg + k) : 0u;
+      xh[i] = k < K2 && x_in ? __ldg(xg + K2 + k) : 0u;
+    }
+    s.b[0][0] = pair(xl[0], xl[1]);
+    s.b[0][1] = pair(xh[0], xh[1]);
+    s.b[1][0] = pair(xl[2], xl[3]);
+    s.b[1][1] = pair(xh[2], xh[3]);
+  }
 }
 
 // The step's 16 MMAs, 8 tiles a slice: tile j = 2q + h takes bytes 2h and
-// 2h + 1 of word q of the slice's rows r = t + 8 c (k slot 2t and, high
-// nibble, 2t + 8) and r + 4 (2t + 1, 2t + 9) as A rows g and g + 8. kP4c
+// 2h + 1 of word q of the slice's rows r = 16 st + 4 t + 2 c (k slot 2t
+// and, high nibble, 2t + 8) and r + 1 (2t + 1, 2t + 9) as A rows g and
+// g + 8. kP4c
 // also adds the slice's x[g][k < K/2] to xsum, in f32 and in order. Zero
-// bytes (past K/2 or N) are the weight 0 (kP4b) or lo + 8 = 8 against x = 0
-// (kP4c).
+// bytes (past K/2 or N) are the weight 0 (kP4, kP4b) or lo + 8 = 8 against
+// x = 0 (kP4c).
 template <int F>
 __device__ __forceinline__ void p4_step(float (&acc)[kS8Tiles][4],
                                         const P4Step& s, float& xsum) {
@@ -780,15 +725,15 @@ __device__ __forceinline__ void p4_step(float (&acc)[kS8Tiles][4],
         mma_bf16(acc[2 * q + 1], sext_pair<2>(la, lb), sext_pair<3>(la, lb),
                  sext_pair<2>(ra[q], hb), sext_pair<3>(ra[q], hb), b0, b1);
       } else {
-        p4c_mma<kP4Gather[0]>(acc[2 * q], ra[q], rb[q], b0, b1);
-        p4c_mma<kP4Gather[1]>(acc[2 * q + 1], ra[q], rb[q], b0, b1);
+        gather_mma<F, kP4Gather[0]>(acc[2 * q], ra[q], rb[q], b0, b1);
+        gather_mma<F, kP4Gather[1]>(acc[2 * q + 1], ra[q], rb[q], b0, b1);
       }
     }
   }
 }
 
-// y = (x @ W) * s over input-major int4 weights wp [K/2, N] in form F (kP4b
-// or kP4c), N a multiple of 16, wp on 16 bytes. Grid: one block a
+// y = (x @ W) * s over input-major int4 weights wp [K/2, N] in form F (kP4,
+// kP4b or kP4c), N a multiple of 16, wp on 16 bytes. Grid: one block a
 // 128-column tile.
 template <int F>
 __global__ void __launch_bounds__(kS8Threads, 1)
@@ -806,6 +751,8 @@ __global__ void __launch_bounds__(kS8Threads, 1)
   const unsigned short* xg =
       reinterpret_cast<const unsigned short*>(x) + static_cast<size_t>(g) * K;
   const int steps = (K2 + kS8StepRows - 1) / kS8StepRows;
+  const bool vec_x =
+      K2 % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 8 == 0;
 
   float acc[kS8Tiles][4];
 #pragma unroll
@@ -815,10 +762,12 @@ __global__ void __launch_bounds__(kS8Threads, 1)
   float xsum = 0.f;
   // Step st + kS8Warps is loaded before step st is multiplied.
   P4Step cur, nxt;
-  if (warp < steps) p4_load(cur, w, xg, warp, t, K2, N, col, cols_in, x_in);
+  if (warp < steps)
+    p4_load(cur, w, xg, warp, t, K2, N, col, cols_in, x_in, vec_x);
   for (int st = warp; st < steps; st += kS8Warps) {
     if (st + kS8Warps < steps)
-      p4_load(nxt, w, xg, st + kS8Warps, t, K2, N, col, cols_in, x_in);
+      p4_load(nxt, w, xg, st + kS8Warps, t, K2, N, col, cols_in, x_in,
+              vec_x);
     p4_step<F>(acc, cur, xsum);
     cur = nxt;
   }
@@ -857,24 +806,15 @@ __device__ __forceinline__ Share share(const uint8_t* wp, int K2, int bn,
   return sh;
 }
 
-// stream_bytes (kColumnSums): out f32 [bn], out[c] = sum over tiles j and
-// rows k of wp[k, j bn + c]. _unpack_only_call (kUnpackSums): out f32 [2],
-// out[0] the last tile's sum((w & 0xF) ^ 8) + sum(int8(w) & -16), plus
-// sum(x) over x bf16 [xn], out[1] that sum(x); ints int64 [2] the last
-// tile's two integer sums, so a check can hold them exactly. scratch:
-// 64-bit, [0] the arrival counter, then the bn column sums or the (lo, hi)
-// sums of each tile; zero before and after.
-template <int R>
+// stream_bytes: out f32 [bn], out[c] = sum over tiles j and rows k of
+// wp[k, j bn + c]. scratch: 64-bit, [0] the arrival counter, then the bn
+// column sums; zero before and after.
 __global__ void __launch_bounds__(kThreads)
-    reduce_kernel(const uint8_t* __restrict__ wp,
-                  const __nv_bfloat16* __restrict__ x, int xn,
-                  float* __restrict__ out, long long* __restrict__ ints,
+    reduce_kernel(const uint8_t* __restrict__ wp, float* __restrict__ out,
                   unsigned long long* __restrict__ scratch, int K2, int N,
                   int bn, int rows_per_block) {
   __shared__ int red[kThreads * 16];
-  __shared__ float part[kWarps];
   __shared__ bool last;
-  __shared__ long long tail[2];
   const Share sh = share(wp, K2, bn, rows_per_block);
   const int groups = bn / 16;
   const int lanes = kThreads / groups;
@@ -886,7 +826,6 @@ __global__ void __launch_bounds__(kThreads)
   int colsum[16];
 #pragma unroll
   for (int j = 0; j < 16; ++j) colsum[j] = 0;
-  int lo = 0, hi = 0;
   if (active) {
     for (int k = sh.k0 + l; k < sh.k1; k += lanes * kReduceUnroll) {
       uint4 v[kReduceUnroll];
@@ -902,41 +841,21 @@ __global__ void __launch_bounds__(kThreads)
         if (k + u * lanes >= sh.k1) break;
         const uint32_t words[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          const uint32_t byte = (words[j / 4] >> (8 * (j % 4))) & 0xFFu;
-          if constexpr (R == kColumnSums) {
-            colsum[j] += static_cast<int>(byte);
-          } else {
-            lo += static_cast<int>((byte & 0xF) ^ 8);
-            hi += static_cast<int8_t>(byte) & -16;
-          }
-        }
+        for (int j = 0; j < 16; ++j)
+          colsum[j] += static_cast<int>((words[j / 4] >> (8 * (j % 4))) &
+                                        0xFFu);
       }
     }
   }
 
-  if constexpr (R == kColumnSums) {
 #pragma unroll
-    for (int j = 0; j < 16; ++j) red[threadIdx.x * 16 + j] = colsum[j];
-    __syncthreads();
-    for (int c = threadIdx.x; c < bn; c += kThreads) {
-      long long total = 0;
-      for (int li = 0; li < lanes; ++li)
-        total += red[(li * groups + c / 16) * 16 + c % 16];
-      atomicAdd(&sums[c], static_cast<unsigned long long>(total));
-    }
-  } else {
-    // Integer sums: exact in any order.
-    for (int o = 16; o > 0; o >>= 1) {
-      lo += __shfl_xor_sync(0xffffffffu, lo, o);
-      hi += __shfl_xor_sync(0xffffffffu, hi, o);
-    }
-    if (threadIdx.x % 32 == 0) {
-      atomicAdd(&sums[2 * blockIdx.y],
-                static_cast<unsigned long long>(static_cast<long long>(lo)));
-      atomicAdd(&sums[2 * blockIdx.y + 1],
-                static_cast<unsigned long long>(static_cast<long long>(hi)));
-    }
+  for (int j = 0; j < 16; ++j) red[threadIdx.x * 16 + j] = colsum[j];
+  __syncthreads();
+  for (int c = threadIdx.x; c < bn; c += kThreads) {
+    long long total = 0;
+    for (int li = 0; li < lanes; ++li)
+      total += red[(li * groups + c / 16) * 16 + c % 16];
+    atomicAdd(&sums[c], static_cast<unsigned long long>(total));
   }
 
   // The last block to arrive writes the result and zeroes the scratch.
@@ -950,29 +869,191 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   if (!last) return;
   __threadfence();
-  if constexpr (R == kColumnSums) {
-    for (int c = threadIdx.x; c < bn; c += kThreads)
-      out[c] = static_cast<float>(
-          static_cast<long long>(atomicExch(&sums[c], 0ull)));
-  } else {
-    const int tiles = gridDim.y;
-    for (int i = threadIdx.x; i < 2 * tiles; i += kThreads) {
-      const long long v = static_cast<long long>(atomicExch(&sums[i], 0ull));
-      if (i >= 2 * (tiles - 1)) tail[i - 2 * (tiles - 1)] = v;
-    }
-    float xv = 0.0f;
-    for (int i = threadIdx.x; i < xn; i += kThreads)
-      xv += __bfloat162float(x[i]);
-    const float xsum = block_sum(xv, part);  // its barriers publish tail
-    if (threadIdx.x == 0) {
-      out[0] = (static_cast<float>(tail[0]) + static_cast<float>(tail[1])) +
-               xsum;
-      out[1] = xsum;
-      ints[0] = tail[0];
-      ints[1] = tail[1];
+  for (int c = threadIdx.x; c < bn; c += kThreads)
+    out[c] = static_cast<float>(
+        static_cast<long long>(atomicExch(&sums[c], 0ull)));
+  if (threadIdx.x == 0) atomicExch(&scratch[0], 0ull);
+}
+
+// x's chunk c as f32, a thread's kXPerThread elements: c kXChunk + e
+// kThreads + threadIdx.x (e < kXPerThread; past xn 0).
+__device__ __forceinline__ void load_chunk(
+    float (&v)[kXPerThread], const __nv_bfloat16* __restrict__ x, int xn,
+    int c) {
+#pragma unroll
+  for (int e = 0; e < kXPerThread; ++e) {
+    const int i = c * kXChunk + e * kThreads + threadIdx.x;
+    v[e] = i < xn ? __bfloat162float(x[i]) : 0.0f;
+  }
+}
+
+// The chunk's sum in a fixed order (each thread's elements in order, then
+// block_sum) into the low 32 bits of its slot.
+__device__ __forceinline__ void store_chunk(const float (&v)[kXPerThread],
+                                            float* part,
+                                            unsigned long long* slot) {
+  float t = 0.0f;
+#pragma unroll
+  for (int e = 0; e < kXPerThread; ++e) t += v[e];
+  const float total = block_sum(t, part);
+  if (threadIdx.x == 0) *slot = __float_as_uint(total);
+}
+
+// _unpack_only_call: out f32 [2], out[0] the last tile's sum((w & 0xF) ^ 8)
+// + sum(int8(w) & -16), each an exact integer rounded to f32 once, plus
+// sum(x) over x bf16 [xn], out[1] that sum(x); ints int64 [2] the last
+// tile's two integer sums, so a check can hold them exactly. scratch:
+// 64-bit, [0] the arrival counter, then a word a block, its (lo, hi) sums
+// as two 32-bit halves, then ceil(xn / kXChunk) slots, x's chunk sums as
+// f32 bits. The counter and the slots are zero before and after; each call
+// writes every block's word. Grid: (ceil(K2 / rows), N / bn), rows = lanes
+// * kUnpackRows; blocks with blockIdx.y = 0, the first launched, read the
+// last tile.
+__global__ void __launch_bounds__(kThreads, kUnpackBlocksPerSm)
+    unpack_sums(const uint8_t* __restrict__ wp,
+                const __nv_bfloat16* __restrict__ x, int xn,
+                float* __restrict__ out, long long* __restrict__ ints,
+                unsigned long long* __restrict__ scratch, int K2, int N,
+                int bn) {
+  __shared__ int red[2][kWarps];
+  __shared__ long long red64[2][kWarps];
+  __shared__ float part[kWarps];
+  __shared__ float slots[kThreads];
+  __shared__ bool last;
+  const int groups = bn / 16;
+  const int lanes = kThreads / groups;
+  const int g = threadIdx.x % groups;
+  const int l = threadIdx.x / groups;
+  const int k0 = blockIdx.x * lanes * kUnpackRows;
+  const int k1 = min(K2, k0 + lanes * kUnpackRows);
+  const int tiles = gridDim.y;
+  const int tile = tiles - 1 - static_cast<int>(blockIdx.y);
+  const uint8_t* col = wp + static_cast<size_t>(tile) * bn + 16 * g;
+  const int blocks = gridDim.x * gridDim.y;
+  const int block = blockIdx.y * gridDim.x + blockIdx.x;
+  const int chunks = (xn + kXChunk - 1) / kXChunk;
+  unsigned long long* partials = scratch + 1;
+  unsigned long long* xslots = partials + blocks;
+
+  // This block's first chunk of x and its rows, all loads issued before
+  // any is used.
+  float xv[kXPerThread] = {};
+  if (block < chunks) load_chunk(xv, x, xn, block);
+  uint4 v[kUnpackRows];
+#pragma unroll
+  for (int u = 0; u < kUnpackRows; ++u) {
+    const int r = k0 + l + u * lanes;
+    v[u] = l < lanes && r < k1
+               ? __ldg(reinterpret_cast<const uint4*>(
+                     col + static_cast<size_t>(r) * N))
+               : make_uint4(kPadWord, kPadWord, kPadWord, kPadWord);
+  }
+  unsigned lo = 0;
+  int hi = 0;
+#pragma unroll
+  for (int u = 0; u < kUnpackRows; ++u) {
+    const uint32_t words[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      lo = __dp4a(and_xor<kWordLoMask, kWordLoXor>(words[q]), kOnes, lo);
+      hi = __dp4a(static_cast<int>(words[q] & kNibbleMask),
+                  static_cast<int>(kOnes), hi);
     }
   }
-  if (threadIdx.x == 0) atomicExch(&scratch[0], 0ull);
+
+  // Integer sums: exact in any order.
+  int ilo = static_cast<int>(lo);
+  for (int o = 16; o > 0; o >>= 1) {
+    ilo += __shfl_xor_sync(0xffffffffu, ilo, o);
+    hi += __shfl_xor_sync(0xffffffffu, hi, o);
+  }
+  if (threadIdx.x % 32 == 0) {
+    red[0][threadIdx.x / 32] = ilo;
+    red[1][threadIdx.x / 32] = hi;
+  }
+  if (block < chunks) {  // the same for every thread of the block
+    store_chunk(xv, part, &xslots[block]);
+    for (int c = block + blocks; c < chunks; c += blocks) {
+      load_chunk(xv, x, xn, c);
+      store_chunk(xv, part, &xslots[c]);
+    }
+  }
+  __syncthreads();
+  // Only the blocks whose results the output reads, the last tile's and
+  // those holding a chunk of x, arrive on the counter; the rest store
+  // their word and leave.
+  const bool arrives = blockIdx.y == 0 || block < chunks;
+  if (threadIdx.x == 0) {
+    int tlo = 0, thi = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      tlo += red[0][w];
+      thi += red[1][w];
+    }
+    partials[block] =
+        static_cast<unsigned long long>(static_cast<uint32_t>(thi)) << 32 |
+        static_cast<uint32_t>(tlo);
+    if (arrives) {
+      __threadfence();
+      const int arrivals = max(static_cast<int>(gridDim.x),
+                               min(chunks, blocks));
+      last = atomicAdd(&scratch[0], 1ull) ==
+             static_cast<unsigned long long>(arrivals) - 1;
+    }
+  }
+  if (!arrives) return;  // the same for every thread of the block
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // The last tile's blocks' words (blocks 0 .. gridDim.x - 1) and the x
+  // slots, each thread's first ones loaded together; the slots are added
+  // in index order.
+  const int t = threadIdx.x;
+  const unsigned long long w0 =
+      t < static_cast<int>(gridDim.x) ? __ldcg(&partials[t]) : 0ull;
+  const uint32_t s0 = t < chunks ? static_cast<uint32_t>(
+                                       atomicExch(&xslots[t], 0ull))
+                                 : 0u;
+  long long slo = static_cast<uint32_t>(w0);
+  long long shi = static_cast<int>(static_cast<uint32_t>(w0 >> 32));
+  for (int b = t + kThreads; b < static_cast<int>(gridDim.x); b += kThreads) {
+    const unsigned long long w = __ldcg(&partials[b]);
+    slo += static_cast<uint32_t>(w);
+    shi += static_cast<int>(static_cast<uint32_t>(w >> 32));
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    slo += __shfl_xor_sync(0xffffffffu, slo, o);
+    shi += __shfl_xor_sync(0xffffffffu, shi, o);
+  }
+  if (t % 32 == 0) {
+    red64[0][t / 32] = slo;
+    red64[1][t / 32] = shi;
+  }
+  slots[t] = __uint_as_float(s0);
+  float xsum = 0.0f;
+  for (int c0 = 0; c0 < chunks; c0 += kThreads) {
+    if (c0 > 0) {
+      __syncthreads();  // the previous batch is added
+      if (c0 + t < chunks)
+        slots[t] = __uint_as_float(
+            static_cast<uint32_t>(atomicExch(&xslots[c0 + t], 0ull)));
+    }
+    __syncthreads();
+    if (t == 0)
+      for (int i = 0; i < min(kThreads, chunks - c0); ++i) xsum += slots[i];
+  }
+  __syncthreads();  // publishes red64
+  if (threadIdx.x == 0) {
+    long long tlo = 0, thi = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      tlo += red64[0][w];
+      thi += red64[1][w];
+    }
+    ints[0] = tlo;
+    ints[1] = thi;
+    out[0] = (static_cast<float>(tlo) + static_cast<float>(thi)) + xsum;
+    out[1] = xsum;
+    atomicExch(&scratch[0], 0ull);
+  }
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -1051,20 +1132,6 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t* allowed) {
   return err;
 }
 
-template <int BT>
-cudaError_t launch_in(const __nv_bfloat16* x, const uint8_t* w,
-                      const float* s, float* y, int B, int K, int N,
-                      cudaStream_t stream) {
-  static size_t allowed[64] = {};
-  const size_t smem = sizeof(float) * (static_cast<size_t>(K) * BT +
-                                       kWarps * BT * kCols);
-  cudaError_t err = allow_smem(matvec_in<BT>, smem, allowed);
-  if (err != cudaSuccess) return err;
-  matvec_in<BT><<<(N + kCols - 1) / kCols, kThreads, smem, stream>>>(
-      x, w, s, y, B, K, N);
-  return cudaGetLastError();
-}
-
 cudaError_t launch_s8(const __nv_bfloat16* x, const uint8_t* w,
                       const float* s, float* y, int B, int K, int N,
                       cudaStream_t stream) {
@@ -1099,16 +1166,6 @@ cudaError_t launch_mvt(const __nv_bfloat16* x, const uint8_t* w,
   return cudaGetLastError();
 }
 
-cudaError_t launch_in_rows(int B, const __nv_bfloat16* x, const uint8_t* w,
-                           const float* s, float* y, int K, int N,
-                           cudaStream_t stream) {
-  // The rows of x an instance is built for: B rounded up to 1, 2, 4, 8.
-  if (B <= 1) return launch_in<1>(x, w, s, y, B, K, N, stream);
-  if (B <= 2) return launch_in<2>(x, w, s, y, B, K, N, stream);
-  if (B <= 4) return launch_in<4>(x, w, s, y, B, K, N, stream);
-  return launch_in<8>(x, w, s, y, B, K, N, stream);
-}
-
 }  // namespace
 
 // form: kP4, kP4b, kP4c, kS8 (input-major w, N a multiple of 16, w on 16
@@ -1134,7 +1191,7 @@ extern "C" int sea_qb_matvec(int form, const void* x, const void* w,
                    reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(w) % 8 == 0;
   switch (form) {
-    case kP4: return launch_in_rows(B, X, W, S, Y, K, N, st);
+    case kP4: return launch_p4<kP4>(X, W, S, Y, B, K, N, st);
     case kP4b: return launch_p4<kP4b>(X, W, S, Y, B, K, N, st);
     case kP4c: return launch_p4<kP4c>(X, W, S, Y, B, K, N, st);
     case kS8: return launch_s8(X, W, S, Y, B, K, N, st);
@@ -1145,35 +1202,26 @@ extern "C" int sea_qb_matvec(int form, const void* x, const void* w,
   }
 }
 
-// form: kColumnSums (stream_bytes), kUnpackSums (_unpack_only_call, x bf16
-// [xn]) or kCopy (dma_only). wp: uint8 [K2, N] on 16 bytes, N a multiple
-// of bn, bn a multiple of 16 and at most 4096. The grid is (ceil(K2 /
-// rows_per_block), N / bn). scratch: zeroed 64-bit words, 1 + bn
-// (kColumnSums) or 1 + 2 N / bn (kUnpackSums), left zeroed. out: f32 [bn]
-// or, for kUnpackSums, [2] beside ints int64 [2] (null for the others).
-extern "C" int sea_qb_stream(int form, const void* wp, const void* x, int xn,
-                             void* out, void* ints, void* scratch, int K2,
-                             int N, int bn, int rows_per_block,
-                             void* stream) {
+// form: kColumnSums (stream_bytes) or kCopy (dma_only). wp: uint8 [K2, N]
+// on 16 bytes, N a multiple of bn, bn a multiple of 16 and at most 4096.
+// The grid is (ceil(K2 / rows_per_block), N / bn). scratch (kColumnSums;
+// kCopy takes none): zeroed 64-bit words, 1 + bn, left zeroed. out: f32
+// [bn].
+extern "C" int sea_qb_stream(int form, const void* wp, void* out,
+                             void* scratch, int K2, int N, int bn,
+                             int rows_per_block, void* stream) {
   if (K2 < 1 || bn < 16 || bn % 16 || bn > 4096 || N % bn ||
-      rows_per_block < 1)
+      rows_per_block < 1 || (form == kColumnSums && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((K2 + rows_per_block - 1) / rows_per_block, N / bn);
   const auto* W = static_cast<const uint8_t*>(wp);
-  const auto* X = static_cast<const __nv_bfloat16*>(x);
   auto* O = static_cast<float*>(out);
-  auto* I = static_cast<long long*>(ints);
   auto* S = static_cast<unsigned long long*>(scratch);
   auto st = static_cast<cudaStream_t>(stream);
   switch (form) {
     case kColumnSums:
-      reduce_kernel<kColumnSums><<<grid, kThreads, 0, st>>>(
-          W, X, xn, O, I, S, K2, N, bn, rows_per_block);
-      break;
-    case kUnpackSums:
-      if (ints == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-      reduce_kernel<kUnpackSums><<<grid, kThreads, 0, st>>>(
-          W, X, xn, O, I, S, K2, N, bn, rows_per_block);
+      reduce_kernel<<<grid, kThreads, 0, st>>>(W, O, S, K2, N, bn,
+                                              rows_per_block);
       break;
     case kCopy:
       copy_kernel<<<grid, kThreads, 0, st>>>(W, O, K2, N, bn,
@@ -1182,5 +1230,49 @@ extern "C" int sea_qb_stream(int form, const void* wp, const void* x, int xn,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+// unpack_sums' grid and its scratch in 64-bit words (the arrival counter,
+// a word a block, a slot a chunk of x), or -1 for shapes it does not take.
+long long unpack_layout(int K2, int N, int bn, int xn, dim3* grid) {
+  if (K2 < 1 || bn < 16 || bn % 16 || bn > 4096 || N % bn || xn < 0)
+    return -1;
+  const int rows = kThreads / (bn / 16) * kUnpackRows;
+  const dim3 g((K2 + rows - 1) / rows, N / bn);
+  if (grid != nullptr) *grid = g;
+  return 1 + static_cast<long long>(g.x) * g.y +
+         (xn + kXChunk - 1) / kXChunk;
+}
+
+}  // namespace
+
+// The scratch sea_qb_unpack needs, in 64-bit words; -1 where it would
+// refuse the shape.
+extern "C" long long sea_qb_unpack_scratch_words(int K2, int N, int bn,
+                                                 int xn) {
+  return unpack_layout(K2, N, bn, xn, nullptr);
+}
+
+// _unpack_only_call: wp uint8 [K2, N] on 16 bytes, N a multiple of bn, bn a
+// multiple of 16 and at most 4096; x bf16 [xn]. The launcher picks the
+// grid (unpack_sums). scratch: `words` 64-bit words, at least
+// sea_qb_unpack_scratch_words(K2, N, bn, xn), the first zero before and
+// after. out f32 [2], ints int64 [2].
+extern "C" int sea_qb_unpack(const void* wp, const void* x, int xn,
+                             void* out, void* ints, void* scratch,
+                             long long words, int K2, int N, int bn,
+                             void* stream) {
+  dim3 grid;
+  const long long need = unpack_layout(K2, N, bn, xn, &grid);
+  if (need < 0 || words < need || (xn > 0 && x == nullptr) ||
+      out == nullptr || ints == nullptr || scratch == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  unpack_sums<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(wp), static_cast<const __nv_bfloat16*>(x),
+      xn, static_cast<float*>(out), static_cast<long long*>(ints),
+      static_cast<unsigned long long*>(scratch), K2, N, bn);
   return static_cast<int>(cudaGetLastError());
 }

@@ -60,10 +60,10 @@ import torch
 launches = {name: 0 for name in ("matvec_p4", "matvec_p4b", "matvec_p4c",
                                  "matvec_s8", "stream_bytes", "dma_only")}
 
-# The kernels' forms (csrc/quant_bench.cu: Form, Reduce).
+# The kernels' forms (csrc/quant_bench.cu: Form, Stream).
 MATVEC_FORMS = {"matvec_p4": 0, "matvec_p4b": 1, "matvec_p4c": 2,
                 "matvec_s8": 3, "_mvt_call": 4}
-STREAM_FORMS = {"stream_bytes": 0, "_unpack_only_call": 1, "dma_only": 2}
+STREAM_FORMS = {"stream_bytes": 0, "dma_only": 2}
 # x rows the matvec kernels take; the widest column tile of the stream
 # kernels.
 MAX_ROWS = 8
@@ -184,9 +184,15 @@ def _library():
     lib.sea_qb_matvec.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
                                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.sea_qb_stream.restype = ctypes.c_int
-    lib.sea_qb_stream.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 2
-                                  + [ctypes.c_int] + [ctypes.c_void_p] * 3
+    lib.sea_qb_stream.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
                                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    lib.sea_qb_unpack.restype = ctypes.c_int
+    lib.sea_qb_unpack.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
+                                  + [ctypes.c_void_p] * 3
+                                  + [ctypes.c_longlong]
+                                  + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    lib.sea_qb_unpack_scratch_words.restype = ctypes.c_longlong
+    lib.sea_qb_unpack_scratch_words.argtypes = [ctypes.c_int] * 4
     return lib
 
 
@@ -195,14 +201,16 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-# Per (device, words): the stream kernels' 64-bit scratch (an arrival
-# counter and the integer sums), zero between calls: the last block of a
-# call zeroes it. Calls that share it must not overlap (one stream).
+# Per (device, kernel, words): a stream kernel's 64-bit scratch (an
+# arrival counter and its sums), left as that kernel needs it by its last
+# block: stream_bytes adds into words that must be zero, _unpack_only_call
+# overwrites the words it reads, so the two never share one. Calls that
+# share one must not overlap (one stream).
 _SCRATCH: dict = {}
 
 
-def _scratch(dev, words):
-    key = (dev.index, words)
+def _scratch(dev, name, words):
+    key = (dev.index, name, words)
     if key not in _SCRATCH:
         _SCRATCH[key] = torch.zeros(words, dtype=torch.int64, device=dev)
     return _SCRATCH[key]
@@ -230,11 +238,9 @@ def matvec_kernel(name, x, w, s, block_n, counts, output_major=False):
     """Launch matvec form ``name`` on CUDA tensors: x bf16 [B, K] (B <= 8),
     w input-major (uint8 [K/2, N], or int8 [K, N] for matvec_s8) or, with
     ``output_major``, uint8 [N, K/2]; s f32 with N elements. Returns f32
-    [B, N] and adds one to counts[name] (_count). matvec_p4 stages x as
-    f32 in shared memory, 4 K bytes a row of x (B rounded up to 1, 2, 4 or
-    8) beside its partial sums: past the 227 KB a block may have, the
-    launch fails and this raises. matvec_p4b, p4c, s8 and _mvt_call
-    (tensor-core kernels) stage nothing, so shared memory bounds no K."""
+    [B, N] and adds one to counts[name] (_count). The five are
+    tensor-core kernels that stage nothing, so shared memory bounds no
+    K."""
     B, K = x.shape
     N = w.shape[0] if output_major else w.shape[1]
     rows = K if name == "matvec_s8" else K // 2
@@ -286,26 +292,32 @@ def stream_kernel(name, wp, block_n, counts, x=None):
         raise ValueError(f"{name}: wp must start on a 16-byte boundary")
     if x is not None and x.dtype != torch.bfloat16:
         raise ValueError(f"{name} takes bf16 x, not {x.dtype}")
-    form = STREAM_FORMS[name]
-    # Enough row splits that the grid fills every SM twice.
-    splits = min(K2, max(1, -(-2 * _sm_count(dev.index) // tiles)))
-    rows_per_block = -(-K2 // splits)
-    words = {0: 1 + block_n, 1: 1 + 2 * tiles, 2: 1}[form]
-    scratch = _scratch(dev, words)
-    out = torch.empty(2 if form == 1 else block_n, dtype=torch.float32,
-                      device=dev)
-    ints = (torch.empty(2, dtype=torch.int64, device=dev) if form == 1
-            else None)
-    rc = _library().sea_qb_stream(
-        form, wp.data_ptr(), x.data_ptr() if x is not None else None,
-        x.numel() if x is not None else 0, out.data_ptr(),
-        ints.data_ptr() if ints is not None else None, scratch.data_ptr(),
-        K2, N, block_n, rows_per_block,
-        torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if name == "_unpack_only_call":
+        lib = _library()
+        words = lib.sea_qb_unpack_scratch_words(K2, N, block_n, x.numel())
+        if words < 0:
+            raise ValueError(f"{name}: its kernel takes no wp {K2}x{N} at "
+                             f"block_n {block_n}")
+        out = torch.empty(2, dtype=torch.float32, device=dev)
+        ints = torch.empty(2, dtype=torch.int64, device=dev)
+        rc = lib.sea_qb_unpack(
+            wp.data_ptr(), x.data_ptr(), x.numel(), out.data_ptr(),
+            ints.data_ptr(), _scratch(dev, name, words).data_ptr(), words,
+            K2, N, block_n, stream)
+    else:
+        # Enough row splits that the grid fills every SM twice.
+        splits = min(K2, max(1, -(-2 * _sm_count(dev.index) // tiles)))
+        out = torch.empty(block_n, dtype=torch.float32, device=dev)
+        scratch = (_scratch(dev, name, 1 + block_n).data_ptr()
+                   if name == "stream_bytes" else None)
+        rc = _library().sea_qb_stream(
+            STREAM_FORMS[name], wp.data_ptr(), out.data_ptr(), scratch, K2,
+            N, block_n, -(-K2 // splits), stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     _count(counts, name)
-    if form == 1:
+    if name == "_unpack_only_call":
         return out[:1].view(1, 1), ints, out[1:]
     return out.view(1, block_n)
 

@@ -438,8 +438,8 @@ def test_port_imports_no_jax():
     """Every module of sea_tpu_torch and the chip scripts (chip_smoke.py,
     chip_ab.py, chip_flash_probe.py, chip_int4_probe.py,
     chip_decode_probe.py, chip_adaln_probe.py, chip_variants.py,
-    chip_profiler_probe.py) import with jax and the JAX package made
-    unimportable."""
+    chip_profiler_probe.py, chip_tools_probe.py) import with jax and the
+    JAX package made unimportable."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -451,7 +451,7 @@ def test_port_imports_no_jax():
         "for name in names + ['chip_smoke', 'chip_ab', 'chip_flash_probe',\n"
         "                     'chip_int4_probe', 'chip_decode_probe',\n"
         "                     'chip_adaln_probe', 'chip_variants',\n"
-        "                     'chip_profiler_probe']:\n"
+        "                     'chip_profiler_probe', 'chip_tools_probe']:\n"
         "    importlib.import_module(name)\n"
         "assert not any(m.split('.')[0] in ('jax', 'sea_tpu') for m in\n"
         "               sys.modules if sys.modules[m] is not None)\n"
@@ -482,7 +482,8 @@ def test_port_sources_name_no_jax_module():
                                              "chip_decode_probe.py",
                                              "chip_adaln_probe.py",
                                              "chip_variants.py",
-                                             "chip_profiler_probe.py")]
+                                             "chip_profiler_probe.py",
+                                             "chip_tools_probe.py")]
     for root, _, names in os.walk(os.path.join(REPO, "sea_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) >= 30

@@ -229,17 +229,29 @@ def test_cuda_kernels_match_plain():
     of the matvec's row slices, B = 1, 3 and 8; the matvecs to 1e-5 x
     sum|x w s| (f32 order), stream_bytes and dma_only bit for bit (twice),
     _unpack_only_call's parts by unpack_only_faults. The tensor-core
-    kernels (matvec_p4b, p4c, s8, _mvt_call) also at K = 72, N = 400: a k
-    tail shorter than one MMA step in each, _mvt_call's word-wise form (K/2
-    not a multiple of 8; also at K = 520), and a last column tile cut by
-    N."""
+    kernels (matvec_p4, p4b, p4c, s8, _mvt_call) also at K = 72, N = 400: a
+    k tail shorter than one MMA step in each, _mvt_call's word-wise form
+    (K/2 not a multiple of 8; also at K = 520), and a last column tile cut
+    by N; _unpack_only_call there too, block_n 16: one column group a row,
+    a block's rows past K/2. The p4 forms also at K = 68, where K/2 = 34 is
+    not a multiple of 4 and they read x in 2-byte loads. Last
+    _unpack_only_call, then stream_bytes, at K = 64, N = 240, block_n 16,
+    where both kernels' scratch is 17 words: stream_bytes adds into its
+    words, so it must not be given the words _unpack_only_call left."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     for K, N, block_n, only in ((2048, 16384, 512, None),
                                 (64, 256, 128, None),
                                 (520, 4096, 2048, None),
-                                (72, 400, 16, ("matvec_p4b", "matvec_p4c",
-                                               "matvec_s8", "_mvt_call"))):
+                                (72, 400, 16, ("matvec_p4", "matvec_p4b",
+                                               "matvec_p4c", "matvec_s8",
+                                               "_mvt_call",
+                                               "_unpack_only_call")),
+                                (68, 400, 16, ("matvec_p4", "matvec_p4b",
+                                               "matvec_p4c", "matvec_s8",
+                                               "_unpack_only_call")),
+                                (64, 240, 16, ("_unpack_only_call",)),
+                                (64, 240, 16, ("stream_bytes",))):
         for B in (1, 3, 8):
             _check_kernels(K, N, block_n, B, only)
 
